@@ -1,0 +1,485 @@
+"""Drive repro_torch on one NVIDIA Hopper card and check it end to end.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure raises and the script exits non-zero:
+
+  1. device   — require CUDA and compute capability 9.x; print the card's
+                name and power limit (nvidia-smi)
+  2. build    — build the CUDA kernels from src/repro_torch/kernels/csrc
+  3. parity   — hold fwht, srht_apply and srht_apply_t against their
+                plain PyTorch versions on the card, in float32 and
+                float64, at power-of-two and padded dims, batched, at the
+                quickstart and the full-size shapes: bit-equality
+                required (the kernels keep the plain versions' op order
+                and are built with -fmad=false)
+  4. quickstart — FLeNS at the quickstart size (n=4000, dim=64, m=8,
+                k=32, float64, 12 rounds) through the kernels; launch
+                counts checked per round (3 srht_apply + 2 srht_apply_t,
+                one batched launch per call site); the trajectory must
+                equal the same run through the plain versions on the card
+  5. full size — the SUSY twin at the real row count (n=5,000,000, M=18,
+                m=1000, k=10, lam=1e-3, float64): newton_solve, then FLeNS
+                for 10 rounds; gap per round, ms per round, peak memory,
+                and each kernel's time at its main-path shapes beside its
+                bound, the plain version and the library yardstick
+  6. kernels  — one JSON line naming every ported kernel
+
+The last line of standard output is the device record
+``{"ok": true, "device": {...}}``; before it come the card's name and
+power limit, the kernels line, and the whole run's record as one JSON
+line prefixed ``[record]``.
+
+The script imports nothing of JAX; it finds the port under src/ next to
+itself and fails when run anywhere else.
+"""
+from __future__ import annotations
+
+import json
+import math
+import pathlib
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+import torch  # noqa: E402
+
+# H100 SXM peaks (NVIDIA data sheet): HBM3 rate, and the vector (non
+# tensor-core) rates the butterfly kernels run on
+MEM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {torch.float64: 34e12, torch.float32: 67e12}
+
+SUSY = dict(n=5_000_000, dim=18, m=1000, k=10, lam=1e-3,
+            spectrum_decay=1.5, label_noise=0.05)
+QUICK = dict(n=4000, dim=64, m=8, k=32, lam=1e-3)
+
+KERNELS = {
+    "fwht": dict(source="src/repro_torch/kernels/csrc/srht.cu",
+                 replaces="src/repro/kernels/fwht.py:51"),
+    "srht_apply": dict(source="src/repro_torch/kernels/csrc/srht.cu",
+                       replaces="src/repro/kernels/srht.py:98"),
+    "srht_apply_t": dict(source="src/repro_torch/kernels/csrc/srht.cu",
+                         replaces="src/repro/kernels/srht.py:130"),
+}
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise SmokeFailure(what)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+# ---------------------------------------------------------------------------
+# 1. device
+# ---------------------------------------------------------------------------
+
+def phase_device() -> str:
+    check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
+    major, minor = torch.cuda.get_device_capability(0)
+    check(major == 9, f"needs compute capability 9.x, card has {major}.{minor}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0]
+    log(f"[device] {torch.cuda.get_device_name(0)} capability "
+        f"{major}.{minor}, torch {torch.__version__} CUDA "
+        f"{torch.version.cuda}")
+    return card
+
+
+# ---------------------------------------------------------------------------
+# 2. build
+# ---------------------------------------------------------------------------
+
+def phase_build() -> float:
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    per_source = _build.build_all()
+    _build.library()
+    total = time.perf_counter() - t0
+    log(f"[build] {total:.2f} s ({per_source or 'already built'})")
+    return total
+
+
+# ---------------------------------------------------------------------------
+# 3. parity on the card
+# ---------------------------------------------------------------------------
+
+def _operator(gen, n, k, dtype, dev):
+    signs = (2 * torch.randint(0, 2, (n,), generator=gen, device=dev)
+             - 1).to(dtype)
+    rows = torch.randperm(n, generator=gen, device=dev)[:k]
+    return signs, rows
+
+
+def _max_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a - b).abs().max()) if a.numel() else 0.0
+
+
+def phase_parity() -> dict:
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda", 0)
+    cases = [  # (dim, n, k, batch)
+        (64, 64, 32, (8, 500)), (64, 64, 32, (8,)), (64, 64, 32, (32,)),
+        (64, 64, 32, ()),  # quickstart: A_j, gradients, S S^T, delta
+        (18, 32, 10, (1000, 5000)), (18, 32, 10, (1000,)),
+        (18, 32, 10, (10,)), (18, 32, 10, ()),  # the full-size shapes
+        (100, 128, 7, (3, 7)), (1, 1, 1, (5,)), (5, 8, 3, (7, 9)),
+        (10000, 16384, 50, (3,)),  # the largest transform
+    ]
+    worst = {name: 0.0 for name in KERNELS}
+    for dtype in (torch.float64, torch.float32):
+        gen = torch.Generator(device=dev).manual_seed(1)
+        for dim, n, k, batch in cases:
+            signs, rows = _operator(gen, n, k, dtype, dev)
+            x = torch.randn(batch + (dim,), generator=gen, dtype=dtype,
+                            device=dev)
+            y = torch.randn(batch + (k,), generator=gen, dtype=dtype,
+                            device=dev)
+            xp = torch.randn(batch + (n,), generator=gen, dtype=dtype,
+                             device=dev)
+            pairs = {
+                "srht_apply": (ops.srht_apply(x, signs, rows, impl="cuda"),
+                               ops.srht_apply(x, signs, rows, impl="ref")),
+                "srht_apply_t": (
+                    ops.srht_apply_t(y, signs, rows, dim, impl="cuda"),
+                    ops.srht_apply_t(y, signs, rows, dim, impl="ref")),
+                "fwht": (ops.fwht(xp, normalize=True, impl="cuda"),
+                         ops.fwht(xp, normalize=True, impl="ref")),
+            }
+            torch.cuda.synchronize()
+            for name, (got, want) in pairs.items():
+                err = _max_err(got, want)
+                worst[name] = max(worst[name], err)
+                check(torch.equal(got, want),
+                      f"{name} {dtype} dim={dim} n={n} k={k} batch={batch}: "
+                      f"kernel differs from the plain version "
+                      f"(max abs err {err:.3e})")
+            del x, y, xp, pairs
+    log(f"[parity] {len(cases)} shapes x 2 dtypes x 3 kernels bit-equal "
+        f"to the plain versions (max abs err {worst})")
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# 4. quickstart
+# ---------------------------------------------------------------------------
+
+def _flens_run(problem, w0, w_star, rounds, *, impl=None, **kw):
+    from repro_torch.core import FLeNS, run_rounds
+    from repro_torch.kernels import ops
+
+    with ops.use_impl(impl):
+        opt = FLeNS(**kw)
+        return opt, run_rounds(opt, problem, w0, w_star, rounds=rounds)
+
+
+def _check_trajectory(hist, label: str) -> None:
+    check(bool(torch.isfinite(torch.as_tensor(hist.loss)).all()),
+          f"{label}: non-finite loss")
+    check(bool((hist.loss[1:] <= hist.loss[:-1]).all()),
+          f"{label}: the guarded loss rose")
+    check(hist.gap[-1] < 0.1 * hist.gap[0],
+          f"{label}: gap {hist.gap[0]:.3e} -> {hist.gap[-1]:.3e} did not "
+          f"fall tenfold")
+
+
+def phase_quickstart() -> dict:
+    from repro_torch.core import logistic, make_problem, newton_solve
+    from repro_torch.data import make_classification
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda", 0)
+    X, y = make_classification(0, n=QUICK["n"], dim=QUICK["dim"], device=dev)
+    problem = make_problem(X, y, m=QUICK["m"], lam=QUICK["lam"],
+                           objective=logistic, device=dev)
+    w0 = torch.zeros(QUICK["dim"], dtype=torch.float64, device=dev)
+    w_star = newton_solve(problem, w0)
+    rounds = 12
+    ops.reset_launch_counts()
+    _, hist = _flens_run(problem, w0, w_star, rounds, k=QUICK["k"])
+    counts = ops.launch_counts()
+    want = {"fwht": 0, "srht_apply": 3 * rounds, "srht_apply_t": 2 * rounds}
+    check(counts == want, f"quickstart launches {counts} != {want}")
+    _check_trajectory(hist, "quickstart")
+    _, plain = _flens_run(problem, w0, w_star, rounds, impl="ref",
+                          k=QUICK["k"])
+    check((hist.loss == plain.loss).all(),
+          f"quickstart through the kernels {hist.loss.tolist()} != through "
+          f"the plain versions {plain.loss.tolist()}")
+    ops.reset_launch_counts()
+    _, plus = _flens_run(problem, w0, w_star, rounds, k=QUICK["k"],
+                         variant="plus")
+    counts_plus = ops.launch_counts()
+    check(counts_plus == {"fwht": 0, "srht_apply": 4 * rounds,
+                          "srht_apply_t": 3 * rounds},
+          f"FLeNS+ launches {counts_plus}")
+    _check_trajectory(plus, "quickstart FLeNS+")
+    log("[quickstart] gap " + " ".join(f"{g:.3e}" for g in hist.gap))
+    log(f"[quickstart] launches {counts} (FLeNS+ {counts_plus}); "
+        f"trajectory equal to the plain versions' on the card")
+    return {"gap": hist.gap.tolist(), "launches": counts,
+            "launches_plus": counts_plus, "gap_plus": plus.gap.tolist(),
+            "bytes_per_round": float(hist.cumulative_bytes[1])}
+
+
+# ---------------------------------------------------------------------------
+# 5. full size
+# ---------------------------------------------------------------------------
+
+def _time_ms(fn, reps: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def _bound_ms(read: int, written: int, ops_count: float, dtype) -> tuple:
+    t_bytes = (read + written) / MEM_BYTES_PER_S
+    t_ops = ops_count / PEAK_OPS_PER_S[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _kernel_timings(s, a, gs) -> dict:
+    """Each kernel at its main-path shapes, beside its bound, the plain
+    version and one PyTorch call computing the same function."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as kref
+
+    dtype, dev = a.dtype, a.device
+    item = a.element_size()
+    n, k, dim = s.signs.shape[0], s.k, s.dim
+    log_n = int(math.log2(n))
+    dense = s.dense()  # (k, dim), the library yardstick's operator
+    eye_k = torch.eye(k, dtype=dtype, device=dev)
+    delta = torch.randn(k, dtype=dtype, device=dev)
+    op_bytes = n * item + k * 8  # signs + rows, read once
+    calls = {  # kernel -> its main-path inputs
+        "srht_apply": [
+            ("A_j (m, n_shard, M)", a),
+            ("gradients (m, M)", gs),
+            ("S^T I_k (k, M)", s.apply_t(eye_k)),
+        ],
+        "srht_apply_t": [
+            ("I_k (k, k)", eye_k),
+            ("delta_k (k,)", delta),
+        ],
+    }
+    out = {}
+    for name, shapes in calls.items():
+        rows_out = []
+        for label, x in shapes:
+            rows_n = x.numel() // x.shape[-1]
+            if name == "srht_apply":
+                def kern(x=x):
+                    return ops.srht_apply(x, s.signs, s.rows, impl="cuda")
+
+                def plain(x=x):
+                    return ops.srht_apply(x, s.signs, s.rows, impl="ref")
+
+                def lib(x=x):
+                    return torch.matmul(x, dense.T)
+                read, written = x.numel() * item, rows_n * k * item
+                count = rows_n * (n * log_n + n + 2 * k)
+            else:
+                def kern(x=x):
+                    return ops.srht_apply_t(x, s.signs, s.rows, dim,
+                                            impl="cuda")
+
+                def plain(x=x):
+                    return ops.srht_apply_t(x, s.signs, s.rows, dim,
+                                            impl="ref")
+
+                def lib(x=x):
+                    return torch.matmul(x, dense)
+                read, written = x.numel() * item, rows_n * dim * item
+                count = rows_n * (n * log_n + k + 2 * dim)
+            reps = 20 if x.numel() > 1_000_000 else 200
+            bound, bound_by = _bound_ms(read + op_bytes, written, count, dtype)
+            rows_out.append(dict(
+                shape=label, dims=list(x.shape), ms=_time_ms(kern, reps),
+                plain_ms=_time_ms(plain, max(reps // 4, 5)),
+                library_ms=_time_ms(lib, reps), bound_ms=bound,
+                bound_by=bound_by,
+                max_abs_err=_max_err(kern(), plain())))
+        out[name] = rows_out
+    # fwht is off the main path; it is timed at the padded rows of the
+    # path's largest call, (m * n_shard, n)
+    xp = torch.randn(a.numel() // dim, n, dtype=dtype, device=dev)
+    had = kref.hadamard_matrix(n, dtype, dev)
+    bound, bound_by = _bound_ms(xp.numel() * item, xp.numel() * item,
+                                xp.shape[0] * (n * log_n + n), dtype)
+    out["fwht"] = [dict(
+        shape="padded rows of A_j (m * n_shard, n)", dims=list(xp.shape),
+        ms=_time_ms(lambda: ops.fwht(xp, normalize=True, impl="cuda"), 20),
+        plain_ms=_time_ms(lambda: ops.fwht(xp, normalize=True, impl="ref"), 5),
+        library_ms=_time_ms(lambda: torch.matmul(xp, had), 20),
+        bound_ms=bound, bound_by=bound_by,
+        max_abs_err=_max_err(ops.fwht(xp, normalize=True, impl="cuda"),
+                             ops.fwht(xp, normalize=True, impl="ref")))]
+    return out
+
+
+def _profile_rounds(opt, problem, state, keys) -> dict:
+    """Device time by kernel over a few bare rounds (torch.profiler), and
+    the device's busy share of the window's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for key in keys:
+            state = opt.round(problem, state, key)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = sorted(
+        ((e.key, e.self_device_time_total, e.count)
+         for e in prof.key_averages()
+         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+        key=lambda r: -r[1])
+    busy_us = sum(t for _, t, _ in kernels)
+    return {"rounds": len(keys), "wall_us": wall_us, "device_busy_us": busy_us,
+            "busy_share": busy_us / wall_us,
+            "top": [{"kernel": name[:90], "us_per_round": t / len(keys),
+                     "launches_per_round": c / len(keys)}
+                    for name, t, c in kernels[:12]]}
+
+
+def phase_full_size() -> dict:
+    from repro_torch.core import (
+        FLeNS,
+        logistic,
+        make_problem,
+        newton_solve,
+        run_rounds,
+    )
+    from repro_torch.core.base import root_key, split
+    from repro_torch.data import make_classification
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    X, y = make_classification(
+        1, n=SUSY["n"], dim=SUSY["dim"], spectrum_decay=SUSY["spectrum_decay"],
+        label_noise=SUSY["label_noise"], device=dev)
+    problem = make_problem(X, y, m=SUSY["m"], lam=SUSY["lam"],
+                           objective=logistic, device=dev)
+    del X, y
+    w0 = torch.zeros(SUSY["dim"], dtype=torch.float64, device=dev)
+    w_star = newton_solve(problem, w0)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    grad_star = float(torch.linalg.vector_norm(problem.global_grad(w_star)))
+    check(grad_star < 1e-10, f"newton_solve gradient norm {grad_star:.3e}")
+
+    rounds = 10
+    ops.reset_launch_counts()
+    opt = FLeNS(k=SUSY["k"])
+    hist = run_rounds(opt, problem, w0, w_star, rounds=rounds)
+    counts = ops.launch_counts()
+    want = {"fwht": 0, "srht_apply": 3 * rounds, "srht_apply_t": 2 * rounds}
+    check(counts == want, f"full-size launches {counts} != {want}")
+    _check_trajectory(hist, "full size")
+
+    # bare rounds, host clock around work that ends in a synchronize
+    state = opt.init(problem, w0)
+    keys = split(root_key(7, device=dev), rounds + 1)
+    state = opt.round(problem, state, keys[0])  # warm
+    torch.cuda.synchronize()
+    round_ms = []
+    for t in range(rounds):
+        t1 = time.perf_counter()
+        state = opt.round(problem, state, keys[t + 1])
+        torch.cuda.synchronize()
+        round_ms.append((time.perf_counter() - t1) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    profile = _profile_rounds(opt, problem, state,
+                              split(root_key(8, device=dev), 3))
+
+    s = opt.policy.materialize(keys[0], problem.dim, dtype=torch.float64,
+                               device=dev)
+    a = problem.local_hess_sqrt(state["w"])
+    gs = problem.local_grad(state["w"])
+    timings = _kernel_timings(s, a, gs)
+    log("[full] gap " + " ".join(f"{g:.3e}" for g in hist.gap))
+    log(f"[full] setup {setup_s:.2f} s; run_rounds {hist.wall_time_s * 1e3 / rounds:.2f} "
+        f"ms/round with per-round eval; bare rounds "
+        f"{sorted(round_ms)[len(round_ms) // 2]:.2f} ms median "
+        f"({min(round_ms):.2f}..{max(round_ms):.2f}); peak memory "
+        f"{peak / 2**30:.2f} GiB; launches {counts}")
+    log(f"[full] profile: device busy {profile['busy_share']:.1%} of "
+        f"{profile['wall_us'] / profile['rounds'] / 1e3:.2f} ms/round")
+    for r in profile["top"]:
+        log(f"[full]   {r['us_per_round']:9.1f} us/round x"
+            f"{r['launches_per_round']:.0f}  {r['kernel']}")
+    for name, rows in timings.items():
+        for r in rows:
+            log(f"[full] {name:<12} {r['shape']:<38} {r['ms']:.4f} ms "
+                f"(bound {r['bound_ms']:.4f} by {r['bound_by']}, plain "
+                f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f})")
+    return {"gap": hist.gap.tolist(), "loss": hist.loss.tolist(),
+            "launches": counts, "rounds": rounds,
+            "run_rounds_ms_per_round": hist.wall_time_s * 1e3 / rounds,
+            "round_ms": round_ms, "setup_s": setup_s,
+            "peak_memory_bytes": peak, "profile": profile,
+            "bytes_per_round":
+            float(hist.cumulative_bytes[1]), "kernels": timings}
+
+
+# ---------------------------------------------------------------------------
+
+def main() -> int:
+    card = phase_device()
+    record = {"card": card, "build_s": phase_build(),
+              "parity_max_abs_err": phase_parity(),
+              "quickstart": phase_quickstart(),
+              "full_size": phase_full_size()}
+    # the full-size run checked its launch counts; fwht is the butterfly
+    # the SRHT kernels share and is never launched on its own there
+    launches = record["full_size"]["launches"]
+    kernels = []
+    for name, meta in KERNELS.items():
+        main_row = record["full_size"]["kernels"][name][0]
+        kernels.append({
+            "name": name, "route": "cuda", **meta,
+            "launches": launches[name],
+            "max_abs_err": max(main_row["max_abs_err"],
+                               record["parity_max_abs_err"][name]),
+            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row["bound_by"],
+            "library_ms": main_row["library_ms"],
+        })
+    print("[record] " + json.dumps(record))
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

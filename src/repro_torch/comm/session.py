@@ -1,0 +1,120 @@
+"""The ``Session`` protocol of the round loop, for the no-transport path.
+
+Counterpart of ``repro.comm.session``. ``run_rounds`` drives every
+session the same way:
+
+  * ``begin_variant(sig)`` — announce the static round variant about to
+      execute (``FederatedOptimizer.round_signature``; adaptive-k sketch
+      policies change payload sizes mid-trajectory);
+  * ``step(round_fn)`` — advance one round and return the new optimizer
+      state; ``round_fn(state, key, comm) -> state``;
+  * ``finalize() -> Transport`` — the transport axes for ``History``.
+
+Only ``comm=None`` is ported in this slice: ``make_session`` raises for
+any transport configuration.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.comm.config import DOWN, NULL_COMM, _NullComm, plan_bytes
+from repro_torch.comm.metrics import Transport
+
+
+class Session:
+    """Protocol base for round sessions (see module docstring)."""
+
+    def begin_variant(self, sig) -> None:
+        raise NotImplementedError
+
+    def step(self, round_fn) -> Any:
+        raise NotImplementedError
+
+    def finalize(self) -> Transport:
+        raise NotImplementedError
+
+
+def _nbytes(shape: torch.Size, x: torch.Tensor) -> int:
+    """Identity-codec wire size: every element at its raw width."""
+    return math.prod(shape) * x.element_size()
+
+
+class _PlanRecorder(_NullComm):
+    """``NULL_COMM`` that also records the identity-codec byte plan of
+    every payload occurrence, both directions: the round's results are
+    exactly those of ``NULL_COMM``. PyTorch has no shape-only trace, so
+    the plan is recorded on the first executed round of each variant."""
+
+    def __init__(self):
+        self.plan: "dict[str, int]" = {}
+        self._occurrences: "dict[str, int]" = {}
+
+    def _record(self, name: str, nbytes: int) -> None:
+        occ = self._occurrences.get(name, 0)
+        self._occurrences[name] = occ + 1
+        self.plan[name if occ == 0 else f"{name}#{occ}"] = nbytes
+
+    def uplink(self, name, x, ef_eligible=True, ef_reset=None):
+        self._record(name, _nbytes(x.shape[1:], x))  # per client
+        return x
+
+    def downlink(self, name, x):
+        self._record(f"{DOWN}{name}", _nbytes(x.shape, x))
+        return x
+
+
+class NullSession(Session):
+    """No-transport session: rounds execute back to back with the no-op
+    ``NULL_COMM`` view. The byte axis bills the identity-codec plan of
+    the round (every payload occurrence at its raw size, both
+    directions, for all m clients), recorded once per round variant, so
+    adaptive-k trajectories bill their round-varying sizes."""
+
+    def __init__(self, keys: torch.Tensor, state0, m: int):
+        self.keys = keys
+        self._state = state0
+        self.m = int(m)
+        self._plans: "dict[Any, dict[str, int]]" = {}
+        self._sig = None
+        self._per_round: "list[float]" = []
+        self._t = 0
+
+    def begin_variant(self, sig) -> None:
+        self._sig = sig
+
+    def step(self, round_fn) -> Any:
+        key = self.keys[self._t]
+        plan = self._plans.get(self._sig)
+        if plan is None:
+            recorder = _PlanRecorder()
+            self._state = round_fn(self._state, key, recorder)
+            plan = self._plans[self._sig] = recorder.plan
+        else:
+            self._state = round_fn(self._state, key, NULL_COMM)
+        per_client = plan_bytes(plan, down=False) + plan_bytes(plan, down=True)
+        self._per_round.append(float(per_client * self.m))
+        self._t += 1
+        return self._state
+
+    def finalize(self) -> Transport:
+        per_round = np.asarray(self._per_round, dtype=np.float64)
+        return Transport(
+            cumulative_bytes=np.concatenate([[0.0], np.cumsum(per_round)]),
+            sim_time_s=np.zeros(self._t + 1),
+        )
+
+
+def make_session(comm, *, m: int, keys: torch.Tensor, state0) -> Session:
+    """Resolve the transport configuration to its session. Only
+    ``comm=None`` exists in this slice of the port."""
+    if comm is not None:
+        raise NotImplementedError(
+            "repro_torch runs only comm=None so far: the synchronous "
+            "transport (CommConfig, codecs, CommSession) comes with the "
+            "sync-transport slice, the asynchronous sessions with the "
+            "populations slice")
+    return NullSession(keys, state0, m)

@@ -1,0 +1,286 @@
+"""Federated optimizer interface, PRNG keys and the round loop.
+
+Counterpart of ``repro.core.base``. Every algorithm implements
+
+  * ``init(problem, w0) -> state``          (a dict of tensors)
+  * ``round(problem, state, key, comm=None) -> state``   (one round;
+      payloads go through ``comm.uplink``/``comm.downlink``, weights
+      through ``comm.weights``; ``comm=None`` is the no-transport path)
+  * ``uplink_floats(problem)`` / ``downlink_floats(problem)``.
+
+Keys. JAX's threefry keys become two pieces: ``root_key`` mints a
+``torch.Generator`` on the device from an integer seed, and a *key* is
+one round's seed material, an int32 tensor of shape (2,) on the host
+(8 bytes, the size of a JAX ``uint32[2]`` key, so the ``seed`` broadcast
+bills the same bytes). ``split`` draws keys from a generator,
+``key_from_ints`` derives a key on the host, and
+``generator`` turns a key into a generator on a device. Keys live on the
+host, so deriving the round's generator needs no device sync.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import pathlib
+import time
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.comm import make_session
+from repro_torch.device import resolve_device
+
+OptState = Dict[str, Any]
+
+_MASK64 = (1 << 64) - 1
+
+
+def _mix64(x: int) -> int:
+    """splitmix64's finalizer: a bijective 64-bit mix."""
+    x = (x + 0x9E3779B97F4A7C15) & _MASK64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return x ^ (x >> 31)
+
+
+def _key_bits(key: torch.Tensor) -> int:
+    hi, lo = (int(v) & 0xFFFFFFFF for v in key.tolist())
+    return (hi << 32) | lo
+
+
+def _key_of(bits: int) -> torch.Tensor:
+    hi, lo = bits >> 32, bits & 0xFFFFFFFF
+    words = np.array([hi, lo], dtype=np.uint32).view(np.int32)
+    return torch.from_numpy(words.copy())
+
+
+def key_from_ints(*ints: int) -> torch.Tensor:
+    """A key that is a pure function of the integers (host only)."""
+    bits = 0
+    for v in ints:
+        bits = _mix64(bits ^ (int(v) & _MASK64))
+    return _key_of(bits)
+
+
+def root_key(seed: int, *salts: int,
+             device: "str | torch.device" = "cuda") -> torch.Generator:
+    """Mint a trajectory root generator on ``device`` from an integer
+    seed: the one place library code turns a raw integer into random
+    state. Extra ``salts`` give disjoint deterministic streams."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(_key_bits(key_from_ints(seed, *salts)))
+    return gen
+
+
+def split(gen: torch.Generator, num: int) -> torch.Tensor:
+    """``num`` keys, (num, 2) int32 on the host, drawn from ``gen``."""
+    words = torch.randint(0, 2**31 - 1, (num, 2), generator=gen,
+                          device=gen.device, dtype=torch.int64)
+    return words.to(device="cpu", dtype=torch.int32)
+
+
+def generator(key: torch.Tensor, device: "str | torch.device") -> torch.Generator:
+    """A generator on ``device`` seeded from a key."""
+    gen = torch.Generator(device=torch.device(device))
+    gen.manual_seed(_key_bits(key))
+    return gen
+
+
+def build_round(opt: "FederatedOptimizer", problem):
+    """The round closure every session drives:
+    ``_round(state, key, comm) -> state``."""
+    def _round(state, key, comm):
+        return opt.round(problem, state, key, comm=comm)
+    return _round
+
+
+class FederatedOptimizer:
+    name: str = "base"
+
+    def init(self, problem, w0: torch.Tensor) -> OptState:
+        return {"w": w0}
+
+    def round(self, problem, state: OptState, key: torch.Tensor,
+              comm=None) -> OptState:
+        raise NotImplementedError
+
+    def round_signature(self, round_idx: int, state: OptState):
+        """Host-side pre-round hook: a hashable signature naming the
+        static variant of the next round. Rounds sharing a signature
+        share one payload byte plan; a new one re-bills. Default: one
+        signature (``None``) for the whole trajectory."""
+        return None
+
+    def uplink_floats(self, problem) -> int:
+        raise NotImplementedError
+
+    def downlink_floats(self, problem) -> int:
+        return problem.dim
+
+
+@dataclasses.dataclass
+class History:
+    """Per-round trajectory of one optimizer on one problem (the fields
+    and JSONL schema of ``repro.core.base.History``)."""
+
+    name: str
+    loss: np.ndarray  # (T+1,) global loss, loss[0] at w0
+    gap: np.ndarray  # (T+1,) loss - loss(w*)
+    grad_norm: np.ndarray  # (T+1,)
+    uplink_floats: int  # per client per round
+    downlink_floats: int
+    wall_time_s: float
+    rounds: int
+    cumulative_bytes: Optional[np.ndarray] = None  # (T+1,) up+down, all clients
+    sim_time_s: Optional[np.ndarray] = None  # (T+1,) cumulative simulated s
+    traces: Optional[list] = None  # per-round records (transport runs)
+    staleness: Optional[np.ndarray] = None
+    clients: int = 1
+    itemsize: int = 8
+    ef_residuals: Optional[dict] = None
+    telemetry: Optional[dict] = None
+
+    _JSONL_SCHEMA = "repro.history/v1"
+
+    def to_jsonl(self, path) -> pathlib.Path:
+        """Write this trajectory as JSONL: one ``history`` header line
+        (per-round trace lines come with the transport slice)."""
+
+        def arr(a):
+            if a is None:
+                return None
+            return [None if (isinstance(v, float) and not np.isfinite(v))
+                    else v
+                    for v in np.asarray(a, dtype=np.float64).tolist()]
+
+        header = {
+            "type": "history",
+            "schema": self._JSONL_SCHEMA,
+            "name": self.name,
+            "rounds": int(self.rounds),
+            "uplink_floats": int(self.uplink_floats),
+            "downlink_floats": int(self.downlink_floats),
+            "wall_time_s": float(self.wall_time_s),
+            "clients": int(self.clients),
+            "itemsize": int(self.itemsize),
+            "loss": arr(self.loss),
+            "gap": arr(self.gap),
+            "grad_norm": arr(self.grad_norm),
+            "cumulative_bytes": arr(self.cumulative_bytes),
+            "sim_time_s": arr(self.sim_time_s),
+            "staleness": arr(self.staleness),
+            "ef_residuals": self.ef_residuals,
+            "telemetry": self.telemetry,
+        }
+        path = pathlib.Path(path)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        with path.open("w") as f:
+            f.write(json.dumps(header, allow_nan=False) + "\n")
+        return path
+
+    @classmethod
+    def from_jsonl(cls, path) -> "History":
+        """Read a ``History`` JSONL file (``repro.history/v1``)."""
+
+        def arr(v):
+            if v is None:
+                return None
+            return np.asarray([np.nan if x is None else x for x in v],
+                              dtype=np.float64)
+
+        with pathlib.Path(path).open() as f:
+            lines = [json.loads(line) for line in f if line.strip()]
+        if not lines or lines[0].get("type") != "history":
+            raise ValueError(f"{path}: not a History JSONL (missing header)")
+        h = lines[0]
+        if h.get("schema") != cls._JSONL_SCHEMA:
+            raise ValueError(
+                f"{path}: schema {h.get('schema')!r} != "
+                f"{cls._JSONL_SCHEMA!r}")
+        if any(rec.get("type") == "round_trace" for rec in lines[1:]):
+            raise NotImplementedError(
+                f"{path}: round traces come with the sync-transport slice")
+        return cls(
+            name=h["name"],
+            loss=arr(h["loss"]),
+            gap=arr(h["gap"]),
+            grad_norm=arr(h["grad_norm"]),
+            uplink_floats=int(h["uplink_floats"]),
+            downlink_floats=int(h["downlink_floats"]),
+            wall_time_s=float(h["wall_time_s"]),
+            rounds=int(h["rounds"]),
+            cumulative_bytes=arr(h["cumulative_bytes"]),
+            sim_time_s=arr(h["sim_time_s"]),
+            staleness=arr(h["staleness"]),
+            clients=int(h["clients"]),
+            itemsize=int(h["itemsize"]),
+            ef_residuals=h.get("ef_residuals"),
+            telemetry=h.get("telemetry"),
+        )
+
+
+def run_rounds(
+    opt: FederatedOptimizer,
+    problem,
+    w0: torch.Tensor,
+    w_star: torch.Tensor,
+    rounds: int,
+    seed: int = 0,
+    comm=None,
+    obs=None,
+) -> History:
+    """Drive ``rounds`` communication rounds and record the trajectory.
+
+    Runs on the device the problem lives on. Only ``comm=None`` (no
+    transport) and ``obs=None`` (no telemetry) exist in this slice; any
+    other value raises. The round itself never waits on the device; the
+    loop reads the loss and gradient norm back once per round.
+    """
+    if obs is not None:
+        raise NotImplementedError(
+            "telemetry (obs=) comes with the observability slice")
+    if getattr(problem, "is_population", False):
+        raise NotImplementedError(
+            "client populations come with the populations slice")
+    m = problem.m
+    itemsize = problem.X.element_size()
+    loss_star = float(problem.global_value(w_star))
+    state = opt.init(problem, w0)
+    keys = split(root_key(seed, device=problem.X.device), rounds)
+    session = make_session(comm, m=m, keys=keys, state0=state)
+    _round = build_round(opt, problem)
+
+    def grad_norm(w):
+        return float(torch.linalg.vector_norm(problem.global_grad(w)))
+
+    losses = [float(problem.global_value(state["w"]))]
+    gnorms = [grad_norm(state["w"])]
+    sig_prev = object()  # sentinel: no signature compares equal to it
+    t0 = time.perf_counter()
+    for t in range(rounds):
+        sig = opt.round_signature(t, state)
+        if sig != sig_prev:
+            session.begin_variant(sig)
+            sig_prev = sig
+        state = session.step(_round)
+        losses.append(float(problem.global_value(state["w"])))
+        gnorms.append(grad_norm(state["w"]))
+    wall = time.perf_counter() - t0
+    transport = session.finalize()
+    losses = np.asarray(losses)
+    return History(
+        name=opt.name,
+        loss=losses,
+        gap=np.maximum(losses - loss_star, 0.0),
+        grad_norm=np.asarray(gnorms),
+        uplink_floats=opt.uplink_floats(problem),
+        downlink_floats=opt.downlink_floats(problem),
+        wall_time_s=wall,
+        rounds=rounds,
+        cumulative_bytes=transport.cumulative_bytes,
+        sim_time_s=transport.sim_time_s,
+        clients=m,
+        itemsize=itemsize,
+    )

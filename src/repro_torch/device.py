@@ -1,0 +1,16 @@
+"""Device resolution shared by every tensor-creating entry point."""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device: "str | torch.device") -> torch.device:
+    """``torch.device(device)``, raising when it names CUDA and no card
+    is visible. There is no CPU fallback: a caller that wants the CPU
+    asks for ``device="cpu"``."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(dev)!r} requested but torch.cuda.is_available() "
+            f"is False; pass device='cpu' to run on the host")
+    return dev

@@ -1,0 +1,62 @@
+"""Hand state from the JAX package to the port as numpy arrays.
+
+JAX's threefry draws cannot be reproduced with torch generators, so the
+tests that hold the port against ``repro`` build a problem, a sketch or
+an optimizer state once (in ``repro``), pass it over as numpy, and run
+both packages on the same values.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.federated import FederatedProblem
+from repro_torch.core.losses import OBJECTIVES, Objective
+from repro_torch.core.sketch import SrhtSketch
+from repro_torch.device import resolve_device
+
+
+def problem_from_numpy(X, y, mask, lam: float, objective: "str | Objective",
+                       device: "str | torch.device" = "cuda") -> FederatedProblem:
+    """A ``FederatedProblem`` over stacked shards X (m, n, M), y (m, n),
+    mask (m, n); ``objective`` by name or object."""
+    dev = resolve_device(device)
+    if isinstance(objective, str):
+        objective = OBJECTIVES[objective]
+    X, y, mask = (np.asarray(a) for a in (X, y, mask))
+    if X.ndim != 3 or y.shape != X.shape[:2] or mask.shape != X.shape[:2]:
+        raise ValueError(f"want X (m, n, M), y and mask (m, n); got "
+                         f"{X.shape}, {y.shape}, {mask.shape}")
+    return FederatedProblem(
+        X=torch.tensor(X, device=dev), y=torch.tensor(y, device=dev),
+        mask=torch.tensor(mask, device=dev), lam=float(lam),
+        objective=objective)
+
+
+def sketch_from_numpy(signs, rows, k: int, dim: int,
+                      device: "str | torch.device" = "cuda") -> SrhtSketch:
+    """An ``SrhtSketch`` from drawn signs (n,) and rows (k,), checked on
+    the host: n a power of two >= dim, k distinct rows in [0, n)."""
+    dev = resolve_device(device)
+    signs = np.asarray(signs)
+    rows = np.asarray(rows).astype(np.int64)
+    n = signs.shape[0]
+    if signs.ndim != 1 or n & (n - 1) or n < dim:
+        raise ValueError(f"signs must be (n,), n a power of two >= dim={dim}; "
+                         f"got {signs.shape}")
+    if rows.shape != (k,) or len(np.unique(rows)) != k or (
+            rows.min() < 0 or rows.max() >= n):
+        raise ValueError(f"rows must be {k} distinct indices in [0, {n})")
+    return SrhtSketch(k, dim, torch.tensor(signs, device=dev),
+                      torch.tensor(rows, device=dev))
+
+
+def state_from_numpy(state: dict, device: "str | torch.device" = "cuda") -> dict:
+    """An optimizer state dict: arrays become tensors on ``device``, the
+    round counter ``t`` a host integer."""
+    dev = resolve_device(device)
+    out = {}
+    for name, v in state.items():
+        out[name] = (int(np.asarray(v)) if name == "t"
+                     else torch.tensor(np.asarray(v), device=dev))
+    return out

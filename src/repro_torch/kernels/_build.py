@@ -1,0 +1,117 @@
+"""Build the CUDA sources at first use and load them with ctypes.
+
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process (all
+started together) into a shared library with a plain C interface under
+``build/kernels/`` at the repository root, named by a hash of its
+source, so an edited source is rebuilt and an unchanged one is reused.
+A failed build raises: there is no fallback to the plain versions.
+
+The toolkit is found under ``$CUDA_HOME`` (default ``/usr/local/cuda``)
+or on ``PATH``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import time
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
+
+# -fmad=false keeps each multiply and add separately rounded, as the
+# plain PyTorch versions round them: the kernels' results are then
+# bit-equal to those versions.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+_D = ctypes.c_double
+
+# C entry point -> argument types (every pointer and the stream as
+# c_void_p; all return cudaError_t as int)
+SIGNATURES = {
+    "repro_fwht_f32": (_P, _P, _LL, _I, _D, _P),
+    "repro_fwht_f64": (_P, _P, _LL, _I, _D, _P),
+    "repro_srht_apply_f32": (_P, _P, _P, _P, _LL, _I, _I, _I, _D, _D, _P),
+    "repro_srht_apply_f64": (_P, _P, _P, _P, _LL, _I, _I, _I, _D, _D, _P),
+    "repro_srht_apply_t_f32": (_P, _P, _P, _P, _LL, _I, _I, _I, _D, _D, _P),
+    "repro_srht_apply_t_f64": (_P, _P, _P, _P, _LL, _I, _I, _I, _D, _D, _P),
+}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = pathlib.Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            f"nvcc not found under {home}/bin or on PATH: the CUDA kernels "
+            f"of repro_torch cannot be built")
+    return found
+
+
+def _target(src: pathlib.Path) -> pathlib.Path:
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{src.stem}_{digest}.so"
+
+
+def build_all() -> "dict[str, float]":
+    """Compile every source that has no current library, one ``nvcc``
+    per source, all in parallel. Returns seconds per built source (empty
+    when everything was already built)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for src in sorted(CSRC.glob("*.cu")):
+        out = _target(src)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        procs[src] = (out, tmp, time.perf_counter(),
+                      subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True))
+    seconds = {}
+    errors = []
+    for src, (out, tmp, t0, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"{src.name}: nvcc exited {proc.returncode}\n{log}")
+            continue
+        os.replace(tmp, out)
+        seconds[src.name] = time.perf_counter() - t0
+    if errors:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(errors))
+    return seconds
+
+
+@functools.cache
+def library(stem: str = "srht") -> ctypes.CDLL:
+    """The loaded library built from ``csrc/<stem>.cu`` (built first if
+    needed), with ``argtypes``/``restype`` declared for every entry."""
+    build_all()
+    lib = ctypes.CDLL(str(_target(CSRC / f"{stem}.cu")))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    lib.repro_error_string.argtypes = [ctypes.c_int]
+    lib.repro_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise on a non-zero ``cudaError_t`` returned by a launch."""
+    if err != 0:
+        msg = lib.repro_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg}) at launch")

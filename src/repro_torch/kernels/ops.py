@@ -1,0 +1,143 @@
+"""Kernel dispatch: the registry of ``repro.kernels.ops``, for PyTorch.
+
+Each op has two implementations:
+
+  * ``"ref"``  — the plain PyTorch version in ``repro_torch.kernels.ref``
+                 (any device; the CPU path and the oracle on the card;
+                 alias ``"reference"``)
+  * ``"cuda"`` — the hand-written CUDA kernel for Hopper (a CUDA tensor
+                 on a card of compute capability 9.x; anything else
+                 raises)
+  * ``"auto"`` resolves by the input tensor's device: a CUDA tensor
+                 takes ``"cuda"``, a CPU tensor ``"ref"``.
+
+Selection precedence, most local wins:
+
+  1. the per-call ``impl=`` argument,
+  2. the process default set by ``set_default_impl`` / ``use_impl``,
+  3. the ``REPRO_TORCH_KERNEL_IMPL`` environment variable,
+  4. ``"auto"``.
+
+Ops: ``fwht``, ``srht_apply``, ``srht_apply_t``. The kernels are built
+only when the first ``"cuda"`` call runs. Every kernel wrapper counts
+its launches (``launch_counts``).
+"""
+from __future__ import annotations
+
+import contextlib
+import os
+from typing import Callable
+
+import torch
+
+from repro_torch.kernels import fwht as kfwht
+from repro_torch.kernels import ref
+from repro_torch.kernels import srht as ksrht
+
+ENV_VAR = "REPRO_TORCH_KERNEL_IMPL"
+IMPLS = ("auto", "cuda", "ref")
+_ALIASES = {"reference": "ref"}
+_CUDA = {"fwht": kfwht.fwht_cuda,
+         "srht_apply": ksrht.srht_apply_cuda,
+         "srht_apply_t": ksrht.srht_apply_t_cuda}
+OPS = tuple(_CUDA)
+
+_default_impl: "str | None" = None
+
+
+def _canonical(impl: str) -> str:
+    impl = _ALIASES.get(impl, impl)
+    if impl not in IMPLS:
+        raise ValueError(
+            f"unknown kernel impl {impl!r}; expected one of {IMPLS} "
+            f"(or alias {tuple(_ALIASES)})")
+    return impl
+
+
+def set_default_impl(impl: "str | None") -> None:
+    """Set the process-wide implementation default (``None`` clears it,
+    falling back to ``REPRO_TORCH_KERNEL_IMPL`` / ``"auto"``)."""
+    global _default_impl
+    _default_impl = None if impl is None else _canonical(impl)
+
+
+@contextlib.contextmanager
+def use_impl(impl: "str | None"):
+    """Scoped ``set_default_impl``."""
+    prev = _default_impl
+    set_default_impl(impl)
+    try:
+        yield
+    finally:
+        set_default_impl(prev)
+
+
+def resolve_impl(impl: "str | None", x: torch.Tensor) -> str:
+    """Resolve per-call > config > env > auto down to a concrete impl for
+    the input tensor ``x``."""
+    choice = _canonical(impl or _default_impl or os.environ.get(ENV_VAR)
+                        or "auto")
+    if choice == "auto":
+        return "cuda" if x.is_cuda else "ref"
+    return choice
+
+
+def _require_card(op: str, x: torch.Tensor) -> None:
+    if not x.is_cuda:
+        raise RuntimeError(
+            f"impl='cuda' for op {op!r} needs a CUDA tensor, got one on "
+            f"{x.device}; use impl='ref' for the plain version")
+    major, minor = torch.cuda.get_device_capability(x.device)
+    if major < 9:
+        raise RuntimeError(
+            f"impl='cuda' for op {op!r} needs a Hopper card (compute "
+            f"capability 9.x), {x.device} has {major}.{minor}")
+
+
+def get_impl(op: str, impl: str, x: torch.Tensor) -> Callable:
+    """The callable for (op, impl) on input ``x``; raises for an unknown
+    op, or for ``"cuda"`` where the kernel cannot run."""
+    if op not in OPS:
+        raise KeyError(f"unknown kernel op {op!r}; have {OPS}")
+    impl = _canonical(impl)
+    if impl == "ref":
+        return getattr(ref, op)
+    if impl == "cuda":
+        _require_card(op, x)
+        return _CUDA[op]
+    raise ValueError(f"impl {impl!r} is not concrete; resolve it first")
+
+
+def _dispatch(op: str, impl: "str | None", x: torch.Tensor) -> Callable:
+    return get_impl(op, resolve_impl(impl, x), x)
+
+
+def fwht(x: torch.Tensor, *, normalize: bool = False,
+         impl: "str | None" = None) -> torch.Tensor:
+    """Walsh-Hadamard transform along the last axis."""
+    return _dispatch("fwht", impl, x)(x, normalize=normalize)
+
+
+def srht_apply(x: torch.Tensor, signs: torch.Tensor, rows: torch.Tensor, *,
+               impl: "str | None" = None) -> torch.Tensor:
+    """Fused SRHT forward: sign-flip -> FWHT -> row-subsample.
+    x (..., dim) -> (..., k); n = signs.shape[-1], k = rows.shape[-1]."""
+    return _dispatch("srht_apply", impl, x)(x, signs, rows)
+
+
+def srht_apply_t(y: torch.Tensor, signs: torch.Tensor, rows: torch.Tensor,
+                 dim: int, *, impl: "str | None" = None) -> torch.Tensor:
+    """Fused SRHT transpose: scatter -> FWHT -> sign-flip -> restrict.
+    y (..., k) -> (..., dim)."""
+    return _dispatch("srht_apply_t", impl, y)(y, signs, rows, dim)
+
+
+def launch_counts() -> "dict[str, int]":
+    """Kernel launches per op since the last ``reset_launch_counts``."""
+    return {**kfwht.LAUNCHES, **ksrht.LAUNCHES}
+
+
+def reset_launch_counts() -> None:
+    for counts in (kfwht.LAUNCHES, ksrht.LAUNCHES):
+        for op in counts:
+            counts[op] = 0
