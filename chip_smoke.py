@@ -23,7 +23,22 @@ Phases, in order; any failure raises and the script exits non-zero:
                 for 10 rounds; gap per round, ms per round, peak memory,
                 and each kernel's time at its main-path shapes beside its
                 bound, the plain version and the library yardstick
-  6. kernels  — one JSON line naming every ported kernel
+  6. long rows — fwht, srht_apply and srht_apply_t past the single-pass
+                length (n = 2^15, 2^17, 2^20) against their plain versions,
+                bit-equal; fwht timed at n = 2^17
+  7. codec parity — topk_mask and qint8_roundtrip against their plain
+                versions, bit-equal, in float32 and float64: the main-path
+                payload shapes, ties, zero rows, kept = 1 and P, ragged
+                widths, and long rows that are streamed
+  8. transport — FLeNS+ at the SUSY size under two transports of
+                examples/edge_clients.py (comp+sched+ef, crush+rot+ef) on
+                its edge channel, 10 rounds each: codec launches per round
+                as the codec chains imply, the guarded loss finite and
+                never rising, the same trajectory and byte axis through
+                the plain versions on the card; bytes, simulated seconds,
+                ms per round, peak memory, and the codec kernels' times
+                beside their bounds, plain versions and library yardstick
+  9. kernels  — one JSON line naming every ported kernel
 
 The last line of standard output is the device record
 ``{"ok": true, "device": {...}}``; before it come the card's name and
@@ -63,6 +78,21 @@ KERNELS = {
                        replaces="src/repro/kernels/srht.py:98"),
     "srht_apply_t": dict(source="src/repro_torch/kernels/csrc/srht.cu",
                          replaces="src/repro/kernels/srht.py:130"),
+    "topk_mask": dict(source="src/repro_torch/kernels/csrc/codec.cu",
+                      replaces="src/repro/kernels/codec_kernels.py:85"),
+    "qint8_roundtrip": dict(source="src/repro_torch/kernels/csrc/codec.cu",
+                            replaces="src/repro/kernels/codec_kernels.py:112"),
+}
+NO_CODEC = {"topk_mask": 0, "qint8_roundtrip": 0}
+
+# examples/edge_clients.py: name -> (sketch, codecs, uplink bytes per
+# delivering client at k=10, M=18)
+TRANSPORTS = {
+    "comp+sched+ef": ("srht", {"h_sk": "sympack+qint8", "sg": "qint8",
+                               "grad": "topk0.1+qint8"}, 59 + 14 + 14 + 8),
+    "crush+rot+ef": ("srht:rotate=6", {"h_sk": "topk0.25", "sg": "topk0.5",
+                                       "grad": "topk0.1+qint8"},
+                     300 + 60 + 14 + 8),
 }
 
 
@@ -140,7 +170,7 @@ def phase_parity() -> dict:
         (100, 128, 7, (3, 7)), (1, 1, 1, (5,)), (5, 8, 3, (7, 9)),
         (10000, 16384, 50, (3,)),  # the largest transform
     ]
-    worst = {name: 0.0 for name in KERNELS}
+    worst = {name: 0.0 for name in ("fwht", "srht_apply", "srht_apply_t")}
     for dtype in (torch.float64, torch.float32):
         gen = torch.Generator(device=dev).manual_seed(1)
         for dim, n, k, batch in cases:
@@ -212,7 +242,8 @@ def phase_quickstart() -> dict:
     ops.reset_launch_counts()
     _, hist = _flens_run(problem, w0, w_star, rounds, k=QUICK["k"])
     counts = ops.launch_counts()
-    want = {"fwht": 0, "srht_apply": 3 * rounds, "srht_apply_t": 2 * rounds}
+    want = {"fwht": 0, "srht_apply": 3 * rounds, "srht_apply_t": 2 * rounds,
+            **NO_CODEC}
     check(counts == want, f"quickstart launches {counts} != {want}")
     _check_trajectory(hist, "quickstart")
     _, plain = _flens_run(problem, w0, w_star, rounds, impl="ref",
@@ -225,7 +256,7 @@ def phase_quickstart() -> dict:
                          variant="plus")
     counts_plus = ops.launch_counts()
     check(counts_plus == {"fwht": 0, "srht_apply": 4 * rounds,
-                          "srht_apply_t": 3 * rounds},
+                          "srht_apply_t": 3 * rounds, **NO_CODEC},
           f"FLeNS+ launches {counts_plus}")
     _check_trajectory(plus, "quickstart FLeNS+")
     log("[quickstart] gap " + " ".join(f"{g:.3e}" for g in hist.gap))
@@ -343,14 +374,23 @@ def _kernel_timings(s, a, gs) -> dict:
 def _profile_rounds(opt, problem, state, keys) -> dict:
     """Device time by kernel over a few bare rounds (torch.profiler), and
     the device's busy share of the window's wall time."""
+    keys = iter(keys)
+
+    def step():
+        nonlocal state
+        state = opt.round(problem, state, next(keys))
+    return _profile_steps(step, 3)
+
+
+def _profile_steps(step, rounds: int) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for key in keys:
-            state = opt.round(problem, state, key)
+        for _ in range(rounds):
+            step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = sorted(
@@ -359,14 +399,16 @@ def _profile_rounds(opt, problem, state, keys) -> dict:
          if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
         key=lambda r: -r[1])
     busy_us = sum(t for _, t, _ in kernels)
-    return {"rounds": len(keys), "wall_us": wall_us, "device_busy_us": busy_us,
+    return {"rounds": rounds, "wall_us": wall_us, "device_busy_us": busy_us,
             "busy_share": busy_us / wall_us,
-            "top": [{"kernel": name[:90], "us_per_round": t / len(keys),
-                     "launches_per_round": c / len(keys)}
+            "top": [{"kernel": name[:90], "us_per_round": t / rounds,
+                     "launches_per_round": c / rounds}
                     for name, t, c in kernels[:12]]}
 
 
-def phase_full_size() -> dict:
+def phase_full_size() -> "tuple[dict, tuple]":
+    """Returns the record and the (problem, w0, w_star) the transport
+    phase runs on."""
     from repro_torch.core import (
         FLeNS,
         logistic,
@@ -399,7 +441,8 @@ def phase_full_size() -> dict:
     opt = FLeNS(k=SUSY["k"])
     hist = run_rounds(opt, problem, w0, w_star, rounds=rounds)
     counts = ops.launch_counts()
-    want = {"fwht": 0, "srht_apply": 3 * rounds, "srht_apply_t": 2 * rounds}
+    want = {"fwht": 0, "srht_apply": 3 * rounds, "srht_apply_t": 2 * rounds,
+            **NO_CODEC}
     check(counts == want, f"full-size launches {counts} != {want}")
     _check_trajectory(hist, "full size")
 
@@ -439,13 +482,370 @@ def phase_full_size() -> dict:
             log(f"[full] {name:<12} {r['shape']:<38} {r['ms']:.4f} ms "
                 f"(bound {r['bound_ms']:.4f} by {r['bound_by']}, plain "
                 f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f})")
-    return {"gap": hist.gap.tolist(), "loss": hist.loss.tolist(),
-            "launches": counts, "rounds": rounds,
-            "run_rounds_ms_per_round": hist.wall_time_s * 1e3 / rounds,
-            "round_ms": round_ms, "setup_s": setup_s,
-            "peak_memory_bytes": peak, "profile": profile,
-            "bytes_per_round":
-            float(hist.cumulative_bytes[1]), "kernels": timings}
+    return ({"gap": hist.gap.tolist(), "loss": hist.loss.tolist(),
+             "launches": counts, "rounds": rounds,
+             "run_rounds_ms_per_round": hist.wall_time_s * 1e3 / rounds,
+             "round_ms": round_ms, "setup_s": setup_s,
+             "peak_memory_bytes": peak, "profile": profile,
+             "bytes_per_round":
+             float(hist.cumulative_bytes[1]), "kernels": timings},
+            (problem, w0, w_star))
+
+
+# ---------------------------------------------------------------------------
+# 6. long rows
+# ---------------------------------------------------------------------------
+
+def phase_long_rows() -> dict:
+    """The three transforms past the single-pass length, bit-equal to
+    their plain versions; fwht timed at n = 2^17."""
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda", 0)
+    cases = [(20000, 1 << 15, 64, (3,)), ((1 << 17) - 5, 1 << 17, 300, (2,)),
+             (1 << 20, 1 << 20, 1000, (1,))]
+    worst = {name: 0.0 for name in ("fwht", "srht_apply", "srht_apply_t")}
+    for dtype in (torch.float64, torch.float32):
+        gen = torch.Generator(device=dev).manual_seed(2)
+        for dim, n, k, batch in cases:
+            signs, rows = _operator(gen, n, k, dtype, dev)
+            x = torch.randn(batch + (dim,), generator=gen, dtype=dtype,
+                            device=dev)
+            y = torch.randn(batch + (k,), generator=gen, dtype=dtype,
+                            device=dev)
+            xp = torch.randn(batch + (n,), generator=gen, dtype=dtype,
+                             device=dev)
+            pairs = {
+                "srht_apply": (ops.srht_apply(x, signs, rows, impl="cuda"),
+                               ops.srht_apply(x, signs, rows, impl="ref")),
+                "srht_apply_t": (
+                    ops.srht_apply_t(y, signs, rows, dim, impl="cuda"),
+                    ops.srht_apply_t(y, signs, rows, dim, impl="ref")),
+                "fwht": (ops.fwht(xp, normalize=True, impl="cuda"),
+                         ops.fwht(xp, normalize=True, impl="ref")),
+            }
+            torch.cuda.synchronize()
+            for name, (got, want) in pairs.items():
+                err = _max_err(got, want)
+                worst[name] = max(worst[name], err)
+                check(torch.equal(got, want),
+                      f"{name} {dtype} dim={dim} n={n} k={k}: kernel differs "
+                      f"from the plain version (max abs err {err:.3e})")
+    # fwht at n = 2^17 over 64 rows (64 MB in float64); no single PyTorch
+    # call computes it (a dense H_n would take 137 GB)
+    n = 1 << 17
+    xp = torch.randn(64, n, dtype=torch.float64, device=dev)
+    item = xp.element_size()
+    bound, bound_by = _bound_ms(xp.numel() * item, xp.numel() * item,
+                                64 * (n * 17 + n), torch.float64)
+    timing = dict(
+        shape="(64, 2^17) f64, two passes", dims=list(xp.shape),
+        ms=_time_ms(lambda: ops.fwht(xp, normalize=True, impl="cuda"), 20),
+        plain_ms=_time_ms(lambda: ops.fwht(xp, normalize=True, impl="ref"), 5),
+        library_ms=None, bound_ms=bound, bound_by=bound_by,
+        max_abs_err=_max_err(ops.fwht(xp, normalize=True, impl="cuda"),
+                             ops.fwht(xp, normalize=True, impl="ref")))
+    log(f"[long] {len(cases)} lengths x 2 dtypes x 3 kernels bit-equal to "
+        f"the plain versions (max abs err {worst})")
+    log(f"[long] fwht {timing['shape']} {timing['ms']:.4f} ms (bound "
+        f"{bound:.4f} by {bound_by}, plain {timing['plain_ms']:.4f})")
+    return {"max_abs_err": worst, "fwht_2_17": timing}
+
+
+# ---------------------------------------------------------------------------
+# 7. codec parity
+# ---------------------------------------------------------------------------
+
+# (rows, P): the main path's payloads at the SUSY size (h_sk packed by
+# sympack, sg, grad, h_sk crushed by top-k, a broadcast), ragged widths,
+# and rows streamed from device memory
+CODEC_SHAPES = [(1000, 55), (1000, 10), (1000, 18), (1000, 100), (1, 18),
+                (7, 1), (5, 33), (3, 1000), (2, 5000), (4, 1 << 20)]
+
+
+def _codec_inputs(gen, rows, p, dtype, dev):
+    x = torch.randn(rows, p, generator=gen, dtype=dtype, device=dev)
+    x = x * 10.0 ** torch.randint(-3, 4, (rows, 1), generator=gen,
+                                  device=dev).to(dtype)
+    # a tie-heavy row of small integers and an all-zero row
+    x[0] = torch.randint(-3, 4, (p,), generator=gen, device=dev).to(dtype)
+    if rows > 1:
+        x[1] = 0.0
+    u = torch.rand(rows, p, generator=gen, dtype=dtype, device=dev)
+    return x, u
+
+
+def phase_codec_parity() -> dict:
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda", 0)
+    worst = {"topk_mask": 0.0, "qint8_roundtrip": 0.0}
+    for dtype in (torch.float64, torch.float32):
+        gen = torch.Generator(device=dev).manual_seed(3)
+        for rows, p in CODEC_SHAPES:
+            x, u = _codec_inputs(gen, rows, p, dtype, dev)
+            pairs = [("qint8_roundtrip",
+                      ops.qint8_roundtrip(x, u, impl="cuda"),
+                      ops.qint8_roundtrip(x, u, impl="ref"))]
+            for kept in sorted({1, max(1, p // 10), max(1, p // 2), p}):
+                pairs.append(("topk_mask", ops.topk_mask(x, kept, impl="cuda"),
+                              ops.topk_mask(x, kept, impl="ref")))
+            torch.cuda.synchronize()
+            for name, got, want in pairs:
+                err = _max_err(got, want)
+                worst[name] = max(worst[name], err)
+                check(torch.equal(got, want),
+                      f"{name} {dtype} ({rows}, {p}): kernel differs from "
+                      f"the plain version (max abs err {err:.3e})")
+    log(f"[codec] {len(CODEC_SHAPES)} shapes x 2 dtypes bit-equal to the "
+        f"plain versions (max abs err {worst})")
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# 8. transport at full size
+# ---------------------------------------------------------------------------
+
+def _edge_channel(m: int):
+    """examples/edge_clients.py:81-91: log-spaced uplinks from 30 kB/s to
+    3 MB/s, 10x downlinks, 80 ms latency, 20% stragglers x10, 10% drop."""
+    from repro_torch.comm import ChannelModel
+
+    rates = torch.logspace(math.log10(3e4), math.log10(3e6), m,
+                           dtype=torch.float64).numpy()
+    return ChannelModel(uplink_bytes_per_s=rates,
+                        downlink_bytes_per_s=10.0 * rates, latency_s=0.08,
+                        straggler_prob=0.20, straggler_slowdown=10.0,
+                        dropout_prob=0.10)
+
+
+def _codec_launches_per_round(cfg, uplinks) -> dict:
+    """The codec kernels one round launches, read off the codec chain of
+    each uplink payload (every stage is one batched launch; downlinks
+    are identity here)."""
+    from repro_torch.comm import QInt8Codec, TopKCodec
+
+    counts = dict(NO_CODEC)
+    for name in uplinks:
+        codec = cfg.codec_for(name)
+        while codec is not None:
+            if isinstance(codec, TopKCodec):
+                counts["topk_mask"] += 1
+            if isinstance(codec, QInt8Codec):
+                counts["qint8_roundtrip"] += 1
+            codec = getattr(codec, "inner", None)
+    return counts
+
+
+def _transport_run(problem, w0, w_star, sketch, cfg, rounds, impl=None):
+    from repro_torch.core import FLeNS, run_rounds
+    from repro_torch.kernels import ops
+
+    class GuardedFLeNS(FLeNS):
+        """FLeNS+ that notes the server's guarded loss before each round."""
+
+        guarded: list
+
+        def round_signature(self, round_idx, state):
+            self.guarded.append(float(state["loss"]))
+            return super().round_signature(round_idx, state)
+
+    opt = GuardedFLeNS(k=SUSY["k"], variant="plus", sketch=sketch)
+    opt.guarded = []
+    with ops.use_impl(impl):
+        hist = run_rounds(opt, problem, w0, w_star, rounds=rounds, comm=cfg)
+    return opt, hist
+
+
+def _codec_timings(dev) -> dict:
+    """Each codec kernel at its main-path shapes (and one wide shape that
+    is not on the path), beside its bound, the plain version and, for
+    top-k, torch.topk + scatter."""
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    calls = {"topk_mask": [("h_sk crushed (m, k*k)", (1000, 100), 25),
+                           ("grad (m, M)", (1000, 18), 2),
+                           ("not a main-path shape", (1000, 16384), 1639)],
+             "qint8_roundtrip": [("h_sk packed (m, k(k+1)/2)", (1000, 55), 0),
+                                 ("grad (m, M)", (1000, 18), 0),
+                                 ("sg (m, k)", (1000, 10), 0),
+                                 ("not a main-path shape", (1000, 16384), 0)]}
+    out = {}
+    for name, shapes in calls.items():
+        rows_out = []
+        for label, (rows, p), kept in shapes:
+            x, u = _codec_inputs(gen, rows, p, torch.float64, dev)
+            item = x.element_size()
+            if name == "topk_mask":
+                def kern(x=x, kept=kept):
+                    return ops.topk_mask(x, kept, impl="cuda")
+
+                def plain(x=x, kept=kept):
+                    return ops.topk_mask(x, kept, impl="ref")
+
+                def lib(x=x, kept=kept):
+                    idx = torch.topk(x.abs(), kept, dim=1).indices
+                    return torch.zeros_like(x).scatter_(1, idx,
+                                                        x.gather(1, idx))
+                read, count = x.numel() * item, x.numel() * (item + 2)
+            else:
+                def kern(x=x, u=u):
+                    return ops.qint8_roundtrip(x, u, impl="cuda")
+
+                def plain(x=x, u=u):
+                    return ops.qint8_roundtrip(x, u, impl="ref")
+                lib = None
+                read, count = 2 * x.numel() * item, 7 * x.numel()
+            bound, bound_by = _bound_ms(read, x.numel() * item, count,
+                                        torch.float64)
+            rows_out.append(dict(
+                shape=label, dims=[rows, p], kept=kept or None,
+                ms=_time_ms(kern, 200), plain_ms=_time_ms(plain, 50),
+                library_ms=None if lib is None else _time_ms(lib, 200),
+                library="torch.topk + scatter" if lib else "none",
+                bound_ms=bound, bound_by=bound_by,
+                max_abs_err=_max_err(kern(), plain())))
+        out[name] = rows_out
+    return out
+
+
+def _bare_ms(step, rounds: int = 10) -> list:
+    """Host clock around each of ``rounds`` steps that end in a
+    synchronize, after one warm step."""
+    step()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(rounds):
+        t1 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t1) * 1e3)
+    return out
+
+
+def _bare_transport_rounds(problem, w0, chan) -> dict:
+    """FLeNS+ bare rounds (no per-round evaluation) without a transport
+    and under comp+sched+ef, and a profile of three transport rounds."""
+    from repro_torch.comm import CommConfig, make_session
+    from repro_torch.core import FLeNS
+    from repro_torch.core.base import build_round, root_key, split
+
+    dev = problem.X.device
+    sketch, codecs, _ = TRANSPORTS["comp+sched+ef"]
+    opt = FLeNS(k=SUSY["k"], variant="plus", sketch=sketch)
+    state = opt.init(problem, w0)
+    keys = iter(split(root_key(9, device=dev), 32))
+
+    def plain_step():
+        nonlocal state
+        state = opt.round(problem, state, next(keys))
+    none_ms = _bare_ms(plain_step)
+    cfg = CommConfig(codecs=codecs, channel=chan, scheduler="bandwidth:0.5",
+                     error_feedback=True, seed=1)
+    session = make_session(cfg, m=problem.m,
+                           keys=split(root_key(10, device=dev), 32),
+                           state0=opt.init(problem, w0),
+                           mask_dtype=problem.X.dtype, device=dev)
+    session.begin_variant(None)
+    fn = build_round(opt, problem, session)
+    comm_ms = _bare_ms(lambda: session.step(fn))
+    profile = _profile_steps(lambda: session.step(fn), 3)
+    med = sorted(none_ms)[len(none_ms) // 2], sorted(comm_ms)[len(comm_ms) // 2]
+    log(f"[transport] bare FLeNS+ rounds: {med[0]:.2f} ms median without a "
+        f"transport, {med[1]:.2f} ms under comp+sched+ef; profile of 3 "
+        f"transport rounds: device busy {profile['busy_share']:.1%} of "
+        f"{profile['wall_us'] / 3e3:.2f} ms/round")
+    for r in profile["top"]:
+        log(f"[transport]   {r['us_per_round']:9.1f} us/round x"
+            f"{r['launches_per_round']:.0f}  {r['kernel']}")
+    return {"no_transport_ms": none_ms, "comp_sched_ef_ms": comm_ms,
+            "profile": profile}
+
+
+def phase_transport(problem, w0, w_star) -> dict:
+    from repro_torch.comm import CommConfig
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda", 0)
+    rounds = 10
+    chan = _edge_channel(problem.m)
+    uplinks = ("h_sk", "sg", "grad", "loss")  # FLeNS+ with the guard
+    out = {"rounds": rounds, "runs": {}}
+    launches = dict(NO_CODEC)
+    for name, (sketch, codecs, up_bytes) in TRANSPORTS.items():
+        cfg = CommConfig(codecs=codecs, channel=chan,
+                         scheduler="bandwidth:0.5", error_feedback=True,
+                         seed=1)
+        per_round = _codec_launches_per_round(cfg, uplinks)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        opt, hist = _transport_run(problem, w0, w_star, sketch, cfg, rounds)
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        want = {"fwht": 0, "srht_apply": 4 * rounds,
+                "srht_apply_t": 3 * rounds,
+                **{op: n * rounds for op, n in per_round.items()}}
+        check(counts == want, f"{name} launches {counts} != {want}")
+        for op in NO_CODEC:
+            launches[op] += counts[op]
+        guarded = opt.guarded
+        check(all(math.isfinite(v) for v in guarded)
+              and bool(torch.isfinite(torch.as_tensor(hist.loss)).all()),
+              f"{name}: non-finite loss")
+        check(all(b <= a for a, b in zip(guarded, guarded[1:])),
+              f"{name}: the guarded loss rose: {guarded}")
+        check(hist.loss[-1] < hist.loss[0], f"{name}: the loss did not fall")
+        delivered_bytes = {float(v) for tr in hist.traces
+                           for v in tr.bytes_up if v}
+        check(delivered_bytes == {float(up_bytes)},
+              f"{name}: uplink bytes per delivering client "
+              f"{delivered_bytes} != {up_bytes}")
+        _, plain = _transport_run(problem, w0, w_star, sketch, cfg, rounds,
+                                  impl="ref")
+        check((hist.loss == plain.loss).all()
+              and (hist.cumulative_bytes == plain.cumulative_bytes).all()
+              and (hist.sim_time_s == plain.sim_time_s).all(),
+              f"{name}: the run through the kernels ({hist.loss.tolist()}) "
+              f"differs from the run through the plain versions "
+              f"({plain.loss.tolist()})")
+        per_round_bytes = [float(b) for b in
+                           hist.cumulative_bytes[1:] - hist.cumulative_bytes[:-1]]
+        run = {"sketch": sketch, "codecs": codecs,
+               "launches": counts, "codec_launches_per_round": per_round,
+               "loss": hist.loss.tolist(), "gap": hist.gap.tolist(),
+               "guarded_loss": guarded,
+               "uplink_bytes_per_delivering_client": up_bytes,
+               "bytes_per_round": per_round_bytes,
+               "sim_time_s": float(hist.sim_time_s[-1]),
+               "ms_per_round": hist.wall_time_s * 1e3 / rounds,
+               "plain_ms_per_round": plain.wall_time_s * 1e3 / rounds,
+               "peak_memory_bytes": peak,
+               "ef_residuals": hist.ef_residuals,
+               "delivered_per_round": [int(tr.delivered.sum())
+                                       for tr in hist.traces]}
+        out["runs"][name] = run
+        log(f"[transport] {name} ({sketch}): gap "
+            + " ".join(f"{g:.3e}" for g in hist.gap))
+        log(f"[transport] {name}: launches {counts}; {up_bytes} B up per "
+            f"delivering client, {sum(per_round_bytes) / rounds:.0f} B per "
+            f"round; {run['sim_time_s']:.2f} simulated s; "
+            f"{run['ms_per_round']:.2f} ms per round "
+            f"(plain versions {run['plain_ms_per_round']:.2f}); peak memory "
+            f"{peak / 2**30:.2f} GiB; same trajectory through the plain "
+            f"versions")
+    out["launches"] = launches
+    out["bare"] = _bare_transport_rounds(problem, w0, chan)
+    out["kernels"] = _codec_timings(dev)
+    for name, rows in out["kernels"].items():
+        for r in rows:
+            lib = ("none" if r["library_ms"] is None
+                   else f"{r['library_ms']:.4f} ({r['library']})")
+            log(f"[transport] {name:<15} {r['shape']:<28} {r['dims']} "
+                f"{r['ms']:.4f} ms (bound {r['bound_ms']:.6f} by "
+                f"{r['bound_by']}, plain {r['plain_ms']:.4f}, library {lib})")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -454,19 +854,30 @@ def main() -> int:
     card = phase_device()
     record = {"card": card, "build_s": phase_build(),
               "parity_max_abs_err": phase_parity(),
-              "quickstart": phase_quickstart(),
-              "full_size": phase_full_size()}
-    # the full-size run checked its launch counts; fwht is the butterfly
-    # the SRHT kernels share and is never launched on its own there
-    launches = record["full_size"]["launches"]
+              "quickstart": phase_quickstart()}
+    record["full_size"], susy = phase_full_size()
+    record["long_rows"] = phase_long_rows()
+    record["codec_parity_max_abs_err"] = phase_codec_parity()
+    record["transport"] = phase_transport(*susy)
+    del susy
+    # launches: the SRHT kernels from the full-size comm=None run (fwht is
+    # the butterfly they share and is never launched on its own there),
+    # the codec kernels from the two full-size transport runs
+    launches = {**record["full_size"]["launches"],
+                **record["transport"]["launches"]}
+    timed = {**record["full_size"]["kernels"],
+             **record["transport"]["kernels"]}
+    parity = {**record["parity_max_abs_err"],
+              **record["codec_parity_max_abs_err"]}
+    for name, err in record["long_rows"]["max_abs_err"].items():
+        parity[name] = max(parity[name], err)
     kernels = []
     for name, meta in KERNELS.items():
-        main_row = record["full_size"]["kernels"][name][0]
+        main_row = timed[name][0]
         kernels.append({
             "name": name, "route": "cuda", **meta,
             "launches": launches[name],
-            "max_abs_err": max(main_row["max_abs_err"],
-                               record["parity_max_abs_err"][name]),
+            "max_abs_err": max(main_row["max_abs_err"], parity[name]),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"],

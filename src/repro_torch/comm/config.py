@@ -1,20 +1,284 @@
-"""The no-transport view every optimizer round routes through.
+"""CommConfig and the per-round objects the synchronous driver threads.
 
-Counterpart of ``repro.comm.config._NullComm``/``NULL_COMM``: with
-``comm=None`` the comm-aware code path is the only code path, and every
-payload passes through unchanged. ``CommConfig`` and the codec-carrying
-``CommRound`` arrive with the synchronous-transport slice.
+Counterpart of ``repro.comm.config`` for the synchronous driver on a
+dense client axis:
+
+  * ``CommConfig``  — which codec per payload name *and direction*, which
+      participation scheduler, which channel model, error feedback, seed.
+  * ``CommSession`` — host-side state of one trajectory: draws cohorts
+      and channel coins per round, runs the round, accumulates
+      ``RoundTrace``s, and owns the payload byte plan (exact encoded
+      bytes per payload occurrence, recorded on each round variant's
+      first executed round; payload shapes are static per variant).
+  * ``CommRound``   — the view the optimizer's round sees:
+      ``uplink(name, x)`` routes a stacked per-client payload through its
+      codec, ``downlink(name, x)`` routes a server broadcast through its
+      ``"down:"`` codec (encoded once, billed per scheduled client), and
+      ``weights(p)`` masks and renormalizes aggregation weights for the
+      delivering cohort.
+
+With ``CommConfig(error_feedback=...)`` lossy EF-eligible uplinks carry
+client memory (``repro_torch.comm.feedback``): ``uplink`` folds it in
+and writes the new memory to ``CommRound.memory_out``.
+
+Randomness. Each draw happens in one method a caller can replace: the
+cohort in ``Scheduler.participants``, the straggler and dropout coins in
+``ChannelModel.draw``, and the codec noise of each lossy payload
+occurrence in ``CommRound.codec_noise``. The port's own draws use seeded
+``torch.Generator``s: cohort and coins on the host from
+``(seed, round, stream)``, codec noise on the payload's device from the
+round's codec key and the payload counter (uplinks count from 1, the
+downlink on the disjoint stream ``_DOWNLINK_KEY_STREAM + i``).
+
+Bit-exactness: with identity codecs and full participation (no dropout)
+``uplink`` and ``downlink`` return their input objects and ``weights``
+returns ``p``, so the trajectory is bit-identical to ``comm=None``.
+
+The asynchronous driver, scenario dynamics and client populations come
+with later slices; asking for them raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import dataclasses
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.comm import feedback
+from repro_torch.comm.channel import ChannelModel
+from repro_torch.comm.codecs import Codec, IdentityCodec, make_codec
+from repro_torch.comm.metrics import RoundTrace, Transport, transport_from_traces
+from repro_torch.comm.scheduler import Scheduler, make_scheduler
+from repro_torch.keys import generator, key_bits, key_from_ints
+
 # payload-name prefix that selects the downlink (server -> client)
-# direction in the byte plan
+# direction in codec specs and in the byte plan
 DOWN = "down:"
+
+# control-plane payloads default to lossless whatever the default codec
+# (compressing a 1-scalar guard loss or the sketch seed saves nothing and
+# can poison the accept/reject logic or the shared basis)
+_LOSSLESS_BY_DEFAULT = ("loss", "down:seed")
+
+# noise stream offset separating downlink payloads from the uplink
+# payload counter
+_DOWNLINK_KEY_STREAM = 1 << 20
+
+# the per-round host keys: cohort, channel coins, codec noise
+_SCHED_STREAM, _CHAN_STREAM, _CODEC_STREAM = 0, 1, 2
+
+# begin_variant sentinel: "no variant announced yet" (None is a valid
+# round signature)
+_NO_VARIANT = object()
+
+
+def plan_bytes(plan: "Dict[str, int]", *, down: bool) -> int:
+    """Sum one direction of a payload byte plan (keys are payload
+    occurrences; downlink occurrences carry the ``"down:"`` prefix)."""
+    return int(sum(v for k, v in plan.items()
+                   if k.startswith(DOWN) == down))
+
+
+@dataclasses.dataclass
+class CommConfig:
+    """Transport description for one federated run.
+
+    ``codecs`` maps payload names (``"h_sk"``, ``"sg"``, ``"grad"``, ...)
+    to codec specs; the ``"default"`` entry covers unnamed payloads, and a
+    bare string or Codec is shorthand for ``{"default": ...}``. Downlink
+    payloads resolve under ``"down:<name>"``, then ``"down:default"``,
+    then identity, never the uplink default. ``downlink_codecs`` merges
+    into ``codecs`` with the prefix applied (explicit ``down:`` entries
+    win).
+
+    ``error_feedback``: ``True`` (every eligible lossy payload), a
+    collection of payload names, or a ``{name: bool}`` dict with an
+    optional ``"default"``; ``ef_variant`` is ``"ef21"`` or ``"ef14"``.
+
+    ``async_mode`` and ``server_lr`` select and tune the asynchronous
+    driver, ``dynamics`` the scenario dynamics: both come with later
+    slices (with the driver's other settings), so ``async_mode=True``,
+    ``server_lr != 1`` and any ``dynamics`` raise ``NotImplementedError``.
+    """
+
+    codecs: "Dict[str, Any] | str | Codec" = "identity"
+    downlink_codecs: "Dict[str, Any] | str | Codec | None" = None
+    scheduler: "str | Scheduler" = "full"
+    channel: ChannelModel = dataclasses.field(default_factory=ChannelModel)
+    seed: int = 0
+    error_feedback: "bool | str | Dict[str, bool] | tuple | frozenset" = False
+    ef_variant: str = "ef21"
+    async_mode: bool = False
+    server_lr: float = 1.0
+    dynamics: "Any | None" = None
+
+    def __post_init__(self):
+        if self.dynamics is not None:
+            raise NotImplementedError(
+                "scenario dynamics (CommConfig(dynamics=...)) come with the "
+                "dynamics slice of repro_torch")
+        if self.async_mode:
+            raise NotImplementedError(
+                "the asynchronous driver (async_mode=True) comes with the "
+                "async-and-populations slice of repro_torch")
+        if self.server_lr <= 0.0:
+            raise ValueError(f"server_lr must be > 0, got {self.server_lr}")
+        if self.server_lr != 1.0:
+            raise NotImplementedError(
+                "server_lr scales asynchronous commit deltas; the "
+                "asynchronous driver comes with the async-and-populations "
+                "slice of repro_torch")
+        # a private copy: the downlink merge must never mutate a caller's dict
+        self.codecs = (dict(self.codecs) if isinstance(self.codecs, dict)
+                       else {"default": self.codecs})
+        if self.downlink_codecs is not None:
+            shorthand = (self.downlink_codecs
+                         if isinstance(self.downlink_codecs, dict)
+                         else {"default": self.downlink_codecs})
+            for name, spec in shorthand.items():
+                self.codecs.setdefault(f"{DOWN}{name}", spec)
+        if self.ef_variant not in feedback.EF_VARIANTS:
+            raise ValueError(
+                f"unknown ef_variant {self.ef_variant!r}; "
+                f"want one of {feedback.EF_VARIANTS}")
+        self._codec_cache: Dict[str, Codec] = {}
+        self.scheduler = make_scheduler(self.scheduler)
+
+    def codec_for(self, payload: str) -> Codec:
+        """Resolve a payload (``"name"`` uplink / ``"down:name"``
+        downlink) to its codec. Each direction has its own default."""
+        if payload not in self._codec_cache:
+            if payload in self.codecs:
+                spec = self.codecs[payload]
+            elif payload in _LOSSLESS_BY_DEFAULT:
+                spec = "identity"
+            elif payload.startswith(DOWN):
+                spec = self.codecs.get(f"{DOWN}default", "identity")
+            else:
+                spec = self.codecs.get("default", "identity")
+            self._codec_cache[payload] = make_codec(spec)
+        return self._codec_cache[payload]
+
+    def ef_for(self, payload: str) -> bool:
+        """EF is folded in only where it can matter: requested AND lossy."""
+        return (feedback.ef_requested(self.error_feedback, payload)
+                and not self.codec_for(payload).lossless)
+
+    @property
+    def has_error_feedback(self) -> bool:
+        return feedback.any_ef_requested(self.error_feedback)
+
+
+class CommRound:
+    """One round's transport view. ``mask`` is the (m,) delivery mask on
+    the device (None on the statically full path), ``codec_key`` the
+    round's host key for codec noise, ``memory`` the EF memory dict
+    carried in from the previous round, ``plan`` the variant's byte plan
+    (filled here), ``round_idx`` the round's index."""
+
+    def __init__(self, config: CommConfig, plan: Dict[str, int],
+                 mask: "torch.Tensor | None", codec_key: "torch.Tensor | None",
+                 memory: "Dict[str, torch.Tensor] | None" = None,
+                 round_idx: int = 0):
+        self._config = config
+        self._plan = plan
+        self.mask = mask
+        self._key = codec_key
+        self.round_idx = round_idx
+        self._n_payloads = 0
+        self._n_down = 0
+        self._occurrences: Dict[str, int] = {}
+        # starts as a copy so payloads a round skips keep their memory
+        self.memory_out: Dict[str, torch.Tensor] = dict(memory or {})
+
+    def _payload_key(self, name: str) -> str:
+        """Stable key for the i-th occurrence of ``name`` in the round: a
+        round sending ``name`` twice bills (and remembers) both."""
+        occ = self._occurrences.get(name, 0)
+        self._occurrences[name] = occ + 1
+        return name if occ == 0 else f"{name}#{occ}"
+
+    def codec_noise(self, stream: int, shape: tuple, dtype: torch.dtype,
+                    device: torch.device) -> torch.Tensor:
+        """The U[0,1) noise of one lossy payload occurrence: ``stream`` is
+        the uplink counter (from 1) or ``_DOWNLINK_KEY_STREAM`` plus the
+        downlink counter, ``shape`` is ``(rows,) + noise_shape``."""
+        key = key_from_ints(key_bits(self._key), stream)
+        return torch.rand(shape, generator=generator(key, device),
+                          dtype=dtype, device=device)
+
+    def _noise(self, codec: Codec, stream: int, x: torch.Tensor):
+        if codec.deterministic:
+            return None
+        shape = (x.shape[0],) + tuple(codec.noise_shape(tuple(x.shape[1:])))
+        return self.codec_noise(stream, shape, x.dtype, x.device)
+
+    def uplink(self, name: str, x: torch.Tensor, ef_eligible: bool = True,
+               ef_reset=None) -> torch.Tensor:
+        """Route a stacked per-client payload ``x: (m, ...)`` through its
+        codec; records its exact encoded bytes per client.
+
+        ``ef_eligible=False`` marks a payload whose basis is redrawn every
+        round, so error feedback skips it. ``ef_reset`` (a bool) zeroes
+        its EF memory first: the round a rotating basis is redrawn."""
+        codec = self._config.codec_for(name)
+        pkey = self._payload_key(name)
+        self._plan[pkey] = codec.nbytes(tuple(x.shape[1:]), x.dtype)
+        self._n_payloads += 1
+        if isinstance(codec, IdentityCodec):
+            return x  # the same object: no change to the round
+        u = self._noise(codec, self._n_payloads, x)
+        if not (ef_eligible and self._config.ef_for(name)):
+            return codec.roundtrip(x, u)
+        mem = self.memory_out.get(pkey)
+        if mem is None:  # the payload's first uplink: zero memory
+            mem = feedback.init_memory({pkey: x})[pkey]
+        if ef_reset is not None:
+            # basis rotated: compensate from a zeroed memory this round
+            mem = mem * (1.0 - float(ef_reset))
+        decoded, mem_new = feedback.compensate(
+            codec, u, x, mem, variant=self._config.ef_variant)
+        # dropped clients never ran the round: their rows keep the
+        # (post-reset) memory
+        self.memory_out[pkey] = self.where_delivered(mem_new, mem)
+        return decoded
+
+    def downlink(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """Route a server broadcast (no client axis) through its
+        ``"down:<name>"`` codec: encoded once, billed ``nbytes`` per
+        receiving client. No error feedback applies."""
+        codec = self._config.codec_for(f"{DOWN}{name}")
+        pkey = self._payload_key(f"{DOWN}{name}")
+        self._plan[pkey] = codec.nbytes(tuple(x.shape), x.dtype)
+        self._n_down += 1
+        if isinstance(codec, IdentityCodec):
+            return x
+        one = x.unsqueeze(0)
+        u = self._noise(codec, _DOWNLINK_KEY_STREAM + self._n_down, one)
+        return codec.roundtrip(one, u)[0]
+
+    def weights(self, p: torch.Tensor) -> torch.Tensor:
+        """Aggregation weights restricted to the delivering cohort."""
+        if self.mask is None:
+            return p
+        pm = p * self.mask
+        return pm / torch.sum(pm)
+
+    def where_delivered(self, new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+        """Per-client update gate: non-delivering clients keep ``old``.
+        The leading axis is the client axis."""
+        if self.mask is None:
+            return new
+        shape = (-1,) + (1,) * (new.ndim - 1)
+        return torch.where(self.mask.reshape(shape) > 0, new, old)
 
 
 class _NullComm:
     """No-transport stand-in: uplinks, downlinks and weights are the
-    identity."""
+    identity, so the comm-aware code path is the only code path."""
+
+    mask = None
 
     def uplink(self, name, x, ef_eligible=True, ef_reset=None):
         return x
@@ -25,12 +289,133 @@ class _NullComm:
     def weights(self, p):
         return p
 
+    def where_delivered(self, new, old):
+        return new
+
+    @property
+    def memory_out(self):
+        return {}
+
+    @property
+    def stats_out(self):
+        return {}
+
 
 NULL_COMM = _NullComm()
 
 
-def plan_bytes(plan: "dict[str, int]", *, down: bool) -> int:
-    """Sum one direction of a payload byte plan (keys are payload
-    occurrences; downlink occurrences carry the ``"down:"`` prefix)."""
-    return int(sum(v for k, v in plan.items()
-                   if k.startswith(DOWN) == down))
+class CommSession:
+    """Host-side per-trajectory transport state for the synchronous
+    lock-step clock: ``step`` draws a cohort and channel coins, runs the
+    round, and accounts it; ``finalize`` folds the traces into the
+    ``Transport`` axes ``History`` carries."""
+
+    def __init__(self, config: CommConfig, m: int, *, keys: torch.Tensor,
+                 state0: Any, mask_dtype: torch.dtype = torch.float64,
+                 device: "str | torch.device" = "cpu"):
+        self.config = config
+        self.m = int(m)
+        self.keys = keys
+        self._state = state0
+        self._mask_dtype = mask_dtype
+        self._device = torch.device(device)
+        self._t = 0
+        # the byte plan of each round variant, filled by its first round
+        self._plans: "Dict[Any, Dict[str, int]]" = {}
+        self._variant: Any = _NO_VARIANT
+        self.traces: "list[RoundTrace]" = []
+        self.ef_memory: Dict[str, torch.Tensor] = {}
+        self._pending = None
+        # static decision: no round of this trajectory needs a mask
+        self._always_full = (config.scheduler.is_full
+                             and config.channel.dropout_prob == 0.0)
+
+    @property
+    def plan(self) -> Dict[str, int]:
+        """The byte plan of the current variant (empty before its first
+        round)."""
+        return self._plans.setdefault(self._variant, {})
+
+    @property
+    def bytes_up_per_client(self) -> int:
+        """Encoded uplink bytes per delivering client per round."""
+        return plan_bytes(self.plan, down=False)
+
+    @property
+    def bytes_down_per_client(self) -> int:
+        """Encoded broadcast bytes per scheduled client per round."""
+        return plan_bytes(self.plan, down=True)
+
+    # -- Session protocol ----------------------------------------------------
+    def begin_variant(self, sig) -> None:
+        """Announce the round variant about to run: later rounds bill its
+        byte plan (adaptive-k policies change payload sizes)."""
+        self._variant = sig
+
+    def comm_round(self, memory, mask, codec_key) -> CommRound:
+        """The transport view the round builder hands to the optimizer."""
+        return CommRound(self.config, self.plan, mask, codec_key,
+                         memory=memory, round_idx=self._t)
+
+    def step(self, round_fn) -> Any:
+        """One lock-step round: draw the cohort, execute, account."""
+        t = self._t
+        mask, ck = self.begin_round(t)
+        self._state, self.ef_memory = round_fn(
+            self._state, self.ef_memory, self.keys[t], mask, ck)
+        self.end_round()
+        self._t += 1
+        return self._state
+
+    def finalize(self) -> Transport:
+        return transport_from_traces(
+            self.traces, ef_residuals=self.ef_residual_norms())
+
+    def ef_residual_norms(self) -> "Dict[str, float]":
+        """Per-payload Frobenius norm of the current EF memory."""
+        return feedback.residual_norms(self.ef_memory)
+
+    def begin_round(self, t: int):
+        """Draw round ``t``'s cohort and channel coins. Returns ``(mask,
+        codec_key)``: ``mask`` is None on the statically full path, else
+        the (m,) delivery mask on the device."""
+        k_sched = key_from_ints(self.config.seed, t, _SCHED_STREAM)
+        k_chan = key_from_ints(self.config.seed, t, _CHAN_STREAM)
+        k_codec = key_from_ints(self.config.seed, t, _CODEC_STREAM)
+        chan = self.config.channel
+        scheduled = self.config.scheduler.participants(k_sched, t, self.m,
+                                                       chan)
+        draw = chan.draw(k_chan, self.m)
+        delivered = scheduled & ~draw.dropout
+        if scheduled.any() and not delivered.any():
+            # every scheduled client dropped: the server re-polls the
+            # lowest-index scheduled one so the weights stay defined
+            delivered = np.zeros_like(scheduled)
+            delivered[int(np.argmax(scheduled))] = True
+        self._pending = (t, scheduled, delivered, draw)
+        if self._always_full:
+            return None, k_codec
+        mask = torch.as_tensor(delivered, dtype=self._mask_dtype)
+        return mask.to(self._device), k_codec
+
+    def end_round(self) -> RoundTrace:
+        """Account the round just executed from the variant's byte plan,
+        both directions."""
+        t, scheduled, delivered, draw = self._pending
+        bytes_up = float(self.bytes_up_per_client) * delivered.astype(np.float64)
+        bytes_down = (float(self.bytes_down_per_client)
+                      * scheduled.astype(np.float64))
+        sim = self.config.channel.round_time(draw, delivered, bytes_up,
+                                             bytes_down)
+        trace = RoundTrace(
+            round=t,
+            scheduled=scheduled,
+            delivered=delivered,
+            straggler=draw.straggler & delivered,
+            bytes_up=bytes_up,
+            bytes_down=bytes_down,
+            sim_time_s=sim,
+        )
+        self.traces.append(trace)
+        self._pending = None
+        return trace

@@ -1,4 +1,4 @@
-"""The ``Session`` protocol of the round loop, for the no-transport path.
+"""The ``Session`` protocol of the round loop.
 
 Counterpart of ``repro.comm.session``. ``run_rounds`` drives every
 session the same way:
@@ -6,12 +6,17 @@ session the same way:
   * ``begin_variant(sig)`` — announce the static round variant about to
       execute (``FederatedOptimizer.round_signature``; adaptive-k sketch
       policies change payload sizes mid-trajectory);
+  * ``comm_round(memory, mask, codec_key)`` — the transport view the
+      optimizer's round receives (``CommRound``, or a no-op view on the
+      no-transport path);
   * ``step(round_fn)`` — advance one round and return the new optimizer
-      state; ``round_fn(state, key, comm) -> state``;
+      state; ``round_fn(state, memory, key, mask, codec_key) -> (state,
+      memory)`` is the one round function every session shares;
   * ``finalize() -> Transport`` — the transport axes for ``History``.
 
-Only ``comm=None`` is ported in this slice: ``make_session`` raises for
-any transport configuration.
+``make_session`` resolves ``comm=None`` to ``NullSession`` and a
+synchronous ``CommConfig`` to ``CommSession``; the asynchronous driver
+and client populations come with a later slice.
 """
 from __future__ import annotations
 
@@ -21,7 +26,14 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.comm.config import DOWN, NULL_COMM, _NullComm, plan_bytes
+from repro_torch.comm.config import (
+    DOWN,
+    NULL_COMM,
+    CommConfig,
+    CommSession,
+    _NullComm,
+    plan_bytes,
+)
 from repro_torch.comm.metrics import Transport
 
 
@@ -29,6 +41,9 @@ class Session:
     """Protocol base for round sessions (see module docstring)."""
 
     def begin_variant(self, sig) -> None:
+        raise NotImplementedError
+
+    def comm_round(self, memory, mask, codec_key):
         raise NotImplementedError
 
     def step(self, round_fn) -> Any:
@@ -80,21 +95,26 @@ class NullSession(Session):
         self.m = int(m)
         self._plans: "dict[Any, dict[str, int]]" = {}
         self._sig = None
+        self._view = NULL_COMM
         self._per_round: "list[float]" = []
         self._t = 0
 
     def begin_variant(self, sig) -> None:
         self._sig = sig
 
+    def comm_round(self, memory, mask, codec_key):
+        return self._view
+
     def step(self, round_fn) -> Any:
         key = self.keys[self._t]
         plan = self._plans.get(self._sig)
         if plan is None:
-            recorder = _PlanRecorder()
-            self._state = round_fn(self._state, key, recorder)
-            plan = self._plans[self._sig] = recorder.plan
+            self._view = _PlanRecorder()
+            self._state, _ = round_fn(self._state, {}, key, None, None)
+            plan = self._plans[self._sig] = self._view.plan
+            self._view = NULL_COMM
         else:
-            self._state = round_fn(self._state, key, NULL_COMM)
+            self._state, _ = round_fn(self._state, {}, key, None, None)
         per_client = plan_bytes(plan, down=False) + plan_bytes(plan, down=True)
         self._per_round.append(float(per_client * self.m))
         self._t += 1
@@ -108,13 +128,22 @@ class NullSession(Session):
         )
 
 
-def make_session(comm, *, m: int, keys: torch.Tensor, state0) -> Session:
-    """Resolve the transport configuration to its session. Only
-    ``comm=None`` exists in this slice of the port."""
-    if comm is not None:
+def make_session(comm, *, m: int, keys: torch.Tensor, state0,
+                 mask_dtype: torch.dtype = torch.float64,
+                 device: "str | torch.device" = "cpu",
+                 population=None) -> Session:
+    """Resolve the transport configuration to its session: ``None`` is
+    the no-transport ``NullSession``, a ``CommConfig`` (synchronous: it
+    refuses ``async_mode=True`` itself) the lock-step ``CommSession``.
+    Client populations come with the async-and-populations slice."""
+    if population is not None:
         raise NotImplementedError(
-            "repro_torch runs only comm=None so far: the synchronous "
-            "transport (CommConfig, codecs, CommSession) comes with the "
-            "sync-transport slice, the asynchronous sessions with the "
-            "populations slice")
-    return NullSession(keys, state0, m)
+            "client populations come with the async-and-populations slice "
+            "of repro_torch")
+    if comm is None:
+        return NullSession(keys, state0, m)
+    if not isinstance(comm, CommConfig):
+        raise TypeError(f"comm must be a repro_torch CommConfig or None, "
+                        f"got {type(comm).__name__}")
+    return CommSession(comm, m, keys=keys, state0=state0,
+                       mask_dtype=mask_dtype, device=device)

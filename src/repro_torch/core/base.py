@@ -8,12 +8,18 @@ Counterpart of ``repro.core.base``. Every algorithm implements
       through ``comm.weights``; ``comm=None`` is the no-transport path)
   * ``uplink_floats(problem)`` / ``downlink_floats(problem)``.
 
-Keys. JAX's threefry keys become two pieces: ``root_key`` mints a
-``torch.Generator`` on the device from an integer seed, and a *key* is
-one round's seed material, an int32 tensor of shape (2,) on the host
-(8 bytes, the size of a JAX ``uint32[2]`` key, so the ``seed`` broadcast
-bills the same bytes). ``split`` draws keys from a generator,
-``key_from_ints`` derives a key on the host, and
+``run_rounds(..., comm=CommConfig(...))`` threads the simulated
+synchronous transport (``repro_torch.comm``) through every round: codecs
+with exact encoded bytes both ways, the channel's simulated wall-clock,
+the scheduler's cohort and error feedback. The loop is the same for
+every mode: ``make_session`` resolves ``comm`` to a ``Session``.
+
+Keys. JAX's threefry keys become two pieces (``repro_torch.keys``):
+``root_key`` mints a ``torch.Generator`` on the device from an integer
+seed, and a *key* is one round's seed material, an int32 tensor of shape
+(2,) on the host (8 bytes, the size of a JAX ``uint32[2]`` key, so the
+``seed`` broadcast bills the same bytes). ``split`` draws keys from a
+generator, ``key_from_ints`` derives a key on the host, and
 ``generator`` turns a key into a generator on a device. Keys live on the
 host, so deriving the round's generator needs no device sync.
 """
@@ -29,38 +35,11 @@ import numpy as np
 import torch
 
 from repro_torch.comm import make_session
+from repro_torch.comm.metrics import RoundTrace
 from repro_torch.device import resolve_device
+from repro_torch.keys import key_bits, key_from_ints
 
 OptState = Dict[str, Any]
-
-_MASK64 = (1 << 64) - 1
-
-
-def _mix64(x: int) -> int:
-    """splitmix64's finalizer: a bijective 64-bit mix."""
-    x = (x + 0x9E3779B97F4A7C15) & _MASK64
-    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
-    return x ^ (x >> 31)
-
-
-def _key_bits(key: torch.Tensor) -> int:
-    hi, lo = (int(v) & 0xFFFFFFFF for v in key.tolist())
-    return (hi << 32) | lo
-
-
-def _key_of(bits: int) -> torch.Tensor:
-    hi, lo = bits >> 32, bits & 0xFFFFFFFF
-    words = np.array([hi, lo], dtype=np.uint32).view(np.int32)
-    return torch.from_numpy(words.copy())
-
-
-def key_from_ints(*ints: int) -> torch.Tensor:
-    """A key that is a pure function of the integers (host only)."""
-    bits = 0
-    for v in ints:
-        bits = _mix64(bits ^ (int(v) & _MASK64))
-    return _key_of(bits)
 
 
 def root_key(seed: int, *salts: int,
@@ -70,7 +49,7 @@ def root_key(seed: int, *salts: int,
     state. Extra ``salts`` give disjoint deterministic streams."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
-    gen.manual_seed(_key_bits(key_from_ints(seed, *salts)))
+    gen.manual_seed(key_bits(key_from_ints(seed, *salts)))
     return gen
 
 
@@ -81,18 +60,15 @@ def split(gen: torch.Generator, num: int) -> torch.Tensor:
     return words.to(device="cpu", dtype=torch.int32)
 
 
-def generator(key: torch.Tensor, device: "str | torch.device") -> torch.Generator:
-    """A generator on ``device`` seeded from a key."""
-    gen = torch.Generator(device=torch.device(device))
-    gen.manual_seed(_key_bits(key))
-    return gen
-
-
-def build_round(opt: "FederatedOptimizer", problem):
-    """The round closure every session drives:
-    ``_round(state, key, comm) -> state``."""
-    def _round(state, key, comm):
-        return opt.round(problem, state, key, comm=comm)
+def build_round(opt: "FederatedOptimizer", problem, session):
+    """The round function every session drives: ``_round(state, memory,
+    key, mask, codec_key) -> (state, memory_out)``. The session builds the
+    round's transport view from the EF memory, the delivery mask and the
+    codec key; without error feedback the memory stays an empty dict."""
+    def _round(state, memory, key, mask, codec_key):
+        cr = session.comm_round(memory, mask, codec_key)
+        state = opt.round(problem, state, key, comm=cr)
+        return state, cr.memory_out
     return _round
 
 
@@ -145,8 +121,8 @@ class History:
     _JSONL_SCHEMA = "repro.history/v1"
 
     def to_jsonl(self, path) -> pathlib.Path:
-        """Write this trajectory as JSONL: one ``history`` header line
-        (per-round trace lines come with the transport slice)."""
+        """Write this trajectory as JSONL: one ``history`` header line,
+        then one ``round_trace`` line per ``RoundTrace``."""
 
         def arr(a):
             if a is None:
@@ -178,11 +154,15 @@ class History:
         path.parent.mkdir(parents=True, exist_ok=True)
         with path.open("w") as f:
             f.write(json.dumps(header, allow_nan=False) + "\n")
+            for tr in self.traces or []:
+                f.write(json.dumps({"type": "round_trace", **tr.to_dict()},
+                                   allow_nan=False) + "\n")
         return path
 
     @classmethod
     def from_jsonl(cls, path) -> "History":
-        """Read a ``History`` JSONL file (``repro.history/v1``)."""
+        """Read a ``History`` JSONL file (``repro.history/v1``), with its
+        per-round ``RoundTrace`` records."""
 
         def arr(v):
             if v is None:
@@ -199,9 +179,8 @@ class History:
             raise ValueError(
                 f"{path}: schema {h.get('schema')!r} != "
                 f"{cls._JSONL_SCHEMA!r}")
-        if any(rec.get("type") == "round_trace" for rec in lines[1:]):
-            raise NotImplementedError(
-                f"{path}: round traces come with the sync-transport slice")
+        traces = [RoundTrace.from_dict(rec) for rec in lines[1:]
+                  if rec.get("type") == "round_trace"]
         return cls(
             name=h["name"],
             loss=arr(h["loss"]),
@@ -213,6 +192,7 @@ class History:
             rounds=int(h["rounds"]),
             cumulative_bytes=arr(h["cumulative_bytes"]),
             sim_time_s=arr(h["sim_time_s"]),
+            traces=traces or None,
             staleness=arr(h["staleness"]),
             clients=int(h["clients"]),
             itemsize=int(h["itemsize"]),
@@ -233,24 +213,28 @@ def run_rounds(
 ) -> History:
     """Drive ``rounds`` communication rounds and record the trajectory.
 
-    Runs on the device the problem lives on. Only ``comm=None`` (no
-    transport) and ``obs=None`` (no telemetry) exist in this slice; any
-    other value raises. The round itself never waits on the device; the
-    loop reads the loss and gradient norm back once per round.
+    Runs on the device the problem lives on. ``comm=None`` is the
+    no-transport path; a synchronous ``CommConfig`` runs every round
+    through the simulated transport, and the ``History`` then carries one
+    ``RoundTrace`` per round and the final EF memory norms. ``obs``
+    (telemetry) and client populations come with later slices and raise.
+    The round itself never waits on the device; the loop reads the loss
+    and gradient norm back once per round.
     """
     if obs is not None:
         raise NotImplementedError(
             "telemetry (obs=) comes with the observability slice")
     if getattr(problem, "is_population", False):
         raise NotImplementedError(
-            "client populations come with the populations slice")
+            "client populations come with the async-and-populations slice")
     m = problem.m
     itemsize = problem.X.element_size()
-    loss_star = float(problem.global_value(w_star))
     state = opt.init(problem, w0)
     keys = split(root_key(seed, device=problem.X.device), rounds)
-    session = make_session(comm, m=m, keys=keys, state0=state)
-    _round = build_round(opt, problem)
+    session = make_session(comm, m=m, keys=keys, state0=state,
+                           mask_dtype=problem.X.dtype, device=problem.X.device)
+    loss_star = float(problem.global_value(w_star))
+    _round = build_round(opt, problem, session)
 
     def grad_norm(w):
         return float(torch.linalg.vector_norm(problem.global_grad(w)))
@@ -281,6 +265,9 @@ def run_rounds(
         rounds=rounds,
         cumulative_bytes=transport.cumulative_bytes,
         sim_time_s=transport.sim_time_s,
+        traces=transport.traces,
+        staleness=transport.staleness,
         clients=m,
         itemsize=itemsize,
+        ef_residuals=transport.ef_residuals,
     )

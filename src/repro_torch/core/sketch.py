@@ -20,8 +20,8 @@ import dataclasses
 
 import torch
 
-from repro_torch.core.base import generator
 from repro_torch.device import resolve_device
+from repro_torch.keys import generator
 from repro_torch.kernels import ops as kops
 
 

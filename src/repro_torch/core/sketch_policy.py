@@ -33,8 +33,8 @@ import math
 
 import torch
 
-from repro_torch.core.base import key_from_ints
 from repro_torch.core.sketch import Sketch, effective_dimension, make_sketch
+from repro_torch.keys import key_from_ints
 
 KINDS = ("srht", "gaussian", "sjlt")
 SCHEDULES = ("fresh", "fixed", "rotate")

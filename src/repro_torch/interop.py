@@ -60,3 +60,15 @@ def state_from_numpy(state: dict, device: "str | torch.device" = "cuda") -> dict
         out[name] = (int(np.asarray(v)) if name == "t"
                      else torch.tensor(np.asarray(v), device=dev))
     return out
+
+
+def transport_state_from_numpy(state: dict, ef_memory: dict,
+                               device: "str | torch.device" = "cuda"
+                               ) -> "tuple[dict, dict]":
+    """A mid-trajectory (optimizer state, EF memory) pair for a
+    ``CommSession``: the state as ``state_from_numpy`` makes it, and each
+    payload's stacked (m, ...) memory as a tensor on ``device``."""
+    dev = resolve_device(device)
+    memory = {name: torch.tensor(np.asarray(v), device=dev)
+              for name, v in ef_memory.items()}
+    return state_from_numpy(state, device=dev), memory

@@ -34,15 +34,29 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _D = ctypes.c_double
 
-# C entry point -> argument types (every pointer and the stream as
-# c_void_p; all return cudaError_t as int)
+# source stem -> C entry point -> argument types (every pointer and the
+# stream as c_void_p; all return cudaError_t as int)
+_SRHT = (_P, _P, _P, _P, _LL, _I, _I, _I, _D, _D, _P)
+_SRHT_LARGE = (_P, _P, _P, _P, _P, _LL, _I, _I, _I, _D, _D, _P)
 SIGNATURES = {
-    "repro_fwht_f32": (_P, _P, _LL, _I, _D, _P),
-    "repro_fwht_f64": (_P, _P, _LL, _I, _D, _P),
-    "repro_srht_apply_f32": (_P, _P, _P, _P, _LL, _I, _I, _I, _D, _D, _P),
-    "repro_srht_apply_f64": (_P, _P, _P, _P, _LL, _I, _I, _I, _D, _D, _P),
-    "repro_srht_apply_t_f32": (_P, _P, _P, _P, _LL, _I, _I, _I, _D, _D, _P),
-    "repro_srht_apply_t_f64": (_P, _P, _P, _P, _LL, _I, _I, _I, _D, _D, _P),
+    "srht": {
+        "repro_fwht_f32": (_P, _P, _LL, _I, _D, _P),
+        "repro_fwht_f64": (_P, _P, _LL, _I, _D, _P),
+        "repro_srht_apply_f32": _SRHT,
+        "repro_srht_apply_f64": _SRHT,
+        "repro_srht_apply_t_f32": _SRHT,
+        "repro_srht_apply_t_f64": _SRHT,
+        "repro_srht_apply_large_f32": _SRHT_LARGE,
+        "repro_srht_apply_large_f64": _SRHT_LARGE,
+        "repro_srht_apply_t_large_f32": _SRHT_LARGE,
+        "repro_srht_apply_t_large_f64": _SRHT_LARGE,
+    },
+    "codec": {
+        "repro_topk_mask_f32": (_P, _P, _LL, _LL, _LL, _P),
+        "repro_topk_mask_f64": (_P, _P, _LL, _LL, _LL, _P),
+        "repro_qint8_roundtrip_f32": (_P, _P, _P, _LL, _LL, _D, _P),
+        "repro_qint8_roundtrip_f64": (_P, _P, _P, _LL, _LL, _D, _P),
+    },
 }
 
 
@@ -101,7 +115,7 @@ def library(stem: str = "srht") -> ctypes.CDLL:
     needed), with ``argtypes``/``restype`` declared for every entry."""
     build_all()
     lib = ctypes.CDLL(str(_target(CSRC / f"{stem}.cu")))
-    for name, argtypes in SIGNATURES.items():
+    for name, argtypes in SIGNATURES[stem].items():
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int

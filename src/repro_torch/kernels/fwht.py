@@ -2,7 +2,10 @@
 
 Replaces ``fwht_pallas`` (``repro/kernels/fwht.py:51``). The kernel is
 ``fwht_kernel`` in ``csrc/srht.cu``; it shares its shared-memory
-butterfly with the two SRHT kernels. The plain version is
+butterfly with the two SRHT kernels. A row longer than
+``SINGLE_PASS_N`` takes two passes (the low stages in shared-memory
+chunks, then ``fwht_strided_kernel`` along the strided axis), so any
+power-of-two length works. The plain version is
 ``repro_torch.kernels.ref.fwht``.
 """
 from __future__ import annotations
@@ -11,9 +14,10 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-# the largest transform length the kernels take: one row of n doubles
-# must fit in a block's shared memory (kMaxN in csrc/srht.cu)
-MAX_N = 1 << 14
+# the longest row the kernels transform in one pass: one row of n doubles
+# must fit in a block's shared memory (kMaxN in csrc/srht.cu); longer
+# rows take the two-pass path
+SINGLE_PASS_N = 1 << 14
 
 # launches of the kernel (incremented only where it is launched)
 LAUNCHES = {"fwht": 0}
@@ -38,10 +42,8 @@ def check_input(x: torch.Tensor, name: str) -> str:
 def check_length(n: int) -> None:
     if n < 1 or n & (n - 1):
         raise ValueError(f"FWHT length must be a power of two, got {n}")
-    if n > MAX_N:
-        raise ValueError(
-            f"transform length {n} exceeds the CUDA kernels' limit of "
-            f"{MAX_N} (one row must fit in a block's shared memory)")
+    if n >= 1 << 31:
+        raise ValueError(f"FWHT length {n} does not fit the kernels' int")
 
 
 def stream_of(x: torch.Tensor) -> int:
@@ -50,7 +52,7 @@ def stream_of(x: torch.Tensor) -> int:
 
 def fwht_cuda(x: torch.Tensor, *, normalize: bool = False) -> torch.Tensor:
     """WHT along the last axis of a CUDA tensor x (..., n), n a power of
-    two up to ``MAX_N``; bit-equal to ``ref.fwht``."""
+    two; bit-equal to ``ref.fwht``."""
     suffix = check_input(x, "x")
     n = x.shape[-1]
     check_length(n)

@@ -18,9 +18,10 @@ Selection precedence, most local wins:
   3. the ``REPRO_TORCH_KERNEL_IMPL`` environment variable,
   4. ``"auto"``.
 
-Ops: ``fwht``, ``srht_apply``, ``srht_apply_t``. The kernels are built
-only when the first ``"cuda"`` call runs. Every kernel wrapper counts
-its launches (``launch_counts``).
+Ops: ``fwht``, ``srht_apply``, ``srht_apply_t`` (the sketch),
+``topk_mask`` and ``qint8_roundtrip`` (the transport codecs). The
+kernels are built only when the first ``"cuda"`` call runs. Every kernel
+wrapper counts its launches (``launch_counts``).
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.kernels import codec as kcodec
 from repro_torch.kernels import fwht as kfwht
 from repro_torch.kernels import ref
 from repro_torch.kernels import srht as ksrht
@@ -39,7 +41,9 @@ IMPLS = ("auto", "cuda", "ref")
 _ALIASES = {"reference": "ref"}
 _CUDA = {"fwht": kfwht.fwht_cuda,
          "srht_apply": ksrht.srht_apply_cuda,
-         "srht_apply_t": ksrht.srht_apply_t_cuda}
+         "srht_apply_t": ksrht.srht_apply_t_cuda,
+         "topk_mask": kcodec.topk_mask_cuda,
+         "qint8_roundtrip": kcodec.qint8_roundtrip_cuda}
 OPS = tuple(_CUDA)
 
 _default_impl: "str | None" = None
@@ -132,12 +136,29 @@ def srht_apply_t(y: torch.Tensor, signs: torch.Tensor, rows: torch.Tensor,
     return _dispatch("srht_apply_t", impl, y)(y, signs, rows, dim)
 
 
+def topk_mask(x: torch.Tensor, kept: int, *,
+              impl: "str | None" = None) -> torch.Tensor:
+    """Keep the ``kept`` largest |x| of each payload row (last axis),
+    zero the rest; ties go to the lowest index, as ``jax.lax.top_k``."""
+    return _dispatch("topk_mask", impl, x)(x, kept)
+
+
+def qint8_roundtrip(x: torch.Tensor, u: torch.Tensor, *,
+                    impl: "str | None" = None) -> torch.Tensor:
+    """Per-row symmetric int8 quantize -> dequantize; ``u ~ U[0,1)`` (x's
+    shape) is the caller-supplied stochastic-rounding noise."""
+    return _dispatch("qint8_roundtrip", impl, x)(x, u)
+
+
+_LAUNCHES = (kfwht.LAUNCHES, ksrht.LAUNCHES, kcodec.LAUNCHES)
+
+
 def launch_counts() -> "dict[str, int]":
     """Kernel launches per op since the last ``reset_launch_counts``."""
-    return {**kfwht.LAUNCHES, **ksrht.LAUNCHES}
+    return {op: n for counts in _LAUNCHES for op, n in counts.items()}
 
 
 def reset_launch_counts() -> None:
-    for counts in (kfwht.LAUNCHES, ksrht.LAUNCHES):
+    for counts in _LAUNCHES:
         for op in counts:
             counts[op] = 0

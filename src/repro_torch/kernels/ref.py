@@ -1,10 +1,11 @@
-"""Plain PyTorch versions of the SRHT kernels' functions.
+"""Plain PyTorch versions of the kernels' functions.
 
 Each function keeps the exact op order of its JAX counterpart in
 ``repro.kernels.ref`` (butterfly stages h = 1, 2, 4, ... with pairs
 (a + b, a - b); the 1/sqrt(n) normalization computed in the input
 dtype; gather then sqrt(n/k) forward; scale, scatter, FWHT, signs,
-slice for the transpose), so results are bit-equal to it. They are the
+slice for the transpose; the codecs' top-k mask and int8 round trip in
+the input dtype), so results are bit-equal to it. They are the
 CPU path of ``repro_torch.kernels.ops`` and the oracle the CUDA kernels
 are held against on the card.
 """
@@ -102,3 +103,33 @@ def srht_apply_t(y: torch.Tensor, signs: torch.Tensor, rows: torch.Tensor,
     h = fwht(z, normalize=True)
     h = h * signs
     return h[..., :dim]
+
+
+# ---------------------------------------------------------------------------
+# Transport codec inner loops, one payload per row of (rows, P)
+# ---------------------------------------------------------------------------
+
+def topk_mask(x: torch.Tensor, kept: int) -> torch.Tensor:
+    """Keep the ``kept`` largest |x| of each row (last axis), zero the
+    rest. Ties go to the lowest index, as ``jax.lax.top_k`` breaks them:
+    ``torch.topk`` documents no tie order, so the selection is a stable
+    descending sort of |x|."""
+    order = torch.sort(torch.abs(x), dim=-1, descending=True,
+                       stable=True).indices
+    idx = order[..., :kept]
+    return torch.zeros_like(x).scatter(-1, idx, torch.gather(x, -1, idx))
+
+
+def qint8_roundtrip(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Symmetric int8 quantize -> dequantize of each row (last axis) with
+    caller-supplied stochastic-rounding noise ``u ~ U[0,1)`` of x's
+    shape: scale = max(max|x| / 127, tiny), q = clip(floor(x/scale + u),
+    -127, 127), out = q * scale. ``tiny`` is the input dtype's, so an
+    all-zero row decodes to zeros, not 0/0."""
+    amax = torch.amax(torch.abs(x), dim=-1, keepdim=True)
+    # divide by a tensor on x's device: PyTorch's CUDA division by a host
+    # scalar multiplies by its reciprocal, which can differ in the last bit
+    scale = torch.clamp(amax / torch.full_like(amax, 127.0),
+                        min=torch.finfo(x.dtype).tiny)
+    q = torch.clamp(torch.floor(x / scale + u), -127, 127)
+    return q * scale

@@ -4,8 +4,11 @@ Replace ``srht_apply_pallas`` (``repro/kernels/srht.py:98``) and
 ``srht_apply_t_pallas`` (``repro/kernels/srht.py:130``). The kernels are
 ``srht_fwd_kernel`` and ``srht_t_kernel`` in ``csrc/srht.cu``: one pass
 per row (pad, sign flip, butterfly, gather) forward, and (scatter,
-butterfly, sign flip, truncate) for the transpose. The plain versions
-are ``repro_torch.kernels.ref.srht_apply``/``srht_apply_t``.
+butterfly, sign flip, truncate) for the transpose. Rows longer than
+``SINGLE_PASS_N`` go through a scratch buffer in three steps (padded and
+sign-flipped or scattered low stages, the strided high stages, then the
+gather or the sign flip and truncation). The plain versions are
+``repro_torch.kernels.ref.srht_apply``/``srht_apply_t``.
 
 ``rows`` must hold k distinct indices in [0, n), as the sketch samplers
 draw them; the kernels do not check them on the device.
@@ -17,7 +20,12 @@ import functools
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.fwht import check_input, check_length, stream_of
+from repro_torch.kernels.fwht import (
+    SINGLE_PASS_N,
+    check_input,
+    check_length,
+    stream_of,
+)
 
 # launches of each kernel (incremented only where it is launched)
 LAUNCHES = {"srht_apply": 0, "srht_apply_t": 0}
@@ -56,9 +64,16 @@ def _launch(op: str, suffix: str, x, signs, rows, out, nrows, dim, n, k):
     norm, scale = _factors(n, k, x.dtype)
     lib = _build.library()
     with torch.cuda.device(x.device):
-        err = getattr(lib, f"repro_{op}_{suffix}")(
-            x.data_ptr(), signs.data_ptr(), rows.data_ptr(), out.data_ptr(),
-            nrows, dim, n, k, norm, scale, stream_of(x))
+        if n <= SINGLE_PASS_N:
+            err = getattr(lib, f"repro_{op}_{suffix}")(
+                x.data_ptr(), signs.data_ptr(), rows.data_ptr(),
+                out.data_ptr(), nrows, dim, n, k, norm, scale, stream_of(x))
+        else:
+            scratch = torch.empty(nrows * n, dtype=x.dtype, device=x.device)
+            err = getattr(lib, f"repro_{op}_large_{suffix}")(
+                x.data_ptr(), signs.data_ptr(), rows.data_ptr(),
+                out.data_ptr(), scratch.data_ptr(), nrows, dim, n, k, norm,
+                scale, stream_of(x))
     _build.check(lib, err, op)
     LAUNCHES[op] += 1
 

@@ -237,7 +237,12 @@ def test_obs_and_comm_are_not_ported_yet(quickstart):
     (_, _, _), (tp, tw0, tw_star) = quickstart
     with pytest.raises(NotImplementedError, match="observability"):
         run_rounds(FLeNS(k=8), tp, tw0, tw_star, rounds=1, obs=object())
-    with pytest.raises(NotImplementedError, match="sync-transport"):
+    # the synchronous transport is ported; the asynchronous driver is not
+    from repro_torch.comm import CommConfig
+    with pytest.raises(NotImplementedError, match="asynchronous"):
+        run_rounds(FLeNS(k=8), tp, tw0, tw_star, rounds=1,
+                   comm=CommConfig(async_mode=True))
+    with pytest.raises(TypeError, match="CommConfig"):
         run_rounds(FLeNS(k=8), tp, tw0, tw_star, rounds=1, comm=object())
 
 

@@ -20,7 +20,9 @@ from repro_torch.kernels import ops, ref
 DTYPES = [(np.float64, torch.float64), (np.float32, torch.float32)]
 # (dim, n, k, batch): power-of-two and padded dims, batched leading axes
 CASES = [(64, 64, 32, (3,)), (18, 32, 10, (2, 5)), (100, 128, 7, (4,)),
-         (1, 1, 1, (2,)), (300, 512, 100, (2, 3))]
+         (1, 1, 1, (2,)), (300, 512, 100, (2, 3)),
+         # past the kernels' single-pass length: the two-pass path's n
+         (20000, 1 << 15, 64, (2,))]
 
 
 def _operator(rng, n, k, dt):
@@ -51,7 +53,7 @@ def test_srht_ref_bit_equal_to_jax(dt, tdt, dim, n, k, batch):
 
 
 @pytest.mark.parametrize("dt,tdt", DTYPES)
-@pytest.mark.parametrize("n", [1, 2, 32, 256])
+@pytest.mark.parametrize("n", [1, 2, 32, 256, 1 << 15])
 @pytest.mark.parametrize("normalize", [False, True])
 def test_fwht_ref_bit_equal_to_jax(dt, tdt, n, normalize):
     x = np.random.default_rng(n).standard_normal((3, 2, n)).astype(dt)
@@ -138,7 +140,7 @@ def test_registry_error_paths(monkeypatch):
     with pytest.raises(ValueError, match="unknown kernel impl"):
         ops.set_default_impl("triton")
     with pytest.raises(KeyError, match="unknown kernel op"):
-        ops.get_impl("topk_mask", "ref", x)
+        ops.get_impl("flash_attention", "ref", x)
 
 
 def test_ops_ref_path_is_the_plain_version(monkeypatch):
@@ -159,8 +161,10 @@ def test_kernel_wrapper_checks_run_before_any_build():
     x = torch.zeros(2, 8, dtype=torch.float64)
     with pytest.raises(RuntimeError, match="CUDA tensor"):
         kfwht.fwht_cuda(x)
-    with pytest.raises(ValueError, match="limit of 16384"):
-        kfwht.check_length(1 << 15)
     with pytest.raises(ValueError, match="power of two"):
         kfwht.check_length(24)
-    kfwht.check_length(kfwht.MAX_N)
+    # no length limit past one block's shared memory: longer rows take
+    # the two-pass path
+    kfwht.check_length(kfwht.SINGLE_PASS_N)
+    kfwht.check_length(1 << 15)
+    kfwht.check_length(1 << 20)
