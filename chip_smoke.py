@@ -38,7 +38,30 @@ Phases, in order; any failure raises and the script exits non-zero:
                 the plain versions on the card; bytes, simulated seconds,
                 ms per round, peak memory, and the codec kernels' times
                 beside their bounds, plain versions and library yardstick
-  9. kernels  — one JSON line naming every ported kernel
+  9. flash parity — the flash-attention kernel against its plain version
+                (ref.mha_blocked) in float32 (max abs err <= 2e-5) and
+                bfloat16 (<= 2e-2): (tq, tk) in (64, 64), (100, 100),
+                (32, 96), (1, 128), (2048, 2048) x (H, Hkv) in (4, 4),
+                (8, 1), (32, 4) x D in 64, 128, 256, then windows 1, 7,
+                512, non-causal, q_offset with a window, rows with no key
+ 10. serve    — TinyLlama-1.1B at full width and depth (22 layers, bf16,
+                random weights from seed 0) through ServingEngine
+                (max_batch 4, cache_len 4096): 8 requests, prompts of
+                100-2000 tokens (numpy seed 0), 64 new tokens each; every
+                request completes, 22 kernel launches per prefill and none
+                in decode; the last-position logits of a 2048-token prefill
+                through the kernel and the plain version within 4 bf16
+                ulps of the largest logit; prefill ms by bucket (128 to
+                2048), decode ms per step at batch 4 and its profile,
+                engine tokens/s, peak memory, and the kernel's profiled
+                share of a 2048-token prefill
+ 11. serve f32 — the same model in float32 (TF32 off): every request's
+                engine tokens equal its isolated prefill + greedy decode
+ 12. flash times — the kernel, its plain version and
+                F.scaled_dot_product_attention at (1, 2048, 32, 4, 64)
+                causal and (1, 2048, 4, 1, 256) window 512, bf16, beside
+                the bound
+ 13. kernels  — one JSON line naming every ported kernel
 
 The last line of standard output is the device record
 ``{"ok": true, "device": {...}}``; before it come the card's name and
@@ -62,10 +85,12 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import torch  # noqa: E402
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 rate, and the vector (non
-# tensor-core) rates the butterfly kernels run on
+# H100 SXM peaks (NVIDIA data sheet): HBM3 rate, the vector (non
+# tensor-core) rates the butterfly and codec kernels run on, and the
+# dense bf16 tensor-core rate that bounds attention on bf16 inputs
 MEM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {torch.float64: 34e12, torch.float32: 67e12}
+PEAK_OPS_PER_S = {torch.float64: 34e12, torch.float32: 67e12,
+                  torch.bfloat16: 989e12}
 
 SUSY = dict(n=5_000_000, dim=18, m=1000, k=10, lam=1e-3,
             spectrum_decay=1.5, label_noise=0.05)
@@ -82,8 +107,12 @@ KERNELS = {
                       replaces="src/repro/kernels/codec_kernels.py:85"),
     "qint8_roundtrip": dict(source="src/repro_torch/kernels/csrc/codec.cu",
                             replaces="src/repro/kernels/codec_kernels.py:112"),
+    "flash_attention": dict(
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:72"),
 }
 NO_CODEC = {"topk_mask": 0, "qint8_roundtrip": 0}
+NO_LM = {"flash_attention": 0}
 
 # examples/edge_clients.py: name -> (sketch, codecs, uplink bytes per
 # delivering client at k=10, M=18)
@@ -243,7 +272,7 @@ def phase_quickstart() -> dict:
     _, hist = _flens_run(problem, w0, w_star, rounds, k=QUICK["k"])
     counts = ops.launch_counts()
     want = {"fwht": 0, "srht_apply": 3 * rounds, "srht_apply_t": 2 * rounds,
-            **NO_CODEC}
+            **NO_CODEC, **NO_LM}
     check(counts == want, f"quickstart launches {counts} != {want}")
     _check_trajectory(hist, "quickstart")
     _, plain = _flens_run(problem, w0, w_star, rounds, impl="ref",
@@ -256,7 +285,7 @@ def phase_quickstart() -> dict:
                          variant="plus")
     counts_plus = ops.launch_counts()
     check(counts_plus == {"fwht": 0, "srht_apply": 4 * rounds,
-                          "srht_apply_t": 3 * rounds, **NO_CODEC},
+                          "srht_apply_t": 3 * rounds, **NO_CODEC, **NO_LM},
           f"FLeNS+ launches {counts_plus}")
     _check_trajectory(plus, "quickstart FLeNS+")
     log("[quickstart] gap " + " ".join(f"{g:.3e}" for g in hist.gap))
@@ -442,7 +471,7 @@ def phase_full_size() -> "tuple[dict, tuple]":
     hist = run_rounds(opt, problem, w0, w_star, rounds=rounds)
     counts = ops.launch_counts()
     want = {"fwht": 0, "srht_apply": 3 * rounds, "srht_apply_t": 2 * rounds,
-            **NO_CODEC}
+            **NO_CODEC, **NO_LM}
     check(counts == want, f"full-size launches {counts} != {want}")
     _check_trajectory(hist, "full size")
 
@@ -785,7 +814,7 @@ def phase_transport(problem, w0, w_star) -> dict:
         counts = ops.launch_counts()
         peak = torch.cuda.max_memory_allocated()
         want = {"fwht": 0, "srht_apply": 4 * rounds,
-                "srht_apply_t": 3 * rounds,
+                "srht_apply_t": 3 * rounds, **NO_LM,
                 **{op: n * rounds for op, n in per_round.items()}}
         check(counts == want, f"{name} launches {counts} != {want}")
         for op in NO_CODEC:
@@ -849,6 +878,428 @@ def phase_transport(problem, w0, w_star) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 9. flash parity
+# ---------------------------------------------------------------------------
+
+# the flash kernel against its plain version: (tq, tk) x (H, Hkv) x D in
+# both dtypes (q_offset = tk - tq keeps causal rows non-empty), then
+# windows, non-causal, q_offset with a window, and rows that see no key
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+FLASH_SHAPES = [(64, 64), (100, 100), (32, 96), (1, 128), (2048, 2048)]
+FLASH_HEADS = [(4, 4), (8, 1), (32, 4)]
+FLASH_EXTRA = [  # (tq, tk, H, Hkv, D, causal, window, q_offset, block_k)
+    (100, 100, 4, 4, 64, True, 1, 0, 1024),
+    (100, 100, 8, 1, 128, True, 7, 0, 1024),
+    (2048, 2048, 4, 1, 256, True, 512, 0, 1024),
+    (64, 48, 4, 4, 64, False, None, 0, 1024),
+    (48, 200, 4, 2, 64, False, 16, 70, 32),
+    (32, 96, 8, 2, 64, True, 20, 500, 1024),
+    (4, 8, 1, 1, 8, True, 2, 20, 4),  # no row sees a key
+    (64, 200, 8, 2, 64, True, 16, 300, 64),  # no row sees a key, ragged tk
+]
+
+
+def _flash_inputs(gen, b, tq, tk, h, hkv, d, dtype, dev):
+    q = torch.randn(b, tq, h, d, generator=gen, device=dev).to(dtype)
+    k = torch.randn(b, tk, hkv, d, generator=gen, device=dev).to(dtype)
+    v = torch.randn(b, tk, hkv, d, generator=gen, device=dev).to(dtype)
+    return q, k, v
+
+
+def phase_flash_parity() -> dict:
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda", 0)
+    cases = []
+    for tq, tk in FLASH_SHAPES:
+        for h, hkv in FLASH_HEADS:
+            for d in (64, 128, 256):
+                cases.append((tq, tk, h, hkv, d, True, None, tk - tq, 1024))
+    cases += FLASH_EXTRA
+    worst = {str(dt).split(".")[-1]: 0.0 for dt in FLASH_TOL}
+    rows = []
+    for dtype, tol in FLASH_TOL.items():
+        gen = torch.Generator(device=dev).manual_seed(5)
+        for tq, tk, h, hkv, d, causal, window, q_offset, block_k in cases:
+            q, k, v = _flash_inputs(gen, 2 if tq < 2048 else 1, tq, tk, h,
+                                    hkv, d, dtype, dev)
+            kw = dict(causal=causal, window=window, q_offset=q_offset,
+                      block_k=block_k)
+            got = ops.flash_attention(q, k, v, impl="cuda", **kw)
+            want = ops.flash_attention(q, k, v, impl="ref", **kw)
+            torch.cuda.synchronize()
+            err = _max_err(got.float(), want.float())
+            name = str(dtype).split(".")[-1]
+            worst[name] = max(worst[name], err)
+            label = (f"{name} tq={tq} tk={tk} H={h} Hkv={hkv} D={d} "
+                     f"causal={causal} window={window} q_offset={q_offset} "
+                     f"block_k={block_k}")
+            rows.append({"case": label, "max_abs_err": err})
+            log(f"[flash parity] {label}: max abs err {err:.3e}")
+            check(got.dtype == dtype and err <= tol,
+                  f"flash_attention {label}: kernel differs from the plain "
+                  f"version by {err:.3e} > {tol}")
+    log(f"[flash parity] {len(cases)} cases x 2 dtypes within float32 "
+        f"{FLASH_TOL[torch.float32]}, bfloat16 {FLASH_TOL[torch.bfloat16]} "
+        f"(worst {worst})")
+    return {"worst": worst, "cases": rows}
+
+
+# ---------------------------------------------------------------------------
+# 10. serve: TinyLlama-1.1B through the continuous-batching engine
+# ---------------------------------------------------------------------------
+
+SERVE = dict(arch="tinyllama-1.1b", max_batch=4, cache_len=4096, requests=8,
+             min_prompt=100, max_prompt=2000, new_tokens=64)
+BF16_ULPS = 4  # bf16 prefill logits: kernel vs plain within 4 ulps of max|logit|
+F32_LOGIT_TOL = 1e-3
+
+
+def _serve_requests(vocab: int):
+    import numpy as np
+    from repro_torch.serving import Request
+
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(SERVE["min_prompt"], SERVE["max_prompt"] + 1,
+                           SERVE["requests"])
+    return [Request(uid=i, prompt=[int(t) for t in
+                                   rng.integers(0, vocab, int(n))],
+                    max_new_tokens=SERVE["new_tokens"])
+            for i, n in enumerate(lengths)]
+
+
+def _serve_model(dtype):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.base import root_key
+    from repro_torch.models.lm import LM
+
+    cfg = dataclasses.replace(get_config(SERVE["arch"]), dtype=dtype,
+                              param_dtype=dtype)
+    model = LM(cfg)
+    t0 = time.perf_counter()
+    params = model.init(root_key(0, device=torch.device("cuda", 0)))
+    torch.cuda.synchronize()
+    return cfg, model, params, time.perf_counter() - t0
+
+
+def _run_engine(model, params, reqs) -> dict:
+    from repro_torch.kernels import ops
+    from repro_torch.serving import ServingEngine
+
+    engine = ServingEngine(model, params, max_batch=SERVE["max_batch"],
+                           cache_len=SERVE["cache_len"])
+    for r in reqs:
+        engine.submit(r)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    steps = 0
+    while engine.queue or engine.active.any():
+        engine.step()
+        steps += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    check(all(r.done for r in reqs), "serve: a request did not complete")
+    generated = sum(len(r.generated) for r in reqs)
+    return {"engine": engine, "launches": counts, "wall_s": wall,
+            "steps": steps, "generated_tokens": generated,
+            "tokens_per_s": generated / wall}
+
+
+def _prefill_logits(model, params, tokens, impl=None):
+    from repro_torch.kernels import ops
+
+    with ops.use_impl(impl):
+        logits, _ = model.prefill(params, {"inputs": tokens},
+                                  cache_len=tokens.shape[1])
+    return logits.float()
+
+
+def _prefill_profile(model, params, tokens) -> dict:
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.prefill(params, {"inputs": tokens}, cache_len=tokens.shape[1])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [(e.key, e.self_device_time_total, e.count)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy = sum(t for _, t, _ in kernels)
+    flash = sum(t for name, t, _ in kernels if "flash_attention_kernel" in name)
+    top = sorted(kernels, key=lambda r: -r[1])[:8]
+    return {"wall_us": wall_us, "device_busy_us": busy, "flash_us": flash,
+            "flash_share_of_device": flash / busy if busy else 0.0,
+            "flash_share_of_wall": flash / wall_us,
+            "top": [{"kernel": n[:90], "us": t, "launches": c}
+                    for n, t, c in top]}
+
+
+def phase_serve() -> dict:
+    """TinyLlama-1.1B at full width and depth in bf16 (random weights from
+    seed 0): 8 requests through the engine, prefill by bucket, decode at
+    batch 4, the kernel against the plain version on a 2048-token prefill,
+    and a profile of that prefill."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import _bucket
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.empty_cache()
+    cfg, model, params, init_s = _serve_model(torch.bfloat16)
+    L = cfg.n_layers
+    gen = torch.Generator(device=dev).manual_seed(6)
+    out = {"arch": cfg.arch_id, "n_layers": L, "d_model": cfg.d_model,
+           "dtype": "bfloat16", "init_s": init_s}
+    with torch.no_grad():
+        # warm: first use of every matmul shape of a prefill and a decode
+        warm = torch.randint(0, cfg.vocab, (1, 128), generator=gen, device=dev)
+        model.prefill(params, {"inputs": warm}, cache_len=256)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        reqs = _serve_requests(cfg.vocab)
+        buckets = [min(_bucket(len(r.prompt)), SERVE["cache_len"])
+                   for r in reqs]
+        run = _run_engine(model, params, reqs)
+        engine = run.pop("engine")
+        peak = torch.cuda.max_memory_allocated()
+        want = {"fwht": 0, "srht_apply": 0, "srht_apply_t": 0, **NO_CODEC,
+                "flash_attention": L * len(reqs)}
+        check(run["launches"] == want,
+              f"serve launches {run['launches']} != {want} (one kernel "
+              f"launch per layer per prefill)")
+        check(all(len(r.generated) == SERVE["new_tokens"] for r in reqs),
+              "serve: a request stopped short of max_new_tokens")
+
+        # decode at batch 4 on the engine's caches: no kernel launch
+        state = engine.state
+        state["index"] = torch.tensor([2000, 1500, 1000, 500],
+                                      dtype=torch.int32, device=dev)
+        toks = torch.randint(0, cfg.vocab, (4, 1), generator=gen, device=dev)
+        ops.reset_launch_counts()
+
+        def decode():
+            nonlocal state
+            _, state = model.decode_step(params, state, toks)
+        decode_ms = _bare_ms(decode, 20)
+        check(ops.launch_counts()["flash_attention"] == 0,
+              "serve: decode launched the flash kernel")
+        decode_profile = _profile_steps(decode, 3)
+        del engine, state
+
+        # every bucket the request lengths can reach (128..2048)
+        prefill_ms = {}
+        for b in (128, 256, 512, 1024, 2048):
+            tokens = torch.randint(0, cfg.vocab, (1, b), generator=gen,
+                                   device=dev)
+            ms = _bare_ms(lambda: model.prefill(
+                params, {"inputs": tokens}, cache_len=SERVE["cache_len"]), 3)
+            prefill_ms[b] = sorted(ms)[1]
+
+        tokens = torch.randint(0, cfg.vocab, (1, 2048), generator=gen,
+                               device=dev)
+        got = _prefill_logits(model, params, tokens)
+        want_l = _prefill_logits(model, params, tokens, impl="ref")
+        err = _max_err(got, want_l)
+        top = float(want_l.abs().max())
+        tol = BF16_ULPS * 2.0 ** (math.floor(math.log2(top)) - 7)
+        agree = bool((got.argmax(-1) == want_l.argmax(-1)).all())
+        log(f"[serve] 2048-token prefill logits, kernel vs plain: max abs "
+            f"err {err:.4e} (tolerance {tol:.4e} = {BF16_ULPS} bf16 ulps at "
+            f"max |logit| {top:.3f}); argmax equal: {agree}")
+        check(err <= tol, f"serve: prefill logits through the kernel differ "
+              f"from the plain version by {err:.4e} > {tol:.4e}")
+        profile = _prefill_profile(model, params, tokens)
+
+    out.update(run)
+    out.update({
+        "prompt_lengths": [len(r.prompt) for r in reqs], "buckets": buckets,
+        "peak_memory_bytes": peak,
+        "decode_ms_batch4": decode_ms, "decode_profile": decode_profile,
+        "prefill_ms_by_bucket": prefill_ms,
+        "prefill_tokens_per_s_by_bucket":
+            {b: b / ms * 1e3 for b, ms in prefill_ms.items()},
+        "logits_2048": {"max_abs_err": err, "tolerance": tol,
+                        "max_abs_logit": top, "argmax_equal": agree},
+        "prefill_2048_profile": profile})
+    med = sorted(decode_ms)[len(decode_ms) // 2]
+    log(f"[serve] {cfg.arch_id} bf16, {L} layers, d {cfg.d_model}: init "
+        f"{init_s:.2f} s; engine {run['generated_tokens']} tokens for "
+        f"{len(reqs)} requests (prompts {out['prompt_lengths']}) in "
+        f"{run['wall_s']:.3f} s, {run['steps']} steps, "
+        f"{run['tokens_per_s']:.1f} tokens/s; launches {run['launches']}; "
+        f"peak memory {peak / 2**30:.3f} GiB")
+    log(f"[serve] decode at batch 4: {med:.3f} ms per step median "
+        f"({min(decode_ms):.3f}..{max(decode_ms):.3f}); profile of 3 steps: "
+        f"device busy {decode_profile['busy_share']:.1%} of "
+        f"{decode_profile['wall_us'] / 3e3:.3f} ms/step")
+    for r in decode_profile["top"][:6]:
+        log(f"[serve]   {r['us_per_round']:9.1f} us/step x"
+            f"{r['launches_per_round']:.0f}  {r['kernel']}")
+    for b, ms in prefill_ms.items():
+        log(f"[serve] prefill {b:5d} tokens: {ms:.3f} ms "
+            f"({b / ms * 1e3:,.0f} tokens/s)")
+    log(f"[serve] profile of a 2048-token prefill: flash kernel "
+        f"{profile['flash_us'] / 1e3:.3f} ms = "
+        f"{profile['flash_share_of_device']:.1%} of device time "
+        f"({profile['device_busy_us'] / 1e3:.3f} ms), "
+        f"{profile['flash_share_of_wall']:.1%} of wall "
+        f"({profile['wall_us'] / 1e3:.3f} ms)")
+    for r in profile["top"]:
+        log(f"[serve]   {r['us']:10.1f} us x{r['launches']:<4d} {r['kernel']}")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _isolated_generate(model, params, prompt, n_new):
+    """Exact-length prefill + greedy decode of one request alone; returns
+    the tokens and each step's top-2 logit margin."""
+    dev = params["embed"]["table"].device
+    toks = torch.tensor([prompt], dtype=torch.int64, device=dev)
+    logits, state = model.prefill(params, {"inputs": toks},
+                                  cache_len=SERVE["cache_len"])
+    state["index"] = torch.tensor([len(prompt)], dtype=torch.int32,
+                                  device=dev)
+    out, margins = [], []
+    for step in range(n_new):
+        if step:
+            logits, state = model.decode_step(
+                params, state, torch.tensor([[out[-1]]], device=dev))
+        top2 = torch.topk(logits[0].float(), 2).values
+        margins.append(float(top2[0] - top2[1]))
+        out.append(int(torch.argmax(logits[0])))
+    return out, margins
+
+
+def phase_serve_f32() -> dict:
+    """The same model in float32 (TF32 off): the engine's tokens equal each
+    request's isolated prefill + greedy decode, token for token."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.empty_cache()
+    cfg, model, params, init_s = _serve_model(torch.float32)
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        reqs = _serve_requests(cfg.vocab)
+        run = _run_engine(model, params, reqs)
+        run.pop("engine")
+        peak = torch.cuda.max_memory_allocated()
+        check(run["launches"]["flash_attention"] == cfg.n_layers * len(reqs),
+              f"serve f32 launches {run['launches']}")
+        min_margin = math.inf
+        for r in reqs:
+            want, margins = _isolated_generate(model, params, r.prompt,
+                                               r.max_new_tokens)
+            min_margin = min(min_margin, min(margins))
+            if r.generated != want:
+                step = next(i for i, (a, b) in enumerate(zip(r.generated,
+                                                             want)) if a != b)
+                raise SmokeFailure(
+                    f"serve f32: request {r.uid} (prompt {len(r.prompt)}) "
+                    f"differs from its isolated generation at step {step}: "
+                    f"engine {r.generated[step]} vs isolated {want[step]}, "
+                    f"top-2 margin there {margins[step]:.3e}")
+        gen = torch.Generator(device=dev).manual_seed(7)
+        tokens = torch.randint(0, cfg.vocab, (1, 2048), generator=gen,
+                               device=dev)
+        err = _max_err(_prefill_logits(model, params, tokens),
+                       _prefill_logits(model, params, tokens, impl="ref"))
+        check(err <= F32_LOGIT_TOL, f"serve f32: prefill logits through the "
+              f"kernel differ from the plain version by {err:.3e}")
+    log(f"[serve f32] {len(reqs)} requests x {SERVE['new_tokens']} tokens: "
+        f"engine == isolated prefill + greedy decode, token for token "
+        f"(smallest top-2 margin {min_margin:.3e}); engine "
+        f"{run['tokens_per_s']:.1f} tokens/s in {run['wall_s']:.3f} s; "
+        f"2048-token prefill logits kernel vs plain {err:.3e} (tolerance "
+        f"{F32_LOGIT_TOL}); peak memory {peak / 2**30:.3f} GiB; init "
+        f"{init_s:.2f} s")
+    del params
+    torch.cuda.empty_cache()
+    return {**run, "init_s": init_s, "peak_memory_bytes": peak,
+            "min_top2_margin": min_margin, "logits_2048_max_abs_err": err}
+
+
+# ---------------------------------------------------------------------------
+# 11. flash times
+# ---------------------------------------------------------------------------
+
+FLASH_TIMED = [  # (label, B, T, H, Hkv, D, window)
+    ("TinyLlama prefill (1, 2048, 32, 4, 64) bf16 causal", 1, 2048, 32, 4,
+     64, None),
+    ("gemma3-1b local (1, 2048, 4, 1, 256) bf16 window 512", 1, 2048, 4, 1,
+     256, 512),
+]
+
+
+def _visible_pairs(t: int, window) -> int:
+    """Query-key pairs a causal (windowed) self-attention of length t
+    computes."""
+    rows = torch.arange(t, dtype=torch.int64)
+    lo = (rows - window + 1).clamp(min=0) if window else torch.zeros_like(rows)
+    return int((rows - lo + 1).sum())
+
+
+def phase_flash_times() -> dict:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    out = []
+    for label, b, t, h, hkv, d, window in FLASH_TIMED:
+        q, k, v = _flash_inputs(gen, b, t, t, h, hkv, d, torch.bfloat16, dev)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        if window:
+            pos = torch.arange(t, device=dev)
+            mask = (pos[None, :] <= pos[:, None]) & (
+                pos[None, :] > pos[:, None] - window)
+
+            def lib():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        else:
+            def lib():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)
+
+        def kern():
+            return ops.flash_attention(q, k, v, window=window, impl="cuda")
+
+        def plain():
+            return ops.flash_attention(q, k, v, window=window, impl="ref")
+        item = q.element_size()
+        io = (2 * q.numel() + k.numel() + v.numel()) * item
+        flops = 4 * d * h * b * _visible_pairs(t, window)
+        bound, bound_by = _bound_ms(io, 0, flops, torch.bfloat16)
+        got = kern()
+        row = dict(shape=label, dims=[b, t, h, hkv, d], window=window,
+                   ms=_time_ms(kern, 20), plain_ms=_time_ms(plain, 5),
+                   library_ms=_time_ms(lib, 20),
+                   library="F.scaled_dot_product_attention(enable_gqa=True)",
+                   bound_ms=bound, bound_by=bound_by, gflop=flops / 1e9,
+                   max_abs_err=_max_err(got.float(), plain().float()),
+                   library_max_abs_err=_max_err(
+                       got.float(), lib().transpose(1, 2).float()))
+        out.append(row)
+        log(f"[flash times] {label}: {row['ms']:.4f} ms (bound "
+            f"{bound:.4f} by {bound_by}, {flops / 1e9:.2f} GFLOP; plain "
+            f"{row['plain_ms']:.4f}; SDPA {row['library_ms']:.4f}); max abs "
+            f"err vs plain {row['max_abs_err']:.3e}, vs SDPA "
+            f"{row['library_max_abs_err']:.3e}")
+    return {"flash_attention": out}
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     card = phase_device()
@@ -860,15 +1311,24 @@ def main() -> int:
     record["codec_parity_max_abs_err"] = phase_codec_parity()
     record["transport"] = phase_transport(*susy)
     del susy
+    torch.cuda.empty_cache()
+    record["flash_parity"] = phase_flash_parity()
+    record["serve"] = phase_serve()
+    record["serve_f32"] = phase_serve_f32()
+    record["flash_times"] = phase_flash_times()
     # launches: the SRHT kernels from the full-size comm=None run (fwht is
     # the butterfly they share and is never launched on its own there),
-    # the codec kernels from the two full-size transport runs
+    # the codec kernels from the two full-size transport runs, flash
+    # attention from the bf16 engine run of the serve phase
     launches = {**record["full_size"]["launches"],
-                **record["transport"]["launches"]}
+                **record["transport"]["launches"],
+                "flash_attention":
+                    record["serve"]["launches"]["flash_attention"]}
     timed = {**record["full_size"]["kernels"],
-             **record["transport"]["kernels"]}
+             **record["transport"]["kernels"], **record["flash_times"]}
     parity = {**record["parity_max_abs_err"],
-              **record["codec_parity_max_abs_err"]}
+              **record["codec_parity_max_abs_err"],
+              "flash_attention": max(record["flash_parity"]["worst"].values())}
     for name, err in record["long_rows"]["max_abs_err"].items():
         parity[name] = max(parity[name], err)
     kernels = []

@@ -50,6 +50,7 @@ from repro_torch.comm.channel import ChannelModel
 from repro_torch.comm.codecs import Codec, IdentityCodec, make_codec
 from repro_torch.comm.metrics import RoundTrace, Transport, transport_from_traces
 from repro_torch.comm.scheduler import Scheduler, make_scheduler
+from repro_torch.device import resolve_device
 from repro_torch.keys import generator, key_bits, key_from_ints
 
 # payload-name prefix that selects the downlink (server -> client)
@@ -312,13 +313,13 @@ class CommSession:
 
     def __init__(self, config: CommConfig, m: int, *, keys: torch.Tensor,
                  state0: Any, mask_dtype: torch.dtype = torch.float64,
-                 device: "str | torch.device" = "cpu"):
+                 device: "str | torch.device" = "cuda"):
         self.config = config
         self.m = int(m)
         self.keys = keys
         self._state = state0
         self._mask_dtype = mask_dtype
-        self._device = torch.device(device)
+        self._device = resolve_device(device)
         self._t = 0
         # the byte plan of each round variant, filled by its first round
         self._plans: "Dict[Any, Dict[str, int]]" = {}

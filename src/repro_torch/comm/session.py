@@ -130,7 +130,7 @@ class NullSession(Session):
 
 def make_session(comm, *, m: int, keys: torch.Tensor, state0,
                  mask_dtype: torch.dtype = torch.float64,
-                 device: "str | torch.device" = "cpu",
+                 device: "str | torch.device" = "cuda",
                  population=None) -> Session:
     """Resolve the transport configuration to its session: ``None`` is
     the no-transport ``NullSession``, a ``CommConfig`` (synchronous: it

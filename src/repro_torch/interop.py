@@ -1,9 +1,9 @@
 """Hand state from the JAX package to the port as numpy arrays.
 
 JAX's threefry draws cannot be reproduced with torch generators, so the
-tests that hold the port against ``repro`` build a problem, a sketch or
-an optimizer state once (in ``repro``), pass it over as numpy, and run
-both packages on the same values.
+tests that hold the port against ``repro`` build a problem, a sketch, an
+optimizer state or an LM's parameters once (in ``repro``), pass it over
+as numpy, and run both packages on the same values.
 """
 from __future__ import annotations
 
@@ -72,3 +72,21 @@ def transport_state_from_numpy(state: dict, ef_memory: dict,
     memory = {name: torch.tensor(np.asarray(v), device=dev)
               for name, v in ef_memory.items()}
     return state_from_numpy(state, device=dev), memory
+
+
+def lm_params_from_numpy(params, cfg, device: "str | torch.device" = "cuda") -> dict:
+    """An LM parameter tree for ``repro_torch.models.lm.LM`` from
+    ``repro``'s: the same nested dict of stacked (L, ...) arrays (numpy,
+    or anything ``np.asarray`` reads, bfloat16 included), each leaf a
+    tensor on ``device`` in ``cfg.param_dtype``. The port keeps the
+    reference's layout, so this is the one place a layout would change."""
+    dev = resolve_device(device)
+
+    def leaf(a):
+        if isinstance(a, dict):
+            return {name: leaf(sub) for name, sub in a.items()}
+        # through float32: numpy has no bfloat16 torch.tensor can read,
+        # and float32 holds every bfloat16 and float32 value exactly
+        arr = np.asarray(a).astype(np.float32)
+        return torch.tensor(arr, device=dev).to(cfg.param_dtype)
+    return leaf(dict(params))

@@ -1,2 +1,3 @@
 """Kernels of the port: plain versions (``ref``), the CUDA kernels'
-wrappers (``fwht``, ``srht``) and the dispatch registry (``ops``)."""
+wrappers (``fwht``, ``srht``, ``codec``, ``flash_attention``) and the
+dispatch registry (``ops``)."""

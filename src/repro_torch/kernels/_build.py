@@ -23,11 +23,14 @@ import time
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 
-# -fmad=false keeps each multiply and add separately rounded, as the
-# plain PyTorch versions round them: the kernels' results are then
-# bit-equal to those versions.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC")
+# Flags of one source beside NVCC_FLAGS. -fmad=false keeps each multiply
+# and add separately rounded, as the plain PyTorch versions round them:
+# the SRHT and codec kernels are then bit-equal to those versions. Flash
+# attention is held to a tolerance and keeps its fused multiply-adds.
+SOURCE_FLAGS = {"srht": ("-fmad=false",), "codec": ("-fmad=false",),
+                "flash_attention": ()}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,6 +41,9 @@ _D = ctypes.c_double
 # stream as c_void_p; all return cudaError_t as int)
 _SRHT = (_P, _P, _P, _P, _LL, _I, _I, _I, _D, _D, _P)
 _SRHT_LARGE = (_P, _P, _P, _P, _P, _LL, _I, _I, _I, _D, _D, _P)
+# q, k, v, o, b, tq, tk, h, hkv, d, causal, window, q_offset, scale,
+# empty_denom, stream
+_FLASH = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _D, _D, _P)
 SIGNATURES = {
     "srht": {
         "repro_fwht_f32": (_P, _P, _LL, _I, _D, _P),
@@ -57,6 +63,10 @@ SIGNATURES = {
         "repro_qint8_roundtrip_f32": (_P, _P, _P, _LL, _LL, _D, _P),
         "repro_qint8_roundtrip_f64": (_P, _P, _P, _LL, _LL, _D, _P),
     },
+    "flash_attention": {
+        "repro_flash_attention_f32": _FLASH,
+        "repro_flash_attention_bf16": _FLASH,
+    },
 }
 
 
@@ -73,9 +83,13 @@ def _nvcc() -> str:
     return found
 
 
+def _flags(src: pathlib.Path) -> tuple:
+    return NVCC_FLAGS + SOURCE_FLAGS[src.stem]
+
+
 def _target(src: pathlib.Path) -> pathlib.Path:
     digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+                            + " ".join(_flags(src)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{src.stem}_{digest}.so"
 
 
@@ -91,7 +105,7 @@ def build_all() -> "dict[str, float]":
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        cmd = [nvcc, *_flags(src), "-o", str(tmp), str(src)]
         procs[src] = (out, tmp, time.perf_counter(),
                       subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True))

@@ -19,9 +19,11 @@ Selection precedence, most local wins:
   4. ``"auto"``.
 
 Ops: ``fwht``, ``srht_apply``, ``srht_apply_t`` (the sketch),
-``topk_mask`` and ``qint8_roundtrip`` (the transport codecs). The
-kernels are built only when the first ``"cuda"`` call runs. Every kernel
-wrapper counts its launches (``launch_counts``).
+``topk_mask`` and ``qint8_roundtrip`` (the transport codecs) and
+``flash_attention`` (the LM's attention; its plain version is
+``ref.mha_blocked``). The kernels are built only when the first
+``"cuda"`` call runs. Every kernel wrapper counts its launches
+(``launch_counts``).
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ from typing import Callable
 import torch
 
 from repro_torch.kernels import codec as kcodec
+from repro_torch.kernels import flash_attention as kflash
 from repro_torch.kernels import fwht as kfwht
 from repro_torch.kernels import ref
 from repro_torch.kernels import srht as ksrht
@@ -43,7 +46,11 @@ _CUDA = {"fwht": kfwht.fwht_cuda,
          "srht_apply": ksrht.srht_apply_cuda,
          "srht_apply_t": ksrht.srht_apply_t_cuda,
          "topk_mask": kcodec.topk_mask_cuda,
-         "qint8_roundtrip": kcodec.qint8_roundtrip_cuda}
+         "qint8_roundtrip": kcodec.qint8_roundtrip_cuda,
+         "flash_attention": kflash.flash_attention_cuda}
+# the plain version of an op is ``ref.<op>`` unless named here (looked
+# up at call time, so a test may substitute it)
+_REF_NAMES = {"flash_attention": "mha_blocked"}
 OPS = tuple(_CUDA)
 
 _default_impl: "str | None" = None
@@ -105,7 +112,7 @@ def get_impl(op: str, impl: str, x: torch.Tensor) -> Callable:
         raise KeyError(f"unknown kernel op {op!r}; have {OPS}")
     impl = _canonical(impl)
     if impl == "ref":
-        return getattr(ref, op)
+        return getattr(ref, _REF_NAMES.get(op, op))
     if impl == "cuda":
         _require_card(op, x)
         return _CUDA[op]
@@ -150,7 +157,21 @@ def qint8_roundtrip(x: torch.Tensor, u: torch.Tensor, *,
     return _dispatch("qint8_roundtrip", impl, x)(x, u)
 
 
-_LAUNCHES = (kfwht.LAUNCHES, ksrht.LAUNCHES, kcodec.LAUNCHES)
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: "int | None" = None,
+                    q_offset: int = 0, block_q: int = 512, block_k: int = 1024,
+                    impl: "str | None" = None) -> torch.Tensor:
+    """Grouped-query attention, q (B, Tq, H, D) over k, v (B, Tk, Hkv,
+    D): causal, sliding ``window`` (``None`` or <= 0 is none) and
+    ``q_offset`` masks, online softmax in float32, output in q's dtype.
+    ``block_q``/``block_k`` are the contract's blocking (they decide only
+    the value of rows that see no key); the kernel picks its own tiles."""
+    return _dispatch("flash_attention", impl, q)(
+        q, k, v, causal=causal, window=window, q_offset=q_offset,
+        block_q=block_q, block_k=block_k)
+
+
+_LAUNCHES = (kfwht.LAUNCHES, ksrht.LAUNCHES, kcodec.LAUNCHES, kflash.LAUNCHES)
 
 
 def launch_counts() -> "dict[str, int]":

@@ -7,13 +7,16 @@ dtype; gather then sqrt(n/k) forward; scale, scatter, FWHT, signs,
 slice for the transpose; the codecs' top-k mask and int8 round trip in
 the input dtype), so results are bit-equal to it. They are the
 CPU path of ``repro_torch.kernels.ops`` and the oracle the CUDA kernels
-are held against on the card.
+are held against on the card. ``mha_blocked`` keeps the reference's
+blocking and op order too, but its sums run in PyTorch's order, so it
+matches the reference to float32 rounding, not bitwise.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 
 
 # The two scale factors follow the reference's rounding: each step is
@@ -133,3 +136,111 @@ def qint8_roundtrip(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
                         min=torch.finfo(x.dtype).tiny)
     q = torch.clamp(torch.floor(x / scale + u), -127, 127)
     return q * scale
+
+
+# ---------------------------------------------------------------------------
+# Attention: the naive oracle and the blocked online-softmax contract
+# ---------------------------------------------------------------------------
+
+MASK_VALUE = -2.0**30  # large-negative, not -inf: masked blocks stay NaN-free
+
+
+def _no_window(window) -> bool:
+    return window is None or window <= 0
+
+
+def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+        causal: bool = True, window: "int | None" = None, q_offset: int = 0,
+        scale: "float | None" = None) -> torch.Tensor:
+    """Naive grouped-query attention. q (B, Tq, H, D), k and v
+    (B, Tk, Hkv, D); ``window`` keeps the last ``window`` keys (``None``
+    is no window; unlike ``mha_blocked`` a window <= 0 is taken as
+    given); ``q_offset`` is the absolute position of q[0]. Rows with no
+    visible key return 0."""
+    b, tq, h, d = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    if h % hkv != 0:
+        raise ValueError(f"q heads ({h}) must be a multiple of kv heads "
+                         f"({hkv}) for grouped-query attention")
+    group = h // hkv
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    qf = q.float() * scale
+    kf = torch.repeat_interleave(k.float(), group, dim=2)
+    vf = torch.repeat_interleave(v.float(), group, dim=2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
+    qpos = torch.arange(tq, device=q.device)[:, None] + q_offset
+    kpos = torch.arange(tk, device=q.device)[None, :]
+    mask = torch.ones((tq, tk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    logits = torch.where(mask[None, None], logits, float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    # fully masked rows give NaN from softmax(-inf): zero them
+    probs = torch.where(torch.isnan(probs), 0.0, probs)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, vf)
+    return out.to(q.dtype)
+
+
+def mha_blocked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                causal: bool = True, window: "int | None" = None,
+                q_offset: int = 0, scale: "float | None" = None,
+                block_q: int = 512, block_k: int = 1024) -> torch.Tensor:
+    """Online-softmax blocked attention, the contract of the
+    ``flash_attention`` op (``repro.kernels.ref.mha_blocked``).
+
+    q is cast to float32 and multiplied by ``scale`` before the dot;
+    masked logits are -2^30 and the running max starts at -inf; a
+    ``window`` of ``None`` or <= 0 means no window; the denominator is
+    clamped at 1e-30. A row that sees no key at all therefore returns
+    the sum of v over all ``tk`` keys divided by ``nk * block_k`` (every
+    block adds exp(0) = 1 per key, padded keys included), not 0 as
+    ``mha`` does: the op's result depends on ``block_k`` for such rows
+    only.
+    """
+    b, tq, h, d = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    group = h // hkv
+    if scale is None:
+        scale = 1.0 / (d**0.5)
+    block_q = min(block_q, tq)
+    block_k = min(block_k, tk)
+    pad_q = (-tq) % block_q
+    pad_k = (-tk) % block_k
+    qp = F.pad(q, (0, 0, 0, 0, 0, pad_q)) if pad_q else q
+    kp = F.pad(k, (0, 0, 0, 0, 0, pad_k)) if pad_k else k
+    vp = F.pad(v, (0, 0, 0, 0, 0, pad_k)) if pad_k else v
+    nq, nk = qp.shape[1] // block_q, kp.shape[1] // block_k
+
+    qf = (qp.float() * scale).reshape(b, nq, block_q, hkv, group, d)
+    qf = qf.permute(0, 1, 3, 4, 2, 5)  # (b, nq, hkv, g, bq, d)
+    kf = kp.float().reshape(b, nk, block_k, hkv, d)
+    vf = vp.float().reshape(b, nk, block_k, hkv, d)
+    dev = q.device
+    qpos = q_offset + torch.arange(nq * block_q, device=dev).reshape(nq, block_q)
+
+    acc = torch.zeros((b, nq, hkv, group, block_q, d), dtype=torch.float32,
+                      device=dev)
+    mx = torch.full((b, nq, hkv, group, block_q), float("-inf"), device=dev)
+    denom = torch.zeros((b, nq, hkv, group, block_q), device=dev)
+    for ki in range(nk):
+        kpos = ki * block_k + torch.arange(block_k, device=dev)
+        msk = (kpos < tk).expand(nq, block_q, block_k)
+        if causal:
+            msk = msk & (kpos[None, None, :] <= qpos[..., None])
+        if not _no_window(window):
+            msk = msk & (kpos[None, None, :] > qpos[..., None] - window)
+        logits = torch.einsum("bnhgqd,bshd->bnhgqs", qf, kf[:, ki])
+        logits = torch.where(msk[None, :, None, None], logits, MASK_VALUE)
+        new_mx = torch.maximum(mx, logits.amax(dim=-1))
+        alpha = torch.exp(mx - new_mx)
+        p = torch.exp(logits - new_mx[..., None])
+        denom = denom * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bnhgqs,bshd->bnhgqd",
+                                                    p, vf[:, ki])
+        mx = new_mx
+    out = acc / torch.clamp(denom[..., None], min=1e-30)
+    out = out.permute(0, 1, 4, 2, 3, 5).reshape(b, nq * block_q, h, d)
+    return out[:, :tq].to(q.dtype)

@@ -307,7 +307,8 @@ def test_one_round_from_a_reference_mid_trajectory_state(quickstart,
     topt.init(tp, torch.zeros(64, dtype=torch.float64))
     session = CommSession(tcfg, M, keys=split(root_key(SEED, device="cpu"),
                                               ROUNDS),
-                          state0=state, mask_dtype=torch.float64)
+                          state0=state, mask_dtype=torch.float64,
+                          device="cpu")
     session.ef_memory = memory
     session._t = 3
     session.begin_variant(None)
@@ -347,7 +348,7 @@ def test_identity_round_returns_the_same_objects(quickstart):
     the weights back untouched."""
     (_, _, _), (tp, _, _) = quickstart
     session = make_session(CommConfig(), m=M, keys=torch.zeros(1, 2),
-                           state0=None)
+                           state0=None, device="cpu")
     session.begin_variant(None)
     cr = session.comm_round({}, None, key_from_ints(0))
     x = torch.ones(M, 3, dtype=torch.float64)
@@ -459,6 +460,17 @@ def test_codec_and_ef_resolution_match_reference():
     assert _DOWNLINK_KEY_STREAM == J_DOWN_STREAM
 
 
+def test_sessions_default_to_the_card(monkeypatch):
+    """CommSession and make_session take device="cuda" unless told
+    otherwise, and raise without a card, as every entry point of the port."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        CommSession(CommConfig(), 2, keys=None, state0=None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_session(CommConfig(), m=2, keys=None, state0=None)
+    assert make_session(None, m=2, keys=None, state0=None) is not None
+
+
 def test_later_slices_raise():
     with pytest.raises(NotImplementedError, match="asynchronous"):
         CommConfig(async_mode=True)
@@ -562,7 +574,7 @@ def test_channel_spec_fields():
 def test_all_dropped_round_repolls_the_lowest_scheduled_client():
     cfg = CommConfig(scheduler="uniform:0.5",
                      channel=ChannelModel(dropout_prob=1.0))
-    session = CommSession(cfg, 6, keys=None, state0=None)
+    session = CommSession(cfg, 6, keys=None, state0=None, device="cpu")
     session.begin_variant(None)
     for t in range(4):
         mask, _ = session.begin_round(t)

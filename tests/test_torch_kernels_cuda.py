@@ -4,8 +4,10 @@ runs on a machine with the card and PyTorch alone:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_cuda.py
 
-The kernels are built with -fmad=false and keep the plain versions' op
-order, so they are required to be bit-equal to them.
+The SRHT and codec kernels are built with -fmad=false and keep the plain
+versions' op order, so they are required to be bit-equal to them; the
+flash-attention kernel sums in its own order and is held to a tolerance
+(float32 2e-5, bfloat16 2e-2: one to two bfloat16 ulps of the output).
 """
 import pytest
 
@@ -71,9 +73,14 @@ def test_cuda_kernels_count_launches(hopper):
     ops.topk_mask(x, 4)
     ops.qint8_roundtrip(x, torch.rand_like(x))
     ops.qint8_roundtrip(x, torch.rand_like(x), impl="ref")
+    q = torch.randn(1, 16, 4, 64, device=hopper)
+    kv = torch.randn(1, 16, 2, 64, device=hopper)
+    ops.flash_attention(q, kv, kv)
+    ops.flash_attention(q, kv, kv, impl="ref")
     assert ops.launch_counts() == {"fwht": 1, "srht_apply": 2,
                                    "srht_apply_t": 1, "topk_mask": 1,
-                                   "qint8_roundtrip": 1}
+                                   "qint8_roundtrip": 1,
+                                   "flash_attention": 1}
 
 
 @pytest.mark.gpu
@@ -145,3 +152,76 @@ def test_topk_kernel_breaks_ties_by_index(hopper):
     got = ops.topk_mask(wide, 300, impl="cuda")
     assert torch.equal((got != 0).nonzero()[:, 1].reshape(3, 300),
                        torch.arange(300, device=hopper).expand(3, 300))
+
+
+# (tq, tk, H, Hkv, D, causal, window, q_offset, block_k): the prefill
+# shapes (TinyLlama's GQA group 8, MHA, GQA 1), ragged lengths, tq != tk
+# with q_offset, windows, non-causal, head dims to 256, and rows that see
+# no key (their value depends on the contract's block_k)
+FLASH_CASES = [
+    (64, 64, 4, 4, 64, True, None, 0, 1024),
+    (100, 100, 8, 1, 128, True, None, 0, 1024),
+    (32, 96, 32, 4, 64, True, None, 64, 1024),
+    (1, 128, 8, 1, 256, True, None, 127, 1024),
+    (2048, 2048, 32, 4, 64, True, None, 0, 1024),
+    (2048, 2048, 4, 1, 256, True, 512, 0, 1024),
+    (100, 100, 4, 4, 64, True, 1, 0, 1024),
+    (100, 100, 8, 1, 112, True, 7, 0, 64),
+    (64, 48, 4, 4, 32, False, None, 0, 1024),
+    (48, 200, 4, 2, 64, False, 16, 70, 32),
+    (4, 8, 1, 1, 8, True, 2, 20, 4),
+    (64, 200, 8, 2, 64, True, 16, 300, 64),
+]
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tq,tk,h,hkv,d,causal,window,q_offset,block_k",
+                         FLASH_CASES)
+def test_flash_attention_kernel_matches_plain(hopper, tdt, tq, tk, h, hkv, d,
+                                              causal, window, q_offset,
+                                              block_k):
+    g = torch.Generator(device=hopper).manual_seed(tq + tk + d)
+    q = torch.randn(2, tq, h, d, generator=g, device=hopper).to(tdt)
+    k = torch.randn(2, tk, hkv, d, generator=g, device=hopper).to(tdt)
+    v = torch.randn(2, tk, hkv, d, generator=g, device=hopper).to(tdt)
+    kw = dict(causal=causal, window=window, q_offset=q_offset,
+              block_k=block_k)
+    got = ops.flash_attention(q, k, v, impl="cuda", **kw)
+    want = ops.flash_attention(q, k, v, impl="ref", **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == tdt and got.shape == q.shape
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= FLASH_TOL[tdt], err
+
+
+@pytest.mark.gpu
+def test_flash_attention_rows_without_keys_follow_the_contract(hopper):
+    # q_offset 20 with window 2 leaves every row of (tq 4, tk 8) without a
+    # key: the contract returns sum(v) / (nk * block_k), mha returns 0
+    q = torch.randn(1, 4, 2, 16, device=hopper)
+    kv = torch.randn(1, 8, 1, 16, device=hopper)
+    for block_k in (4, 3, 1024):
+        got = ops.flash_attention(q, kv, kv, window=2, q_offset=20,
+                                  block_k=block_k, impl="cuda")
+        bk = min(block_k, 8)
+        want = kv.sum(dim=1, keepdim=True) / (-(-8 // bk) * bk)
+        assert torch.allclose(got, want.expand_as(got), atol=2e-6)
+
+
+@pytest.mark.gpu
+def test_flash_attention_kernel_rejects_what_it_does_not_take(hopper):
+    q = torch.randn(1, 8, 4, 64, device=hopper)
+    kv = torch.randn(1, 8, 2, 64, device=hopper)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ops.flash_attention(q.double(), kv.double(), kv.double(), impl="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                            kv, kv, impl="cuda")
+    with pytest.raises(ValueError, match="multiple of kv heads"):
+        kv3 = torch.randn(1, 8, 3, 64, device=hopper)
+        ops.flash_attention(q, kv3, kv3, impl="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        big = torch.randn(1, 8, 1, 320, device=hopper)
+        ops.flash_attention(big, big, big, impl="cuda")

@@ -140,7 +140,7 @@ def test_registry_error_paths(monkeypatch):
     with pytest.raises(ValueError, match="unknown kernel impl"):
         ops.set_default_impl("triton")
     with pytest.raises(KeyError, match="unknown kernel op"):
-        ops.get_impl("flash_attention", "ref", x)
+        ops.get_impl("not_an_op", "ref", x)
 
 
 def test_ops_ref_path_is_the_plain_version(monkeypatch):
