@@ -6,7 +6,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 
   1. device   — require CUDA and compute capability 9.x; print the card's
                 name and power limit (nvidia-smi)
-  2. build    — build the CUDA kernels from src/repro_torch/kernels/csrc
+  2. build    — build the CUDA kernels from src/repro_torch/kernels/csrc;
+                print the tensor-core flash kernel's registers and spills
+                per head-dim instantiation (ptxas)
   3. parity   — hold fwht, srht_apply and srht_apply_t against their
                 plain PyTorch versions on the card, in float32 and
                 float64, at power-of-two and padded dims, batched, at the
@@ -38,30 +40,38 @@ Phases, in order; any failure raises and the script exits non-zero:
                 the plain versions on the card; bytes, simulated seconds,
                 ms per round, peak memory, and the codec kernels' times
                 beside their bounds, plain versions and library yardstick
-  9. flash parity — the flash-attention kernel against its plain version
-                (ref.mha_blocked) in float32 (max abs err <= 2e-5) and
-                bfloat16 (<= 2e-2): (tq, tk) in (64, 64), (100, 100),
-                (32, 96), (1, 128), (2048, 2048) x (H, Hkv) in (4, 4),
-                (8, 1), (32, 4) x D in 64, 128, 256, then windows 1, 7,
-                512, non-causal, q_offset with a window, rows with no key
+  9. flash parity — the flash-attention kernels against their plain
+                version (ref.mha_blocked): bfloat16 through the tensor-core
+                kernel (route sm90, max abs err <= 2e-2), float32 through
+                the SIMT kernel (route simt, <= 2e-5), each launch counted
+                on its route: (tq, tk) in (64, 64), (100, 100), (32, 96),
+                (1, 128), (2048, 2048) x (H, Hkv) in (4, 4), (8, 1),
+                (32, 4) x D in 64, 128, 256, then windows 1, 7, 128, 512
+                (D 128 and 256 at 2048), D 8 and 112, non-causal, q_offset
+                with a window, rows with no key; and a bfloat16 head dim
+                TMA cannot stride (D 12) through the SIMT kernel
  10. serve    — TinyLlama-1.1B at full width and depth (22 layers, bf16,
                 random weights from seed 0) through ServingEngine
                 (max_batch 4, cache_len 4096): 8 requests, prompts of
                 100-2000 tokens (numpy seed 0), 64 new tokens each; every
-                request completes, 22 kernel launches per prefill and none
-                in decode; the last-position logits of a 2048-token prefill
+                request completes, 22 launches of the tensor-core kernel per
+                prefill (none of the SIMT one) and none in decode; the
+                last-position logits of a 2048-token prefill
                 through the kernel and the plain version within 4 bf16
                 ulps of the largest logit; prefill ms by bucket (128 to
                 2048), decode ms per step at batch 4 and its profile,
                 engine tokens/s, peak memory, and the kernel's profiled
                 share of a 2048-token prefill
- 11. serve f32 — the same model in float32 (TF32 off): every request's
-                engine tokens equal its isolated prefill + greedy decode
- 12. flash times — the kernel, its plain version and
+ 11. serve f32 — the same model in float32 (TF32 off), 22 SIMT-kernel
+                launches per prefill: every request's engine tokens equal
+                its isolated prefill + greedy decode
+ 12. flash times — the tensor-core kernel, its plain version and
                 F.scaled_dot_product_attention at (1, 2048, 32, 4, 64)
-                causal and (1, 2048, 4, 1, 256) window 512, bf16, beside
-                the bound
- 13. kernels  — one JSON line naming every ported kernel
+                causal, (1, 2048, 4, 1, 256) window 512 and (1, 2048, 64,
+                8, 128) causal, bf16, beside the bound; the SIMT kernel at
+                (1, 2048, 32, 4, 64) causal in float32
+ 13. kernels  — one JSON line naming every ported kernel (flash
+                attention as two entries: the bf16 route and the f32 route)
 
 The last line of standard output is the device record
 ``{"ok": true, "device": {...}}``; before it come the card's name and
@@ -107,12 +117,16 @@ KERNELS = {
                       replaces="src/repro/kernels/codec_kernels.py:85"),
     "qint8_roundtrip": dict(source="src/repro_torch/kernels/csrc/codec.cu",
                             replaces="src/repro/kernels/codec_kernels.py:112"),
-    "flash_attention": dict(
+    "flash_attention_sm90": dict(
+        source="src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
+        replaces="src/repro/kernels/flash_attention.py:72"),
+    "flash_attention_simt": dict(
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:72"),
 }
 NO_CODEC = {"topk_mask": 0, "qint8_roundtrip": 0}
-NO_LM = {"flash_attention": 0}
+NO_LM = {"flash_attention": 0, "flash_attention_sm90": 0,
+         "flash_attention_simt": 0}
 
 # examples/edge_clients.py: name -> (sketch, codecs, uplink bytes per
 # delivering client at k=10, M=18)
@@ -161,7 +175,9 @@ def phase_device() -> str:
 # 2. build
 # ---------------------------------------------------------------------------
 
-def phase_build() -> float:
+def phase_build() -> dict:
+    import re
+
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
@@ -169,7 +185,24 @@ def phase_build() -> float:
     _build.library()
     total = time.perf_counter() - t0
     log(f"[build] {total:.2f} s ({per_source or 'already built'})")
-    return total
+    # ptxas -v of the tensor-core flash kernel: one entry per head-dim width
+    ptxas = {}
+    for entry in re.split(r"Compiling entry function",
+                          _build.build_log("flash_attention_sm90"))[1:]:
+        name = re.search(r"kernelILi(\d+)E", entry)
+        regs = re.search(r"Used (\d+) registers", entry)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          entry)
+        check(name and regs and spill, "build: unreadable ptxas report")
+        key = f"D{name.group(1)}"
+        ptxas[key] = {"registers": int(regs.group(1)),
+                      "spill_stores": int(spill.group(1)),
+                      "spill_loads": int(spill.group(2))}
+        log(f"[build] flash_attention_sm90_kernel {key}: {ptxas[key]}")
+    check(len(ptxas) == 3, f"build: expected 3 sm90 instantiations, got "
+          f"{sorted(ptxas)}")
+    return {"seconds": total, "per_source": per_source,
+            "flash_sm90_ptxas": ptxas}
 
 
 # ---------------------------------------------------------------------------
@@ -881,22 +914,29 @@ def phase_transport(problem, w0, w_star) -> dict:
 # 9. flash parity
 # ---------------------------------------------------------------------------
 
-# the flash kernel against its plain version: (tq, tk) x (H, Hkv) x D in
-# both dtypes (q_offset = tk - tq keeps causal rows non-empty), then
-# windows, non-causal, q_offset with a window, and rows that see no key
+# the flash kernels against their plain version: (tq, tk) x (H, Hkv) x D
+# in both dtypes (q_offset = tk - tq keeps causal rows non-empty), then
+# windows, non-causal, q_offset with a window, and rows that see no key;
+# bfloat16 takes the tensor-core kernel, float32 the SIMT kernel
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+FLASH_ROUTE = {torch.float32: "simt", torch.bfloat16: "sm90"}
 FLASH_SHAPES = [(64, 64), (100, 100), (32, 96), (1, 128), (2048, 2048)]
 FLASH_HEADS = [(4, 4), (8, 1), (32, 4)]
 FLASH_EXTRA = [  # (tq, tk, H, Hkv, D, causal, window, q_offset, block_k)
     (100, 100, 4, 4, 64, True, 1, 0, 1024),
     (100, 100, 8, 1, 128, True, 7, 0, 1024),
+    (100, 100, 8, 1, 112, True, 7, 0, 64),
     (2048, 2048, 4, 1, 256, True, 512, 0, 1024),
+    (2048, 2048, 16, 2, 128, True, 512, 0, 1024),
+    (2048, 2048, 8, 2, 256, True, 128, 0, 1024),
     (64, 48, 4, 4, 64, False, None, 0, 1024),
     (48, 200, 4, 2, 64, False, 16, 70, 32),
     (32, 96, 8, 2, 64, True, 20, 500, 1024),
     (4, 8, 1, 1, 8, True, 2, 20, 4),  # no row sees a key
     (64, 200, 8, 2, 64, True, 16, 300, 64),  # no row sees a key, ragged tk
 ]
+# a bfloat16 head dim that TMA cannot stride (d % 8 != 0): the SIMT kernel
+FLASH_SIMT_BF16 = [(100, 100, 4, 2, 12, True, None, 0, 1024)]
 
 
 def _flash_inputs(gen, b, tq, tk, h, hkv, d, dtype, dev):
@@ -916,11 +956,15 @@ def phase_flash_parity() -> dict:
             for d in (64, 128, 256):
                 cases.append((tq, tk, h, hkv, d, True, None, tk - tq, 1024))
     cases += FLASH_EXTRA
-    worst = {str(dt).split(".")[-1]: 0.0 for dt in FLASH_TOL}
+    worst = {"sm90 bfloat16": 0.0, "simt float32": 0.0, "simt bfloat16": 0.0}
     rows = []
     for dtype, tol in FLASH_TOL.items():
         gen = torch.Generator(device=dev).manual_seed(5)
-        for tq, tk, h, hkv, d, causal, window, q_offset, block_k in cases:
+        route = FLASH_ROUTE[dtype]
+        extra = FLASH_SIMT_BF16 if dtype == torch.bfloat16 else []
+        ops.reset_launch_counts()
+        for i, (tq, tk, h, hkv, d, causal, window, q_offset,
+                block_k) in enumerate(cases + extra):
             q, k, v = _flash_inputs(gen, 2 if tq < 2048 else 1, tq, tk, h,
                                     hkv, d, dtype, dev)
             kw = dict(causal=causal, window=window, q_offset=q_offset,
@@ -930,18 +974,27 @@ def phase_flash_parity() -> dict:
             torch.cuda.synchronize()
             err = _max_err(got.float(), want.float())
             name = str(dtype).split(".")[-1]
-            worst[name] = max(worst[name], err)
+            on = route if i < len(cases) else "simt"
+            worst[f"{on} {name}"] = max(worst[f"{on} {name}"], err)
             label = (f"{name} tq={tq} tk={tk} H={h} Hkv={hkv} D={d} "
                      f"causal={causal} window={window} q_offset={q_offset} "
                      f"block_k={block_k}")
-            rows.append({"case": label, "max_abs_err": err})
-            log(f"[flash parity] {label}: max abs err {err:.3e}")
+            rows.append({"case": label, "route": on, "max_abs_err": err})
+            log(f"[flash parity] {label} ({on}): max abs err {err:.3e}")
             check(got.dtype == dtype and err <= tol,
                   f"flash_attention {label}: kernel differs from the plain "
                   f"version by {err:.3e} > {tol}")
-    log(f"[flash parity] {len(cases)} cases x 2 dtypes within float32 "
-        f"{FLASH_TOL[torch.float32]}, bfloat16 {FLASH_TOL[torch.bfloat16]} "
-        f"(worst {worst})")
+        counts = ops.launch_counts()
+        other = "simt" if route == "sm90" else "sm90"
+        want_routes = {route: len(cases), other: len(extra)}
+        got_routes = {r: counts[f"flash_attention_{r}"] for r in want_routes}
+        check(got_routes == want_routes,
+              f"flash parity {name}: launches by route {got_routes} != "
+              f"{want_routes}")
+    log(f"[flash parity] {len(cases)} cases x 2 dtypes (+ "
+        f"{len(FLASH_SIMT_BF16)} bf16 on the SIMT kernel) within float32 "
+        f"{FLASH_TOL[torch.float32]}, bfloat16 {FLASH_TOL[torch.bfloat16]}; "
+        f"each on its route (worst {worst})")
     return {"worst": worst, "cases": rows}
 
 
@@ -1033,7 +1086,8 @@ def _prefill_profile(model, params, tokens) -> dict:
                if e.device_type == DeviceType.CUDA
                and e.self_device_time_total > 0]
     busy = sum(t for _, t, _ in kernels)
-    flash = sum(t for name, t, _ in kernels if "flash_attention_kernel" in name)
+    # flash_attention_sm90_kernel<...> in bf16, flash_attention_kernel<...> in f32
+    flash = sum(t for name, t, _ in kernels if "flash_attention" in name)
     top = sorted(kernels, key=lambda r: -r[1])[:8]
     return {"wall_us": wall_us, "device_busy_us": busy, "flash_us": flash,
             "flash_share_of_device": flash / busy if busy else 0.0,
@@ -1071,10 +1125,12 @@ def phase_serve() -> dict:
         engine = run.pop("engine")
         peak = torch.cuda.max_memory_allocated()
         want = {"fwht": 0, "srht_apply": 0, "srht_apply_t": 0, **NO_CODEC,
-                "flash_attention": L * len(reqs)}
+                "flash_attention": L * len(reqs),
+                "flash_attention_sm90": L * len(reqs),
+                "flash_attention_simt": 0}
         check(run["launches"] == want,
-              f"serve launches {run['launches']} != {want} (one kernel "
-              f"launch per layer per prefill)")
+              f"serve launches {run['launches']} != {want} (one launch of "
+              f"the tensor-core kernel per layer per prefill)")
         check(all(len(r.generated) == SERVE["new_tokens"] for r in reqs),
               "serve: a request stopped short of max_new_tokens")
 
@@ -1193,8 +1249,12 @@ def phase_serve_f32() -> dict:
         run = _run_engine(model, params, reqs)
         run.pop("engine")
         peak = torch.cuda.max_memory_allocated()
-        check(run["launches"]["flash_attention"] == cfg.n_layers * len(reqs),
-              f"serve f32 launches {run['launches']}")
+        n = cfg.n_layers * len(reqs)
+        got = {k: run["launches"][k] for k in NO_LM}
+        check(got == {"flash_attention": n, "flash_attention_sm90": 0,
+                      "flash_attention_simt": n},
+              f"serve f32 launches {run['launches']} (one launch of the "
+              f"SIMT kernel per layer per prefill)")
         min_margin = math.inf
         for r in reqs:
             want, margins = _isolated_generate(model, params, r.prompt,
@@ -1232,11 +1292,15 @@ def phase_serve_f32() -> dict:
 # 11. flash times
 # ---------------------------------------------------------------------------
 
-FLASH_TIMED = [  # (label, B, T, H, Hkv, D, window)
-    ("TinyLlama prefill (1, 2048, 32, 4, 64) bf16 causal", 1, 2048, 32, 4,
-     64, None),
-    ("gemma3-1b local (1, 2048, 4, 1, 256) bf16 window 512", 1, 2048, 4, 1,
-     256, 512),
+FLASH_TIMED = [  # (route, label, dtype, B, T, H, Hkv, D, window)
+    ("sm90", "TinyLlama prefill (1, 2048, 32, 4, 64) bf16 causal",
+     torch.bfloat16, 1, 2048, 32, 4, 64, None),
+    ("sm90", "gemma3-1b local (1, 2048, 4, 1, 256) bf16 window 512",
+     torch.bfloat16, 1, 2048, 4, 1, 256, 512),
+    ("sm90", "qwen1.5 heads (1, 2048, 64, 8, 128) bf16 causal",
+     torch.bfloat16, 1, 2048, 64, 8, 128, None),
+    ("simt", "TinyLlama prefill (1, 2048, 32, 4, 64) f32 causal",
+     torch.float32, 1, 2048, 32, 4, 64, None),
 ]
 
 
@@ -1248,6 +1312,23 @@ def _visible_pairs(t: int, window) -> int:
     return int((rows - lo + 1).sum())
 
 
+def _device_ms(fn, reps: int) -> float:
+    """Device time of the kernels ``fn`` launches, per call, from the
+    profiler: free of the host dispatch that back-to-back event timing
+    measures when a kernel is shorter than its launch path."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / reps / 1e3
+
+
 def phase_flash_times() -> dict:
     import torch.nn.functional as F
 
@@ -1255,9 +1336,9 @@ def phase_flash_times() -> dict:
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(8)
-    out = []
-    for label, b, t, h, hkv, d, window in FLASH_TIMED:
-        q, k, v = _flash_inputs(gen, b, t, t, h, hkv, d, torch.bfloat16, dev)
+    out = {f"flash_attention_{route}": [] for route in FLASH_ROUTE.values()}
+    for route, label, dtype, b, t, h, hkv, d, window in FLASH_TIMED:
+        q, k, v = _flash_inputs(gen, b, t, t, h, hkv, d, dtype, dev)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         if window:
             pos = torch.arange(t, device=dev)
@@ -1280,30 +1361,36 @@ def phase_flash_times() -> dict:
         item = q.element_size()
         io = (2 * q.numel() + k.numel() + v.numel()) * item
         flops = 4 * d * h * b * _visible_pairs(t, window)
-        bound, bound_by = _bound_ms(io, 0, flops, torch.bfloat16)
+        bound, bound_by = _bound_ms(io, 0, flops, dtype)
+        ops.reset_launch_counts()
         got = kern()
+        check(ops.launch_counts()[f"flash_attention_{route}"] == 1,
+              f"flash times {label}: not on the {route} kernel")
         row = dict(shape=label, dims=[b, t, h, hkv, d], window=window,
                    ms=_time_ms(kern, 20), plain_ms=_time_ms(plain, 5),
                    library_ms=_time_ms(lib, 20),
+                   device_ms=_device_ms(kern, 20),
+                   library_device_ms=_device_ms(lib, 20),
                    library="F.scaled_dot_product_attention(enable_gqa=True)",
                    bound_ms=bound, bound_by=bound_by, gflop=flops / 1e9,
                    max_abs_err=_max_err(got.float(), plain().float()),
                    library_max_abs_err=_max_err(
                        got.float(), lib().transpose(1, 2).float()))
-        out.append(row)
-        log(f"[flash times] {label}: {row['ms']:.4f} ms (bound "
-            f"{bound:.4f} by {bound_by}, {flops / 1e9:.2f} GFLOP; plain "
-            f"{row['plain_ms']:.4f}; SDPA {row['library_ms']:.4f}); max abs "
-            f"err vs plain {row['max_abs_err']:.3e}, vs SDPA "
+        out[f"flash_attention_{route}"].append(row)
+        log(f"[flash times] {label} ({route}): {row['ms']:.4f} ms, device "
+            f"{row['device_ms']:.4f} (bound {bound:.4f} by {bound_by}, "
+            f"{flops / 1e9:.2f} GFLOP; plain {row['plain_ms']:.4f}; SDPA "
+            f"{row['library_ms']:.4f}, device {row['library_device_ms']:.4f}); "
+            f"max abs err vs plain {row['max_abs_err']:.3e}, vs SDPA "
             f"{row['library_max_abs_err']:.3e}")
-    return {"flash_attention": out}
+    return out
 
 
 # ---------------------------------------------------------------------------
 
 def main() -> int:
     card = phase_device()
-    record = {"card": card, "build_s": phase_build(),
+    record = {"card": card, "build": phase_build(),
               "parity_max_abs_err": phase_parity(),
               "quickstart": phase_quickstart()}
     record["full_size"], susy = phase_full_size()
@@ -1318,17 +1405,22 @@ def main() -> int:
     record["flash_times"] = phase_flash_times()
     # launches: the SRHT kernels from the full-size comm=None run (fwht is
     # the butterfly they share and is never launched on its own there),
-    # the codec kernels from the two full-size transport runs, flash
-    # attention from the bf16 engine run of the serve phase
+    # the codec kernels from the two full-size transport runs, the
+    # tensor-core flash kernel from the bf16 engine run of the serve phase
+    # and the SIMT one from the f32 engine run
     launches = {**record["full_size"]["launches"],
                 **record["transport"]["launches"],
-                "flash_attention":
-                    record["serve"]["launches"]["flash_attention"]}
+                "flash_attention_sm90":
+                    record["serve"]["launches"]["flash_attention_sm90"],
+                "flash_attention_simt":
+                    record["serve_f32"]["launches"]["flash_attention_simt"]}
     timed = {**record["full_size"]["kernels"],
              **record["transport"]["kernels"], **record["flash_times"]}
     parity = {**record["parity_max_abs_err"],
               **record["codec_parity_max_abs_err"],
-              "flash_attention": max(record["flash_parity"]["worst"].values())}
+              **{f"flash_attention_{route}": max(
+                  e for key, e in record["flash_parity"]["worst"].items()
+                  if key.startswith(route)) for route in ("sm90", "simt")}}
     for name, err in record["long_rows"]["max_abs_err"].items():
         parity[name] = max(parity[name], err)
     kernels = []

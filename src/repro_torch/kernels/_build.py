@@ -28,9 +28,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # Flags of one source beside NVCC_FLAGS. -fmad=false keeps each multiply
 # and add separately rounded, as the plain PyTorch versions round them:
 # the SRHT and codec kernels are then bit-equal to those versions. Flash
-# attention is held to a tolerance and keeps its fused multiply-adds.
+# attention is held to a tolerance and keeps its fused multiply-adds; its
+# tensor-core kernel reports registers and spills (-Xptxas=-v, kept in the
+# build log beside the library).
 SOURCE_FLAGS = {"srht": ("-fmad=false",), "codec": ("-fmad=false",),
-                "flash_attention": ()}
+                "flash_attention": (), "flash_attention_sm90": ("-Xptxas=-v",)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -66,6 +68,9 @@ SIGNATURES = {
     "flash_attention": {
         "repro_flash_attention_f32": _FLASH,
         "repro_flash_attention_bf16": _FLASH,
+    },
+    "flash_attention_sm90": {
+        "repro_flash_attention_sm90_bf16": _FLASH,
     },
 }
 
@@ -116,11 +121,18 @@ def build_all() -> "dict[str, float]":
         if proc.returncode != 0:
             errors.append(f"{src.name}: nvcc exited {proc.returncode}\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
         seconds[src.name] = time.perf_counter() - t0
     if errors:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(errors))
     return seconds
+
+
+def build_log(stem: str) -> str:
+    """What ``nvcc`` printed when it built ``csrc/<stem>.cu``."""
+    build_all()
+    return _target(CSRC / f"{stem}.cu").with_suffix(".log").read_text()
 
 
 @functools.cache

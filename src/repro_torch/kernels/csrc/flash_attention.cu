@@ -13,13 +13,16 @@
 // cast to q's type. The KV head of q head h is h / (H / Hkv): K and V are
 // read per KV head and never expanded in memory.
 //
+// Which calls take it: float32 (the contract checks, held to 2e-5, which
+// TF32 tensor cores would break) and bfloat16 head dims that are not a
+// multiple of 8 (TMA cannot stride them). Other bfloat16 calls take the
+// tensor-core kernel of csrc/flash_attention_sm90.cu (the wrapper's
+// flash_route).
+//
 // What bounds it: operations. A causal TinyLlama prefill layer, (1, 2048,
 // 32 heads, 4 KV heads, 64), does 4 * 64 * 32 * 2048 * 2049 / 2 = 17.2
-// GFLOP on 18.9 MB of q, k, v and o: 0.0174 ms at the 989 TFLOP/s bf16
-// tensor-core peak against 0.0056 ms for the bytes at 3.35 TB/s. This
-// first design computes on the SIMT float32 units (67 TFLOP/s), with
-// no tensor cores, so it cannot come near that bound; a wgmma/TMA design
-// is a later change.
+// GFLOP: 0.2565 ms at the 67 TFLOP/s float32 SIMT peak, the units this
+// kernel computes on (no tensor cores).
 //
 // What the design does about it: one block of 256 threads per (64-row q
 // tile, q head, batch row). The q tile (scaled, float32) stays in shared

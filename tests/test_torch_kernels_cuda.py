@@ -6,8 +6,10 @@ runs on a machine with the card and PyTorch alone:
 
 The SRHT and codec kernels are built with -fmad=false and keep the plain
 versions' op order, so they are required to be bit-equal to them; the
-flash-attention kernel sums in its own order and is held to a tolerance
-(float32 2e-5, bfloat16 2e-2: one to two bfloat16 ulps of the output).
+flash-attention kernels sum in their own order and are held to a
+tolerance (float32 2e-5, bfloat16 2e-2: one to two bfloat16 ulps of the
+output). bfloat16 cases take the tensor-core kernel (route "sm90"),
+float32 cases the SIMT kernel (route "simt").
 """
 import pytest
 
@@ -80,7 +82,9 @@ def test_cuda_kernels_count_launches(hopper):
     assert ops.launch_counts() == {"fwht": 1, "srht_apply": 2,
                                    "srht_apply_t": 1, "topk_mask": 1,
                                    "qint8_roundtrip": 1,
-                                   "flash_attention": 1}
+                                   "flash_attention": 1,
+                                   "flash_attention_sm90": 0,
+                                   "flash_attention_simt": 1}
 
 
 @pytest.mark.gpu
@@ -171,6 +175,8 @@ FLASH_CASES = [
     (48, 200, 4, 2, 64, False, 16, 70, 32),
     (4, 8, 1, 1, 8, True, 2, 20, 4),
     (64, 200, 8, 2, 64, True, 16, 300, 64),
+    (2048, 2048, 16, 2, 128, True, 512, 0, 1024),
+    (2048, 2048, 8, 2, 256, True, 128, 0, 1024),
 ]
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
@@ -188,12 +194,36 @@ def test_flash_attention_kernel_matches_plain(hopper, tdt, tq, tk, h, hkv, d,
     v = torch.randn(2, tk, hkv, d, generator=g, device=hopper).to(tdt)
     kw = dict(causal=causal, window=window, q_offset=q_offset,
               block_k=block_k)
+    ops.reset_launch_counts()
     got = ops.flash_attention(q, k, v, impl="cuda", **kw)
+    route = "sm90" if tdt == torch.bfloat16 else "simt"
+    assert ops.launch_counts()[f"flash_attention_{route}"] == 1
     want = ops.flash_attention(q, k, v, impl="ref", **kw)
     torch.cuda.synchronize()
     assert got.dtype == tdt and got.shape == q.shape
     err = float((got.float() - want.float()).abs().max())
     assert err <= FLASH_TOL[tdt], err
+
+
+@pytest.mark.gpu
+def test_flash_attention_routes_count_their_launches(hopper):
+    q = torch.randn(1, 16, 4, 64, device=hopper)
+    kv = torch.randn(1, 16, 2, 64, device=hopper)
+    for dtype, route, other in ((torch.bfloat16, "sm90", "simt"),
+                                (torch.float32, "simt", "sm90")):
+        ops.reset_launch_counts()
+        ops.flash_attention(q.to(dtype), kv.to(dtype), kv.to(dtype))
+        counts = ops.launch_counts()
+        assert (counts["flash_attention"], counts[f"flash_attention_{route}"],
+                counts[f"flash_attention_{other}"]) == (1, 1, 0)
+    # a bf16 head dim TMA cannot stride (d % 8 != 0) takes the SIMT kernel
+    q12 = torch.randn(1, 16, 4, 12, device=hopper).bfloat16()
+    kv12 = torch.randn(1, 16, 2, 12, device=hopper).bfloat16()
+    ops.reset_launch_counts()
+    got = ops.flash_attention(q12, kv12, kv12, impl="cuda")
+    assert ops.launch_counts()["flash_attention_simt"] == 1
+    want = ops.flash_attention(q12, kv12, kv12, impl="ref")
+    assert float((got.float() - want.float()).abs().max()) <= 2e-2
 
 
 @pytest.mark.gpu
@@ -208,6 +238,13 @@ def test_flash_attention_rows_without_keys_follow_the_contract(hopper):
         bk = min(block_k, 8)
         want = kv.sum(dim=1, keepdim=True) / (-(-8 // bk) * bk)
         assert torch.allclose(got, want.expand_as(got), atol=2e-6)
+        # the same through the tensor-core kernel, within the bf16 limit
+        qb, kvb = q.bfloat16(), kv.bfloat16()
+        got = ops.flash_attention(qb, kvb, kvb, window=2, q_offset=20,
+                                  block_k=block_k, impl="cuda")
+        want = kvb.float().sum(dim=1, keepdim=True) / (-(-8 // bk) * bk)
+        assert torch.allclose(got.float(), want.expand_as(got), atol=2e-2,
+                              rtol=0)
 
 
 @pytest.mark.gpu
@@ -225,3 +262,7 @@ def test_flash_attention_kernel_rejects_what_it_does_not_take(hopper):
     with pytest.raises(ValueError, match="head dim"):
         big = torch.randn(1, 8, 1, 320, device=hopper)
         ops.flash_attention(big, big, big, impl="cuda")
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        flat = torch.zeros(1 + q.numel(), device=hopper).bfloat16()
+        kvb = kv.bfloat16()
+        ops.flash_attention(flat[1:].view(q.shape), kvb, kvb, impl="cuda")
