@@ -6,15 +6,17 @@ Phases, in order; any failure raises and the script exits non-zero:
 
   1. device   — require CUDA and compute capability 9.x; print the card's
                 name and power limit (nvidia-smi)
-  2. build    — build the CUDA kernels from src/repro_torch/kernels/csrc;
-                print the tensor-core flash kernel's registers and spills
-                per head-dim instantiation (ptxas)
+  2. build    — build the CUDA kernels from src/repro_torch/kernels/csrc
+                and import srht.cu's library as the extension module
+                repro_srht; print the tensor-core flash kernel's registers
+                and spills per head-dim instantiation (ptxas)
   3. parity   — hold fwht, srht_apply and srht_apply_t against their
                 plain PyTorch versions on the card, in float32 and
                 float64, at power-of-two and padded dims, batched, at the
-                quickstart and the full-size shapes: bit-equality
-                required (the kernels keep the plain versions' op order
-                and are built with -fmad=false)
+                quickstart and the full-size shapes and on both sides of
+                every route boundary (fwht.kernel_route), k = 1 and k = n:
+                bit-equality required (the kernels keep the plain
+                versions' op order and are built with -fmad=false)
   4. quickstart — FLeNS at the quickstart size (n=4000, dim=64, m=8,
                 k=32, float64, 12 rounds) through the kernels; launch
                 counts checked per round (3 srht_apply + 2 srht_apply_t,
@@ -25,6 +27,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                 for 10 rounds; gap per round, ms per round, peak memory,
                 and each kernel's time at its main-path shapes beside its
                 bound, the plain version and the library yardstick
+                (srht_apply_t also at the quickstart's shapes, fwht also at
+                (64, 2^14)); for fwht and srht_apply_t the profiler's
+                device time and the kernel that serves the shape, and for
+                srht_apply_t the host's launch path step by step (10,000
+                calls a step) beside the parent commit's way of each step
   6. long rows — fwht, srht_apply and srht_apply_t past the single-pass
                 length (n = 2^15, 2^17, 2^20) against their plain versions,
                 bit-equal; fwht timed at n = 2^17
@@ -183,6 +190,7 @@ def phase_build() -> dict:
     t0 = time.perf_counter()
     per_source = _build.build_all()
     _build.library()
+    _build.module()  # srht.cu is also the extension module repro_srht
     total = time.perf_counter() - t0
     log(f"[build] {total:.2f} s ({per_source or 'already built'})")
     # ptxas -v of the tensor-core flash kernel: one entry per head-dim width
@@ -231,6 +239,14 @@ def phase_parity() -> dict:
         (18, 32, 10, (10,)), (18, 32, 10, ()),  # the full-size shapes
         (100, 128, 7, (3, 7)), (1, 1, 1, (5,)), (5, 8, 3, (7, 9)),
         (10000, 16384, 50, (3,)),  # the largest transform
+        # both sides of each route boundary (fwht.kernel_route), k = 1 and
+        # k = n: the register transpose to n = 1024, fwht without shared
+        # memory to n = 512, with one exchange from n = 1024 to 2^14
+        (2, 2, 1, (5,)), (2, 2, 2, (5,)), (32, 32, 1, (33,)),
+        (32, 32, 32, (33,)), (64, 64, 1, (9,)), (61, 64, 64, (9,)),
+        (512, 512, 256, (5,)), (1000, 1024, 1, (3,)),
+        (1024, 1024, 1024, (3,)), (2048, 2048, 100, (2,)),
+        (16384, 16384, 1, (2,)), (16383, 16384, 16384, (2,)),
     ]
     worst = {name: 0.0 for name in ("fwht", "srht_apply", "srht_apply_t")}
     for dtype in (torch.float64, torch.float32):
@@ -353,83 +369,204 @@ def _bound_ms(read: int, written: int, ops_count: float, dtype) -> tuple:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+HOST_REPS = 10_000
+
+
+def _host_us(fn, reps: int = HOST_REPS) -> float:
+    """Host microseconds per call of fn over reps back-to-back calls."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter_ns()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps / 1e3
+
+
+def _host_path(y, signs, rows, dim, dense) -> dict:
+    """Host microseconds per call of each step of the launch path of
+    ``ops.srht_apply_t(..., impl="cuda")``, each step timed alone; beside
+    them the same steps as the parent commit took them, and the host time
+    of the library call."""
+    import ctypes
+
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import fwht as kfwht
+    from repro_torch.kernels import srht as ksrht
+
+    n, k = signs.shape[0], rows.shape[0]
+    suffix = kfwht.check_input(y, "y")
+    norm, scale = ksrht._factors(n, k, y.dtype)
+    entry = ksrht._entry("srht_apply_t", suffix, False)
+    out = y.new_empty(y.shape[:-1] + (dim,))
+    nrows = y.numel() // k
+    args = (y.data_ptr(), signs.data_ptr(), rows.data_ptr(), out.data_ptr(),
+            nrows, dim, n, k, norm, scale, kfwht.stream_of(y))
+    lib = _build.library()
+    p, i = ctypes.c_void_p, ctypes.c_int
+    by_ctypes = ctypes.CFUNCTYPE(
+        ctypes.c_int, p, p, p, p, ctypes.c_longlong, i, i, i, ctypes.c_double,
+        ctypes.c_double, p)((f"repro_srht_apply_t_{suffix}", lib))
+
+    def guard():
+        with kfwht.device_guard(y):
+            pass
+
+    def parent_guard():
+        with torch.cuda.device(y.device):
+            pass
+    path = {
+        "dispatch (resolve_impl, get_impl)":
+            lambda: ops.get_impl("srht_apply_t", ops.resolve_impl("cuda", y), y),
+        "checks (check_input, _check_operator)":
+            lambda: (kfwht.check_input(y, "y"),
+                     ksrht._check_operator(y, signs, rows, dim)),
+        "output (new_empty)": lambda: y.new_empty(out.shape),
+        "factors (_factors)": lambda: ksrht._factors(n, k, y.dtype),
+        "entry point (_entry)":
+            lambda: ksrht._entry("srht_apply_t", suffix, False),
+        "device guard (device_guard)": guard,
+        "stream (stream_of)": lambda: kfwht.stream_of(y),
+        "launch (extension call)": lambda: entry(*args),
+    }
+    parent = {
+        "capability (get_device_capability)":
+            lambda: torch.cuda.get_device_capability(y.device),
+        "operator checks by torch.device":
+            lambda: (signs.dtype != y.dtype or signs.device != y.device,
+                     rows.dtype != torch.int64 or rows.device != y.device),
+        "output (torch.empty(device=))":
+            lambda: torch.empty(out.shape, dtype=y.dtype, device=y.device),
+        "device guard (torch.cuda.device)": parent_guard,
+        "stream (current_stream().cuda_stream)":
+            lambda: torch.cuda.current_stream(y.device).cuda_stream,
+        "entry point (f-string getattr)":
+            lambda: getattr(lib, f"repro_srht_apply_t_{suffix}"),
+        "launch (ctypes call)": lambda: by_ctypes(*args),
+    }
+    steps = {name: _host_us(fn) for name, fn in path.items()}
+    return {"steps_us": steps, "steps_sum_us": sum(steps.values()),
+            "call_us": _host_us(lambda: ops.srht_apply_t(y, signs, rows, dim,
+                                                         impl="cuda")),
+            "parent_steps_us": {name: _host_us(fn)
+                                for name, fn in parent.items()},
+            "library_call_us": _host_us(lambda: torch.matmul(y, dense)),
+            "reps": HOST_REPS}
+
+
 def _kernel_timings(s, a, gs) -> dict:
     """Each kernel at its main-path shapes, beside its bound, the plain
-    version and one PyTorch call computing the same function."""
+    version and one PyTorch call computing the same function; for fwht and
+    srht_apply_t also the profiler's device time, the kernel that serves
+    the shape and, for srht_apply_t, the host path step by step."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import ref as kref
+    from repro_torch.kernels.fwht import kernel_route
 
     dtype, dev = a.dtype, a.device
     item = a.element_size()
     n, k, dim = s.signs.shape[0], s.k, s.dim
-    log_n = int(math.log2(n))
     dense = s.dense()  # (k, dim), the library yardstick's operator
     eye_k = torch.eye(k, dtype=dtype, device=dev)
     delta = torch.randn(k, dtype=dtype, device=dev)
-    op_bytes = n * item + k * 8  # signs + rows, read once
-    calls = {  # kernel -> its main-path inputs
+    # the quickstart's operator (dim 64 -> k 32, n 64) and its S^T calls
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q_signs, q_rows = _operator(gen, 64, QUICK["k"], dtype, dev)
+    q_dense = kref.srht_apply_t(torch.eye(QUICK["k"], dtype=dtype, device=dev),
+                                q_signs, q_rows, QUICK["dim"])
+    q_eye = torch.eye(QUICK["k"], dtype=dtype, device=dev)
+    q_delta = torch.randn(QUICK["k"], dtype=dtype, device=dev)
+    susy = (s.signs, s.rows, dim, dense)
+    quick = (q_signs, q_rows, QUICK["dim"], q_dense)
+    calls = {  # kernel -> its main-path inputs and operator
         "srht_apply": [
-            ("A_j (m, n_shard, M)", a),
-            ("gradients (m, M)", gs),
-            ("S^T I_k (k, M)", s.apply_t(eye_k)),
+            ("A_j (m, n_shard, M)", a, susy),
+            ("gradients (m, M)", gs, susy),
+            ("S^T I_k (k, M)", s.apply_t(eye_k), susy),
         ],
         "srht_apply_t": [
-            ("I_k (k, k)", eye_k),
-            ("delta_k (k,)", delta),
+            ("I_k (k, k)", eye_k, susy),
+            ("delta_k (k,)", delta, susy),
+            ("quickstart I_k (32, 32)", q_eye, quick),
+            ("quickstart delta_k (32,)", q_delta, quick),
         ],
     }
     out = {}
     for name, shapes in calls.items():
         rows_out = []
-        for label, x in shapes:
+        for label, x, (signs, rows, d, op) in shapes:
+            n_op, k_op = signs.shape[0], rows.shape[0]
+            log_n = int(math.log2(n_op))
+            op_bytes = n_op * item + k_op * 8  # signs + rows, read once
             rows_n = x.numel() // x.shape[-1]
             if name == "srht_apply":
-                def kern(x=x):
-                    return ops.srht_apply(x, s.signs, s.rows, impl="cuda")
+                def kern(x=x, signs=signs, rows=rows):
+                    return ops.srht_apply(x, signs, rows, impl="cuda")
 
-                def plain(x=x):
-                    return ops.srht_apply(x, s.signs, s.rows, impl="ref")
+                def plain(x=x, signs=signs, rows=rows):
+                    return ops.srht_apply(x, signs, rows, impl="ref")
 
-                def lib(x=x):
-                    return torch.matmul(x, dense.T)
-                read, written = x.numel() * item, rows_n * k * item
-                count = rows_n * (n * log_n + n + 2 * k)
+                def lib(x=x, op=op):
+                    return torch.matmul(x, op.T)
+                read, written = x.numel() * item, rows_n * k_op * item
+                count = rows_n * (n_op * log_n + n_op + 2 * k_op)
             else:
-                def kern(x=x):
-                    return ops.srht_apply_t(x, s.signs, s.rows, dim,
-                                            impl="cuda")
+                def kern(x=x, signs=signs, rows=rows, d=d):
+                    return ops.srht_apply_t(x, signs, rows, d, impl="cuda")
 
-                def plain(x=x):
-                    return ops.srht_apply_t(x, s.signs, s.rows, dim,
-                                            impl="ref")
+                def plain(x=x, signs=signs, rows=rows, d=d):
+                    return ops.srht_apply_t(x, signs, rows, d, impl="ref")
 
-                def lib(x=x):
-                    return torch.matmul(x, dense)
-                read, written = x.numel() * item, rows_n * dim * item
-                count = rows_n * (n * log_n + k + 2 * dim)
+                def lib(x=x, op=op):
+                    return torch.matmul(x, op)
+                read, written = x.numel() * item, rows_n * d * item
+                count = rows_n * (n_op * log_n + k_op + 2 * d)
             reps = 20 if x.numel() > 1_000_000 else 200
             bound, bound_by = _bound_ms(read + op_bytes, written, count, dtype)
-            rows_out.append(dict(
-                shape=label, dims=list(x.shape), ms=_time_ms(kern, reps),
+            row = dict(
+                shape=label, dims=list(x.shape), n=n_op,
+                route=kernel_route(name, n_op), ms=_time_ms(kern, reps),
                 plain_ms=_time_ms(plain, max(reps // 4, 5)),
                 library_ms=_time_ms(lib, reps), bound_ms=bound,
                 bound_by=bound_by,
-                max_abs_err=_max_err(kern(), plain())))
+                max_abs_err=_max_err(kern(), plain()))
+            if name == "srht_apply_t":
+                row.update(device_ms=_device_ms(kern, reps),
+                           library_device_ms=_device_ms(lib, reps),
+                           host_path=_host_path(x, signs, rows, d, op))
+            rows_out.append(row)
         out[name] = rows_out
     # fwht is off the main path; it is timed at the padded rows of the
-    # path's largest call, (m * n_shard, n)
-    xp = torch.randn(a.numel() // dim, n, dtype=dtype, device=dev)
-    had = kref.hadamard_matrix(n, dtype, dev)
-    bound, bound_by = _bound_ms(xp.numel() * item, xp.numel() * item,
-                                xp.shape[0] * (n * log_n + n), dtype)
-    out["fwht"] = [dict(
-        shape="padded rows of A_j (m * n_shard, n)", dims=list(xp.shape),
-        ms=_time_ms(lambda: ops.fwht(xp, normalize=True, impl="cuda"), 20),
-        plain_ms=_time_ms(lambda: ops.fwht(xp, normalize=True, impl="ref"), 5),
-        library_ms=_time_ms(lambda: torch.matmul(xp, had), 20),
-        bound_ms=bound, bound_by=bound_by,
-        max_abs_err=_max_err(ops.fwht(xp, normalize=True, impl="cuda"),
-                             ops.fwht(xp, normalize=True, impl="ref")))]
+    # path's largest call, (m * n_shard, n), and at the single-pass limit
+    out["fwht"] = []
+    for label, shape, reps in (
+            ("padded rows of A_j (m * n_shard, n)", (a.numel() // dim, n), 20),
+            ("(64, 2^14), the single-pass limit", (64, 1 << 14), 200)):
+        xp = torch.randn(shape, dtype=dtype, device=dev)
+        had = kref.hadamard_matrix(shape[1], dtype, dev)
+        log_x = int(math.log2(shape[1]))
+        bound, bound_by = _bound_ms(xp.numel() * item, xp.numel() * item,
+                                    shape[0] * (shape[1] * log_x + shape[1]),
+                                    dtype)
+
+        def kern(xp=xp):
+            return ops.fwht(xp, normalize=True, impl="cuda")
+
+        def lib(xp=xp, had=had):
+            return torch.matmul(xp, had)
+        out["fwht"].append(dict(
+            shape=label, dims=list(xp.shape), n=shape[1],
+            route=kernel_route("fwht", shape[1]), ms=_time_ms(kern, reps),
+            device_ms=_device_ms(kern, reps),
+            plain_ms=_time_ms(lambda xp=xp: ops.fwht(xp, normalize=True,
+                                                     impl="ref"), 5),
+            library_ms=_time_ms(lib, reps),
+            library_device_ms=_device_ms(lib, reps),
+            bound_ms=bound, bound_by=bound_by,
+            max_abs_err=_max_err(kern(), ops.fwht(xp, normalize=True,
+                                                  impl="ref"))))
+        del xp, had
     return out
 
 
@@ -541,9 +678,23 @@ def phase_full_size() -> "tuple[dict, tuple]":
             f"{r['launches_per_round']:.0f}  {r['kernel']}")
     for name, rows in timings.items():
         for r in rows:
-            log(f"[full] {name:<12} {r['shape']:<38} {r['ms']:.4f} ms "
-                f"(bound {r['bound_ms']:.4f} by {r['bound_by']}, plain "
-                f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f})")
+            device = (f", device {r['device_ms']:.4f} (library "
+                      f"{r['library_device_ms']:.4f})" if "device_ms" in r
+                      else "")
+            log(f"[full] {name:<12} {r['shape']:<38} {r['ms']:.4f} ms"
+                f"{device} (bound {r['bound_ms']:.4f} by {r['bound_by']}, "
+                f"plain {r['plain_ms']:.4f}, library {r['library_ms']:.4f}); "
+                f"{r['route']}")
+            if "host_path" in r:
+                hp = r["host_path"]
+                log(f"[full]   host path, us per call over {hp['reps']}: "
+                    f"whole call {hp['call_us']:.2f}, steps "
+                    f"{hp['steps_sum_us']:.2f} in all, library call "
+                    f"{hp['library_call_us']:.2f}")
+                for step, us in hp["steps_us"].items():
+                    log(f"[full]     {step:<40} {us:7.2f}")
+                for step, us in hp["parent_steps_us"].items():
+                    log(f"[full]     parent: {step:<32} {us:7.2f}")
     return ({"gap": hist.gap.tolist(), "loss": hist.loss.tolist(),
              "launches": counts, "rounds": rounds,
              "run_rounds_ms_per_round": hist.wall_time_s * 1e3 / rounds,

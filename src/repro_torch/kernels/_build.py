@@ -5,6 +5,9 @@ started together) into a shared library with a plain C interface under
 ``build/kernels/`` at the repository root, named by a hash of its
 source, so an edited source is rebuilt and an unchanged one is reused.
 A failed build raises: there is no fallback to the plain versions.
+``srht.cu`` is also a Python extension module (``module``): its launch
+entry points, called for a few rows on the main path, cost less host
+time that way than through ctypes.
 
 The toolkit is found under ``$CUDA_HOME`` (default ``/usr/local/cuda``)
 or on ``PATH``.
@@ -14,10 +17,12 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import importlib.util
 import os
 import pathlib
 import shutil
 import subprocess
+import sysconfig
 import time
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
@@ -30,8 +35,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # the SRHT and codec kernels are then bit-equal to those versions. Flash
 # attention is held to a tolerance and keeps its fused multiply-adds; its
 # tensor-core kernel reports registers and spills (-Xptxas=-v, kept in the
-# build log beside the library).
-SOURCE_FLAGS = {"srht": ("-fmad=false",), "codec": ("-fmad=false",),
+# build log beside the library). srht.cu includes the interpreter's headers.
+SOURCE_FLAGS = {"srht": ("-fmad=false", "-I", sysconfig.get_paths()["include"]),
+                "codec": ("-fmad=false",),
                 "flash_attention": (), "flash_attention_sm90": ("-Xptxas=-v",)}
 
 _P = ctypes.c_void_p
@@ -40,25 +46,13 @@ _LL = ctypes.c_longlong
 _D = ctypes.c_double
 
 # source stem -> C entry point -> argument types (every pointer and the
-# stream as c_void_p; all return cudaError_t as int)
-_SRHT = (_P, _P, _P, _P, _LL, _I, _I, _I, _D, _D, _P)
-_SRHT_LARGE = (_P, _P, _P, _P, _P, _LL, _I, _I, _I, _D, _D, _P)
+# stream as c_void_p; all return cudaError_t as int); srht.cu's entry
+# points are called through ``module``
 # q, k, v, o, b, tq, tk, h, hkv, d, causal, window, q_offset, scale,
 # empty_denom, stream
 _FLASH = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _D, _D, _P)
 SIGNATURES = {
-    "srht": {
-        "repro_fwht_f32": (_P, _P, _LL, _I, _D, _P),
-        "repro_fwht_f64": (_P, _P, _LL, _I, _D, _P),
-        "repro_srht_apply_f32": _SRHT,
-        "repro_srht_apply_f64": _SRHT,
-        "repro_srht_apply_t_f32": _SRHT,
-        "repro_srht_apply_t_f64": _SRHT,
-        "repro_srht_apply_large_f32": _SRHT_LARGE,
-        "repro_srht_apply_large_f64": _SRHT_LARGE,
-        "repro_srht_apply_t_large_f32": _SRHT_LARGE,
-        "repro_srht_apply_t_large_f64": _SRHT_LARGE,
-    },
+    "srht": {},
     "codec": {
         "repro_topk_mask_f32": (_P, _P, _LL, _LL, _LL, _P),
         "repro_topk_mask_f64": (_P, _P, _LL, _LL, _LL, _P),
@@ -148,6 +142,18 @@ def library(stem: str = "srht") -> ctypes.CDLL:
     lib.repro_error_string.argtypes = [ctypes.c_int]
     lib.repro_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def module(stem: str = "srht"):
+    """The library built from ``csrc/<stem>.cu`` (built first if needed)
+    imported as the Python extension module ``repro_<stem>``."""
+    build_all()
+    spec = importlib.util.spec_from_file_location(
+        f"repro_{stem}", _target(CSRC / f"{stem}.cu"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.fwht import check_input, stream_of
+from repro_torch.kernels.fwht import check_input, device_guard, stream_of
 
 # launches of each kernel (incremented only where it is launched)
 LAUNCHES = {"topk_mask": 0, "qint8_roundtrip": 0}
@@ -36,7 +36,7 @@ def topk_mask_cuda(x: torch.Tensor, kept: int) -> torch.Tensor:
     if rows == 0:
         return out
     lib = _build.library("codec")
-    with torch.cuda.device(x.device):
+    with device_guard(x):
         err = getattr(lib, f"repro_topk_mask_{suffix}")(
             x.data_ptr(), out.data_ptr(), rows, p, kept, stream_of(x))
     _build.check(lib, err, "topk_mask")
@@ -58,7 +58,7 @@ def qint8_roundtrip_cuda(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     if rows == 0:
         return out
     lib = _build.library("codec")
-    with torch.cuda.device(x.device):
+    with device_guard(x):
         err = getattr(lib, f"repro_qint8_roundtrip_{suffix}")(
             x.data_ptr(), u.data_ptr(), out.data_ptr(), rows, p,
             float(torch.finfo(x.dtype).tiny), stream_of(x))

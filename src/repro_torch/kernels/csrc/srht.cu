@@ -6,34 +6,46 @@
 //   srht_apply_pallas    (src/repro/kernels/srht.py:98, body _srht_fwd_kernel)
 //   srht_apply_t_pallas  (src/repro/kernels/srht.py:130, body _srht_t_kernel)
 // The TPU bodies factor H_n into two small dense matmuls for the MXU and
-// compute in float32. Here the three share one shared-memory butterfly
-// (`butterfly` below) and compute in the input type, so a double input
-// stays double on Hopper's FP64 units.
+// compute in float32. Here every kernel computes in the input type, so a
+// double input stays double on Hopper's FP64 units.
 //
 // What bounds them: bytes. Per row the transform does n*log2(n) adds on
 // n values, about one operation per byte moved, far below the card's
 // ratio of peak FP64 rate to memory rate. On the main path (n = 32,
 // millions of rows) the least time is the rows read plus the rows
-// written over 3.35 TB/s.
+// written over 3.35 TB/s; the transpose's main-path calls are a few rows,
+// where the launch path on the host is all of the time.
 //
-// What the design does about it: each row crosses device memory once.
-// A block loads R rows into shared memory (padding and sign flip applied
-// on load, reads coalesced along the contiguous row-major input), runs
-// all log2(n) stages there, and writes only what the caller keeps: the k
-// sampled entries forward, the first dim entries for the transpose. R is
-// chosen so that a block holds about 4096 values. The forward transform
-// of narrow rows (n <= 32; the main path's n = 32) skips shared memory:
-// a warp holds 32/n rows, one value per lane, runs the stages as
-// register shuffles and gathers the k kept entries by a shuffle, with
-// several rows in flight per lane so that enough loads are outstanding.
+// What the design does about it: each row crosses device memory once,
+// and a stage costs no block barrier where the row fits a warp.
+//   * fwht (fwht_reg_kernel): a thread holds 16 values, loaded and stored
+//     as streaming 16-byte vectors with neighbouring lanes on neighbouring
+//     vectors, all loads of a chunk issued before any arithmetic. The
+//     stages run in registers and by warp shuffles, nine bits of the index
+//     a phase; a row of n <= 2^9 needs one phase and no shared memory, a
+//     longer one (to 2^14) crosses shared memory once between phases, in a
+//     swizzled layout without bank conflicts. A block takes one chunk of
+//     4096 values (one row past that).
+//   * the transpose of rows of n <= 1024 (srht_t_warp_kernel): a warp
+//     holds a row, n/32 consecutive values a lane (32/n rows a warp below
+//     32); the scaled scatter is a lookup in the inverse of the sampled
+//     rows, built once per block; stages in registers and by shuffles.
+//   * the forward SRHT of rows of n <= 32 (srht_fwd_warp_kernel): a warp
+//     holds 32/n rows, one value per lane, runs the stages as shuffles
+//     and gathers the k kept entries by a shuffle, with several rows in
+//     flight per lane.
+//   * longer rows of the two SRHT forms (srht_fwd_kernel, srht_t_kernel):
+//     a block loads R rows into shared memory (padding and sign flip or
+//     the scaled scatter applied on load), runs the stages there with a
+//     barrier each (`butterfly`), and writes only what the caller keeps.
 //
 // A row longer than kMaxN = 2^14 does not fit in a block's shared
 // memory. It is transformed in passes that keep the stage order: first
-// the low stages (h < 2^14) on contiguous chunks of 2^14 in shared
-// memory, then the high stages along the strided axis of the row viewed
-// as (n / 2^14, 2^14), up to 2^14 stages' worth of that axis a pass (one
-// pass for n <= 2^28), each block holding a tile of whole columns so the
-// loads stay coalesced. The SRHT forms fold the padding and sign flip
+// the low stages (h < 2^14) on contiguous chunks of 2^14 (fwht_reg_kernel
+// for the plain transform, `butterfly` for the SRHT forms), then the high
+// stages along the strided axis of the row viewed as (n / 2^14, 2^14), up
+// to 2^14 stages' worth of that axis a pass (one pass for n <= 2^28), each
+// block holding a tile of whole columns so the loads stay coalesced. The SRHT forms fold the padding and sign flip
 // into the first pass's load (forward) or the scaled scatter into it
 // (transpose), and finish with a gather (forward) or a sign flip and
 // truncation (transpose) over the transformed rows in a scratch buffer
@@ -47,12 +59,21 @@
 // results are bit-equal to the plain PyTorch version.
 //
 // Every entry point launches on the given stream, allocates nothing and
-// returns cudaGetLastError() after the launch.
+// returns cudaGetLastError() after the launch. Besides the C interface,
+// the library is the Python extension module repro_srht, whose functions
+// of the same names take the same arguments (see the end of the file).
 
+#define PY_SSIZE_T_CLEAN
+#include <Python.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <algorithm>
+#include <climits>
+#include <cstring>
+#include <tuple>
+#include <type_traits>
+#include <utility>
 
 namespace {
 
@@ -63,6 +84,9 @@ constexpr int kMaxN = 1 << kLogMaxN;  // n * 8 bytes = 128 KB of shared memory; 
 constexpr int kLogTileValues = 12;    // values of a strided pass's tile (at least one column)
 constexpr int kWarpN = 32;          // largest n of the register (warp) forward path
 constexpr int kWarpUnroll = 4;      // row groups a warp holds at once
+constexpr int kLogRegs = 4;         // log2 of the values a thread of fwht_reg_kernel holds
+constexpr int kLogMinWarps = 3;     // fwht_reg_kernel's least block: 8 warps
+constexpr int kWarpTMaxN = 1024;    // largest n of the register transpose path (32 values a lane)
 
 inline int log2_int(int n) {
   int l = 0;
@@ -95,22 +119,6 @@ __device__ void butterfly(T* buf, int rows, int log_n) {
     }
   }
   __syncthreads();
-}
-
-template <typename T>
-__global__ void fwht_kernel(const T* __restrict__ x, T* __restrict__ out,
-                            long long nrows, int log_n, int rpb, T norm) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* buf = reinterpret_cast<T*>(smem_raw);
-  const int n = 1 << log_n;
-  const long long r0 = (long long)blockIdx.x * rpb;
-  const int rows = (int)min((long long)rpb, nrows - r0);
-  const int count = rows * n;
-  const T* src = x + r0 * n;
-  for (int e = threadIdx.x; e < count; e += blockDim.x) buf[e] = src[e];
-  butterfly(buf, rows, log_n);
-  T* dst = out + r0 * n;
-  for (int e = threadIdx.x; e < count; e += blockDim.x) dst[e] = buf[e] * norm;
 }
 
 template <typename T>
@@ -215,6 +223,254 @@ __global__ void srht_t_kernel(const T* __restrict__ y, const T* __restrict__ sig
     const int j = e - r * dim;
     const T h = buf[(r << log_n) + j] * norm;
     dst[e] = h * signs[j];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Register butterflies: the stages run in registers and by warp shuffles;
+// shared memory only exchanges values between groups of stages.
+// ---------------------------------------------------------------------------
+
+__host__ __device__ constexpr int cmin(int a, int b) { return a < b ? a : b; }
+__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
+
+// V values of T that move as one 16-, 8- or 4-byte access
+template <typename T, int V>
+struct alignas(sizeof(T) * V) Vec {
+  T v[V];
+};
+
+// Streaming (evict-first) accesses for data read once and written once. The
+// 16-byte forms are volatile asm, so the compiler issues a thread's loads
+// where they stand, all before the arithmetic, instead of sinking each to
+// its first use.
+template <typename VT>
+__device__ __forceinline__ VT load_cs(const VT* p) {
+  if constexpr (sizeof(VT) == 16) {
+    const float4 r = __ldcs(reinterpret_cast<const float4*>(p));
+    VT t;
+    memcpy(&t, &r, sizeof(t));
+    return t;
+  } else {
+    return *p;
+  }
+}
+
+template <typename VT>
+__device__ __forceinline__ void store_cs(VT* p, const VT& t) {
+  if constexpr (sizeof(VT) == 16) {
+    float4 r;
+    memcpy(&r, &t, sizeof(r));
+    __stcs(reinterpret_cast<float4*>(p), r);
+  } else {
+    *p = t;
+  }
+}
+
+// The stage whose pairs are registers u and u + h of one thread (h a power
+// of two, bit h of u clear): the lower keeps a + b, the upper a - b.
+template <typename T, int Q>
+__device__ __forceinline__ void reg_stage(T (&v)[Q], int h) {
+#pragma unroll
+  for (int u = 0; u < Q; ++u) {
+    if (!(u & h)) {
+      const T a = v[u];
+      const T b = v[u + h];
+      v[u] = a + b;
+      v[u + h] = a - b;
+    }
+  }
+}
+
+// The stage whose pairs are lanes l and l ^ m of a warp (m a power of two
+// below 32), register by register: the lane with bit m clear holds the
+// lower coordinate and keeps a + b, its partner a - b.
+template <typename T, int Q>
+__device__ __forceinline__ void lane_stage(T (&v)[Q], int m, int lane) {
+#pragma unroll
+  for (int u = 0; u < Q; ++u) {
+    const T p = __shfl_xor_sync(0xffffffffu, v[u], m);
+    v[u] = (lane & m) ? p - v[u] : v[u] + p;
+  }
+}
+
+// fwht_reg_kernel's layout. A block transforms chunks of C = 2^kLogC values
+// (whole rows: C >= n) with W = 2^kLogW warps, each thread holding Q = 16
+// values in registers. A chunk's index bits are covered in phases of
+// kPhaseBits = 9 bits: phase p runs the stages of bits [9p, min(9p + 9,
+// log n)) in a layout based at bit m = min(9p, kLogW) (`reg_index`), where
+// those bits sit in the thread's registers and its lane. Between phases the
+// values cross shared memory once (`swizzle`d); a row of n <= 2^9 needs one
+// phase and no shared memory at all.
+template <typename T, int LOG_N>
+struct RegFwht {
+  static constexpr int kLogV = cmin(sizeof(T) == 8 ? 1 : 2, LOG_N);  // a 16-byte load (less for n < that)
+  static constexpr int kLogQ = kLogRegs;
+  static constexpr int kPhaseBits = kLogQ + 5;
+  static constexpr int kLogC = cmax(LOG_N, kPhaseBits + kLogMinWarps);
+  static constexpr int kLogW = kLogC - kPhaseBits;
+  static constexpr int kThreads = 32 << kLogW;
+  static constexpr int kPhases = LOG_N <= kPhaseBits ? 1 : (LOG_N + kPhaseBits - 1) / kPhaseBits;
+  static constexpr size_t kSmem = kPhases > 1 ? ((size_t)1 << kLogC) * sizeof(T) : 0;
+};
+
+// Chunk index of register u of lane `lane` in warp w, in the layout based at
+// bit m: register bits [0, LOG_V) -> index bits [m, m + LOG_V), the lane ->
+// the next 5 bits, the other register bits -> the next LOG_Q - LOG_V bits;
+// the warp fills the index bits below m and above m + PHASE_BITS. At m = 0
+// a thread's LOG_V low registers are consecutive values and neighbouring
+// lanes hold neighbouring vectors, so loads and stores coalesce.
+template <int LOG_V, int PHASE_BITS>
+__device__ __forceinline__ int reg_index(int m, int w, int lane, int u) {
+  const int f = (u & ((1 << LOG_V) - 1)) | (lane << LOG_V) | ((u >> LOG_V) << (LOG_V + 5));
+  return (w & ((1 << m) - 1)) | (f << m) | ((w >> m) << (m + PHASE_BITS));
+}
+
+// Shared-memory slot of chunk index e: the low G bits are XORed with every
+// higher G-bit group of e (G = 4 for 8-byte values, whose banks come in 16
+// pairs; 5 for 4-byte values), so the lanes of a (half-)warp that differ in
+// any G consecutive index bits fall in distinct banks.
+template <typename T, int LOG_C>
+__device__ __forceinline__ int swizzle(int e) {
+  constexpr int G = sizeof(T) == 8 ? 4 : 5;
+  int x = 0;
+#pragma unroll
+  for (int s = G; s < LOG_C; s += G) x ^= e >> s;
+  return e ^ (x & ((1 << G) - 1));
+}
+
+template <typename T, int LOG_V, int PHASE_BITS, int LOG_C, int Q>
+__device__ __forceinline__ void exchange(T* s, T (&v)[Q], int w, int lane, int from, int to) {
+  // w and lane pass through an empty asm, so the 2Q slots are computed at
+  // each exchange, not held in registers across the chunk loop (fewer
+  // registers, more resident blocks)
+  asm volatile("" : "+r"(w), "+r"(lane));
+  __syncthreads();  // every read of the previous exchange is done
+#pragma unroll
+  for (int u = 0; u < Q; ++u) {
+    s[swizzle<T, LOG_C>(reg_index<LOG_V, PHASE_BITS>(from, w, lane, u))] = v[u];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int u = 0; u < Q; ++u) {
+    v[u] = s[swizzle<T, LOG_C>(reg_index<LOG_V, PHASE_BITS>(to, w, lane, u))];
+  }
+}
+
+// WHT of rows of n = 2^LOG_N <= kMaxN values, nvec vectors of 2^kLogV
+// values in all, the chunks taken in a grid-stride loop (one chunk a block
+// where the grid allows). A thread issues all its loads of a chunk (Q / V
+// vectors) before any arithmetic.
+template <typename T, int LOG_N>
+__global__ void __launch_bounds__(RegFwht<T, LOG_N>::kThreads)
+fwht_reg_kernel(const T* __restrict__ x, T* __restrict__ out, long long nvec, T norm) {
+  using L = RegFwht<T, LOG_N>;
+  constexpr int kLogV = L::kLogV;
+  constexpr int V = 1 << kLogV;
+  constexpr int Q = 1 << L::kLogQ;
+  constexpr int kBits = L::kPhaseBits;
+  constexpr int kChunkVecs = 1 << (L::kLogC - kLogV);
+  using VT = Vec<T, V>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* s = reinterpret_cast<T*>(smem_raw);
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const VT* xv = reinterpret_cast<const VT*>(x);
+  VT* ov = reinterpret_cast<VT*>(out);
+  const long long nchunks = (nvec + kChunkVecs - 1) / kChunkVecs;
+  for (long long chunk = blockIdx.x; chunk < nchunks; chunk += gridDim.x) {
+    const long long v0 = chunk * kChunkVecs;
+    T v[Q];
+#pragma unroll
+    for (int g = 0; g < Q / V; ++g) {
+      const long long vi = v0 + (reg_index<kLogV, kBits>(0, w, lane, g * V) >> kLogV);
+      VT t = {};
+      if (vi < nvec) t = load_cs(xv + vi);
+#pragma unroll
+      for (int i = 0; i < V; ++i) v[g * V + i] = t.v[i];
+    }
+#pragma unroll
+    for (int p = 0; p < L::kPhases; ++p) {
+      const int m = cmin(p * kBits, L::kLogW);
+      if (p > 0) {
+        exchange<T, kLogV, kBits, L::kLogC>(s, v, w, lane, cmin((p - 1) * kBits, L::kLogW), m);
+      }
+#pragma unroll
+      for (int b = p * kBits; b < cmin((p + 1) * kBits, LOG_N); ++b) {
+        const int t = b - m;  // the bit's place in the phase's layout
+        if (t < kLogV) {
+          reg_stage(v, 1 << t);
+        } else if (t < kLogV + 5) {
+          lane_stage(v, 1 << (t - kLogV), lane);
+        } else {
+          reg_stage(v, 1 << (t - 5));
+        }
+      }
+    }
+    if (L::kPhases > 1) {
+      exchange<T, kLogV, kBits, L::kLogC>(
+          s, v, w, lane, cmin((L::kPhases - 1) * kBits, L::kLogW), 0);
+    }
+#pragma unroll
+    for (int g = 0; g < Q / V; ++g) {
+      const long long vi = v0 + (reg_index<kLogV, kBits>(0, w, lane, g * V) >> kLogV);
+      VT t;
+#pragma unroll
+      for (int i = 0; i < V; ++i) t.v[i] = v[g * V + i] * norm;
+      if (vi < nvec) store_cs(ov + vi, t);
+    }
+  }
+}
+
+// Transpose SRHT of rows of n = 2^log_n <= kWarpTMaxN in registers: lane l
+// holds the P = 2^LOG_P consecutive coordinates j = (l % L) P + i of row
+// slot l / L, L = n / P lanes to a row. The scaled scatter is a lookup in
+// the inverse of sel, which each block builds once; then the stages (the
+// low LOG_P in registers, the rest by shuffles), x norm, x signs, and the
+// store of j < dim. Warps take row groups in a grid-stride loop.
+template <typename T, int LOG_P>
+__global__ void __launch_bounds__(kThreads)
+srht_t_warp_kernel(const T* __restrict__ y, const T* __restrict__ signs,
+                   const int64_t* __restrict__ sel, T* __restrict__ out, long long nrows,
+                   int dim, int log_n, int k, T norm, T scale) {
+  constexpr int P = 1 << LOG_P;
+  __shared__ int inv[kWarpTMaxN];
+  const int n = 1 << log_n;
+  for (int j = threadIdx.x; j < n; j += blockDim.x) inv[j] = -1;
+  __syncthreads();
+  for (int c = threadIdx.x; c < k; c += blockDim.x) inv[sel[c]] = c;
+  __syncthreads();
+  const int log_l = log_n - LOG_P;
+  const int lane = threadIdx.x & 31;
+  const int q = lane & ((1 << log_l) - 1);
+  const int per_warp = 32 >> log_l;
+  const int slot = lane >> log_l;
+  int src[P];
+  T sign[P];
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    src[i] = inv[q * P + i];
+    sign[i] = signs[q * P + i];
+  }
+  const long long warps = ((long long)gridDim.x * blockDim.x) >> 5;
+  for (long long row0 = (((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5) * per_warp;
+       row0 < nrows; row0 += warps * per_warp) {
+    const long long row = row0 + slot;
+    const bool live = row < nrows;
+    T v[P];
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+      v[i] = (live && src[i] >= 0) ? y[row * k + src[i]] * scale : T(0);
+    }
+#pragma unroll
+    for (int h = 1; h < P; h <<= 1) reg_stage(v, h);
+    for (int m = 1; m < (1 << log_l); m <<= 1) lane_stage(v, m, lane);
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+      const int j = q * P + i;
+      const T h = v[i] * norm;
+      if (live && j < dim) out[row * dim + j] = h * sign[i];
+    }
   }
 }
 
@@ -389,32 +645,59 @@ inline unsigned elementwise_blocks(long long total) {
   return (unsigned)std::max(1LL, std::min((total + kThreads - 1) / kThreads, 1LL << 20));
 }
 
+// SMs of the current card, queried once per card
+inline int sm_count() {
+  static int sms[64] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) return 1;
+  if (sms[dev] == 0) {
+    int count = 0;
+    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+    sms[dev] = std::max(count, 1);
+  }
+  return sms[dev];
+}
+
+// fwht_reg_kernel over nrows rows of 2^LOG_N: a block per chunk (a grid of
+// one wave of resident blocks walking the chunks measured slower on the
+// H100 at the main path's n = 32).
+template <typename T, int LOG_N>
+cudaError_t launch_fwht_reg(const T* x, T* out, long long nrows, T norm, cudaStream_t stream) {
+  using L = RegFwht<T, LOG_N>;
+  cudaError_t err = allow_smem(fwht_reg_kernel<T, LOG_N>, L::kSmem);
+  if (err != cudaSuccess) return err;
+  const long long chunks = ((nrows << LOG_N) + (1LL << L::kLogC) - 1) >> L::kLogC;
+  fwht_reg_kernel<T, LOG_N><<<(unsigned)std::min(chunks, 0x7fffffffLL), L::kThreads, L::kSmem,
+                              stream>>>(x, out, nrows << (LOG_N - L::kLogV), norm);
+  return cudaGetLastError();
+}
+
+template <typename T, int LOG_N = 0>
+cudaError_t fwht_reg(const T* x, T* out, long long nrows, int log_n, T norm,
+                     cudaStream_t stream) {
+  if constexpr (LOG_N > kLogMaxN) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (log_n == LOG_N) return launch_fwht_reg<T, LOG_N>(x, out, nrows, norm, stream);
+    return fwht_reg<T, LOG_N + 1>(x, out, nrows, log_n, norm, stream);
+  }
+}
+
 template <typename T>
 cudaError_t launch_fwht(const T* x, T* out, long long nrows, int n, double norm,
                         void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
   if (long_row(nrows, n)) {
-    // low stages: x -> out in chunks of kMaxN, one chunk a block (the
-    // single-pass kernel at n = kMaxN, unscaled); then the high stages
+    // low stages: x -> out in chunks of kMaxN (the register kernel at
+    // n = kMaxN, unscaled); then the high stages
     const long long chunks = nrows << (log2_int(n) - kLogMaxN);
-    int rpb;
-    unsigned blocks;
-    size_t smem;
-    cudaError_t err = configure(fwht_kernel<T>, chunks, kMaxN, sizeof(T), &rpb, &blocks, &smem);
+    cudaError_t err = fwht_reg<T>(x, out, chunks, kLogMaxN, T(1), s);
     if (err != cudaSuccess) return err;
-    fwht_kernel<T><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-        x, out, chunks, kLogMaxN, rpb, T(1));
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    return high_stages(out, nrows, log2_int(n), (T)norm, (cudaStream_t)stream);
+    return high_stages(out, nrows, log2_int(n), (T)norm, s);
   }
-  int rpb;
-  unsigned blocks;
-  size_t smem;
-  cudaError_t err = configure(fwht_kernel<T>, nrows, n, sizeof(T), &rpb, &blocks, &smem);
-  if (err != cudaSuccess) return err;
-  fwht_kernel<T><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      x, out, nrows, log2_int(n), rpb, (T)norm);
-  return cudaGetLastError();
+  if (n < 1 || n > kMaxN || (n & (n - 1)) != 0 || nrows <= 0) return cudaErrorInvalidValue;
+  return fwht_reg<T>(x, out, nrows, log2_int(n), (T)norm, s);
 }
 
 template <typename T>
@@ -438,10 +721,35 @@ cudaError_t launch_srht(const T* x, const T* signs, const int64_t* sel, T* out,
   return cudaGetLastError();
 }
 
+template <typename T, int LOG_P = 0>
+void launch_srht_t_warp(unsigned blocks, cudaStream_t stream, int log_p, const T* y,
+                        const T* signs, const int64_t* sel, T* out, long long nrows, int dim,
+                        int log_n, int k, T norm, T scale) {
+  if constexpr ((32 << LOG_P) <= kWarpTMaxN) {
+    if (log_p != LOG_P) {
+      launch_srht_t_warp<T, LOG_P + 1>(blocks, stream, log_p, y, signs, sel, out, nrows, dim,
+                                       log_n, k, norm, scale);
+      return;
+    }
+    srht_t_warp_kernel<T, LOG_P><<<blocks, kThreads, 0, stream>>>(
+        y, signs, sel, out, nrows, dim, log_n, k, norm, scale);
+  }
+}
+
 template <typename T>
 cudaError_t launch_srht_t(const T* y, const T* signs, const int64_t* sel, T* out,
                           long long nrows, int dim, int n, int k, double norm,
                           double scale, void* stream) {
+  if (n >= 1 && n <= kWarpTMaxN && (n & (n - 1)) == 0 && nrows > 0) {
+    const int log_n = log2_int(n);
+    const int log_p = std::max(0, log_n - 5);
+    const long long rows_per_block = (long long)(kThreads / 32) * (32 >> (log_n - log_p));
+    const long long blocks = std::min((nrows + rows_per_block - 1) / rows_per_block,
+                                      (long long)sm_count() * (2048 / kThreads));
+    launch_srht_t_warp<T>((unsigned)blocks, (cudaStream_t)stream, log_p, y, signs, sel, out,
+                          nrows, dim, log_n, k, (T)norm, (T)scale);
+    return cudaGetLastError();
+  }
   int rpb;
   unsigned blocks;
   size_t smem;
@@ -570,3 +878,75 @@ cudaError_t repro_srht_apply_t_large_f64(const double* y, const double* signs,
 }
 
 }  // extern "C"
+
+// ---------------------------------------------------------------------------
+// The entry points as functions of the extension module repro_srht
+// (METH_FASTCALL): pointers and the stream as Python ints, then the sizes
+// and factors, in the order of the C signature; each returns its
+// cudaError_t. A ctypes call of these arguments costs microseconds of host
+// time more than this one, and the transpose's main-path calls are a few
+// rows, where the host's launch path is the whole time.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+template <typename A>
+A from_py(PyObject* o) {
+  if constexpr (std::is_pointer_v<A>) {
+    return static_cast<A>(PyLong_AsVoidPtr(o));
+  } else if constexpr (std::is_same_v<A, double>) {
+    return PyFloat_AsDouble(o);
+  } else if constexpr (std::is_same_v<A, long long>) {
+    return PyLong_AsLongLong(o);
+  } else {
+    static_assert(std::is_same_v<A, int>);
+    const long v = PyLong_AsLong(o);
+    if (v < INT_MIN || v > INT_MAX) PyErr_SetString(PyExc_OverflowError, "int argument out of range");
+    return (int)v;
+  }
+}
+
+template <typename... A, size_t... I>
+PyObject* call_entry(cudaError_t (*fn)(A...), PyObject* const* args, std::index_sequence<I...>) {
+  const std::tuple<A...> a{from_py<A>(args[I])...};  // left to right
+  if (PyErr_Occurred()) return nullptr;
+  return PyLong_FromLong((long)std::apply(fn, a));
+}
+
+template <typename... A>
+PyObject* call_entry(cudaError_t (*fn)(A...), PyObject* const* args, Py_ssize_t nargs) {
+  if (nargs != (Py_ssize_t)sizeof...(A)) {
+    PyErr_Format(PyExc_TypeError, "expected %d arguments, got %zd", (int)sizeof...(A), nargs);
+    return nullptr;
+  }
+  return call_entry(fn, args, std::index_sequence_for<A...>{});
+}
+
+template <auto Fn>
+PyObject* py_entry(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
+  return call_entry(Fn, args, nargs);
+}
+
+#define REPRO_METHOD(name) \
+  {#name, reinterpret_cast<PyCFunction>(reinterpret_cast<void (*)(void)>(py_entry<name>)), \
+   METH_FASTCALL, nullptr}
+
+PyMethodDef kMethods[] = {
+    REPRO_METHOD(repro_fwht_f32),
+    REPRO_METHOD(repro_fwht_f64),
+    REPRO_METHOD(repro_srht_apply_f32),
+    REPRO_METHOD(repro_srht_apply_f64),
+    REPRO_METHOD(repro_srht_apply_t_f32),
+    REPRO_METHOD(repro_srht_apply_t_f64),
+    REPRO_METHOD(repro_srht_apply_large_f32),
+    REPRO_METHOD(repro_srht_apply_large_f64),
+    REPRO_METHOD(repro_srht_apply_t_large_f32),
+    REPRO_METHOD(repro_srht_apply_t_large_f64),
+    {nullptr, nullptr, 0, nullptr},
+};
+
+PyModuleDef kModule = {PyModuleDef_HEAD_INIT, "repro_srht", nullptr, -1, kMethods};
+
+}  // namespace
+
+PyMODINIT_FUNC PyInit_repro_srht(void) { return PyModule_Create(&kModule); }

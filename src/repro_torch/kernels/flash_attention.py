@@ -27,7 +27,7 @@ import math
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.fwht import stream_of
+from repro_torch.kernels.fwht import device_guard, stream_of
 
 # launches (incremented only where a kernel is launched): the op's total
 # and each route's
@@ -125,7 +125,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     else:
         lib = _build.library("flash_attention")
         fn = getattr(lib, f"repro_flash_attention_{_SUFFIX[q.dtype]}")
-    with torch.cuda.device(q.device):
+    with device_guard(q):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
                  tq, tk, h, hkv, d, int(bool(causal)), w, int(q_offset),
                  1.0 / d**0.5, empty_denom, stream_of(q))

@@ -1,14 +1,20 @@
 """Walsh-Hadamard transform on Hopper: wrapper of the CUDA kernel.
 
 Replaces ``fwht_pallas`` (``repro/kernels/fwht.py:51``). The kernel is
-``fwht_kernel`` in ``csrc/srht.cu``; it shares its shared-memory
-butterfly with the two SRHT kernels. A row longer than
-``SINGLE_PASS_N`` takes two passes (the low stages in shared-memory
-chunks, then ``fwht_strided_kernel`` along the strided axis), so any
-power-of-two length works. The plain version is
-``repro_torch.kernels.ref.fwht``.
+``fwht_reg_kernel`` in ``csrc/srht.cu``: a thread holds 16 values of a
+row, loaded and stored as 16-byte vectors, and runs the stages in
+registers and by warp shuffles, nine bits of the index a phase; a row of
+n <= ``REG_PHASE_N`` needs one phase, a longer one crosses shared memory
+once between phases. A row longer than ``SINGLE_PASS_N`` takes two
+passes (the low stages by that kernel on chunks of ``SINGLE_PASS_N``,
+then ``fwht_strided_kernel`` along the strided axis), so any power-of-two
+length works. ``kernel_route`` states which kernels serve which length.
+The plain version is ``repro_torch.kernels.ref.fwht``.
 """
 from __future__ import annotations
+
+import contextlib
+import functools
 
 import torch
 
@@ -18,11 +24,38 @@ from repro_torch.kernels import _build, ref
 # must fit in a block's shared memory (kMaxN in csrc/srht.cu); longer
 # rows take the two-pass path
 SINGLE_PASS_N = 1 << 14
+# the longest row fwht_reg_kernel transforms without shared memory: 16
+# values a thread x 32 lanes (kLogRegs + 5 bits in csrc/srht.cu)
+REG_PHASE_N = 1 << 9
+# the longest row of the register transpose path (kWarpTMaxN)
+WARP_T_MAX_N = 1 << 10
+# the longest row of the register forward path (kWarpN)
+WARP_N = 32
 
 # launches of the kernel (incremented only where it is launched)
 LAUNCHES = {"fwht": 0}
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+_NO_GUARD = contextlib.nullcontext()
+
+
+def kernel_route(op: str, n: int) -> str:
+    """The CUDA kernel that transforms rows of length ``n`` (a power of
+    two) for ``op``, in either dtype: the rule of the launchers in
+    ``csrc/srht.cu``."""
+    if op == "fwht":
+        if n > SINGLE_PASS_N:
+            return "fwht_reg_kernel<2^14> + fwht_strided_kernel"
+        if n > REG_PHASE_N:
+            return "fwht_reg_kernel (shared-memory exchange)"
+        return "fwht_reg_kernel"
+    if op not in ("srht_apply", "srht_apply_t"):
+        raise KeyError(f"no CUDA kernel route for op {op!r}")
+    if n > SINGLE_PASS_N:
+        return f"{op} long-row path"
+    if op == "srht_apply":
+        return "srht_fwd_warp_kernel" if n <= WARP_N else "srht_fwd_kernel"
+    return "srht_t_warp_kernel" if n <= WARP_T_MAX_N else "srht_t_kernel"
 
 
 def check_input(x: torch.Tensor, name: str) -> str:
@@ -47,7 +80,24 @@ def check_length(n: int) -> None:
 
 
 def stream_of(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
+    """The raw handle of the current stream of x's card."""
+    return torch._C._cuda_getCurrentRawStream(x.get_device())
+
+
+def device_guard(x: torch.Tensor):
+    """Make x's card current for a launch: ``torch.cuda.device`` where
+    another card is current, else a context that does nothing."""
+    index = x.get_device()
+    if torch._C._cuda_getDevice() == index:
+        return _NO_GUARD
+    return torch.cuda.device(index)
+
+
+@functools.lru_cache(maxsize=64)
+def _norm(n: int, dtype: torch.dtype) -> float:
+    """``ref.norm_factor`` as a float (cached: computing it costs more host
+    time than a small launch)."""
+    return float(ref.norm_factor(n, dtype))
 
 
 def fwht_cuda(x: torch.Tensor, *, normalize: bool = False) -> torch.Tensor:
@@ -56,15 +106,17 @@ def fwht_cuda(x: torch.Tensor, *, normalize: bool = False) -> torch.Tensor:
     suffix = check_input(x, "x")
     n = x.shape[-1]
     check_length(n)
+    if x.data_ptr() % 16:  # the kernel loads 16-byte vectors
+        x = x.clone()
     out = torch.empty_like(x)
     nrows = x.numel() // n
     if nrows == 0:
         return out
-    norm = float(ref.norm_factor(n, x.dtype)) if normalize else 1.0
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        err = getattr(lib, f"repro_fwht_{suffix}")(
+    norm = _norm(n, x.dtype) if normalize else 1.0
+    with device_guard(x):
+        err = getattr(_build.module(), f"repro_fwht_{suffix}")(
             x.data_ptr(), out.data_ptr(), nrows, n, norm, stream_of(x))
-    _build.check(lib, err, "fwht")
+    if err:
+        _build.check(_build.library(), err, "fwht")
     LAUNCHES["fwht"] += 1
     return out

@@ -28,6 +28,7 @@ Ops: ``fwht``, ``srht_apply``, ``srht_apply_t`` (the sketch),
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 from typing import Callable
 
@@ -93,12 +94,17 @@ def resolve_impl(impl: "str | None", x: torch.Tensor) -> str:
     return choice
 
 
+@functools.cache
+def _capability(index: int) -> "tuple[int, int]":
+    return torch.cuda.get_device_capability(index)
+
+
 def _require_card(op: str, x: torch.Tensor) -> None:
     if not x.is_cuda:
         raise RuntimeError(
             f"impl='cuda' for op {op!r} needs a CUDA tensor, got one on "
             f"{x.device}; use impl='ref' for the plain version")
-    major, minor = torch.cuda.get_device_capability(x.device)
+    major, minor = _capability(x.get_device())
     if major < 9:
         raise RuntimeError(
             f"impl='cuda' for op {op!r} needs a Hopper card (compute "

@@ -2,13 +2,23 @@
 
 Replace ``srht_apply_pallas`` (``repro/kernels/srht.py:98``) and
 ``srht_apply_t_pallas`` (``repro/kernels/srht.py:130``). The kernels are
-``srht_fwd_kernel`` and ``srht_t_kernel`` in ``csrc/srht.cu``: one pass
-per row (pad, sign flip, butterfly, gather) forward, and (scatter,
-butterfly, sign flip, truncate) for the transpose. Rows longer than
-``SINGLE_PASS_N`` go through a scratch buffer in three steps (padded and
-sign-flipped or scattered low stages, the strided high stages, then the
-gather or the sign flip and truncation). The plain versions are
+in ``csrc/srht.cu``, one launch per call: forward, ``srht_fwd_warp_kernel``
+(rows of n <= 32 in a warp's registers) or ``srht_fwd_kernel`` (pad, sign
+flip, shared-memory butterfly, gather); transpose, ``srht_t_warp_kernel``
+(n <= 1024: the scaled scatter as a lookup in the inverse of ``rows``,
+stages in registers and by shuffles) or ``srht_t_kernel`` (scatter,
+shared-memory butterfly, sign flip, truncate); ``fwht.kernel_route``
+states the rule. Rows longer than ``SINGLE_PASS_N`` go through a scratch
+buffer in three steps (padded and sign-flipped or scattered low stages,
+the strided high stages, then the gather or the sign flip and
+truncation). The plain versions are
 ``repro_torch.kernels.ref.srht_apply``/``srht_apply_t``.
+
+The main path's transpose calls are a few rows, where the host's launch
+path is the whole time, so that path does only what a launch needs: the
+checks compare attributes, the launch function (of the extension module
+``repro_srht``, not ctypes) is bound once, and the stream handle is read
+raw.
 
 ``rows`` must hold k distinct indices in [0, n), as the sketch samplers
 draw them; the kernels do not check them on the device.
@@ -24,6 +34,7 @@ from repro_torch.kernels.fwht import (
     SINGLE_PASS_N,
     check_input,
     check_length,
+    device_guard,
     stream_of,
 )
 
@@ -34,12 +45,13 @@ LAUNCHES = {"srht_apply": 0, "srht_apply_t": 0}
 def _check_operator(x: torch.Tensor, signs: torch.Tensor,
                     rows: torch.Tensor, dim: int) -> tuple[int, int]:
     check_input(signs, "signs")
-    if signs.dtype != x.dtype or signs.device != x.device:
+    index = x.get_device()
+    if signs.dtype != x.dtype or signs.get_device() != index:
         raise TypeError(f"signs ({signs.dtype}, {signs.device}) must match "
                         f"the input ({x.dtype}, {x.device})")
     if signs.ndim != 1 or rows.ndim != 1:
         raise ValueError("signs and rows must be 1-D")
-    if rows.dtype != torch.int64 or rows.device != x.device:
+    if rows.dtype != torch.int64 or rows.get_device() != index:
         raise TypeError(f"rows must be int64 on {x.device}, got "
                         f"{rows.dtype} on {rows.device}")
     if not rows.is_contiguous():
@@ -60,21 +72,29 @@ def _factors(n: int, k: int, dtype: torch.dtype) -> tuple[float, float]:
             float(ref.subsample_scale(n, k, dtype)))
 
 
-def _launch(op: str, suffix: str, x, signs, rows, out, nrows, dim, n, k):
+@functools.cache
+def _entry(op: str, suffix: str, long_rows: bool):
+    """The launch function of op for a dtype suffix, bound on first use."""
+    return getattr(_build.module(),
+                   f"repro_{op}{'_large' if long_rows else ''}_{suffix}")
+
+
+def _launch(op, suffix, x, signs, rows, out, nrows, dim, n, k):
     norm, scale = _factors(n, k, x.dtype)
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        if n <= SINGLE_PASS_N:
-            err = getattr(lib, f"repro_{op}_{suffix}")(
-                x.data_ptr(), signs.data_ptr(), rows.data_ptr(),
-                out.data_ptr(), nrows, dim, n, k, norm, scale, stream_of(x))
-        else:
+    long_rows = n > SINGLE_PASS_N
+    fn = _entry(op, suffix, long_rows)
+    with device_guard(x):
+        if long_rows:
             scratch = torch.empty(nrows * n, dtype=x.dtype, device=x.device)
-            err = getattr(lib, f"repro_{op}_large_{suffix}")(
-                x.data_ptr(), signs.data_ptr(), rows.data_ptr(),
-                out.data_ptr(), scratch.data_ptr(), nrows, dim, n, k, norm,
-                scale, stream_of(x))
-    _build.check(lib, err, op)
+            err = fn(x.data_ptr(), signs.data_ptr(), rows.data_ptr(),
+                     out.data_ptr(), scratch.data_ptr(), nrows, dim, n, k,
+                     norm, scale, stream_of(x))
+        else:
+            err = fn(x.data_ptr(), signs.data_ptr(), rows.data_ptr(),
+                     out.data_ptr(), nrows, dim, n, k, norm, scale,
+                     stream_of(x))
+    if err:
+        _build.check(_build.library(), err, op)
     LAUNCHES[op] += 1
 
 
@@ -85,7 +105,7 @@ def srht_apply_cuda(x: torch.Tensor, signs: torch.Tensor,
     suffix = check_input(x, "x")
     dim = x.shape[-1]
     n, k = _check_operator(x, signs, rows, dim)
-    out = torch.empty(x.shape[:-1] + (k,), dtype=x.dtype, device=x.device)
+    out = x.new_empty(x.shape[:-1] + (k,))
     nrows = x.numel() // dim
     if nrows:
         _launch("srht_apply", suffix, x, signs, rows, out, nrows, dim, n, k)
@@ -100,7 +120,7 @@ def srht_apply_t_cuda(y: torch.Tensor, signs: torch.Tensor,
     n, k = _check_operator(y, signs, rows, dim)
     if y.shape[-1] != k:
         raise ValueError(f"y has {y.shape[-1]} entries per row, rows has {k}")
-    out = torch.empty(y.shape[:-1] + (dim,), dtype=y.dtype, device=y.device)
+    out = y.new_empty(y.shape[:-1] + (dim,))
     nrows = y.numel() // k
     if nrows:
         _launch("srht_apply_t", suffix, y, signs, rows, out, nrows, dim, n, k)

@@ -30,7 +30,15 @@ CASES = [(64, 64, 32, (3,)), (18, 32, 10, (2, 5)), (100, 128, 7, (4,)),
          (1 << 20, 1 << 20, 1000, (1,)),
          # every width of the register path (n <= 32), ragged row counts
          (2, 2, 1, (3,)), (3, 4, 2, (33,)), (5, 8, 3, (7, 9)),
-         (16, 16, 16, (5,)), (20, 32, 32, (129,))]
+         (16, 16, 16, (5,)), (20, 32, 32, (129,)),
+         # both sides of each route boundary (fwht.kernel_route), k = 1
+         # and k = n: the register transpose to n = 1024, fwht without
+         # shared memory to n = 512, with one exchange from n = 1024
+         (2, 2, 2, (5,)), (32, 32, 1, (33,)), (32, 32, 32, (33,)),
+         (64, 64, 1, (9,)), (61, 64, 64, (9,)), (512, 512, 256, (5,)),
+         (1000, 1024, 1, (3,)), (1024, 1024, 1024, (3,)),
+         (2048, 2048, 100, (2,)), (16384, 16384, 1, (2,)),
+         (16383, 16384, 16384, (2,))]
 
 
 @pytest.fixture
@@ -61,6 +69,16 @@ def test_cuda_kernels_bit_equal_to_plain(hopper, tdt, dim, n, k, batch):
         assert torch.equal(ops.fwht(xp, normalize=normalize, impl="cuda"),
                            ops.fwht(xp, normalize=normalize, impl="ref"))
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tdt", [torch.float64, torch.float32])
+def test_fwht_takes_a_view_off_a_16_byte_boundary(hopper, tdt):
+    flat = torch.randn(1 + 6 * 32, dtype=tdt, device=hopper)
+    x = flat[1:].view(6, 32)  # one element in: the kernel loads 16 bytes
+    assert x.data_ptr() % 16
+    assert torch.equal(ops.fwht(x, normalize=True, impl="cuda"),
+                       ops.fwht(x, normalize=True, impl="ref"))
 
 
 @pytest.mark.gpu
