@@ -7,9 +7,11 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. device   — require CUDA and compute capability 9.x; print the card's
                 name and power limit (nvidia-smi)
   2. build    — build the CUDA kernels from src/repro_torch/kernels/csrc
-                and import srht.cu's library as the extension module
-                repro_srht; print the tensor-core flash kernel's registers
-                and spills per head-dim instantiation (ptxas)
+                and import the libraries of srht.cu and codec.cu as the
+                extension modules repro_srht and repro_codec; print the
+                registers and spills (ptxas) of the tensor-core flash
+                kernel per head-dim instantiation and of every codec
+                kernel instantiation (none may spill)
   3. parity   — hold fwht, srht_apply and srht_apply_t against their
                 plain PyTorch versions on the card, in float32 and
                 float64, at power-of-two and padded dims, batched, at the
@@ -38,7 +40,8 @@ Phases, in order; any failure raises and the script exits non-zero:
   7. codec parity — topk_mask and qint8_roundtrip against their plain
                 versions, bit-equal, in float32 and float64: the main-path
                 payload shapes, ties, zero rows, kept = 1 and P, ragged
-                widths, and long rows that are streamed
+                widths, the warp routes' limit (P = 1024) and one past it,
+                and long rows that are streamed
   8. transport — FLeNS+ at the SUSY size under two transports of
                 examples/edge_clients.py (comp+sched+ef, crush+rot+ef) on
                 its edge channel, 10 rounds each: codec launches per round
@@ -46,7 +49,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                 never rising, the same trajectory and byte axis through
                 the plain versions on the card; bytes, simulated seconds,
                 ms per round, peak memory, and the codec kernels' times
-                beside their bounds, plain versions and library yardstick
+                (events and the profiler's device time, with the kernel
+                that serves each shape) beside their bounds, plain
+                versions and library yardstick, and the host's launch path
+                of qint8_roundtrip at (1000, 55) step by step beside the
+                parent commit's ctypes way
   9. flash parity — the flash-attention kernels against their plain
                 version (ref.mha_blocked): bfloat16 through the tensor-core
                 kernel (route sm90, max abs err <= 2e-2), float32 through
@@ -191,6 +198,7 @@ def phase_build() -> dict:
     per_source = _build.build_all()
     _build.library()
     _build.module()  # srht.cu is also the extension module repro_srht
+    _build.module("codec")  # and codec.cu the extension module repro_codec
     total = time.perf_counter() - t0
     log(f"[build] {total:.2f} s ({per_source or 'already built'})")
     # ptxas -v of the tensor-core flash kernel: one entry per head-dim width
@@ -209,8 +217,36 @@ def phase_build() -> dict:
         log(f"[build] flash_attention_sm90_kernel {key}: {ptxas[key]}")
     check(len(ptxas) == 3, f"build: expected 3 sm90 instantiations, got "
           f"{sorted(ptxas)}")
+    # the codec kernels: the warp routes' per dtype and register count
+    # (values a lane), whose limit holds only without spills, and the
+    # block routes' (qint8_kernel with and without 16-byte loads)
+    codec = {}
+    for entry in re.split(r"Compiling entry function",
+                          _build.build_log("codec"))[1:]:
+        name = re.search(r"(topk_mask_warp|qint8_warp|topk_mask|qint8)"
+                         r"_kernelI([df])(?:Li(\d+)E|Lb([01])E)?", entry)
+        regs = re.search(r"Used (\d+) registers", entry)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          entry)
+        check(name and regs and spill, "build: unreadable codec ptxas report")
+        kind, dt, values, vec = name.groups()
+        args = ["double" if dt == "d" else "float"]
+        if values:
+            args.append(values)
+        if vec:
+            args.append("16-byte" if vec == "1" else "single")
+        key = f"{kind}_kernel<{', '.join(args)}>"
+        codec[key] = {"registers": int(regs.group(1)),
+                      "spill_stores": int(spill.group(1)),
+                      "spill_loads": int(spill.group(2))}
+        check(codec[key]["spill_stores"] == codec[key]["spill_loads"] == 0,
+              f"build: {key} spills: {codec[key]}")
+    check(len(codec) == 30, f"build: expected 30 codec kernel instantiations, "
+          f"got {sorted(codec)}")
+    log("[build] codec kernels, registers (no spills): " + ", ".join(
+        f"{k} {v['registers']}" for k, v in sorted(codec.items())))
     return {"seconds": total, "per_source": per_source,
-            "flash_sm90_ptxas": ptxas}
+            "flash_sm90_ptxas": ptxas, "codec_ptxas": codec}
 
 
 # ---------------------------------------------------------------------------
@@ -771,9 +807,11 @@ def phase_long_rows() -> dict:
 
 # (rows, P): the main path's payloads at the SUSY size (h_sk packed by
 # sympack, sg, grad, h_sk crushed by top-k, a broadcast), ragged widths,
-# and rows streamed from device memory
+# the warp routes' limit (32 values a lane) and one past it on the block
+# routes, and rows streamed from device memory
 CODEC_SHAPES = [(1000, 55), (1000, 10), (1000, 18), (1000, 100), (1, 18),
-                (7, 1), (5, 33), (3, 1000), (2, 5000), (4, 1 << 20)]
+                (7, 1), (5, 33), (3, 1000), (1000, 1024), (1000, 1025),
+                (2, 5000), (4, 1 << 20)]
 
 
 def _codec_inputs(gen, rows, p, dtype, dev):
@@ -870,15 +908,81 @@ def _transport_run(problem, w0, w_star, sketch, cfg, rounds, impl=None):
     return opt, hist
 
 
+def _codec_host_path(x, u) -> dict:
+    """Host microseconds per call of each step of the launch path of
+    ``ops.qint8_roundtrip(..., impl="cuda")``, each step timed alone;
+    beside them the steps the parent commit took otherwise (checks by
+    torch.device, tiny from torch.finfo, the entry point by an f-string
+    on a ctypes library, the ctypes call)."""
+    import ctypes
+
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import codec as kcodec
+    from repro_torch.kernels import fwht as kfwht
+
+    suffix = kfwht.check_input(x, "x")
+    entry = kcodec._entry("qint8_roundtrip", suffix)
+    out = torch.empty_like(x)
+    rows, p = kcodec._rows(x)
+    tiny = kcodec._TINY[x.dtype]
+    args = (x.data_ptr(), u.data_ptr(), out.data_ptr(), rows, p, tiny,
+            kfwht.stream_of(x))
+    lib = ctypes.CDLL(_build.module("codec").__file__)
+    by_ctypes = getattr(lib, f"repro_qint8_roundtrip_{suffix}")
+    ptr, ll = ctypes.c_void_p, ctypes.c_longlong
+    by_ctypes.argtypes = [ptr, ptr, ptr, ll, ll, ctypes.c_double, ptr]
+    by_ctypes.restype = ctypes.c_int
+
+    def guard():
+        with kfwht.device_guard(x):
+            pass
+    path = {
+        "dispatch (resolve_impl, get_impl)":
+            lambda: ops.get_impl("qint8_roundtrip",
+                                 ops.resolve_impl("cuda", x), x),
+        "checks (check_input x2, attributes, _rows)":
+            lambda: (kfwht.check_input(x, "x"), kfwht.check_input(u, "u"),
+                     u.dtype != x.dtype or u.get_device() != x.get_device()
+                     or u.shape != x.shape, kcodec._rows(x)),
+        "output (empty_like)": lambda: torch.empty_like(x),
+        "entry point (_entry)":
+            lambda: kcodec._entry("qint8_roundtrip", suffix),
+        "tiny (cached)": lambda: kcodec._TINY[x.dtype],
+        "device guard (device_guard)": guard,
+        "stream (stream_of)": lambda: kfwht.stream_of(x),
+        "launch (extension call)": lambda: entry(*args),
+    }
+    parent = {
+        "checks by torch.device":
+            lambda: (u.dtype != x.dtype or u.device != x.device
+                     or u.shape != x.shape),
+        "tiny (torch.finfo)": lambda: float(torch.finfo(x.dtype).tiny),
+        "entry point (f-string getattr on ctypes)":
+            lambda: getattr(lib, f"repro_qint8_roundtrip_{suffix}"),
+        "launch (ctypes call)": lambda: by_ctypes(*args),
+    }
+    steps = {name: _host_us(fn) for name, fn in path.items()}
+    return {"steps_us": steps, "steps_sum_us": sum(steps.values()),
+            "call_us": _host_us(lambda: ops.qint8_roundtrip(x, u,
+                                                            impl="cuda")),
+            "parent_steps_us": {name: _host_us(fn)
+                                for name, fn in parent.items()},
+            "reps": HOST_REPS}
+
+
 def _codec_timings(dev) -> dict:
     """Each codec kernel at its main-path shapes (and one wide shape that
     is not on the path), beside its bound, the plain version and, for
-    top-k, torch.topk + scatter."""
+    top-k, torch.topk + scatter; events and the profiler's device time,
+    the kernel that serves each shape, and the host path of
+    qint8_roundtrip at its first shape."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels.codec import codec_route
 
     gen = torch.Generator(device=dev).manual_seed(4)
     calls = {"topk_mask": [("h_sk crushed (m, k*k)", (1000, 100), 25),
                            ("grad (m, M)", (1000, 18), 2),
+                           ("sg crushed (m, k)", (1000, 10), 5),
                            ("not a main-path shape", (1000, 16384), 1639)],
              "qint8_roundtrip": [("h_sk packed (m, k(k+1)/2)", (1000, 55), 0),
                                  ("grad (m, M)", (1000, 18), 0),
@@ -912,13 +1016,20 @@ def _codec_timings(dev) -> dict:
                 read, count = 2 * x.numel() * item, 7 * x.numel()
             bound, bound_by = _bound_ms(read, x.numel() * item, count,
                                         torch.float64)
-            rows_out.append(dict(
+            row = dict(
                 shape=label, dims=[rows, p], kept=kept or None,
-                ms=_time_ms(kern, 200), plain_ms=_time_ms(plain, 50),
+                route=codec_route(name, p, x.dtype),
+                ms=_time_ms(kern, 200), device_ms=_device_ms(kern, 200),
+                plain_ms=_time_ms(plain, 50),
                 library_ms=None if lib is None else _time_ms(lib, 200),
+                library_device_ms=(None if lib is None
+                                   else _device_ms(lib, 200)),
                 library="torch.topk + scatter" if lib else "none",
                 bound_ms=bound, bound_by=bound_by,
-                max_abs_err=_max_err(kern(), plain())))
+                max_abs_err=_max_err(kern(), plain()))
+            if name == "qint8_roundtrip" and not rows_out:
+                row["host_path"] = _codec_host_path(x, u)
+            rows_out.append(row)
         out[name] = rows_out
     return out
 
@@ -1054,10 +1165,18 @@ def phase_transport(problem, w0, w_star) -> dict:
     for name, rows in out["kernels"].items():
         for r in rows:
             lib = ("none" if r["library_ms"] is None
-                   else f"{r['library_ms']:.4f} ({r['library']})")
+                   else f"{r['library_ms']:.4f}, device "
+                        f"{r['library_device_ms']:.4f} ({r['library']})")
             log(f"[transport] {name:<15} {r['shape']:<28} {r['dims']} "
-                f"{r['ms']:.4f} ms (bound {r['bound_ms']:.6f} by "
+                f"{r['ms']:.4f} ms, device {r['device_ms']:.4f} "
+                f"[{r['route']}] (bound {r['bound_ms']:.6f} by "
                 f"{r['bound_by']}, plain {r['plain_ms']:.4f}, library {lib})")
+    host = out["kernels"]["qint8_roundtrip"][0]["host_path"]
+    log(f"[transport] qint8_roundtrip (1000, 55) host path, us a call over "
+        f"{host['reps']} calls: whole call {host['call_us']:.2f}; "
+        + ", ".join(f"{k} {v:.2f}" for k, v in host["steps_us"].items())
+        + "; the parent's way: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in host["parent_steps_us"].items()))
     return out
 
 

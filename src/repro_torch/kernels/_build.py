@@ -3,11 +3,13 @@
 Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process (all
 started together) into a shared library with a plain C interface under
 ``build/kernels/`` at the repository root, named by a hash of its
-source, so an edited source is rebuilt and an unchanged one is reused.
-A failed build raises: there is no fallback to the plain versions.
-``srht.cu`` is also a Python extension module (``module``): its launch
-entry points, called for a few rows on the main path, cost less host
-time that way than through ctypes.
+source and of the shared headers (``csrc/*.cuh``), so an edited source
+is rebuilt and an unchanged one is reused. A failed build raises: there
+is no fallback to the plain versions. ``srht.cu`` and ``codec.cu`` are
+also Python extension modules (``module``: ``repro_srht``,
+``repro_codec``, bound by ``csrc/pymodule.cuh``): their launch entry
+points, called for a few rows or small payloads on the main path, cost
+less host time that way than through ctypes.
 
 The toolkit is found under ``$CUDA_HOME`` (default ``/usr/local/cuda``)
 or on ``PATH``.
@@ -34,31 +36,26 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # and add separately rounded, as the plain PyTorch versions round them:
 # the SRHT and codec kernels are then bit-equal to those versions. Flash
 # attention is held to a tolerance and keeps its fused multiply-adds; its
-# tensor-core kernel reports registers and spills (-Xptxas=-v, kept in the
-# build log beside the library). srht.cu includes the interpreter's headers.
-SOURCE_FLAGS = {"srht": ("-fmad=false", "-I", sysconfig.get_paths()["include"]),
-                "codec": ("-fmad=false",),
+# tensor-core kernel and the codec kernels report registers and spills
+# (-Xptxas=-v, kept in the build log beside the library). srht.cu and
+# codec.cu include the interpreter's headers.
+_PY_INCLUDE = ("-I", sysconfig.get_paths()["include"])
+SOURCE_FLAGS = {"srht": ("-fmad=false", *_PY_INCLUDE),
+                "codec": ("-fmad=false", "-Xptxas=-v", *_PY_INCLUDE),
                 "flash_attention": (), "flash_attention_sm90": ("-Xptxas=-v",)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_LL = ctypes.c_longlong
 _D = ctypes.c_double
 
 # source stem -> C entry point -> argument types (every pointer and the
-# stream as c_void_p; all return cudaError_t as int); srht.cu's entry
-# points are called through ``module``
+# stream as c_void_p; all return cudaError_t as int); the entry points of
+# srht.cu and codec.cu are called through ``module``
 # q, k, v, o, b, tq, tk, h, hkv, d, causal, window, q_offset, scale,
 # empty_denom, stream
 _FLASH = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _D, _D, _P)
 SIGNATURES = {
     "srht": {},
-    "codec": {
-        "repro_topk_mask_f32": (_P, _P, _LL, _LL, _LL, _P),
-        "repro_topk_mask_f64": (_P, _P, _LL, _LL, _LL, _P),
-        "repro_qint8_roundtrip_f32": (_P, _P, _P, _LL, _LL, _D, _P),
-        "repro_qint8_roundtrip_f64": (_P, _P, _P, _LL, _LL, _D, _P),
-    },
     "flash_attention": {
         "repro_flash_attention_f32": _FLASH,
         "repro_flash_attention_bf16": _FLASH,
@@ -87,7 +84,8 @@ def _flags(src: pathlib.Path) -> tuple:
 
 
 def _target(src: pathlib.Path) -> pathlib.Path:
-    digest = hashlib.sha256(src.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(_flags(src)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{src.stem}_{digest}.so"
 
@@ -156,8 +154,12 @@ def module(stem: str = "srht"):
     return mod
 
 
-def check(lib: ctypes.CDLL, err: int, what: str) -> None:
-    """Raise on a non-zero ``cudaError_t`` returned by a launch."""
+def check(lib, err: int, what: str) -> None:
+    """Raise on a non-zero ``cudaError_t`` returned by a launch; ``lib``
+    is a ctypes ``library`` or an extension ``module``, whose
+    ``repro_error_string`` names the error."""
     if err != 0:
-        msg = lib.repro_error_string(err).decode()
+        msg = lib.repro_error_string(err)
+        if isinstance(msg, bytes):
+            msg = msg.decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg}) at launch")

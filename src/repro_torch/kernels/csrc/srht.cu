@@ -69,11 +69,9 @@
 #include <stdint.h>
 
 #include <algorithm>
-#include <climits>
 #include <cstring>
-#include <tuple>
-#include <type_traits>
-#include <utility>
+
+#include "pymodule.cuh"
 
 namespace {
 
@@ -881,55 +879,11 @@ cudaError_t repro_srht_apply_t_large_f64(const double* y, const double* signs,
 
 // ---------------------------------------------------------------------------
 // The entry points as functions of the extension module repro_srht
-// (METH_FASTCALL): pointers and the stream as Python ints, then the sizes
-// and factors, in the order of the C signature; each returns its
-// cudaError_t. A ctypes call of these arguments costs microseconds of host
-// time more than this one, and the transpose's main-path calls are a few
-// rows, where the host's launch path is the whole time.
+// (pymodule.cuh): the transpose's main-path calls are a few rows, where
+// the host's launch path is the whole time.
 // ---------------------------------------------------------------------------
 
 namespace {
-
-template <typename A>
-A from_py(PyObject* o) {
-  if constexpr (std::is_pointer_v<A>) {
-    return static_cast<A>(PyLong_AsVoidPtr(o));
-  } else if constexpr (std::is_same_v<A, double>) {
-    return PyFloat_AsDouble(o);
-  } else if constexpr (std::is_same_v<A, long long>) {
-    return PyLong_AsLongLong(o);
-  } else {
-    static_assert(std::is_same_v<A, int>);
-    const long v = PyLong_AsLong(o);
-    if (v < INT_MIN || v > INT_MAX) PyErr_SetString(PyExc_OverflowError, "int argument out of range");
-    return (int)v;
-  }
-}
-
-template <typename... A, size_t... I>
-PyObject* call_entry(cudaError_t (*fn)(A...), PyObject* const* args, std::index_sequence<I...>) {
-  const std::tuple<A...> a{from_py<A>(args[I])...};  // left to right
-  if (PyErr_Occurred()) return nullptr;
-  return PyLong_FromLong((long)std::apply(fn, a));
-}
-
-template <typename... A>
-PyObject* call_entry(cudaError_t (*fn)(A...), PyObject* const* args, Py_ssize_t nargs) {
-  if (nargs != (Py_ssize_t)sizeof...(A)) {
-    PyErr_Format(PyExc_TypeError, "expected %d arguments, got %zd", (int)sizeof...(A), nargs);
-    return nullptr;
-  }
-  return call_entry(fn, args, std::index_sequence_for<A...>{});
-}
-
-template <auto Fn>
-PyObject* py_entry(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
-  return call_entry(Fn, args, nargs);
-}
-
-#define REPRO_METHOD(name) \
-  {#name, reinterpret_cast<PyCFunction>(reinterpret_cast<void (*)(void)>(py_entry<name>)), \
-   METH_FASTCALL, nullptr}
 
 PyMethodDef kMethods[] = {
     REPRO_METHOD(repro_fwht_f32),

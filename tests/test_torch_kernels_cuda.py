@@ -130,10 +130,13 @@ def test_cuda_kernels_reject_what_they_do_not_take(hopper):
 
 
 # (rows, P): the main path's payloads (sympack-packed 10x10, sg, grad,
-# a crushed 10x10, one broadcast), ragged widths, and rows long enough
-# to be streamed from device memory instead of cached in shared memory
+# a crushed 10x10, one broadcast), ragged widths, the warp routes' limit
+# (codec.WARP_MAX_P = 1024, 32 values a lane) and one past it on the
+# block routes, and rows long enough to be streamed from device memory
+# instead of cached in shared memory
 CODEC_SHAPES = [(1000, 55), (1000, 10), (1000, 18), (1000, 100), (1, 18),
-                (7, 1), (5, 33), (3, 1000), (2, 5000), (4, 1 << 20)]
+                (7, 1), (5, 33), (3, 1000), (6, 1024), (6, 1025),
+                (2, 5000), (4, 1 << 20)]
 
 
 def _codec_inputs(hopper, tdt, rows, p, seed):
@@ -160,6 +163,48 @@ def test_codec_kernels_bit_equal_to_plain(hopper, tdt, rows, p):
     assert torch.equal(ops.qint8_roundtrip(x, u, impl="cuda"),
                        ops.qint8_roundtrip(x, u, impl="ref"))
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tdt", [torch.float64, torch.float32])
+@pytest.mark.parametrize("p", [18, 100, 1024, 1025, 5000])
+def test_codec_kernels_follow_the_plain_version_on_nan_rows(hopper, tdt, p):
+    """NaN orders above inf for top-k (ties by index), and a row's NaN
+    makes its whole int8 round trip NaN, as in the plain versions."""
+    x, u = _codec_inputs(hopper, tdt, 4, p, p)
+    x[2, ::7] = float("nan")
+    x[3, 1] = float("nan")
+    x[3, 0] = float("inf")
+    bits = torch.int64 if tdt == torch.float64 else torch.int32
+    for kept in sorted({1, 2, max(1, p // 10), p}):  # NaN != NaN: compare bits
+        assert torch.equal(ops.topk_mask(x, kept, impl="cuda").view(bits),
+                           ops.topk_mask(x, kept, impl="ref").view(bits))
+    torch.testing.assert_close(ops.qint8_roundtrip(x, u, impl="cuda"),
+                               ops.qint8_roundtrip(x, u, impl="ref"),
+                               rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.gpu
+def test_codec_ops_launch_through_the_extension_module(hopper, monkeypatch):
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import codec as kcodec
+
+    module = _build.module("codec")
+    assert module.__name__ == "repro_codec"
+    for op in ("topk_mask", "qint8_roundtrip"):
+        for suffix in ("f32", "f64"):
+            assert kcodec._entry(op, suffix).__self__ is module
+
+    def no_ctypes(*args, **kwargs):
+        raise AssertionError("a codec op loaded its library through ctypes")
+    monkeypatch.setattr(_build, "library", no_ctypes)
+    x = torch.randn(3, 18, dtype=torch.float64, device=hopper)
+    ops.reset_launch_counts()
+    got = ops.topk_mask(x, 4, impl="cuda")
+    ops.qint8_roundtrip(x, torch.rand_like(x), impl="cuda")
+    assert torch.equal(got, ops.topk_mask(x, 4, impl="ref"))
+    counts = ops.launch_counts()
+    assert (counts["topk_mask"], counts["qint8_roundtrip"]) == (1, 1)
 
 
 @pytest.mark.gpu
