@@ -9,9 +9,9 @@ Phases, in order; any failure raises and the script exits non-zero:
   2. build    — build the CUDA kernels from src/repro_torch/kernels/csrc
                 and import the libraries of srht.cu and codec.cu as the
                 extension modules repro_srht and repro_codec; print the
-                registers and spills (ptxas) of the tensor-core flash
-                kernel per head-dim instantiation and of every codec
-                kernel instantiation (none may spill)
+                registers and spills (ptxas) of both flash kernels per
+                instantiation (the tf32x3 one may not spill at D <= 128)
+                and of every codec kernel instantiation (none may spill)
   3. parity   — hold fwht, srht_apply and srht_apply_t against their
                 plain PyTorch versions on the card, in float32 and
                 float64, at power-of-two and padded dims, batched, at the
@@ -57,35 +57,45 @@ Phases, in order; any failure raises and the script exits non-zero:
   9. flash parity — the flash-attention kernels against their plain
                 version (ref.mha_blocked): bfloat16 through the tensor-core
                 kernel (route sm90, max abs err <= 2e-2), float32 through
-                the SIMT kernel (route simt, <= 2e-5), each launch counted
-                on its route: (tq, tk) in (64, 64), (100, 100), (32, 96),
+                the 3xTF32 tensor-core kernel (route tf32x3, <= 2e-5), each
+                launch counted on its route: (tq, tk) in (64, 64), (100,
+                100), (32, 96),
                 (1, 128), (2048, 2048) x (H, Hkv) in (4, 4), (8, 1),
                 (32, 4) x D in 64, 128, 256, then windows 1, 7, 128, 512
                 (D 128 and 256 at 2048), D 8 and 112, non-causal, q_offset
-                with a window, rows with no key; and a bfloat16 head dim
-                TMA cannot stride (D 12) through the SIMT kernel
+                with a window, rows with no key, causal rows of up to 4096
+                and 8192 keys (D 64, 128); then head dims that are
+                not a multiple of 8 (D 12, 13, 200 in float32; D 12, 13 in
+                bfloat16, which TMA cannot stride) through the tf32x3
+                kernel
  10. serve    — TinyLlama-1.1B at full width and depth (22 layers, bf16,
                 random weights from seed 0) through ServingEngine
                 (max_batch 4, cache_len 4096): 8 requests, prompts of
                 100-2000 tokens (numpy seed 0), 64 new tokens each; every
                 request completes, 22 launches of the tensor-core kernel per
-                prefill (none of the SIMT one) and none in decode; the
+                prefill (none of the tf32x3 one) and none in decode; the
                 last-position logits of a 2048-token prefill
                 through the kernel and the plain version within 4 bf16
                 ulps of the largest logit; prefill ms by bucket (128 to
                 2048), decode ms per step at batch 4 and its profile,
                 engine tokens/s, peak memory, and the kernel's profiled
                 share of a 2048-token prefill
- 11. serve f32 — the same model in float32 (TF32 off), 22 SIMT-kernel
-                launches per prefill: every request's engine tokens equal
-                its isolated prefill + greedy decode
+ 11. serve f32 — the same model in float32 (TF32 off), 22 tf32x3-kernel
+                launches per prefill (none of the sm90 one): every
+                request's engine tokens equal its isolated prefill + greedy
+                decode; engine tokens/s, the 2048-token prefill's ms and
+                its profile (device time, the flash kernel's share)
  12. flash times — the tensor-core kernel, its plain version and
                 F.scaled_dot_product_attention at (1, 2048, 32, 4, 64)
                 causal, (1, 2048, 4, 1, 256) window 512 and (1, 2048, 64,
-                8, 128) causal, bf16, beside the bound; the SIMT kernel at
-                (1, 2048, 32, 4, 64) causal in float32
+                8, 128) causal, bf16, beside the bound; the tf32x3 kernel
+                at the same three shapes in float32, beside its bound (three
+                times the operations at the 494.7 TFLOP/s dense TF32 tensor
+                rate) and the float32 SIMT one (67 TFLOP/s), SDPA with TF32
+                off
  13. kernels  — one JSON line naming every ported kernel (flash
-                attention as two entries: the bf16 route and the f32 route)
+                attention as two entries: the sm90 route and the tf32x3
+                route)
 
 The last line of standard output is the device record
 ``{"ok": true, "device": {...}}``; before it come the card's name and
@@ -115,6 +125,9 @@ import torch  # noqa: E402
 MEM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.float64: 34e12, torch.float32: 67e12,
                   torch.bfloat16: 989e12}
+# the dense TF32 tensor-core rate: the tf32x3 flash kernel does three TF32
+# products for each float32 one
+TF32_OPS_PER_S = 494.7e12
 
 SUSY = dict(n=5_000_000, dim=18, m=1000, k=10, lam=1e-3,
             spectrum_decay=1.5, label_noise=0.05)
@@ -134,13 +147,13 @@ KERNELS = {
     "flash_attention_sm90": dict(
         source="src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
         replaces="src/repro/kernels/flash_attention.py:72"),
-    "flash_attention_simt": dict(
+    "flash_attention_tf32x3": dict(
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:72"),
 }
 NO_CODEC = {"topk_mask": 0, "qint8_roundtrip": 0}
 NO_LM = {"flash_attention": 0, "flash_attention_sm90": 0,
-         "flash_attention_simt": 0}
+         "flash_attention_tf32x3": 0}
 
 # examples/edge_clients.py: name -> (sketch, codecs, uplink bytes per
 # delivering client at k=10, M=18)
@@ -217,6 +230,29 @@ def phase_build() -> dict:
         log(f"[build] flash_attention_sm90_kernel {key}: {ptxas[key]}")
     check(len(ptxas) == 3, f"build: expected 3 sm90 instantiations, got "
           f"{sorted(ptxas)}")
+    # the tf32x3 flash kernel: per input type, head-dim width and load path
+    # (cp.async or plain loads); no spill at D <= 128
+    tf32x3 = {}
+    for entry in re.split(r"Compiling entry function",
+                          _build.build_log("flash_attention"))[1:]:
+        name = re.search(r"tf32x3_kernelI(f|13__nv_bfloat16)Li(\d+)ELb([01])E",
+                         entry)
+        regs = re.search(r"Used (\d+) registers", entry)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          entry)
+        check(name and regs and spill, "build: unreadable tf32x3 ptxas report")
+        dt, width, cp = name.groups()
+        key = (f"{'float' if dt == 'f' else 'bf16'} D{width} "
+               f"{'cp.async' if cp == '1' else 'plain loads'}")
+        tf32x3[key] = {"registers": int(regs.group(1)),
+                       "spill_stores": int(spill.group(1)),
+                       "spill_loads": int(spill.group(2))}
+        log(f"[build] flash_attention_tf32x3_kernel {key}: {tf32x3[key]}")
+        check(int(width) > 128 or tf32x3[key]["spill_stores"]
+              == tf32x3[key]["spill_loads"] == 0,
+              f"build: tf32x3 {key} spills: {tf32x3[key]}")
+    check(len(tf32x3) == 9, f"build: expected 9 tf32x3 instantiations, got "
+          f"{sorted(tf32x3)}")
     # the codec kernels: the warp routes' per dtype and register count
     # (values a lane), whose limit holds only without spills, and the
     # block routes' (qint8_kernel with and without 16-byte loads)
@@ -246,7 +282,8 @@ def phase_build() -> dict:
     log("[build] codec kernels, registers (no spills): " + ", ".join(
         f"{k} {v['registers']}" for k, v in sorted(codec.items())))
     return {"seconds": total, "per_source": per_source,
-            "flash_sm90_ptxas": ptxas, "codec_ptxas": codec}
+            "flash_sm90_ptxas": ptxas, "flash_tf32x3_ptxas": tf32x3,
+            "codec_ptxas": codec}
 
 
 # ---------------------------------------------------------------------------
@@ -398,9 +435,10 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def _bound_ms(read: int, written: int, ops_count: float, dtype) -> tuple:
+def _bound_ms(read: int, written: int, ops_count: float, dtype,
+              peak: float = None) -> tuple:
     t_bytes = (read + written) / MEM_BYTES_PER_S
-    t_ops = ops_count / PEAK_OPS_PER_S[dtype]
+    t_ops = ops_count / (peak or PEAK_OPS_PER_S[dtype])
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -1187,9 +1225,9 @@ def phase_transport(problem, w0, w_star) -> dict:
 # the flash kernels against their plain version: (tq, tk) x (H, Hkv) x D
 # in both dtypes (q_offset = tk - tq keeps causal rows non-empty), then
 # windows, non-causal, q_offset with a window, and rows that see no key;
-# bfloat16 takes the tensor-core kernel, float32 the SIMT kernel
+# bfloat16 takes the wgmma kernel, float32 the 3xTF32 kernel
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
-FLASH_ROUTE = {torch.float32: "simt", torch.bfloat16: "sm90"}
+FLASH_ROUTE = {torch.float32: "tf32x3", torch.bfloat16: "sm90"}
 FLASH_SHAPES = [(64, 64), (100, 100), (32, 96), (1, 128), (2048, 2048)]
 FLASH_HEADS = [(4, 4), (8, 1), (32, 4)]
 FLASH_EXTRA = [  # (tq, tk, H, Hkv, D, causal, window, q_offset, block_k)
@@ -1204,9 +1242,15 @@ FLASH_EXTRA = [  # (tq, tk, H, Hkv, D, causal, window, q_offset, block_k)
     (32, 96, 8, 2, 64, True, 20, 500, 1024),
     (4, 8, 1, 1, 8, True, 2, 20, 4),  # no row sees a key
     (64, 200, 8, 2, 64, True, 16, 300, 64),  # no row sees a key, ragged tk
+    (4096, 4096, 4, 1, 64, True, None, 0, 1024),  # rows of up to 8192 keys
+    (8192, 8192, 4, 1, 64, True, None, 0, 1024),
+    (8192, 8192, 4, 1, 128, True, None, 0, 1024),
 ]
-# a bfloat16 head dim that TMA cannot stride (d % 8 != 0): the SIMT kernel
-FLASH_SIMT_BF16 = [(100, 100, 4, 2, 12, True, None, 0, 1024)]
+# head dims that are not a multiple of 8, in both dtypes: the tf32x3
+# kernel (bf16 D 200 would take the sm90 kernel and is left out)
+FLASH_ODD_D = [(100, 100, 4, 2, 12, True, None, 0, 1024),
+               (70, 90, 2, 1, 13, True, None, 20, 1024)]
+FLASH_ODD_D_F32 = [(130, 130, 4, 1, 200, True, 48, 0, 1024)]
 
 
 def _flash_inputs(gen, b, tq, tk, h, hkv, d, dtype, dev):
@@ -1226,12 +1270,14 @@ def phase_flash_parity() -> dict:
             for d in (64, 128, 256):
                 cases.append((tq, tk, h, hkv, d, True, None, tk - tq, 1024))
     cases += FLASH_EXTRA
-    worst = {"sm90 bfloat16": 0.0, "simt float32": 0.0, "simt bfloat16": 0.0}
+    worst = {"sm90 bfloat16": 0.0, "tf32x3 float32": 0.0,
+             "tf32x3 bfloat16": 0.0}
     rows = []
     for dtype, tol in FLASH_TOL.items():
         gen = torch.Generator(device=dev).manual_seed(5)
         route = FLASH_ROUTE[dtype]
-        extra = FLASH_SIMT_BF16 if dtype == torch.bfloat16 else []
+        extra = FLASH_ODD_D + (FLASH_ODD_D_F32 if dtype == torch.float32
+                               else [])
         ops.reset_launch_counts()
         for i, (tq, tk, h, hkv, d, causal, window, q_offset,
                 block_k) in enumerate(cases + extra):
@@ -1244,7 +1290,7 @@ def phase_flash_parity() -> dict:
             torch.cuda.synchronize()
             err = _max_err(got.float(), want.float())
             name = str(dtype).split(".")[-1]
-            on = route if i < len(cases) else "simt"
+            on = route if i < len(cases) else "tf32x3"
             worst[f"{on} {name}"] = max(worst[f"{on} {name}"], err)
             label = (f"{name} tq={tq} tk={tk} H={h} Hkv={hkv} D={d} "
                      f"causal={causal} window={window} q_offset={q_offset} "
@@ -1255,14 +1301,17 @@ def phase_flash_parity() -> dict:
                   f"flash_attention {label}: kernel differs from the plain "
                   f"version by {err:.3e} > {tol}")
         counts = ops.launch_counts()
-        other = "simt" if route == "sm90" else "sm90"
-        want_routes = {route: len(cases), other: len(extra)}
+        want_routes = {"sm90": 0, "tf32x3": 0}
+        want_routes[route] += len(cases)
+        want_routes["tf32x3"] += len(extra)
         got_routes = {r: counts[f"flash_attention_{r}"] for r in want_routes}
         check(got_routes == want_routes,
               f"flash parity {name}: launches by route {got_routes} != "
               f"{want_routes}")
     log(f"[flash parity] {len(cases)} cases x 2 dtypes (+ "
-        f"{len(FLASH_SIMT_BF16)} bf16 on the SIMT kernel) within float32 "
+        f"{len(FLASH_ODD_D) + len(FLASH_ODD_D_F32)} f32 and "
+        f"{len(FLASH_ODD_D)} bf16 head dims not a multiple of 8 on the "
+        f"tf32x3 kernel) within float32 "
         f"{FLASH_TOL[torch.float32]}, bfloat16 {FLASH_TOL[torch.bfloat16]}; "
         f"each on its route (worst {worst})")
     return {"worst": worst, "cases": rows}
@@ -1356,7 +1405,7 @@ def _prefill_profile(model, params, tokens) -> dict:
                if e.device_type == DeviceType.CUDA
                and e.self_device_time_total > 0]
     busy = sum(t for _, t, _ in kernels)
-    # flash_attention_sm90_kernel<...> in bf16, flash_attention_kernel<...> in f32
+    # flash_attention_sm90_kernel<...> in bf16, flash_attention_tf32x3_kernel<...> in f32
     flash = sum(t for name, t, _ in kernels if "flash_attention" in name)
     top = sorted(kernels, key=lambda r: -r[1])[:8]
     return {"wall_us": wall_us, "device_busy_us": busy, "flash_us": flash,
@@ -1397,7 +1446,7 @@ def phase_serve() -> dict:
         want = {"fwht": 0, "srht_apply": 0, "srht_apply_t": 0, **NO_CODEC,
                 "flash_attention": L * len(reqs),
                 "flash_attention_sm90": L * len(reqs),
-                "flash_attention_simt": 0}
+                "flash_attention_tf32x3": 0}
         check(run["launches"] == want,
               f"serve launches {run['launches']} != {want} (one launch of "
               f"the tensor-core kernel per layer per prefill)")
@@ -1522,9 +1571,9 @@ def phase_serve_f32() -> dict:
         n = cfg.n_layers * len(reqs)
         got = {k: run["launches"][k] for k in NO_LM}
         check(got == {"flash_attention": n, "flash_attention_sm90": 0,
-                      "flash_attention_simt": n},
+                      "flash_attention_tf32x3": n},
               f"serve f32 launches {run['launches']} (one launch of the "
-              f"SIMT kernel per layer per prefill)")
+              f"tf32x3 kernel per layer per prefill)")
         min_margin = math.inf
         for r in reqs:
             want, margins = _isolated_generate(model, params, r.prompt,
@@ -1545,6 +1594,10 @@ def phase_serve_f32() -> dict:
                        _prefill_logits(model, params, tokens, impl="ref"))
         check(err <= F32_LOGIT_TOL, f"serve f32: prefill logits through the "
               f"kernel differ from the plain version by {err:.3e}")
+        ms = _bare_ms(lambda: model.prefill(
+            params, {"inputs": tokens}, cache_len=SERVE["cache_len"]), 5)
+        prefill_ms = sorted(ms)[len(ms) // 2]
+        profile = _prefill_profile(model, params, tokens)
     log(f"[serve f32] {len(reqs)} requests x {SERVE['new_tokens']} tokens: "
         f"engine == isolated prefill + greedy decode, token for token "
         f"(smallest top-2 margin {min_margin:.3e}); engine "
@@ -1552,10 +1605,20 @@ def phase_serve_f32() -> dict:
         f"2048-token prefill logits kernel vs plain {err:.3e} (tolerance "
         f"{F32_LOGIT_TOL}); peak memory {peak / 2**30:.3f} GiB; init "
         f"{init_s:.2f} s")
+    log(f"[serve f32] prefill 2048 tokens: {prefill_ms:.3f} ms median of "
+        f"{len(ms)} ({min(ms):.3f}..{max(ms):.3f}); profile: flash kernel "
+        f"{profile['flash_us'] / 1e3:.3f} ms = "
+        f"{profile['flash_share_of_device']:.1%} of device time "
+        f"({profile['device_busy_us'] / 1e3:.3f} ms), wall "
+        f"{profile['wall_us'] / 1e3:.3f} ms")
+    for r in profile["top"]:
+        log(f"[serve f32]   {r['us']:10.1f} us x{r['launches']:<4d} "
+            f"{r['kernel']}")
     del params
     torch.cuda.empty_cache()
     return {**run, "init_s": init_s, "peak_memory_bytes": peak,
-            "min_top2_margin": min_margin, "logits_2048_max_abs_err": err}
+            "min_top2_margin": min_margin, "logits_2048_max_abs_err": err,
+            "prefill_2048_ms": ms, "prefill_2048_profile": profile}
 
 
 # ---------------------------------------------------------------------------
@@ -1569,8 +1632,12 @@ FLASH_TIMED = [  # (route, label, dtype, B, T, H, Hkv, D, window)
      torch.bfloat16, 1, 2048, 4, 1, 256, 512),
     ("sm90", "qwen1.5 heads (1, 2048, 64, 8, 128) bf16 causal",
      torch.bfloat16, 1, 2048, 64, 8, 128, None),
-    ("simt", "TinyLlama prefill (1, 2048, 32, 4, 64) f32 causal",
+    ("tf32x3", "TinyLlama prefill (1, 2048, 32, 4, 64) f32 causal",
      torch.float32, 1, 2048, 32, 4, 64, None),
+    ("tf32x3", "qwen1.5 heads (1, 2048, 64, 8, 128) f32 causal",
+     torch.float32, 1, 2048, 64, 8, 128, None),
+    ("tf32x3", "gemma3-1b local (1, 2048, 4, 1, 256) f32 window 512",
+     torch.float32, 1, 2048, 4, 1, 256, 512),
 ]
 
 
@@ -1604,6 +1671,8 @@ def phase_flash_times() -> dict:
 
     from repro_torch.kernels import ops
 
+    torch.backends.cuda.matmul.allow_tf32 = False  # SDPA in float32
+    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(8)
     out = {f"flash_attention_{route}": [] for route in FLASH_ROUTE.values()}
@@ -1632,6 +1701,13 @@ def phase_flash_times() -> dict:
         io = (2 * q.numel() + k.numel() + v.numel()) * item
         flops = 4 * d * h * b * _visible_pairs(t, window)
         bound, bound_by = _bound_ms(io, 0, flops, dtype)
+        simt_bound = None
+        if route == "tf32x3":
+            # the least time for its work: three TF32 tensor-core products
+            # for each float32 one, under the float32 SIMT bound
+            simt_bound = bound
+            bound, bound_by = _bound_ms(io, 0, 3 * flops, dtype,
+                                        TF32_OPS_PER_S)
         ops.reset_launch_counts()
         got = kern()
         check(ops.launch_counts()[f"flash_attention_{route}"] == 1,
@@ -1643,12 +1719,15 @@ def phase_flash_times() -> dict:
                    library_device_ms=_device_ms(lib, 20),
                    library="F.scaled_dot_product_attention(enable_gqa=True)",
                    bound_ms=bound, bound_by=bound_by, gflop=flops / 1e9,
+                   simt_bound_ms=simt_bound,
                    max_abs_err=_max_err(got.float(), plain().float()),
                    library_max_abs_err=_max_err(
                        got.float(), lib().transpose(1, 2).float()))
         out[f"flash_attention_{route}"].append(row)
+        peak = (f" at 3xTF32 on the tensor cores, FP32 SIMT bound "
+                f"{simt_bound:.4f}" if simt_bound else "")
         log(f"[flash times] {label} ({route}): {row['ms']:.4f} ms, device "
-            f"{row['device_ms']:.4f} (bound {bound:.4f} by {bound_by}, "
+            f"{row['device_ms']:.4f} (bound {bound:.4f} by {bound_by}{peak}, "
             f"{flops / 1e9:.2f} GFLOP; plain {row['plain_ms']:.4f}; SDPA "
             f"{row['library_ms']:.4f}, device {row['library_device_ms']:.4f}); "
             f"max abs err vs plain {row['max_abs_err']:.3e}, vs SDPA "
@@ -1676,21 +1755,21 @@ def main() -> int:
     # launches: the SRHT kernels from the full-size comm=None run (fwht is
     # the butterfly they share and is never launched on its own there),
     # the codec kernels from the two full-size transport runs, the
-    # tensor-core flash kernel from the bf16 engine run of the serve phase
-    # and the SIMT one from the f32 engine run
+    # wgmma flash kernel from the bf16 engine run of the serve phase and
+    # the tf32x3 one from the f32 engine run
     launches = {**record["full_size"]["launches"],
                 **record["transport"]["launches"],
                 "flash_attention_sm90":
                     record["serve"]["launches"]["flash_attention_sm90"],
-                "flash_attention_simt":
-                    record["serve_f32"]["launches"]["flash_attention_simt"]}
+                "flash_attention_tf32x3":
+                    record["serve_f32"]["launches"]["flash_attention_tf32x3"]}
     timed = {**record["full_size"]["kernels"],
              **record["transport"]["kernels"], **record["flash_times"]}
     parity = {**record["parity_max_abs_err"],
               **record["codec_parity_max_abs_err"],
               **{f"flash_attention_{route}": max(
                   e for key, e in record["flash_parity"]["worst"].items()
-                  if key.startswith(route)) for route in ("sm90", "simt")}}
+                  if key.startswith(route)) for route in ("sm90", "tf32x3")}}
     for name, err in record["long_rows"]["max_abs_err"].items():
         parity[name] = max(parity[name], err)
     kernels = []

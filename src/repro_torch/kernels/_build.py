@@ -36,13 +36,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # and add separately rounded, as the plain PyTorch versions round them:
 # the SRHT and codec kernels are then bit-equal to those versions. Flash
 # attention is held to a tolerance and keeps its fused multiply-adds; its
-# tensor-core kernel and the codec kernels report registers and spills
+# two kernels and the codec kernels report registers and spills
 # (-Xptxas=-v, kept in the build log beside the library). srht.cu and
 # codec.cu include the interpreter's headers.
 _PY_INCLUDE = ("-I", sysconfig.get_paths()["include"])
 SOURCE_FLAGS = {"srht": ("-fmad=false", *_PY_INCLUDE),
                 "codec": ("-fmad=false", "-Xptxas=-v", *_PY_INCLUDE),
-                "flash_attention": (), "flash_attention_sm90": ("-Xptxas=-v",)}
+                "flash_attention": ("-Xptxas=-v",),
+                "flash_attention_sm90": ("-Xptxas=-v",)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

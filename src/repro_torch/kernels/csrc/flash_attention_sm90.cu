@@ -12,7 +12,8 @@
 // starting at -inf; the output is acc / max(l, 1e-30), rounded to bfloat16.
 // The KV head of q head h is h / (H / Hkv), read in place: no KV expansion.
 // Float32 inputs, and bfloat16 head dims that are not a multiple of 8, take
-// the SIMT kernel of csrc/flash_attention.cu (the wrapper's flash_route).
+// the 3xTF32 tensor-core kernel of csrc/flash_attention.cu (the wrapper's
+// flash_route).
 //
 // What bounds it: operations. A causal TinyLlama prefill layer, (1, 2048,
 // 32 heads, 4 KV heads, 64), does 4 * 64 * 32 * 2048 * 2049 / 2 = 17.2 GFLOP

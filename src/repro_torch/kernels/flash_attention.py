@@ -7,10 +7,12 @@ One launch per call, of one of two kernels, chosen by ``flash_route``:
     ``csrc/flash_attention_sm90.cu``: bfloat16 with a head dim that is a
     multiple of 8 (TMA's 16-byte strides), both products on the tensor
     cores (``wgmma``, float32 accumulators), K and V tiles brought by TMA;
-  * ``"simt"`` — ``flash_attention_kernel`` in ``csrc/flash_attention.cu``:
-    float32 (the contract checks' dtype, held to 2e-5, which TF32 tensor
-    cores would break) and bfloat16 head dims that are not a multiple of 8,
-    on the float32 SIMT units.
+  * ``"tf32x3"`` — ``flash_attention_tf32x3_kernel`` in
+    ``csrc/flash_attention.cu``: float32 (the contract checks' dtype, held
+    to 2e-5) and bfloat16 head dims that are not a multiple of 8, both
+    products on the tensor cores (``mma.sync`` m16n8k8 TF32, float32
+    accumulators) with each float32 operand split into two TF32 halves and
+    three products summed (3xTF32), K and V tiles brought by ``cp.async``.
 
 Both take (B, T, H, D) tensors with head dim up to 256, the KV head of q
 head h being h // (H / Hkv), and compute the op's contract,
@@ -32,22 +34,24 @@ from repro_torch.kernels.fwht import device_guard, stream_of
 # launches (incremented only where a kernel is launched): the op's total
 # and each route's
 LAUNCHES = {"flash_attention": 0, "flash_attention_sm90": 0,
-            "flash_attention_simt": 0}
+            "flash_attention_tf32x3": 0}
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 MAX_HEAD_DIM = 256
 _INT_MAX = (1 << 31) - 1
 # the sm90 kernel's q tile and key tile (kBM and kBN in
-# csrc/flash_attention_sm90.cu); its grid has one row of blocks per q
-# tile, at most 65535
+# csrc/flash_attention_sm90.cu) and the tf32x3 kernel's smallest q tile
+# (kBQ in csrc/flash_attention.cu, which varies with the head dim); each
+# grid has one row of blocks per q tile, at most 65535
 SM90_BLOCK_Q = 64
 SM90_BLOCK_K = 64
+TF32X3_BLOCK_Q = 64
 
 
 def flash_route(dtype: torch.dtype, d: int) -> str:
     """The kernel a CUDA call of this dtype and head dim launches:
-    ``"sm90"`` for bfloat16 with ``d % 8 == 0``, else ``"simt"``."""
-    return "sm90" if dtype == torch.bfloat16 and d % 8 == 0 else "simt"
+    ``"sm90"`` for bfloat16 with ``d % 8 == 0``, else ``"tf32x3"``."""
+    return "sm90" if dtype == torch.bfloat16 and d % 8 == 0 else "tf32x3"
 
 
 def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -85,10 +89,11 @@ def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q_offset < 0 or q_offset + tq > _INT_MAX:
         raise ValueError(f"q_offset {q_offset} outside the kernel's range")
     route = flash_route(q.dtype, d)
+    block_q = SM90_BLOCK_Q if route == "sm90" else TF32X3_BLOCK_Q
+    if -(-tq // block_q) > 65535:
+        raise ValueError(f"tq {tq} exceeds the {route} kernel's grid "
+                         f"({65535 * block_q} rows)")
     if route == "sm90":
-        if -(-tq // SM90_BLOCK_Q) > 65535:
-            raise ValueError(f"tq {tq} exceeds the sm90 kernel's grid "
-                             f"({65535 * SM90_BLOCK_Q} rows)")
         for name, x in (("q", q), ("k", k), ("v", v)):
             if x.numel() and x.data_ptr() % 16:
                 raise ValueError(f"{name} must start on a 16-byte boundary "

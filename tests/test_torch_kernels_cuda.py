@@ -9,7 +9,7 @@ versions' op order, so they are required to be bit-equal to them; the
 flash-attention kernels sum in their own order and are held to a
 tolerance (float32 2e-5, bfloat16 2e-2: one to two bfloat16 ulps of the
 output). bfloat16 cases take the tensor-core kernel (route "sm90"),
-float32 cases the SIMT kernel (route "simt").
+float32 cases the 3xTF32 tensor-core kernel (route "tf32x3").
 """
 import pytest
 
@@ -102,7 +102,7 @@ def test_cuda_kernels_count_launches(hopper):
                                    "qint8_roundtrip": 1,
                                    "flash_attention": 1,
                                    "flash_attention_sm90": 0,
-                                   "flash_attention_simt": 1}
+                                   "flash_attention_tf32x3": 1}
 
 
 @pytest.mark.gpu
@@ -240,6 +240,16 @@ FLASH_CASES = [
     (64, 200, 8, 2, 64, True, 16, 300, 64),
     (2048, 2048, 16, 2, 128, True, 512, 0, 1024),
     (2048, 2048, 8, 2, 256, True, 128, 0, 1024),
+    # causal rows of up to 4096 and 8192 keys
+    (4096, 4096, 4, 1, 64, True, None, 0, 1024),
+    (8192, 8192, 4, 1, 64, True, None, 0, 1024),
+    (8192, 8192, 4, 1, 128, True, None, 0, 1024),
+    # head dims that are not a multiple of 8 (the k-steps pad them with
+    # zeros): float32 through cp.async (d % 4 == 0) or plain loads (13),
+    # bf16 D 12 and 13 through the tf32x3 kernel's plain loads
+    (100, 100, 4, 2, 12, True, None, 0, 1024),
+    (130, 130, 4, 1, 200, True, 48, 0, 1024),
+    (70, 90, 2, 1, 13, True, None, 20, 1024),
 ]
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
@@ -259,7 +269,7 @@ def test_flash_attention_kernel_matches_plain(hopper, tdt, tq, tk, h, hkv, d,
               block_k=block_k)
     ops.reset_launch_counts()
     got = ops.flash_attention(q, k, v, impl="cuda", **kw)
-    route = "sm90" if tdt == torch.bfloat16 else "simt"
+    route = "sm90" if tdt == torch.bfloat16 and d % 8 == 0 else "tf32x3"
     assert ops.launch_counts()[f"flash_attention_{route}"] == 1
     want = ops.flash_attention(q, k, v, impl="ref", **kw)
     torch.cuda.synchronize()
@@ -272,19 +282,19 @@ def test_flash_attention_kernel_matches_plain(hopper, tdt, tq, tk, h, hkv, d,
 def test_flash_attention_routes_count_their_launches(hopper):
     q = torch.randn(1, 16, 4, 64, device=hopper)
     kv = torch.randn(1, 16, 2, 64, device=hopper)
-    for dtype, route, other in ((torch.bfloat16, "sm90", "simt"),
-                                (torch.float32, "simt", "sm90")):
+    for dtype, route, other in ((torch.bfloat16, "sm90", "tf32x3"),
+                                (torch.float32, "tf32x3", "sm90")):
         ops.reset_launch_counts()
         ops.flash_attention(q.to(dtype), kv.to(dtype), kv.to(dtype))
         counts = ops.launch_counts()
         assert (counts["flash_attention"], counts[f"flash_attention_{route}"],
                 counts[f"flash_attention_{other}"]) == (1, 1, 0)
-    # a bf16 head dim TMA cannot stride (d % 8 != 0) takes the SIMT kernel
+    # a bf16 head dim TMA cannot stride (d % 8 != 0) takes the tf32x3 kernel
     q12 = torch.randn(1, 16, 4, 12, device=hopper).bfloat16()
     kv12 = torch.randn(1, 16, 2, 12, device=hopper).bfloat16()
     ops.reset_launch_counts()
     got = ops.flash_attention(q12, kv12, kv12, impl="cuda")
-    assert ops.launch_counts()["flash_attention_simt"] == 1
+    assert ops.launch_counts()["flash_attention_tf32x3"] == 1
     want = ops.flash_attention(q12, kv12, kv12, impl="ref")
     assert float((got.float() - want.float()).abs().max()) <= 2e-2
 

@@ -36,13 +36,13 @@ _JREF = jax.jit(jref.mha_blocked, static_argnames=(
 def test_every_configured_head_dim_routes_to_sm90_in_bf16(arch):
     d = get_config(arch).head_dim
     assert kflash.flash_route(torch.bfloat16, d) == "sm90"
-    assert kflash.flash_route(torch.float32, d) == "simt"
+    assert kflash.flash_route(torch.float32, d) == "tf32x3"
 
 
 @pytest.mark.parametrize("d", [1, 4, 12, 36, 100, 130, 255])
 def test_head_dims_tma_cannot_stride_take_the_simt_kernel(d):
     # TMA's global strides are multiples of 16 bytes: d % 8 == 0 in bf16
-    assert kflash.flash_route(torch.bfloat16, d) == "simt"
+    assert kflash.flash_route(torch.bfloat16, d) == "tf32x3"
     assert kflash.flash_route(torch.bfloat16, d + (-d) % 8) == "sm90"
 
 
@@ -57,7 +57,7 @@ def test_sm90_argument_checks_run_before_any_build(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA tensor"):
         kflash.flash_attention_cuda(q, kv, kv)
     assert kflash.check_args(q, kv, kv) == "sm90"
-    assert kflash.check_args(q.float(), kv.float(), kv.float()) == "simt"
+    assert kflash.check_args(q.float(), kv.float(), kv.float()) == "tf32x3"
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         kflash.check_args(q.half(), kv.half(), kv.half())
     with pytest.raises(TypeError, match="share dtype"):
