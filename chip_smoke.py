@@ -10,15 +10,22 @@ Phases, in order; any failure raises and the script exits non-zero:
                 and import the libraries of srht.cu and codec.cu as the
                 extension modules repro_srht and repro_codec; print the
                 registers and spills (ptxas) of both flash kernels per
-                instantiation (the tf32x3 one may not spill at D <= 128)
-                and of every codec kernel instantiation (none may spill)
+                instantiation (the tf32x3 one may not spill at D <= 128),
+                of every codec kernel instantiation and of the forward
+                SRHT's and the strided pass's register kernels (none of
+                these may spill)
   3. parity   — hold fwht, srht_apply and srht_apply_t against their
                 plain PyTorch versions on the card, in float32 and
-                float64, at power-of-two and padded dims, batched, at the
-                quickstart and the full-size shapes and on both sides of
-                every route boundary (fwht.kernel_route), k = 1 and k = n:
-                bit-equality required (the kernels keep the plain
-                versions' op order and are built with -fmad=false)
+                float64, at power-of-two and padded dims (dim = n - 1
+                too), batched, at the quickstart's, the full-size SUSY,
+                covtype and phishing shapes and on both sides of every
+                route boundary (fwht.kernel_route), k = 1 and k = n, at
+                (2000, 5000) -> n 8192 (more chunks than one wave of
+                blocks, so each block walks several), with signs other
+                than +1 and -1 on every route, and srht_apply on views of
+                x off a 16-byte boundary: bit-equality required (the
+                kernels keep the plain versions' op order and are built
+                with -fmad=false)
   4. quickstart — FLeNS at the quickstart size (n=4000, dim=64, m=8,
                 k=32, float64, 12 rounds) through the kernels; launch
                 counts checked per round (3 srht_apply + 2 srht_apply_t,
@@ -34,9 +41,24 @@ Phases, in order; any failure raises and the script exits non-zero:
                 device time and the kernel that serves the shape, and for
                 srht_apply_t the host's launch path step by step (10,000
                 calls a step) beside the parent commit's way of each step
+ 5b. covtype  — the covtype twin at the real UCI row count (n=581,012,
+                M=54, m=200, k=20, lam=1e-3, spectrum_decay 1.8, float64):
+                newton_solve, then FLeNS for 10 rounds through the kernels
+                (3 srht_apply + 2 srht_apply_t launches a round) with the
+                trajectory equal to the plain versions' on the card; gap
+                per round, ms per round (run_rounds and bare), peak memory,
+                a profiled round's device busy share and top kernels; then
+                srht_apply at covtype's three main-path shapes, phishing's
+                (11,055 rows, M=68, m=40, k=17), the quickstart's and one
+                FedNS-like call ((18,000, 5,000) -> n 8192, k 10, one
+                operator), each with its route, events time, the profiler's
+                device time in all and by kernel, the bound, the plain
+                version and x @ S.T, and bit-equal to the plain version
   6. long rows — fwht, srht_apply and srht_apply_t past the single-pass
                 length (n = 2^15, 2^17, 2^20) against their plain versions,
-                bit-equal; fwht timed at n = 2^17
+                bit-equal; fwht timed at (64, 2^17) and (1, 2^20),
+                srht_apply at (2, 2^17) with dim 2^17 - 5, each with the
+                profiler's device time by kernel (the two passes apart)
   7. codec parity — topk_mask and qint8_roundtrip against their plain
                 versions, bit-equal, in float32 and float64: the main-path
                 payload shapes, ties, zero rows, kept = 1 and P, ragged
@@ -95,7 +117,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                 off
  13. kernels  — one JSON line naming every ported kernel (flash
                 attention as two entries: the sm90 route and the tf32x3
-                route)
+                route); the srht_apply and fwht entries list their routes,
+                each with a timed shape and its bound
 
 The last line of standard output is the device record
 ``{"ok": true, "device": {...}}``; before it come the card's name and
@@ -132,6 +155,11 @@ TF32_OPS_PER_S = 494.7e12
 SUSY = dict(n=5_000_000, dim=18, m=1000, k=10, lam=1e-3,
             spectrum_decay=1.5, label_noise=0.05)
 QUICK = dict(n=4000, dim=64, m=8, k=32, lam=1e-3)
+# paper Table II covtype at the real UCI row count (repro's twin cuts it
+# to 58,101 rows for the CPU) and phishing (its real size)
+COVTYPE = dict(n=581_012, dim=54, m=200, k=20, lam=1e-3, spectrum_decay=1.8,
+               label_noise=0.05)
+PHISHING = dict(n=11_055, dim=68, m=40, k=17)
 
 KERNELS = {
     "fwht": dict(source="src/repro_torch/kernels/csrc/srht.cu",
@@ -281,9 +309,35 @@ def phase_build() -> dict:
           f"got {sorted(codec)}")
     log("[build] codec kernels, registers (no spills): " + ", ".join(
         f"{k} {v['registers']}" for k, v in sorted(codec.items())))
+    # the SRHT source's register kernels: the forward one per dtype and
+    # LOG_N (6..14), the strided pass per dtype and LOG_R (1..14)
+    srht = {}
+    for entry in re.split(r"Compiling entry function",
+                          _build.build_log("srht"))[1:]:
+        name = re.search(r"(srht_fwd_reg|fwht_strided)_kernelI([df])Li(\d+)E",
+                         entry)
+        if not name:
+            continue
+        regs = re.search(r"Used (\d+) registers", entry)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          entry)
+        check(regs and spill, "build: unreadable srht ptxas report")
+        kind, dt, log2 = name.groups()
+        key = f"{kind}_kernel<{'double' if dt == 'd' else 'float'}, {log2}>"
+        srht[key] = {"registers": int(regs.group(1)),
+                     "spill_stores": int(spill.group(1)),
+                     "spill_loads": int(spill.group(2))}
+        check(srht[key]["spill_stores"] == srht[key]["spill_loads"] == 0,
+              f"build: {key} spills: {srht[key]}")
+    kinds = [key.split("_kernel")[0] for key in srht]
+    check(kinds.count("srht_fwd_reg") == 18 and kinds.count("fwht_strided")
+          == 28, f"build: expected 18 srht_fwd_reg and 28 fwht_strided "
+          f"instantiations, got {sorted(srht)}")
+    log("[build] srht register kernels, registers (no spills): " + ", ".join(
+        f"{k} {v['registers']}" for k, v in sorted(srht.items())))
     return {"seconds": total, "per_source": per_source,
             "flash_sm90_ptxas": ptxas, "flash_tf32x3_ptxas": tf32x3,
-            "codec_ptxas": codec}
+            "codec_ptxas": codec, "srht_ptxas": srht}
 
 
 # ---------------------------------------------------------------------------
@@ -320,6 +374,16 @@ def phase_parity() -> dict:
         (512, 512, 256, (5,)), (1000, 1024, 1, (3,)),
         (1024, 1024, 1024, (3,)), (2048, 2048, 100, (2,)),
         (16384, 16384, 1, (2,)), (16383, 16384, 16384, (2,)),
+        # covtype's and phishing's main-path shapes (A_j, gradients, S^T I_k)
+        (54, 64, 20, (200, 2906)), (54, 64, 20, (200,)), (54, 64, 20, (20,)),
+        (68, 128, 17, (40, 277)), (68, 128, 17, (40,)), (68, 128, 17, (17,)),
+        # dims just under n, and the far side of the single-pass limit
+        (63, 64, 20, (65,)), (127, 128, 17, (33,)), (1023, 1024, 50, (5,)),
+        (16383, 16384, 20, (3,)), (32768, 32768, 1, (2,)),
+        # 2000 rows of n = 8192: more chunks than one wave of resident
+        # blocks, so each block of the forward register kernel takes
+        # several (its mbarrier's parity flips between them)
+        (5000, 8192, 10, (2000,)),
     ]
     worst = {name: 0.0 for name in ("fwht", "srht_apply", "srht_apply_t")}
     for dtype in (torch.float64, torch.float32):
@@ -350,8 +414,63 @@ def phase_parity() -> dict:
                       f"kernel differs from the plain version "
                       f"(max abs err {err:.3e})")
             del x, y, xp, pairs
-    log(f"[parity] {len(cases)} shapes x 2 dtypes x 3 kernels bit-equal "
-        f"to the plain versions (max abs err {worst})")
+    # srht_apply on views of x off a 16-byte boundary (the kernels read the
+    # slab's aligned middle by a bulk copy, its ends value by value)
+    views = [(54, 64, 20, (200, 37)), (68, 128, 17, (33,)),
+             (1023, 1024, 50, (3,)), (16383, 16384, 20, (2,)),
+             (18, 32, 10, (40,))]
+    for dtype in (torch.float64, torch.float32):
+        gen = torch.Generator(device=dev).manual_seed(3)
+        per = 128 // torch.finfo(dtype).bits  # values of 16 bytes
+        for dim, n, k, batch in views:
+            signs, rows = _operator(gen, n, k, dtype, dev)
+            count = math.prod(batch) * dim
+            flat = torch.randn(count + per, generator=gen, dtype=dtype,
+                               device=dev)
+            for off in range(1, per):
+                x = flat[off:off + count].view(batch + (dim,))
+                check(x.data_ptr() % 16 != 0, "parity: view is aligned")
+                got = ops.srht_apply(x, signs, rows, impl="cuda")
+                want = ops.srht_apply(x, signs, rows, impl="ref")
+                err = _max_err(got, want)
+                worst["srht_apply"] = max(worst["srht_apply"], err)
+                check(torch.equal(got, want),
+                      f"srht_apply {dtype} dim={dim} n={n} k={k} batch="
+                      f"{batch} view {off} values off a 16-byte boundary: "
+                      f"kernel differs from the plain version (max abs "
+                      f"err {err:.3e})")
+    # signs other than +1 and -1 (standard normal, with some exactly +1,
+    # -1 and -0.0) on every route of both SRHT forms: the forward register
+    # kernel multiplies by the sign as read where it cannot use the bits
+    signed = [(18, 32, 10, (40,)), (54, 64, 20, (300,)),
+              (1023, 1024, 50, (9,)), (5000, 8192, 10, (700,)),
+              (16383, 16384, 20, (3,)), (20000, 1 << 15, 64, (2,))]
+    for dtype in (torch.float64, torch.float32):
+        gen = torch.Generator(device=dev).manual_seed(7)
+        for dim, n, k, batch in signed:
+            _, rows = _operator(gen, n, k, dtype, dev)
+            signs = torch.randn(n, generator=gen, dtype=dtype, device=dev)
+            signs[:3] = torch.tensor([1.0, -1.0, -0.0], dtype=dtype)
+            x = torch.randn(batch + (dim,), generator=gen, dtype=dtype,
+                            device=dev)
+            y = torch.randn(batch + (k,), generator=gen, dtype=dtype,
+                            device=dev)
+            for name, got, want in (
+                    ("srht_apply", ops.srht_apply(x, signs, rows, impl="cuda"),
+                     ops.srht_apply(x, signs, rows, impl="ref")),
+                    ("srht_apply_t",
+                     ops.srht_apply_t(y, signs, rows, dim, impl="cuda"),
+                     ops.srht_apply_t(y, signs, rows, dim, impl="ref"))):
+                err = _max_err(got, want)
+                worst[name] = max(worst[name], err)
+                check(torch.equal(got, want),
+                      f"{name} {dtype} dim={dim} n={n} k={k} batch={batch} "
+                      f"with signs other than +-1: kernel differs from the "
+                      f"plain version (max abs err {err:.3e})")
+    log(f"[parity] {len(cases)} shapes x 2 dtypes x 3 kernels, "
+        f"{len(views)} misaligned srht_apply views x 2 dtypes and "
+        f"{len(signed)} shapes with signs other than +-1 x 2 dtypes x 2 "
+        f"kernels bit-equal to the plain versions (max abs err {worst})")
     return worst
 
 
@@ -529,11 +648,51 @@ def _host_path(y, signs, rows, dim, dense) -> dict:
             "reps": HOST_REPS}
 
 
+def _srht_fwd_row(label, x, signs, rows, dense) -> dict:
+    """srht_apply through the kernel at one shape: events and the
+    profiler's device time, the bound, the plain version and the library
+    yardstick x @ S.T (``dense`` is S, (k, dim); None where S is too large
+    to hold)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fwht import kernel_route
+
+    n, k = signs.shape[0], rows.shape[0]
+    item = x.element_size()
+    rows_n = x.numel() // x.shape[-1]
+    reps = 20 if x.numel() > 1_000_000 else 200
+
+    def kern():
+        return ops.srht_apply(x, signs, rows, impl="cuda")
+
+    def plain():
+        return ops.srht_apply(x, signs, rows, impl="ref")
+
+    def lib():
+        return torch.matmul(x, dense.T)
+    # x, signs and rows read once, the outputs written once; per row n
+    # log2(n) adds, n sign flips, and x norm x scale on the k kept
+    bound, bound_by = _bound_ms(
+        x.numel() * item + n * item + k * 8, rows_n * k * item,
+        rows_n * (n * int(math.log2(n)) + n + 2 * k), x.dtype)
+    got, want = kern(), plain()
+    check(torch.equal(got, want), f"srht_apply {label}: kernel differs from "
+          f"the plain version (max abs err {_max_err(got, want):.3e})")
+    by_kernel = _device_kernels_ms(kern, reps)
+    return dict(shape=label, dims=list(x.shape), n=n, k=k,
+                route=kernel_route("srht_apply", n), ms=_time_ms(kern, reps),
+                device_ms=sum(by_kernel.values()), device_kernels_ms=by_kernel,
+                plain_ms=_time_ms(plain, max(reps // 4, 5)),
+                library_ms=None if dense is None else _time_ms(lib, reps),
+                library_device_ms=None if dense is None else _device_ms(lib, reps),
+                bound_ms=bound, bound_by=bound_by,
+                max_abs_err=_max_err(got, want))
+
+
 def _kernel_timings(s, a, gs) -> dict:
     """Each kernel at its main-path shapes, beside its bound, the plain
-    version and one PyTorch call computing the same function; for fwht and
-    srht_apply_t also the profiler's device time, the kernel that serves
-    the shape and, for srht_apply_t, the host path step by step."""
+    version and one PyTorch call computing the same function, with the
+    profiler's device time and the kernel that serves the shape; for
+    srht_apply_t also the host path step by step."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import ref as kref
     from repro_torch.kernels.fwht import kernel_route
@@ -566,7 +725,9 @@ def _kernel_timings(s, a, gs) -> dict:
             ("quickstart delta_k (32,)", q_delta, quick),
         ],
     }
-    out = {}
+    out = {"srht_apply": [_srht_fwd_row(label, x, signs, rows, op)
+                          for label, x, (signs, rows, _, op)
+                          in calls.pop("srht_apply")]}
     for name, shapes in calls.items():
         rows_out = []
         for label, x, (signs, rows, d, op) in shapes:
@@ -574,28 +735,17 @@ def _kernel_timings(s, a, gs) -> dict:
             log_n = int(math.log2(n_op))
             op_bytes = n_op * item + k_op * 8  # signs + rows, read once
             rows_n = x.numel() // x.shape[-1]
-            if name == "srht_apply":
-                def kern(x=x, signs=signs, rows=rows):
-                    return ops.srht_apply(x, signs, rows, impl="cuda")
 
-                def plain(x=x, signs=signs, rows=rows):
-                    return ops.srht_apply(x, signs, rows, impl="ref")
+            def kern(x=x, signs=signs, rows=rows, d=d):
+                return ops.srht_apply_t(x, signs, rows, d, impl="cuda")
 
-                def lib(x=x, op=op):
-                    return torch.matmul(x, op.T)
-                read, written = x.numel() * item, rows_n * k_op * item
-                count = rows_n * (n_op * log_n + n_op + 2 * k_op)
-            else:
-                def kern(x=x, signs=signs, rows=rows, d=d):
-                    return ops.srht_apply_t(x, signs, rows, d, impl="cuda")
+            def plain(x=x, signs=signs, rows=rows, d=d):
+                return ops.srht_apply_t(x, signs, rows, d, impl="ref")
 
-                def plain(x=x, signs=signs, rows=rows, d=d):
-                    return ops.srht_apply_t(x, signs, rows, d, impl="ref")
-
-                def lib(x=x, op=op):
-                    return torch.matmul(x, op)
-                read, written = x.numel() * item, rows_n * d * item
-                count = rows_n * (n_op * log_n + k_op + 2 * d)
+            def lib(x=x, op=op):
+                return torch.matmul(x, op)
+            read, written = x.numel() * item, rows_n * d * item
+            count = rows_n * (n_op * log_n + k_op + 2 * d)
             reps = 20 if x.numel() > 1_000_000 else 200
             bound, bound_by = _bound_ms(read + op_bytes, written, count, dtype)
             row = dict(
@@ -605,10 +755,12 @@ def _kernel_timings(s, a, gs) -> dict:
                 library_ms=_time_ms(lib, reps), bound_ms=bound,
                 bound_by=bound_by,
                 max_abs_err=_max_err(kern(), plain()))
-            if name == "srht_apply_t":
-                row.update(device_ms=_device_ms(kern, reps),
-                           library_device_ms=_device_ms(lib, reps),
-                           host_path=_host_path(x, signs, rows, d, op))
+            check(row["max_abs_err"] == 0.0, f"{name} {label}: kernel "
+                  f"differs from the plain version (max abs err "
+                  f"{row['max_abs_err']:.3e})")
+            row.update(device_ms=_device_ms(kern, reps),
+                       library_device_ms=_device_ms(lib, reps),
+                       host_path=_host_path(x, signs, rows, d, op))
             rows_out.append(row)
         out[name] = rows_out
     # fwht is off the main path; it is timed at the padded rows of the
@@ -640,6 +792,9 @@ def _kernel_timings(s, a, gs) -> dict:
             bound_ms=bound, bound_by=bound_by,
             max_abs_err=_max_err(kern(), ops.fwht(xp, normalize=True,
                                                   impl="ref"))))
+        check(out["fwht"][-1]["max_abs_err"] == 0.0, f"fwht {label}: kernel "
+              f"differs from the plain version (max abs err "
+              f"{out['fwht'][-1]['max_abs_err']:.3e})")
         del xp, had
     return out
 
@@ -780,13 +935,131 @@ def phase_full_size() -> "tuple[dict, tuple]":
 
 
 # ---------------------------------------------------------------------------
+# 5b. covtype at full size
+# ---------------------------------------------------------------------------
+
+def phase_covtype() -> dict:
+    """FLeNS on the covtype twin at the real row count, through the
+    forward SRHT's register route (n = 64); then srht_apply at the
+    main-path shapes of covtype, phishing and the quickstart and at one
+    FedNS-like call."""
+    from repro_torch.core import logistic, make_problem, newton_solve
+    from repro_torch.core.base import root_key, split
+    from repro_torch.data import make_classification
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as kref
+
+    dev = torch.device("cuda", 0)
+    dim, k = COVTYPE["dim"], COVTYPE["k"]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    X, y = make_classification(
+        3, n=COVTYPE["n"], dim=dim, spectrum_decay=COVTYPE["spectrum_decay"],
+        label_noise=COVTYPE["label_noise"], device=dev)
+    problem = make_problem(X, y, m=COVTYPE["m"], lam=COVTYPE["lam"],
+                           objective=logistic, device=dev)
+    del X, y
+    w0 = torch.zeros(dim, dtype=torch.float64, device=dev)
+    w_star = newton_solve(problem, w0)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    grad_star = float(torch.linalg.vector_norm(problem.global_grad(w_star)))
+    check(grad_star < 1e-10, f"covtype newton_solve gradient norm {grad_star:.3e}")
+
+    rounds = 10
+    ops.reset_launch_counts()
+    opt, hist = _flens_run(problem, w0, w_star, rounds, k=k)
+    counts = ops.launch_counts()
+    want = {"fwht": 0, "srht_apply": 3 * rounds, "srht_apply_t": 2 * rounds,
+            **NO_CODEC, **NO_LM}
+    check(counts == want, f"covtype launches {counts} != {want}")
+    _check_trajectory(hist, "covtype")
+    _, plain = _flens_run(problem, w0, w_star, rounds, impl="ref", k=k)
+    check((hist.loss == plain.loss).all(),
+          f"covtype through the kernels {hist.loss.tolist()} != through the "
+          f"plain versions {plain.loss.tolist()}")
+
+    # bare rounds, host clock around work that ends in a synchronize
+    state = opt.init(problem, w0)
+    keys = split(root_key(7, device=dev), rounds + 1)
+    state = opt.round(problem, state, keys[0])  # warm
+    torch.cuda.synchronize()
+    round_ms = []
+    for t in range(rounds):
+        t1 = time.perf_counter()
+        state = opt.round(problem, state, keys[t + 1])
+        torch.cuda.synchronize()
+        round_ms.append((time.perf_counter() - t1) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    profile = _profile_rounds(opt, problem, state,
+                              split(root_key(8, device=dev), 3))
+
+    s = opt.policy.materialize(keys[0], dim, dtype=torch.float64, device=dev)
+    dense = s.dense()
+    calls = [("covtype A_j (m, n_shard, M)", problem.local_hess_sqrt(state["w"]),
+              s.signs, s.rows, dense),
+             ("covtype gradients (m, M)", problem.local_grad(state["w"]),
+              s.signs, s.rows, dense),
+             ("covtype S^T I_k (k, M)",
+              s.apply_t(torch.eye(k, dtype=torch.float64, device=dev)),
+              s.signs, s.rows, dense)]
+    del problem, state
+    # phishing (n_shard = 277 of 11,055 rows over 40 clients), the
+    # quickstart, and FedNS's data-axis sketch at the SUSY size (1000
+    # clients x 18 features, 5000 rows a shard) with one shared operator
+    gen = torch.Generator(device=dev).manual_seed(6)
+    n_shard = -(-PHISHING["n"] // PHISHING["m"])
+    for label, shape, n, kk in (
+            ("phishing A_j (m, n_shard, M)", (PHISHING["m"], n_shard, 68), 128, 17),
+            ("phishing gradients (m, M)", (PHISHING["m"], 68), 128, 17),
+            ("phishing S^T I_k (k, M)", (17, 68), 128, 17),
+            ("quickstart A_j (m, n_shard, M)", (8, 500, 64), 64, QUICK["k"]),
+            ("FedNS data axis (m * M, n_shard), one operator", (18000, 5000),
+             8192, 10)):
+        signs, rows = _operator(gen, n, kk, torch.float64, dev)
+        x = torch.randn(shape, generator=gen, dtype=torch.float64, device=dev)
+        eye = torch.eye(shape[-1], dtype=torch.float64, device=dev)
+        calls.append((label, x, signs, rows, kref.srht_apply(eye, signs, rows).T))
+        del eye
+    timings = []
+    for label, x, signs, rows, op in calls:
+        timings.append(_srht_fwd_row(label, x, signs, rows, op))
+    del calls
+    log("[covtype] gap " + " ".join(f"{g:.3e}" for g in hist.gap))
+    log(f"[covtype] setup {setup_s:.2f} s; run_rounds "
+        f"{hist.wall_time_s * 1e3 / rounds:.2f} ms/round with per-round eval; "
+        f"bare rounds {sorted(round_ms)[len(round_ms) // 2]:.2f} ms median "
+        f"({min(round_ms):.2f}..{max(round_ms):.2f}); peak memory "
+        f"{peak / 2**30:.2f} GiB; launches {counts}; trajectory equal to the "
+        f"plain versions' on the card")
+    log(f"[covtype] profile: device busy {profile['busy_share']:.1%} of "
+        f"{profile['wall_us'] / profile['rounds'] / 1e3:.2f} ms/round")
+    for r in profile["top"]:
+        log(f"[covtype]   {r['us_per_round']:9.1f} us/round x"
+            f"{r['launches_per_round']:.0f}  {r['kernel']}")
+    for r in timings:
+        log(f"[covtype] srht_apply {r['shape']:<46} {r['ms']:.4f} ms, device "
+            f"{r['device_ms']:.4f} (bound {r['bound_ms']:.4f} by "
+            f"{r['bound_by']}, plain {r['plain_ms']:.4f}, x @ S.T "
+            f"{r['library_ms']:.4f}, device {r['library_device_ms']:.4f}); "
+            f"{r['route']}")
+    return {"gap": hist.gap.tolist(), "loss": hist.loss.tolist(),
+            "launches": counts, "rounds": rounds,
+            "run_rounds_ms_per_round": hist.wall_time_s * 1e3 / rounds,
+            "round_ms": round_ms, "setup_s": setup_s,
+            "peak_memory_bytes": peak, "profile": profile,
+            "srht_apply": timings}
+
+
+# ---------------------------------------------------------------------------
 # 6. long rows
 # ---------------------------------------------------------------------------
 
 def phase_long_rows() -> dict:
     """The three transforms past the single-pass length, bit-equal to
-    their plain versions; fwht timed at n = 2^17."""
+    their plain versions; fwht and srht_apply timed there."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels.fwht import kernel_route
 
     dev = torch.device("cuda", 0)
     cases = [(20000, 1 << 15, 64, (3,)), ((1 << 17) - 5, 1 << 17, 300, (2,)),
@@ -818,25 +1091,49 @@ def phase_long_rows() -> dict:
                 check(torch.equal(got, want),
                       f"{name} {dtype} dim={dim} n={n} k={k}: kernel differs "
                       f"from the plain version (max abs err {err:.3e})")
-    # fwht at n = 2^17 over 64 rows (64 MB in float64); no single PyTorch
-    # call computes it (a dense H_n would take 137 GB)
-    n = 1 << 17
-    xp = torch.randn(64, n, dtype=torch.float64, device=dev)
-    item = xp.element_size()
-    bound, bound_by = _bound_ms(xp.numel() * item, xp.numel() * item,
-                                64 * (n * 17 + n), torch.float64)
-    timing = dict(
-        shape="(64, 2^17) f64, two passes", dims=list(xp.shape),
-        ms=_time_ms(lambda: ops.fwht(xp, normalize=True, impl="cuda"), 20),
-        plain_ms=_time_ms(lambda: ops.fwht(xp, normalize=True, impl="ref"), 5),
-        library_ms=None, bound_ms=bound, bound_by=bound_by,
-        max_abs_err=_max_err(ops.fwht(xp, normalize=True, impl="cuda"),
-                             ops.fwht(xp, normalize=True, impl="ref")))
+    # fwht at (64, 2^17) (64 MB in float64) and (1, 2^20), no single
+    # PyTorch call computing it (a dense H_n would take 137 GB); srht_apply
+    # over two rows of 2^17 - 5 through the long-row path
+    timings = []
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for rows_n, log_n in ((64, 17), (1, 20)):
+        n = 1 << log_n
+        xp = torch.randn(rows_n, n, generator=gen, dtype=torch.float64, device=dev)
+        item = xp.element_size()
+        bound, bound_by = _bound_ms(xp.numel() * item, xp.numel() * item,
+                                    rows_n * (n * log_n + n), torch.float64)
+
+        def kern(xp=xp):
+            return ops.fwht(xp, normalize=True, impl="cuda")
+
+        def plain(xp=xp):
+            return ops.fwht(xp, normalize=True, impl="ref")
+        got, want = kern(), plain()
+        label = f"({rows_n}, 2^{log_n}) f64, two passes"
+        check(torch.equal(got, want), f"fwht {label}: kernel differs from "
+              f"the plain version (max abs err {_max_err(got, want):.3e})")
+        by_kernel = _device_kernels_ms(kern, 20)
+        timings.append(dict(
+            op="fwht", shape=label, dims=list(xp.shape), n=n,
+            route=kernel_route("fwht", n), ms=_time_ms(kern, 20),
+            device_ms=sum(by_kernel.values()), device_kernels_ms=by_kernel,
+            plain_ms=_time_ms(plain, 5), library_ms=None, bound_ms=bound,
+            bound_by=bound_by, max_abs_err=_max_err(got, want)))
+        del xp, got, want
+    n, k, dim = 1 << 17, 300, (1 << 17) - 5
+    signs, rows = _operator(gen, n, k, torch.float64, dev)
+    x = torch.randn(2, dim, generator=gen, dtype=torch.float64, device=dev)
+    timings.append(dict(op="srht_apply", **_srht_fwd_row(
+        "(2, 2^17 - 5) f64 -> k 300", x, signs, rows, None)))
     log(f"[long] {len(cases)} lengths x 2 dtypes x 3 kernels bit-equal to "
         f"the plain versions (max abs err {worst})")
-    log(f"[long] fwht {timing['shape']} {timing['ms']:.4f} ms (bound "
-        f"{bound:.4f} by {bound_by}, plain {timing['plain_ms']:.4f})")
-    return {"max_abs_err": worst, "fwht_2_17": timing}
+    for r in timings:
+        log(f"[long] {r['op']} {r['shape']} {r['ms']:.4f} ms, device "
+            f"{r['device_ms']:.4f} (bound {r['bound_ms']:.4f} by "
+            f"{r['bound_by']}, plain {r['plain_ms']:.4f}); {r['route']}")
+        for name, ms in r["device_kernels_ms"].items():
+            log(f"[long]   {ms:.4f} ms  {name}")
+    return {"max_abs_err": worst, "timings": timings}
 
 
 # ---------------------------------------------------------------------------
@@ -1649,8 +1946,8 @@ def _visible_pairs(t: int, window) -> int:
     return int((rows - lo + 1).sum())
 
 
-def _device_ms(fn, reps: int) -> float:
-    """Device time of the kernels ``fn`` launches, per call, from the
+def _device_kernels_ms(fn, reps: int) -> dict:
+    """Device time of each kernel ``fn`` launches, ms per call, from the
     profiler: free of the host dispatch that back-to-back event timing
     measures when a kernel is shorter than its launch path."""
     from torch.autograd import DeviceType
@@ -1662,8 +1959,14 @@ def _device_ms(fn, reps: int) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / reps / 1e3
+    return {e.key[:80]: e.self_device_time_total / reps / 1e3
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+
+
+def _device_ms(fn, reps: int) -> float:
+    """Device time of the kernels ``fn`` launches, ms per call."""
+    return sum(_device_kernels_ms(fn, reps).values())
 
 
 def phase_flash_times() -> dict:
@@ -1743,6 +2046,7 @@ def main() -> int:
               "parity_max_abs_err": phase_parity(),
               "quickstart": phase_quickstart()}
     record["full_size"], susy = phase_full_size()
+    record["covtype"] = phase_covtype()
     record["long_rows"] = phase_long_rows()
     record["codec_parity_max_abs_err"] = phase_codec_parity()
     record["transport"] = phase_transport(*susy)
@@ -1772,10 +2076,23 @@ def main() -> int:
                   if key.startswith(route)) for route in ("sm90", "tf32x3")}}
     for name, err in record["long_rows"]["max_abs_err"].items():
         parity[name] = max(parity[name], err)
+    # the routes of srht_apply and fwht, each at a timed shape, with the
+    # launches of the main-path run that takes it (SUSY: the warp route;
+    # covtype: the register route)
+    long_times = record["long_rows"]["timings"]
+    covtype = record["covtype"]["srht_apply"]
+    routes = {
+        "srht_apply": [(timed["srht_apply"][0], launches["srht_apply"]),
+                       (covtype[0], record["covtype"]["launches"]["srht_apply"]),
+                       (covtype[-1], 0),
+                       *[(r, 0) for r in long_times if r["op"] == "srht_apply"]],
+        "fwht": [*[(r, 0) for r in timed["fwht"]],
+                 *[(r, 0) for r in long_times if r["op"] == "fwht"]],
+    }
     kernels = []
     for name, meta in KERNELS.items():
         main_row = timed[name][0]
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", **meta,
             "launches": launches[name],
             "max_abs_err": max(main_row["max_abs_err"], parity[name]),
@@ -1783,7 +2100,15 @@ def main() -> int:
             "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"],
-        })
+        }
+        if name in routes:
+            entry["routes"] = [
+                {"kernel": r["route"], "shape": r["shape"], "dims": r["dims"],
+                 "launches": count, "ms": r["ms"], "device_ms": r["device_ms"],
+                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                 "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+                for r, count in routes[name]]
+        kernels.append(entry)
     print("[record] " + json.dumps(record))
     print(json.dumps({"kernels": kernels}))
     print(card)

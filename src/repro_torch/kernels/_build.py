@@ -35,12 +35,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # Flags of one source beside NVCC_FLAGS. -fmad=false keeps each multiply
 # and add separately rounded, as the plain PyTorch versions round them:
 # the SRHT and codec kernels are then bit-equal to those versions. Flash
-# attention is held to a tolerance and keeps its fused multiply-adds; its
-# two kernels and the codec kernels report registers and spills
-# (-Xptxas=-v, kept in the build log beside the library). srht.cu and
-# codec.cu include the interpreter's headers.
+# attention is held to a tolerance and keeps its fused multiply-adds. Every
+# source reports registers and spills (-Xptxas=-v, kept in the build log
+# beside the library). srht.cu and codec.cu include the interpreter's
+# headers.
 _PY_INCLUDE = ("-I", sysconfig.get_paths()["include"])
-SOURCE_FLAGS = {"srht": ("-fmad=false", *_PY_INCLUDE),
+SOURCE_FLAGS = {"srht": ("-fmad=false", "-Xptxas=-v", *_PY_INCLUDE),
                 "codec": ("-fmad=false", "-Xptxas=-v", *_PY_INCLUDE),
                 "flash_attention": ("-Xptxas=-v",),
                 "flash_attention_sm90": ("-Xptxas=-v",)}

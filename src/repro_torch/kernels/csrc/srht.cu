@@ -26,6 +26,18 @@
 //     longer one (to 2^14) crosses shared memory once between phases, in a
 //     swizzled layout without bank conflicts. A block takes one chunk of
 //     4096 values (one row past that).
+//   * the forward SRHT of rows of 32 < n <= 2^14 (srht_fwd_reg_kernel):
+//     the same register layout and phases, with lanes on consecutive
+//     values. A chunk's R rows are one contiguous slab of R * dim values
+//     in device memory; one 1-D bulk copy (cp.async.bulk, completing on
+//     an mbarrier) brings its 16-byte-aligned middle into shared memory,
+//     threads load the few values of its head and tail, and each thread
+//     reads its 16 values from there, padding and flipping signs on the
+//     way (the signs as bits in shared memory, built once a block, when
+//     every sign is +1 or -1; other signs are read as values). The
+//     gather is a lookup in the inverse of the sampled rows, also built
+//     once a block: each thread stages only its kept values, and the
+//     block stores the R x k outputs as one coalesced run.
 //   * the transpose of rows of n <= 1024 (srht_t_warp_kernel): a warp
 //     holds a row, n/32 consecutive values a lane (32/n rows a warp below
 //     32); the scaled scatter is a lookup in the inverse of the sampled
@@ -34,22 +46,27 @@
 //     holds 32/n rows, one value per lane, runs the stages as shuffles
 //     and gathers the k kept entries by a shuffle, with several rows in
 //     flight per lane.
-//   * longer rows of the two SRHT forms (srht_fwd_kernel, srht_t_kernel):
-//     a block loads R rows into shared memory (padding and sign flip or
-//     the scaled scatter applied on load), runs the stages there with a
-//     barrier each (`butterfly`), and writes only what the caller keeps.
+//   * longer rows of the transpose (srht_t_kernel): a block loads R rows
+//     into shared memory (the scaled scatter applied on load), runs the
+//     stages there with a barrier each (`butterfly`), and writes only
+//     what the caller keeps.
 //
 // A row longer than kMaxN = 2^14 does not fit in a block's shared
 // memory. It is transformed in passes that keep the stage order: first
-// the low stages (h < 2^14) on contiguous chunks of 2^14 (fwht_reg_kernel
-// for the plain transform, `butterfly` for the SRHT forms), then the high
-// stages along the strided axis of the row viewed as (n / 2^14, 2^14), up
-// to 2^14 stages' worth of that axis a pass (one pass for n <= 2^28), each
-// block holding a tile of whole columns so the loads stay coalesced. The SRHT forms fold the padding and sign flip
-// into the first pass's load (forward) or the scaled scatter into it
-// (transpose), and finish with a gather (forward) or a sign flip and
-// truncation (transpose) over the transformed rows in a scratch buffer
-// the wrapper allocates.
+// the low stages on contiguous chunks (h < 2^12 by fwht_reg_kernel for the
+// plain transform, to 2^26, and less than 2^14 past that; h < 2^14 by
+// `butterfly` for the SRHT forms), then the high stages along the strided
+// axis of the row viewed as (n / lo, lo), up to 2^14 stages' worth of that
+// axis a pass (one pass for n <= 2^28). In
+// the strided pass (fwht_strided_kernel<T, LOG_R>) a warp takes 32
+// consecutive columns, so every row of its tile is one coalesced run, and
+// a lane holds its column's values in registers: all of them (and no
+// shared memory) to 16 rows; past that four row bits a phase, with a
+// shared-memory exchange between phases. The SRHT forms fold the
+// padding and sign flip into the first pass's load (forward) or the
+// scaled scatter into it (transpose), and finish with a gather (forward)
+// or a sign flip and truncation (transpose) over the transformed rows in
+// a scratch buffer the wrapper allocates.
 //
 // Op order follows repro.kernels.ref exactly (stages h = 1, 2, 4, ...;
 // pairs (a + b, a - b); x 1/sqrt(n); then x sqrt(n/k) after the gather,
@@ -70,6 +87,7 @@
 
 #include <algorithm>
 #include <cstring>
+#include <type_traits>
 
 #include "pymodule.cuh"
 
@@ -79,8 +97,13 @@ constexpr int kThreads = 256;
 constexpr int kBlockValues = 4096;  // values of T a block holds (rows * n)
 constexpr int kLogMaxN = 14;
 constexpr int kMaxN = 1 << kLogMaxN;  // n * 8 bytes = 128 KB of shared memory; SINGLE_PASS_N in fwht.py
-constexpr int kLogTileValues = 12;    // values of a strided pass's tile (at least one column)
+// the low pass of a longer plain transform: fwht_reg_kernel on chunks of
+// 2^kLogLowN (three blocks a SM; at 2^14 it holds one), then the strided
+// pass; LOW_PASS_N in fwht.py
+constexpr int kLogLowN = 12;
 constexpr int kWarpN = 32;          // largest n of the register (warp) forward path
+constexpr int kLogWarpN = 5;        // log2(kWarpN)
+static_assert(kWarpN == 1 << kLogWarpN, "kLogWarpN");
 constexpr int kWarpUnroll = 4;      // row groups a warp holds at once
 constexpr int kLogRegs = 4;         // log2 of the values a thread of fwht_reg_kernel holds
 constexpr int kLogMinWarps = 3;     // fwht_reg_kernel's least block: 8 warps
@@ -117,37 +140,6 @@ __device__ void butterfly(T* buf, int rows, int log_n) {
     }
   }
   __syncthreads();
-}
-
-template <typename T>
-__global__ void srht_fwd_kernel(const T* __restrict__ x, const T* __restrict__ signs,
-                                const int64_t* __restrict__ sel, T* __restrict__ out,
-                                long long nrows, int dim, int log_n, int k, int rpb,
-                                T norm, T scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* buf = reinterpret_cast<T*>(smem_raw);
-  const int n = 1 << log_n;
-  const long long r0 = (long long)blockIdx.x * rpb;
-  const int rows = (int)min((long long)rpb, nrows - r0);
-  // zero-pad to n, then flip signs: padding becomes 0 * sign, as in the
-  // reference's pad-then-multiply
-  const int count = rows * n;
-  const T* src = x + r0 * dim;
-  for (int e = threadIdx.x; e < count; e += blockDim.x) {
-    const int r = e >> log_n;
-    const int j = e & (n - 1);
-    const T v = j < dim ? src[(long long)r * dim + j] : T(0);
-    buf[e] = v * signs[j];
-  }
-  butterfly(buf, rows, log_n);
-  T* dst = out + r0 * k;
-  const int outs = rows * k;
-  for (int e = threadIdx.x; e < outs; e += blockDim.x) {
-    const int r = e / k;
-    const int c = e - r * k;
-    const T h = buf[(r << log_n) + (int)sel[c]] * norm;
-    dst[e] = h * scale;
-  }
 }
 
 // Forward SRHT for n <= 32 in registers: lane l holds coordinate
@@ -249,6 +241,8 @@ __device__ __forceinline__ VT load_cs(const VT* p) {
     VT t;
     memcpy(&t, &r, sizeof(t));
     return t;
+  } else if constexpr (std::is_floating_point_v<VT>) {
+    return __ldcs(p);
   } else {
     return *p;
   }
@@ -260,9 +254,21 @@ __device__ __forceinline__ void store_cs(VT* p, const VT& t) {
     float4 r;
     memcpy(&r, &t, sizeof(r));
     __stcs(reinterpret_cast<float4*>(p), r);
+  } else if constexpr (std::is_floating_point_v<VT>) {
+    __stcs(p, t);
   } else {
     *p = t;
   }
+}
+
+// threadIdx.x read anew (volatile): offsets computed from it cannot be
+// merged with ones computed earlier, so a kernel that reads it again
+// before its stores recomputes their offsets there instead of keeping the
+// loads' offsets in registers through the stages.
+__device__ __forceinline__ int fresh_tid() {
+  int t;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(t));
+  return t;
 }
 
 // The stage whose pairs are registers u and u + h of one thread (h a power
@@ -300,15 +306,16 @@ __device__ __forceinline__ void lane_stage(T (&v)[Q], int m, int lane) {
 // those bits sit in the thread's registers and its lane. Between phases the
 // values cross shared memory once (`swizzle`d); a row of n <= 2^9 needs one
 // phase and no shared memory at all.
-template <typename T, int LOG_N>
+template <typename T, int LOG_N, int LOG_V = cmin(sizeof(T) == 8 ? 1 : 2, LOG_N)>
 struct RegFwht {
-  static constexpr int kLogV = cmin(sizeof(T) == 8 ? 1 : 2, LOG_N);  // a 16-byte load (less for n < that)
+  static constexpr int kLogV = LOG_V;  // by default a 16-byte load (less for n < that)
   static constexpr int kLogQ = kLogRegs;
   static constexpr int kPhaseBits = kLogQ + 5;
   static constexpr int kLogC = cmax(LOG_N, kPhaseBits + kLogMinWarps);
   static constexpr int kLogW = kLogC - kPhaseBits;
   static constexpr int kThreads = 32 << kLogW;
   static constexpr int kPhases = LOG_N <= kPhaseBits ? 1 : (LOG_N + kPhaseBits - 1) / kPhaseBits;
+  static constexpr int kLastBase = cmin((kPhases - 1) * kPhaseBits, kLogW);
   static constexpr size_t kSmem = kPhases > 1 ? ((size_t)1 << kLogC) * sizeof(T) : 0;
 };
 
@@ -355,6 +362,34 @@ __device__ __forceinline__ void exchange(T* s, T (&v)[Q], int w, int lane, int f
   }
 }
 
+// The stages of rows of 2^LOG_N values held in registers in L's layout
+// based at bit 0 (L = RegFwht<T, LOG_N, LOG_V>), phase by phase, crossing
+// the shared memory s between phases; the values end in the last phase's
+// layout (based at bit L::kLastBase).
+template <typename L, int LOG_N, typename T, int Q>
+__device__ __forceinline__ void reg_phases(T* s, T (&v)[Q], int w, int lane) {
+  constexpr int kLogV = L::kLogV;
+  constexpr int kBits = L::kPhaseBits;
+#pragma unroll
+  for (int p = 0; p < L::kPhases; ++p) {
+    const int m = cmin(p * kBits, L::kLogW);
+    if (p > 0) {
+      exchange<T, kLogV, kBits, L::kLogC>(s, v, w, lane, cmin((p - 1) * kBits, L::kLogW), m);
+    }
+#pragma unroll
+    for (int b = p * kBits; b < cmin((p + 1) * kBits, LOG_N); ++b) {
+      const int t = b - m;  // the bit's place in the phase's layout
+      if (t < kLogV) {
+        reg_stage(v, 1 << t);
+      } else if (t < kLogV + 5) {
+        lane_stage(v, 1 << (t - kLogV), lane);
+      } else {
+        reg_stage(v, 1 << (t - 5));
+      }
+    }
+  }
+}
+
 // WHT of rows of n = 2^LOG_N <= kMaxN values, nvec vectors of 2^kLogV
 // values in all, the chunks taken in a grid-stride loop (one chunk a block
 // where the grid allows). A thread issues all its loads of a chunk (Q / V
@@ -371,12 +406,12 @@ fwht_reg_kernel(const T* __restrict__ x, T* __restrict__ out, long long nvec, T 
   using VT = Vec<T, V>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* s = reinterpret_cast<T*>(smem_raw);
-  const int lane = threadIdx.x & 31;
-  const int w = threadIdx.x >> 5;
   const VT* xv = reinterpret_cast<const VT*>(x);
   VT* ov = reinterpret_cast<VT*>(out);
   const long long nchunks = (nvec + kChunkVecs - 1) / kChunkVecs;
   for (long long chunk = blockIdx.x; chunk < nchunks; chunk += gridDim.x) {
+    int lane = fresh_tid() & 31;
+    int w = fresh_tid() >> 5;
     const long long v0 = chunk * kChunkVecs;
     T v[Q];
 #pragma unroll
@@ -387,28 +422,10 @@ fwht_reg_kernel(const T* __restrict__ x, T* __restrict__ out, long long nvec, T 
 #pragma unroll
       for (int i = 0; i < V; ++i) v[g * V + i] = t.v[i];
     }
-#pragma unroll
-    for (int p = 0; p < L::kPhases; ++p) {
-      const int m = cmin(p * kBits, L::kLogW);
-      if (p > 0) {
-        exchange<T, kLogV, kBits, L::kLogC>(s, v, w, lane, cmin((p - 1) * kBits, L::kLogW), m);
-      }
-#pragma unroll
-      for (int b = p * kBits; b < cmin((p + 1) * kBits, LOG_N); ++b) {
-        const int t = b - m;  // the bit's place in the phase's layout
-        if (t < kLogV) {
-          reg_stage(v, 1 << t);
-        } else if (t < kLogV + 5) {
-          lane_stage(v, 1 << (t - kLogV), lane);
-        } else {
-          reg_stage(v, 1 << (t - 5));
-        }
-      }
-    }
-    if (L::kPhases > 1) {
-      exchange<T, kLogV, kBits, L::kLogC>(
-          s, v, w, lane, cmin((L::kPhases - 1) * kBits, L::kLogW), 0);
-    }
+    reg_phases<L, LOG_N>(s, v, w, lane);
+    if (L::kPhases > 1) exchange<T, kLogV, kBits, L::kLogC>(s, v, w, lane, L::kLastBase, 0);
+    lane = fresh_tid() & 31;  // the stores' offsets are computed here
+    w = fresh_tid() >> 5;
 #pragma unroll
     for (int g = 0; g < Q / V; ++g) {
       const long long vi = v0 + (reg_index<kLogV, kBits>(0, w, lane, g * V) >> kLogV);
@@ -417,6 +434,189 @@ fwht_reg_kernel(const T* __restrict__ x, T* __restrict__ out, long long nvec, T 
       for (int i = 0; i < V; ++i) t.v[i] = v[g * V + i] * norm;
       if (vi < nvec) store_cs(ov + vi, t);
     }
+  }
+}
+
+// The 1-D bulk copy (TMA) and its mbarrier.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// wait until the phase of parity `parity` of the barrier has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) from the 16-byte-aligned src to the
+// 16-byte-aligned shared address dst; the copy arrives on bar, which
+// expects it. The block's earlier accesses of dst (generic proxy) are
+// ordered before the copy's writes (async proxy).
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// The sign bit of v: 1 for -1, 0 for +1.
+__device__ __forceinline__ unsigned sign_bit(double v) {
+  return (unsigned)((unsigned long long)__double_as_longlong(v) >> 63);
+}
+__device__ __forceinline__ unsigned sign_bit(float v) { return (unsigned)__float_as_uint(v) >> 31; }
+
+// srht_fwd_reg_kernel: fwht_reg_kernel's layout with lanes on consecutive
+// values (LOG_V = 0), whose reads of the slab in shared memory are free of
+// bank conflicts; a chunk holds kRows rows. Its shared memory: the
+// mbarrier, the chunk (the slab as copied, at its offset from a 16-byte
+// boundary, then the exchange between phases, then the staged outputs),
+// the inverse of the sampled rows (n ints) and the signs' bits (n / 32
+// words).
+template <typename T, int LOG_N>
+struct SrhtFwdReg {
+  using L = RegFwht<T, LOG_N, 0>;
+  static constexpr int kRows = 1 << (L::kLogC - LOG_N);
+  static constexpr size_t kChunk = 16;
+  static constexpr size_t kInv = kChunk + ((size_t)1 << L::kLogC) * sizeof(T) + 16;
+  static constexpr size_t kNeg = kInv + ((size_t)sizeof(int) << LOG_N);
+  static constexpr size_t kSmem = kNeg + ((size_t)sizeof(uint32_t) << (LOG_N - 5));
+};
+
+// Forward SRHT of rows of 32 < n = 2^LOG_N <= kMaxN (dim values each,
+// dim <= n), nrows rows in chunks of R = kRows, taken in a grid-stride
+// loop (nchunks chunks). Once a block: the inverse of sel and the signs'
+// bits. A chunk: the slab of R * dim values by one bulk copy (and at most
+// 15 bytes at each end by plain loads); each register takes its value,
+// zero past dim, times its sign (+1 or -1 by its bit); the stages
+// (reg_phases); each kept value, x norm x scale, into the chunk's R x k
+// outputs staged in shared memory; one coalesced store.
+// When every sign is +1 or -1 (the Rademacher draws of the samplers) a
+// sign is taken from its bit; otherwise each value is multiplied by its
+// sign read from device memory, so any signs give the plain version's
+// result.
+template <typename T, int LOG_N>
+__global__ void __launch_bounds__(SrhtFwdReg<T, LOG_N>::L::kThreads,
+                                  1024 / SrhtFwdReg<T, LOG_N>::L::kThreads)
+srht_fwd_reg_kernel(const T* __restrict__ x, const T* __restrict__ signs,
+                    const int64_t* __restrict__ sel, T* __restrict__ out, long long nrows,
+                    int nchunks, int dim, int k, T norm, T scale) {
+  using S = SrhtFwdReg<T, LOG_N>;
+  using L = typename S::L;
+  constexpr int n = 1 << LOG_N;
+  constexpr int Q = 1 << L::kLogQ;
+  constexpr int kBits = L::kPhaseBits;
+  constexpr int kThreads = L::kThreads;
+  constexpr int kAlign = 16 / sizeof(T);  // values of a 16-byte granule
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t bar = smem_addr(smem_raw);
+  T* chunk = reinterpret_cast<T*>(smem_raw + S::kChunk);
+  int* inv = reinterpret_cast<int*>(smem_raw + S::kInv);
+  uint32_t* neg = reinterpret_cast<uint32_t*>(smem_raw + S::kNeg);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  if (tid == 0) mbar_init(bar);
+  int unit = 1;  // this thread's signs are all +1 or -1
+  for (int j = tid; j < n; j += kThreads) {  // whole warps: n is a multiple of 32
+    inv[j] = -1;
+    const T s = signs[j];
+    unit &= (s == T(1)) | (s == T(-1));
+    const unsigned bits = __ballot_sync(0xffffffffu, sign_bit(s));
+    if (lane == 0) neg[j >> 5] = bits;
+  }
+  const bool by_bit = __syncthreads_and(unit);
+  for (int c = tid; c < k; c += kThreads) inv[(int)sel[c]] = c;
+  __syncthreads();
+  uint32_t parity = 0;
+  for (int ci = blockIdx.x; ci < nchunks; ci += gridDim.x, parity ^= 1) {
+    const long long r0 = (long long)ci * S::kRows;
+    const int rows = (int)min((long long)S::kRows, nrows - r0);
+    const int count = rows * dim;  // values of the slab
+    const T* src = x + r0 * dim;
+    // the slab sits in shared memory at its offset from a 16-byte
+    // boundary, so its aligned middle lands on one there too
+    const int lead = (int)((reinterpret_cast<uintptr_t>(src) & 15) / sizeof(T));
+    const int head = min(count, (kAlign - lead) & (kAlign - 1));
+    const int body = (count - head) / kAlign * kAlign;
+    T* slab = chunk + lead;
+    if (tid == 0) {
+      if (body > 0) {
+        bulk_load(smem_addr(slab + head), src + head, (uint32_t)(body * sizeof(T)), bar);
+      } else {
+        mbar_arrive(bar);
+      }
+    }
+    if (tid < head) slab[tid] = src[tid];
+    if (tid >= 32 && tid - 32 < count - head - body) {
+      const int i = head + body + tid - 32;
+      slab[i] = src[i];
+    }
+    mbar_wait(bar, parity);
+    __syncthreads();  // the head and tail
+    // the registers' offsets, computed in each chunk (fresh_tid), not held
+    // in registers across the loop
+    int l = fresh_tid() & 31;
+    int w = fresh_tid() >> 5;
+    T v[Q];
+    // zero-pad to n, then flip signs: padding becomes 0 * sign, as in the
+    // reference's pad-then-multiply; the branch is the block's, outside
+    // the loop
+    const auto load = [&](auto sign_of) {
+#pragma unroll
+      for (int u = 0; u < Q; ++u) {
+        const int e = reg_index<0, kBits>(0, w, l, u);
+        const int r = e >> LOG_N;
+        const int j = e & (n - 1);
+        const T val = (j < dim && r < rows) ? slab[r * dim + j] : T(0);
+        v[u] = val * sign_of(j);
+      }
+    };
+    if (by_bit) {
+      load([&](int j) { return ((neg[j >> 5] >> (j & 31)) & 1u) ? T(-1) : T(1); });
+    } else {
+      load([&](int j) { return signs[j]; });
+    }
+    reg_phases<L, LOG_N>(chunk, v, w, l);
+    __syncthreads();  // every read of the slab or of the last exchange is done
+    l = fresh_tid() & 31;
+    w = fresh_tid() >> 5;
+#pragma unroll
+    for (int u = 0; u < Q; ++u) {
+      const int e = reg_index<0, kBits>(L::kLastBase, w, l, u);
+      const int c = inv[e & (n - 1)];
+      if (c >= 0) {
+        const T h = v[u] * norm;
+        chunk[(e >> LOG_N) * k + c] = h * scale;
+      }
+    }
+    __syncthreads();
+    T* dst = out + r0 * k;
+    const int outs = rows * k;
+    for (int i = tid; i < outs; i += kThreads) store_cs(dst + i, chunk[i]);
+    __syncthreads();  // the staged outputs are read before the next copy
   }
 }
 
@@ -521,42 +721,89 @@ __global__ void srht_t_low_kernel(const T* __restrict__ y, const int64_t* __rest
   for (int e = threadIdx.x; e < kMaxN; e += blockDim.x) dst[e] = s[e];
 }
 
-// Stages h = lo, 2 lo, ..., lo * 2^(log_r - 1), in place: buf viewed as
-// (groups, 2^log_r, lo), a block holding 2^log_cols consecutive columns of
-// one group (rows of the tile are contiguous runs, so loads coalesce).
-// The results are scaled by norm as they are written (1 but on the last
-// pass of a normalized transform).
-template <typename T>
-__global__ void fwht_strided_kernel(T* buf, int log_r, long long lo, int log_cols, T norm) {
+// fwht_strided_kernel's layout for LOG_R strided stages (h = lo, 2 lo,
+// ..., lo 2^(LOG_R - 1)): a tile is 2^LOG_R rows of the strided axis by
+// 2^kLogCols consecutive columns, index e = row * 2^kLogCols + column. A
+// lane holds e's low 5 bits, 32 consecutive columns where the tile is that
+// wide (every LOG_R <= 9), so every access of a warp is one contiguous run;
+// registers hold kLogQ of the bits above, the tile's warps the others.
+// Phase p holds in registers the bits [base, base + kLogQ) of e >> 5 (base
+// = min(p kLogQ, kLogU - kLogQ)) and runs the stages of those it has not
+// run yet; phases cross shared memory, where the lanes of a warp touch
+// consecutive values (no bank conflicts). To 16 rows a lane holds its
+// column whole: one phase, no shared memory, a warp a tile and 8 tiles a
+// block.
+template <int LOG_R>
+struct StridedFwht {
+  static constexpr int kLogQ = cmin(LOG_R, kLogRegs);
+  static constexpr int kLogCols = LOG_R <= kLogRegs + 5 ? 5 : kLogMaxN - LOG_R;
+  static constexpr int kLogU = LOG_R + kLogCols - 5;  // index bits above the lane's
+  static constexpr int kLogW = kLogU - kLogQ;         // warps of a tile
+  static constexpr int kPhases = (kLogU + kLogQ - 1) / kLogQ;
+  static constexpr int kTiles = kLogW == 0 ? 8 : 1;   // tiles of a block
+  static constexpr int kThreads = (32 << kLogW) * kTiles;
+  static constexpr size_t kSmemValues = kPhases > 1 ? (size_t)1 << (LOG_R + kLogCols) : 0;
+};
+
+// Tile index of register u of lane `lane` in warp w of the tile, in the
+// layout whose registers hold the bits [base, base + LOG_Q) of e >> 5.
+template <int LOG_Q>
+__device__ __forceinline__ int strided_index(int base, int w, int lane, int u) {
+  return lane | (((w & ((1 << base) - 1)) | (u << base) | ((w >> base) << (base + LOG_Q))) << 5);
+}
+
+// The LOG_R strided stages of buf viewed as (groups, 2^LOG_R, lo = 2^log_lo),
+// in place, a tile a block (8 tiles to 16 rows); all loads of a thread are
+// issued before any arithmetic. The results are scaled by norm as they are
+// written (1 but on the last pass of a normalized transform).
+template <typename T, int LOG_R>
+__global__ void __launch_bounds__(StridedFwht<LOG_R>::kThreads)
+fwht_strided_kernel(T* __restrict__ buf, int log_lo, T norm) {
+  using L = StridedFwht<LOG_R>;
+  constexpr int Q = 1 << L::kLogQ;
+  constexpr int kCols = 1 << L::kLogCols;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* s = reinterpret_cast<T*>(smem_raw);
-  const int cols = 1 << log_cols;
-  const int count = 1 << (log_r + log_cols);
-  const long long tiles = lo >> log_cols;
-  const long long g = (long long)blockIdx.x / tiles;
-  const long long c0 = ((long long)blockIdx.x - g * tiles) << log_cols;
-  T* base = buf + g * (lo << log_r) + c0;
-  for (int e = threadIdx.x; e < count; e += blockDim.x) {
-    s[e] = base[(long long)(e >> log_cols) * lo + (e & (cols - 1))];
+  const int lane = threadIdx.x & 31;
+  const int w = (threadIdx.x >> 5) & ((1 << L::kLogW) - 1);
+  const long long tile = (long long)blockIdx.x * L::kTiles + (threadIdx.x >> (5 + L::kLogW));
+  const int log_tiles = log_lo - L::kLogCols;  // column tiles of a group
+  const long long g = tile >> log_tiles;
+  const long long c0 = (tile & ((1LL << log_tiles) - 1)) << L::kLogCols;
+  T* base = buf + (g << (log_lo + LOG_R)) + c0;
+  T v[Q];
+#pragma unroll
+  for (int u = 0; u < Q; ++u) {
+    const int e = strided_index<L::kLogQ>(0, w, lane, u);
+    v[u] = load_cs(base + ((long long)(e >> L::kLogCols) << log_lo) + (e & (kCols - 1)));
   }
-  const int pairs = count >> 1;
-  for (int log_h = 0; log_h < log_r; ++log_h) {
-    const int h = 1 << log_h;
-    __syncthreads();
-    for (int p = threadIdx.x; p < pairs; p += blockDim.x) {
-      const int c = p & (cols - 1);
-      const int q = p >> log_cols;
-      const int a = ((((q >> log_h) << (log_h + 1)) + (q & (h - 1))) << log_cols) + c;
-      const int b = a + (h << log_cols);
-      const T va = s[a];
-      const T vb = s[b];
-      s[a] = va + vb;
-      s[b] = va - vb;
+  // row bits held by lanes (tiles narrower than 32 columns): run first,
+  // as the lowest stages, by shuffles
+#pragma unroll
+  for (int b = L::kLogCols; b < 5; ++b) lane_stage(v, 1 << b, lane);
+#pragma unroll
+  for (int p = 0; p < L::kPhases; ++p) {
+    const int at = cmin(p * L::kLogQ, L::kLogU - L::kLogQ);
+    if (p > 0) {
+      const int from = cmin((p - 1) * L::kLogQ, L::kLogU - L::kLogQ);
+      __syncthreads();  // every read of the previous exchange is done
+#pragma unroll
+      for (int u = 0; u < Q; ++u) s[strided_index<L::kLogQ>(from, w, lane, u)] = v[u];
+      __syncthreads();
+#pragma unroll
+      for (int u = 0; u < Q; ++u) v[u] = s[strided_index<L::kLogQ>(at, w, lane, u)];
+    }
+#pragma unroll
+    for (int b = p * L::kLogQ; b < cmin((p + 1) * L::kLogQ, L::kLogU); ++b) {
+      reg_stage(v, 1 << (b - at));
     }
   }
-  __syncthreads();
-  for (int e = threadIdx.x; e < count; e += blockDim.x) {
-    base[(long long)(e >> log_cols) * lo + (e & (cols - 1))] = s[e] * norm;
+  constexpr int kLast = cmin((L::kPhases - 1) * L::kLogQ, L::kLogU - L::kLogQ);
+#pragma unroll
+  for (int u = 0; u < Q; ++u) {
+    const int e = strided_index<L::kLogQ>(kLast, w, lane, u);
+    store_cs(base + ((long long)(e >> L::kLogCols) << log_lo) + (e & (kCols - 1)),
+             T(v[u] * norm));
   }
 }
 
@@ -588,8 +835,8 @@ __global__ void srht_t_finish_kernel(const T* __restrict__ buf, const T* __restr
   }
 }
 
-// Launch geometry shared by the three kernels: grid, rows per block and
-// dynamic shared memory, with the opt-in above 48 KB.
+// Launch geometry of srht_t_kernel: grid, rows per block and dynamic
+// shared memory, with the opt-in above 48 KB.
 template <typename Kernel>
 cudaError_t configure(Kernel kernel, long long nrows, int n, size_t elem,
                       int* rpb, unsigned* blocks, size_t* smem) {
@@ -616,23 +863,41 @@ inline bool long_row(long long nrows, int n) {
          (nrows << (log2_int(n) - kLogMaxN)) <= 0x7fffffffLL;
 }
 
-// The high stages (h >= kMaxN) of nrows rows of length 2^log_n held in buf,
-// in place, in passes of at most kMaxN along the strided axis; the last
-// pass scales by norm.
-template <typename T>
-cudaError_t high_stages(T* buf, long long nrows, int log_n, T norm, cudaStream_t stream) {
-  for (int log_lo = kLogMaxN; log_lo < log_n;) {
-    const int log_r = std::min(log_n - log_lo, kLogMaxN);
-    const int log_cols = std::max(0, kLogTileValues - log_r);
-    const long long blocks = (nrows << (log_n - log_lo - log_r)) << (log_lo - log_cols);
-    const size_t smem = ((size_t)1 << (log_r + log_cols)) * sizeof(T);
-    if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-    cudaError_t err = allow_smem(fwht_strided_kernel<T>, smem);
+// One strided pass: the stages h = 2^log_lo ... 2^(log_lo + log_r - 1) of
+// nrows rows of 2^log_n in buf.
+template <typename T, int LOG_R = 1>
+cudaError_t strided_pass(T* buf, long long nrows, int log_n, int log_lo, int log_r, T norm,
+                         cudaStream_t stream) {
+  if constexpr (LOG_R > kLogMaxN) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (log_r != LOG_R) {
+      return strided_pass<T, LOG_R + 1>(buf, nrows, log_n, log_lo, log_r, norm, stream);
+    }
+    using L = StridedFwht<LOG_R>;
+    const size_t smem = L::kSmemValues * sizeof(T);
+    cudaError_t err = allow_smem(fwht_strided_kernel<T, LOG_R>, smem);
     if (err != cudaSuccess) return err;
+    const long long tiles = (nrows << (log_n - log_lo - LOG_R)) << (log_lo - L::kLogCols);
+    const long long blocks = tiles / L::kTiles;
+    if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+    fwht_strided_kernel<T, LOG_R><<<(unsigned)blocks, L::kThreads, smem, stream>>>(buf, log_lo,
+                                                                                norm);
+    return cudaGetLastError();
+  }
+}
+
+// The high stages (h >= 2^log_lo) of nrows rows of length 2^log_n held in
+// buf, in place, in passes of at most kLogMaxN stages; the last pass
+// scales by norm.
+template <typename T>
+cudaError_t high_stages(T* buf, long long nrows, int log_n, int log_lo, T norm,
+                        cudaStream_t stream) {
+  while (log_lo < log_n) {
+    const int log_r = std::min(log_n - log_lo, kLogMaxN);
     const bool last = log_lo + log_r == log_n;
-    fwht_strided_kernel<T><<<(unsigned)blocks, kThreads, smem, stream>>>(
-        buf, log_r, 1LL << log_lo, log_cols, last ? norm : T(1));
-    err = cudaGetLastError();
+    const cudaError_t err =
+        strided_pass<T>(buf, nrows, log_n, log_lo, log_r, last ? norm : T(1), stream);
     if (err != cudaSuccess) return err;
     log_lo += log_r;
   }
@@ -687,36 +952,84 @@ cudaError_t launch_fwht(const T* x, T* out, long long nrows, int n, double norm,
                         void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   if (long_row(nrows, n)) {
-    // low stages: x -> out in chunks of kMaxN (the register kernel at
-    // n = kMaxN, unscaled); then the high stages
-    const long long chunks = nrows << (log2_int(n) - kLogMaxN);
-    cudaError_t err = fwht_reg<T>(x, out, chunks, kLogMaxN, T(1), s);
+    // low stages: x -> out in chunks of 2^log_lo (the register kernel at
+    // n = 2^log_lo, unscaled); then the high stages, in one strided pass
+    // to n = 2^28
+    const int log_n = log2_int(n);
+    const int log_lo = std::min(std::max(log_n - kLogMaxN, kLogLowN), kLogMaxN);
+    const long long chunks = nrows << (log_n - log_lo);
+    cudaError_t err = fwht_reg<T>(x, out, chunks, log_lo, T(1), s);
     if (err != cudaSuccess) return err;
-    return high_stages(out, nrows, log2_int(n), (T)norm, s);
+    return high_stages(out, nrows, log_n, log_lo, (T)norm, s);
   }
   if (n < 1 || n > kMaxN || (n & (n - 1)) != 0 || nrows <= 0) return cudaErrorInvalidValue;
   return fwht_reg<T>(x, out, nrows, log2_int(n), (T)norm, s);
+}
+
+// srht_fwd_reg_kernel's grid. A block a chunk for rows of n < kFwdWaveN,
+// where a block's setup (the inverse of sel, the signs' bits) is a small
+// share of a chunk; from there, where the setup reads as many values as
+// the chunk holds, one wave of resident blocks walking the chunks (the
+// two were timed against each other on the H100, PERF.md).
+constexpr int kFwdWaveN = 4096;
+
+template <typename T, int LOG_N>
+cudaError_t launch_srht_fwd_reg(const T* x, const T* signs, const int64_t* sel, T* out,
+                                long long nrows, int dim, int k, T norm, T scale,
+                                cudaStream_t stream) {
+  using S = SrhtFwdReg<T, LOG_N>;
+  const auto kernel = srht_fwd_reg_kernel<T, LOG_N>;
+  cudaError_t err = allow_smem(kernel, S::kSmem);
+  if (err != cudaSuccess) return err;
+  const long long chunks = (nrows + S::kRows - 1) / S::kRows;
+  if (chunks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  long long blocks = chunks;
+  if ((1 << LOG_N) >= kFwdWaveN) {
+    static int resident = 0;  // blocks of this instantiation a SM holds
+    if (resident == 0) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel, S::L::kThreads,
+                                                          S::kSmem);
+      if (err != cudaSuccess) return err;
+      resident = std::max(resident, 1);
+    }
+    blocks = std::min(blocks, (long long)sm_count() * resident);
+  }
+  kernel<<<(unsigned)blocks, S::L::kThreads, S::kSmem, stream>>>(x, signs, sel, out, nrows,
+                                                                 (int)chunks, dim, k, norm,
+                                                                 scale);
+  return cudaGetLastError();
+}
+
+template <typename T, int LOG_N = kLogWarpN + 1>
+cudaError_t srht_fwd_reg(const T* x, const T* signs, const int64_t* sel, T* out,
+                         long long nrows, int dim, int log_n, int k, T norm, T scale,
+                         cudaStream_t stream) {
+  if constexpr (LOG_N > kLogMaxN) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (log_n == LOG_N) {
+      return launch_srht_fwd_reg<T, LOG_N>(x, signs, sel, out, nrows, dim, k, norm, scale,
+                                           stream);
+    }
+    return srht_fwd_reg<T, LOG_N + 1>(x, signs, sel, out, nrows, dim, log_n, k, norm, scale,
+                                      stream);
+  }
 }
 
 template <typename T>
 cudaError_t launch_srht(const T* x, const T* signs, const int64_t* sel, T* out,
                         long long nrows, int dim, int n, int k, double norm,
                         double scale, void* stream) {
-  if (n >= 1 && n <= kWarpN && (n & (n - 1)) == 0 && nrows > 0) {
+  if (n < 1 || n > kMaxN || (n & (n - 1)) != 0 || nrows <= 0) return cudaErrorInvalidValue;
+  if (n <= kWarpN) {
     const long long rows_per_block = (long long)(kThreads / 32) * (32 / n) * kWarpUnroll;
     const unsigned blocks = (unsigned)((nrows + rows_per_block - 1) / rows_per_block);
     srht_fwd_warp_kernel<T><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
         x, signs, sel, out, nrows, dim, log2_int(n), k, (T)norm, (T)scale);
     return cudaGetLastError();
   }
-  int rpb;
-  unsigned blocks;
-  size_t smem;
-  cudaError_t err = configure(srht_fwd_kernel<T>, nrows, n, sizeof(T), &rpb, &blocks, &smem);
-  if (err != cudaSuccess) return err;
-  srht_fwd_kernel<T><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      x, signs, sel, out, nrows, dim, log2_int(n), k, rpb, (T)norm, (T)scale);
-  return cudaGetLastError();
+  return srht_fwd_reg<T>(x, signs, sel, out, nrows, dim, log2_int(n), k, (T)norm, (T)scale,
+                         (cudaStream_t)stream);
 }
 
 template <typename T, int LOG_P = 0>
@@ -774,7 +1087,7 @@ cudaError_t launch_srht_large(const T* x, const T* signs, const int64_t* sel, T*
       x, signs, buf, dim, log_n);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = high_stages(buf, nrows, log_n, T(1), s);
+  err = high_stages(buf, nrows, log_n, kLogMaxN, T(1), s);
   if (err != cudaSuccess) return err;
   srht_gather_kernel<T><<<elementwise_blocks(nrows * k), kThreads, 0, s>>>(
       buf, sel, out, nrows, log_n, k, (T)norm, (T)scale);
@@ -797,7 +1110,7 @@ cudaError_t launch_srht_t_large(const T* y, const T* signs, const int64_t* sel, 
       y, sel, buf, log_n, k, (T)scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = high_stages(buf, nrows, log_n, T(1), s);
+  err = high_stages(buf, nrows, log_n, kLogMaxN, T(1), s);
   if (err != cudaSuccess) return err;
   srht_t_finish_kernel<T><<<elementwise_blocks(nrows * dim), kThreads, 0, s>>>(
       buf, signs, out, nrows, dim, log_n, (T)norm);

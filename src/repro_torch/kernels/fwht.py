@@ -6,9 +6,12 @@ row, loaded and stored as 16-byte vectors, and runs the stages in
 registers and by warp shuffles, nine bits of the index a phase; a row of
 n <= ``REG_PHASE_N`` needs one phase, a longer one crosses shared memory
 once between phases. A row longer than ``SINGLE_PASS_N`` takes two
-passes (the low stages by that kernel on chunks of ``SINGLE_PASS_N``,
-then ``fwht_strided_kernel`` along the strided axis), so any power-of-two
-length works. ``kernel_route`` states which kernels serve which length.
+passes: the low stages by that kernel on chunks of ``LOW_PASS_N`` (more
+for rows past 2^26), then ``fwht_strided_kernel`` along the strided
+axis, a lane holding one column's values in registers (all of them to
+``STRIDED_REG_ROWS`` rows, in phases with a shared-memory exchange
+past that), so any power-of-two length works. ``kernel_route`` states
+which kernels serve which length.
 The plain version is ``repro_torch.kernels.ref.fwht``.
 """
 from __future__ import annotations
@@ -29,8 +32,21 @@ SINGLE_PASS_N = 1 << 14
 REG_PHASE_N = 1 << 9
 # the longest row of the register transpose path (kWarpTMaxN)
 WARP_T_MAX_N = 1 << 10
-# the longest row of the register forward path (kWarpN)
+# the longest row of the warp forward path (kWarpN); longer rows to
+# SINGLE_PASS_N take srht_fwd_reg_kernel
 WARP_N = 32
+# the chunk of the low pass of a longer plain transform (kLogLowN), while
+# one strided pass of at most 2^14 stages covers the rest
+LOW_PASS_N = 1 << 12
+# the most rows of a strided pass a lane holds whole in its registers
+# (1 << kLogRegs); past that the pass exchanges through shared memory
+STRIDED_REG_ROWS = 16
+
+
+def _low_pass_log(n: int) -> int:
+    """log2 of the low pass's chunk for a plain transform of n > 2^14."""
+    log_n, log_max = n.bit_length() - 1, SINGLE_PASS_N.bit_length() - 1
+    return min(max(log_n - log_max, LOW_PASS_N.bit_length() - 1), log_max)
 
 # launches of the kernel (incremented only where it is launched)
 LAUNCHES = {"fwht": 0}
@@ -45,7 +61,11 @@ def kernel_route(op: str, n: int) -> str:
     ``csrc/srht.cu``."""
     if op == "fwht":
         if n > SINGLE_PASS_N:
-            return "fwht_reg_kernel<2^14> + fwht_strided_kernel"
+            log_lo = _low_pass_log(n)
+            route = f"fwht_reg_kernel<2^{log_lo}> + fwht_strided_kernel"
+            if n >> log_lo > STRIDED_REG_ROWS:
+                route += " (shared-memory exchange)"
+            return route
         if n > REG_PHASE_N:
             return "fwht_reg_kernel (shared-memory exchange)"
         return "fwht_reg_kernel"
@@ -54,7 +74,11 @@ def kernel_route(op: str, n: int) -> str:
     if n > SINGLE_PASS_N:
         return f"{op} long-row path"
     if op == "srht_apply":
-        return "srht_fwd_warp_kernel" if n <= WARP_N else "srht_fwd_kernel"
+        if n <= WARP_N:
+            return "srht_fwd_warp_kernel"
+        if n > REG_PHASE_N:
+            return "srht_fwd_reg_kernel (shared-memory exchange)"
+        return "srht_fwd_reg_kernel"
     return "srht_t_warp_kernel" if n <= WARP_T_MAX_N else "srht_t_kernel"
 
 

@@ -2,16 +2,20 @@
 
 Replace ``srht_apply_pallas`` (``repro/kernels/srht.py:98``) and
 ``srht_apply_t_pallas`` (``repro/kernels/srht.py:130``). The kernels are
-in ``csrc/srht.cu``, one launch per call: forward, ``srht_fwd_warp_kernel``
-(rows of n <= 32 in a warp's registers) or ``srht_fwd_kernel`` (pad, sign
-flip, shared-memory butterfly, gather); transpose, ``srht_t_warp_kernel``
-(n <= 1024: the scaled scatter as a lookup in the inverse of ``rows``,
-stages in registers and by shuffles) or ``srht_t_kernel`` (scatter,
-shared-memory butterfly, sign flip, truncate); ``fwht.kernel_route``
-states the rule. Rows longer than ``SINGLE_PASS_N`` go through a scratch
-buffer in three steps (padded and sign-flipped or scattered low stages,
-the strided high stages, then the gather or the sign flip and
-truncation). The plain versions are
+in ``csrc/srht.cu``, one launch per call. Forward:
+``srht_fwd_warp_kernel`` for rows of n <= 32 (in a warp's registers);
+``srht_fwd_reg_kernel`` for 32 < n <= ``SINGLE_PASS_N`` (a chunk of rows
+copied into shared memory by one bulk copy, padded and sign-flipped on
+the way into registers, the stages in registers and by shuffles with one
+shared-memory exchange from n = 1024, the gather a lookup in the inverse
+of ``rows`` staged for one coalesced store). Transpose:
+``srht_t_warp_kernel`` (n <= 1024: the scaled scatter as a lookup in the
+inverse of ``rows``, stages in registers and by shuffles) or
+``srht_t_kernel`` (scatter, shared-memory butterfly, sign flip,
+truncate). ``fwht.kernel_route`` states the rule. Rows longer than
+``SINGLE_PASS_N`` go through a scratch buffer in three steps (padded and
+sign-flipped or scattered low stages, the strided high stages, then the
+gather or the sign flip and truncation). The plain versions are
 ``repro_torch.kernels.ref.srht_apply``/``srht_apply_t``.
 
 The main path's transpose calls are a few rows, where the host's launch
@@ -20,8 +24,12 @@ checks compare attributes, the launch function (of the extension module
 ``repro_srht``, not ctypes) is bound once, and the stream handle is read
 raw.
 
-``rows`` must hold k distinct indices in [0, n), as the sketch samplers
-draw them; the kernels do not check them on the device.
+``rows`` must hold k distinct indices in [0, n); the kernels do not
+check that on the device. ``signs`` may hold any values. Where all are
++1 or -1, as the sketch samplers draw them, ``srht_fwd_reg_kernel``
+takes each sign from its bit in shared memory; otherwise it multiplies
+by the sign as read, so every route computes the plain version's
+function.
 """
 from __future__ import annotations
 

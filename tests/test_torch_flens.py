@@ -1,5 +1,7 @@
 """repro_torch FLeNS end to end against repro, on the quickstart problem
-(n=4000, dim=64, m=8, k=32, float64, 12 rounds).
+(n=4000, dim=64, m=8, k=32, float64, 12 rounds), and on reduced problems
+of covtype's shape (dim 54, padded to n = 64, k = 20) and phishing's
+(dim 68, padded to n = 128, k = 17), whose sketches pad (n=2000, m=8).
 
 JAX's threefry draws cannot be made with torch generators, so the port
 gets the reference's per-round sketch draws through a test-only
@@ -25,6 +27,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -69,28 +72,49 @@ def injected(spec: str) -> InjectedSrht:
     return InjectedSrht(**dataclasses.asdict(base), jax_keys=keys, cursor=[0])
 
 
-@pytest.fixture(scope="module")
-def quickstart():
-    X, y = jax_make_classification(jax.random.PRNGKey(0), n=4000, dim=64)
-    jp = jcore.make_problem(X, y, m=8, lam=1e-3,
-                            objective=jcore.logistic)
-    jw0 = jnp.zeros((64,), jnp.float64)
+# name -> (rows, dim, spectrum_decay, m): the quickstart, and reduced
+# covtype- and phishing-shaped problems (paper Table II: M = 54, k = 20;
+# M = 68, k = 17; spectrum decays of repro's twins)
+PROBLEMS = {"quickstart": (4000, 64, 1.0, 8), "covtype": (2000, 54, 1.8, 8),
+            "phishing": (2000, 68, 2.0, 8)}
+
+
+@functools.cache
+def _problem_pair(name):
+    n, dim, decay, m = PROBLEMS[name]
+    X, y = jax_make_classification(jax.random.PRNGKey(0), n=n, dim=dim,
+                                   spectrum_decay=decay)
+    jp = jcore.make_problem(X, y, m=m, lam=1e-3, objective=jcore.logistic)
+    jw0 = jnp.zeros((dim,), jnp.float64)
     jw_star = jcore.newton_solve(jp, jw0)
     tp = interop.problem_from_numpy(np.asarray(jp.X), np.asarray(jp.y),
                                     np.asarray(jp.mask), jp.lam, "logistic",
                                     device="cpu")
-    tw0 = torch.zeros(64, dtype=torch.float64)
+    tw0 = torch.zeros(dim, dtype=torch.float64)
     tw_star = newton_solve(tp, tw0)
     np.testing.assert_allclose(tw_star.numpy(), np.asarray(jw_star),
                                rtol=0, atol=1e-10)
     return (jp, jw0, jw_star), (tp, tw0, tw_star)
 
 
+@pytest.fixture(scope="module")
+def quickstart():
+    return _problem_pair("quickstart")
+
+
+# case -> (problem, reference kwargs, port kwargs)
 CASES = {
-    "flens": (dict(k=32), dict(k=32, sketch="srht")),
-    "flens_plus": (dict(k=32), dict(k=32, variant="plus", sketch="srht")),
-    "adaptive": (dict(k=4, sketch="srht:adaptive=4..16,c=0.1"),
+    "flens": ("quickstart", dict(k=32), dict(k=32, sketch="srht")),
+    "flens_plus": ("quickstart", dict(k=32),
+                   dict(k=32, variant="plus", sketch="srht")),
+    "adaptive": ("quickstart", dict(k=4, sketch="srht:adaptive=4..16,c=0.1"),
                  dict(k=4, sketch="srht:adaptive=4..16,c=0.1")),
+    "covtype_flens": ("covtype", dict(k=20), dict(k=20, sketch="srht")),
+    "covtype_flens_plus": ("covtype", dict(k=20),
+                           dict(k=20, variant="plus", sketch="srht")),
+    "phishing_flens": ("phishing", dict(k=17), dict(k=17, sketch="srht")),
+    "phishing_flens_plus": ("phishing", dict(k=17),
+                            dict(k=17, variant="plus", sketch="srht")),
 }
 
 
@@ -108,12 +132,12 @@ def _retrace_on_k_change(monkeypatch):
     monkeypatch.setattr(jflens.FLeNS, "round_signature", round_signature)
 
 
-def _run_pair(quickstart, case, monkeypatch):
-    (jp, jw0, jw_star), (tp, tw0, tw_star) = quickstart
-    jkw, tkw = CASES[case]
+def _run_pair(case, monkeypatch):
+    problem, jkw, tkw = CASES[case]
+    (jp, jw0, jw_star), (tp, tw0, tw_star) = _problem_pair(problem)
     if case == "adaptive":
         _retrace_on_k_change(monkeypatch)
-    jname = "flens_plus" if case == "flens_plus" else "flens"
+    jname = "flens_plus" if case.endswith("flens_plus") else "flens"
     jopt = jcore.make_optimizer(jname, **jkw)
     jh = jcore.run_rounds(jopt, jp, jw0, jw_star, rounds=ROUNDS, seed=SEED)
     tkw = dict(tkw, sketch=injected(tkw["sketch"]))
@@ -123,9 +147,8 @@ def _run_pair(quickstart, case, monkeypatch):
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_trajectory_matches_reference(quickstart, case, tmp_path,
-                                     monkeypatch):
-    jopt, jh, topt, th = _run_pair(quickstart, case, monkeypatch)
+def test_trajectory_matches_reference(case, tmp_path, monkeypatch):
+    jopt, jh, topt, th = _run_pair(case, monkeypatch)
     assert th.name == jh.name
     np.testing.assert_allclose(th.loss, jh.loss, rtol=1e-9, atol=0)
     live = jh.gap > 1e-10
@@ -191,7 +214,7 @@ def test_reference_adaptive_rounds_keep_the_first_trace(quickstart,
         return s
 
     monkeypatch.setattr(jpolicy.SketchPolicy, "materialize", materialize)
-    jkw, tkw = CASES["adaptive"]
+    _, jkw, tkw = CASES["adaptive"]
     jopt = jcore.make_optimizer("flens", **jkw)
     jax.clear_caches()
     jcore.run_rounds(jopt, jp, jw0, jw_star, rounds=ROUNDS, seed=SEED)

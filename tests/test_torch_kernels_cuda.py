@@ -38,7 +38,17 @@ CASES = [(64, 64, 32, (3,)), (18, 32, 10, (2, 5)), (100, 128, 7, (4,)),
          (64, 64, 1, (9,)), (61, 64, 64, (9,)), (512, 512, 256, (5,)),
          (1000, 1024, 1, (3,)), (1024, 1024, 1024, (3,)),
          (2048, 2048, 100, (2,)), (16384, 16384, 1, (2,)),
-         (16383, 16384, 16384, (2,))]
+         (16383, 16384, 16384, (2,)),
+         # covtype's and phishing's main-path shapes (A_j, gradients,
+         # S^T I_k: 54 -> 64 and 68 -> 128, the register forward route),
+         # dims just under n, and both sides of 32 | 64 and 2^14 | 2^15
+         (54, 64, 20, (200, 2906)), (54, 64, 20, (200,)), (54, 64, 20, (20,)),
+         (68, 128, 17, (40, 277)), (68, 128, 17, (40,)), (68, 128, 17, (17,)),
+         (31, 32, 20, (65,)), (63, 64, 20, (65,)), (127, 128, 17, (33,)),
+         (16383, 16384, 20, (3,)), (32768, 32768, 1, (2,)),
+         # more chunks of n = 8192 than one wave of resident blocks: each
+         # block of the forward register kernel walks several
+         (5000, 8192, 10, (2000,))]
 
 
 @pytest.fixture
@@ -79,6 +89,53 @@ def test_fwht_takes_a_view_off_a_16_byte_boundary(hopper, tdt):
     assert x.data_ptr() % 16
     assert torch.equal(ops.fwht(x, normalize=True, impl="cuda"),
                        ops.fwht(x, normalize=True, impl="ref"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tdt", [torch.float64, torch.float32])
+@pytest.mark.parametrize("dim,n,k,batch", [(54, 64, 20, (200, 37)),
+                                           (68, 128, 17, (33,)),
+                                           (1023, 1024, 50, (3,)),
+                                           (16383, 16384, 20, (2,)),
+                                           (18, 32, 10, (40,))])
+def test_srht_apply_takes_a_view_off_a_16_byte_boundary(hopper, tdt, dim, n,
+                                                        k, batch):
+    g = torch.Generator(device=hopper).manual_seed(dim)
+    signs = (2 * torch.randint(0, 2, (n,), generator=g, device=hopper)
+             - 1).to(tdt)
+    rows = torch.randperm(n, generator=g, device=hopper)[:k]
+    per = 16 // torch.empty((), dtype=tdt).element_size()
+    count = dim
+    for b in batch:
+        count *= b
+    flat = torch.randn(count + per, generator=g, dtype=tdt, device=hopper)
+    for off in range(1, per):  # the kernel copies the slab's aligned middle
+        x = flat[off:off + count].view(batch + (dim,))
+        assert x.data_ptr() % 16
+        assert torch.equal(ops.srht_apply(x, signs, rows, impl="cuda"),
+                           ops.srht_apply(x, signs, rows, impl="ref"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tdt", [torch.float64, torch.float32])
+@pytest.mark.parametrize("dim,n,k,batch", [(18, 32, 10, (40,)),
+                                           (54, 64, 20, (300,)),
+                                           (1023, 1024, 50, (9,)),
+                                           (5000, 8192, 10, (700,)),
+                                           (16383, 16384, 20, (3,)),
+                                           (20000, 1 << 15, 64, (2,))])
+def test_srht_kernels_take_signs_other_than_plus_minus_one(hopper, tdt, dim,
+                                                           n, k, batch):
+    g = torch.Generator(device=hopper).manual_seed(dim + 1)
+    signs = torch.randn(n, generator=g, dtype=tdt, device=hopper)
+    signs[:3] = torch.tensor([1.0, -1.0, -0.0], dtype=tdt)
+    rows = torch.randperm(n, generator=g, device=hopper)[:k]
+    x = torch.randn(batch + (dim,), generator=g, dtype=tdt, device=hopper)
+    y = torch.randn(batch + (k,), generator=g, dtype=tdt, device=hopper)
+    assert torch.equal(ops.srht_apply(x, signs, rows, impl="cuda"),
+                       ops.srht_apply(x, signs, rows, impl="ref"))
+    assert torch.equal(ops.srht_apply_t(y, signs, rows, dim, impl="cuda"),
+                       ops.srht_apply_t(y, signs, rows, dim, impl="ref"))
 
 
 @pytest.mark.gpu
