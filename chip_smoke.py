@@ -23,9 +23,13 @@ Phases, in order; any failure raises and the script exits non-zero:
                 (2000, 5000) -> n 8192 (more chunks than one wave of
                 blocks, so each block walks several), with signs other
                 than +1 and -1 on every route, and srht_apply on views of
-                x off a 16-byte boundary: bit-equality required (the
-                kernels keep the plain versions' op order and are built
-                with -fmad=false)
+                x off a 16-byte boundary; then srht_apply with one operator
+                per leading index (signs (G, n), rows (G, k)) on every
+                forward route: one row an operator, odd groups, groups
+                that straddle a chunk, k = 1 and k = n, the FedNS shapes,
+                signs other than +-1 and a view off a 16-byte boundary:
+                bit-equality required (the kernels keep the plain
+                versions' op order and are built with -fmad=false)
   4. quickstart — FLeNS at the quickstart size (n=4000, dim=64, m=8,
                 k=32, float64, 12 rounds) through the kernels; launch
                 counts checked per round (3 srht_apply + 2 srht_apply_t,
@@ -54,7 +58,23 @@ Phases, in order; any failure raises and the script exits non-zero:
                 operator), each with its route, events time, the profiler's
                 device time in all and by kernel, the bound, the plain
                 version and x @ S.T, and bit-equal to the plain version
-  6. long rows — fwht, srht_apply and srht_apply_t past the single-pass
+  5c. table-I — the nine other Table-I optimizers (FedAvg, FedProx,
+                FedNewton, DistributedNewton, LocalNewton, FedNew, FedNL,
+                FedNS with k=10, FedNDES) on the SUSY problem at full size,
+                10 rounds each with comm=None: loss finite and gap falling,
+                gap per round, ms per round (run_rounds and bare), peak
+                memory; FedNS and FedNDES launch one batched srht_apply a
+                round and their trajectories equal the plain versions' on
+                the card (each with a profiled round); then the batched
+                srht_apply at the three FedNS shapes (SUSY 1000 x 18 rows
+                of 5000 -> n 8192, k 10; covtype 200 x 54 of 2906 -> 4096,
+                k 20; the quickstart 8 x 64 of 500 -> 512, k 32): events,
+                the profiler's device time by kernel, the transpose copy
+                of A on its own, the bound, the plain version and torch.bmm
+                of dense per-client S; and FedNS srht:fixed under one
+                CommConfig at the quickstart size, its trajectory, bytes
+                and traces equal to the plain versions'
+ 6. long rows — fwht, srht_apply and srht_apply_t past the single-pass
                 length (n = 2^15, 2^17, 2^20) against their plain versions,
                 bit-equal; fwht timed at (64, 2^17) and (1, 2^20),
                 srht_apply at (2, 2^17) with dim 2^17 - 5, each with the
@@ -118,7 +138,8 @@ Phases, in order; any failure raises and the script exits non-zero:
  13. kernels  — one JSON line naming every ported kernel (flash
                 attention as two entries: the sm90 route and the tf32x3
                 route); the srht_apply and fwht entries list their routes,
-                each with a timed shape and its bound
+                each with a timed shape and its bound (srht_apply's batched
+                routes at the three FedNS shapes too)
 
 The last line of standard output is the device record
 ``{"ok": true, "device": {...}}``; before it come the card's name and
@@ -180,6 +201,24 @@ KERNELS = {
         replaces="src/repro/kernels/flash_attention.py:72"),
 }
 NO_CODEC = {"topk_mask": 0, "qint8_roundtrip": 0}
+# (operators G, rows a operator as an inner batch, dim, n, k): batched
+# srht_apply on every forward route (n <= 32, 33..2^14, past 2^14): one
+# row an operator, odd groups, groups that straddle a chunk of the
+# register kernel (13 rows of n = 64, whose chunks hold 64 rows), k = 1
+# and k = n, and the three FedNS shapes cut in operators
+BATCHED = [(5, (1,), 18, 32, 10), (7, (3,), 30, 32, 1), (3, (33,), 32, 32, 32),
+           (9, (13,), 54, 64, 20), (4, (65,), 63, 64, 64), (3, (7,), 500, 512, 1),
+           (6, (64,), 500, 512, 32), (3, (54,), 2906, 4096, 20),
+           (11, (18,), 5000, 8192, 10), (2, (3,), 16383, 16384, 16384),
+           (3, (2,), 20000, 1 << 15, 64), (2, (1,), (1 << 17) - 5, 1 << 17, 300)]
+# the nine Table-I baselines at examples/federated_logreg.py's settings,
+# FedNS at SUSY's k (paper Table II)
+TABLE_ONE = [("fedavg", dict(lr=2.0, local_steps=5)),
+             ("fedprox", dict(lr=2.0, local_steps=5, mu_prox=0.01)),
+             ("fednewton", {}), ("distributed_newton", {}),
+             ("local_newton", {}), ("fednew", {}), ("fednl", {}),
+             ("fedns", dict(k=SUSY["k"])), ("fedndes", {})]
+SKETCHED = ("fedns", "fedndes")  # one batched srht_apply launch a round
 NO_LM = {"flash_attention": 0, "flash_attention_sm90": 0,
          "flash_attention_tf32x3": 0}
 
@@ -309,29 +348,31 @@ def phase_build() -> dict:
           f"got {sorted(codec)}")
     log("[build] codec kernels, registers (no spills): " + ", ".join(
         f"{k} {v['registers']}" for k, v in sorted(codec.items())))
-    # the SRHT source's register kernels: the forward one per dtype and
-    # LOG_N (6..14), the strided pass per dtype and LOG_R (1..14)
+    # the SRHT source's register kernels: the forward one per dtype, LOG_N
+    # (6..14) and operator form (one, or one per group of rows), the
+    # strided pass per dtype and LOG_R (1..14)
     srht = {}
     for entry in re.split(r"Compiling entry function",
                           _build.build_log("srht"))[1:]:
-        name = re.search(r"(srht_fwd_reg|fwht_strided)_kernelI([df])Li(\d+)E",
-                         entry)
+        name = re.search(r"(srht_fwd_reg|fwht_strided)_kernelI([df])Li(\d+)E"
+                         r"(?:Lb([01])E)?", entry)
         if not name:
             continue
         regs = re.search(r"Used (\d+) registers", entry)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                           entry)
         check(regs and spill, "build: unreadable srht ptxas report")
-        kind, dt, log2 = name.groups()
-        key = f"{kind}_kernel<{'double' if dt == 'd' else 'float'}, {log2}>"
+        kind, dt, log2, batched = name.groups()
+        form = {None: "", "0": ", one operator", "1": ", batched"}[batched]
+        key = f"{kind}_kernel<{'double' if dt == 'd' else 'float'}, {log2}{form}>"
         srht[key] = {"registers": int(regs.group(1)),
                      "spill_stores": int(spill.group(1)),
                      "spill_loads": int(spill.group(2))}
         check(srht[key]["spill_stores"] == srht[key]["spill_loads"] == 0,
               f"build: {key} spills: {srht[key]}")
     kinds = [key.split("_kernel")[0] for key in srht]
-    check(kinds.count("srht_fwd_reg") == 18 and kinds.count("fwht_strided")
-          == 28, f"build: expected 18 srht_fwd_reg and 28 fwht_strided "
+    check(kinds.count("srht_fwd_reg") == 36 and kinds.count("fwht_strided")
+          == 28, f"build: expected 36 srht_fwd_reg and 28 fwht_strided "
           f"instantiations, got {sorted(srht)}")
     log("[build] srht register kernels, registers (no spills): " + ", ".join(
         f"{k} {v['registers']}" for k, v in sorted(srht.items())))
@@ -467,10 +508,42 @@ def phase_parity() -> dict:
                       f"{name} {dtype} dim={dim} n={n} k={k} batch={batch} "
                       f"with signs other than +-1: kernel differs from the "
                       f"plain version (max abs err {err:.3e})")
+    # srht_apply with one operator per leading index (FedNS's per-client
+    # sketches), on every forward route: each case with +-1 signs, with
+    # signs other than +-1, and on a view of x off a 16-byte boundary
+    for dtype in (torch.float64, torch.float32):
+        gen = torch.Generator(device=dev).manual_seed(8)
+        for g, inner, dim, n, k in BATCHED:
+            x = torch.randn((g,) + inner + (dim,), generator=gen, dtype=dtype,
+                            device=dev)
+            signs = (2 * torch.randint(0, 2, (g, n), generator=gen, device=dev)
+                     - 1).to(dtype)
+            rows = torch.stack([torch.randperm(n, generator=gen,
+                                               device=dev)[:k]
+                                for _ in range(g)])
+            odd = torch.randn((g, n), generator=gen, dtype=dtype, device=dev)
+            odd[:, :3] = torch.tensor([1.0, -1.0, -0.0], dtype=dtype)
+            flat = torch.randn(x.numel() + 1, generator=gen, dtype=dtype,
+                               device=dev)
+            view = flat[1:].view(x.shape)
+            check(view.data_ptr() % 16 != 0, "parity: view is aligned")
+            for what, xx, ss in (("+-1 signs", x, signs),
+                                 ("signs other than +-1", x, odd),
+                                 ("a view off a 16-byte boundary", view, odd)):
+                got = ops.srht_apply(xx, ss, rows, impl="cuda")
+                want = ops.srht_apply(xx, ss, rows, impl="ref")
+                err = _max_err(got, want)
+                worst["srht_apply"] = max(worst["srht_apply"], err)
+                check(torch.equal(got, want),
+                      f"batched srht_apply {dtype} G={g} rows {inner} dim="
+                      f"{dim} n={n} k={k} with {what}: kernel differs from "
+                      f"the plain version (max abs err {err:.3e})")
+    torch.cuda.synchronize()
     log(f"[parity] {len(cases)} shapes x 2 dtypes x 3 kernels, "
-        f"{len(views)} misaligned srht_apply views x 2 dtypes and "
+        f"{len(views)} misaligned srht_apply views x 2 dtypes, "
         f"{len(signed)} shapes with signs other than +-1 x 2 dtypes x 2 "
-        f"kernels bit-equal to the plain versions (max abs err {worst})")
+        f"kernels and {len(BATCHED)} batched srht_apply shapes x 3 inputs x "
+        f"2 dtypes bit-equal to the plain versions (max abs err {worst})")
     return worst
 
 
@@ -1049,6 +1122,242 @@ def phase_covtype() -> dict:
             "round_ms": round_ms, "setup_s": setup_s,
             "peak_memory_bytes": peak, "profile": profile,
             "srht_apply": timings}
+
+
+# ---------------------------------------------------------------------------
+# 5c. the other Table-I optimizers at full size
+# ---------------------------------------------------------------------------
+
+def _dense_operators(signs: torch.Tensor, rows: torch.Tensor,
+                     dim: int) -> torch.Tensor:
+    """The m SRHT operators as dense (m, k, dim) matrices, the library
+    yardstick's operands: S_j[c, i] = signs_j[i] (-1)^popcount(rows_j[c]
+    & i) / sqrt(k)."""
+    k = rows.shape[1]
+    both = rows[:, :, None] & torch.arange(dim, device=rows.device)
+    parity = torch.zeros_like(both)
+    for b in range(int(signs.shape[1]).bit_length()):
+        parity ^= (both >> b) & 1
+    return ((1 - 2 * parity).to(signs.dtype) * signs[:, None, :dim]
+            / math.sqrt(k))
+
+
+def _srht_batched_row(label, a, k, seed) -> dict:
+    """FedNS's call: srht_apply with one operator per client on the
+    contiguous transpose of A (m, n_shard, M), one launch. Events and the
+    profiler's device time by kernel, the transpose copy on its own, the
+    bound, the plain version and torch.bmm of the dense per-client S_j
+    with A_j (the build not timed)."""
+    from repro_torch.core.sketch import make_sketches
+    from repro_torch.keys import key_from_ints
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fwht import kernel_route
+
+    m, n_shard, dim_f = a.shape
+    s = make_sketches(key_from_ints(seed), "srht", m, k, n_shard,
+                      dtype=a.dtype, device=a.device)
+    n = s.signs.shape[1]
+    at = a.transpose(1, 2).contiguous()
+    dense = _dense_operators(s.signs, s.rows, n_shard)
+    item = a.element_size()
+    reps = 20 if a.numel() > 1_000_000 else 200
+
+    def copy():
+        return a.transpose(1, 2).contiguous()
+
+    def kern():
+        return ops.srht_apply(at, s.signs, s.rows, impl="cuda")
+
+    def plain():
+        return ops.srht_apply(at, s.signs, s.rows, impl="ref")
+
+    def lib():
+        return torch.bmm(dense, a)
+    before = ops.launch_counts()["srht_apply"]
+    got = kern()
+    check(ops.launch_counts()["srht_apply"] == before + 1,
+          f"batched srht_apply {label}: not one launch")
+    want = plain()
+    check(torch.equal(got, want), f"batched srht_apply {label}: kernel "
+          f"differs from the plain version (max abs err "
+          f"{_max_err(got, want):.3e})")
+    lib_err = _max_err(got.transpose(1, 2), lib())
+    check(lib_err < 1e-9 * float(got.abs().max()),
+          f"batched srht_apply {label}: bmm yardstick off by {lib_err:.3e}")
+    rows_n = m * dim_f
+    # x, the m operators' signs and rows read once, the outputs written
+    # once; per row n log2(n) adds, n sign flips, x norm x scale on k
+    bound, bound_by = _bound_ms(at.numel() * item + m * n * item + m * k * 8,
+                                rows_n * k * item,
+                                rows_n * (n * int(math.log2(n)) + n + 2 * k),
+                                a.dtype)
+    by_kernel = _device_kernels_ms(kern, reps)
+    row = dict(shape=label, dims=list(at.shape), operators=m, n=n, k=k,
+               route=kernel_route("srht_apply", n) + ", one operator a client",
+               ms=_time_ms(kern, reps), device_ms=sum(by_kernel.values()),
+               device_kernels_ms=by_kernel,
+               transpose_ms=_time_ms(copy, reps),
+               transpose_device_ms=_device_ms(copy, reps),
+               plain_ms=_time_ms(plain, max(reps // 4, 5)),
+               library="torch.bmm(S (m, k, n_shard), A (m, n_shard, M))",
+               library_ms=_time_ms(lib, reps),
+               library_device_ms=_device_ms(lib, reps),
+               library_max_abs_err=lib_err, bound_ms=bound, bound_by=bound_by,
+               max_abs_err=_max_err(got, want))
+    del at, dense, got, want
+    return row
+
+
+def _fedns_transport(rounds: int = 12) -> dict:
+    """FedNS with a fixed basis (EF-eligible) at the quickstart size under
+    one CommConfig on the edge channel: the kernels' trajectory, bytes and
+    traces equal to the plain versions'; launches as the round implies."""
+    from repro_torch.comm import CommConfig
+    from repro_torch.core import FedNS, logistic, make_problem, newton_solve
+    from repro_torch.core import run_rounds
+    from repro_torch.data import make_classification
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda", 0)
+    X, y = make_classification(0, n=QUICK["n"], dim=QUICK["dim"], device=dev)
+    problem = make_problem(X, y, m=QUICK["m"], lam=QUICK["lam"],
+                           objective=logistic, device=dev)
+    w0 = torch.zeros(QUICK["dim"], dtype=torch.float64, device=dev)
+    w_star = newton_solve(problem, w0)
+    # every client scheduled (a half cohort's Hessian diverges here at
+    # mu = 1); the edge channel still drops 10%
+    cfg = CommConfig(codecs={"sa": "qint8", "grad": "topk0.5+qint8"},
+                     channel=_edge_channel(QUICK["m"]), scheduler="full",
+                     error_feedback=True, seed=1)
+    runs = {}
+    for impl in (None, "ref"):
+        ops.reset_launch_counts()
+        with ops.use_impl(impl):
+            # a basis held across rounds needs k = M here to converge
+            runs[impl] = run_rounds(FedNS(k=QUICK["dim"], sketch="srht:fixed"),
+                                    problem, w0, w_star, rounds=rounds,
+                                    comm=cfg)
+        if impl is None:
+            counts = ops.launch_counts()
+    hist, plain = runs[None], runs["ref"]
+    per_round = _codec_launches_per_round(cfg, ("grad", "sa"))
+    want = {"fwht": 0, "srht_apply": rounds, "srht_apply_t": 0, **NO_LM,
+            **{op: c * rounds for op, c in per_round.items()}}
+    check(counts == want, f"FedNS under transport launches {counts} != {want}")
+    check((hist.loss == plain.loss).all(),
+          f"FedNS under transport: kernels {hist.loss.tolist()} != plain "
+          f"{plain.loss.tolist()}")
+    check((hist.cumulative_bytes == plain.cumulative_bytes).all()
+          and [t.to_dict() for t in hist.traces]
+          == [t.to_dict() for t in plain.traces],
+          "FedNS under transport: bytes or traces differ from the plain run")
+    check(set(hist.ef_residuals) == {"sa", "grad"},
+          f"FedNS srht:fixed EF payloads {sorted(hist.ef_residuals)}")
+    check(bool(torch.isfinite(torch.as_tensor(hist.loss)).all())
+          and hist.gap[-1] < hist.gap[0],
+          f"FedNS under transport: gap {hist.gap.tolist()}")
+    log(f"[table-I] FedNS srht:fixed, k 64, at the quickstart size under "
+        f"{{sa: qint8, grad: topk0.5+qint8}}, full cohort, EF: gap "
+        + " ".join(f"{g:.2e}" for g in hist.gap[::3])
+        + f"; {hist.cumulative_bytes[-1]:.0f} bytes, launches {counts}; "
+        f"trajectory, bytes and traces equal to the plain versions'")
+    return {"gap": hist.gap.tolist(), "launches": counts,
+            "cumulative_bytes": hist.cumulative_bytes.tolist(),
+            "ef_residuals": hist.ef_residuals}
+
+
+def phase_table_one(problem, w0, w_star) -> dict:
+    """The nine other Table-I optimizers on the SUSY problem at full size,
+    10 rounds each with comm=None; FedNS and FedNDES one batched
+    srht_apply launch a round and their trajectories equal to the plain
+    versions' on the card; then the batched srht_apply timed at the three
+    FedNS shapes, and FedNS under a transport at the quickstart size."""
+    from repro_torch.core import make_optimizer, run_rounds
+    from repro_torch.core.base import root_key, split
+    from repro_torch.kernels import ops
+
+    dev = problem.X.device
+    rounds = 10
+    out = {}
+    for name, kw in TABLE_ONE:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        opt = make_optimizer(name, **kw)
+        hist = run_rounds(opt, problem, w0, w_star, rounds=rounds)
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        want = {"fwht": 0, "srht_apply": rounds if name in SKETCHED else 0,
+                "srht_apply_t": 0, **NO_CODEC, **NO_LM}
+        check(counts == want, f"{name} launches {counts} != {want}")
+        check(bool(torch.isfinite(torch.as_tensor(hist.loss)).all()),
+              f"{name}: non-finite loss {hist.loss.tolist()}")
+        check(hist.gap[-1] < hist.gap[0],
+              f"{name}: gap {hist.gap[0]:.3e} -> {hist.gap[-1]:.3e} did not fall")
+        if name in SKETCHED:
+            with ops.use_impl("ref"):
+                plain = run_rounds(make_optimizer(name, **kw), problem, w0,
+                                   w_star, rounds=rounds)
+            check((hist.loss == plain.loss).all(),
+                  f"{name} through the kernel {hist.loss.tolist()} != through "
+                  f"the plain version {plain.loss.tolist()}")
+        state = opt.init(problem, w0)
+        keys = iter(split(root_key(7, device=dev), rounds + 1))
+
+        def step():
+            nonlocal state
+            state = opt.round(problem, state, next(keys))
+        bare = _bare_ms(step, rounds)
+        row = {"gap": hist.gap.tolist(), "loss": hist.loss.tolist(),
+               "launches": counts, "uplink_floats": hist.uplink_floats,
+               "run_rounds_ms_per_round": hist.wall_time_s * 1e3 / rounds,
+               "round_ms": bare, "peak_memory_bytes": peak}
+        if name in SKETCHED:
+            row["k"] = opt.k
+            row["profile"] = _profile_rounds(opt, problem, state,
+                                             split(root_key(8, device=dev), 3))
+        out[name] = row
+        log(f"[table-I] {name:<18} gap " + " ".join(f"{g:.2e}" for g in hist.gap))
+        log(f"[table-I] {name:<18} run_rounds "
+            f"{row['run_rounds_ms_per_round']:.2f} ms/round with per-round "
+            f"eval; bare rounds {sorted(bare)[len(bare) // 2]:.2f} ms median "
+            f"({min(bare):.2f}..{max(bare):.2f}); peak memory "
+            f"{peak / 2**30:.2f} GiB; uplink {hist.uplink_floats} floats"
+            + (f"; k {opt.k}; srht_apply launches {counts['srht_apply']}, "
+               f"trajectory equal to the plain version's"
+               if name in SKETCHED else ""))
+        if name in SKETCHED:
+            prof = row["profile"]
+            log(f"[table-I]   profile: device busy {prof['busy_share']:.1%} "
+                f"of {prof['wall_us'] / prof['rounds'] / 1e3:.2f} ms/round")
+            for r in prof["top"][:8]:
+                log(f"[table-I]   {r['us_per_round']:9.1f} us/round x"
+                    f"{r['launches_per_round']:.0f}  {r['kernel']}")
+    # the batched srht_apply at the three FedNS shapes: SUSY's A_j (at
+    # w*), covtype's and the quickstart's (random A of their shapes)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    timings = [_srht_batched_row("SUSY A_j (1000, 5000, 18) -> n 8192, k 10",
+                                 problem.local_hess_sqrt(w_star), SUSY["k"], 1)]
+    for label, shape, k in (
+            ("covtype A_j (200, 2906, 54) -> n 4096, k 20", (200, 2906, 54),
+             COVTYPE["k"]),
+            ("quickstart A_j (8, 500, 64) -> n 512, k 32", (8, 500, 64),
+             QUICK["k"])):
+        a = torch.randn(shape, generator=gen, dtype=torch.float64, device=dev)
+        timings.append(_srht_batched_row(label, a, k, 2))
+        del a
+    for r in timings:
+        log(f"[table-I] batched srht_apply {r['shape']}: {r['ms']:.4f} ms, "
+            f"device {r['device_ms']:.4f} (bound {r['bound_ms']:.4f} by "
+            f"{r['bound_by']}, plain {r['plain_ms']:.4f}, bmm "
+            f"{r['library_ms']:.4f}, device {r['library_device_ms']:.4f}); "
+            f"{r['route']}")
+        log(f"[table-I]   transpose copy A -> (m, M, n_shard) alone: "
+            f"{r['transpose_ms']:.4f} ms, device {r['transpose_device_ms']:.4f}")
+        for name, ms in r["device_kernels_ms"].items():
+            log(f"[table-I]   {ms:.4f} ms  {name}")
+    return {"optimizers": out, "srht_apply_batched": timings,
+            "fedns_transport": _fedns_transport()}
 
 
 # ---------------------------------------------------------------------------
@@ -2047,6 +2356,7 @@ def main() -> int:
               "quickstart": phase_quickstart()}
     record["full_size"], susy = phase_full_size()
     record["covtype"] = phase_covtype()
+    record["table_one"] = phase_table_one(*susy)
     record["long_rows"] = phase_long_rows()
     record["codec_parity_max_abs_err"] = phase_codec_parity()
     record["transport"] = phase_transport(*susy)
@@ -2081,11 +2391,21 @@ def main() -> int:
     # covtype: the register route)
     long_times = record["long_rows"]["timings"]
     covtype = record["covtype"]["srht_apply"]
+    # the batched routes: SUSY's per-client call, launched by FedNS and
+    # FedNDES in 5c; covtype's (not on a path here); the quickstart's,
+    # launched by FedNS under the transport
+    table = record["table_one"]
+    batched = table["srht_apply_batched"]
     routes = {
         "srht_apply": [(timed["srht_apply"][0], launches["srht_apply"]),
                        (covtype[0], record["covtype"]["launches"]["srht_apply"]),
                        (covtype[-1], 0),
-                       *[(r, 0) for r in long_times if r["op"] == "srht_apply"]],
+                       *[(r, 0) for r in long_times if r["op"] == "srht_apply"],
+                       (batched[0], sum(table["optimizers"][name]["launches"]
+                                        ["srht_apply"] for name in SKETCHED)),
+                       (batched[1], 0),
+                       (batched[2], table["fedns_transport"]["launches"]
+                        ["srht_apply"])],
         "fwht": [*[(r, 0) for r in timed["fwht"]],
                  *[(r, 0) for r in long_times if r["op"] == "fwht"]],
     }

@@ -215,17 +215,23 @@ class CommRound:
         shape = (x.shape[0],) + tuple(codec.noise_shape(tuple(x.shape[1:])))
         return self.codec_noise(stream, shape, x.dtype, x.device)
 
-    def uplink(self, name: str, x: torch.Tensor, ef_eligible: bool = True,
+    def uplink(self, name: str, x: torch.Tensor,
+               wire_shape: "tuple | None" = None, ef_eligible: bool = True,
                ef_reset=None) -> torch.Tensor:
         """Route a stacked per-client payload ``x: (m, ...)`` through its
         codec; records its exact encoded bytes per client.
 
+        ``wire_shape`` is the shape billed where the algorithm defines its
+        own wire format (FedNL sends a rank-1 ``(M + 1,)`` eigenpair, not
+        the (M, M) difference); the codec prices that shape.
         ``ef_eligible=False`` marks a payload whose basis is redrawn every
         round, so error feedback skips it. ``ef_reset`` (a bool) zeroes
         its EF memory first: the round a rotating basis is redrawn."""
         codec = self._config.codec_for(name)
         pkey = self._payload_key(name)
-        self._plan[pkey] = codec.nbytes(tuple(x.shape[1:]), x.dtype)
+        self._plan[pkey] = codec.nbytes(
+            tuple(wire_shape) if wire_shape is not None
+            else tuple(x.shape[1:]), x.dtype)
         self._n_payloads += 1
         if isinstance(codec, IdentityCodec):
             return x  # the same object: no change to the round
@@ -245,13 +251,17 @@ class CommRound:
         self.memory_out[pkey] = self.where_delivered(mem_new, mem)
         return decoded
 
-    def downlink(self, name: str, x: torch.Tensor) -> torch.Tensor:
+    def downlink(self, name: str, x: torch.Tensor,
+                 wire_shape: "tuple | None" = None) -> torch.Tensor:
         """Route a server broadcast (no client axis) through its
-        ``"down:<name>"`` codec: encoded once, billed ``nbytes`` per
-        receiving client. No error feedback applies."""
+        ``"down:<name>"`` codec: encoded once, billed ``nbytes`` (of
+        ``wire_shape`` where given) per receiving client. No error
+        feedback applies."""
         codec = self._config.codec_for(f"{DOWN}{name}")
         pkey = self._payload_key(f"{DOWN}{name}")
-        self._plan[pkey] = codec.nbytes(tuple(x.shape), x.dtype)
+        self._plan[pkey] = codec.nbytes(
+            tuple(wire_shape) if wire_shape is not None else tuple(x.shape),
+            x.dtype)
         self._n_down += 1
         if isinstance(codec, IdentityCodec):
             return x
@@ -281,10 +291,11 @@ class _NullComm:
 
     mask = None
 
-    def uplink(self, name, x, ef_eligible=True, ef_reset=None):
+    def uplink(self, name, x, wire_shape=None, ef_eligible=True,
+               ef_reset=None):
         return x
 
-    def downlink(self, name, x):
+    def downlink(self, name, x, wire_shape=None):
         return x
 
     def weights(self, p):

@@ -73,12 +73,15 @@ class _PlanRecorder(_NullComm):
         self._occurrences[name] = occ + 1
         self.plan[name if occ == 0 else f"{name}#{occ}"] = nbytes
 
-    def uplink(self, name, x, ef_eligible=True, ef_reset=None):
-        self._record(name, _nbytes(x.shape[1:], x))  # per client
+    def uplink(self, name, x, wire_shape=None, ef_eligible=True,
+               ef_reset=None):
+        shape = x.shape[1:] if wire_shape is None else wire_shape
+        self._record(name, _nbytes(shape, x))  # per client
         return x
 
-    def downlink(self, name, x):
-        self._record(f"{DOWN}{name}", _nbytes(x.shape, x))
+    def downlink(self, name, x, wire_shape=None):
+        shape = x.shape if wire_shape is None else wire_shape
+        self._record(f"{DOWN}{name}", _nbytes(shape, x))
         return x
 
 

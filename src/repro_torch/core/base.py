@@ -60,6 +60,12 @@ def split(gen: torch.Generator, num: int) -> torch.Tensor:
     return words.to(device="cpu", dtype=torch.int32)
 
 
+def solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a^-1 b (batched over leading axes) without the singularity check
+    that would wait on the device."""
+    return torch.linalg.solve_ex(a, b)[0]
+
+
 def build_round(opt: "FederatedOptimizer", problem, session):
     """The round function every session drives: ``_round(state, memory,
     key, mask, codec_key) -> (state, memory_out)``. The session builds the

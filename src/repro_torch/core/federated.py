@@ -3,7 +3,9 @@
 Counterpart of the dense part of ``repro.core.federated``. Clients are
 equal-sized shards stacked on a leading ``m`` axis (``X: (m, n_shard,
 M)``, ``y: (m, n_shard)``); every per-client quantity is one batched
-tensor expression over that axis (where JAX used ``vmap``). Unequal
+tensor expression over that axis (where JAX used ``vmap``), at the
+broadcast iterate (``local_grad``) or at one iterate a client
+(``local_grad_at``, for the optimizers that run local steps). Unequal
 client sizes use per-client weights ``p_j = n_j / N`` and valid-row
 masks.
 
@@ -92,6 +94,35 @@ class FederatedProblem:
         d = self.local_hess_weights(w)
         nj = torch.sum(self.mask, dim=1)
         return self.X * torch.sqrt(d / nj[:, None])[..., None]
+
+    # -- at per-client iterates ws (m, M), one a client ----------------------
+    def _margins_at(self, ws: torch.Tensor) -> torch.Tensor:
+        return self.y * torch.einsum("jnm,jm->jn", self.X, ws)
+
+    def local_grad_at(self, ws: torch.Tensor) -> torch.Tensor:
+        """(m, M): client j's local gradient at its own iterate ws[j]
+        (the local runs of FedAvg, FedProx and LocalNewton)."""
+        nj = torch.sum(self.mask, dim=1)
+        if self.objective.name == "logistic":
+            s = torch.sigmoid(-self._margins_at(ws)) * self.mask
+            coef = -(s * self.y)
+        else:
+            coef = (torch.einsum("jnm,jm->jn", self.X, ws) - self.y) * self.mask
+        g = torch.einsum("jnm,jn->jm", self.X, coef)
+        return g / nj[:, None] + self.lam * ws
+
+    def local_hessian_at(self, ws: torch.Tensor) -> torch.Tensor:
+        """(m, M, M): client j's local Hessian (lam I included) at its own
+        iterate ws[j]."""
+        if self.objective.name == "logistic":
+            p = torch.sigmoid(self._margins_at(ws))
+            d = p * (1.0 - p) * self.mask
+        else:
+            d = self.mask
+        nj = torch.sum(self.mask, dim=1)
+        hs = (self.X * d[..., None]).transpose(1, 2) @ self.X
+        eye = torch.eye(self.dim, dtype=self.X.dtype, device=self.X.device)
+        return hs / nj[:, None, None] + self.lam * eye[None]
 
     # -- global quantities ---------------------------------------------------
     def global_value(self, w: torch.Tensor) -> torch.Tensor:

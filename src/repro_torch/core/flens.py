@@ -28,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.comm import NULL_COMM
-from repro_torch.core.base import FederatedOptimizer, OptState
+from repro_torch.core.base import FederatedOptimizer, OptState, solve
 from repro_torch.core.sketch_policy import (
     SketchPolicy,
     as_policy,
@@ -38,11 +38,6 @@ from repro_torch.core.sketch_policy import (
 # lower bound of the guard's backtracking trust scale: rejects halve the
 # scale down to this floor, accepts double it back (capped at 1)
 _MIN_TRUST_SCALE = 1.0 / 64.0
-
-
-def _solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a^-1 b without the singularity check that syncs with the host."""
-    return torch.linalg.solve_ex(a, b)[0]
 
 
 class FLeNS(FederatedOptimizer):
@@ -175,7 +170,7 @@ class FLeNS(FederatedOptimizer):
         p = comm.weights(problem.client_weights)
         h_tilde = torch.einsum("j,jab->ab", p, h_sk) + problem.lam * sst
         g_sk = torch.einsum("j,jk->k", p, sg)
-        delta_k = _solve(h_tilde + self.lam_damp * eye_k, g_sk)
+        delta_k = solve(h_tilde + self.lam_damp * eye_k, g_sk)
         delta = s.apply_t(delta_k)
 
         base = v if self.step_from == "v" else w
@@ -185,7 +180,7 @@ class FLeNS(FederatedOptimizer):
         if self.variant == "plus":
             gs_hat = comm.uplink("grad", gs)  # full gradient (O(M) uplink)
             g = torch.einsum("j,jm->m", p, gs_hat)
-            proj = s.apply_t(_solve(sst, s.apply(g)))  # P_S g
+            proj = s.apply_t(solve(sst, s.apply(g)))  # P_S g
             w_next = w_next - scale * state["eta"] * (g - proj)
 
         # guarded step: clients piggyback their local loss at w_next

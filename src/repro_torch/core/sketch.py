@@ -12,7 +12,10 @@ replacement). ``SrhtSketch`` routes through the ``srht_apply`` and
 ``srht_apply_t`` ops of ``repro_torch.kernels.ops``: the CUDA kernels on
 the card, the plain versions on the CPU. Every op call takes the whole
 batch at once, so a call site launches one kernel whatever the number of
-clients.
+clients. ``make_sketches`` draws m operators at once (one per client,
+as FedNS sketches each client's data axis): ``BatchedSrhtSketch``
+applies them with one batched ``srht_apply`` launch, the dense kinds
+with one ``torch.bmm``.
 """
 from __future__ import annotations
 
@@ -160,6 +163,107 @@ def make_sketch(key: torch.Tensor, kind: str, k: int, dim: int,
                        accumulate=True)
         return SjltSketch(k, dim, mat)
     raise ValueError(f"unknown sketch kind {kind!r}")
+
+
+# ---------------------------------------------------------------------------
+# m operators at once: one per client (FedNS, FedNDES)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class BatchedSrhtSketch(Sketch):
+    """m SRHT operators of one (k, dim): signs (m, n), rows (m, k), each
+    row of ``rows`` distinct indices in [0, n). ``apply`` takes x
+    (m, ..., dim), operator j on the rows under index j, through one
+    batched ``srht_apply`` (one kernel launch on the card)."""
+
+    k: int
+    dim: int
+    signs: torch.Tensor
+    rows: torch.Tensor
+
+    kind = "srht"
+
+    def apply(self, x, *, impl=None):
+        return kops.srht_apply(x, self.signs, self.rows, impl=impl)
+
+    @property
+    def op_dtype(self):
+        return self.signs.dtype
+
+    @property
+    def device(self):
+        return self.signs.device
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchedDenseSketch(Sketch):
+    """m dense operators (m, k, dim) (the Gaussian and SJLT kinds),
+    applied to x (m, ..., dim) by one ``torch.bmm``."""
+
+    k: int
+    dim: int
+    mat: torch.Tensor
+    kind: str = "gaussian"
+
+    def apply(self, x, *, impl=None):
+        m = self.mat.shape[0]
+        flat = x.reshape(m, -1, self.dim)
+        return torch.bmm(flat, self.mat.transpose(1, 2)).reshape(
+            x.shape[:-1] + (self.k,))
+
+    @property
+    def op_dtype(self):
+        return self.mat.dtype
+
+    @property
+    def device(self):
+        return self.mat.device
+
+
+def make_sketches(key: torch.Tensor, kind: str, m: int, k: int, dim: int,
+                  dtype: torch.dtype = torch.float32,
+                  device: "str | torch.device" = "cuda",
+                  sjlt_nnz_per_col: int = 4) -> Sketch:
+    """Sample m operators S_j in R^{k x dim} on ``device`` from one key,
+    each kind in one batched draw (no loop over the m operators): SRHT
+    rows are the k largest of n uniform draws per operator, so each
+    operator's rows are distinct."""
+    dev = resolve_device(device)
+    gen = generator(key, dev)
+    if kind == "srht":
+        n = _next_pow2(dim)
+        if not 1 <= k <= n:
+            raise ValueError(f"SRHT needs 1 <= k <= next_pow2(dim) = {n}, got k={k}")
+        signs = _rademacher(gen, (m, n), dtype, dev)
+        u = torch.rand((m, n), generator=gen, device=dev)
+        rows = torch.topk(u, k, dim=1).indices.contiguous()
+        return BatchedSrhtSketch(k, dim, signs, rows)
+    if kind == "gaussian":
+        mat = torch.randn((m, k, dim), generator=gen, dtype=dtype, device=dev)
+        return BatchedDenseSketch(
+            k, dim, mat / torch.sqrt(torch.tensor(k, dtype=dtype)), "gaussian")
+    if kind == "sjlt":
+        s = min(sjlt_nnz_per_col, k)
+        rows = torch.randint(0, k, (m, s, dim), generator=gen, device=dev)
+        signs = _rademacher(gen, (m, s, dim), dtype, dev)
+        which = torch.arange(m, device=dev)[:, None, None].expand(m, s, dim)
+        cols = torch.arange(dim, device=dev).expand(m, s, dim)
+        mat = torch.zeros((m, k, dim), dtype=dtype, device=dev)
+        mat.index_put_((which.reshape(-1), rows.reshape(-1), cols.reshape(-1)),
+                       signs.reshape(-1) / torch.sqrt(torch.tensor(s, dtype=dtype)),
+                       accumulate=True)
+        return BatchedDenseSketch(k, dim, mat, "sjlt")
+    raise ValueError(f"unknown sketch kind {kind!r}")
+
+
+def sketch_sqrt_rows(sketch: Sketch, a_mat: torch.Tensor) -> torch.Tensor:
+    """Left sketch of the Hessian square root, S @ A, on the data axis
+    (``sketch.dim`` = A's rows): A (n_rows, dim_feat) -> (k, dim_feat),
+    or, with m operators, A (m, n_rows, dim_feat) -> (m, k, dim_feat).
+    The data axis is made the last axis by one contiguous copy of A's
+    transpose."""
+    at = a_mat.transpose(-1, -2).contiguous()
+    return sketch.apply(at).transpose(-1, -2)
 
 
 def sketch_psd(sketch: Sketch, h_mat: torch.Tensor) -> torch.Tensor:

@@ -33,7 +33,12 @@ import math
 
 import torch
 
-from repro_torch.core.sketch import Sketch, effective_dimension, make_sketch
+from repro_torch.core.sketch import (
+    Sketch,
+    effective_dimension,
+    make_sketch,
+    make_sketches,
+)
 from repro_torch.keys import key_from_ints
 
 KINDS = ("srht", "gaussian", "sjlt")
@@ -125,6 +130,14 @@ class SketchPolicy:
                     f"unknown sketch-policy option {raw!r} in spec {spec!r}")
         return cls(**kw)
 
+    @classmethod
+    def per_round(cls, basis: str) -> "SketchPolicy":
+        """A fresh-schedule policy for a payload whose coordinate basis is
+        re-derived every round without sampling a ``Sketch`` (FedNL's
+        power-iteration eigenbasis): EF eligibility at such a call site
+        flows from the same ``basis_persistent`` predicate."""
+        return cls(kind=basis, schedule="fresh")
+
     # -- immutable updates ---------------------------------------------------
     def with_k(self, k: int) -> "SketchPolicy":
         return dataclasses.replace(self, k=int(k))
@@ -198,6 +211,20 @@ class SketchPolicy:
                 f"the optimizer with k= or call with_k/resolved first")
         return make_sketch(key, self.kind, self.k, dim, dtype=dtype,
                            device=device)
+
+    def materialize_batch(self, key: torch.Tensor, m: int, dim: int,
+                          dtype: torch.dtype = torch.float32,
+                          device: "str | torch.device" = "cuda") -> Sketch:
+        """m operators, one per client, drawn from one basis key in one
+        batched draw (``make_sketches``): a fresh schedule passes the
+        round's key, a fixed or rotating one its ``(seed, epoch)`` key,
+        so every client's basis is a pure function of it."""
+        if self.k is None:
+            raise ValueError(
+                f"sketch policy {self.spec()!r} has no k bound; construct "
+                f"the optimizer with k= or call with_k/resolved first")
+        return make_sketches(key, self.kind, m, self.k, dim, dtype=dtype,
+                             device=device)
 
     def sample(self, key: torch.Tensor, round_idx: int, dim: int,
                dtype: torch.dtype = torch.float32,

@@ -12,7 +12,7 @@ import torch
 
 from repro_torch.core.federated import FederatedProblem
 from repro_torch.core.losses import OBJECTIVES, Objective
-from repro_torch.core.sketch import SrhtSketch
+from repro_torch.core.sketch import BatchedSrhtSketch, SrhtSketch
 from repro_torch.device import resolve_device
 
 
@@ -51,9 +51,33 @@ def sketch_from_numpy(signs, rows, k: int, dim: int,
                       torch.tensor(rows, device=dev))
 
 
+def sketches_from_numpy(signs, rows, k: int, dim: int,
+                        device: "str | torch.device" = "cuda"
+                        ) -> BatchedSrhtSketch:
+    """A ``BatchedSrhtSketch`` of m operators from drawn signs (m, n) and
+    rows (m, k) (FedNS's per-client draws), checked on the host: n a
+    power of two >= dim, each operator's k rows distinct in [0, n)."""
+    dev = resolve_device(device)
+    signs = np.asarray(signs)
+    rows = np.asarray(rows).astype(np.int64)
+    if signs.ndim != 2 or rows.ndim != 2 or rows.shape != (signs.shape[0], k):
+        raise ValueError(f"want signs (m, n) and rows (m, {k}); got "
+                         f"{signs.shape} and {rows.shape}")
+    n = signs.shape[1]
+    if n & (n - 1) or n < dim:
+        raise ValueError(f"n = {n} must be a power of two >= dim={dim}")
+    srt = np.sort(rows, axis=1)
+    if (srt[:, 1:] == srt[:, :-1]).any() or rows.min() < 0 or rows.max() >= n:
+        raise ValueError(f"each operator's rows must be {k} distinct "
+                         f"indices in [0, {n})")
+    return BatchedSrhtSketch(k, dim, torch.tensor(signs, device=dev),
+                             torch.tensor(rows, device=dev))
+
+
 def state_from_numpy(state: dict, device: "str | torch.device" = "cuda") -> dict:
-    """An optimizer state dict: arrays become tensors on ``device``, the
-    round counter ``t`` a host integer."""
+    """An optimizer state dict (any optimizer's: FedNL's ``B``, FedNew's
+    ``d_bar`` and ``duals``, ...): arrays become tensors on ``device``,
+    the round counter ``t`` a host integer."""
     dev = resolve_device(device)
     out = {}
     for name, v in state.items():

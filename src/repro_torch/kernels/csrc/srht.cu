@@ -33,11 +33,12 @@
 //     an mbarrier) brings its 16-byte-aligned middle into shared memory,
 //     threads load the few values of its head and tail, and each thread
 //     reads its 16 values from there, padding and flipping signs on the
-//     way (the signs as bits in shared memory, built once a block, when
-//     every sign is +1 or -1; other signs are read as values). The
-//     gather is a lookup in the inverse of the sampled rows, also built
-//     once a block: each thread stages only its kept values, and the
-//     block stores the R x k outputs as one coalesced run.
+//     way (the signs as bits in shared memory, built once an operator a
+//     block, when every sign is +1 or -1; other signs are read as
+//     values). The gather is a lookup in the inverse of the sampled
+//     rows, also built once an operator a block: each thread stages only
+//     its kept values, and the block stores the R x k outputs as one
+//     coalesced run.
 //   * the transpose of rows of n <= 1024 (srht_t_warp_kernel): a warp
 //     holds a row, n/32 consecutive values a lane (32/n rows a warp below
 //     32); the scaled scatter is a lookup in the inverse of the sampled
@@ -75,6 +76,14 @@
 // with -fmad=false, so no multiply is contracted into a later add: the
 // results are bit-equal to the plain PyTorch version.
 //
+// The forward SRHT also takes one operator per group of rows (FedNS's and
+// FedNDES's per-client sketches of srht_apply_pallas under jax.vmap, one
+// launch for all clients): row r uses signs + (r / group) n and sel +
+// (r / group) k on every route. The register route cuts each operator's
+// rows into its own chunks and gives each block a run of consecutive
+// chunks, so a block sets an operator up once and never carries one
+// operator's setup into another's rows.
+//
 // Every entry point launches on the given stream, allocates nothing and
 // returns cudaGetLastError() after the launch. Besides the C interface,
 // the library is the Python extension module repro_srht, whose functions
@@ -108,6 +117,12 @@ constexpr int kWarpUnroll = 4;      // row groups a warp holds at once
 constexpr int kLogRegs = 4;         // log2 of the values a thread of fwht_reg_kernel holds
 constexpr int kLogMinWarps = 3;     // fwht_reg_kernel's least block: 8 warps
 constexpr int kWarpTMaxN = 1024;    // largest n of the register transpose path (32 values a lane)
+// srht_fwd_reg_kernel's grid. A block a chunk for rows of n < kFwdWaveN,
+// where a block's setup (the inverse of sel, the signs' bits) is a small
+// share of a chunk; from there, where the setup reads as many values as
+// the chunk holds, one wave of resident blocks walking runs of chunks (the
+// two were timed against each other on the H100, PERF.md).
+constexpr int kFwdWaveN = 4096;
 
 inline int log2_int(int n) {
   int l = 0;
@@ -145,28 +160,46 @@ __device__ void butterfly(T* buf, int rows, int log_n) {
 // Forward SRHT for n <= 32 in registers: lane l holds coordinate
 // j = l % n of row slot l / n; stage h pairs lanes l and l ^ h, the lower
 // one (bit h clear) keeping a + b and the upper one a - b, exactly the
-// shared-memory butterfly's arithmetic.
-template <typename T>
+// shared-memory butterfly's arithmetic. Row r takes operator r / group
+// (signs + (r / group) n, sel + (r / group) k); with one operator
+// (BATCHED false) a lane reads its sign and its gather source once.
+template <typename T, bool BATCHED>
 __global__ void srht_fwd_warp_kernel(const T* __restrict__ x, const T* __restrict__ signs,
                                      const int64_t* __restrict__ sel, T* __restrict__ out,
-                                     long long nrows, int dim, int log_n, int k, T norm,
-                                     T scale) {
+                                     long long nrows, long long group, int dim, int log_n,
+                                     int k, T norm, T scale) {
   const int n = 1 << log_n;
   const int lane = threadIdx.x & 31;
   const int j = lane & (n - 1);
   const int slot = lane >> log_n;
   const int per_warp = 32 >> log_n;
-  const T sign = signs[j];
-  // the lane whose value output entry j of this lane's row takes
-  const int src = (lane & ~(n - 1)) + (j < k ? (int)sel[j] : 0);
+  // the lane whose value output entry j of this lane's row takes, by the
+  // operator's sel
+  const auto source = [&](const int64_t* s) {
+    return (lane & ~(n - 1)) + (j < k ? (int)s[j] : 0);
+  };
   const long long warp = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const long long row0 = warp * per_warp * kWarpUnroll + slot;
   T v[kWarpUnroll];
+  int src[kWarpUnroll];
+  if constexpr (BATCHED) {
 #pragma unroll
-  for (int u = 0; u < kWarpUnroll; ++u) {
-    const long long row = row0 + (long long)u * per_warp;
-    const T val = (j < dim && row < nrows) ? x[row * dim + j] : T(0);
-    v[u] = val * sign;
+    for (int u = 0; u < kWarpUnroll; ++u) {
+      const long long row = row0 + (long long)u * per_warp;
+      const long long g = min(row, nrows - 1) / group;
+      src[u] = source(sel + g * k);
+      const T val = (j < dim && row < nrows) ? x[row * dim + j] : T(0);
+      v[u] = val * signs[(g << log_n) + j];
+    }
+  } else {
+    const T sign = signs[j];
+    src[0] = source(sel);
+#pragma unroll
+    for (int u = 0; u < kWarpUnroll; ++u) {
+      const long long row = row0 + (long long)u * per_warp;
+      const T val = (j < dim && row < nrows) ? x[row * dim + j] : T(0);
+      v[u] = val * sign;
+    }
   }
   for (int h = 1; h < n; h <<= 1) {
 #pragma unroll
@@ -177,7 +210,7 @@ __global__ void srht_fwd_warp_kernel(const T* __restrict__ x, const T* __restric
   }
 #pragma unroll
   for (int u = 0; u < kWarpUnroll; ++u) {
-    const T g = __shfl_sync(0xffffffffu, v[u], src) * norm;
+    const T g = __shfl_sync(0xffffffffu, v[u], src[BATCHED ? u : 0]) * norm;
     const long long row = row0 + (long long)u * per_warp;
     if (j < k && row < nrows) out[row * k + j] = g * scale;
   }
@@ -507,23 +540,34 @@ struct SrhtFwdReg {
 };
 
 // Forward SRHT of rows of 32 < n = 2^LOG_N <= kMaxN (dim values each,
-// dim <= n), nrows rows in chunks of R = kRows, taken in a grid-stride
-// loop (nchunks chunks). Once a block: the inverse of sel and the signs'
-// bits. A chunk: the slab of R * dim values by one bulk copy (and at most
-// 15 bytes at each end by plain loads); each register takes its value,
-// zero past dim, times its sign (+1 or -1 by its bit); the stages
-// (reg_phases); each kept value, x norm x scale, into the chunk's R x k
+// dim <= n) in chunks of at most R = kRows rows. One operator (BATCHED
+// false): nrows rows in nchunks chunks taken in a grid-stride loop, the
+// operator set up once a block (the inverse of sel and the signs' bits).
+// G operators (BATCHED true): row r takes operator r / group (signs +
+// (r / group) n, sel + (r / group) k); an operator's group rows are cut
+// into chunks_per_op chunks, so no chunk straddles two operators (an
+// operator's last chunk may be short), and nchunks = G chunks_per_op.
+// Below kFwdWaveN a block takes one chunk (chunk b) and sets its operator
+// up; from there block b of the wave takes the consecutive chunks
+// [b nchunks / grid, (b + 1) nchunks / grid): it walks one operator's
+// chunks before the next's and sets each up once, where a grid-stride
+// walk would set one up at every chunk.
+// A chunk: the slab of its rows' values by one bulk copy (and at most 15
+// bytes at each end by plain loads); each register takes its value, zero
+// past dim, times its sign (+1 or -1 by its bit); the stages
+// (reg_phases); each kept value, x norm x scale, into the chunk's rows x k
 // outputs staged in shared memory; one coalesced store.
-// When every sign is +1 or -1 (the Rademacher draws of the samplers) a
-// sign is taken from its bit; otherwise each value is multiplied by its
-// sign read from device memory, so any signs give the plain version's
-// result.
-template <typename T, int LOG_N>
+// When every sign of the operator is +1 or -1 (the Rademacher draws of the
+// samplers) a sign is taken from its bit; otherwise each value is
+// multiplied by its sign read from device memory, so any signs give the
+// plain version's result.
+template <typename T, int LOG_N, bool BATCHED>
 __global__ void __launch_bounds__(SrhtFwdReg<T, LOG_N>::L::kThreads,
                                   1024 / SrhtFwdReg<T, LOG_N>::L::kThreads)
 srht_fwd_reg_kernel(const T* __restrict__ x, const T* __restrict__ signs,
                     const int64_t* __restrict__ sel, T* __restrict__ out, long long nrows,
-                    int nchunks, int dim, int k, T norm, T scale) {
+                    long long group, int chunks_per_op, int nchunks, int dim, int k, T norm,
+                    T scale) {
   using S = SrhtFwdReg<T, LOG_N>;
   using L = typename S::L;
   constexpr int n = 1 << LOG_N;
@@ -538,22 +582,42 @@ srht_fwd_reg_kernel(const T* __restrict__ x, const T* __restrict__ signs,
   uint32_t* neg = reinterpret_cast<uint32_t*>(smem_raw + S::kNeg);
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  if (tid == 0) mbar_init(bar);
-  int unit = 1;  // this thread's signs are all +1 or -1
-  for (int j = tid; j < n; j += kThreads) {  // whole warps: n is a multiple of 32
-    inv[j] = -1;
-    const T s = signs[j];
-    unit &= (s == T(1)) | (s == T(-1));
-    const unsigned bits = __ballot_sync(0xffffffffu, sign_bit(s));
-    if (lane == 0) neg[j >> 5] = bits;
-  }
-  const bool by_bit = __syncthreads_and(unit);
-  for (int c = tid; c < k; c += kThreads) inv[(int)sel[c]] = c;
-  __syncthreads();
-  uint32_t parity = 0;
-  for (int ci = blockIdx.x; ci < nchunks; ci += gridDim.x, parity ^= 1) {
-    const long long r0 = (long long)ci * S::kRows;
-    const int rows = (int)min((long long)S::kRows, nrows - r0);
+  if (tid == 0) mbar_init(bar);  // made visible by the first setup's barriers
+  // operator g into shared memory: the inverse of its sel and its signs'
+  // bits; returns whether every sign is +1 or -1
+  const auto set_up = [&](int g) {
+    const T* op_signs = signs + ((long long)g << LOG_N);
+    const int64_t* op_sel = sel + (long long)g * k;
+    int unit = 1;  // this thread's signs are all +1 or -1
+    for (int j = tid; j < n; j += kThreads) {  // whole warps: n is a multiple of 32
+      inv[j] = -1;
+      const T s = op_signs[j];
+      unit &= (s == T(1)) | (s == T(-1));
+      const unsigned bits = __ballot_sync(0xffffffffu, sign_bit(s));
+      if (lane == 0) neg[j >> 5] = bits;
+    }
+    const bool all_unit = __syncthreads_and(unit);
+    for (int c = tid; c < k; c += kThreads) inv[(int)op_sel[c]] = c;
+    __syncthreads();
+    return all_unit;
+  };
+  // chunk ci: its first row r0 and its rows
+  const auto span = [&](int ci, long long& r0, int& rows) {
+    if constexpr (BATCHED) {
+      const int g = ci / chunks_per_op;
+      const long long r_in = (long long)(ci - g * chunks_per_op) * S::kRows;
+      r0 = (long long)g * group + r_in;
+      rows = (int)min((long long)S::kRows, group - r_in);
+    } else {
+      r0 = (long long)ci * S::kRows;
+      rows = (int)min((long long)S::kRows, nrows - r0);
+    }
+  };
+  // chunk ci by its operator, set up in shared memory
+  const auto transform = [&](int ci, bool by_bit, uint32_t parity) {
+    long long r0;
+    int rows;
+    span(ci, r0, rows);
     const int count = rows * dim;  // values of the slab
     const T* src = x + r0 * dim;
     // the slab sits in shared memory at its offset from a 16-byte
@@ -597,10 +661,18 @@ srht_fwd_reg_kernel(const T* __restrict__ x, const T* __restrict__ signs,
     if (by_bit) {
       load([&](int j) { return ((neg[j >> 5] >> (j & 31)) & 1u) ? T(-1) : T(1); });
     } else {
-      load([&](int j) { return signs[j]; });
+      const T* op_signs = BATCHED ? signs + ((long long)(ci / chunks_per_op) << LOG_N) : signs;
+      load([&](int j) { return op_signs[j]; });
     }
     reg_phases<L, LOG_N>(chunk, v, w, l);
     __syncthreads();  // every read of the slab or of the last exchange is done
+    if constexpr (BATCHED) {
+      // the store's rows recomputed from an opaque copy of ci, not held in
+      // registers through the stages
+      int cj = ci;
+      asm volatile("" : "+r"(cj));
+      span(cj, r0, rows);
+    }
     l = fresh_tid() & 31;
     w = fresh_tid() >> 5;
 #pragma unroll
@@ -617,6 +689,26 @@ srht_fwd_reg_kernel(const T* __restrict__ x, const T* __restrict__ signs,
     const int outs = rows * k;
     for (int i = tid; i < outs; i += kThreads) store_cs(dst + i, chunk[i]);
     __syncthreads();  // the staged outputs are read before the next copy
+  };
+  uint32_t parity = 0;
+  if constexpr (!BATCHED) {
+    const bool by_bit = set_up(0);
+    for (int ci = blockIdx.x; ci < nchunks; ci += gridDim.x, parity ^= 1) {
+      transform(ci, by_bit, parity);
+    }
+  } else if constexpr (n < kFwdWaveN) {  // a block a chunk
+    transform(blockIdx.x, set_up(blockIdx.x / chunks_per_op), 0);
+  } else {  // the wave: a run of chunks a block
+    const int first = (int)((long long)blockIdx.x * nchunks / gridDim.x);
+    const int last = (int)((long long)(blockIdx.x + 1) * nchunks / gridDim.x);
+    bool by_bit = set_up(first / chunks_per_op);
+    for (int ci = first; ci < last; ++ci, parity ^= 1) {
+      transform(ci, by_bit, parity);
+      // the block's (uniform) switch to the next chunk's operator; the
+      // chunk's last barrier ended every read of inv and neg
+      const int next = ci + 1;
+      if (next < last && next % chunks_per_op == 0) by_bit = set_up(next / chunks_per_op);
+    }
   }
 }
 
@@ -678,21 +770,22 @@ srht_t_warp_kernel(const T* __restrict__ y, const T* __restrict__ signs,
 // ---------------------------------------------------------------------------
 
 // First pass of a long forward SRHT row: block b holds chunk b % chunks of
-// row b / chunks, padded and sign-flipped on load, runs the low stages and
-// writes the chunk whole.
+// row r = b / chunks, padded and flipped on load by the signs of its
+// operator r / group, runs the low stages and writes the chunk whole.
 template <typename T>
 __global__ void srht_fwd_low_kernel(const T* __restrict__ x, const T* __restrict__ signs,
-                                    T* __restrict__ buf, int dim, int log_n) {
+                                    T* __restrict__ buf, long long group, int dim, int log_n) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* s = reinterpret_cast<T*>(smem_raw);
   const int log_chunks = log_n - kLogMaxN;
   const long long r = (long long)blockIdx.x >> log_chunks;
   const long long j0 = ((long long)blockIdx.x & ((1LL << log_chunks) - 1)) << kLogMaxN;
   const T* src = x + r * dim;
+  const T* sg = signs + ((r / group) << log_n);
   for (int e = threadIdx.x; e < kMaxN; e += blockDim.x) {
     const long long j = j0 + e;
     const T v = j < dim ? src[j] : T(0);
-    s[e] = v * signs[j];
+    s[e] = v * sg[j];
   }
   butterfly(s, 1, kLogMaxN);
   T* dst = buf + (r << log_n) + j0;
@@ -807,16 +900,18 @@ fwht_strided_kernel(T* __restrict__ buf, int log_lo, T norm) {
   }
 }
 
+// The gather of a long forward SRHT row r through the sel of its
+// operator r / group.
 template <typename T>
 __global__ void srht_gather_kernel(const T* __restrict__ buf, const int64_t* __restrict__ sel,
-                                   T* __restrict__ out, long long nrows, int log_n, int k,
-                                   T norm, T scale) {
+                                   T* __restrict__ out, long long nrows, long long group,
+                                   int log_n, int k, T norm, T scale) {
   const long long total = nrows * k;
   for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < total;
        e += (long long)gridDim.x * blockDim.x) {
     const long long r = e / k;
     const int c = (int)(e - r * k);
-    const T h = buf[(r << log_n) + sel[c]] * norm;
+    const T h = buf[(r << log_n) + sel[(r / group) * k + c]] * norm;
     out[e] = h * scale;
   }
 }
@@ -966,70 +1061,76 @@ cudaError_t launch_fwht(const T* x, T* out, long long nrows, int n, double norm,
   return fwht_reg<T>(x, out, nrows, log2_int(n), (T)norm, s);
 }
 
-// srht_fwd_reg_kernel's grid. A block a chunk for rows of n < kFwdWaveN,
-// where a block's setup (the inverse of sel, the signs' bits) is a small
-// share of a chunk; from there, where the setup reads as many values as
-// the chunk holds, one wave of resident blocks walking the chunks (the
-// two were timed against each other on the H100, PERF.md).
-constexpr int kFwdWaveN = 4096;
-
 template <typename T, int LOG_N>
 cudaError_t launch_srht_fwd_reg(const T* x, const T* signs, const int64_t* sel, T* out,
-                                long long nrows, int dim, int k, T norm, T scale,
-                                cudaStream_t stream) {
+                                long long nrows, long long group, int dim, int k, T norm,
+                                T scale, cudaStream_t stream) {
   using S = SrhtFwdReg<T, LOG_N>;
-  const auto kernel = srht_fwd_reg_kernel<T, LOG_N>;
+  const bool batched = group != nrows;
+  const auto kernel =
+      batched ? srht_fwd_reg_kernel<T, LOG_N, true> : srht_fwd_reg_kernel<T, LOG_N, false>;
   cudaError_t err = allow_smem(kernel, S::kSmem);
   if (err != cudaSuccess) return err;
-  const long long chunks = (nrows + S::kRows - 1) / S::kRows;
+  // an operator's rows in chunks of kRows, the last one short
+  const long long per_op = (group + S::kRows - 1) / S::kRows;
+  const long long chunks = nrows / group * per_op;
   if (chunks > 0x7fffffffLL) return cudaErrorInvalidValue;
   long long blocks = chunks;
   if ((1 << LOG_N) >= kFwdWaveN) {
-    static int resident = 0;  // blocks of this instantiation a SM holds
-    if (resident == 0) {
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel, S::L::kThreads,
-                                                          S::kSmem);
+    static int resident[2] = {};  // blocks of each instantiation a SM holds
+    if (resident[batched] == 0) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident[batched], kernel,
+                                                          S::L::kThreads, S::kSmem);
       if (err != cudaSuccess) return err;
-      resident = std::max(resident, 1);
+      resident[batched] = std::max(resident[batched], 1);
     }
-    blocks = std::min(blocks, (long long)sm_count() * resident);
+    blocks = std::min(blocks, (long long)sm_count() * resident[batched]);
   }
-  kernel<<<(unsigned)blocks, S::L::kThreads, S::kSmem, stream>>>(x, signs, sel, out, nrows,
-                                                                 (int)chunks, dim, k, norm,
-                                                                 scale);
+  kernel<<<(unsigned)blocks, S::L::kThreads, S::kSmem, stream>>>(
+      x, signs, sel, out, nrows, group, (int)per_op, (int)chunks, dim, k, norm, scale);
   return cudaGetLastError();
 }
 
 template <typename T, int LOG_N = kLogWarpN + 1>
 cudaError_t srht_fwd_reg(const T* x, const T* signs, const int64_t* sel, T* out,
-                         long long nrows, int dim, int log_n, int k, T norm, T scale,
-                         cudaStream_t stream) {
+                         long long nrows, long long group, int dim, int log_n, int k, T norm,
+                         T scale, cudaStream_t stream) {
   if constexpr (LOG_N > kLogMaxN) {
     return cudaErrorInvalidValue;
   } else {
     if (log_n == LOG_N) {
-      return launch_srht_fwd_reg<T, LOG_N>(x, signs, sel, out, nrows, dim, k, norm, scale,
-                                           stream);
+      return launch_srht_fwd_reg<T, LOG_N>(x, signs, sel, out, nrows, group, dim, k, norm,
+                                           scale, stream);
     }
-    return srht_fwd_reg<T, LOG_N + 1>(x, signs, sel, out, nrows, dim, log_n, k, norm, scale,
-                                      stream);
+    return srht_fwd_reg<T, LOG_N + 1>(x, signs, sel, out, nrows, group, dim, log_n, k, norm,
+                                      scale, stream);
   }
 }
 
+// nrows rows in operators of group rows each (one operator: group = nrows)
+inline bool valid_groups(long long nrows, long long group) {
+  return nrows > 0 && group > 0 && nrows % group == 0;
+}
+
+// Forward SRHT of nrows rows of n <= kMaxN, row r by operator r / group.
 template <typename T>
 cudaError_t launch_srht(const T* x, const T* signs, const int64_t* sel, T* out,
-                        long long nrows, int dim, int n, int k, double norm,
-                        double scale, void* stream) {
-  if (n < 1 || n > kMaxN || (n & (n - 1)) != 0 || nrows <= 0) return cudaErrorInvalidValue;
+                        long long nrows, long long group, int dim, int n, int k,
+                        double norm, double scale, void* stream) {
+  if (n < 1 || n > kMaxN || (n & (n - 1)) != 0 || !valid_groups(nrows, group)) {
+    return cudaErrorInvalidValue;
+  }
   if (n <= kWarpN) {
     const long long rows_per_block = (long long)(kThreads / 32) * (32 / n) * kWarpUnroll;
     const unsigned blocks = (unsigned)((nrows + rows_per_block - 1) / rows_per_block);
-    srht_fwd_warp_kernel<T><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        x, signs, sel, out, nrows, dim, log2_int(n), k, (T)norm, (T)scale);
+    const auto kernel =
+        group == nrows ? srht_fwd_warp_kernel<T, false> : srht_fwd_warp_kernel<T, true>;
+    kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        x, signs, sel, out, nrows, group, dim, log2_int(n), k, (T)norm, (T)scale);
     return cudaGetLastError();
   }
-  return srht_fwd_reg<T>(x, signs, sel, out, nrows, dim, log2_int(n), k, (T)norm, (T)scale,
-                         (cudaStream_t)stream);
+  return srht_fwd_reg<T>(x, signs, sel, out, nrows, group, dim, log2_int(n), k, (T)norm,
+                         (T)scale, (cudaStream_t)stream);
 }
 
 template <typename T, int LOG_P = 0>
@@ -1072,25 +1173,26 @@ cudaError_t launch_srht_t(const T* y, const T* signs, const int64_t* sel, T* out
 }
 
 // Forward SRHT of rows longer than kMaxN through the scratch rows buf
-// (nrows, n): padded, sign-flipped low stages; high stages; gather.
+// (nrows, n): padded, sign-flipped low stages; high stages; gather; row r
+// by operator r / group.
 template <typename T>
 cudaError_t launch_srht_large(const T* x, const T* signs, const int64_t* sel, T* out, T* buf,
-                              long long nrows, int dim, int n, int k, double norm,
-                              double scale, void* stream) {
-  if (!long_row(nrows, n)) return cudaErrorInvalidValue;
+                              long long nrows, long long group, int dim, int n, int k,
+                              double norm, double scale, void* stream) {
+  if (!long_row(nrows, n) || !valid_groups(nrows, group)) return cudaErrorInvalidValue;
   const int log_n = log2_int(n);
   const cudaStream_t s = (cudaStream_t)stream;
   const size_t smem = (size_t)kMaxN * sizeof(T);
   cudaError_t err = allow_smem(srht_fwd_low_kernel<T>, smem);
   if (err != cudaSuccess) return err;
   srht_fwd_low_kernel<T><<<(unsigned)(nrows << (log_n - kLogMaxN)), kThreads, smem, s>>>(
-      x, signs, buf, dim, log_n);
+      x, signs, buf, group, dim, log_n);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   err = high_stages(buf, nrows, log_n, kLogMaxN, T(1), s);
   if (err != cudaSuccess) return err;
   srht_gather_kernel<T><<<elementwise_blocks(nrows * k), kThreads, 0, s>>>(
-      buf, sel, out, nrows, log_n, k, (T)norm, (T)scale);
+      buf, sel, out, nrows, group, log_n, k, (T)norm, (T)scale);
   return cudaGetLastError();
 }
 
@@ -1133,16 +1235,21 @@ cudaError_t repro_fwht_f64(const double* x, double* out, long long nrows, int n,
   return launch_fwht<double>(x, out, nrows, n, norm, stream);
 }
 
+// The forward entry points take the rows of one operator, group: row r
+// takes signs + (r / group) n and sel + (r / group) k; group = nrows is
+// one operator for every row.
 cudaError_t repro_srht_apply_f32(const float* x, const float* signs, const int64_t* sel,
-                                 float* out, long long nrows, int dim, int n, int k,
-                                 double norm, double scale, void* stream) {
-  return launch_srht<float>(x, signs, sel, out, nrows, dim, n, k, norm, scale, stream);
+                                 float* out, long long nrows, long long group, int dim,
+                                 int n, int k, double norm, double scale, void* stream) {
+  return launch_srht<float>(x, signs, sel, out, nrows, group, dim, n, k, norm, scale,
+                            stream);
 }
 
 cudaError_t repro_srht_apply_f64(const double* x, const double* signs, const int64_t* sel,
-                                 double* out, long long nrows, int dim, int n, int k,
-                                 double norm, double scale, void* stream) {
-  return launch_srht<double>(x, signs, sel, out, nrows, dim, n, k, norm, scale, stream);
+                                 double* out, long long nrows, long long group, int dim,
+                                 int n, int k, double norm, double scale, void* stream) {
+  return launch_srht<double>(x, signs, sel, out, nrows, group, dim, n, k, norm, scale,
+                             stream);
 }
 
 cudaError_t repro_srht_apply_t_f32(const float* y, const float* signs, const int64_t* sel,
@@ -1158,18 +1265,19 @@ cudaError_t repro_srht_apply_t_f64(const double* y, const double* signs, const i
 }
 
 cudaError_t repro_srht_apply_large_f32(const float* x, const float* signs, const int64_t* sel,
-                                       float* out, float* buf, long long nrows, int dim, int n,
-                                       int k, double norm, double scale, void* stream) {
-  return launch_srht_large<float>(x, signs, sel, out, buf, nrows, dim, n, k, norm, scale,
-                                  stream);
+                                       float* out, float* buf, long long nrows,
+                                       long long group, int dim, int n, int k, double norm,
+                                       double scale, void* stream) {
+  return launch_srht_large<float>(x, signs, sel, out, buf, nrows, group, dim, n, k, norm,
+                                  scale, stream);
 }
 
 cudaError_t repro_srht_apply_large_f64(const double* x, const double* signs,
                                        const int64_t* sel, double* out, double* buf,
-                                       long long nrows, int dim, int n, int k, double norm,
-                                       double scale, void* stream) {
-  return launch_srht_large<double>(x, signs, sel, out, buf, nrows, dim, n, k, norm, scale,
-                                   stream);
+                                       long long nrows, long long group, int dim, int n,
+                                       int k, double norm, double scale, void* stream) {
+  return launch_srht_large<double>(x, signs, sel, out, buf, nrows, group, dim, n, k, norm,
+                                   scale, stream);
 }
 
 cudaError_t repro_srht_apply_t_large_f32(const float* y, const float* signs,

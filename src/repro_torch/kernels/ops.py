@@ -138,7 +138,12 @@ def fwht(x: torch.Tensor, *, normalize: bool = False,
 def srht_apply(x: torch.Tensor, signs: torch.Tensor, rows: torch.Tensor, *,
                impl: "str | None" = None) -> torch.Tensor:
     """Fused SRHT forward: sign-flip -> FWHT -> row-subsample.
-    x (..., dim) -> (..., k); n = signs.shape[-1], k = rows.shape[-1]."""
+    x (..., dim) -> (..., k); n = signs.shape[-1], k = rows.shape[-1].
+    Batched operators: ``signs`` (G, n) and ``rows`` (G, k) with x
+    (G, ..., dim), operator g on the rows under index g (one kernel
+    launch for all G)."""
+    if signs.ndim == 2 or rows.ndim == 2:
+        ksrht.check_operators(x, signs, rows)
     return _dispatch("srht_apply", impl, x)(x, signs, rows)
 
 

@@ -82,15 +82,27 @@ def srht_apply(x: torch.Tensor, signs: torch.Tensor,
 
     x (..., dim) -> (..., k) with n = signs.shape[-1] (a power of two,
     >= dim) and k = rows.shape[-1].
+
+    Batched operators: with ``signs`` (G, n) and ``rows`` (G, k), x is
+    (G, ..., dim) and operator g acts on every row under index g, as
+    ``repro.kernels.ref.srht_apply`` does under ``jax.vmap``; each slice
+    is bit-equal to the one-operator call on it.
     """
     n = signs.shape[-1]
     k = rows.shape[-1]
     pad = n - x.shape[-1]
     xp = torch.nn.functional.pad(x, (0, pad)) if pad else x
-    xp = xp * signs
+    if signs.ndim == 1:
+        xp = xp * signs
+        h = fwht(xp, normalize=True)
+        scale = subsample_scale(n, k, h.dtype)
+        return torch.index_select(h, -1, rows) * scale
+    inner = (1,) * (x.ndim - 2)
+    xp = xp * signs.reshape(signs.shape[:1] + inner + (n,))
     h = fwht(xp, normalize=True)
     scale = subsample_scale(n, k, h.dtype)
-    return torch.index_select(h, -1, rows) * scale
+    idx = rows.reshape(rows.shape[:1] + inner + (k,))
+    return torch.gather(h, -1, idx.expand(h.shape[:-1] + (k,))) * scale
 
 
 def srht_apply_t(y: torch.Tensor, signs: torch.Tensor, rows: torch.Tensor,

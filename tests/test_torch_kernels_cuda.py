@@ -81,6 +81,64 @@ def test_cuda_kernels_bit_equal_to_plain(hopper, tdt, dim, n, k, batch):
     torch.cuda.synchronize()
 
 
+# (operators G, rows a operator as an inner batch, dim, n, k): batched
+# srht_apply, one operator per leading index, on every forward route (n <=
+# 32, 33..2^14, past 2^14): one row an operator, odd groups, groups that
+# straddle a chunk of the register kernel (13 rows of n = 64, whose chunks
+# hold 64 rows), k = 1 and k = n, and the three FedNS shapes (cut in
+# operators)
+BATCHED = [(5, (1,), 18, 32, 10), (7, (3,), 30, 32, 1), (3, (33,), 32, 32, 32),
+           (9, (13,), 54, 64, 20), (4, (65,), 63, 64, 64), (3, (7,), 500, 512, 1),
+           (6, (64,), 500, 512, 32), (3, (54,), 2906, 4096, 20),
+           (11, (18,), 5000, 8192, 10), (2, (3,), 16383, 16384, 16384),
+           (3, (2,), 20000, 1 << 15, 64), (2, (1,), (1 << 17) - 5, 1 << 17, 300)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tdt", [torch.float64, torch.float32])
+@pytest.mark.parametrize("g,inner,dim,n,k", BATCHED)
+def test_batched_srht_apply_bit_equal_to_plain(hopper, tdt, g, inner, dim, n,
+                                               k):
+    gen = torch.Generator(device=hopper).manual_seed(g + dim + k)
+    x = torch.randn((g,) + inner + (dim,), generator=gen, dtype=tdt,
+                    device=hopper)
+    signs = (2 * torch.randint(0, 2, (g, n), generator=gen, device=hopper)
+             - 1).to(tdt)
+    rows = torch.stack([torch.randperm(n, generator=gen, device=hopper)[:k]
+                        for _ in range(g)])
+    before = ops.launch_counts()["srht_apply"]
+    got = ops.srht_apply(x, signs, rows, impl="cuda")
+    assert ops.launch_counts()["srht_apply"] == before + 1  # one launch
+    want = ops.srht_apply(x, signs, rows, impl="ref")
+    assert torch.equal(got, want)
+    # signs other than +1 and -1 (each operator's own), and x off a
+    # 16-byte boundary
+    signs = torch.randn((g, n), generator=gen, dtype=tdt, device=hopper)
+    signs[:, 0] = -0.0
+    assert torch.equal(ops.srht_apply(x, signs, rows, impl="cuda"),
+                       ops.srht_apply(x, signs, rows, impl="ref"))
+    flat = torch.randn(x.numel() + 1, generator=gen, dtype=tdt, device=hopper)
+    xv = flat[1:].view(x.shape)
+    assert xv.data_ptr() % 16
+    assert torch.equal(ops.srht_apply(xv, signs, rows, impl="cuda"),
+                       ops.srht_apply(xv, signs, rows, impl="ref"))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_batched_srht_apply_rejects_what_it_cannot_take(hopper):
+    from repro_torch.kernels import srht as ksrht
+
+    x = torch.randn(3, 4, 40, dtype=torch.float64, device=hopper)
+    signs = torch.ones(3, 64, dtype=torch.float64, device=hopper)
+    rows = torch.zeros(3, 5, dtype=torch.int64, device=hopper)
+    with pytest.raises(ValueError, match="batched operators"):
+        ksrht.srht_apply_cuda(x[:2], signs, rows)
+    with pytest.raises(ValueError, match="1-D"):
+        ksrht.srht_apply_t_cuda(torch.randn(3, 5, dtype=torch.float64,
+                                            device=hopper), signs, rows, 40)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("tdt", [torch.float64, torch.float32])
 def test_fwht_takes_a_view_off_a_16_byte_boundary(hopper, tdt):

@@ -13,8 +13,9 @@ then the card's name and power limit. Needs a CUDA card; imports no JAX.
 
 ``--srht`` times ``srht_apply`` in float64 instead: at every n of the
 forward register route (64 to 2^14; rows of n - n/8 values filling 224
-MiB, k = 20), then at covtype's A_j ((200, 2906, 54) -> n 64, k 20) and
-at one FedNS-like call ((18000, 5000) -> n 8192, k 10). Each line adds
+MiB, k = 20), then at SUSY's A_j ((1000, 5000, 18) -> n 32, k 10, the
+warp route), covtype's A_j ((200, 2906, 54) -> n 64, k 20) and one
+FedNS-like call with one operator ((18000, 5000) -> n 8192, k 10). Each line adds
 the profiler's device time per call in all and by kernel, ``x @ S.T``
 (events and device time, where S is built) and whether the kernel is
 bit-equal to the plain version.
@@ -82,7 +83,8 @@ def _srht_shapes(torch, ops, ref, dev, gen, src: str) -> None:
     shapes = [(f"n={n} dim={n - n // 8} k=20",
                ((224 << 17) // (n - n // 8), n - n // 8), n, 20, False)
               for n in (1 << p for p in range(6, 15))]
-    shapes += [("covtype A_j n=64 k=20", (200, 2906, 54), 64, 20, True),
+    shapes += [("SUSY A_j n=32 k=10", (1000, 5000, 18), 32, 10, True),
+               ("covtype A_j n=64 k=20", (200, 2906, 54), 64, 20, True),
                ("FedNS data axis n=8192 k=10", (18000, 5000), 8192, 10, True)]
     for label, shape, n, k, with_lib in shapes:
         x = torch.randn(shape, generator=gen, dtype=torch.float64, device=dev)
