@@ -161,6 +161,7 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 rate, the vector (non
@@ -1361,6 +1362,468 @@ def phase_table_one(problem, w0, w_star) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 5d. the asynchronous driver at SUSY's full size
+# ---------------------------------------------------------------------------
+
+# benchmarks/paper_common.py:16-31, straggler_edge_channel: log-spaced
+# uplinks 3e4-3e6 B/s, 10x downlinks, 50 ms latency, 30% stragglers at
+# 10x, no dropout (the full-quorum anchor stays on the lock-step path)
+STRAGGLER = dict(lo=3e4, hi=3e6, down=10.0, latency_s=0.05,
+                 straggler_prob=0.30, straggler_slowdown=10.0)
+# examples/edge_clients.py:94-105, population_edge_channel: per-id links
+POP_EDGE = dict(uplink_bytes_per_s="loguniform:3e4,3e6",
+                downlink_bytes_per_s="loguniform:3e5,3e7", latency_s=0.08,
+                straggler_prob=0.20, straggler_slowdown=10.0,
+                dropout_prob=0.10)
+FLENS_PLUS_UPLINKS = ("h_sk", "sg", "grad", "loss")
+# the event loop's host work: these session methods, timed apart from
+# the rounds (the device work) they surround
+EVENT_METHODS = ("begin_round", "end_round", "_pump", "_dispatch_cohort",
+                 "_record_trace",
+                 "_gc_snapshots", "_groups", "_combine", "_mask")
+
+
+def _card() -> torch.device:
+    return torch.device("cuda", 0)
+
+
+def _straggler_channel(m: int):
+    from repro_torch.comm import ChannelModel
+
+    c = STRAGGLER
+    rates = torch.logspace(math.log10(c["lo"]), math.log10(c["hi"]), m,
+                           dtype=torch.float64).numpy()
+    return ChannelModel(uplink_bytes_per_s=rates,
+                        downlink_bytes_per_s=c["down"] * rates,
+                        latency_s=c["latency_s"],
+                        straggler_prob=c["straggler_prob"],
+                        straggler_slowdown=c["straggler_slowdown"])
+
+
+def _groups_per_commit(hist) -> list:
+    """Distinct base versions among each commit's arrivals."""
+    return [len(np.unique(tr.staleness[~np.isnan(tr.staleness)]))
+            for tr in hist.traces]
+
+
+def _expected_launches(cfg, executed: int) -> dict:
+    """FLeNS+ launches 4 srht_apply and 3 srht_apply_t a round, and each
+    codec stage one kernel a round."""
+    per_round = _codec_launches_per_round(cfg, FLENS_PLUS_UPLINKS)
+    return {"fwht": 0, "srht_apply": 4 * executed,
+            "srht_apply_t": 3 * executed, **NO_LM,
+            **{op: n * executed for op, n in per_round.items()}}
+
+
+def _timed_events(session) -> dict:
+    """Wrap the session's event-loop methods with host timers (an outer
+    call's time includes the calls it makes, counted once)."""
+    acc = {"s": 0.0, "depth": 0}
+    for name in EVENT_METHODS:
+        fn = getattr(session, name, None)
+        if fn is None:
+            continue
+
+        def timed(*a, _fn=fn, **k):
+            acc["depth"] += 1
+            t0 = time.perf_counter()
+            try:
+                return _fn(*a, **k)
+            finally:
+                acc["depth"] -= 1
+                if acc["depth"] == 0:
+                    acc["s"] += time.perf_counter() - t0
+        setattr(session, name, timed)
+    return acc
+
+
+def _bare_commits(opt, problem, w0, cfg, commits: int,
+                  population=None) -> dict:
+    """Drive ``commits`` steps of the session ``cfg`` selects, each ended
+    by a synchronize: ms a step, the event loop's host ms a step apart
+    from the rounds, and a profile of one more step (device busy share)."""
+    from repro_torch.comm import make_session
+    from repro_torch.core.base import build_round, root_key, split
+
+    dev = w0.device
+    init_on = problem if population is None else population.eval_problem()
+    weights = (None if population is not None
+               else problem.client_weights.cpu().numpy())
+    session = make_session(
+        cfg, m=init_on.m if population is None else population.m,
+        keys=split(root_key(11, device=dev), commits + 1),
+        state0=opt.init(init_on, w0), mask_dtype=w0.dtype, device=dev,
+        population=population, client_weights=weights)
+    fn = build_round(opt, problem, session, population=population)
+    session.prepare(fn)
+    session.begin_variant(None)
+    torch.cuda.synchronize()
+    events = _timed_events(session)
+    ms = []
+    for _ in range(commits):
+        t0 = time.perf_counter()
+        session.step(fn)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    host_ms = events["s"] * 1e3 / commits
+    profile = _profile_steps(lambda: session.step(fn), 1)
+    store = getattr(session, "ef_store", None)
+    return {"ms": ms, "median_ms": sorted(ms)[len(ms) // 2],
+            "event_host_ms": host_ms, "profile": profile,
+            "ef_store_bytes": store.nbytes if store is not None else None}
+
+
+def _async_runs(problem, w0, w_star, runs, make_opt, label: str,
+                population=None) -> dict:
+    """Each run: run_rounds through the kernels (launches counted and
+    checked), again through the plain versions (traces equal, losses
+    bit-equal), then bare steps timed and profiled."""
+    from repro_torch.comm import summarize
+    from repro_torch.core import run_rounds
+    from repro_torch.kernels import ops
+
+    out = {}
+    for name, rounds, cfg in runs:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        hist = run_rounds(make_opt(), problem if population is None
+                          else population, w0, w_star, rounds=rounds,
+                          comm=cfg)
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        groups = (_groups_per_commit(hist) if cfg.async_mode
+                  else [1] * rounds)
+        executed = sum(groups) + (1 if cfg.async_mode else 0)  # + the probe
+        want = _expected_launches(cfg, executed)
+        check(counts == want, f"{label} {name}: launches {counts} != {want}")
+        check(bool(np.isfinite(hist.loss).all()),
+              f"{label} {name}: non-finite loss {hist.loss.tolist()}")
+        check(hist.loss[-1] < hist.loss[0],
+              f"{label} {name}: the loss did not fall {hist.loss.tolist()}")
+        with ops.use_impl("ref"):
+            plain = run_rounds(make_opt(), problem if population is None
+                               else population, w0, w_star, rounds=rounds,
+                               comm=cfg)
+        check((hist.loss == plain.loss).all()
+              and [t.to_dict() for t in hist.traces]
+              == [t.to_dict() for t in plain.traces],
+              f"{label} {name}: the run through the kernels "
+              f"({hist.loss.tolist()}) differs from the plain versions' "
+              f"({plain.loss.tolist()})")
+        bare = _bare_commits(make_opt(), problem, w0, cfg, min(rounds, 20),
+                             population)
+        stale = (float(np.mean(hist.staleness)) if hist.staleness is not None
+                 else 0.0)
+        row = {"commits": rounds, "async": cfg.async_mode,
+               "loss": hist.loss.tolist(), "gap": hist.gap.tolist(),
+               "sim_time_s": float(hist.sim_time_s[-1]),
+               "mean_staleness": stale, "groups_per_commit": groups,
+               "rounds_executed": executed, "launches": counts,
+               "launches_per_commit": {k: v / rounds for k, v in counts.items()
+                                       if v},
+               "run_rounds_ms_per_commit": hist.wall_time_s * 1e3 / rounds,
+               "peak_memory_bytes": peak,
+               "cumulative_bytes": float(hist.cumulative_bytes[-1]),
+               "stats": summarize(hist.traces), "bare": bare}
+        out[name] = row
+        ms = bare["ms"]
+        log(f"[{label}] {name}: {rounds} {'commits' if cfg.async_mode else 'rounds'}, "
+            f"gap {hist.gap[0]:.3e} -> {hist.gap[-1]:.3e}; sim {row['sim_time_s']:.2f} s, "
+            f"mean staleness {stale:.3f}, groups a commit "
+            f"{np.mean(groups):.2f} (max {max(groups)}); launches {counts}")
+        log(f"[{label}] {name}: bare {bare['median_ms']:.2f} ms a "
+            f"{'commit' if cfg.async_mode else 'round'} median "
+            f"({min(ms):.2f}..{max(ms):.2f}), event loop host "
+            f"{bare['event_host_ms']:.3f} ms; profiled step busy "
+            f"{bare['profile']['busy_share']:.1%} of "
+            f"{bare['profile']['wall_us'] / 1e3:.2f} ms; run_rounds "
+            f"{row['run_rounds_ms_per_commit']:.2f} ms with eval; peak "
+            f"{peak / 2**30:.3f} GiB; trajectory equal to the plain versions'")
+    return out
+
+
+def phase_async(problem, w0, w_star) -> dict:
+    """FLeNS+ at SUSY's full size under the asynchronous driver: the
+    lock-step anchor, the three-driver race and the codec path."""
+    from repro_torch.comm import CommConfig
+    from repro_torch.core import make_optimizer, run_rounds
+
+    chan = _straggler_channel(problem.m)
+
+    def flens_plus():
+        return make_optimizer("flens_plus", k=SUSY["k"])
+
+    # 1. the anchor: full-quorum async == sync, losses and bytes bit-equal
+    sync = run_rounds(flens_plus(), problem, w0, w_star, rounds=3,
+                      comm=CommConfig(channel=chan, seed=1))
+    asy = run_rounds(flens_plus(), problem, w0, w_star, rounds=3,
+                     comm=CommConfig(channel=chan, seed=1, async_mode=True))
+    check(bool((sync.loss == asy.loss).all()
+               and (sync.cumulative_bytes == asy.cumulative_bytes).all()),
+          f"async anchor: sync {sync.loss.tolist()} != full-quorum async "
+          f"{asy.loss.tolist()}")
+    log(f"[async] anchor: 3 rounds sync == full-quorum async, losses and "
+        f"bytes bit-equal ({asy.cumulative_bytes[-1]:.0f} B)")
+    # 2. paper_common.sync_async_race (K = m / 4), 3. the codec path
+    sketch, codecs, _ = TRANSPORTS["comp+sched+ef"]
+    buf = max(2, problem.m // 4)
+    runs = [("sync", 10, CommConfig(channel=chan, seed=1)),
+            ("async_buf", 40, CommConfig(channel=chan, seed=1,
+                                         async_mode=True, buffer_size=buf,
+                                         staleness="inverse")),
+            ("async_q50", 30, CommConfig(channel=chan, seed=1,
+                                         async_mode=True, async_quantile=0.5,
+                                         staleness="inverse")),
+            ("async_buf comp+sched+ef", 20,
+             CommConfig(channel=chan, seed=1, async_mode=True,
+                        buffer_size=buf, staleness="inverse", codecs=codecs,
+                        scheduler="bandwidth:0.5", error_feedback=True))]
+    out = _async_runs(problem, w0, w_star, runs, flens_plus, "async")
+    check(out["async_buf"]["sim_time_s"] < out["sync"]["sim_time_s"],
+          "async: the buffered driver's clock did not run ahead of sync's")
+    return {"anchor_loss": asy.loss.tolist(), "runs": out}
+
+
+# ---------------------------------------------------------------------------
+# 5e. client populations
+# ---------------------------------------------------------------------------
+
+# budgets the runs must stay within: a cohort-bounded run holds a few
+# cohorts; materializing the population would hold its (m, n_shard, M)
+# features, 100,000 x 64 x 16 x 8 B = 781 MiB at m = 100,000, and the
+# SUSY rows again (687 MiB) over 5,000,000 rows
+POP_BUDGET_MIB = {"synthetic": {"host": 256, "device": 256},
+                  "dataset": {"host": 512, "device_over_rows": 512}}
+
+
+class _HostRss:
+    """The process's resident set, its high-water mark since ``start``:
+    the kernel's own VmHWM where /proc/self/status has it, else the
+    largest of VmRSS samples taken every 5 ms by a thread (``source``
+    says which)."""
+
+    def __init__(self):
+        import threading
+
+        self.source = ("VmHWM" if self._field("VmHWM") is not None
+                       else "VmRSS sampled every 5 ms")
+        self._peak = self.now()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+
+    @staticmethod
+    def _field(name: str) -> "float | None":
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith(name + ":"):
+                    return int(line.split()[1]) / 1024
+        return None
+
+    def now(self) -> float:
+        rss = self._field("VmRSS")
+        if rss is None:
+            with open("/proc/self/statm") as f:
+                rss = int(f.read().split()[1]) * 4096 / 2**20
+        if not rss:  # no resident size reported: the rusage high-water
+            import resource
+
+            rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
+        return rss
+
+    def _sample(self) -> None:
+        while not self._stop.wait(0.005):
+            self._peak = max(self._peak, self.now())
+
+    def high_water(self) -> float:
+        hwm = self._field("VmHWM")
+        return hwm if hwm is not None else max(self._peak, self.now())
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join()
+
+
+def _materialize_ms(pop, cohort: int) -> float:
+    ids = np.sort(np.random.default_rng(0).choice(pop.m, cohort,
+                                                  replace=False))
+    pop.materialize(ids)
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        pop.materialize(ids)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return sorted(ms)[len(ms) // 2]
+
+
+def population_child() -> int:
+    """The two population runs of phase 5e in a process of their own, so
+    the host's RSS high-water mark (VmHWM) is theirs; prints one JSON
+    line ``[populations] {...}``."""
+    from repro_torch.comm import ChannelModel, CommConfig
+    from repro_torch.core import (
+        DatasetPopulation,
+        SyntheticPopulation,
+        logistic,
+        make_optimizer,
+        newton_solve,
+    )
+    from repro_torch.data import make_classification
+    from repro_torch.kernels import _build
+
+    check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
+    dev = _card()
+    _build.module()
+    _build.module("codec")
+    torch.zeros(1, device=dev)
+    rss = _HostRss()
+
+    # 1. examples/edge_clients.py's population row, EF on
+    codecs = TRANSPORTS["comp+sched+ef"][1]
+    w0 = torch.zeros(16, dtype=torch.float64, device=dev)
+
+    def configs(q: float, rounds: int):
+        base = dict(codecs=codecs, channel=ChannelModel(**POP_EDGE),
+                    scheduler=f"uniform:{q}", seed=1, error_feedback=True)
+        return [("sync", rounds, CommConfig(**base)),
+                ("async_buf", rounds, CommConfig(
+                    async_mode=True, buffer_size=50, staleness="inverse",
+                    **base))]
+
+    # the same runs on a population of 2000 (the same cohort of 100)
+    # first: what the libraries they load (cuBLAS, cuSOLVER, the
+    # profiler's) and their transients take is not the population's
+    warm = SyntheticPopulation(m=2000, dim=16, seed=1, dirichlet_alpha=0.3,
+                               device=dev)
+    _async_runs(None, w0, newton_solve(warm.eval_problem(), w0),
+                configs(0.05, 10), lambda: make_optimizer("flens_plus", k=8),
+                "populations warm-up m=2000", population=warm)
+    del warm
+    torch.cuda.synchronize()
+    base_hwm = rss.high_water()
+    out = {"baseline_host_rss_mib": base_hwm, "rss_source": rss.source}
+    pop = SyntheticPopulation(m=100_000, dim=16, seed=1, dirichlet_alpha=0.3,
+                              device=dev)
+    w_star = newton_solve(pop.eval_problem(), w0)
+    runs = configs(1e-3, 20)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    syn = _async_runs(None, w0, w_star, runs,
+                      lambda: make_optimizer("flens_plus", k=8),
+                      "populations m=100000", population=pop)
+    hwm = rss.high_water()
+    dev_peak = max(r["peak_memory_bytes"] for r in syn.values()) / 2**20
+    budget = POP_BUDGET_MIB["synthetic"]
+    check(hwm - base_hwm < budget["host"],
+          f"m=100000: host RSS high-water grew {hwm - base_hwm:.0f} MiB "
+          f"(budget {budget['host']})")
+    check(dev_peak < budget["device"],
+          f"m=100000: device peak {dev_peak:.1f} MiB (budget "
+          f"{budget['device']})")
+    out["synthetic"] = {"runs": syn, "host_rss_high_water_mib": hwm,
+                        "host_growth_mib": hwm - base_hwm,
+                        "device_peak_mib": dev_peak,
+                        "materialize_ms": _materialize_ms(pop, 100),
+                        "cohort": 100, "budget_mib": budget}
+    log(f"[populations] m=100000: host RSS high-water ({rss.source}) "
+        f"{hwm:.0f} MiB ({hwm - base_hwm:.0f} over the {base_hwm:.0f} MiB "
+        f"high-water of the same runs at m = 2000; budget "
+        f"{budget['host']}), device peak {dev_peak:.1f} MiB "
+        f"(budget {budget['device']}); materialize a cohort of 100 "
+        f"{out['synthetic']['materialize_ms']:.3f} ms; EF store "
+        f"{syn['sync']['bare']['ef_store_bytes']} B")
+    del pop
+
+    # 2. the SUSY twin at its 5,000,000 rows as a DatasetPopulation
+    X, y = make_classification(
+        1, n=SUSY["n"], dim=SUSY["dim"], spectrum_decay=SUSY["spectrum_decay"],
+        label_noise=SUSY["label_noise"], device=dev)
+    dpop = DatasetPopulation(X, y, m=SUSY["m"], lam=SUSY["lam"],
+                             objective=logistic, device=dev)
+    del X, y
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    rows_mib = (dpop._rows_X.numel() * 8 + dpop._rows_y.numel() * 8) / 2**20
+    hwm0 = rss.high_water()
+    w0 = torch.zeros(SUSY["dim"], dtype=torch.float64, device=dev)
+    w_star = newton_solve(dpop.eval_problem(), w0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ds = _async_runs(None, w0, w_star,
+                     [("sync", 10, CommConfig(scheduler="uniform:0.1",
+                                              seed=1))],
+                     lambda: make_optimizer("flens_plus", k=SUSY["k"]),
+                     "populations SUSY", population=dpop)
+    hwm = rss.high_water()
+    rss.close()
+    dev_peak = ds["sync"]["peak_memory_bytes"] / 2**20
+    budget = POP_BUDGET_MIB["dataset"]
+    check(hwm - hwm0 < budget["host"],
+          f"SUSY population: host RSS high-water grew {hwm - hwm0:.0f} MiB")
+    check(dev_peak - rows_mib < budget["device_over_rows"],
+          f"SUSY population: device peak {dev_peak:.0f} MiB, rows "
+          f"{rows_mib:.0f} MiB")
+    out["dataset"] = {"runs": ds, "rows_mib": rows_mib,
+                      "host_rss_high_water_mib": hwm,
+                      "host_growth_mib": hwm - hwm0,
+                      "device_peak_mib": dev_peak,
+                      "materialize_ms": _materialize_ms(dpop, 100),
+                      "cohort": 100, "budget_mib": budget}
+    log(f"[populations] SUSY 5,000,000 rows, m=1000, uniform:0.1: device "
+        f"peak {dev_peak:.0f} MiB ({dev_peak - rows_mib:.0f} over the "
+        f"{rows_mib:.0f} MiB of rows; budget {budget['device_over_rows']}), "
+        f"host RSS high-water {hwm:.0f} MiB (grew {hwm - hwm0:.0f}; budget "
+        f"{budget['host']}); materialize a cohort of 100 "
+        f"{out['dataset']['materialize_ms']:.3f} ms")
+    print("[populations-json] " + json.dumps(out), flush=True)
+    return 0
+
+
+def phase_populations() -> dict:
+    """The lock-step anchor across the population drivers, then the
+    m = 100,000 and SUSY population runs in a child process."""
+    from repro_torch.comm import CommConfig
+    from repro_torch.core import SyntheticPopulation, make_optimizer, run_rounds
+    from repro_torch.core import newton_solve
+
+    dev = _card()
+    # every client's cycle takes the same time on the default channel, so
+    # a full-quorum commit lists its members in id order, as sync does
+    pop = SyntheticPopulation(m=200, dim=16, seed=2, device=dev)
+    w0 = torch.zeros(16, dtype=torch.float64, device=dev)
+    w_star = newton_solve(pop.eval_problem(), w0)
+    codecs = TRANSPORTS["comp+sched+ef"][1]
+    base = dict(seed=1, codecs=codecs, error_feedback=True)
+    sync = run_rounds(make_optimizer("flens_plus", k=8), pop, w0, w_star,
+                      rounds=3, comm=CommConfig(**base))
+    asy = run_rounds(make_optimizer("flens_plus", k=8), pop, w0, w_star,
+                     rounds=3, comm=CommConfig(async_mode=True, **base))
+    check(bool((sync.loss == asy.loss).all()
+               and (sync.cumulative_bytes == asy.cumulative_bytes).all()),
+          f"population anchor: sync {sync.loss.tolist()} != async "
+          f"{asy.loss.tolist()}")
+    log("[populations] anchor: m=200 full scheduler, 3 rounds sync == "
+        "full-quorum async, losses and bytes bit-equal")
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--population-child"],
+        capture_output=True, text=True, timeout=900)
+    record = None
+    for line in proc.stdout.splitlines():
+        if line.startswith("[populations-json] "):
+            record = json.loads(line.split(" ", 1)[1])
+        else:
+            print(line, flush=True)
+    check(proc.returncode == 0 and record is not None,
+          f"populations child failed ({proc.returncode}): "
+          f"{proc.stderr[-3000:]}")
+    record["anchor_loss"] = asy.loss.tolist()
+    return record
+
+
+# ---------------------------------------------------------------------------
 # 6. long rows
 # ---------------------------------------------------------------------------
 
@@ -1370,7 +1833,7 @@ def phase_long_rows() -> dict:
     from repro_torch.kernels import ops
     from repro_torch.kernels.fwht import kernel_route
 
-    dev = torch.device("cuda", 0)
+    dev = _card()
     cases = [(20000, 1 << 15, 64, (3,)), ((1 << 17) - 5, 1 << 17, 300, (2,)),
              (1 << 20, 1 << 20, 1000, (1,))]
     worst = {name: 0.0 for name in ("fwht", "srht_apply", "srht_apply_t")}
@@ -1473,7 +1936,7 @@ def _codec_inputs(gen, rows, p, dtype, dev):
 def phase_codec_parity() -> dict:
     from repro_torch.kernels import ops
 
-    dev = torch.device("cuda", 0)
+    dev = _card()
     worst = {"topk_mask": 0.0, "qint8_roundtrip": 0.0}
     for dtype in (torch.float64, torch.float32):
         gen = torch.Generator(device=dev).manual_seed(3)
@@ -1735,7 +2198,7 @@ def phase_transport(problem, w0, w_star) -> dict:
     from repro_torch.comm import CommConfig
     from repro_torch.kernels import ops
 
-    dev = torch.device("cuda", 0)
+    dev = _card()
     rounds = 10
     chan = _edge_channel(problem.m)
     uplinks = ("h_sk", "sg", "grad", "loss")  # FLeNS+ with the guard
@@ -1869,7 +2332,7 @@ def _flash_inputs(gen, b, tq, tk, h, hkv, d, dtype, dev):
 def phase_flash_parity() -> dict:
     from repro_torch.kernels import ops
 
-    dev = torch.device("cuda", 0)
+    dev = _card()
     cases = []
     for tq, tk in FLASH_SHAPES:
         for h, hkv in FLASH_HEADS:
@@ -2029,7 +2492,7 @@ def phase_serve() -> dict:
     from repro_torch.kernels import ops
     from repro_torch.serving.engine import _bucket
 
-    dev = torch.device("cuda", 0)
+    dev = _card()
     torch.cuda.empty_cache()
     cfg, model, params, init_s = _serve_model(torch.bfloat16)
     L = cfg.n_layers
@@ -2165,7 +2628,7 @@ def phase_serve_f32() -> dict:
     request's isolated prefill + greedy decode, token for token."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda", 0)
+    dev = _card()
     torch.cuda.empty_cache()
     cfg, model, params, init_s = _serve_model(torch.float32)
     with torch.no_grad():
@@ -2285,7 +2748,7 @@ def phase_flash_times() -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False  # SDPA in float32
     torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda", 0)
+    dev = _card()
     gen = torch.Generator(device=dev).manual_seed(8)
     out = {f"flash_attention_{route}": [] for route in FLASH_ROUTE.values()}
     for route, label, dtype, b, t, h, hkv, d, window in FLASH_TIMED:
@@ -2357,6 +2820,8 @@ def main() -> int:
     record["full_size"], susy = phase_full_size()
     record["covtype"] = phase_covtype()
     record["table_one"] = phase_table_one(*susy)
+    record["async"] = phase_async(*susy)
+    record["populations"] = phase_populations()
     record["long_rows"] = phase_long_rows()
     record["codec_parity_max_abs_err"] = phase_codec_parity()
     record["transport"] = phase_transport(*susy)
@@ -2439,4 +2904,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--population-child"]:
+        sys.exit(population_child())
     sys.exit(main())

@@ -1,12 +1,20 @@
-"""Transport of the port: the synchronous driver on a dense client axis.
+"""Transport of the port: codecs, channel, scheduling, accounting.
 
 Codecs (``codecs``), the channel model (``channel``), participation
 schedulers (``scheduler``), per-round accounting (``metrics``),
-error-feedback memory (``feedback``), ``CommConfig``/``CommRound``/
-``CommSession`` (``config``) and the ``Session`` protocol with the
-no-transport ``NullSession`` (``session``). The asynchronous driver,
-populations and scenario dynamics come with later slices.
+error-feedback memory and its bounded population store (``feedback``),
+``CommConfig``/``CommRound`` and the synchronous drivers
+``CommSession``/``PopulationCommSession`` (``config``), the event-driven
+``AsyncSession``/``PopulationAsyncSession`` (``async_driver``) and the
+``Session`` protocol with ``make_session`` (``session``). Scenario
+dynamics come with a later slice.
 """
+from repro_torch.comm.async_driver import (
+    MAX_RETRIES,
+    AsyncSession,
+    PopulationAsyncSession,
+    make_staleness,
+)
 from repro_torch.comm.channel import ChannelDraw, ChannelModel
 from repro_torch.comm.codecs import (
     CODEC_SPECS,
@@ -23,9 +31,16 @@ from repro_torch.comm.config import (
     CommConfig,
     CommRound,
     CommSession,
+    PopulationCommSession,
     plan_bytes,
 )
-from repro_torch.comm.feedback import EF_VARIANTS
+from repro_torch.comm.feedback import (
+    EF_VARIANTS,
+    BoundedMemory,
+    compensate,
+    init_memory,
+    residual_norms,
+)
 from repro_torch.comm.metrics import (
     RoundTrace,
     Transport,

@@ -1,15 +1,20 @@
 """CommConfig and the per-round objects the synchronous driver threads.
 
-Counterpart of ``repro.comm.config`` for the synchronous driver on a
-dense client axis:
+Counterpart of ``repro.comm.config``:
 
   * ``CommConfig``  — which codec per payload name *and direction*, which
-      participation scheduler, which channel model, error feedback, seed.
-  * ``CommSession`` — host-side state of one trajectory: draws cohorts
-      and channel coins per round, runs the round, accumulates
-      ``RoundTrace``s, and owns the payload byte plan (exact encoded
-      bytes per payload occurrence, recorded on each round variant's
-      first executed round; payload shapes are static per variant).
+      participation scheduler, which channel model, error feedback, seed,
+      and the asynchronous driver's settings (``async_mode``,
+      ``buffer_size``, ``async_quantile``, ``staleness``, ``server_lr``).
+  * ``CommSession`` — host-side state of one synchronous trajectory:
+      draws cohorts and channel coins per round, runs the round,
+      accumulates ``RoundTrace``s, and owns the payload byte plan (exact
+      encoded bytes per payload occurrence, recorded on each round
+      variant's first executed round; payload shapes are static per
+      variant). ``PopulationCommSession`` is its counterpart over a
+      ``ClientPopulation``: per round it samples cohort ids,
+      materializes them, draws coins per id and keeps EF rows in a
+      bounded hot set.
   * ``CommRound``   — the view the optimizer's round sees:
       ``uplink(name, x)`` routes a stacked per-client payload through its
       codec, ``downlink(name, x)`` routes a server broadcast through its
@@ -34,8 +39,9 @@ Bit-exactness: with identity codecs and full participation (no dropout)
 ``uplink`` and ``downlink`` return their input objects and ``weights``
 returns ``p``, so the trajectory is bit-identical to ``comm=None``.
 
-The asynchronous driver, scenario dynamics and client populations come
-with later slices; asking for them raises ``NotImplementedError``.
+The asynchronous drivers live in ``repro_torch.comm.async_driver``.
+Scenario dynamics come with a later slice; asking for them raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -50,7 +56,7 @@ from repro_torch.comm.channel import ChannelModel
 from repro_torch.comm.codecs import Codec, IdentityCodec, make_codec
 from repro_torch.comm.metrics import RoundTrace, Transport, transport_from_traces
 from repro_torch.comm.scheduler import Scheduler, make_scheduler
-from repro_torch.device import resolve_device
+from repro_torch.device import host_to, resolve_device
 from repro_torch.keys import generator, key_bits, key_from_ints
 
 # payload-name prefix that selects the downlink (server -> client)
@@ -72,6 +78,15 @@ _SCHED_STREAM, _CHAN_STREAM, _CODEC_STREAM = 0, 1, 2
 # begin_variant sentinel: "no variant announced yet" (None is a valid
 # round signature)
 _NO_VARIANT = object()
+
+
+def round_keys(seed: int, t: int):
+    """Round (or model version) ``t``'s host keys: (cohort, channel
+    coins, codec noise). Every driver shares this schedule, so sync and
+    async runs of one seed draw the same cohorts and coins."""
+    return (key_from_ints(seed, t, _SCHED_STREAM),
+            key_from_ints(seed, t, _CHAN_STREAM),
+            key_from_ints(seed, t, _CODEC_STREAM))
 
 
 def plan_bytes(plan: "Dict[str, int]", *, down: bool) -> int:
@@ -96,11 +111,21 @@ class CommConfig:
     ``error_feedback``: ``True`` (every eligible lossy payload), a
     collection of payload names, or a ``{name: bool}`` dict with an
     optional ``"default"``; ``ef_variant`` is ``"ef21"`` or ``"ef14"``.
+    ``ef_capacity`` bounds EF state over a ``ClientPopulation``: rows are
+    kept for an LRU hot set of that many ids (default ``min(m, 8 x
+    cohort size)``); dense runs ignore it.
 
-    ``async_mode`` and ``server_lr`` select and tune the asynchronous
-    driver, ``dynamics`` the scenario dynamics: both come with later
-    slices (with the driver's other settings), so ``async_mode=True``,
-    ``server_lr != 1`` and any ``dynamics`` raise ``NotImplementedError``.
+    ``async_mode=True`` selects the event-driven asynchronous driver
+    (``repro_torch.comm.async_driver``): the server commits once a quorum
+    has arrived, ``buffer_size`` uploads when set, else
+    ``ceil(async_quantile * m)``. ``staleness`` weights stale
+    contributions (``"constant"``, ``"inverse"``, ``"poly:a"`` or a
+    callable; ``make_staleness``), and ``server_lr`` scales every
+    committed delta after it (an async control: with ``async_mode=False``
+    it raises). With the full scheduler, no dropout, a full quorum and
+    ``server_lr=1`` the async driver reproduces the synchronous
+    trajectory bit for bit. ``dynamics`` (scenario dynamics) comes with a
+    later slice and raises ``NotImplementedError``.
     """
 
     codecs: "Dict[str, Any] | str | Codec" = "identity"
@@ -110,7 +135,11 @@ class CommConfig:
     seed: int = 0
     error_feedback: "bool | str | Dict[str, bool] | tuple | frozenset" = False
     ef_variant: str = "ef21"
+    ef_capacity: "int | None" = None  # EF hot-set size (populations)
     async_mode: bool = False
+    buffer_size: "int | None" = None
+    async_quantile: float = 1.0
+    staleness: "str | Any" = "constant"
     server_lr: float = 1.0
     dynamics: "Any | None" = None
 
@@ -119,17 +148,26 @@ class CommConfig:
             raise NotImplementedError(
                 "scenario dynamics (CommConfig(dynamics=...)) come with the "
                 "dynamics slice of repro_torch")
-        if self.async_mode:
-            raise NotImplementedError(
-                "the asynchronous driver (async_mode=True) comes with the "
-                "async-and-populations slice of repro_torch")
         if self.server_lr <= 0.0:
             raise ValueError(f"server_lr must be > 0, got {self.server_lr}")
-        if self.server_lr != 1.0:
-            raise NotImplementedError(
-                "server_lr scales asynchronous commit deltas; the "
-                "asynchronous driver comes with the async-and-populations "
-                "slice of repro_torch")
+        if self.server_lr != 1.0 and not self.async_mode:
+            raise ValueError(
+                "server_lr scales asynchronous commit deltas; it requires "
+                "async_mode=True (the synchronous driver applies rounds "
+                "verbatim)")
+        if self.buffer_size is not None and self.buffer_size < 1:
+            raise ValueError(
+                f"buffer_size must be >= 1, got {self.buffer_size}")
+        if self.ef_capacity is not None and self.ef_capacity < 1:
+            raise ValueError(
+                f"ef_capacity must be >= 1, got {self.ef_capacity}")
+        if not 0.0 < self.async_quantile <= 1.0:
+            raise ValueError(
+                f"async_quantile must be in (0, 1], got {self.async_quantile}")
+        # a bad staleness spec fails here, not mid-trajectory
+        from repro_torch.comm.async_driver import make_staleness
+
+        make_staleness(self.staleness)
         # a private copy: the downlink merge must never mutate a caller's dict
         self.codecs = (dict(self.codecs) if isinstance(self.codecs, dict)
                        else {"default": self.codecs})
@@ -359,6 +397,10 @@ class CommSession:
         return plan_bytes(self.plan, down=True)
 
     # -- Session protocol ----------------------------------------------------
+    def prepare(self, round_fn) -> None:
+        """Before the first round: nothing to discover (the byte plan
+        fills during each variant's first round)."""
+
     def begin_variant(self, sig) -> None:
         """Announce the round variant about to run: later rounds bill its
         byte plan (adaptive-k policies change payload sizes)."""
@@ -391,9 +433,7 @@ class CommSession:
         """Draw round ``t``'s cohort and channel coins. Returns ``(mask,
         codec_key)``: ``mask`` is None on the statically full path, else
         the (m,) delivery mask on the device."""
-        k_sched = key_from_ints(self.config.seed, t, _SCHED_STREAM)
-        k_chan = key_from_ints(self.config.seed, t, _CHAN_STREAM)
-        k_codec = key_from_ints(self.config.seed, t, _CODEC_STREAM)
+        k_sched, k_chan, k_codec = round_keys(self.config.seed, t)
         chan = self.config.channel
         scheduled = self.config.scheduler.participants(k_sched, t, self.m,
                                                        chan)
@@ -407,8 +447,7 @@ class CommSession:
         self._pending = (t, scheduled, delivered, draw)
         if self._always_full:
             return None, k_codec
-        mask = torch.as_tensor(delivered, dtype=self._mask_dtype)
-        return mask.to(self._device), k_codec
+        return host_to(delivered, self._device, self._mask_dtype), k_codec
 
     def end_round(self) -> RoundTrace:
         """Account the round just executed from the variant's byte plan,
@@ -431,3 +470,103 @@ class CommSession:
         self.traces.append(trace)
         self._pending = None
         return trace
+
+
+class PopulationCommSession(CommSession):
+    """Synchronous driver over a ``ClientPopulation``.
+
+    Per round: sample the cohort's ids (``Scheduler.sample_ids``, the
+    dense mask's draw), materialize exactly those shards, draw the
+    cohort's coins per id (``ChannelModel.draw_for``), gather the
+    cohort's EF rows from the bounded hot set, run the round and scatter
+    the rows back. Nothing (m,)-shaped reaches the device; the host holds
+    O(m) metadata (shard sizes, the scheduler's draw).
+
+    The round function takes the cohort problem first: ``round_fn(cohort,
+    state, memory, key, mask, codec_key) -> (state, memory)``. Every
+    member is scheduled by construction, so the mask carries dropout
+    only: without dropout the round runs with ``mask=None``.
+    """
+
+    def __init__(self, config: CommConfig, population, *, keys: torch.Tensor,
+                 state0: Any, mask_dtype: torch.dtype = torch.float64,
+                 device: "str | torch.device" = "cuda"):
+        super().__init__(config, population.m, keys=keys, state0=state0,
+                         mask_dtype=mask_dtype, device=device)
+        self.population = population
+        self.cohort_size = config.scheduler.cohort_size(population.m)
+        self.ef_store = (feedback.BoundedMemory(ef_capacity(
+            config, population.m, self.cohort_size))
+            if config.has_error_feedback else None)
+        self._always_full = config.channel.dropout_prob == 0.0
+        self._pending_ids = None
+
+    def begin_round(self, t: int):
+        """Sample round ``t``'s cohort ids and their coins, on the dense
+        driver's key schedule (``round_keys``). Returns ``(ids, mask,
+        codec_key)``."""
+        k_sched, k_chan, k_codec = round_keys(self.config.seed, t)
+        chan = self.config.channel
+        ids = self.config.scheduler.sample_ids(k_sched, t, self.m, chan)
+        draw = chan.draw_for(k_chan, ids)
+        delivered = ~draw.dropout
+        if not delivered.any():
+            # every sampled client dropped: re-poll the lowest id so the
+            # weights stay defined (the dense rule)
+            delivered = np.zeros_like(delivered)
+            delivered[0] = True
+        self._pending = (t, np.ones_like(delivered), delivered, draw)
+        self._pending_ids = ids
+        if self._always_full:
+            return ids, None, k_codec
+        return ids, host_to(delivered, self._device, self._mask_dtype), k_codec
+
+    def step(self, round_fn) -> Any:
+        """One cohort round: sample ids, materialize, execute, account."""
+        t = self._t
+        ids, mask, ck = self.begin_round(t)
+        cohort = self.population.materialize(ids)
+        memory = self.ef_store.gather(ids) if self.ef_store else {}
+        self._state, mem_out = round_fn(cohort, self._state, memory,
+                                        self.keys[t], mask, ck)
+        if self.ef_store is not None:
+            self.ef_store.scatter(ids, mem_out)
+        self.end_round()
+        self._t += 1
+        return self._state
+
+    def end_round(self) -> RoundTrace:
+        t, scheduled, delivered, draw = self._pending
+        ids = self._pending_ids
+        bytes_up = float(self.bytes_up_per_client) * delivered.astype(np.float64)
+        bytes_down = (float(self.bytes_down_per_client)
+                      * scheduled.astype(np.float64))
+        sim = self.config.channel.round_time_for(
+            ids, self.m, draw, delivered, bytes_up, bytes_down)
+        trace = RoundTrace(
+            round=t,
+            scheduled=scheduled,
+            delivered=delivered,
+            straggler=draw.straggler & delivered,
+            bytes_up=bytes_up,
+            bytes_down=bytes_down,
+            sim_time_s=sim,
+            ids=ids,
+            population=self.m,
+        )
+        self.traces.append(trace)
+        self._pending = None
+        self._pending_ids = None
+        return trace
+
+    def ef_residual_norms(self) -> "Dict[str, float]":
+        return self.ef_store.residual_norms() if self.ef_store else {}
+
+
+def ef_capacity(config: CommConfig, m: int, cohort_size: int) -> int:
+    """The EF hot set's size: ``CommConfig.ef_capacity``, by default
+    ``min(m, 8 x cohort size)``, never below one cohort."""
+    capacity = config.ef_capacity
+    if capacity is None:
+        capacity = min(m, 8 * cohort_size)
+    return max(capacity, cohort_size)

@@ -13,7 +13,10 @@ server aggregation (masked, renormalized ``client_weights``).
 
 Each draw is a pure function of a host key (drawn on the CPU with a
 seeded generator), so the same ``(seed, round)`` gives the same cohort.
-The churn restriction (``eligible=``) comes with the dynamics slice.
+``participants`` (an (m,) mask) and ``sample_ids`` (the sorted cohort
+ids, the form client populations consume) are two views of the SAME
+draw; ``cohort_size`` is the static number of ids a round samples. The
+churn restriction (``eligible=``) comes with the dynamics slice.
 """
 from __future__ import annotations
 
@@ -43,13 +46,19 @@ class Scheduler:
         """(m,) bool mask of the clients scheduled this round."""
         _no_churn(eligible)
         mask = np.zeros((m,), dtype=bool)
-        mask[self.sample_ids(key, round_idx, m, channel)] = True
+        mask[self.sample_ids(key, round_idx, m, channel,
+                             eligible=eligible)] = True
         return mask
 
     def sample_ids(self, key: torch.Tensor, round_idx: int, m: int,
-                   channel: ChannelModel) -> np.ndarray:
-        """Sorted int64 client ids of this round's cohort."""
+                   channel: ChannelModel, eligible=None) -> np.ndarray:
+        """Sorted int64 client ids of this round's cohort (the draw of
+        ``participants``, O(cohort) output)."""
         raise NotImplementedError
+
+    def cohort_size(self, m: int) -> int:
+        """Static number of clients sampled per round."""
+        return m
 
     @property
     def is_full(self) -> bool:
@@ -63,7 +72,8 @@ class FullParticipation(Scheduler):
         _no_churn(eligible)
         return np.ones((m,), dtype=bool)
 
-    def sample_ids(self, key, round_idx, m, channel):
+    def sample_ids(self, key, round_idx, m, channel, eligible=None):
+        _no_churn(eligible)
         return np.arange(m, dtype=np.int64)
 
     @property
@@ -84,9 +94,13 @@ class UniformSampler(Scheduler):
     def _count(self, m: int) -> int:
         return max(1, min(m, int(math.ceil(self.q * m))))
 
-    def sample_ids(self, key, round_idx, m, channel):
+    def sample_ids(self, key, round_idx, m, channel, eligible=None):
+        _no_churn(eligible)
         perm = torch.randperm(m, generator=generator(key, "cpu"))
         return np.sort(perm[:self._count(m)].numpy().astype(np.int64))
+
+    def cohort_size(self, m: int) -> int:
+        return self._count(m)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,7 +114,8 @@ class BandwidthAware(UniformSampler):
     def name(self):
         return f"bandwidth:{self.q}"
 
-    def sample_ids(self, key, round_idx, m, channel):
+    def sample_ids(self, key, round_idx, m, channel, eligible=None):
+        _no_churn(eligible)
         u = torch.rand(m, generator=generator(key, "cpu"),
                        dtype=torch.float64).numpy()
         gumbel = -np.log(-np.log(np.maximum(u, np.finfo(np.float64).tiny)))

@@ -3,6 +3,9 @@
 Counterpart of ``repro.comm.session``. ``run_rounds`` drives every
 session the same way:
 
+  * ``prepare(round_fn)`` — once, before the first round (the
+      asynchronous drivers fill their byte plan and dispatch the first
+      cycles here);
   * ``begin_variant(sig)`` — announce the static round variant about to
       execute (``FederatedOptimizer.round_signature``; adaptive-k sketch
       policies change payload sizes mid-trajectory);
@@ -14,9 +17,12 @@ session the same way:
       memory)`` is the one round function every session shares;
   * ``finalize() -> Transport`` — the transport axes for ``History``.
 
-``make_session`` resolves ``comm=None`` to ``NullSession`` and a
-synchronous ``CommConfig`` to ``CommSession``; the asynchronous driver
-and client populations come with a later slice.
+``make_session`` resolves ``comm=None`` to ``NullSession``, a
+``CommConfig`` to ``CommSession`` or (``async_mode=True``)
+``AsyncSession``, and over a ``ClientPopulation`` to
+``PopulationCommSession`` or ``PopulationAsyncSession``. A population
+round function takes the cohort problem first: ``round_fn(cohort, state,
+memory, key, mask, codec_key)``.
 """
 from __future__ import annotations
 
@@ -26,11 +32,13 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.comm.async_driver import AsyncSession, PopulationAsyncSession
 from repro_torch.comm.config import (
     DOWN,
     NULL_COMM,
     CommConfig,
     CommSession,
+    PopulationCommSession,
     _NullComm,
     plan_bytes,
 )
@@ -39,6 +47,9 @@ from repro_torch.comm.metrics import Transport
 
 class Session:
     """Protocol base for round sessions (see module docstring)."""
+
+    def prepare(self, round_fn) -> None:
+        raise NotImplementedError
 
     def begin_variant(self, sig) -> None:
         raise NotImplementedError
@@ -102,6 +113,9 @@ class NullSession(Session):
         self._per_round: "list[float]" = []
         self._t = 0
 
+    def prepare(self, round_fn) -> None:
+        pass
+
     def begin_variant(self, sig) -> None:
         self._sig = sig
 
@@ -134,19 +148,30 @@ class NullSession(Session):
 def make_session(comm, *, m: int, keys: torch.Tensor, state0,
                  mask_dtype: torch.dtype = torch.float64,
                  device: "str | torch.device" = "cuda",
-                 population=None) -> Session:
+                 population=None, client_weights=None) -> Session:
     """Resolve the transport configuration to its session: ``None`` is
-    the no-transport ``NullSession``, a ``CommConfig`` (synchronous: it
-    refuses ``async_mode=True`` itself) the lock-step ``CommSession``.
-    Client populations come with the async-and-populations slice."""
-    if population is not None:
-        raise NotImplementedError(
-            "client populations come with the async-and-populations slice "
-            "of repro_torch")
-    if comm is None:
-        return NullSession(keys, state0, m)
-    if not isinstance(comm, CommConfig):
+    the no-transport ``NullSession``, a ``CommConfig`` the lock-step
+    ``CommSession`` or, with ``async_mode=True``, the event-driven
+    ``AsyncSession`` (which weighs groups by ``client_weights``, (m,) on
+    the host). A ``population`` selects ``PopulationCommSession`` or
+    ``PopulationAsyncSession`` and needs a ``CommConfig``."""
+    if comm is not None and not isinstance(comm, CommConfig):
         raise TypeError(f"comm must be a repro_torch CommConfig or None, "
                         f"got {type(comm).__name__}")
+    if population is not None:
+        if comm is None:
+            raise ValueError(
+                "population runs need a CommConfig: pass run_rounds(..., "
+                "comm=CommConfig(scheduler='uniform:q')) (materializing "
+                "every client is what populations avoid; use "
+                "population.materialize_all() for the dense problem)")
+        cls = PopulationAsyncSession if comm.async_mode else PopulationCommSession
+        return cls(comm, population, keys=keys, state0=state0,
+                   mask_dtype=mask_dtype, device=device)
+    if comm is None:
+        return NullSession(keys, state0, m)
+    if comm.async_mode:
+        return AsyncSession(comm, m, client_weights, keys=keys, state0=state0,
+                            mask_dtype=mask_dtype, device=device)
     return CommSession(comm, m, keys=keys, state0=state0,
                        mask_dtype=mask_dtype, device=device)

@@ -8,7 +8,10 @@ from repro_torch.core.base import (
     run_rounds,
 )
 from repro_torch.core.federated import (
+    ClientPopulation,
+    DatasetPopulation,
     FederatedProblem,
+    SyntheticPopulation,
     make_problem,
     newton_solve,
 )

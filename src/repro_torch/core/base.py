@@ -9,10 +9,14 @@ Counterpart of ``repro.core.base``. Every algorithm implements
   * ``uplink_floats(problem)`` / ``downlink_floats(problem)``.
 
 ``run_rounds(..., comm=CommConfig(...))`` threads the simulated
-synchronous transport (``repro_torch.comm``) through every round: codecs
-with exact encoded bytes both ways, the channel's simulated wall-clock,
-the scheduler's cohort and error feedback. The loop is the same for
-every mode: ``make_session`` resolves ``comm`` to a ``Session``.
+transport (``repro_torch.comm``) through every round: codecs with exact
+encoded bytes both ways, the channel's simulated wall-clock, the
+scheduler's cohort and error feedback, on the synchronous clock or
+(``async_mode=True``) the event-driven one, where ``sim_time_s`` is the
+server clock and ``History.staleness`` each commit's mean lag. The
+problem may be a ``ClientPopulation``: each round then materializes only
+its cohort. The loop is the same for every mode: ``make_session``
+resolves ``comm`` (and the population) to a ``Session``.
 
 Keys. JAX's threefry keys become two pieces (``repro_torch.keys``):
 ``root_key`` mints a ``torch.Generator`` on the device from an integer
@@ -29,6 +33,7 @@ import dataclasses
 import json
 import pathlib
 import time
+import warnings
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -66,16 +71,52 @@ def solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.linalg.solve_ex(a, b)[0]
 
 
-def build_round(opt: "FederatedOptimizer", problem, session):
+def build_round(opt: "FederatedOptimizer", problem, session, *,
+                population=None):
     """The round function every session drives: ``_round(state, memory,
-    key, mask, codec_key) -> (state, memory_out)``. The session builds the
-    round's transport view from the EF memory, the delivery mask and the
-    codec key; without error feedback the memory stays an empty dict."""
+    key, mask, codec_key) -> (state, memory_out)``, or with a
+    ``population`` ``_round(cohort, state, memory, key, mask, codec_key)``
+    (the materialized cohort is the round's problem). The session builds
+    the round's transport view from the EF memory, the delivery mask and
+    the codec key; without error feedback the memory stays an empty
+    dict."""
+    if population is not None:
+        def _round(cohort, state, memory, key, mask, codec_key):
+            cr = session.comm_round(memory, mask, codec_key)
+            state = opt.round(cohort, state, key, comm=cr)
+            return state, cr.memory_out
+        return _round
+
     def _round(state, memory, key, mask, codec_key):
         cr = session.comm_round(memory, mask, codec_key)
         state = opt.round(problem, state, key, comm=cr)
         return state, cr.memory_out
     return _round
+
+
+def _check_async_policy(opt, comm) -> None:
+    """The asynchronous driver prices uploads at dispatch, so an
+    adaptive-k policy (round-varying payload sizes) is refused; a
+    rotating basis with EF warns (stale groups share the new epoch's
+    memory)."""
+    policy = getattr(opt, "policy", None)
+    if comm is None or not comm.async_mode or policy is None:
+        return
+    if getattr(policy, "adaptive", False):
+        raise NotImplementedError(
+            "adaptive-k sketch policies vary payload bytes per round, "
+            "which the asynchronous driver cannot bill truthfully "
+            "(in-flight uploads are priced at dispatch time); use the "
+            "synchronous driver or a constant-k policy")
+    if (getattr(policy, "schedule", "fresh") == "rotate"
+            and comm.has_error_feedback):
+        warnings.warn(
+            "async driver + rotating sketch policy + error feedback: "
+            "commit groups based on pre-rotation model versions share the "
+            "EF memory of the new epoch, so residuals can briefly straddle "
+            "a rotation boundary under stale commits; the synchronous "
+            "driver keeps the epoch-reset invariant exact", RuntimeWarning,
+            stacklevel=3)
 
 
 class FederatedOptimizer:
@@ -220,32 +261,54 @@ def run_rounds(
     """Drive ``rounds`` communication rounds and record the trajectory.
 
     Runs on the device the problem lives on. ``comm=None`` is the
-    no-transport path; a synchronous ``CommConfig`` runs every round
-    through the simulated transport, and the ``History`` then carries one
-    ``RoundTrace`` per round and the final EF memory norms. ``obs``
-    (telemetry) and client populations come with later slices and raise.
-    The round itself never waits on the device; the loop reads the loss
-    and gradient norm back once per round.
+    no-transport path; a ``CommConfig`` runs every round (or commit,
+    with ``async_mode=True``) through the simulated transport, and the
+    ``History`` then carries one ``RoundTrace`` per round and the final
+    EF memory norms. ``problem`` may be a ``ClientPopulation``: only the
+    scheduled cohort is materialized each round, a ``CommConfig`` is
+    required, loss and gradient come from ``problem.eval_problem()``, and
+    optimizers with dense per-client state (``per_client_state``, FedNew's
+    duals) are refused. ``obs`` (telemetry) comes with a later slice and
+    raises. The round itself never waits on the device; the loop reads
+    the loss and gradient norm back once per round.
     """
     if obs is not None:
         raise NotImplementedError(
             "telemetry (obs=) comes with the observability slice")
-    if getattr(problem, "is_population", False):
-        raise NotImplementedError(
-            "client populations come with the async-and-populations slice")
-    m = problem.m
-    itemsize = problem.X.element_size()
-    state = opt.init(problem, w0)
-    keys = split(root_key(seed, device=problem.X.device), rounds)
+    population = problem if getattr(problem, "is_population", False) else None
+    if population is not None:
+        if getattr(opt, "per_client_state", False):
+            raise NotImplementedError(
+                f"{opt.name} keeps dense per-client state across rounds "
+                f"(per_client_state=True); a population materializes only "
+                f"the sampled cohort, so unsampled clients would carry "
+                f"stale state: use a dense problem "
+                f"(population.materialize_all()) or a stateless-client "
+                f"optimizer")
+        eval_prob = population.eval_problem()
+        m = population.m
+    else:
+        eval_prob = problem
+        m = problem.m
+    dev = eval_prob.X.device
+    itemsize = eval_prob.X.element_size()
+    state = opt.init(eval_prob, w0)
+    keys = split(root_key(seed, device=dev), rounds)
+    weights = None
+    if getattr(comm, "async_mode", False) and population is None:
+        weights = problem.client_weights.cpu().numpy()
     session = make_session(comm, m=m, keys=keys, state0=state,
-                           mask_dtype=problem.X.dtype, device=problem.X.device)
-    loss_star = float(problem.global_value(w_star))
-    _round = build_round(opt, problem, session)
+                           mask_dtype=eval_prob.X.dtype, device=dev,
+                           population=population, client_weights=weights)
+    _check_async_policy(opt, comm)
+    loss_star = float(eval_prob.global_value(w_star))
+    _round = build_round(opt, problem, session, population=population)
+    session.prepare(_round)
 
     def grad_norm(w):
-        return float(torch.linalg.vector_norm(problem.global_grad(w)))
+        return float(torch.linalg.vector_norm(eval_prob.global_grad(w)))
 
-    losses = [float(problem.global_value(state["w"]))]
+    losses = [float(eval_prob.global_value(state["w"]))]
     gnorms = [grad_norm(state["w"])]
     sig_prev = object()  # sentinel: no signature compares equal to it
     t0 = time.perf_counter()
@@ -255,7 +318,7 @@ def run_rounds(
             session.begin_variant(sig)
             sig_prev = sig
         state = session.step(_round)
-        losses.append(float(problem.global_value(state["w"])))
+        losses.append(float(eval_prob.global_value(state["w"])))
         gnorms.append(grad_norm(state["w"]))
     wall = time.perf_counter() - t0
     transport = session.finalize()
@@ -265,8 +328,8 @@ def run_rounds(
         loss=losses,
         gap=np.maximum(losses - loss_star, 0.0),
         grad_norm=np.asarray(gnorms),
-        uplink_floats=opt.uplink_floats(problem),
-        downlink_floats=opt.downlink_floats(problem),
+        uplink_floats=opt.uplink_floats(eval_prob),
+        downlink_floats=opt.downlink_floats(eval_prob),
         wall_time_s=wall,
         rounds=rounds,
         cumulative_bytes=transport.cumulative_bytes,

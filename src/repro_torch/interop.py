@@ -10,7 +10,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.federated import FederatedProblem
+from repro_torch.core.federated import (
+    DatasetPopulation,
+    FederatedProblem,
+    SyntheticPopulation,
+)
 from repro_torch.core.losses import OBJECTIVES, Objective
 from repro_torch.core.sketch import BatchedSrhtSketch, SrhtSketch
 from repro_torch.device import resolve_device
@@ -31,6 +35,45 @@ def problem_from_numpy(X, y, mask, lam: float, objective: "str | Objective",
         X=torch.tensor(X, device=dev), y=torch.tensor(y, device=dev),
         mask=torch.tensor(mask, device=dev), lam=float(lam),
         objective=objective)
+
+
+def dataset_population_from_numpy(rows_X, rows_y, sizes, n_shard: int,
+                                  lam: float, objective: "str | Objective",
+                                  device: "str | torch.device" = "cuda"
+                                  ) -> DatasetPopulation:
+    """A ``DatasetPopulation`` over rows already partitioned (the
+    reference's permuted rows and shard sizes): client j holds
+    ``sizes[j]`` rows from ``sum(sizes[:j])``, padded to ``n_shard``."""
+    dev = resolve_device(device)
+    if isinstance(objective, str):
+        objective = OBJECTIVES[objective]
+    return DatasetPopulation.from_rows(
+        torch.tensor(np.asarray(rows_X), device=dev),
+        torch.tensor(np.asarray(rows_y), device=dev), sizes, n_shard,
+        lam, objective)
+
+
+def synthetic_population_from_numpy(shards, sizes, dim: int, n_shard: int,
+                                    lam: float, objective: "str | Objective",
+                                    device: "str | torch.device" = "cuda"
+                                    ) -> SyntheticPopulation:
+    """A ``SyntheticPopulation`` of ``len(sizes)`` clients whose cohorts
+    are handed over: ``shards(ids)`` returns the cohort's X (c, n_shard,
+    dim), y and mask (c, n_shard) as numpy (the reference population's
+    ``materialize``)."""
+    dev = resolve_device(device)
+    if isinstance(objective, str):
+        objective = OBJECTIVES[objective]
+    pop = SyntheticPopulation(len(sizes), dim, lam=lam, objective=objective,
+                              n_shard=n_shard, dirichlet_alpha=None,
+                              device=dev)
+    pop.sizes = np.asarray(sizes, dtype=np.int64)
+
+    def draw(ids):
+        return tuple(torch.tensor(np.asarray(a), device=dev)
+                     for a in shards(ids))
+    pop._draw_shards = draw
+    return pop
 
 
 def sketch_from_numpy(signs, rows, k: int, dim: int,

@@ -49,3 +49,9 @@ def generator(key: torch.Tensor, device: "str | torch.device") -> torch.Generato
     gen = torch.Generator(device=torch.device(device))
     gen.manual_seed(key_bits(key))
     return gen
+
+
+def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
+    """A key derived from ``key`` and an integer (host only): the
+    counterpart of ``jax.random.fold_in``, with other numbers."""
+    return key_from_ints(key_bits(key), data)

@@ -472,11 +472,12 @@ def test_sessions_default_to_the_card(monkeypatch):
 
 
 def test_later_slices_raise():
-    with pytest.raises(NotImplementedError, match="asynchronous"):
-        CommConfig(async_mode=True)
+    # the asynchronous driver is ported (tests/test_torch_async.py);
+    # server_lr without it is a configuration error, as in the reference
+    assert CommConfig(async_mode=True, server_lr=0.5).async_mode
     with pytest.raises(NotImplementedError, match="dynamics"):
         CommConfig(dynamics=object())
-    with pytest.raises(NotImplementedError, match="asynchronous"):
+    with pytest.raises(ValueError, match="async_mode=True"):
         CommConfig(server_lr=0.5)
     with pytest.raises(ValueError, match="server_lr"):
         CommConfig(server_lr=0.0)
@@ -485,9 +486,8 @@ def test_later_slices_raise():
     with pytest.raises(NotImplementedError, match="dynamics"):
         make_scheduler("uniform:0.5").participants(
             key_from_ints(0), 0, 4, ChannelModel(), eligible=np.arange(2))
-    with pytest.raises(NotImplementedError, match="populations"):
-        make_session(CommConfig(), m=2, keys=None, state0=None,
-                     population=object())
+    with pytest.raises(ValueError, match="population runs need a CommConfig"):
+        make_session(None, m=2, keys=None, state0=None, population=object())
     with pytest.raises(TypeError, match="CommConfig"):
         make_session(JCommConfig(), m=2, keys=None, state0=None)
 

@@ -135,10 +135,12 @@ def test_make_problem_iid_partition_invariants():
                               lam=1e-2, objective=tlosses.logistic,
                               device="cpu")
     assert torch.equal(tp.X, again.X)  # seeded
+    # the Dirichlet split is ported (tests/test_torch_population.py);
+    # an unknown partition names the three it knows
     with pytest.raises(ValueError, match="dirichlet"):
         tfed.make_problem(torch.from_numpy(X), torch.from_numpy(y), m=6,
                           lam=1e-2, objective=tlosses.logistic,
-                          heterogeneity="dirichlet", device="cpu")
+                          heterogeneity="pathological", device="cpu")
 
 
 def test_make_classification_statistics_and_seed():

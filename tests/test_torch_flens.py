@@ -260,11 +260,13 @@ def test_obs_and_comm_are_not_ported_yet(quickstart):
     (_, _, _), (tp, tw0, tw_star) = quickstart
     with pytest.raises(NotImplementedError, match="observability"):
         run_rounds(FLeNS(k=8), tp, tw0, tw_star, rounds=1, obs=object())
-    # the synchronous transport is ported; the asynchronous driver is not
+    # both transport drivers are ported; scenario dynamics are not
     from repro_torch.comm import CommConfig
-    with pytest.raises(NotImplementedError, match="asynchronous"):
-        run_rounds(FLeNS(k=8), tp, tw0, tw_star, rounds=1,
-                   comm=CommConfig(async_mode=True))
+    hist = run_rounds(FLeNS(k=8), tp, tw0, tw_star, rounds=1,
+                      comm=CommConfig(async_mode=True))
+    assert hist.staleness is not None and hist.traces[0].version == 1
+    with pytest.raises(NotImplementedError, match="dynamics"):
+        CommConfig(dynamics=object())
     with pytest.raises(TypeError, match="CommConfig"):
         run_rounds(FLeNS(k=8), tp, tw0, tw_star, rounds=1, comm=object())
 

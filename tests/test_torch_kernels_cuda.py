@@ -454,3 +454,90 @@ def test_flash_attention_kernel_rejects_what_it_does_not_take(hopper):
         flat = torch.zeros(1 + q.numel(), device=hopper).bfloat16()
         kvb = kv.bfloat16()
         ops.flash_attention(flat[1:].view(q.shape), kvb, kvb, impl="cuda")
+
+
+# the asynchronous driver and a population round on the card: FLeNS+
+# under the edge codecs with EF, through the kernels and through their
+# plain versions, traces equal and losses bit-equal
+_EDGE_CODECS = {"h_sk": "sympack+qint8", "sg": "qint8",
+                "grad": "topk0.1+qint8"}
+
+
+def _run_both(run):
+    """``run()`` through the kernels and through the plain versions, the
+    kernel launches of the first counted."""
+    ops.reset_launch_counts()
+    kernels = run()
+    counts = ops.launch_counts()
+    with ops.use_impl("ref"):
+        plain = run()
+    return kernels, plain, counts
+
+
+def _assert_same(kernels, plain):
+    assert (kernels.loss == plain.loss).all()
+    assert ([t.to_dict() for t in kernels.traces]
+            == [t.to_dict() for t in plain.traces])
+
+
+@pytest.mark.gpu
+def test_async_commits_on_the_card_equal_the_plain_versions(hopper):
+    import numpy as np
+
+    from repro_torch.comm import ChannelModel, CommConfig
+    from repro_torch.core import (
+        logistic,
+        make_optimizer,
+        make_problem,
+        newton_solve,
+        run_rounds,
+    )
+    from repro_torch.data import make_classification
+
+    X, y = make_classification(0, n=20000, dim=18, device=hopper)
+    prob = make_problem(X, y, m=40, lam=1e-3, objective=logistic,
+                        device=hopper)
+    w0 = torch.zeros(18, dtype=torch.float64, device=hopper)
+    w_star = newton_solve(prob, w0)
+    rates = np.logspace(np.log10(3e4), np.log10(3e6), 40)
+    cfg = CommConfig(channel=ChannelModel(
+        uplink_bytes_per_s=rates, downlink_bytes_per_s=10 * rates,
+        latency_s=0.05, straggler_prob=0.3), seed=1, async_mode=True,
+        buffer_size=10, staleness="inverse", codecs=_EDGE_CODECS,
+        error_feedback=True)
+    kernels, plain, counts = _run_both(lambda: run_rounds(
+        make_optimizer("flens_plus", k=10), prob, w0, w_star, rounds=6,
+        comm=cfg))
+    _assert_same(kernels, plain)
+    assert np.nanmax(kernels.staleness) > 0
+    assert counts["srht_apply"] > 4 * 6 and counts["topk_mask"] > 6
+
+
+@pytest.mark.gpu
+def test_population_round_on_the_card_equals_the_plain_versions(hopper):
+    from repro_torch.comm import ChannelModel, CommConfig
+    from repro_torch.core import (
+        SyntheticPopulation,
+        make_optimizer,
+        newton_solve,
+        run_rounds,
+    )
+
+    pop = SyntheticPopulation(m=5000, dim=16, seed=1, device=hopper)
+    w0 = torch.zeros(16, dtype=torch.float64, device=hopper)
+    w_star = newton_solve(pop.eval_problem(), w0)
+    cfg = CommConfig(channel=ChannelModel(
+        uplink_bytes_per_s="loguniform:3e4,3e6", dropout_prob=0.1),
+        scheduler="uniform:0.02", seed=1, codecs=_EDGE_CODECS,
+        error_feedback=True)
+    kernels, plain, counts = _run_both(lambda: run_rounds(
+        make_optimizer("flens_plus", k=8), pop, w0, w_star, rounds=3,
+        comm=cfg))
+    _assert_same(kernels, plain)
+    assert counts["srht_apply"] == 4 * 3 and counts["qint8_roundtrip"] == 3 * 3
+    # a shard is the same on the card as on the host, up to the float ops
+    # of the draw (the counters are integers, equal on both)
+    cpu = SyntheticPopulation(m=5000, dim=16, seed=1, device="cpu")
+    a, b = pop.materialize([3, 4000]), cpu.materialize([3, 4000])
+    assert torch.equal(a.mask.cpu(), b.mask)
+    torch.testing.assert_close(a.X.cpu(), b.X, rtol=1e-12, atol=1e-12)
