@@ -74,6 +74,34 @@ Phases, in order; any failure raises and the script exits non-zero:
                 of dense per-client S; and FedNS srht:fixed under one
                 CommConfig at the quickstart size, its trajectory, bytes
                 and traces equal to the plain versions'
+ 5d. async   — FLeNS+ at SUSY's size on the straggler channel: the
+                full-quorum anchor bit-equal to sync, then sync, async_buf
+                (K = m/4), async_q50 and async_buf under comp+sched+ef,
+                launches checked (4 srht_apply + 3 srht_apply_t a group
+                round, one probe round a run), trajectories equal to the
+                plain versions', ms a commit with the event loop apart
+ 5e. populations — the lock-step anchor across the population drivers at
+                m = 200, then a child process: m = 100,000 at q = 1e-3
+                under the edge codecs with EF (sync and async) and SUSY's
+                rows as a DatasetPopulation, against host and device
+                budgets; the child also runs 5f's two population drivers
+ 5f. telemetry — run_rounds with obs=TelemetryConfig(sink="jsonl:...")
+                on five drivers: FLeNS without transport (10 rounds),
+                FLeNS+ under comp+sched+ef on the edge channel (10 rounds,
+                its first two profiled), async_buf (K = m/4) on the
+                straggler channel (20 commits) at SUSY's full size, and
+                the m = 100,000 population's sync (10 rounds) and async
+                (10 commits) runs from the 5e child: each trajectory
+                bit-equal to the run with telemetry off, the launches
+                checked, the JSONL accepted by repro_torch.obs.report
+                --check-schema; compile_s, exec_s_per_round, phase_s and
+                the flight stats printed, with ms a step with telemetry
+                off, on with the null sink and on with the jsonl sink (three
+                turns each); the profiler's Chrome trace must name
+                srht_fwd_warp_kernel, srht_t_warp_kernel,
+                topk_mask_warp_kernel and qint8_warp_kernel at 2 x (4 / 3
+                / 1 / 3) launches (streams and traces under
+                chiprun_out/telemetry/)
  6. long rows — fwht, srht_apply and srht_apply_t past the single-pass
                 length (n = 2^15, 2^17, 2^20) against their plain versions,
                 bit-equal; fwht timed at (64, 2^17) and (1, 2^20),
@@ -154,6 +182,7 @@ from __future__ import annotations
 import json
 import math
 import pathlib
+import shutil
 import subprocess
 import sys
 import time
@@ -1735,6 +1764,13 @@ def population_child() -> int:
         f"(budget {budget['device']}); materialize a cohort of 100 "
         f"{out['synthetic']['materialize_ms']:.3f} ms; EF store "
         f"{syn['sync']['bare']['ef_store_bytes']} B")
+    # 5f's population drivers: the same population at q = 1e-3, sync 10
+    # rounds and async 10 commits, with telemetry off and on
+    out["telemetry"] = _telemetry_runs(
+        None, w0, w_star,
+        [(name, rounds, cfg, lambda: make_optimizer("flens_plus", k=8), 0)
+         for name, rounds, cfg in configs(1e-3, 10)],
+        "m=100000", population=pop)
     del pop
 
     # 2. the SUSY twin at its 5,000,000 rows as a DatasetPopulation
@@ -1821,6 +1857,218 @@ def phase_populations() -> dict:
           f"{proc.stderr[-3000:]}")
     record["anchor_loss"] = asy.loss.tolist()
     return record
+
+
+# ---------------------------------------------------------------------------
+# 5f. telemetry
+# ---------------------------------------------------------------------------
+
+TELEMETRY_DIR = ROOT / "chiprun_out" / "telemetry"
+# the kernel each op of FLeNS+ under comp+sched+ef takes at SUSY's shapes
+# (n = 32, payload rows of 10-55 values): the warp routes
+PROFILED_KERNELS = {"srht_apply": "srht_fwd_warp_kernel",
+                    "srht_apply_t": "srht_t_warp_kernel",
+                    "topk_mask": "topk_mask_warp_kernel",
+                    "qint8_roundtrip": "qint8_warp_kernel"}
+TELEMETRY_MODES = ("off", "null", "jsonl")
+TELEMETRY_TURNS = 3  # off, null, jsonl; then backwards; then forwards
+
+
+def _same_trajectory(a, b) -> bool:
+    def key(h):
+        return (h.loss.tolist(), h.grad_norm.tolist(),
+                h.cumulative_bytes.tolist(), h.sim_time_s.tolist(),
+                [t.to_dict() for t in h.traces or []],
+                None if h.staleness is None else h.staleness.tolist())
+    return key(a) == key(b)
+
+
+def _trace_kernels(path: pathlib.Path) -> dict:
+    """Launches of each profiled kernel in an exported Chrome trace."""
+    events = json.loads(path.read_text())["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return {k: sum(k in n for n in names) for k in PROFILED_KERNELS.values()}
+
+
+def _telemetry_runs(problem, w0, w_star, runs, label: str,
+                    population=None) -> dict:
+    """Each run (name, rounds, CommConfig or None, optimizer factory,
+    rounds to profile): with obs=None, then with a jsonl sink (launches
+    counted and checked, trajectory bit-equal, the stream checked by the
+    port's report --check-schema, the profiled rounds' kernels read off
+    the Chrome trace), then off / null sink / jsonl sink in turns for ms
+    a step."""
+    from repro_torch.core import run_rounds
+    from repro_torch.kernels import ops
+    from repro_torch.obs import TelemetryConfig, report
+
+    target = problem if population is None else population
+    TELEMETRY_DIR.mkdir(parents=True, exist_ok=True)
+    out = {}
+    for name, rounds, cfg, make_opt, profile in runs:
+        tag = f"{label}_{name}".replace(" ", "_").replace("=", "")
+        path = TELEMETRY_DIR / f"{tag}.jsonl"
+        trace_dir = TELEMETRY_DIR / f"{tag}_trace"
+
+        def run(mode: str, dest: pathlib.Path, profile_rounds: int = 0):
+            obs = None
+            if mode != "off":
+                dest.unlink(missing_ok=True)  # the jsonl sink appends
+                obs = TelemetryConfig(
+                    sink=f"jsonl:{dest}" if mode == "jsonl" else "null",
+                    label=f"{label} {name}", profile_rounds=profile_rounds,
+                    profile_dir=str(trace_dir))
+            return run_rounds(make_opt(), target, w0, w_star, rounds=rounds,
+                              comm=cfg, obs=obs)
+
+        timed = TELEMETRY_DIR / f"{tag}_timed.jsonl"
+        off = run("off", timed)
+        shutil.rmtree(trace_dir, ignore_errors=True)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        on = run("jsonl", path, profile)
+        counts = ops.launch_counts()
+        check(_same_trajectory(on, off),
+              f"{label} {name}: the trajectory with telemetry on differs "
+              f"from the one with it off ({on.loss.tolist()} vs "
+              f"{off.loss.tolist()})")
+        check(report.main([str(path), "--check-schema"]) == 0,
+              f"{label} {name}: {path} fails report --check-schema")
+        if cfg is None:  # FLeNS: 3 srht_apply and 2 srht_apply_t a round
+            executed = rounds
+            want = {"fwht": 0, "srht_apply": 3 * rounds,
+                    "srht_apply_t": 2 * rounds, **NO_CODEC, **NO_LM}
+        else:
+            executed = (sum(_groups_per_commit(on)) + 1 if cfg.async_mode
+                        else rounds)  # + the async probe round
+            want = _expected_launches(cfg, executed)
+        check(counts == want,
+              f"{label} {name}: launches {counts} != {want}")
+        tel = on.telemetry
+        row = {"rounds": rounds, "rounds_executed": executed,
+               "launches": counts, "compile_s": tel["compile_s"],
+               "exec_s_per_round": tel["exec_s_per_round"],
+               "phase_s": tel["phase_s"],
+               "setup_phase_s": tel["setup_phase_s"],
+               "flight": tel["flight"], "metrics": tel["metrics"]}
+        if profile:
+            traces = sorted(trace_dir.glob("*.pt.trace.json"))
+            check(len(traces) == 1, f"{label} {name}: profiler traces "
+                  f"{[p.name for p in traces]} (want one)")
+            got = _trace_kernels(traces[0])
+            per_round = _expected_launches(cfg, 1)
+            want_k = {kernel: profile * per_round[op]
+                      for op, kernel in PROFILED_KERNELS.items()}
+            check(got == want_k, f"{label} {name}: the profiled rounds "
+                  f"launched {got} (want {want_k})")
+            row["profiled_kernels"] = got
+            row["profile_trace"] = str(traces[0].relative_to(ROOT))
+        ms = {mode: [] for mode in TELEMETRY_MODES}
+        for turn in range(TELEMETRY_TURNS):
+            for mode in (TELEMETRY_MODES if turn % 2 == 0
+                         else TELEMETRY_MODES[::-1]):
+                hist = run(mode, timed)
+                check(_same_trajectory(hist, off),
+                      f"{label} {name}: the {mode} run's trajectory differs")
+                ms[mode].append(hist.wall_time_s * 1e3 / rounds)
+        row["ms_per_step"] = ms
+        out[name] = row
+        step = "commit" if cfg is not None and cfg.async_mode else "round"
+        fl = tel["flight"]
+        log(f"[telemetry] {label} {name}: {rounds} {step}s, trajectory "
+            f"with telemetry on bit-equal to off; launches {counts}; "
+            f"compile_s {tel['compile_s'] * 1e3:.2f} ms, exec_s_per_round "
+            f"{tel['exec_s_per_round'] * 1e3:.3f} ms; flight "
+            f"{fl['total']} events ({fl['kept']} kept, {fl['truncated']} "
+            f"truncated)")
+        log(f"[telemetry] {label} {name}: phase_s "
+            + ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in
+                        sorted(tel["phase_s"].items(), key=lambda kv: -kv[1]))
+            + "; setup " + ", ".join(
+                f"{k} {v * 1e3:.2f} ms" for k, v in
+                sorted(tel["setup_phase_s"].items(), key=lambda kv: -kv[1])))
+        log(f"[telemetry] {label} {name}: ms a {step} (run_rounds, eval "
+            f"included), {TELEMETRY_TURNS} turns each: " + "; ".join(
+                f"{mode} " + " / ".join(f"{v:.3f}" for v in ms[mode])
+                for mode in TELEMETRY_MODES))
+        if profile:
+            log(f"[telemetry] {label} {name}: the {profile} profiled rounds "
+                f"launched {row['profiled_kernels']} ({row['profile_trace']})")
+    return out
+
+
+def _sink_us(record: dict, reps: int = 5, lines: int = 100) -> dict:
+    """Host µs of the jsonl sink on this machine's disk: the first emit
+    of a run (it creates and opens the file), a later emit, and the
+    close; medians of ``reps`` fresh files of ``lines`` records."""
+    from repro_torch.obs import make_sink
+
+    path = TELEMETRY_DIR / "sink_cost.jsonl"
+    first, later, close = [], [], []
+    for _ in range(reps):
+        path.unlink(missing_ok=True)
+        sink = make_sink(f"jsonl:{path}")
+        t0 = time.perf_counter()
+        sink.emit(record)
+        t1 = time.perf_counter()
+        for _ in range(lines - 1):
+            sink.emit(record)
+        t2 = time.perf_counter()
+        sink.close()
+        t3 = time.perf_counter()
+        first.append((t1 - t0) * 1e6)
+        later.append((t2 - t1) * 1e6 / (lines - 1))
+        close.append((t3 - t2) * 1e6)
+    path.unlink(missing_ok=True)
+    return {name: float(np.median(v)) for name, v in
+            (("first_emit_us", first), ("emit_us", later),
+             ("close_us", close))}
+
+
+def phase_telemetry(card: str, problem, w0, w_star, populations: dict) -> dict:
+    """The five drivers with telemetry on: FLeNS without transport, FLeNS+
+    under comp+sched+ef on the edge channel (its first two rounds
+    profiled) and async_buf (K = m/4) on the straggler channel at SUSY's
+    full size here; the m = 100,000 population's sync and async runs came
+    from the 5e child process."""
+    from repro_torch.comm import CommConfig
+    from repro_torch.core import FLeNS, make_optimizer
+
+    sketch, codecs, _ = TRANSPORTS["comp+sched+ef"]
+
+    def flens_plus():
+        return make_optimizer("flens_plus", k=SUSY["k"])
+
+    runs = [("flens", 10, None, lambda: FLeNS(k=SUSY["k"]), 0),
+            ("flens_plus comp+sched+ef", 10,
+             CommConfig(codecs=codecs, channel=_edge_channel(problem.m),
+                        scheduler="bandwidth:0.5", error_feedback=True,
+                        seed=1),
+             lambda: FLeNS(k=SUSY["k"], variant="plus", sketch=sketch), 2),
+            ("async_buf", 20,
+             CommConfig(channel=_straggler_channel(problem.m), seed=1,
+                        async_mode=True, buffer_size=max(2, problem.m // 4),
+                        staleness="inverse"), flens_plus, 0)]
+    out = {"susy": _telemetry_runs(problem, w0, w_star, runs, "SUSY"),
+           "population": populations["telemetry"]}
+    # what the jsonl sink itself costs here, on a round record of the
+    # FLeNS+ run (the sink is the only difference between the null and
+    # jsonl runs inside the round loop)
+    stream = TELEMETRY_DIR / "SUSY_flens_plus_comp+sched+ef.jsonl"
+    sink = _sink_us(json.loads(stream.read_text().splitlines()[0]))
+    log(f"[telemetry] jsonl sink on this disk: first emit (creates and "
+        f"opens the file) {sink['first_emit_us']:.1f} us, later emits "
+        f"{sink['emit_us']:.1f} us each, close {sink['close_us']:.1f} us "
+        f"(medians of 5 files of 100 records)")
+    log(f"[telemetry] {card}: ms a step with telemetry off / on (null "
+        f"sink) / on (jsonl sink), medians of {TELEMETRY_TURNS} turns:")
+    for where, rows in out.items():
+        for name, row in rows.items():
+            med = {m: float(np.median(v)) for m, v in row["ms_per_step"].items()}
+            log(f"[telemetry]   {where} {name}: " + " / ".join(
+                f"{med[m]:.3f}" for m in TELEMETRY_MODES)
+                + f" ms (jsonl - off {med['jsonl'] - med['off']:+.3f})")
+    return {**out, "jsonl_sink": sink}
 
 
 # ---------------------------------------------------------------------------
@@ -2822,6 +3070,8 @@ def main() -> int:
     record["table_one"] = phase_table_one(*susy)
     record["async"] = phase_async(*susy)
     record["populations"] = phase_populations()
+    record["telemetry"] = phase_telemetry(card, *susy,
+                                          record["populations"])
     record["long_rows"] = phase_long_rows()
     record["codec_parity_max_abs_err"] = phase_codec_parity()
     record["transport"] = phase_transport(*susy)

@@ -12,10 +12,20 @@ this demo checks first. Then the three-driver race on one channel and
 seed: lock-step sync, a FedBuff buffer (K = m/4, 4x the commits) and a
 50% quorum (3x the commits).
 
+The three race runs share one telemetry stream
+(``obs=TelemetryConfig(sink="jsonl:...", label=<driver>)``): per-round
+phase times, bytes, staleness histograms and the async flight events.
+Telemetry leaves the trajectories bit-identical. Render it with::
+
+  PYTHONPATH=src python -m repro_torch.obs.report results/examples/async_edge_torch_telemetry.jsonl
+
+Run me::
+
   PYTHONPATH=src python examples/async_edge_torch.py                # on the card
   PYTHONPATH=src python examples/async_edge_torch.py --device cpu --rounds 6
 """
 import argparse
+import pathlib
 
 import numpy as np
 import torch
@@ -29,6 +39,7 @@ from repro_torch.core import (
     run_rounds,
 )
 from repro_torch.data import load
+from repro_torch.obs import TelemetryConfig
 
 
 def straggler_edge_channel(m: int) -> ChannelModel:
@@ -88,7 +99,15 @@ def main() -> None:
             ("async_q50", 3 * args.rounds,
              CommConfig(channel=chan, seed=1, async_mode=True,
                         async_quantile=0.5, staleness="inverse"))]
-    hists = {name: run_rounds(fedavg(), prob, w0, w_star, rounds=r, comm=comm)
+    # every driver appends to one telemetry stream, its records labelled
+    # with the driver's name
+    dest = pathlib.Path("results/examples")
+    dest.mkdir(parents=True, exist_ok=True)
+    telemetry_path = dest / "async_edge_torch_telemetry.jsonl"
+    telemetry_path.unlink(missing_ok=True)  # the jsonl sink appends
+    hists = {name: run_rounds(fedavg(), prob, w0, w_star, rounds=r, comm=comm,
+                              obs=TelemetryConfig(
+                                  sink=f"jsonl:{telemetry_path}", label=name))
              for name, r, comm in runs}
     print(f"\n=== {spec.name}: M={prob.dim} m={m} | 30% stragglers x10, "
           f"log-spaced uplinks ===")
@@ -115,6 +134,8 @@ def main() -> None:
         margin = loss_at(hists["sync"], t_final) - loss_at(hists[best], t_final)
         print(f"\nat t={t_final:.2f}s the async drivers sit below sync by "
               f"{margin:.2e} loss (best: {best})")
+    print(f"\nwrote {telemetry_path} (render with `python -m "
+          f"repro_torch.obs.report {telemetry_path}`)")
 
 
 if __name__ == "__main__":

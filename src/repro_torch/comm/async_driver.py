@@ -48,7 +48,6 @@ from __future__ import annotations
 import dataclasses
 import heapq
 import math
-import warnings
 from collections import defaultdict
 from typing import Any, Callable, Dict, List
 
@@ -59,12 +58,16 @@ from repro_torch.comm import feedback
 from repro_torch.comm.config import (
     CommRound,
     ef_capacity,
+    observe_ef_memory,
+    observe_ef_store,
     plan_bytes,
     round_keys,
 )
 from repro_torch.comm.metrics import RoundTrace, Transport, transport_from_traces
 from repro_torch.device import host_to, resolve_device
 from repro_torch.keys import fold_in
+from repro_torch.obs import NULL_TELEMETRY
+from repro_torch.obs import log as obs_log
 
 # a dropped upload is retried with fresh coins; after this many
 # consecutive drops the delivery is forced so the clock cannot spin
@@ -111,14 +114,18 @@ class AsyncSession:
     per-version state snapshots (on the device), the EF memory and the
     per-commit ``RoundTrace``s. ``step(round_fn)`` runs the events up to
     the next commit; ``round_fn(state, memory, key, mask, codec_key) ->
-    (state, memory)`` is the round every session drives."""
+    (state, memory)`` is the round every session drives. ``obs`` is the
+    run's telemetry: flight events of every dispatch, drop, arrival and
+    commit, the commit histograms and the per-commit counters."""
 
     def __init__(self, config, m: int, client_weights: np.ndarray, *,
                  keys: torch.Tensor, state0: Any = None,
                  mask_dtype: torch.dtype = torch.float64,
-                 device: "str | torch.device" = "cuda"):
+                 device: "str | torch.device" = "cuda",
+                 obs=NULL_TELEMETRY):
         self.config = config
         self.m = int(m)
+        self.obs = obs
         self.client_weights = np.asarray(client_weights, dtype=np.float64)
         self.keys = keys
         self._state0 = state0
@@ -198,10 +205,14 @@ class AsyncSession:
                          memory=memory, round_idx=self._group_version)
 
     def finalize(self) -> Transport:
+        self._observe_ef()
         return transport_from_traces(
             self.traces,
             staleness=np.array([tr.mean_staleness for tr in self.traces]),
             ef_residuals=self.ef_residual_norms())
+
+    def _observe_ef(self) -> None:
+        observe_ef_memory(self.obs, self.ef_memory)
 
     def ef_residual_norms(self) -> Dict[str, float]:
         return feedback.residual_norms(self.ef_memory)
@@ -272,6 +283,11 @@ class AsyncSession:
         flight = _Flight(client=j, version=self.version,
                          straggler=straggler, dropped=dropped, retry=retry)
         heapq.heappush(self._heap, (now + dt, self._seq, flight))
+        self.obs.flight.record(
+            "dispatch", now, client=j, version=self.version,
+            eta=now + dt, straggler=straggler, retry=retry)
+        if retry:
+            self.obs.metrics.counter("upload_retries").inc()
 
     def _pump(self) -> float:
         """Advance the event clock until the quorum has buffered; returns
@@ -283,11 +299,13 @@ class AsyncSession:
             need = max(1, min(self.quorum, len(self._buffer) + len(self._heap)))
             if need < self.quorum and not self._quorum_capped:
                 self._quorum_capped = True
-                warnings.warn(
+                obs_log.warn_with_context(
                     f"async commit quorum capped at {need} (< configured "
                     f"{self.quorum}): the scheduler keeps fewer clients in "
-                    f"flight than the quorum asks for", RuntimeWarning,
-                    stacklevel=3)
+                    f"flight than the quorum asks for",
+                    category=RuntimeWarning, stacklevel=3,
+                    server_version=self.version, quorum=self.quorum,
+                    capped_to=need)
             if len(self._buffer) >= need:
                 return t
             if not self._heap:
@@ -297,10 +315,17 @@ class AsyncSession:
             t, _, flight = heapq.heappop(self._heap)
             if flight.dropped:
                 self._pending_dropped[flight.client] = True
+                self.obs.flight.record(
+                    "drop", t, client=flight.client, version=flight.version,
+                    retry=flight.retry)
                 self._redispatch(flight.client, t, flight.retry + 1)
             else:
                 self._buffer.append(
                     (flight.client, flight.version, flight.straggler, t))
+                self.obs.flight.record(
+                    "arrival", t, client=flight.client,
+                    version=flight.version, server_version=self.version,
+                    buffered=len(self._buffer))
 
     # -- one server commit ---------------------------------------------------
     def _groups(self, committed) -> "tuple[Dict[int, list], list]":
@@ -351,6 +376,8 @@ class AsyncSession:
         state."""
         commit_time = self._pump()
         committed, self._buffer = self._buffer, []
+        if self.obs.enabled:
+            self._observe_commit(committed, commit_time)
         groups, order = self._groups(committed)
         outputs: Dict[int, Any] = {}
         for v in order:
@@ -366,6 +393,36 @@ class AsyncSession:
             sorted({c for c, _, _, _ in committed} | self._idle),
             now=commit_time)
         return state_new
+
+    def _observe_commit(self, committed, commit_time: float) -> None:
+        """Commit-time telemetry, on the host before the group rounds."""
+        mt = self.obs.metrics
+        mt.histogram("commit_buffer_depth").observe(len(committed))
+        mt.histogram("inflight_depth").observe(len(self._heap))
+        mt.histogram("staleness").observe_many(
+            float(self.version - v) for _, v, _, _ in committed)
+        mt.histogram("buffered_upload_age_s").observe_many(
+            commit_time - t_arr for _, _, _, t_arr in committed)
+        self.obs.flight.record(
+            "commit", commit_time, version=self.version + 1,
+            server_version=self.version,
+            clients=sorted(c for c, _, _, _ in committed),
+            inflight=len(self._heap))
+
+    def _observe_trace(self, tr: RoundTrace, dropped: int) -> None:
+        """The commit's counters and round annotations (telemetry on)."""
+        mt = self.obs.metrics
+        up, down = float(tr.bytes_up.sum()), float(tr.bytes_down.sum())
+        mt.counter("bytes_up").inc(up)
+        mt.counter("bytes_down").inc(down)
+        mt.counter("delivered_client_rounds").inc(float(tr.delivered.sum()))
+        mt.counter("dropped_client_rounds").inc(float(dropped))
+        mt.counter("straggler_client_rounds").inc(float(tr.straggler.sum()))
+        self.obs.annotate(
+            bytes_up=up, bytes_down=down,
+            delivered=int(tr.delivered.sum()), version=tr.version,
+            mean_staleness=tr.mean_staleness,
+            sim_time_s=float(tr.sim_time_s))
 
     def _advance(self, state_new, commit_time: float) -> None:
         self.version += 1
@@ -394,6 +451,8 @@ class AsyncSession:
             staleness=stale,
             version=self.version + 1,
         ))
+        if self.obs.enabled:
+            self._observe_trace(self.traces[-1], self._pending_dropped.sum())
         self._pending_down = np.zeros(self.m, dtype=np.float64)
         self._pending_dropped = np.zeros(self.m, dtype=bool)
 
@@ -433,10 +492,11 @@ class PopulationAsyncSession(AsyncSession):
 
     def __init__(self, config, population, *, keys: torch.Tensor,
                  state0: Any = None, mask_dtype: torch.dtype = torch.float64,
-                 device: "str | torch.device" = "cuda"):
+                 device: "str | torch.device" = "cuda",
+                 obs=NULL_TELEMETRY):
         super().__init__(config, population.m, population.client_weights,
                          keys=keys, state0=state0, mask_dtype=mask_dtype,
-                         device=device)
+                         device=device, obs=obs)
         self.population = population
         self.cohort_size = config.scheduler.cohort_size(population.m)
         # the quorum counts against what can be in flight: one cohort
@@ -521,6 +581,8 @@ class PopulationAsyncSession(AsyncSession):
         """A population commit: each group materializes its members."""
         commit_time = self._pump()
         committed, self._buffer = self._buffer, []
+        if self.obs.enabled:
+            self._observe_commit(committed, commit_time)
         groups, order = self._groups(committed)
         outputs: Dict[int, Any] = {}
         for v in order:
@@ -577,8 +639,13 @@ class PopulationAsyncSession(AsyncSession):
             ids=np.asarray(ids, dtype=np.int64),
             population=self.m,
         ))
+        if self.obs.enabled:
+            self._observe_trace(self.traces[-1], len(dropped))
         self._pending_down = defaultdict(float)
         self._pending_dropped = {}
+
+    def _observe_ef(self) -> None:
+        observe_ef_store(self.obs, self.ef_store)
 
     def ef_residual_norms(self) -> Dict[str, float]:
         return self.ef_store.residual_norms() if self.ef_store else {}

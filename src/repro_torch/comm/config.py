@@ -58,6 +58,7 @@ from repro_torch.comm.metrics import RoundTrace, Transport, transport_from_trace
 from repro_torch.comm.scheduler import Scheduler, make_scheduler
 from repro_torch.device import host_to, resolve_device
 from repro_torch.keys import generator, key_bits, key_from_ints
+from repro_torch.obs import NULL_TELEMETRY
 
 # payload-name prefix that selects the downlink (server -> client)
 # direction in codec specs and in the byte plan
@@ -358,13 +359,16 @@ class CommSession:
     """Host-side per-trajectory transport state for the synchronous
     lock-step clock: ``step`` draws a cohort and channel coins, runs the
     round, and accounts it; ``finalize`` folds the traces into the
-    ``Transport`` axes ``History`` carries."""
+    ``Transport`` axes ``History`` carries. ``obs`` is the run's
+    telemetry (``repro_torch.obs.Telemetry``) or the shared no-op."""
 
     def __init__(self, config: CommConfig, m: int, *, keys: torch.Tensor,
                  state0: Any, mask_dtype: torch.dtype = torch.float64,
-                 device: "str | torch.device" = "cuda"):
+                 device: "str | torch.device" = "cuda",
+                 obs=NULL_TELEMETRY):
         self.config = config
         self.m = int(m)
+        self.obs = obs
         self.keys = keys
         self._state = state0
         self._mask_dtype = mask_dtype
@@ -422,8 +426,12 @@ class CommSession:
         return self._state
 
     def finalize(self) -> Transport:
+        self._observe_ef()
         return transport_from_traces(
             self.traces, ef_residuals=self.ef_residual_norms())
+
+    def _observe_ef(self) -> None:
+        observe_ef_memory(self.obs, self.ef_memory)
 
     def ef_residual_norms(self) -> "Dict[str, float]":
         """Per-payload Frobenius norm of the current EF memory."""
@@ -469,7 +477,30 @@ class CommSession:
         )
         self.traces.append(trace)
         self._pending = None
+        if self.obs.enabled:
+            self._observe(trace)
         return trace
+
+    def _observe(self, trace: RoundTrace) -> None:
+        """Per-round telemetry, on the host after the round ran."""
+        mt = self.obs.metrics
+        up = float(trace.bytes_up.sum())
+        down = float(trace.bytes_down.sum())
+        dropped = trace.scheduled & ~trace.delivered
+        mt.counter("bytes_up").inc(up)
+        mt.counter("bytes_down").inc(down)
+        mt.counter("scheduled_client_rounds").inc(
+            float(trace.scheduled.sum()))
+        mt.counter("delivered_client_rounds").inc(
+            float(trace.delivered.sum()))
+        mt.counter("dropped_client_rounds").inc(float(dropped.sum()))
+        mt.counter("straggler_client_rounds").inc(
+            float(trace.straggler.sum()))
+        self.obs.annotate(
+            bytes_up=up, bytes_down=down,
+            delivered=int(trace.delivered.sum()),
+            dropped=int(dropped.sum()),
+            sim_time_s=float(trace.sim_time_s))
 
 
 class PopulationCommSession(CommSession):
@@ -490,9 +521,10 @@ class PopulationCommSession(CommSession):
 
     def __init__(self, config: CommConfig, population, *, keys: torch.Tensor,
                  state0: Any, mask_dtype: torch.dtype = torch.float64,
-                 device: "str | torch.device" = "cuda"):
+                 device: "str | torch.device" = "cuda",
+                 obs=NULL_TELEMETRY):
         super().__init__(config, population.m, keys=keys, state0=state0,
-                         mask_dtype=mask_dtype, device=device)
+                         mask_dtype=mask_dtype, device=device, obs=obs)
         self.population = population
         self.cohort_size = config.scheduler.cohort_size(population.m)
         self.ef_store = (feedback.BoundedMemory(ef_capacity(
@@ -557,10 +589,34 @@ class PopulationCommSession(CommSession):
         self.traces.append(trace)
         self._pending = None
         self._pending_ids = None
+        if self.obs.enabled:
+            self._observe(trace)
         return trace
+
+    def _observe_ef(self) -> None:
+        observe_ef_store(self.obs, self.ef_store)
 
     def ef_residual_norms(self) -> "Dict[str, float]":
         return self.ef_store.residual_norms() if self.ef_store else {}
+
+
+def observe_ef_memory(obs, memory: Dict[str, torch.Tensor]) -> None:
+    """The dense EF memory's final footprint, all clients, as a gauge
+    (telemetry on only)."""
+    if obs.enabled:
+        obs.metrics.gauge("ef_memory_bytes").set(
+            float(sum(x.numel() * x.element_size() for x in memory.values())))
+
+
+def observe_ef_store(obs, store: "feedback.BoundedMemory | None") -> None:
+    """The EF hot set's final footprint and evictions as gauges (telemetry
+    on only)."""
+    if obs.enabled:
+        obs.metrics.gauge("ef_memory_bytes").set(
+            float(store.nbytes if store is not None else 0))
+        if store is not None:
+            obs.metrics.gauge("ef_hot_set_evictions").set(
+                float(store.evictions))
 
 
 def ef_capacity(config: CommConfig, m: int, cohort_size: int) -> int:

@@ -43,6 +43,7 @@ from repro_torch.comm.config import (
     plan_bytes,
 )
 from repro_torch.comm.metrics import Transport
+from repro_torch.obs import NULL_TELEMETRY
 
 
 class Session:
@@ -101,12 +102,19 @@ class NullSession(Session):
     ``NULL_COMM`` view. The byte axis bills the identity-codec plan of
     the round (every payload occurrence at its raw size, both
     directions, for all m clients), recorded once per round variant, so
-    adaptive-k trajectories bill their round-varying sizes."""
+    adaptive-k trajectories bill their round-varying sizes.
 
-    def __init__(self, keys: torch.Tensor, state0, m: int):
+    The reference probes each variant's plan in ``begin_variant`` (a
+    shape-only trace, span ``probe_plan``, with a fallback counter
+    ``plan_probe_fallbacks``); here the plan is recorded inside the
+    variant's first real round, so neither name appears."""
+
+    def __init__(self, keys: torch.Tensor, state0, m: int,
+                 obs=NULL_TELEMETRY):
         self.keys = keys
         self._state = state0
         self.m = int(m)
+        self.obs = obs
         self._plans: "dict[Any, dict[str, int]]" = {}
         self._sig = None
         self._view = NULL_COMM
@@ -133,8 +141,12 @@ class NullSession(Session):
         else:
             self._state, _ = round_fn(self._state, {}, key, None, None)
         per_client = plan_bytes(plan, down=False) + plan_bytes(plan, down=True)
-        self._per_round.append(float(per_client * self.m))
+        formula = float(per_client * self.m)
+        self._per_round.append(formula)
         self._t += 1
+        if self.obs.enabled:
+            self.obs.metrics.counter("formula_bytes").inc(formula)
+            self.obs.annotate(formula_bytes=formula)
         return self._state
 
     def finalize(self) -> Transport:
@@ -148,13 +160,15 @@ class NullSession(Session):
 def make_session(comm, *, m: int, keys: torch.Tensor, state0,
                  mask_dtype: torch.dtype = torch.float64,
                  device: "str | torch.device" = "cuda",
-                 population=None, client_weights=None) -> Session:
+                 population=None, client_weights=None,
+                 obs=NULL_TELEMETRY) -> Session:
     """Resolve the transport configuration to its session: ``None`` is
     the no-transport ``NullSession``, a ``CommConfig`` the lock-step
     ``CommSession`` or, with ``async_mode=True``, the event-driven
     ``AsyncSession`` (which weighs groups by ``client_weights``, (m,) on
     the host). A ``population`` selects ``PopulationCommSession`` or
-    ``PopulationAsyncSession`` and needs a ``CommConfig``."""
+    ``PopulationAsyncSession`` and needs a ``CommConfig``. ``obs`` is the
+    run's telemetry (``repro_torch.obs.Telemetry``) or the shared no-op."""
     if comm is not None and not isinstance(comm, CommConfig):
         raise TypeError(f"comm must be a repro_torch CommConfig or None, "
                         f"got {type(comm).__name__}")
@@ -167,11 +181,11 @@ def make_session(comm, *, m: int, keys: torch.Tensor, state0,
                 "population.materialize_all() for the dense problem)")
         cls = PopulationAsyncSession if comm.async_mode else PopulationCommSession
         return cls(comm, population, keys=keys, state0=state0,
-                   mask_dtype=mask_dtype, device=device)
+                   mask_dtype=mask_dtype, device=device, obs=obs)
     if comm is None:
-        return NullSession(keys, state0, m)
+        return NullSession(keys, state0, m, obs=obs)
     if comm.async_mode:
         return AsyncSession(comm, m, client_weights, keys=keys, state0=state0,
-                            mask_dtype=mask_dtype, device=device)
+                            mask_dtype=mask_dtype, device=device, obs=obs)
     return CommSession(comm, m, keys=keys, state0=state0,
-                       mask_dtype=mask_dtype, device=device)
+                       mask_dtype=mask_dtype, device=device, obs=obs)

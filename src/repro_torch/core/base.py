@@ -17,6 +17,8 @@ server clock and ``History.staleness`` each commit's mean lag. The
 problem may be a ``ClientPopulation``: each round then materializes only
 its cohort. The loop is the same for every mode: ``make_session``
 resolves ``comm`` (and the population) to a ``Session``.
+``run_rounds(..., obs=TelemetryConfig(...))`` turns on the telemetry
+layer (``repro_torch.obs``).
 
 Keys. JAX's threefry keys become two pieces (``repro_torch.keys``):
 ``root_key`` mints a ``torch.Generator`` on the device from an integer
@@ -31,9 +33,10 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import pathlib
+import re
 import time
-import warnings
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -43,6 +46,8 @@ from repro_torch.comm import make_session
 from repro_torch.comm.metrics import RoundTrace
 from repro_torch.device import resolve_device
 from repro_torch.keys import key_bits, key_from_ints
+from repro_torch.obs import NULL_TELEMETRY, Telemetry, TelemetryConfig
+from repro_torch.obs import log as obs_log
 
 OptState = Dict[str, Any]
 
@@ -110,13 +115,14 @@ def _check_async_policy(opt, comm) -> None:
             "synchronous driver or a constant-k policy")
     if (getattr(policy, "schedule", "fresh") == "rotate"
             and comm.has_error_feedback):
-        warnings.warn(
+        obs_log.warn_with_context(
             "async driver + rotating sketch policy + error feedback: "
             "commit groups based on pre-rotation model versions share the "
             "EF memory of the new epoch, so residuals can briefly straddle "
             "a rotation boundary under stale commits; the synchronous "
-            "driver keeps the epoch-reset invariant exact", RuntimeWarning,
-            stacklevel=3)
+            "driver keeps the epoch-reset invariant exact",
+            category=RuntimeWarning, stacklevel=3, optimizer=opt.name,
+            policy=policy.spec())
 
 
 class FederatedOptimizer:
@@ -248,6 +254,77 @@ class History:
         )
 
 
+class _ProfilerHook:
+    """Opt-in ``torch.profiler`` recording around the first N executed
+    rounds (``TelemetryConfig.profile_rounds``), CPU and, on a CUDA
+    device, CUDA activity; a Chrome trace is exported into
+    ``profile_dir`` when it stops. Host-side start/stop only: the rounds
+    run the code they always run."""
+
+    def __init__(self, obs: "TelemetryConfig | None", rounds: int,
+                 device: torch.device):
+        self._remaining = 0
+        self._prof = None
+        if obs is None or obs.profile_rounds <= 0 or rounds <= 0:
+            return
+        from torch.profiler import ProfilerActivity, profile
+
+        self._dir = pathlib.Path(obs.profile_dir)
+        self._label = re.sub(r"[^\w.+-]+", "_", obs.label) or "run"
+        activities = [ProfilerActivity.CPU]
+        if device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        try:
+            prof = profile(activities=activities)
+            prof.start()
+        except Exception as e:  # profiler backend unavailable: degrade
+            obs_log.warn_with_context(
+                f"torch.profiler trace hook unavailable ({e!r}); continuing "
+                f"without a device trace", profile_dir=obs.profile_dir)
+            return
+        self._prof = prof
+        self._remaining = min(int(obs.profile_rounds), rounds)
+        obs_log.info("torch.profiler trace started",
+                     profile_dir=obs.profile_dir, rounds=self._remaining)
+
+    def after_round(self) -> None:
+        if self._remaining > 0:
+            self._remaining -= 1
+            if self._remaining == 0:
+                self._stop()
+
+    def close(self) -> None:
+        """Stop a still-open trace (fewer executed rounds than asked)."""
+        if self._remaining > 0:
+            self._remaining = 0
+            self._stop()
+
+    def _stop(self) -> None:
+        from torch.autograd import DeviceType
+
+        prof, self._prof = self._prof, None
+        prof.stop()
+        self._dir.mkdir(parents=True, exist_ok=True)
+        path = self._dir / (f"{self._label}_{os.getpid()}_"
+                            f"{time.time_ns()}.pt.trace.json")
+        prof.export_chrome_trace(str(path))
+        # one line: the kernels by device time, or on the CPU the ops by
+        # their own host time
+        rows = prof.key_averages()
+        cuda = [e for e in rows if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total > 0]
+        if cuda:
+            top = sorted(cuda, key=lambda e: -e.self_device_time_total)
+            times = [e.self_device_time_total for e in top]
+        else:
+            top = sorted(rows, key=lambda e: -e.self_cpu_time_total)
+            times = [e.self_cpu_time_total for e in top]
+        summary = "; ".join(f"{e.key[:60]} x{e.count} {us / 1e3:.3f} ms"
+                            for e, us in zip(top[:8], times))
+        obs_log.info("torch.profiler trace written", path=str(path),
+                     kernels=summary)
+
+
 def run_rounds(
     opt: FederatedOptimizer,
     problem,
@@ -268,13 +345,25 @@ def run_rounds(
     scheduled cohort is materialized each round, a ``CommConfig`` is
     required, loss and gradient come from ``problem.eval_problem()``, and
     optimizers with dense per-client state (``per_client_state``, FedNew's
-    duals) are refused. ``obs`` (telemetry) comes with a later slice and
-    raises. The round itself never waits on the device; the loop reads
-    the loss and gradient norm back once per round.
+    duals) are refused. The round itself never waits on the device; the
+    loop reads the loss and gradient norm back once per round.
+
+    ``obs=TelemetryConfig(...)`` turns on the ``repro_torch.obs``
+    telemetry layer: host-side spans (``prepare``, ``begin_variant``,
+    ``step``, ``eval``, ``finalize``) around the session calls, never
+    inside the round; the first execution of each round variant billed
+    as ``compile_s`` and the rest as ``exec_s``; the sessions' metrics
+    (bytes, deliveries, the staleness distribution, async queue depths)
+    and the async flight recorder. With telemetry on and the state on a
+    CUDA device the ``step`` span ends in ``torch.cuda.synchronize``, so
+    it times the round's device work; with ``obs=None`` (the default)
+    nothing waits and the trajectory is bit-identical either way. The
+    run summary lands on ``History.telemetry``.
     """
-    if obs is not None:
-        raise NotImplementedError(
-            "telemetry (obs=) comes with the observability slice")
+    if obs is not None and not isinstance(obs, TelemetryConfig):
+        raise TypeError(f"obs must be a repro_torch TelemetryConfig or None, "
+                        f"got {type(obs).__name__}")
+    telemetry = Telemetry(obs) if obs is not None else NULL_TELEMETRY
     population = problem if getattr(problem, "is_population", False) else None
     if population is not None:
         if getattr(opt, "per_client_state", False):
@@ -299,30 +388,66 @@ def run_rounds(
         weights = problem.client_weights.cpu().numpy()
     session = make_session(comm, m=m, keys=keys, state0=state,
                            mask_dtype=eval_prob.X.dtype, device=dev,
-                           population=population, client_weights=weights)
+                           population=population, client_weights=weights,
+                           obs=telemetry)
     _check_async_policy(opt, comm)
     loss_star = float(eval_prob.global_value(w_star))
     _round = build_round(opt, problem, session, population=population)
-    session.prepare(_round)
+    with telemetry.trace.span("prepare"):
+        session.prepare(_round)
 
     def grad_norm(w):
         return float(torch.linalg.vector_norm(eval_prob.global_grad(w)))
 
     losses = [float(eval_prob.global_value(state["w"]))]
     gnorms = [grad_norm(state["w"])]
+    # the first execution of each round variant is the "compile" round:
+    # a new variant after the first counts as a retrace, as the
+    # reference's one jax.jit per variant does
+    seen: set = set()
+    retraces = telemetry.metrics.counter("variant_retraces")
+    settle = telemetry.enabled and dev.type == "cuda"
+    profiler = _ProfilerHook(obs, rounds, dev)
     sig_prev = object()  # sentinel: no signature compares equal to it
     t0 = time.perf_counter()
     for t in range(rounds):
         sig = opt.round_signature(t, state)
-        if sig != sig_prev:
-            session.begin_variant(sig)
-            sig_prev = sig
-        state = session.step(_round)
-        losses.append(float(eval_prob.global_value(state["w"])))
-        gnorms.append(grad_norm(state["w"]))
+        with telemetry.round(t, compile_expected=sig not in seen):
+            if sig != sig_prev:
+                with telemetry.trace.span("begin_variant"):
+                    session.begin_variant(sig)
+                sig_prev = sig
+            if sig not in seen:
+                if seen:
+                    retraces.inc()
+                seen.add(sig)
+            with telemetry.trace.span("step"):
+                state = session.step(_round)
+                if settle:
+                    # honest span timing: the round's device work ends
+                    # inside the span (the values are unchanged)
+                    torch.cuda.synchronize(dev)
+            with telemetry.trace.span("eval"):
+                losses.append(float(eval_prob.global_value(state["w"])))
+                gnorms.append(grad_norm(state["w"]))
+        profiler.after_round()
     wall = time.perf_counter() - t0
-    transport = session.finalize()
+    profiler.close()
+    with telemetry.trace.span("finalize"):
+        transport = session.finalize()
     losses = np.asarray(losses)
+    summary = telemetry.finalize(extra={
+        "optimizer": opt.name,
+        "driver": ("null" if comm is None
+                   else "async" if comm.async_mode else "sync"),
+        "rounds_requested": rounds,
+        "clients": m,
+        "total_bytes": (float(transport.cumulative_bytes[-1])
+                        if len(transport.cumulative_bytes) else 0.0),
+        "sim_time_s": (float(transport.sim_time_s[-1])
+                       if len(transport.sim_time_s) else 0.0),
+        "wall_time_s": wall,
+    })
     return History(
         name=opt.name,
         loss=losses,
@@ -339,4 +464,5 @@ def run_rounds(
         clients=m,
         itemsize=itemsize,
         ef_residuals=transport.ef_residuals,
+        telemetry=summary,
     )

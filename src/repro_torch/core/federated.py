@@ -22,7 +22,6 @@ is ``DatasetPopulation(...).materialize_all()``.
 from __future__ import annotations
 
 import dataclasses
-import warnings
 
 import numpy as np
 import torch
@@ -30,6 +29,7 @@ import torch
 from repro_torch.core.base import root_key
 from repro_torch.core.losses import Objective, logistic, softplus
 from repro_torch.device import host_to, resolve_device
+from repro_torch.obs import log as obs_log
 
 
 @dataclasses.dataclass(frozen=True)
@@ -203,11 +203,12 @@ def _dirichlet_sizes(props: np.ndarray, n: int,
         if sizes.max() > cap:
             sizes = _redistribute_cap(sizes, cap)
     elif sizes.max() > _PAD_WARN_FACTOR * mean:
-        warnings.warn(
+        obs_log.warn_with_context(
             f"dirichlet shard sizes pad every client to the largest chunk "
             f"({int(sizes.max())} rows vs ceil(n/m)={mean}): dense "
             f"materialization costs m*max_j(n_j)*M. Pass max_pad_factor=<f> "
-            f"to cap the blowup, or use a ClientPopulation", stacklevel=3)
+            f"to cap the blowup, or use a ClientPopulation", stacklevel=3,
+            m=m, n=n, max_shard=int(sizes.max()), mean_shard=mean)
     return sizes
 
 

@@ -59,6 +59,9 @@ from repro_torch.core.sketch_policy import SketchPolicy
 from repro_torch.keys import fold_in, key_bits
 
 from test_torch_comm import _ref_round_keys, _ref_uniform, quickstart  # noqa: F401
+from _torch_threads import worker_threads
+
+torch.set_num_threads(worker_threads())
 
 SEED = 0
 COMM_SEED = 1

@@ -75,6 +75,10 @@ from repro_torch.core.base import build_round, root_key, split
 from repro_torch.core.sketch_policy import SketchPolicy
 from repro_torch.keys import key_from_ints
 
+from _torch_threads import worker_threads
+
+torch.set_num_threads(worker_threads())
+
 ROUNDS = 8
 SEED = 0
 COMM_SEED = 1

@@ -30,6 +30,10 @@ from repro_torch.core import sketch as tsketch
 from repro_torch.core import sketch_policy as tpol
 from repro_torch.data import libsvm_like as tdata
 
+from _torch_threads import worker_threads
+
+torch.set_num_threads(worker_threads())
+
 RTOL = 1e-12
 
 

@@ -45,6 +45,10 @@ from repro_torch.core import FLeNS, History, newton_solve, run_rounds
 from repro_torch.core.sketch_policy import SketchPolicy
 from repro_torch.kernels import ops
 
+from _torch_threads import worker_threads
+
+torch.set_num_threads(worker_threads())
+
 ROUNDS = 12
 SEED = 0
 
@@ -258,8 +262,13 @@ def test_round_goes_through_one_batched_launch_per_call_site(quickstart,
 
 def test_obs_and_comm_are_not_ported_yet(quickstart):
     (_, _, _), (tp, tw0, tw_star) = quickstart
-    with pytest.raises(NotImplementedError, match="observability"):
+    # telemetry is ported: a TelemetryConfig runs, anything else is refused
+    from repro_torch.obs import TelemetryConfig
+    with pytest.raises(TypeError, match="TelemetryConfig"):
         run_rounds(FLeNS(k=8), tp, tw0, tw_star, rounds=1, obs=object())
+    hist = run_rounds(FLeNS(k=8), tp, tw0, tw_star, rounds=1,
+                      obs=TelemetryConfig())
+    assert hist.telemetry["rounds"] == 1
     # both transport drivers are ported; scenario dynamics are not
     from repro_torch.comm import CommConfig
     hist = run_rounds(FLeNS(k=8), tp, tw0, tw_star, rounds=1,

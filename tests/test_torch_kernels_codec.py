@@ -21,6 +21,10 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import codec as kcodec
 from repro_torch.kernels import ops, ref
 
+from _torch_threads import worker_threads
+
+torch.set_num_threads(worker_threads())
+
 DTYPES = [(np.float64, torch.float64), (np.float32, torch.float32)]
 TIES = np.asarray([[1.0, -1.0, 0.5, 1.0], [0.5, -0.5, 0.5, 0.25]])
 

@@ -34,6 +34,10 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import codec as kcodec
 from repro_torch.kernels import ref
 
+from _torch_threads import worker_threads
+
+torch.set_num_threads(worker_threads())
+
 SRC = (pathlib.Path(kcodec.__file__).resolve().parent / "csrc"
        / "codec.cu").read_text()
 

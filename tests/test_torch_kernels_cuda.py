@@ -17,6 +17,10 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops
 
+from _torch_threads import worker_threads
+
+torch.set_num_threads(worker_threads())
+
 # (dim, n, k, batch): power-of-two and padded dims, batched leading axes,
 # row counts that do not fill the last block,
 # the quickstart's shapes (64 -> 32) and the full-size SUSY shape

@@ -16,6 +16,10 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 
+from _torch_threads import worker_threads
+
+torch.set_num_threads(worker_threads())
+
 TOL = {"float32": 2e-5, "bfloat16": 1e-2}
 # one XLA compile per case instead of op-by-op dispatch of the scan
 _STATIC = ("causal", "window", "q_offset")

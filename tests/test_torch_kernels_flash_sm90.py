@@ -26,6 +26,10 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as kflash
 
+from _torch_threads import worker_threads
+
+torch.set_num_threads(worker_threads())
+
 BF16_TOL = 2e-2
 _LOG2E = 1.4426950408889634
 _JREF = jax.jit(jref.mha_blocked, static_argnames=(

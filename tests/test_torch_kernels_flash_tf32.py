@@ -35,6 +35,10 @@ import torch
 from repro.kernels import ref as jref
 from repro_torch.kernels import flash_attention as kflash
 
+from _torch_threads import worker_threads
+
+torch.set_num_threads(worker_threads())
+
 SRC = (pathlib.Path(kflash.__file__).resolve().parent / "csrc"
        / "flash_attention.cu").read_text()
 F32_TOL = 2e-5

@@ -36,6 +36,10 @@ from repro.kernels import ops as jops
 from repro_torch.kernels import fwht as kfwht
 from repro_torch.kernels import ref
 
+from _torch_threads import worker_threads
+
+torch.set_num_threads(worker_threads())
+
 SRC = (pathlib.Path(kfwht.__file__).resolve().parent / "csrc" / "srht.cu").read_text()
 
 

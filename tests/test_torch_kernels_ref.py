@@ -17,6 +17,10 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import fwht as kfwht
 from repro_torch.kernels import ops, ref
 
+from _torch_threads import worker_threads
+
+torch.set_num_threads(worker_threads())
+
 DTYPES = [(np.float64, torch.float64), (np.float32, torch.float32)]
 # (dim, n, k, batch): power-of-two and padded dims, batched leading axes
 CASES = [(64, 64, 32, (3,)), (18, 32, 10, (2, 5)), (100, 128, 7, (4,)),

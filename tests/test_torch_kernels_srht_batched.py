@@ -39,6 +39,9 @@ from repro_torch.kernels import ops, ref
 from repro_torch.keys import key_from_ints
 
 from test_torch_kernels_fwht_layout import _emulate_srht_fwd, _srht_fwd_layout
+from _torch_threads import worker_threads
+
+torch.set_num_threads(worker_threads())
 
 DTYPES = [(np.float64, torch.float64), (np.float32, torch.float32)]
 

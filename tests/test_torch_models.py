@@ -29,6 +29,10 @@ from repro_torch.models import attention as tattn
 from repro_torch.models import common as tcommon
 from repro_torch.models import lm as tlm
 
+from _torch_threads import worker_threads
+
+torch.set_num_threads(worker_threads())
+
 ARCHS = ["tinyllama-1.1b", "gemma3-1b", "qwen1.5-110b"]
 TOL = 1e-4
 

@@ -54,6 +54,9 @@ from repro_torch.core.sketch_policy import SketchPolicy
 from repro_torch.kernels import ops
 
 from test_torch_comm import config_pair, inject_reference_draws
+from _torch_threads import worker_threads
+
+torch.set_num_threads(worker_threads())
 
 ROUNDS = 8
 SEED = 0

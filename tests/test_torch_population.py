@@ -25,6 +25,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import os
 import subprocess
 import sys
 import warnings
@@ -63,6 +64,9 @@ from repro_torch.core import (
 from repro_torch.core import federated as tfederated
 
 from test_torch_async import inject_event_draws, version_basis
+from _torch_threads import worker_threads
+
+torch.set_num_threads(worker_threads())
 
 SEED = 0
 COMM_SEED = 1
@@ -490,10 +494,18 @@ def test_population_async_refuses_adaptive_k(small_pop):
 
 
 def test_population_obs_still_raises(small_pop):
+    """Telemetry is ported: a TelemetryConfig runs over a population and
+    anything else is still refused."""
+    from repro_torch.obs import TelemetryConfig
     pop, w0, w_star = small_pop
-    with pytest.raises(NotImplementedError, match="obs"):
+    with pytest.raises(TypeError, match="obs"):
         run_rounds(make_optimizer("fedavg"), pop, w0, w_star, rounds=1,
                    comm=CommConfig(scheduler="uniform:0.5"), obs=object())
+    hist = run_rounds(make_optimizer("fedavg"), pop, w0, w_star, rounds=1,
+                      comm=CommConfig(scheduler="uniform:0.5"),
+                      obs=TelemetryConfig())
+    assert hist.telemetry["metrics"]["counters"]["scheduled_client_rounds"] \
+        == 20
 
 
 # ---------------------------------------------------------------------------
@@ -536,8 +548,9 @@ def test_population_100k_memory_bounded():
     """m = 100,000 at q = 1e-3 under the edge codecs with EF, sync then
     async, in a subprocess so its RSS high-water mark is its own."""
     code = _SMOKE_100K.format(CODECS=repr(COMP), EDGE=repr(EDGE))
+    env = dict(os.environ, OMP_NUM_THREADS=str(worker_threads()))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                          text=True, timeout=300)
+                          text=True, timeout=300, env=env)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("OK"), proc.stdout
     rss_mib = float(proc.stdout.split()[1])

@@ -22,6 +22,10 @@ from repro_torch.models.lm import LM
 from repro_torch.serving import Request, ServingEngine
 from repro_torch.serving.engine import _bucket
 
+from _torch_threads import worker_threads
+
+torch.set_num_threads(worker_threads())
+
 CACHE_LEN = 64
 
 
