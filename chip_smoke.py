@@ -85,6 +85,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                 under the edge codecs with EF (sync and async) and SUSY's
                 rows as a DatasetPopulation, against host and device
                 budgets; the child also runs 5f's two population drivers
+                and 5g's population rows
  5f. telemetry — run_rounds with obs=TelemetryConfig(sink="jsonl:...")
                 on five drivers: FLeNS without transport (10 rounds),
                 FLeNS+ under comp+sched+ef on the edge channel (10 rounds,
@@ -102,6 +103,26 @@ Phases, in order; any failure raises and the script exits non-zero:
                 topk_mask_warp_kernel and qint8_warp_kernel at 2 x (4 / 3
                 / 1 / 3) launches (streams and traces under
                 chiprun_out/telemetry/)
+ 5g. dynamics — FLeNS+ at SUSY's full size under scenario dynamics
+                (repro_torch.dynamics), telemetry on: churn (poisson:0.05)
+                with a diurnal uplink (sin:24,0.5) and regional outages
+                (outage:0.05,3,16) under comp+sched+ef on the edge
+                channel, sync 10 rounds (its first two profiled: the trace
+                must name the four warp kernels at 2 x (4 / 3 / 1 / 3)
+                launches) and async_buf (K = m/4) 20 commits; then
+                bench_robust's arms (clean, signflip:0.1, signflip:0.1 with
+                trimmed:0.1) under the dense codecs on the straggler
+                channel, sync 10 rounds each; and from the 5e child, the
+                m = 100,000 population rows of examples/edge_clients.py
+                at uniform:1e-3, 10 rounds each (churn; clean, noise:0.1,5
+                and noise:0.1,5 with trimmed:0.1 under the dense codecs).
+                Each run: launches checked, the trajectory and the dynamics
+                counters bit-equal to the plain versions' on the card, the
+                counters (robust_stats, clients_departed, uploads_retired)
+                and the alive count printed; the arms of a comparison
+                transmit equal bytes (checked), their final-loss gaps to
+                the clean run printed; bare ms a step with dynamics off and
+                on in turns (off, on, on, off) printed beside each other
  6. long rows — fwht, srht_apply and srht_apply_t past the single-pass
                 length (n = 2^15, 2^17, 2^20) against their plain versions,
                 bit-equal; fwht timed at (64, 2^17) and (1, 2^20),
@@ -179,6 +200,7 @@ itself and fails when run anywhere else.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import pathlib
@@ -1467,10 +1489,11 @@ def _timed_events(session) -> dict:
 
 
 def _bare_commits(opt, problem, w0, cfg, commits: int,
-                  population=None) -> dict:
+                  population=None, profiled: bool = True) -> dict:
     """Drive ``commits`` steps of the session ``cfg`` selects, each ended
     by a synchronize: ms a step, the event loop's host ms a step apart
-    from the rounds, and a profile of one more step (device busy share)."""
+    from the rounds, and (``profiled``) a profile of one more step
+    (device busy share)."""
     from repro_torch.comm import make_session
     from repro_torch.core.base import build_round, root_key, split
 
@@ -1495,7 +1518,8 @@ def _bare_commits(opt, problem, w0, cfg, commits: int,
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
     host_ms = events["s"] * 1e3 / commits
-    profile = _profile_steps(lambda: session.step(fn), 1)
+    profile = (_profile_steps(lambda: session.step(fn), 1) if profiled
+               else None)
     store = getattr(session, "ef_store", None)
     return {"ms": ms, "median_ms": sorted(ms)[len(ms) // 2],
             "event_host_ms": host_ms, "profile": profile,
@@ -1771,6 +1795,7 @@ def population_child() -> int:
         [(name, rounds, cfg, lambda: make_optimizer("flens_plus", k=8), 0)
          for name, rounds, cfg in configs(1e-3, 10)],
         "m=100000", population=pop)
+    out["dynamics"] = _population_dynamics(pop, w0, w_star, 1e-3)
     del pop
 
     # 2. the SUSY twin at its 5,000,000 rows as a DatasetPopulation
@@ -2069,6 +2094,223 @@ def phase_telemetry(card: str, problem, w0, w_star, populations: dict) -> dict:
                 f"{med[m]:.3f}" for m in TELEMETRY_MODES)
                 + f" ms (jsonl - off {med['jsonl'] - med['off']:+.3f})")
     return {**out, "jsonl_sink": sink}
+
+
+# ---------------------------------------------------------------------------
+# 5g. scenario dynamics
+# ---------------------------------------------------------------------------
+
+DYNAMICS_DIR = TELEMETRY_DIR.parent / "dynamics"
+# the counters repro_torch.dynamics feeds (robust_stats mirrored into
+# telemetry, churn's departures, async retirements)
+DYNAMICS_COUNTERS = ("clients_departed", "uploads_retired",
+                     "uploads_corrupted", "uploads_clipped", "uploads_trimmed")
+# examples/edge_clients.py:291-292: robust aggregation wants dense payloads
+DENSE_CODECS = {"h_sk": "sympack+qint8", "sg": "qint8", "grad": "qint8"}
+DYNAMICS_TURNS = ("off", "on", "on", "off")  # ms a step, in turns
+
+
+def _churn_dynamics():
+    """examples/edge_clients.py:260-274: churn with a diurnal uplink and
+    regional outages."""
+    from repro_torch.dynamics import ChannelProcess, DynamicsConfig
+
+    return DynamicsConfig(
+        churn="poisson:0.05", seed=1,
+        channel=ChannelProcess(uplink_bytes_per_s="sin:24,0.5",
+                               outage="outage:0.05,3,16", seed=1))
+
+
+def _threat_dynamics(threat: "str | None", robust: "str | None" = None):
+    from repro_torch.dynamics import DynamicsConfig
+
+    return (DynamicsConfig(threat=threat, robust=robust, seed=1)
+            if threat else None)
+
+
+def _dynamics_runs(problem, w0, w_star, runs, label: str,
+                   population=None) -> dict:
+    """Each run (name, rounds, CommConfig, optimizer factory, rounds to
+    profile): run_rounds with telemetry on through the kernels (launches
+    counted and checked, the dynamics counters and the alive count read
+    off the telemetry), again through the plain versions (trajectory and
+    counters bit-equal), then, for a run with dynamics, bare steps with
+    dynamics off and on in turns for ms a step."""
+    from repro_torch.core import run_rounds
+    from repro_torch.kernels import ops
+    from repro_torch.obs import TelemetryConfig
+
+    target = problem if population is None else population
+    out = {}
+    for name, rounds, cfg, make_opt, profile in runs:
+        trace_dir = DYNAMICS_DIR / f"{label}_{name}_trace".replace(" ", "_")
+
+        def run(impl=None, profile_rounds=0):
+            obs = TelemetryConfig(label=f"{label} {name}",
+                                  profile_rounds=profile_rounds,
+                                  profile_dir=str(trace_dir))
+            with ops.use_impl(impl):
+                return run_rounds(make_opt(), target, w0, w_star,
+                                  rounds=rounds, comm=cfg, obs=obs)
+
+        shutil.rmtree(trace_dir, ignore_errors=True)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        hist = run(profile_rounds=profile)
+        counts = ops.launch_counts()
+        executed = (sum(_groups_per_commit(hist)) + 1 if cfg.async_mode
+                    else rounds)  # + the async probe round
+        want = _expected_launches(cfg, executed)
+        check(counts == want, f"{label} {name}: launches {counts} != {want}")
+        check(bool(np.isfinite(hist.loss).all()),
+              f"{label} {name}: non-finite loss {hist.loss.tolist()}")
+        plain = run("ref")
+        metrics = hist.telemetry["metrics"]
+        stats = {k: metrics["counters"][k] for k in DYNAMICS_COUNTERS
+                 if k in metrics["counters"]}
+        plain_stats = {k: plain.telemetry["metrics"]["counters"][k]
+                       for k in stats}
+        check(_same_trajectory(hist, plain) and stats == plain_stats,
+              f"{label} {name}: the run through the kernels "
+              f"({hist.loss.tolist()}, {stats}) differs from the plain "
+              f"versions' ({plain.loss.tolist()}, {plain_stats})")
+        row = {"rounds": rounds, "async": cfg.async_mode,
+               "dynamics": (cfg.dynamics.describe() if cfg.dynamics
+                            else None),
+               "loss": hist.loss.tolist(), "gap": hist.gap.tolist(),
+               "cumulative_bytes": hist.cumulative_bytes.tolist(),
+               "sim_time_s": float(hist.sim_time_s[-1]),
+               "rounds_executed": executed, "launches": counts,
+               "stats": stats,
+               "alive_last": metrics["gauges"].get("active_population")}
+        if profile:
+            traces = sorted(trace_dir.glob("*.pt.trace.json"))
+            check(len(traces) == 1, f"{label} {name}: profiler traces "
+                  f"{[p.name for p in traces]} (want one)")
+            got = _trace_kernels(traces[0])
+            per_round = _expected_launches(cfg, 1)
+            want_k = {kernel: profile * per_round[op]
+                      for op, kernel in PROFILED_KERNELS.items()}
+            check(got == want_k, f"{label} {name}: the profiled rounds "
+                  f"launched {got} (want {want_k})")
+            row["profiled_kernels"] = got
+            row["profile_trace"] = str(traces[0].relative_to(ROOT))
+        step = "commit" if cfg.async_mode else "round"
+        log(f"[dynamics] {label} {name}: {rounds} {step}s, gap "
+            f"{hist.gap[0]:.3e} -> {hist.gap[-1]:.3e}, "
+            f"{hist.cumulative_bytes[-1]:.0f} B, sim {row['sim_time_s']:.2f}"
+            f" s; launches {counts}; equal to the plain versions'; "
+            f"stats {stats}; alive at the last {step} {row['alive_last']}")
+        if profile:
+            log(f"[dynamics] {label} {name}: the {profile} profiled rounds "
+                f"launched {row['profiled_kernels']} ({row['profile_trace']})")
+        if cfg.dynamics is not None:
+            off_cfg = dataclasses.replace(cfg, dynamics=None)
+            ms = {"off": [], "on": []}
+            for mode in DYNAMICS_TURNS:
+                bare = _bare_commits(
+                    make_opt(), problem, w0, cfg if mode == "on" else off_cfg,
+                    min(rounds, 20), population, profiled=False)
+                ms[mode].append(bare["median_ms"])
+            row["bare_ms"] = ms
+            med = {k: float(np.median(v)) for k, v in ms.items()}
+            log(f"[dynamics] {label} {name}: bare ms a {step} (medians of "
+                f"{min(rounds, 20)}, {len(DYNAMICS_TURNS) // 2} turns each) "
+                f"without dynamics " + " / ".join(f"{v:.3f}" for v in ms["off"])
+                + ", with " + " / ".join(f"{v:.3f}" for v in ms["on"])
+                + f": {med['on'] - med['off']:+.3f} ms")
+        out[name] = row
+    return out
+
+
+def _arms_gaps(runs: dict, label: str, clean: str, arms) -> dict:
+    """The arms of one comparison transmit equal bytes (checked); their
+    final-loss gaps to the clean run (printed, not checked)."""
+    ref = runs[clean]["cumulative_bytes"]
+    for arm in arms:
+        check(runs[arm]["cumulative_bytes"] == ref,
+              f"{label}: {arm} transmitted other bytes than {clean}")
+    gaps = {arm: runs[arm]["loss"][-1] - runs[clean]["loss"][-1]
+            for arm in arms}
+    log(f"[dynamics] {label}: bytes equal across {[clean, *arms]}; final-loss "
+        f"gap to {clean}: " + ", ".join(f"{a} {g:+.3e}"
+                                         for a, g in gaps.items()))
+    return gaps
+
+
+def _population_dynamics(pop, w0, w_star, q: float) -> dict:
+    """5g's population rows (examples/edge_clients.py:254-321) at
+    ``uniform:q``, 10 rounds each: churn under the population codecs, and
+    the noise coalition with and without the trimmed mean under the
+    dense codecs beside the clean dense run."""
+    from repro_torch.comm import ChannelModel, CommConfig
+    from repro_torch.core import make_optimizer
+
+    base = dict(channel=ChannelModel(**POP_EDGE), scheduler=f"uniform:{q}",
+                seed=1)
+    rows = [("churn", CommConfig(codecs=TRANSPORTS["comp+sched+ef"][1],
+                                 dynamics=_churn_dynamics(), **base))]
+    for arm, robust in (("clean", None), ("noise", None),
+                        ("noise trimmed", "trimmed:0.1")):
+        rows.append((arm, CommConfig(
+            codecs=DENSE_CODECS, dynamics=_threat_dynamics(
+                None if arm == "clean" else "noise:0.1,5", robust), **base)))
+    DYNAMICS_DIR.mkdir(parents=True, exist_ok=True)
+    label = f"m={pop.m}"
+    runs = _dynamics_runs(
+        None, w0, w_star,
+        [(name, 10, cfg, lambda: make_optimizer("flens_plus", k=8), 0)
+         for name, cfg in rows], label, population=pop)
+    return {"m": pop.m, "runs": runs, "gaps": _arms_gaps(
+        runs, f"{label} noise arms", "clean", ("noise", "noise trimmed"))}
+
+
+def phase_dynamics(card: str, problem, w0, w_star, populations: dict) -> dict:
+    """FLeNS+ at SUSY's full size under scenario dynamics: churn with a
+    diurnal uplink and regional outages under comp+sched+ef on the edge
+    channel (sync 10 rounds, its first two profiled, and async_buf K =
+    m/4 20 commits), and bench_robust's arms (clean, signflip:0.1,
+    signflip:0.1 with trimmed:0.1) under the dense codecs on the
+    straggler channel; the m = 100,000 population rows came from the 5e
+    child process."""
+    from repro_torch.comm import CommConfig
+    from repro_torch.core import FLeNS
+
+    sketch, codecs, _ = TRANSPORTS["comp+sched+ef"]
+
+    def flens_plus():
+        return FLeNS(k=SUSY["k"], variant="plus", sketch=sketch)
+
+    churn = CommConfig(codecs=codecs, channel=_edge_channel(problem.m),
+                       scheduler="bandwidth:0.5", error_feedback=True,
+                       seed=1, dynamics=_churn_dynamics())
+    runs = [("churn sync", 10, churn, flens_plus, 2),
+            ("churn async_buf", 20, dataclasses.replace(
+                churn, async_mode=True, buffer_size=max(2, problem.m // 4),
+                staleness="inverse"), flens_plus, 0)]
+    straggler = _straggler_channel(problem.m)
+    for arm, threat, robust in (("clean", None, None),
+                                ("signflip", "signflip:0.1", None),
+                                ("signflip trimmed", "signflip:0.1",
+                                 "trimmed:0.1")):
+        runs.append((arm, 10, CommConfig(
+            codecs=DENSE_CODECS, channel=straggler, seed=1,
+            dynamics=_threat_dynamics(threat, robust)), flens_plus, 0))
+    DYNAMICS_DIR.mkdir(parents=True, exist_ok=True)
+    susy = _dynamics_runs(problem, w0, w_star, runs, "SUSY")
+    gaps = _arms_gaps(susy, "SUSY bench_robust arms", "clean",
+                      ("signflip", "signflip trimmed"))
+    log(f"[dynamics] {card}: the cost of dynamics, bare ms a step with "
+        f"dynamics minus without (medians of two turns each):")
+    for where, rows in (("SUSY", susy),
+                        (f"m={populations['m']}", populations["runs"])):
+        for name, row in rows.items():
+            if "bare_ms" in row:
+                med = {k: float(np.median(v))
+                       for k, v in row["bare_ms"].items()}
+                log(f"[dynamics]   {where} {name}: {med['off']:.3f} -> "
+                    f"{med['on']:.3f} ms ({med['on'] - med['off']:+.3f})")
+    return {"susy": susy, "gaps": gaps, "population": populations}
 
 
 # ---------------------------------------------------------------------------
@@ -3072,6 +3314,8 @@ def main() -> int:
     record["populations"] = phase_populations()
     record["telemetry"] = phase_telemetry(card, *susy,
                                           record["populations"])
+    record["dynamics"] = phase_dynamics(card, *susy,
+                                        record["populations"]["dynamics"])
     record["long_rows"] = phase_long_rows()
     record["codec_parity_max_abs_err"] = phase_codec_parity()
     record["transport"] = phase_transport(*susy)

@@ -7,7 +7,8 @@ error-feedback memory and its bounded population store (``feedback``),
 ``CommSession``/``PopulationCommSession`` (``config``), the event-driven
 ``AsyncSession``/``PopulationAsyncSession`` (``async_driver``) and the
 ``Session`` protocol with ``make_session`` (``session``). Scenario
-dynamics come with a later slice.
+dynamics (``repro_torch.dynamics``) plug in through
+``CommConfig(dynamics=...)``.
 """
 from repro_torch.comm.async_driver import (
     MAX_RETRIES,

@@ -40,8 +40,15 @@ version)``); a retry folds its count into the coin key.
 ``PopulationAsyncSession`` runs the same clock over a
 ``ClientPopulation``: cohorts of ids per version, dropped clients
 replaced rather than retried, groups materialized on demand and EF rows
-in a bounded hot set. Scenario dynamics (churn, threats) come with a
-later slice; their hooks here (``_alive``, ``_pack_threat``) are inert.
+in a bounded hot set.
+
+Scenario dynamics (``CommConfig(dynamics=...)``) reach the clock at
+dispatch: each version's cohort is drawn from the clients churn leaves
+alive (``apply_churn``) on that version's channel (``channel_at``), an
+upload whose client has departed by the time it lands is retired
+(flight event ``retire``, counter ``uploads_retired``), never buffered,
+and the group rounds take the attacker indicator beside their masks.
+Churn and outages force the masked path (no lock-step commits).
 """
 from __future__ import annotations
 
@@ -57,6 +64,8 @@ import torch
 from repro_torch.comm import feedback
 from repro_torch.comm.config import (
     CommRound,
+    SessionDynamics,
+    apply_churn,
     ef_capacity,
     observe_ef_memory,
     observe_ef_store,
@@ -108,15 +117,16 @@ class _Flight:
     retry: int = 0
 
 
-class AsyncSession:
+class AsyncSession(SessionDynamics):
     """Host-side event-driven driver of one trajectory over a dense
     client axis: per-client clocks, the arrival heap, the server buffer,
     per-version state snapshots (on the device), the EF memory and the
     per-commit ``RoundTrace``s. ``step(round_fn)`` runs the events up to
     the next commit; ``round_fn(state, memory, key, mask, codec_key) ->
-    (state, memory)`` is the round every session drives. ``obs`` is the
-    run's telemetry: flight events of every dispatch, drop, arrival and
-    commit, the commit histograms and the per-commit counters."""
+    (state, memory, stats)`` is the round every session drives. ``obs``
+    is the run's telemetry: flight events of every dispatch, drop,
+    arrival, retirement and commit, the commit histograms and the
+    per-commit counters."""
 
     def __init__(self, config, m: int, client_weights: np.ndarray, *,
                  keys: torch.Tensor, state0: Any = None,
@@ -142,10 +152,14 @@ class AsyncSession:
                 config.async_quantile * self.m))))
         # lock-step equivalent: full scheduler, no dropout, full quorum.
         # Every commit then takes the fresh full cohort, so its round runs
-        # with mask=None, as the synchronous driver's does
+        # with mask=None, as the synchronous driver's does. Churn and
+        # outages break the full cohort, so they force the masked path
+        dyn = config.dynamics
         self.lockstep = (config.scheduler.is_full
                          and config.channel.dropout_prob == 0.0
-                         and self.quorum == self.m)
+                         and self.quorum == self.m
+                         and (dyn is None or not dyn.forces_mask))
+        self._init_dynamics()
         self.version = 0
         self.server_clock = 0.0
         self._snapshots: Dict[int, Any] = {}
@@ -178,11 +192,14 @@ class AsyncSession:
         their inputs, so the trajectory does not change)."""
         mask = (None if self.lockstep else
                 torch.ones(self.m, dtype=self._mask_dtype, device=self._device))
-        self._probe(round_fn, mask)
+        self._probe(round_fn, self._pack_threat(mask))
         if self._state0 is not None:
             self.start(self._state0)
 
     def _probe(self, round_fn, mask) -> None:
+        """Run the round once on the initial state and throw away all it
+        returns: the state, the EF memory and the robust counters (the
+        uploads it corrupts are counted nowhere)."""
         _, _, k_codec = round_keys(self.config.seed, 0)
         key = self.keys[0] if len(self.keys) else k_codec
         round_fn(self._state0, {}, key, mask, k_codec)
@@ -224,14 +241,14 @@ class AsyncSession:
         self._dispatch_cohort(range(self.m), now=0.0)
 
     def _alive(self, j: int) -> bool:
-        """Is client ``j`` churn-eligible? (Always, until the dynamics
-        slice brings churn.)"""
-        return True
+        """Is client ``j`` churn-eligible as of the last dispatch?"""
+        return self._elig_prev is None or bool(self._elig_prev[j])
 
-    def _pack_threat(self, mask, ids=None):
-        """The delivery mask as the round takes it (a threat model would
-        pack its attackers beside it)."""
-        return mask
+    def _retire_flight(self, flight: _Flight, now: float) -> None:
+        """A departed client's upload landed: it is retired, never
+        buffered, and the client idles until it returns."""
+        self._pending_dropped[flight.client] = True
+        self._idle.add(flight.client)
 
     def _dispatch_cohort(self, clients, now: float) -> None:
         """Send the current model to the ``clients`` the scheduler picks
@@ -240,12 +257,14 @@ class AsyncSession:
         if not clients:
             return
         k_sched, k_chan, _ = round_keys(self.config.seed, self.version)
-        chan = self.config.channel
+        eligible = apply_churn(self, self.version)
+        chan = self.config.channel_at(self.version)
         scheduled = self.config.scheduler.participants(
-            k_sched, self.version, self.m, chan)
+            k_sched, self.version, self.m, chan, eligible=eligible)
         cohort = [j for j in clients if scheduled[j]]
         if not cohort and not self._heap and not self._buffer:
-            # nothing else in flight: dispatch everyone to avoid a stall
+            # nothing else in flight: dispatch the alive clients (all of
+            # them if none is) to avoid a stall
             cohort = [j for j in clients if self._alive(j)] or clients
         chosen = set(cohort)
         self._idle.update(j for j in clients if j not in chosen)
@@ -263,7 +282,8 @@ class AsyncSession:
             self._idle.add(j)
             return
         _, k_chan, _ = round_keys(self.config.seed, self.version)
-        draw = self.config.channel.draw(fold_in(k_chan, retry), self.m)
+        chan = self.config.channel_at(self.version)
+        draw = chan.draw(fold_in(k_chan, retry), self.m)
         dropped = bool(draw.dropout[j]) and retry < MAX_RETRIES
         times = self._flight_times(draw)
         self._launch(j, now, times[j], bool(draw.straggler[j]), dropped,
@@ -274,7 +294,8 @@ class AsyncSession:
         encoded sizes."""
         bytes_up = np.full(self.m, float(self.bytes_up_per_client))
         bytes_down = np.full(self.m, float(self.bytes_down_per_client))
-        return self.config.channel.client_times(draw, bytes_up, bytes_down)
+        return self.config.channel_at(self.version).client_times(
+            draw, bytes_up, bytes_down)
 
     def _launch(self, j: int, now: float, dt: float, straggler: bool,
                 dropped: bool, retry: int) -> None:
@@ -313,6 +334,13 @@ class AsyncSession:
                 self._dispatch_cohort(sorted(self._idle), now=t)
                 continue
             t, _, flight = heapq.heappop(self._heap)
+            if not self._alive(flight.client):
+                # the client churned out while its upload was in the air
+                self._retire_flight(flight, t)
+                self.obs.flight.record("retire", t, client=flight.client,
+                                       version=flight.version)
+                self.obs.metrics.counter("uploads_retired").inc()
+                continue
             if flight.dropped:
                 self._pending_dropped[flight.client] = True
                 self.obs.flight.record(
@@ -383,9 +411,10 @@ class AsyncSession:
         for v in order:
             _, _, k_codec = round_keys(self.config.seed, v)
             self._group_version = v
-            outputs[v], self.ef_memory = round_fn(
+            outputs[v], self.ef_memory, stats = round_fn(
                 self._snapshots[v], self.ef_memory, self.keys[v],
                 self._pack_threat(self._mask(self.m, groups[v])), k_codec)
+            self._consume_stats(stats)
         state_new = self._combine(groups, order, outputs)
         self._record_trace(committed, commit_time)
         self._advance(state_new, commit_time)
@@ -451,6 +480,7 @@ class AsyncSession:
             staleness=stale,
             version=self.version + 1,
         ))
+        self._count_corrupted(mask, None)
         if self.obs.enabled:
             self._observe_trace(self.traces[-1], self._pending_dropped.sum())
         self._pending_down = np.zeros(self.m, dtype=np.float64)
@@ -487,7 +517,8 @@ class PopulationAsyncSession(AsyncSession):
     The round function takes the cohort first: ``round_fn(cohort, state,
     memory, key, mask, codec_key)``. With the full scheduler, no dropout
     and a full quorum the whole population is one cohort with
-    ``mask=None``, bit-identical to ``PopulationCommSession``.
+    ``mask=None``, bit-identical to ``PopulationCommSession``. A
+    departed client's landed upload returns it to the pool.
     """
 
     def __init__(self, config, population, *, keys: torch.Tensor,
@@ -505,9 +536,11 @@ class PopulationAsyncSession(AsyncSession):
         else:
             self.quorum = max(1, min(self.cohort_size, int(math.ceil(
                 config.async_quantile * self.cohort_size))))
+        dyn = config.dynamics
         self.lockstep = (config.scheduler.is_full
                          and config.channel.dropout_prob == 0.0
-                         and self.quorum == self.m)
+                         and self.quorum == self.m
+                         and (dyn is None or not dyn.forces_mask))
         self.ef_store = (feedback.BoundedMemory(ef_capacity(
             config, self.m, self.cohort_size))
             if config.has_error_feedback else None)
@@ -521,10 +554,11 @@ class PopulationAsyncSession(AsyncSession):
         """The probe round runs on a cohort of the cohort size."""
         mask = (None if self.lockstep else torch.ones(
             self.cohort_size, dtype=self._mask_dtype, device=self._device))
-        probe = self.population.materialize(
-            np.zeros(self.cohort_size, dtype=np.int64))
+        probe_ids = np.zeros(self.cohort_size, dtype=np.int64)
+        probe = self.population.materialize(probe_ids)
         self._probe(lambda s, mem, k, msk, ck: round_fn(probe, s, mem, k, msk,
-                                                        ck), mask)
+                                                        ck),
+                    self._pack_threat(mask, probe_ids))
         if self._state0 is not None:
             self.start(self._state0)
 
@@ -541,9 +575,10 @@ class PopulationAsyncSession(AsyncSession):
         if budget <= 0:
             return
         k_sched, k_chan, _ = round_keys(self.config.seed, self.version)
-        chan = self.config.channel
+        eligible = apply_churn(self, self.version)
+        chan = self.config.channel_at(self.version)
         ids = self.config.scheduler.sample_ids(k_sched, self.version, self.m,
-                                               chan)
+                                               chan, eligible=eligible)
         cohort = np.asarray(
             [j for j in ids if int(j) not in self._in_flight][:budget],
             dtype=np.int64)
@@ -577,6 +612,19 @@ class PopulationAsyncSession(AsyncSession):
             # every upload in the air dropped: redraw this version's cohort
             self._dispatch_cohort((), now=now)
 
+    def _retire_flight(self, flight: _Flight, now: float) -> None:
+        """A departed client's upload landed: back to the pool (the next
+        dispatch samples a replacement among the alive)."""
+        self._pending_dropped[flight.client] = True
+        self._in_flight.discard(flight.client)
+        if not self._heap and not self._buffer:
+            self._dispatch_cohort((), now=now)
+
+    def _retire_ef(self, departed: np.ndarray) -> None:
+        """Departed clients leave the EF hot set (``BoundedMemory.retire``)."""
+        if self.ef_store is not None:
+            self.ef_store.retire(departed)
+
     def step(self, round_fn) -> Any:
         """A population commit: each group materializes its members."""
         commit_time = self._pump()
@@ -594,9 +642,10 @@ class PopulationAsyncSession(AsyncSession):
             _, _, k_codec = round_keys(self.config.seed, v)
             self._group_version = v
             mask = self._mask(self.cohort_size, slice(0, len(members)))
-            outputs[v], mem_out = round_fn(
+            outputs[v], mem_out, stats = round_fn(
                 cohort, self._snapshots[v], memory, self.keys[v],
                 self._pack_threat(mask, np.asarray(padded)), k_codec)
+            self._consume_stats(stats)
             if self.ef_store is not None:
                 self.ef_store.scatter(members, mem_out)
         state_new = self._combine(groups, order, outputs)
@@ -639,6 +688,7 @@ class PopulationAsyncSession(AsyncSession):
             ids=np.asarray(ids, dtype=np.int64),
             population=self.m,
         ))
+        self._count_corrupted(delivered, self.traces[-1].ids)
         if self.obs.enabled:
             self._observe_trace(self.traces[-1], len(dropped))
         self._pending_down = defaultdict(float)

@@ -39,9 +39,18 @@ Bit-exactness: with identity codecs and full participation (no dropout)
 ``uplink`` and ``downlink`` return their input objects and ``weights``
 returns ``p``, so the trajectory is bit-identical to ``comm=None``.
 
+Scenario dynamics (``CommConfig(dynamics=DynamicsConfig(...))``, see
+``repro_torch.dynamics``) compose on top: churn filters the eligible ids
+the scheduler samples from (departed clients' EF rows are retired), a
+``ChannelProcess`` modulates the channel per round (``channel_at``), a
+``ThreatModel`` corrupts a seeded subset of uplinks inside the round,
+before the codec, and a robust aggregator transforms the decoded
+payload before the optimizer's weighted aggregation. Its counters go to
+``CommRound.stats_out`` as device scalars, which the session reads once
+a round. With ``dynamics=None`` every code path here is the one without
+dynamics.
+
 The asynchronous drivers live in ``repro_torch.comm.async_driver``.
-Scenario dynamics come with a later slice; asking for them raises
-``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -59,6 +68,7 @@ from repro_torch.comm.scheduler import Scheduler, make_scheduler
 from repro_torch.device import host_to, resolve_device
 from repro_torch.keys import generator, key_bits, key_from_ints
 from repro_torch.obs import NULL_TELEMETRY
+from repro_torch.obs import log as obs_log
 
 # payload-name prefix that selects the downlink (server -> client)
 # direction in codec specs and in the byte plan
@@ -72,6 +82,11 @@ _LOSSLESS_BY_DEFAULT = ("loss", "down:seed")
 # noise stream offset separating downlink payloads from the uplink
 # payload counter
 _DOWNLINK_KEY_STREAM = 1 << 20
+
+# noise stream offset of the threat model's corruption draws (disjoint
+# from the uplink counter and the downlink stream, so turning a threat
+# on never changes codec noise)
+_THREAT_KEY_STREAM = 1 << 21
 
 # the per-round host keys: cohort, channel coins, codec noise
 _SCHED_STREAM, _CHAN_STREAM, _CODEC_STREAM = 0, 1, 2
@@ -125,8 +140,10 @@ class CommConfig:
     committed delta after it (an async control: with ``async_mode=False``
     it raises). With the full scheduler, no dropout, a full quorum and
     ``server_lr=1`` the async driver reproduces the synchronous
-    trajectory bit for bit. ``dynamics`` (scenario dynamics) comes with a
-    later slice and raises ``NotImplementedError``.
+    trajectory bit for bit. ``dynamics`` takes a
+    ``repro_torch.dynamics.DynamicsConfig`` (churn, a channel process, a
+    threat, robust aggregation); an all-``None`` one normalizes to
+    ``None``.
     """
 
     codecs: "Dict[str, Any] | str | Codec" = "identity"
@@ -146,9 +163,16 @@ class CommConfig:
 
     def __post_init__(self):
         if self.dynamics is not None:
-            raise NotImplementedError(
-                "scenario dynamics (CommConfig(dynamics=...)) come with the "
-                "dynamics slice of repro_torch")
+            from repro_torch.dynamics import DynamicsConfig
+
+            if not isinstance(self.dynamics, DynamicsConfig):
+                raise ValueError(
+                    f"CommConfig.dynamics wants a "
+                    f"repro_torch.dynamics.DynamicsConfig, got "
+                    f"{self.dynamics!r}")
+            if self.dynamics.is_null:
+                # all layers off: every `dynamics is None` path holds
+                self.dynamics = None
         if self.server_lr <= 0.0:
             raise ValueError(f"server_lr must be > 0, got {self.server_lr}")
         if self.server_lr != 1.0 and not self.async_mode:
@@ -183,6 +207,7 @@ class CommConfig:
                 f"unknown ef_variant {self.ef_variant!r}; "
                 f"want one of {feedback.EF_VARIANTS}")
         self._codec_cache: Dict[str, Codec] = {}
+        self._channel_view = None  # (t, the channel process's view)
         self.scheduler = make_scheduler(self.scheduler)
 
     def codec_for(self, payload: str) -> Codec:
@@ -209,20 +234,73 @@ class CommConfig:
     def has_error_feedback(self) -> bool:
         return feedback.any_ef_requested(self.error_feedback)
 
+    def channel_at(self, t: int):
+        """The channel as seen at round ``t``: the static model itself
+        without a ``ChannelProcess`` (the same object), else a per-round
+        modulated view with the same methods (the latest round's kept)."""
+        dyn = self.dynamics
+        if dyn is None or dyn.channel is None:
+            return self.channel
+        if self._channel_view is None or self._channel_view[0] != t:
+            self._channel_view = (t, dyn.channel.at(self.channel, t))
+        return self._channel_view[1]
+
+
+def apply_churn(session, t: int) -> "np.ndarray | None":
+    """Churn bookkeeping of every session at round (or version) ``t``:
+    returns the eligible ids (None without churn), retires the newly
+    departed clients' EF rows through the session's ``_retire_ef``,
+    counts them (``clients_departed``) and sets the
+    ``active_population`` gauge.
+
+    Idempotent within one ``t`` (the async driver may dispatch a version
+    more than once). If churn empties the population, the full id set
+    is restored with a one-time warning: a trajectory cannot run over
+    zero clients.
+    """
+    dyn = session.config.dynamics
+    if dyn is None or dyn.churn is None:
+        return None
+    elig = dyn.churn.eligible_mask(t, session.m)
+    if not elig.any():
+        if not session._churn_warned:
+            session._churn_warned = True
+            obs_log.warn_with_context(
+                "churn left zero eligible clients; treating the full "
+                "population as eligible so the trajectory can proceed",
+                round=t, m=session.m)
+        elig = np.ones(session.m, dtype=bool)
+    prev = session._elig_prev
+    session._elig_prev = elig
+    if prev is not None:
+        departed = np.nonzero(prev & ~elig)[0]
+        if departed.size:
+            session._retire_ef(departed)
+            session.obs.metrics.counter("clients_departed").inc(
+                float(departed.size))
+    if session.obs.enabled:
+        session.obs.metrics.gauge("active_population").set(float(elig.sum()))
+    return np.nonzero(elig)[0].astype(np.int64)
+
 
 class CommRound:
     """One round's transport view. ``mask`` is the (m,) delivery mask on
     the device (None on the statically full path), ``codec_key`` the
     round's host key for codec noise, ``memory`` the EF memory dict
     carried in from the previous round, ``plan`` the variant's byte plan
-    (filled here), ``round_idx`` the round's index."""
+    (filled here), ``round_idx`` the round's index. With a threat model
+    the sessions pass ``(mask, attackers)``, the second the (m,) 0/1
+    attacker indicator on the device."""
 
     def __init__(self, config: CommConfig, plan: Dict[str, int],
-                 mask: "torch.Tensor | None", codec_key: "torch.Tensor | None",
+                 mask, codec_key: "torch.Tensor | None",
                  memory: "Dict[str, torch.Tensor] | None" = None,
                  round_idx: int = 0):
         self._config = config
         self._plan = plan
+        self.attackers = None
+        if isinstance(mask, tuple):
+            mask, self.attackers = mask
         self.mask = mask
         self._key = codec_key
         self.round_idx = round_idx
@@ -231,6 +309,9 @@ class CommRound:
         self._occurrences: Dict[str, int] = {}
         # starts as a copy so payloads a round skips keep their memory
         self.memory_out: Dict[str, torch.Tensor] = dict(memory or {})
+        # robust-aggregation counters (device scalars); empty without
+        # dynamics
+        self.stats_out: Dict[str, torch.Tensor] = {}
 
     def _payload_key(self, name: str) -> str:
         """Stable key for the i-th occurrence of ``name`` in the round: a
@@ -247,6 +328,15 @@ class CommRound:
         key = key_from_ints(key_bits(self._key), stream)
         return torch.rand(shape, generator=generator(key, device),
                           dtype=dtype, device=device)
+
+    def threat_noise(self, stream: int, shape: tuple, dtype: torch.dtype,
+                     device: torch.device) -> torch.Tensor:
+        """The N(0, 1) draw a ``noise`` threat replaces an attacker's
+        payload with: ``stream`` is ``_THREAT_KEY_STREAM`` plus the uplink
+        counter, ``shape`` the stacked payload's."""
+        key = key_from_ints(key_bits(self._key), stream)
+        return torch.randn(shape, generator=generator(key, device),
+                           dtype=dtype, device=device)
 
     def _noise(self, codec: Codec, stream: int, x: torch.Tensor):
         if codec.deterministic:
@@ -265,13 +355,39 @@ class CommRound:
         the (M, M) difference); the codec prices that shape.
         ``ef_eligible=False`` marks a payload whose basis is redrawn every
         round, so error feedback skips it. ``ef_reset`` (a bool) zeroes
-        its EF memory first: the round a rotating basis is redrawn."""
+        its EF memory first: the round a rotating basis is redrawn.
+
+        With dynamics, a threat corrupts the attackers' rows before the
+        codec (EF memory tracks that wire payload), and a robust
+        aggregator transforms what the codec decoded, the identity
+        codec's too."""
         codec = self._config.codec_for(name)
         pkey = self._payload_key(name)
         self._plan[pkey] = codec.nbytes(
             tuple(wire_shape) if wire_shape is not None
             else tuple(x.shape[1:]), x.dtype)
         self._n_payloads += 1
+        dyn = self._config.dynamics
+        if dyn is None:
+            return self._roundtrip(codec, name, pkey, x, ef_eligible,
+                                   ef_reset)
+        threat = dyn.threat
+        if (threat is not None and self.attackers is not None
+                and threat.applies(name)):
+            noise = (self.threat_noise(
+                _THREAT_KEY_STREAM + self._n_payloads, tuple(x.shape),
+                x.dtype, x.device) if threat.kind == "noise" else None)
+            x = threat.corrupt(x, self.attackers, noise)
+        decoded = self._roundtrip(codec, name, pkey, x, ef_eligible, ef_reset)
+        if dyn.robust is not None:
+            # the server's defence on what it received; the clients'
+            # EF memory above tracks the wire payload
+            decoded = dyn.robust(decoded, self.mask, self.stats_out)
+        return decoded
+
+    def _roundtrip(self, codec: Codec, name: str, pkey: str, x: torch.Tensor,
+                   ef_eligible: bool, ef_reset) -> torch.Tensor:
+        """One payload through its codec, with its EF memory."""
         if isinstance(codec, IdentityCodec):
             return x  # the same object: no change to the round
         u = self._noise(codec, self._n_payloads, x)
@@ -355,7 +471,78 @@ class _NullComm:
 NULL_COMM = _NullComm()
 
 
-class CommSession:
+class SessionDynamics:
+    """The session side of scenario dynamics, shared by the four
+    transport drivers: the churn state ``apply_churn`` keeps, the
+    attacker indicator the rounds take, the robust counters
+    (``robust_stats``, mirrored into telemetry) and the EF retirement
+    of departed clients. Inert without dynamics. The sessions set
+    ``config``, ``m``, ``obs``, ``ef_memory``, ``_device`` and
+    ``_mask_dtype``."""
+
+    def _init_dynamics(self) -> None:
+        self._elig_prev = None  # (m,) eligibility at the last apply_churn
+        self._churn_warned = False
+        self._attackers_host = None  # (m,) bool, for the dense axis
+        self._attackers = None  # the same, 0/1 on the device
+        self.robust_stats: Dict[str, float] = {}
+
+    def _attacker_rows(self, ids) -> np.ndarray:
+        """The attackers among ``ids`` (None: all m clients, cached)."""
+        threat = self.config.dynamics.threat
+        if ids is not None:
+            return threat.attacker_mask(ids)
+        if self._attackers_host is None:
+            self._attackers_host = threat.attacker_mask(np.arange(self.m))
+        return self._attackers_host
+
+    def _pack_threat(self, mask, ids=None):
+        """The delivery mask as the round takes it: bundled with the
+        attacker indicator of the round's rows when a threat is active
+        (``ids`` the cohort's ids; None on the dense axis, whose (m,)
+        indicator is cached on the device)."""
+        dyn = self.config.dynamics
+        if dyn is None or dyn.threat is None:
+            return mask
+        if ids is None:
+            if self._attackers is None:
+                self._attackers = host_to(self._attacker_rows(None),
+                                          self._device, self._mask_dtype)
+            return (mask, self._attackers)
+        return (mask, host_to(self._attacker_rows(ids), self._device,
+                              self._mask_dtype))
+
+    def _consume_stats(self, stats: Dict[str, torch.Tensor]) -> None:
+        """Add a round's robust counters to ``robust_stats`` and the
+        telemetry: one read from the device, none without counters."""
+        if not stats:
+            return
+        values = torch.stack([v.to(torch.float64)
+                              for v in stats.values()]).tolist()
+        for name, v in zip(stats, values):
+            self.robust_stats[name] = self.robust_stats.get(name, 0.0) + v
+            self.obs.metrics.counter(name).inc(v)
+
+    def _count_corrupted(self, delivered: np.ndarray,
+                         ids: "np.ndarray | None") -> None:
+        """Count the corrupted uploads the server took this round
+        (attacker AND delivered): ``uploads_corrupted``."""
+        dyn = self.config.dynamics
+        if dyn is None or dyn.threat is None:
+            return
+        n_bad = float((self._attacker_rows(ids) & delivered).sum())
+        self.robust_stats["uploads_corrupted"] = \
+            self.robust_stats.get("uploads_corrupted", 0.0) + n_bad
+        self.obs.metrics.counter("uploads_corrupted").inc(n_bad)
+
+    def _retire_ef(self, departed: np.ndarray) -> None:
+        """Zero the departed clients' rows of the dense EF memory."""
+        self.ef_memory = {
+            name: v.index_fill(0, host_to(departed, v.device, torch.int64), 0)
+            for name, v in self.ef_memory.items()}
+
+
+class CommSession(SessionDynamics):
     """Host-side per-trajectory transport state for the synchronous
     lock-step clock: ``step`` draws a cohort and channel coins, runs the
     round, and accounts it; ``finalize`` folds the traces into the
@@ -380,9 +567,13 @@ class CommSession:
         self.traces: "list[RoundTrace]" = []
         self.ef_memory: Dict[str, torch.Tensor] = {}
         self._pending = None
-        # static decision: no round of this trajectory needs a mask
+        # static decision: no round of this trajectory needs a mask.
+        # Churn and outages force one every round
+        dyn = config.dynamics
         self._always_full = (config.scheduler.is_full
-                             and config.channel.dropout_prob == 0.0)
+                             and config.channel.dropout_prob == 0.0
+                             and (dyn is None or not dyn.forces_mask))
+        self._init_dynamics()
 
     @property
     def plan(self) -> Dict[str, int]:
@@ -419,8 +610,9 @@ class CommSession:
         """One lock-step round: draw the cohort, execute, account."""
         t = self._t
         mask, ck = self.begin_round(t)
-        self._state, self.ef_memory = round_fn(
+        self._state, self.ef_memory, stats = round_fn(
             self._state, self.ef_memory, self.keys[t], mask, ck)
+        self._consume_stats(stats)
         self.end_round()
         self._t += 1
         return self._state
@@ -440,11 +632,13 @@ class CommSession:
     def begin_round(self, t: int):
         """Draw round ``t``'s cohort and channel coins. Returns ``(mask,
         codec_key)``: ``mask`` is None on the statically full path, else
-        the (m,) delivery mask on the device."""
+        the (m,) delivery mask on the device (packed with the attackers
+        under a threat)."""
         k_sched, k_chan, k_codec = round_keys(self.config.seed, t)
-        chan = self.config.channel
-        scheduled = self.config.scheduler.participants(k_sched, t, self.m,
-                                                       chan)
+        eligible = apply_churn(self, t)
+        chan = self.config.channel_at(t)
+        scheduled = self.config.scheduler.participants(
+            k_sched, t, self.m, chan, eligible=eligible)
         draw = chan.draw(k_chan, self.m)
         delivered = scheduled & ~draw.dropout
         if scheduled.any() and not delivered.any():
@@ -454,8 +648,9 @@ class CommSession:
             delivered[int(np.argmax(scheduled))] = True
         self._pending = (t, scheduled, delivered, draw)
         if self._always_full:
-            return None, k_codec
-        return host_to(delivered, self._device, self._mask_dtype), k_codec
+            return self._pack_threat(None), k_codec
+        return self._pack_threat(
+            host_to(delivered, self._device, self._mask_dtype)), k_codec
 
     def end_round(self) -> RoundTrace:
         """Account the round just executed from the variant's byte plan,
@@ -464,8 +659,8 @@ class CommSession:
         bytes_up = float(self.bytes_up_per_client) * delivered.astype(np.float64)
         bytes_down = (float(self.bytes_down_per_client)
                       * scheduled.astype(np.float64))
-        sim = self.config.channel.round_time(draw, delivered, bytes_up,
-                                             bytes_down)
+        sim = self.config.channel_at(t).round_time(draw, delivered, bytes_up,
+                                                   bytes_down)
         trace = RoundTrace(
             round=t,
             scheduled=scheduled,
@@ -477,6 +672,7 @@ class CommSession:
         )
         self.traces.append(trace)
         self._pending = None
+        self._count_corrupted(delivered, None)
         if self.obs.enabled:
             self._observe(trace)
         return trace
@@ -514,9 +710,12 @@ class PopulationCommSession(CommSession):
     O(m) metadata (shard sizes, the scheduler's draw).
 
     The round function takes the cohort problem first: ``round_fn(cohort,
-    state, memory, key, mask, codec_key) -> (state, memory)``. Every
-    member is scheduled by construction, so the mask carries dropout
-    only: without dropout the round runs with ``mask=None``.
+    state, memory, key, mask, codec_key) -> (state, memory, stats)``.
+    Every member is scheduled by construction, so the mask carries
+    dropout only: without dropout (and without churn or outages) the
+    round runs with ``mask=None``. When churn leaves fewer eligible ids
+    than the cohort size, the cohort is padded with its first id under
+    a zero mask, so every round has the one cohort width.
     """
 
     def __init__(self, config: CommConfig, population, *, keys: torch.Tensor,
@@ -530,28 +729,45 @@ class PopulationCommSession(CommSession):
         self.ef_store = (feedback.BoundedMemory(ef_capacity(
             config, population.m, self.cohort_size))
             if config.has_error_feedback else None)
-        self._always_full = config.channel.dropout_prob == 0.0
+        dyn = config.dynamics
+        self._always_full = (config.channel.dropout_prob == 0.0
+                             and (dyn is None or not dyn.forces_mask))
         self._pending_ids = None
+        self._pending_real = None
 
     def begin_round(self, t: int):
         """Sample round ``t``'s cohort ids and their coins, on the dense
         driver's key schedule (``round_keys``). Returns ``(ids, mask,
         codec_key)``."""
         k_sched, k_chan, k_codec = round_keys(self.config.seed, t)
-        chan = self.config.channel
-        ids = self.config.scheduler.sample_ids(k_sched, t, self.m, chan)
+        eligible = apply_churn(self, t)
+        chan = self.config.channel_at(t)
+        ids = self.config.scheduler.sample_ids(k_sched, t, self.m, chan,
+                                               eligible=eligible)
+        n_real = len(ids)
+        if n_real < self.cohort_size:
+            # churn shrank the eligible set below the cohort size: pad
+            # with the first sampled id under a zero delivery mask
+            ids = np.concatenate([
+                ids, np.full(self.cohort_size - n_real, ids[0],
+                             dtype=np.int64)])
         draw = chan.draw_for(k_chan, ids)
         delivered = ~draw.dropout
+        delivered[n_real:] = False
         if not delivered.any():
             # every sampled client dropped: re-poll the lowest id so the
             # weights stay defined (the dense rule)
             delivered = np.zeros_like(delivered)
             delivered[0] = True
-        self._pending = (t, np.ones_like(delivered), delivered, draw)
+        scheduled = np.ones_like(delivered)
+        scheduled[n_real:] = False
+        self._pending = (t, scheduled, delivered, draw)
         self._pending_ids = ids
+        self._pending_real = n_real
         if self._always_full:
-            return ids, None, k_codec
-        return ids, host_to(delivered, self._device, self._mask_dtype), k_codec
+            return ids, self._pack_threat(None, ids), k_codec
+        mask = host_to(delivered, self._device, self._mask_dtype)
+        return ids, self._pack_threat(mask, ids), k_codec
 
     def step(self, round_fn) -> Any:
         """One cohort round: sample ids, materialize, execute, account."""
@@ -559,13 +775,21 @@ class PopulationCommSession(CommSession):
         ids, mask, ck = self.begin_round(t)
         cohort = self.population.materialize(ids)
         memory = self.ef_store.gather(ids) if self.ef_store else {}
-        self._state, mem_out = round_fn(cohort, self._state, memory,
-                                        self.keys[t], mask, ck)
+        self._state, mem_out, stats = round_fn(cohort, self._state, memory,
+                                               self.keys[t], mask, ck)
+        self._consume_stats(stats)
         if self.ef_store is not None:
-            self.ef_store.scatter(ids, mem_out)
+            # real ids only: churn's pad rows repeat ids[0]
+            self.ef_store.scatter(ids[:self._pending_real], mem_out)
         self.end_round()
         self._t += 1
         return self._state
+
+    def _retire_ef(self, departed: np.ndarray) -> None:
+        """Departed clients leave the EF hot set: their slots are freed
+        and zeroed (``BoundedMemory.retire``)."""
+        if self.ef_store is not None:
+            self.ef_store.retire(departed)
 
     def end_round(self) -> RoundTrace:
         t, scheduled, delivered, draw = self._pending
@@ -573,7 +797,7 @@ class PopulationCommSession(CommSession):
         bytes_up = float(self.bytes_up_per_client) * delivered.astype(np.float64)
         bytes_down = (float(self.bytes_down_per_client)
                       * scheduled.astype(np.float64))
-        sim = self.config.channel.round_time_for(
+        sim = self.config.channel_at(t).round_time_for(
             ids, self.m, draw, delivered, bytes_up, bytes_down)
         trace = RoundTrace(
             round=t,
@@ -589,6 +813,8 @@ class PopulationCommSession(CommSession):
         self.traces.append(trace)
         self._pending = None
         self._pending_ids = None
+        self._pending_real = None
+        self._count_corrupted(delivered, ids)
         if self.obs.enabled:
             self._observe(trace)
         return trace

@@ -15,8 +15,12 @@ Each draw is a pure function of a host key (drawn on the CPU with a
 seeded generator), so the same ``(seed, round)`` gives the same cohort.
 ``participants`` (an (m,) mask) and ``sample_ids`` (the sorted cohort
 ids, the form client populations consume) are two views of the SAME
-draw; ``cohort_size`` is the static number of ids a round samples. The
-churn restriction (``eligible=``) comes with the dynamics slice.
+draw; ``cohort_size`` is the static number of ids a round samples.
+
+Churn (``repro_torch.dynamics``): every policy takes an optional
+``eligible`` id array restricting the draw to the clients alive this
+round. The restricted path draws *indices into the eligible set*; with
+``eligible=None`` each policy runs the draw it runs without dynamics.
 """
 from __future__ import annotations
 
@@ -32,19 +36,12 @@ from repro_torch.keys import generator
 SCHEDULER_SPECS = ("full", "uniform:<q>", "bandwidth:<q>")
 
 
-def _no_churn(eligible) -> None:
-    if eligible is not None:
-        raise NotImplementedError(
-            "churn (eligible=) comes with the dynamics slice of repro_torch")
-
-
 class Scheduler:
     name: str = "scheduler"
 
     def participants(self, key: torch.Tensor, round_idx: int, m: int,
                      channel: ChannelModel, eligible=None) -> np.ndarray:
         """(m,) bool mask of the clients scheduled this round."""
-        _no_churn(eligible)
         mask = np.zeros((m,), dtype=bool)
         mask[self.sample_ids(key, round_idx, m, channel,
                              eligible=eligible)] = True
@@ -53,11 +50,13 @@ class Scheduler:
     def sample_ids(self, key: torch.Tensor, round_idx: int, m: int,
                    channel: ChannelModel, eligible=None) -> np.ndarray:
         """Sorted int64 client ids of this round's cohort (the draw of
-        ``participants``, O(cohort) output)."""
+        ``participants``, O(cohort) output); ``eligible`` (sorted ids)
+        restricts the draw to churn's survivors."""
         raise NotImplementedError
 
     def cohort_size(self, m: int) -> int:
-        """Static number of clients sampled per round."""
+        """Static number of clients sampled per round (an upper bound
+        under churn: a shrunken eligible set gives fewer ids)."""
         return m
 
     @property
@@ -69,12 +68,16 @@ class FullParticipation(Scheduler):
     name = "full"
 
     def participants(self, key, round_idx, m, channel, eligible=None):
-        _no_churn(eligible)
-        return np.ones((m,), dtype=bool)
+        if eligible is None:
+            return np.ones((m,), dtype=bool)
+        mask = np.zeros((m,), dtype=bool)
+        mask[eligible] = True
+        return mask
 
     def sample_ids(self, key, round_idx, m, channel, eligible=None):
-        _no_churn(eligible)
-        return np.arange(m, dtype=np.int64)
+        if eligible is None:
+            return np.arange(m, dtype=np.int64)
+        return np.asarray(eligible, dtype=np.int64)
 
     @property
     def is_full(self):
@@ -95,9 +98,16 @@ class UniformSampler(Scheduler):
         return max(1, min(m, int(math.ceil(self.q * m))))
 
     def sample_ids(self, key, round_idx, m, channel, eligible=None):
-        _no_churn(eligible)
-        perm = torch.randperm(m, generator=generator(key, "cpu"))
-        return np.sort(perm[:self._count(m)].numpy().astype(np.int64))
+        if eligible is None:
+            perm = torch.randperm(m, generator=generator(key, "cpu"))
+            return np.sort(perm[:self._count(m)].numpy().astype(np.int64))
+        eligible = np.asarray(eligible, dtype=np.int64)
+        n = len(eligible)
+        # indices INTO the eligible set: the cohort follows the shrunken
+        # population
+        perm = torch.randperm(n, generator=generator(key, "cpu"))
+        chosen = perm[:min(self._count(m), n)].numpy()
+        return np.sort(eligible[chosen])
 
     def cohort_size(self, m: int) -> int:
         return self._count(m)
@@ -115,13 +125,18 @@ class BandwidthAware(UniformSampler):
         return f"bandwidth:{self.q}"
 
     def sample_ids(self, key, round_idx, m, channel, eligible=None):
-        _no_churn(eligible)
-        u = torch.rand(m, generator=generator(key, "cpu"),
+        n = m if eligible is None else len(eligible)
+        u = torch.rand(n, generator=generator(key, "cpu"),
                        dtype=torch.float64).numpy()
         gumbel = -np.log(-np.log(np.maximum(u, np.finfo(np.float64).tiny)))
-        scores = np.log(channel.uplink_rates(m)) + gumbel
-        top = np.argsort(-scores, kind="stable")[:self._count(m)]
-        return np.sort(top.astype(np.int64))
+        if eligible is None:
+            scores = np.log(channel.uplink_rates(m)) + gumbel
+            top = np.argsort(-scores, kind="stable")[:self._count(m)]
+            return np.sort(top.astype(np.int64))
+        eligible = np.asarray(eligible, dtype=np.int64)
+        scores = np.log(channel.uplink_rates_for(eligible, m)) + gumbel
+        top = np.argsort(-scores, kind="stable")[:min(self._count(m), n)]
+        return np.sort(eligible[top])
 
 
 def make_scheduler(spec: "str | Scheduler") -> Scheduler:

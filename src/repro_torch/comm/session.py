@@ -14,7 +14,8 @@ session the same way:
       no-transport path);
   * ``step(round_fn)`` — advance one round and return the new optimizer
       state; ``round_fn(state, memory, key, mask, codec_key) -> (state,
-      memory)`` is the one round function every session shares;
+      memory, stats)`` is the one round function every session shares
+      (``stats``: the robust aggregators' counters, empty without them);
   * ``finalize() -> Transport`` — the transport axes for ``History``.
 
 ``make_session`` resolves ``comm=None`` to ``NullSession``, a
@@ -135,11 +136,11 @@ class NullSession(Session):
         plan = self._plans.get(self._sig)
         if plan is None:
             self._view = _PlanRecorder()
-            self._state, _ = round_fn(self._state, {}, key, None, None)
+            self._state, _, _ = round_fn(self._state, {}, key, None, None)
             plan = self._plans[self._sig] = self._view.plan
             self._view = NULL_COMM
         else:
-            self._state, _ = round_fn(self._state, {}, key, None, None)
+            self._state, _, _ = round_fn(self._state, {}, key, None, None)
         per_client = plan_bytes(plan, down=False) + plan_bytes(plan, down=True)
         formula = float(per_client * self.m)
         self._per_round.append(formula)

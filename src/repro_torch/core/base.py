@@ -79,23 +79,23 @@ def solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def build_round(opt: "FederatedOptimizer", problem, session, *,
                 population=None):
     """The round function every session drives: ``_round(state, memory,
-    key, mask, codec_key) -> (state, memory_out)``, or with a
+    key, mask, codec_key) -> (state, memory_out, stats_out)``, or with a
     ``population`` ``_round(cohort, state, memory, key, mask, codec_key)``
     (the materialized cohort is the round's problem). The session builds
     the round's transport view from the EF memory, the delivery mask and
     the codec key; without error feedback the memory stays an empty
-    dict."""
+    dict, and without robust aggregation the stats (device scalars) do."""
     if population is not None:
         def _round(cohort, state, memory, key, mask, codec_key):
             cr = session.comm_round(memory, mask, codec_key)
             state = opt.round(cohort, state, key, comm=cr)
-            return state, cr.memory_out
+            return state, cr.memory_out, cr.stats_out
         return _round
 
     def _round(state, memory, key, mask, codec_key):
         cr = session.comm_round(memory, mask, codec_key)
         state = opt.round(problem, state, key, comm=cr)
-        return state, cr.memory_out
+        return state, cr.memory_out, cr.stats_out
     return _round
 
 

@@ -4,9 +4,13 @@ The asynchronous driver's pathologies (staleness spirals, starved
 quorums, retry storms) are *sequencing* bugs — the per-commit
 ``RoundTrace`` aggregates are too coarse to reconstruct who was in
 flight when. The flight recorder keeps the last ``capacity`` raw events
-(dispatch / arrival / drop / commit, each stamped with client id, model
-version, and server clock) so a post-mortem can replay the tail of the
-event history exactly.
+(dispatch / arrival / drop / retire / commit, each stamped with client
+id, model version, and server clock) so a post-mortem can replay the
+tail of the event history exactly. ``retire`` is an upload whose client
+churned out while it was in the air (scenario dynamics); the
+reference's recorder lists the asynchronous driver's ``retire`` event
+nowhere in its vocabulary and so refuses it, which the port does not
+copy.
 
 Truncation semantics: the ring keeps the MOST RECENT ``capacity``
 events; ``total`` counts every event ever recorded and ``truncated``
@@ -20,7 +24,7 @@ import json
 import pathlib
 
 # the event vocabulary (report/check-schema validate against this)
-EVENT_KINDS = ("dispatch", "arrival", "drop", "commit")
+EVENT_KINDS = ("dispatch", "arrival", "drop", "retire", "commit")
 
 
 class FlightRecorder:

@@ -13,10 +13,11 @@ to the event clock: every host key the port derives
 (``config.round_keys(seed, version)`` and the retry keys
 ``keys.fold_in(k_chan, retry)``) is looked up in a table of the
 reference's keys for the same (version, retry), and the cohort
-(``participants``, ``sample_ids``), the coins (``draw``, ``draw_for``)
-and the codec noise come from the reference's functions under them. The
-sketch basis of a group round is the reference policy's under the
-version's round key.
+(``participants``, ``sample_ids``, under churn's eligible ids on the
+version's channel), the coins (``draw``, ``draw_for``), the codec noise
+and the dynamics layers' draws come from the reference's functions under
+them. The sketch basis of a group round is the reference policy's under
+the version's round key.
 
 Commit times, versions, staleness, delivered sets and bytes must equal
 the reference's exactly (``RoundTrace.to_dict``), the losses to rtol
@@ -58,7 +59,12 @@ from repro_torch.core.base import root_key, split
 from repro_torch.core.sketch_policy import SketchPolicy
 from repro_torch.keys import fold_in, key_bits
 
-from test_torch_comm import _ref_round_keys, _ref_uniform, quickstart  # noqa: F401
+from test_torch_comm import (  # noqa: F401
+    _ref_round_keys,
+    _ref_uniform,
+    inject_dynamics_draws,
+    quickstart,
+)
 from _torch_threads import worker_threads
 
 torch.set_num_threads(worker_threads())
@@ -96,19 +102,22 @@ def key_table(seed: int, versions: int = VERSIONS) -> dict:
 def inject_event_draws(monkeypatch, jcfg) -> None:
     """Replace every draw of the port's drivers (dense and population,
     sync and async) with the reference's under the matching key: the
-    cohort, the coins (a retry's too), the codec noise, and the per-id
-    values of distribution-spec channel fields."""
+    cohort, the coins (a retry's too), the codec noise, the per-id
+    values of distribution-spec channel fields, and the dynamics
+    layers' draws."""
     from repro.comm import channel as jchannel
 
     table = key_table(jcfg.seed)
 
     def participants(self, key, round_idx, m, channel, eligible=None):
         return np.asarray(jcfg.scheduler.participants(
-            table[key_bits(key)], round_idx, m, jcfg.channel))
+            table[key_bits(key)], round_idx, m, jcfg.channel_at(round_idx),
+            eligible=eligible))
 
     def sample_ids(self, key, round_idx, m, channel, eligible=None):
         return np.asarray(jcfg.scheduler.sample_ids(
-            table[key_bits(key)], round_idx, m, jcfg.channel))
+            table[key_bits(key)], round_idx, m, jcfg.channel_at(round_idx),
+            eligible=eligible))
 
     def draw(self, key, m):
         d = jcfg.channel.draw(table[key_bits(key)], m)
@@ -131,6 +140,7 @@ def inject_event_draws(monkeypatch, jcfg) -> None:
     monkeypatch.setattr(tchannel.ChannelModel, "draw_for", draw_for)
     monkeypatch.setattr(tchannel, "_draw_spec", jchannel._draw_spec)
     monkeypatch.setattr(tconfig.CommRound, "codec_noise", codec_noise)
+    inject_dynamics_draws(monkeypatch, jcfg)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -360,13 +370,22 @@ def test_config_accepts_the_async_settings():
     assert CommConfig(server_lr=1.0).server_lr == 1.0
 
 
-def test_what_is_left_still_raises():
-    with pytest.raises(NotImplementedError):
+def test_dynamics_config_checked_and_sample_ids_eligible():
+    """dynamics= wants a DynamicsConfig, as the reference's does; under
+    churn's eligible= the cohort is drawn among the eligible ids, at
+    most the cohort size, all of them when fewer are alive."""
+    with pytest.raises(ValueError, match="DynamicsConfig"):
         CommConfig(dynamics=object())
-    with pytest.raises(NotImplementedError):
-        tscheduler.UniformSampler(0.5).sample_ids(
-            tconfig.round_keys(0, 0)[0], 0, 8, ChannelModel(),
-            eligible=np.arange(4))
+    key = tconfig.round_keys(0, 0)[0]
+    for spec in (tscheduler.UniformSampler(0.5),
+                 tscheduler.BandwidthAware(0.5)):
+        eligible = np.array([1, 3, 4, 6, 7])
+        ids = spec.sample_ids(key, 0, 8, ChannelModel(), eligible=eligible)
+        assert len(ids) == 4 and set(ids) <= set(eligible)
+        assert (np.diff(ids) > 0).all()
+        np.testing.assert_array_equal(
+            spec.sample_ids(key, 0, 8, ChannelModel(),
+                            eligible=np.array([2, 5])), [2, 5])
 
 
 def test_async_refuses_adaptive_k(quickstart):

@@ -15,7 +15,14 @@ method that makes it:
     the n-th uplink and ``uniform(fold_in(k_codec, 2^20 + i), shape)``
     for the i-th downlink (``k_codec`` is key ``[2]``);
   * the sketch: a test-only policy rebuilds round t's basis from the
-    reference policy's ``basis_key(split(root_key(seed), rounds)[t], t)``.
+    reference policy's ``basis_key(split(root_key(seed), rounds)[t], t)``;
+  * scenario dynamics (``tests/test_torch_dynamics.py``): the churn
+    uniforms (``_per_id_uniforms``), the channel process's per-id phases
+    and signs (``_stage_draws``) and outage coins (``_outage_window``),
+    the attacker coins (``_attacker_coins``) and a ``noise`` threat's
+    normals (``CommRound.threat_noise``, ``normal(fold_in(k_codec,
+    2^21 + n), shape)``); the cohort then comes from the reference's
+    scheduler under churn's eligible ids, on its channel of round t.
 
 Trajectories run FLeNS and FLeNS+ on the quickstart problem (n=4000,
 dim=64, m=8, k=32, float64) under two transports of
@@ -28,6 +35,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -43,6 +51,9 @@ from repro.comm import feedback as jfeedback
 from repro.comm import session as jsession
 from repro.comm.channel import ChannelDraw as JChannelDraw
 from repro.comm.config import _DOWNLINK_KEY_STREAM as J_DOWN_STREAM
+from repro.dynamics import churn as jchurn
+from repro.dynamics import process as jprocess
+from repro.dynamics import threat as jthreat
 from repro.core import sketch as jsketch
 from repro.core import sketch_policy as jpolicy
 from repro.core.base import History as JHistory
@@ -73,6 +84,9 @@ from repro_torch.comm.config import _DOWNLINK_KEY_STREAM
 from repro_torch.core import FLeNS, History, newton_solve, run_rounds
 from repro_torch.core.base import build_round, root_key, split
 from repro_torch.core.sketch_policy import SketchPolicy
+from repro_torch.dynamics import churn as tchurn
+from repro_torch.dynamics import process as tprocess
+from repro_torch.dynamics import threat as tthreat
 from repro_torch.keys import key_from_ints
 
 from _torch_threads import worker_threads
@@ -116,9 +130,62 @@ def _ref_uniform(k_codec, stream: int, shape: tuple, dtype) -> torch.Tensor:
     return torch.from_numpy(np.array(u))
 
 
+@functools.lru_cache(maxsize=None)
+def _ref_per_id(kind: str, spec, salt: int, n: int) -> np.ndarray:
+    """A reference per-id draw for ids 0..n-1, keyed as the reference
+    keys it: ``"stages"`` the (n, stages) draws of ``_mod_sampler`` (a
+    sin stage's phase, a drift stage's sign), ``"attacker"`` the (n,)
+    coins of ``_attacker_sampler`` (``spec`` the fraction)."""
+    ids = jnp.arange(n, dtype=jnp.uint32)
+    if kind == "attacker":
+        return np.asarray(jthreat._attacker_sampler(spec, salt)(ids))
+    stages = jprocess._parse_modulator(spec)
+    key0 = jax.random.PRNGKey(np.uint32(salt))
+
+    def one(cid):
+        out = []
+        for i, (kind, params) in enumerate(stages):
+            k = jax.random.fold_in(jax.random.fold_in(key0, i), cid)
+            out.append(jax.random.uniform(k) * params[0] if kind == "sin"
+                       else jnp.where(jax.random.bernoulli(k), 1.0, -1.0))
+        return jnp.stack(out)
+
+    return np.asarray(jax.vmap(one)(ids), dtype=np.float64)
+
+
+def _ref_rows(kind: str, spec, salt: int, ids) -> np.ndarray:
+    """``_ref_per_id``'s rows of ``ids``, drawn over a power-of-two span
+    of ids so that few spans are ever drawn."""
+    ids = np.asarray(ids, dtype=np.int64)
+    n = 1 << max(3, int(ids.max(initial=0)) + 1).bit_length()
+    return _ref_per_id(kind, spec, salt, n)[ids]
+
+
+def _ref_stage_draws(spec: str, salt: int, ids) -> list:
+    return list(_ref_rows("stages", spec, salt, ids).T)
+
+
+def inject_dynamics_draws(monkeypatch, jcfg) -> None:
+    """The dynamics layers' draws: the reference's (module docstring)."""
+    def attacker_coins(fraction, salt, ids):
+        return _ref_rows("attacker", fraction, salt, ids)
+
+    def threat_noise(self, stream, shape, dtype, device):
+        k_codec = _ref_round_keys(jcfg.seed, self.round_idx)[2]
+        z = jax.random.normal(jax.random.fold_in(k_codec, stream), shape,
+                              _jdt(dtype))
+        return torch.from_numpy(np.array(z)).to(device)
+
+    monkeypatch.setattr(tchurn, "_per_id_uniforms", jchurn._per_id_uniforms)
+    monkeypatch.setattr(tprocess, "_stage_draws", _ref_stage_draws)
+    monkeypatch.setattr(tprocess, "_outage_window", jprocess._outage_window)
+    monkeypatch.setattr(tthreat, "_attacker_coins", attacker_coins)
+    monkeypatch.setattr(tconfig.CommRound, "threat_noise", threat_noise)
+
+
 def inject_reference_draws(monkeypatch, jcfg) -> None:
-    """Replace the port's cohort, coin and codec-noise draws with the
-    reference session's (see the module docstring)."""
+    """Replace the port's cohort, coin, codec-noise and dynamics draws
+    with the reference session's (see the module docstring)."""
     now = {}
     begin_round = tconfig.CommSession.begin_round
 
@@ -129,7 +196,8 @@ def inject_reference_draws(monkeypatch, jcfg) -> None:
     def participants(self, key, round_idx, m, channel, eligible=None):
         k_sched = _ref_round_keys(jcfg.seed, round_idx)[0]
         return np.asarray(jcfg.scheduler.participants(
-            k_sched, round_idx, m, jcfg.channel))
+            k_sched, round_idx, m, jcfg.channel_at(round_idx),
+            eligible=eligible))
 
     def draw(self, key, m):
         d = jcfg.channel.draw(_ref_round_keys(jcfg.seed, now["t"])[1], m)
@@ -144,6 +212,7 @@ def inject_reference_draws(monkeypatch, jcfg) -> None:
     monkeypatch.setattr(tscheduler.Scheduler, "participants", participants)
     monkeypatch.setattr(tchannel.ChannelModel, "draw", draw)
     monkeypatch.setattr(tconfig.CommRound, "codec_noise", codec_noise)
+    inject_dynamics_draws(monkeypatch, jcfg)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -479,7 +548,7 @@ def test_later_slices_raise():
     # the asynchronous driver is ported (tests/test_torch_async.py);
     # server_lr without it is a configuration error, as in the reference
     assert CommConfig(async_mode=True, server_lr=0.5).async_mode
-    with pytest.raises(NotImplementedError, match="dynamics"):
+    with pytest.raises(ValueError, match="DynamicsConfig"):
         CommConfig(dynamics=object())
     with pytest.raises(ValueError, match="async_mode=True"):
         CommConfig(server_lr=0.5)
@@ -487,9 +556,10 @@ def test_later_slices_raise():
         CommConfig(server_lr=0.0)
     with pytest.raises(ValueError, match="ef_variant"):
         CommConfig(ef_variant="ef99")
-    with pytest.raises(NotImplementedError, match="dynamics"):
-        make_scheduler("uniform:0.5").participants(
-            key_from_ints(0), 0, 4, ChannelModel(), eligible=np.arange(2))
+    # churn's restriction: the cohort is drawn among the eligible ids
+    mask = make_scheduler("uniform:0.5").participants(
+        key_from_ints(0), 0, 4, ChannelModel(), eligible=np.arange(2))
+    assert mask.shape == (4,) and mask.any() and not mask[2:].any()
     with pytest.raises(ValueError, match="population runs need a CommConfig"):
         make_session(None, m=2, keys=None, state0=None, population=object())
     with pytest.raises(TypeError, match="CommConfig"):

@@ -269,12 +269,13 @@ def test_obs_and_comm_are_not_ported_yet(quickstart):
     hist = run_rounds(FLeNS(k=8), tp, tw0, tw_star, rounds=1,
                       obs=TelemetryConfig())
     assert hist.telemetry["rounds"] == 1
-    # both transport drivers are ported; scenario dynamics are not
+    # both transport drivers are ported, and scenario dynamics take a
+    # DynamicsConfig
     from repro_torch.comm import CommConfig
     hist = run_rounds(FLeNS(k=8), tp, tw0, tw_star, rounds=1,
                       comm=CommConfig(async_mode=True))
     assert hist.staleness is not None and hist.traces[0].version == 1
-    with pytest.raises(NotImplementedError, match="dynamics"):
+    with pytest.raises(ValueError, match="DynamicsConfig"):
         CommConfig(dynamics=object())
     with pytest.raises(TypeError, match="CommConfig"):
         run_rounds(FLeNS(k=8), tp, tw0, tw_star, rounds=1, comm=object())

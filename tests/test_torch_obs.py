@@ -13,7 +13,14 @@
     ``test_torch_population.py``) and both packages writing JSONL: the
     summaries' round and compile counts, metric names, kinds and values,
     the flight events and the per-round annotations equal the
-    reference's. The span names are the reference's except one: the
+    reference's. One more case runs the async driver under scenario
+    dynamics (churn with a diurnal channel and regional outages,
+    ``tests/test_torch_dynamics.py``'s first scenario), whose counters
+    (``clients_departed``, ``uploads_retired``), gauge
+    (``active_population``) and flight ``retire`` events must equal the
+    reference's too; the reference's flight recorder lacks the word
+    ``retire`` its own driver records, so it runs with the word added.
+    The span names are the reference's except one: the
     reference's no-transport session probes each variant's byte plan
     with a shape-only trace (span ``probe_plan``), and the port's records
     it inside the variant's first round, so it has no such span.
@@ -25,6 +32,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import dataclasses
 import json
 import logging
 import warnings
@@ -34,10 +42,13 @@ import jax.numpy as jnp
 import numpy as np
 
 import repro.core as jcore
+import repro.dynamics as jdyn
 from repro.core.base import History as JHistory
 from repro.core.federated import _dirichlet_sizes as j_dirichlet_sizes
 from repro.obs import TelemetryConfig as JTelemetryConfig
+from repro.obs import flight as jflight
 from repro.obs import report as jreport
+from repro_torch import dynamics as tdyn
 from repro_torch.comm import ChannelModel, CommConfig, RoundTrace
 from repro_torch.core import (
     FLeNS,
@@ -317,10 +328,19 @@ def test_telemetry_off_equals_today(quickstart, small_population, driver,
     assert (tel["flight"]["total"] > 0) == driver.endswith("async")
 
 
+def _churn(pkg):
+    """``tests/test_torch_dynamics.py``'s churn scenario in package ``pkg``."""
+    return pkg.DynamicsConfig(
+        churn="poisson:0.05", seed=1, channel=pkg.ChannelProcess(
+            uplink_bytes_per_s="sin:24,0.5", outage="outage:0.05,3,4",
+            seed=1))
+
+
 def _reference_and_port(driver, quickstart, synthetic, monkeypatch,
                         tmp_path):
     """Both packages' runs of ``driver`` under the reference's draws, each
-    writing JSONL; returns their (summary, records) pairs."""
+    writing JSONL; returns their (summary, records) pairs. ``async-churn``
+    is the async driver under the churn scenario."""
     rounds = 6
     jpath, tpath = tmp_path / "ref.jsonl", tmp_path / "port.jsonl"
     jobs, tobs = (JTelemetryConfig(sink=f"jsonl:{jpath}", label=driver),
@@ -341,11 +361,16 @@ def _reference_and_port(driver, quickstart, synthetic, monkeypatch,
     else:
         (jp, jw0, jw_star), (tp, tw0, tw_star) = quickstart
         k = K
-        if driver == "async":
+        if driver.startswith("async"):
             jcfg, tcfg = async_config_pair(
                 DENSE_CHANNEL, async_mode=True, buffer_size=3,
                 staleness="inverse", codecs=COMP, error_feedback=True)
             sketch, inject = version_basis("srht", rounds), inject_event_draws
+            if driver == "async-churn":
+                jcfg = dataclasses.replace(jcfg, dynamics=_churn(jdyn))
+                tcfg = dataclasses.replace(tcfg, dynamics=_churn(tdyn))
+                monkeypatch.setattr(jflight, "EVENT_KINDS",
+                                    jflight.EVENT_KINDS + ("retire",))
         else:
             jcfg, tcfg = sync_config_pair(COMP, scheduler="bandwidth:0.5",
                                           error_feedback=True)
@@ -370,7 +395,7 @@ def _flight(records) -> list:
     return [r for r in records if r["type"] == "flight"]
 
 
-@pytest.mark.parametrize("driver", DRIVERS)
+@pytest.mark.parametrize("driver", DRIVERS + ("async-churn",))
 def test_telemetry_matches_reference(driver, quickstart, synthetic,
                                      monkeypatch, tmp_path):
     (jsum, jrec), (tsum, trec) = _reference_and_port(
@@ -407,7 +432,7 @@ def test_telemetry_matches_reference(driver, quickstart, synthetic,
     # the flight events, in order
     jf, tf = _flight(jrec), _flight(trec)
     assert len(tf) == len(jf) == tsum["flight"]["kept"]
-    assert (len(tf) > 0) == driver.endswith("async")
+    assert (len(tf) > 0) == ("async" in driver)
     for mine, ref in zip(tf, jf):
         assert sorted(mine) == sorted(ref)
         np.testing.assert_allclose(mine["t"], ref["t"], rtol=1e-12)
@@ -419,6 +444,11 @@ def test_telemetry_matches_reference(driver, quickstart, synthetic,
     if driver == "async":
         assert any(e["kind"] == "drop" for e in tf)
         assert tm["counters"]["upload_retries"] > 0
+    if driver == "async-churn":
+        assert any(e["kind"] == "retire" for e in tf)
+        assert tm["counters"]["uploads_retired"] > 0
+        assert tm["counters"]["clients_departed"] > 0
+        assert 0 < tm["gauges"]["active_population"] < tsum["clients"]
 
 
 def test_reports_read_the_port_stream(quickstart, tmp_path, capsys):
