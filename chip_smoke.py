@@ -184,11 +184,36 @@ Phases, in order; any failure raises and the script exits non-zero:
                 times the operations at the 494.7 TFLOP/s dense TF32 tensor
                 rate) and the float32 SIMT one (67 TFLOP/s), SDPA with TF32
                 off
- 13. kernels  — one JSON line naming every ported kernel (flash
+ 13. train    — LM training through the flash-attention backward kernel
+                (csrc/flash_attention_bwd.cu): (a) the backward against its
+                plain version (ref.mha_blocked_grad) at (1, 2048, 32, 4,
+                64) and (1, 2048, 64, 8, 128) causal, (1, 2048, 4, 1, 256)
+                window 512 and the training shape (2, 2048, 32, 4, 64), in
+                bfloat16 (<= 2e-2 of each gradient's max |value|) and
+                float32 (<= 1e-4), a second call bit-equal, the forward's
+                output bit-equal with its log-sum-exp written and not (also
+                over flash parity's self-attention shapes), timed beside its
+                bound, its plain version and SDPA's backward; (b)
+                TinyLlama-1.1B at full width and depth in bf16 with remat,
+                batch 2 x 2048 tokens from FastLMStream, 12 AdamW steps with
+                launch/train.py's schedule, through the kernels (2 forward
+                launches and 1 backward a layer a step) and through the
+                plain versions from the same init: every CE finite, the
+                trajectories and step 0's gradients within the stated
+                tolerances, the last CE below the first; ms a step,
+                tokens/s, peak memory and a profiled step's busy share and
+                backward-kernel share; (c) the float32 twin at full width
+                and 4 layers (the tf32x3 forward), the same checks at tight
+                tolerances; (d) the FLeNS head (m = 8, 64 sequences of 32
+                tokens a client, k = 64) on the trained bf16 backbone's
+                features (D = 2048): FLeNS through the SRHT kernels
+                bit-equal to the plain versions, with FedAvg and FedNewton
+ 14. kernels  — one JSON line naming every ported kernel (flash
                 attention as two entries: the sm90 route and the tf32x3
-                route); the srht_apply and fwht entries list their routes,
-                each with a timed shape and its bound (srht_apply's batched
-                routes at the three FedNS shapes too)
+                route; its backward as a third); the srht_apply and fwht
+                entries list their routes, each with a timed shape and its
+                bound (srht_apply's batched routes at the three FedNS shapes
+                too)
 
 The last line of standard output is the device record
 ``{"ok": true, "device": {...}}``; before it come the card's name and
@@ -251,6 +276,11 @@ KERNELS = {
     "flash_attention_tf32x3": dict(
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:72"),
+    # no Pallas backward: the reference differentiates mha_blocked's jnp
+    # ops, reached from its attention
+    "flash_attention_bwd": dict(
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/models/attention.py:104"),
 }
 NO_CODEC = {"topk_mask": 0, "qint8_roundtrip": 0}
 # (operators G, rows a operator as an inner batch, dim, n, k): batched
@@ -271,8 +301,10 @@ TABLE_ONE = [("fedavg", dict(lr=2.0, local_steps=5)),
              ("local_newton", {}), ("fednew", {}), ("fednl", {}),
              ("fedns", dict(k=SUSY["k"])), ("fedndes", {})]
 SKETCHED = ("fedns", "fedndes")  # one batched srht_apply launch a round
+NO_BWD = {"flash_attention_bwd": 0, "flash_attention_bwd_delta": 0,
+          "flash_attention_bwd_dkdv": 0, "flash_attention_bwd_dq": 0}
 NO_LM = {"flash_attention": 0, "flash_attention_sm90": 0,
-         "flash_attention_tf32x3": 0}
+         "flash_attention_tf32x3": 0, **NO_BWD}
 
 # examples/edge_clients.py: name -> (sketch, codecs, uplink bytes per
 # delivering client at k=10, M=18)
@@ -422,6 +454,30 @@ def phase_build() -> dict:
                      "spill_loads": int(spill.group(2))}
         check(srht[key]["spill_stores"] == srht[key]["spill_loads"] == 0,
               f"build: {key} spills: {srht[key]}")
+    # the flash backward's three kernels per dtype and head-dim width
+    # (delta per dtype only): none may spill
+    flash_bwd = {}
+    for entry in re.split(r"Compiling entry function",
+                          _build.build_log("flash_attention_bwd"))[1:]:
+        name = re.search(r"flash_bwd_(delta|dkdv|dq)_kernelI(f|13__nv_bfloat16)"
+                         r"(?:Li(\d+)E)?", entry)
+        regs = re.search(r"Used (\d+) registers", entry)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          entry)
+        check(name and regs and spill, "build: unreadable flash_bwd ptxas "
+              "report")
+        kind, dt, width = name.groups()
+        key = (f"flash_bwd_{kind}_kernel<{'float' if dt == 'f' else 'bf16'}"
+               + (f", {width}>" if width else ">"))
+        flash_bwd[key] = {"registers": int(regs.group(1)),
+                          "spill_stores": int(spill.group(1)),
+                          "spill_loads": int(spill.group(2))}
+        check(flash_bwd[key]["spill_stores"] == flash_bwd[key]["spill_loads"]
+              == 0, f"build: {key} spills: {flash_bwd[key]}")
+    check(len(flash_bwd) == 14, f"build: expected 14 flash_bwd kernel "
+          f"instantiations, got {sorted(flash_bwd)}")
+    log("[build] flash backward kernels, registers (no spills): " + ", ".join(
+        f"{k} {v['registers']}" for k, v in sorted(flash_bwd.items())))
     kinds = [key.split("_kernel")[0] for key in srht]
     check(kinds.count("srht_fwd_reg") == 36 and kinds.count("fwht_strided")
           == 28, f"build: expected 36 srht_fwd_reg and 28 fwht_strided "
@@ -430,7 +486,8 @@ def phase_build() -> dict:
         f"{k} {v['registers']}" for k, v in sorted(srht.items())))
     return {"seconds": total, "per_source": per_source,
             "flash_sm90_ptxas": ptxas, "flash_tf32x3_ptxas": tf32x3,
-            "codec_ptxas": codec, "srht_ptxas": srht}
+            "codec_ptxas": codec, "srht_ptxas": srht,
+            "flash_bwd_ptxas": flash_bwd}
 
 
 # ---------------------------------------------------------------------------
@@ -2949,14 +3006,17 @@ def _prefill_logits(model, params, tokens, impl=None):
     return logits.float()
 
 
-def _prefill_profile(model, params, tokens) -> dict:
+def _profile_call(fn) -> dict:
+    """One profiled call of ``fn``: its wall and device busy time, the
+    flash forward's device time and the flash backward's, and the top
+    kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.prefill(params, {"inputs": tokens}, cache_len=tokens.shape[1])
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [(e.key, e.self_device_time_total, e.count)
@@ -2966,12 +3026,21 @@ def _prefill_profile(model, params, tokens) -> dict:
     busy = sum(t for _, t, _ in kernels)
     # flash_attention_sm90_kernel<...> in bf16, flash_attention_tf32x3_kernel<...> in f32
     flash = sum(t for name, t, _ in kernels if "flash_attention" in name)
+    # flash_bwd_{delta,dkdv,dq}_kernel<...>
+    flash_bwd = sum(t for name, t, _ in kernels if "flash_bwd" in name)
     top = sorted(kernels, key=lambda r: -r[1])[:8]
-    return {"wall_us": wall_us, "device_busy_us": busy, "flash_us": flash,
+    return {"wall_us": wall_us, "device_busy_us": busy,
+            "busy_share": busy / wall_us, "flash_us": flash,
+            "flash_bwd_us": flash_bwd,
             "flash_share_of_device": flash / busy if busy else 0.0,
             "flash_share_of_wall": flash / wall_us,
             "top": [{"kernel": n[:90], "us": t, "launches": c}
                     for n, t, c in top]}
+
+
+def _prefill_profile(model, params, tokens) -> dict:
+    return _profile_call(lambda: model.prefill(
+        params, {"inputs": tokens}, cache_len=tokens.shape[1]))
 
 
 def phase_serve() -> dict:
@@ -3005,7 +3074,7 @@ def phase_serve() -> dict:
         want = {"fwht": 0, "srht_apply": 0, "srht_apply_t": 0, **NO_CODEC,
                 "flash_attention": L * len(reqs),
                 "flash_attention_sm90": L * len(reqs),
-                "flash_attention_tf32x3": 0}
+                "flash_attention_tf32x3": 0, **NO_BWD}
         check(run["launches"] == want,
               f"serve launches {run['launches']} != {want} (one launch of "
               f"the tensor-core kernel per layer per prefill)")
@@ -3129,7 +3198,7 @@ def phase_serve_f32() -> dict:
         peak = torch.cuda.max_memory_allocated()
         n = cfg.n_layers * len(reqs)
         got = {k: run["launches"][k] for k in NO_LM}
-        check(got == {"flash_attention": n, "flash_attention_sm90": 0,
+        check(got == {**NO_LM, "flash_attention": n,
                       "flash_attention_tf32x3": n},
               f"serve f32 launches {run['launches']} (one launch of the "
               f"tf32x3 kernel per layer per prefill)")
@@ -3301,6 +3370,415 @@ def phase_flash_times() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 13. train: LM training through the flash-attention backward kernel
+# ---------------------------------------------------------------------------
+
+# (a) the backward kernel against its plain version, causal: (label, (B,
+# T, H, Hkv, D), window); the training shape last
+FLASH_BWD_SHAPES = [
+    ("TinyLlama heads (1, 2048, 32, 4, 64) causal", (1, 2048, 32, 4, 64),
+     None),
+    ("qwen1.5 heads (1, 2048, 64, 8, 128) causal", (1, 2048, 64, 8, 128),
+     None),
+    ("gemma3-1b local (1, 2048, 4, 1, 256) window 512", (1, 2048, 4, 1, 256),
+     512),
+    ("TinyLlama training (2, 2048, 32, 4, 64) causal", (2, 2048, 32, 4, 64),
+     None)]
+# the largest |error| of each gradient over its largest |value|: bfloat16
+# 2e-2 (the wgmma forward's P V in bfloat16, each gradient rounded to
+# bfloat16), float32 1e-4 (the 3xTF32 forward's output and log-sum-exp)
+FLASH_BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+TRAIN = dict(arch="tinyllama-1.1b", batch=2, seq=2048, steps=12, lr=3e-3,
+             seed=0, f32_layers=4)
+# the kernels' run against the plain versions' from the same init and
+# batches: |CE difference| at each step over the plain CE, each gradient
+# leaf of step 0 by its relative norm error. bfloat16: the two forwards
+# round at other places (P V in bf16 in the wgmma kernel) and the
+# differences grow through 22 layers and the steps; float32 (TF32 off):
+# the kernels' float32 sums in their own order (the 3xTF32 forward within
+# 2e-5 of its output), equal CE at the first steps, then grown by
+# AdamW's normalised steps over a loss that spikes (1.8e-5 at step 9 on
+# an H100)
+TRAIN_TOL = {torch.bfloat16: {"ce": 1e-2, "grad": 5e-2},
+             torch.float32: {"ce": 1e-4, "grad": 1e-4}}
+HEAD = dict(m=8, per_client=64, seq=32, k=64, rounds=10, lam=1e-3)
+
+
+def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    want = want.float()
+    return float((got.float() - want).abs().max()
+                 / want.abs().max().clamp_min(1e-30))
+
+
+def _flash_bwd_row(label, dims, window, dtype, gen, dev) -> dict:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import ref
+
+    b, t, h, hkv, d = dims
+    q, k, v = _flash_inputs(gen, b, t, t, h, hkv, d, dtype, dev)
+    do = torch.randn(b, t, h, d, generator=gen, device=dev).to(dtype)
+    out, lse = kflash._forward(q, k, v, causal=True, window=window,
+                               q_offset=0, block_k=1024, with_lse=True)
+    check(torch.equal(out, kflash.flash_attention_cuda(q, k, v,
+                                                       window=window)),
+          f"flash backward {label}: the forward's output changes when it "
+          f"writes its log-sum-exp")
+
+    def kern():
+        return kflash.flash_attention_bwd_cuda(q, k, v, out, do, lse,
+                                               window=window)
+
+    def plain():
+        return ref.mha_blocked_grad(q, k, v, do, window=window)
+    got, again, want = kern(), kern(), plain()
+    torch.cuda.synchronize()
+    name = str(dtype).split(".")[-1]
+    rel = {g: _rel_err(x, w) for g, x, w in zip(("dq", "dk", "dv"), got, want)}
+    abs_err = max(_max_err(x.float(), w.float()) for x, w in zip(got, want))
+    check(max(rel.values()) <= FLASH_BWD_TOL[dtype],
+          f"flash backward {name} {label}: kernel differs from the plain "
+          f"version by {rel} of max |grad| > {FLASH_BWD_TOL[dtype]}")
+    check(all(torch.equal(x, y) for x, y in zip(got, again)),
+          f"flash backward {name} {label}: a second call differs")
+    # the yardstick: SDPA's backward on the same inputs (heads second)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    if window:
+        pos = torch.arange(t, device=dev)
+        mask = (pos[None, :] <= pos[:, None]) & (
+            pos[None, :] > pos[:, None] - window)
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                 enable_gqa=True)
+    else:
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                 enable_gqa=True)
+    do_t = do.transpose(1, 2)
+
+    def lib():
+        return torch.autograd.grad(lib_out, (qt, kt, vt), do_t,
+                                   retain_graph=True)
+    # q, o, dO read and dq written; k, v read and dk, dv written; lse read
+    io = (4 * q.numel() + 4 * k.numel()) * q.element_size() + lse.numel() * 4
+    # five products (S, dP, dV, dK, dQ) of 2 D flops a visible pair a head
+    flops = 10 * d * h * b * _visible_pairs(t, window)
+    bound, bound_by = _bound_ms(io, 0, flops, dtype)
+    simt_bound = None
+    if dtype == torch.float32:
+        simt_bound = bound
+        bound, bound_by = _bound_ms(io, 0, 3 * flops, dtype, TF32_OPS_PER_S)
+    by_kernel = _device_kernels_ms(kern, 10)
+    row = dict(shape=f"{label} {name}", dims=list(dims), window=window,
+               dtype=name, rel_err=rel, max_abs_err=abs_err,
+               ms=_time_ms(kern, 10), device_ms=sum(by_kernel.values()),
+               device_ms_by_kernel=by_kernel, plain_ms=_time_ms(plain, 2),
+               library="SDPA backward (enable_gqa=True)",
+               library_ms=_time_ms(lib, 10),
+               library_device_ms=_device_ms(lib, 10), bound_ms=bound,
+               bound_by=bound_by, simt_bound_ms=simt_bound,
+               gflop=flops / 1e9)
+    split = ", ".join(f"{key.split('::')[-1].split('<')[0]} {ms:.3f}"
+                      for key, ms in by_kernel.items())
+    peak = (f" at 3xTF32, FP32 SIMT bound {simt_bound:.4f}" if simt_bound
+            else "")
+    log(f"[train] flash backward {row['shape']}: rel err dq "
+        f"{rel['dq']:.2e} dk {rel['dk']:.2e} dv {rel['dv']:.2e} (tol "
+        f"{FLASH_BWD_TOL[dtype]}); {row['ms']:.4f} ms, device "
+        f"{row['device_ms']:.4f} ({split}); bound {bound:.4f} by {bound_by}"
+        f"{peak}, {flops / 1e9:.1f} GFLOP; plain {row['plain_ms']:.3f}; SDPA "
+        f"backward {row['library_ms']:.4f}, device "
+        f"{row['library_device_ms']:.4f}")
+    return row
+
+
+def phase_flash_bwd() -> dict:
+    """(a): the backward kernel at its four shapes in both dtypes, and the
+    forward with its log-sum-exp written bit-equal to the forward without
+    over flash parity's self-attention shapes."""
+    from repro_torch.kernels import flash_attention as kflash
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # SDPA in float32
+    torch.backends.cudnn.allow_tf32 = False
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(13)
+    rows = [_flash_bwd_row(label, dims, window, dtype, gen, dev)
+            for dtype in FLASH_BWD_TOL
+            for label, dims, window in FLASH_BWD_SHAPES]
+    swept = 0
+    for dtype in FLASH_BWD_TOL:
+        cases = [(t, h, hkv, d, None) for t, t2 in FLASH_SHAPES if t == t2
+                 for h, hkv in FLASH_HEADS for d in (64, 128, 256)]
+        cases += [(tq, h, hkv, d, window) for tq, tk, h, hkv, d, causal,
+                  window, q_offset, _ in FLASH_EXTRA
+                  if tq == tk and q_offset == 0 and causal]
+        for t, h, hkv, d, window in cases:
+            q, k, v = _flash_inputs(gen, 1, t, t, h, hkv, d, dtype, dev)
+            with_lse = kflash._forward(q, k, v, causal=True, window=window,
+                                       q_offset=0, block_k=1024,
+                                       with_lse=True)
+            check(torch.equal(with_lse[0], kflash.flash_attention_cuda(
+                q, k, v, window=window)) and bool(
+                    torch.isfinite(with_lse[1]).all()),
+                  f"flash forward {dtype} {(t, h, hkv, d, window)}: output "
+                  f"with its log-sum-exp differs from the output without")
+            swept += 1
+    log(f"[train] flash forward with the log-sum-exp written: {swept} "
+        f"self-attention shapes, output bit-equal to the forward without")
+    return {"rows": rows, "lse_bitwise_cases": swept}
+
+
+def _train_model(dtype, n_layers=None):
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import LM
+
+    cfg = dataclasses.replace(get_config(TRAIN["arch"]), dtype=dtype,
+                              param_dtype=dtype)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    return cfg, LM(cfg)
+
+
+def _train_run(model, params, batches, impl) -> dict:
+    """12 AdamW steps from ``params`` on ``batches``, launch/train.py's
+    schedule, through the kernels (impl None) or the plain versions."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import WARMUP_STEPS, train_step
+    from repro_torch.optim import adamw_init, linear_warmup_cosine
+
+    opt_state = adamw_init(params)
+    ces, gnorms, ms = [], [], []
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with ops.use_impl(impl):
+        for step, batch in enumerate(batches):
+            lr = linear_warmup_cosine(step, base_lr=TRAIN["lr"],
+                                      warmup_steps=WARMUP_STEPS,
+                                      total_steps=len(batches))
+            t0 = time.perf_counter()
+            params, opt_state, _, ce, gnorm = train_step(
+                model, params, opt_state, batch, lr)
+            ces.append(float(ce))  # waits for the step
+            ms.append((time.perf_counter() - t0) * 1e3)
+            gnorms.append(float(gnorm))
+    return {"params": params, "ce": ces, "gnorm": gnorms, "ms": ms,
+            "launches": ops.launch_counts()}
+
+
+def _step0_grads(model, params, batch) -> dict:
+    """Step 0's gradients through the kernels and the plain versions:
+    each leaf's relative norm error, the worst, and both losses."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import loss_and_grads
+    from repro_torch.tree import leaves
+
+    loss_k, _, grads_k = loss_and_grads(model, params, batch)
+    with ops.use_impl("ref"):
+        loss_r, _, grads_r = loss_and_grads(model, params, batch)
+    errs = [float(torch.linalg.vector_norm((a.float() - b.float()))
+                  / torch.linalg.vector_norm(b.float()).clamp_min(1e-30))
+            for a, b in zip(leaves(grads_k), leaves(grads_r))]
+    return {"loss": float(loss_k), "loss_plain": float(loss_r),
+            "grad_rel_norm_err": max(errs), "leaves": len(errs)}
+
+
+def _train_phase(dtype, batches, n_layers=None) -> "tuple[dict, tuple]":
+    """(b) and (c): one model, the kernels' run and the plain versions'
+    from one init on ``batches``; returns the record and (model, trained
+    params)."""
+    from repro_torch.core.base import root_key
+    from repro_torch.launch.train import train_step
+    from repro_torch.optim import adamw_init
+
+    dev = _card()
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 in float32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    cfg, model = _train_model(dtype, n_layers)
+    name = str(dtype).split(".")[-1]
+    tol = TRAIN_TOL[dtype]
+    L, steps = cfg.n_layers, len(batches)
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    params0 = model.init(root_key(TRAIN["seed"], device=dev))
+    grads = _step0_grads(model, params0, batches[0])
+    check(grads["grad_rel_norm_err"] <= tol["grad"],
+          f"train {name}: step 0's gradients through the kernels differ from "
+          f"the plain versions' by {grads['grad_rel_norm_err']:.3e} > "
+          f"{tol['grad']} (relative norm, worst leaf)")
+    torch.cuda.reset_peak_memory_stats()
+    kern = _train_run(model, params0, batches, None)
+    peak = torch.cuda.max_memory_allocated()
+    plain = _train_run(model, params0, batches, "ref")
+    want = {**NO_LM, "fwht": 0, "srht_apply": 0, "srht_apply_t": 0,
+            **NO_CODEC, "flash_attention": 2 * L * steps,
+            f"flash_attention_{FLASH_ROUTE[dtype]}": 2 * L * steps,
+            **{op: L * steps for op in NO_BWD}}
+    check(kern["launches"] == want,
+          f"train {name}: launches {kern['launches']} != {want} (with remat "
+          f"the forward kernel runs twice a layer a step, the backward once)")
+    check(all(n == 0 for n in plain["launches"].values()),
+          f"train {name}: the plain run launched {plain['launches']}")
+    ce_k, ce_p = np.array(kern["ce"]), np.array(plain["ce"])
+    ce_err = float(np.max(np.abs(ce_k - ce_p) / np.abs(ce_p)))
+    check(np.isfinite(ce_k).all() and np.isfinite(ce_p).all(),
+          f"train {name}: a CE is not finite: {kern['ce']} / {plain['ce']}")
+    check(ce_err <= tol["ce"],
+          f"train {name}: the CE trajectory through the kernels {kern['ce']} "
+          f"differs from the plain versions' {plain['ce']} by {ce_err:.3e} "
+          f"> {tol['ce']} (relative)")
+    check(ce_k[-1] < ce_k[0], f"train {name}: the last CE {ce_k[-1]:.4f} is "
+          f"not below the first {ce_k[0]:.4f}")
+    params = kern.pop("params")
+    del plain["params"]
+    torch.cuda.empty_cache()
+
+    # one more step of each, through the profiler (from the trained params)
+    state = {"params": params, "opt": adamw_init(params)}
+
+    def step():
+        state["params"], state["opt"], *_ = train_step(
+            model, state["params"], state["opt"], batches[0], 1e-5)
+    profile = _profile_call(step)
+    del state
+    torch.cuda.empty_cache()
+    steady = kern["ms"][1:]
+    ms = float(np.median(steady))
+    out = {"arch": cfg.arch_id, "dtype": name, "n_layers": L,
+           "d_model": cfg.d_model, "batch": TRAIN["batch"],
+           "seq": TRAIN["seq"], "steps": steps, "step0": grads, "ce": kern["ce"], "ce_plain": plain["ce"],
+           "gnorm": kern["gnorm"], "gnorm_plain": plain["gnorm"],
+           "ce_rel_err": ce_err, "tolerance": tol,
+           "ms_per_step": kern["ms"], "ms_per_step_plain": plain["ms"],
+           "ms_median": ms, "tokens_per_s": tokens / ms * 1e3,
+           "plain_ms_median": float(np.median(plain["ms"][1:])),
+           "peak_memory_bytes": peak, "launches": kern["launches"],
+           "profile": profile, "flash_bwd_share_of_device":
+               profile["flash_bwd_us"] / profile["device_busy_us"],
+           "flash_fwd_share_of_device": profile["flash_share_of_device"]}
+    log(f"[train] {cfg.arch_id} {name} {L} layers d {cfg.d_model}, batch "
+        f"{TRAIN['batch']} x {TRAIN['seq']}: CE through the kernels "
+        + " ".join(f"{c:.4f}" for c in kern["ce"]))
+    log(f"[train]   plain versions' CE " + " ".join(
+        f"{c:.4f}" for c in plain["ce"]) + f"; worst relative difference "
+        f"{ce_err:.2e} (tol {tol['ce']}); step 0 loss {grads['loss']:.5f} vs "
+        f"{grads['loss_plain']:.5f}, gradients' worst relative norm error "
+        f"{grads['grad_rel_norm_err']:.2e} over {grads['leaves']} leaves "
+        f"(tol {tol['grad']})")
+    log(f"[train]   {ms:.2f} ms a step (median of steps 1-{steps - 1}; first "
+        f"{kern['ms'][0]:.1f}), {out['tokens_per_s']:,.0f} tokens/s, plain "
+        f"versions {out['plain_ms_median']:.1f} ms; peak memory "
+        f"{peak / 2**30:.2f} GiB; launches {kern['launches']}")
+    log(f"[train]   a profiled step: device busy "
+        f"{profile['busy_share']:.1%} of {profile['wall_us'] / 1e3:.2f} ms; "
+        f"flash backward {out['flash_bwd_share_of_device']:.1%} and forward "
+        f"{out['flash_fwd_share_of_device']:.1%} of device time")
+    for r in profile["top"][:8]:
+        log(f"[train]     {r['us'] / 1e3:9.3f} ms x{r['launches']:<4d} "
+            f"{r['kernel']}")
+    return out, (model, params)
+
+
+def phase_flens_head(model, params) -> dict:
+    """(d): FLeNS, FedAvg and FedNewton on the head of the trained bf16
+    backbone, examples/federated_llm.py's setting at D = 2048."""
+    from repro_torch.core import make_optimizer, newton_solve, run_rounds
+    from repro_torch.kernels import ops
+    from repro_torch.optim import extract_features, head_problem
+
+    dev = _card()
+    cfg = model.cfg
+    m, rounds = HEAD["m"], HEAD["rounds"]
+    rng = np.random.default_rng(1)
+    toks = rng.integers(0, cfg.vocab, size=(m * HEAD["per_client"],
+                                            HEAD["seq"]))
+    # the example's label, a sequence holding two tokens of the lowest
+    # 1/32 of the vocab (8 of its 256), so positives keep its share
+    labels = np.where((toks < cfg.vocab // 32).sum(axis=1) >= 2, 1.0, -1.0)
+    feats = extract_features(model, params,
+                             torch.tensor(toks, dtype=torch.int32, device=dev))
+    check(feats.shape == (len(labels), cfg.d_model)
+          and bool(torch.isfinite(feats).all()), "head: features not finite")
+    prob = head_problem(feats, torch.tensor(labels, device=dev), m,
+                        lam=HEAD["lam"])
+    w0 = torch.zeros(prob.dim, dtype=torch.float64, device=dev)
+    w_star = newton_solve(prob, w0, iters=40)
+    out = {"features": list(feats.shape), "positives": float(
+        (labels > 0).mean()), "rounds": rounds}
+    for name, kw in (("flens", dict(k=HEAD["k"])),
+                     ("fedavg", dict(lr=1.0, local_steps=5)),
+                     ("fednewton", {})):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        hist = run_rounds(make_optimizer(name, **kw), prob, w0, w_star,
+                          rounds=rounds)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        # FedAvg keeps the example's step (lr 1.0), made for its d = 128
+        # features: on these it need not converge, and only its losses are
+        # checked finite
+        check(np.isfinite(hist.loss).all() and (
+            name == "fedavg" or hist.gap[-1] < hist.gap[0]),
+              f"head {name}: gap {hist.gap.tolist()}")
+        want = {**NO_LM, **NO_CODEC, "fwht": 0, "srht_apply": 0,
+                "srht_apply_t": 0}
+        if name == "flens":
+            want.update(srht_apply=3 * rounds, srht_apply_t=2 * rounds)
+            with ops.use_impl("ref"):
+                plain = run_rounds(make_optimizer(name, **kw), prob, w0,
+                                   w_star, rounds=rounds)
+            check((hist.loss == plain.loss).all()
+                  and (hist.gap == plain.gap).all(),
+                  f"head flens: through the kernels {hist.loss.tolist()} != "
+                  f"through the plain versions {plain.loss.tolist()}")
+        check(counts == want, f"head {name}: launches {counts} != {want}")
+        out[name] = {"gap": hist.gap.tolist(), "loss": hist.loss.tolist(),
+                     "uplink_floats": hist.uplink_floats,
+                     "ms_per_round": wall / rounds * 1e3,
+                     "launches": {op: n for op, n in counts.items() if n}}
+        log(f"[train] head {name:>9}: D {prob.dim}, uplink/round "
+            f"{hist.uplink_floats}, gap " + " ".join(
+                f"{g:.1e}" for g in hist.gap[::2]) + f"; launches "
+            f"{out[name]['launches']}"
+            + ("; trajectory bit-equal to the plain versions'"
+               if name == "flens" else ""))
+    acc = float(((feats.double() @ w_star > 0)
+                 == torch.tensor(labels > 0, device=dev)).double().mean())
+    out["head_accuracy"] = acc
+    log(f"[train] head accuracy at w*: {acc:.3f} (positives "
+        f"{out['positives']:.2f})")
+    return out
+
+
+def phase_train() -> dict:
+    """13: (a) the backward kernel, (b) TinyLlama-1.1B bf16 training, (c)
+    its float32 twin at 4 layers, (d) the FLeNS head on (b)'s backbone."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import FastLMStream
+
+    t0 = time.perf_counter()
+    record = {"flash_bwd": phase_flash_bwd()}
+    t1 = time.perf_counter()
+    batches = list(FastLMStream(get_config(TRAIN["arch"]).vocab,
+                                TRAIN["seq"], TRAIN["batch"],
+                                seed=TRAIN["seed"], device=_card()).batches(
+                                    TRAIN["steps"]))
+    record["stream_s"] = time.perf_counter() - t1
+    log(f"[train] {TRAIN['steps']} FastLMStream batches of "
+        f"{TRAIN['batch']} x {TRAIN['seq']} tokens in "
+        f"{record['stream_s']:.2f} s (host)")
+    record["bf16"], (model, params) = _train_phase(torch.bfloat16, batches)
+    record["head"] = phase_flens_head(model, params)
+    del model, params
+    torch.cuda.empty_cache()
+    record["f32"], _ = _train_phase(torch.float32, batches,
+                                    TRAIN["f32_layers"])
+    record["seconds"] = time.perf_counter() - t0
+    log(f"[train] phase 13 took {record['seconds']:.1f} s")
+    return record
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     card = phase_device()
@@ -3325,24 +3803,33 @@ def main() -> int:
     record["serve"] = phase_serve()
     record["serve_f32"] = phase_serve_f32()
     record["flash_times"] = phase_flash_times()
+    record["train"] = phase_train()
     # launches: the SRHT kernels from the full-size comm=None run (fwht is
     # the butterfly they share and is never launched on its own there),
     # the codec kernels from the two full-size transport runs, the
     # wgmma flash kernel from the bf16 engine run of the serve phase and
-    # the tf32x3 one from the f32 engine run
+    # the tf32x3 one from the f32 engine run, the backward from the bf16
+    # training run (one call of its three kernels a layer a step)
+    train = record["train"]
+    bwd_rows = train["flash_bwd"]["rows"]
     launches = {**record["full_size"]["launches"],
                 **record["transport"]["launches"],
                 "flash_attention_sm90":
                     record["serve"]["launches"]["flash_attention_sm90"],
                 "flash_attention_tf32x3":
-                    record["serve_f32"]["launches"]["flash_attention_tf32x3"]}
+                    record["serve_f32"]["launches"]["flash_attention_tf32x3"],
+                "flash_attention_bwd":
+                    train["bf16"]["launches"]["flash_attention_bwd"]}
+    # the backward's main row: the bf16 training shape
     timed = {**record["full_size"]["kernels"],
-             **record["transport"]["kernels"], **record["flash_times"]}
+             **record["transport"]["kernels"], **record["flash_times"],
+             "flash_attention_bwd": [bwd_rows[len(FLASH_BWD_SHAPES) - 1]]}
     parity = {**record["parity_max_abs_err"],
               **record["codec_parity_max_abs_err"],
               **{f"flash_attention_{route}": max(
                   e for key, e in record["flash_parity"]["worst"].items()
-                  if key.startswith(route)) for route in ("sm90", "tf32x3")}}
+                  if key.startswith(route)) for route in ("sm90", "tf32x3")},
+              "flash_attention_bwd": max(r["max_abs_err"] for r in bwd_rows)}
     for name, err in record["long_rows"]["max_abs_err"].items():
         parity[name] = max(parity[name], err)
     # the routes of srht_apply and fwht, each at a timed shape, with the

@@ -157,3 +157,28 @@ def lm_params_from_numpy(params, cfg, device: "str | torch.device" = "cuda") -> 
         arr = np.asarray(a).astype(np.float32)
         return torch.tensor(arr, device=dev).to(cfg.param_dtype)
     return leaf(dict(params))
+
+
+def _tensor_keep_dtype(a, dev: torch.device) -> torch.Tensor:
+    """A tensor on ``dev`` with the array's dtype, bfloat16 included."""
+    arr = np.asarray(a)
+    if arr.dtype.name == "bfloat16":
+        return torch.tensor(arr.astype(np.float32), device=dev).to(
+            torch.bfloat16)
+    return torch.tensor(arr, device=dev)
+
+
+def adamw_state_from_numpy(state, device: "str | torch.device" = "cuda") -> dict:
+    """An AdamW state for ``repro_torch.optim.adamw_update`` from
+    ``repro.optim.adamw_init``/``adamw_update``'s: the moments ``m`` and
+    ``v`` as trees of tensors in their own dtype (float32 or bfloat16),
+    ``step`` a 0-dim int32 tensor, all on ``device``."""
+    dev = resolve_device(device)
+
+    def tree(a):
+        if isinstance(a, dict):
+            return {name: tree(sub) for name, sub in a.items()}
+        return _tensor_keep_dtype(a, dev)
+    return {"m": tree(dict(state["m"])), "v": tree(dict(state["v"])),
+            "step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32, device=dev)}

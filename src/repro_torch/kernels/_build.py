@@ -43,7 +43,8 @@ _PY_INCLUDE = ("-I", sysconfig.get_paths()["include"])
 SOURCE_FLAGS = {"srht": ("-fmad=false", "-Xptxas=-v", *_PY_INCLUDE),
                 "codec": ("-fmad=false", "-Xptxas=-v", *_PY_INCLUDE),
                 "flash_attention": ("-Xptxas=-v",),
-                "flash_attention_sm90": ("-Xptxas=-v",)}
+                "flash_attention_sm90": ("-Xptxas=-v",),
+                "flash_attention_bwd": ("-Xptxas=-v",)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -52,9 +53,13 @@ _D = ctypes.c_double
 # source stem -> C entry point -> argument types (every pointer and the
 # stream as c_void_p; all return cudaError_t as int); the entry points of
 # srht.cu and codec.cu are called through ``module``
-# q, k, v, o, b, tq, tk, h, hkv, d, causal, window, q_offset, scale,
-# empty_denom, stream
-_FLASH = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _D, _D, _P)
+# q, k, v, o, lse (None: not written), b, tq, tk, h, hkv, d, causal,
+# window, q_offset, scale, empty_denom, stream
+_FLASH = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _D, _D, _P)
+# q, k, v, o, dout, lse, delta, dq, dk, dv, b, t, h, hkv, d, causal,
+# window, scale, stream
+_FLASH_BWD = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+              _I, _D, _P)
 SIGNATURES = {
     "srht": {},
     "flash_attention": {
@@ -63,6 +68,10 @@ SIGNATURES = {
     },
     "flash_attention_sm90": {
         "repro_flash_attention_sm90_bf16": _FLASH,
+    },
+    "flash_attention_bwd": {
+        "repro_flash_attention_bwd_f32": _FLASH_BWD,
+        "repro_flash_attention_bwd_bf16": _FLASH_BWD,
     },
 }
 

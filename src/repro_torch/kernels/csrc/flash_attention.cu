@@ -94,6 +94,11 @@
 //     256 float32 O accumulator of a warp takes 128 registers a lane),
 //     32-key tiles. Larger tiles ran faster at D = 64 and 128 but spilled.
 //
+// With a non-null `lse` the kernel also writes each row's natural
+// log-sum-exp of its scaled logits, m + log l, as float32 (B, H, Tq): the
+// training forward saves it for the backward (csrc/flash_attention_bwd.cu).
+// The serving path passes null and its output is unchanged.
+//
 // Inputs that cp.async cannot copy 16 bytes at a time (bfloat16, d % 4 !=
 // 0, K or V off a 16-byte boundary) are loaded by plain loads into the
 // same float32 tiles. Every entry point launches on the given stream,
@@ -247,8 +252,9 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ src, float* dst,
 template <typename T, int DMAX, bool ASYNC>
 __global__ void __launch_bounds__(Tiles<DMAX>::kWarps * 32)
 flash_attention_tf32x3_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                              const T* __restrict__ v, T* __restrict__ o, int tq, int tk, int h,
-                              int hkv, int d, int causal, int window, int q_offset, float scale,
+                              const T* __restrict__ v, T* __restrict__ o,
+                              float* __restrict__ lse, int tq, int tk, int h, int hkv, int d,
+                              int causal, int window, int q_offset, float scale,
                               float empty_denom) {
   constexpr int kWarps = Tiles<DMAX>::kWarps;
   constexpr int kM = Tiles<DMAX>::kM;   // 16-row m-tiles a warp
@@ -522,6 +528,10 @@ flash_attention_tf32x3_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < 2; ++i) {
       const int t = i0 + w0 + 16 * mt + g + 8 * i;
       if (t >= tq) continue;
+      // the row's natural log-sum-exp for the backward (m and l are shared
+      // by the quad)
+      if (lse != nullptr && t4 == 0)
+        lse[((long long)bb * h + head) * tq + t] = m[mt][i] + logf(l[mt][i]);
       const float den = fmaxf(l[mt][i], 1e-30f);
       T* row = o + (((long long)bb * tq + t) * h + head) * d;
 #pragma unroll
@@ -534,8 +544,8 @@ flash_attention_tf32x3_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int DMAX, bool ASYNC>
-cudaError_t launch_d(const void* q, const void* k, const void* v, void* o, int b, int tq,
-                     int tk, int h, int hkv, int d, int causal, int window, int q_offset,
+cudaError_t launch_d(const void* q, const void* k, const void* v, void* o, float* lse, int b,
+                     int tq, int tk, int h, int hkv, int d, int causal, int window, int q_offset,
                      double scale, double empty_denom, void* stream) {
   constexpr int kWarps = Tiles<DMAX>::kWarps, BK = Tiles<DMAX>::kBK;
   constexpr int kBQ = kWarps * 16 * Tiles<DMAX>::kM;
@@ -550,41 +560,41 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o, int b
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)h, (unsigned)((tq + kBQ - 1) / kBQ), (unsigned)b);
   kernel<<<grid, kWarps * 32, smem, (cudaStream_t)stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, tq, tk, h, hkv, d, causal, window,
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, tq, tk, h, hkv, d, causal, window,
       q_offset, (float)scale, (float)empty_denom);
   return cudaGetLastError();
 }
 
 // cp.async for float32 rows it can copy 16 bytes at a time, else plain loads
 template <typename T, int DMAX>
-cudaError_t launch_a(const void* q, const void* k, const void* v, void* o, int b, int tq,
-                     int tk, int h, int hkv, int d, int causal, int window, int q_offset,
+cudaError_t launch_a(const void* q, const void* k, const void* v, void* o, float* lse, int b,
+                     int tq, int tk, int h, int hkv, int d, int causal, int window, int q_offset,
                      double scale, double empty_denom, void* stream) {
   if constexpr (std::is_same<T, float>::value) {
     const bool aligned = d % 4 == 0 && ((uintptr_t)k | (uintptr_t)v) % 16 == 0;
     if (aligned)
-      return launch_d<T, DMAX, true>(q, k, v, o, b, tq, tk, h, hkv, d, causal, window,
+      return launch_d<T, DMAX, true>(q, k, v, o, lse, b, tq, tk, h, hkv, d, causal, window,
                                      q_offset, scale, empty_denom, stream);
   }
-  return launch_d<T, DMAX, false>(q, k, v, o, b, tq, tk, h, hkv, d, causal, window,
+  return launch_d<T, DMAX, false>(q, k, v, o, lse, b, tq, tk, h, hkv, d, causal, window,
                                   q_offset, scale, empty_denom, stream);
 }
 
 template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b, int tq, int tk,
-                   int h, int hkv, int d, int causal, int window, int q_offset, double scale,
-                   double empty_denom, void* stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int b, int tq,
+                   int tk, int h, int hkv, int d, int causal, int window, int q_offset,
+                   double scale, double empty_denom, void* stream) {
   if (b <= 0 || tq <= 0 || tk <= 0 || h <= 0 || hkv <= 0 || h % hkv != 0 || d <= 0 ||
       b > 65535 || q_offset < 0)
     return cudaErrorInvalidValue;
   if (d <= 64)
-    return launch_a<T, 64>(q, k, v, o, b, tq, tk, h, hkv, d, causal, window, q_offset, scale,
+    return launch_a<T, 64>(q, k, v, o, lse, b, tq, tk, h, hkv, d, causal, window, q_offset, scale,
                            empty_denom, stream);
   if (d <= 128)
-    return launch_a<T, 128>(q, k, v, o, b, tq, tk, h, hkv, d, causal, window, q_offset, scale,
+    return launch_a<T, 128>(q, k, v, o, lse, b, tq, tk, h, hkv, d, causal, window, q_offset, scale,
                             empty_denom, stream);
   if (d <= 256)
-    return launch_a<T, 256>(q, k, v, o, b, tq, tk, h, hkv, d, causal, window, q_offset, scale,
+    return launch_a<T, 256>(q, k, v, o, lse, b, tq, tk, h, hkv, d, causal, window, q_offset, scale,
                             empty_denom, stream);
   return cudaErrorInvalidValue;
 }
@@ -596,18 +606,18 @@ extern "C" {
 const char* repro_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
 cudaError_t repro_flash_attention_f32(const void* q, const void* k, const void* v, void* o,
-                                      int b, int tq, int tk, int h, int hkv, int d, int causal,
-                                      int window, int q_offset, double scale,
+                                      float* lse, int b, int tq, int tk, int h, int hkv, int d,
+                                      int causal, int window, int q_offset, double scale,
                                       double empty_denom, void* stream) {
-  return launch<float>(q, k, v, o, b, tq, tk, h, hkv, d, causal, window, q_offset, scale,
+  return launch<float>(q, k, v, o, lse, b, tq, tk, h, hkv, d, causal, window, q_offset, scale,
                        empty_denom, stream);
 }
 
 cudaError_t repro_flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
-                                       int b, int tq, int tk, int h, int hkv, int d, int causal,
-                                       int window, int q_offset, double scale,
+                                       float* lse, int b, int tq, int tk, int h, int hkv, int d,
+                                       int causal, int window, int q_offset, double scale,
                                        double empty_denom, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, o, b, tq, tk, h, hkv, d, causal, window, q_offset,
+  return launch<__nv_bfloat16>(q, k, v, o, lse, b, tq, tk, h, hkv, d, causal, window, q_offset,
                                scale, empty_denom, stream);
 }
 

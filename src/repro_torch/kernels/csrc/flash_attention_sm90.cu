@@ -53,6 +53,13 @@
 //     pairs on the diagonal), and at D = 256 the 64 x 256 float32 O
 //     accumulator already takes 128 registers a thread.
 //
+// With a non-null `lse` the kernel also writes each row's natural
+// log-sum-exp of its scaled logits, ln 2 (m + log2 l) from the epilogue's
+// row statistics, as float32 (B, H, Tq): the training forward saves it for
+// the backward (csrc/flash_attention_bwd.cu). The serving path passes null
+// and its output is unchanged: the store sits beside the output's, which
+// it does not touch.
+//
 // The tensor maps are encoded on the host for every call with
 // cuTensorMapEncodeTiled, fetched through cudaGetDriverEntryPoint, so the
 // library needs no -lcuda. Every entry point launches on the given stream,
@@ -75,6 +82,7 @@ constexpr int kRowBytes = 128;
 constexpr int kStages = 2;
 // -2^30, the contract's mask value, in the log2 units the softmax runs in
 constexpr float kMask = -1073741824.0f * 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int DT>
 struct Layout {
@@ -219,8 +227,9 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
                             const __grid_constant__ CUtensorMap kmap,
                             const __grid_constant__ CUtensorMap vmap,
                             const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                            int tq, int tk, int h, int hkv, int d, int causal, int window,
-                            int q_offset, float scale_log2, float empty_denom) {
+                            float* __restrict__ lse, int tq, int tk, int h, int hkv, int d,
+                            int causal, int window, int q_offset, float scale_log2,
+                            float empty_denom) {
   using L = Layout<DT>;
   extern __shared__ uint8_t smem_raw[];
   // TMA's 128-byte swizzle and the wgmma descriptors agree on 1024-byte atoms
@@ -433,6 +442,11 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
   for (int ri = 0; ri < 2; ++ri) {
     const int t = i0 + r0 + 8 * ri;
     if (t >= tq) continue;
+    // the row's natural log-sum-exp of the scaled logits, for the backward
+    // (csrc/flash_attention_bwd.cu); m and l are in log2 units, shared by
+    // the quad
+    if (lse != nullptr && (lane & 3) == 0)
+      lse[((long long)bb * h + head) * tq + t] = (m[ri] + log2f(l[ri])) * kLn2;
     const float den = fmaxf(l[ri], 1e-30f);
     __nv_bfloat16* row = o + (((long long)bb * tq + t) * h + head) * d;
 #pragma unroll
@@ -487,8 +501,8 @@ bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int b, int t, int
 }
 
 template <int DT>
-cudaError_t launch_d(const void* q, const void* k, const void* v, void* o, int b, int tq,
-                     int tk, int h, int hkv, int d, int causal, int window, int q_offset,
+cudaError_t launch_d(const void* q, const void* k, const void* v, void* o, float* lse, int b,
+                     int tq, int tk, int h, int hkv, int d, int causal, int window, int q_offset,
                      float scale_log2, float empty_denom, void* stream) {
   const int smem = Layout<DT>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(flash_attention_sm90_kernel<DT>,
@@ -502,7 +516,7 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o, int b
     return cudaErrorInvalidValue;
   const dim3 grid((unsigned)h, (unsigned)((tq + kBM - 1) / kBM), (unsigned)b);
   flash_attention_sm90_kernel<DT><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      qmap, kmap, vmap, (const __nv_bfloat16*)v, (__nv_bfloat16*)o, tq, tk, h, hkv, d, causal,
+      qmap, kmap, vmap, (const __nv_bfloat16*)v, (__nv_bfloat16*)o, lse, tq, tk, h, hkv, d, causal,
       window, q_offset, scale_log2, empty_denom);
   return cudaGetLastError();
 }
@@ -514,8 +528,8 @@ extern "C" {
 const char* repro_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
 cudaError_t repro_flash_attention_sm90_bf16(const void* q, const void* k, const void* v,
-                                            void* o, int b, int tq, int tk, int h, int hkv,
-                                            int d, int causal, int window, int q_offset,
+                                            void* o, float* lse, int b, int tq, int tk, int h,
+                                            int hkv, int d, int causal, int window, int q_offset,
                                             double scale, double empty_denom, void* stream) {
   if (b <= 0 || tq <= 0 || tk <= 0 || h <= 0 || hkv <= 0 || h % hkv != 0 || d <= 0 ||
       d % 8 != 0 || d > 256 || b > 65535 || (tq + kBM - 1) / kBM > 65535 || q_offset < 0 ||
@@ -524,12 +538,12 @@ cudaError_t repro_flash_attention_sm90_bf16(const void* q, const void* k, const 
     return cudaErrorInvalidValue;
   const float scale_log2 = (float)(scale * 1.4426950408889634);
   if (d <= 64)
-    return launch_d<64>(q, k, v, o, b, tq, tk, h, hkv, d, causal, window, q_offset,
+    return launch_d<64>(q, k, v, o, lse, b, tq, tk, h, hkv, d, causal, window, q_offset,
                         scale_log2, (float)empty_denom, stream);
   if (d <= 128)
-    return launch_d<128>(q, k, v, o, b, tq, tk, h, hkv, d, causal, window, q_offset,
+    return launch_d<128>(q, k, v, o, lse, b, tq, tk, h, hkv, d, causal, window, q_offset,
                          scale_log2, (float)empty_denom, stream);
-  return launch_d<256>(q, k, v, o, b, tq, tk, h, hkv, d, causal, window, q_offset,
+  return launch_d<256>(q, k, v, o, lse, b, tq, tk, h, hkv, d, causal, window, q_offset,
                        scale_log2, (float)empty_denom, stream);
 }
 

@@ -24,6 +24,12 @@ Ops: ``fwht``, ``srht_apply``, ``srht_apply_t`` (the sketch),
 ``ref.mha_blocked``). The kernels are built only when the first
 ``"cuda"`` call runs. Every kernel wrapper counts its launches
 (``launch_counts``).
+
+Gradients: the ``"ref"`` versions are plain PyTorch, which autograd
+differentiates. On ``"cuda"``, ``flash_attention`` with an input that
+requires a gradient (and grad mode on) takes ``_CUDA_GRAD``'s entry, an
+autograd Function whose backward is the hand-written backward kernel
+(self-attention only); the other ops' kernels are not differentiable.
 """
 from __future__ import annotations
 
@@ -49,6 +55,9 @@ _CUDA = {"fwht": kfwht.fwht_cuda,
          "topk_mask": kcodec.topk_mask_cuda,
          "qint8_roundtrip": kcodec.qint8_roundtrip_cuda,
          "flash_attention": kflash.flash_attention_cuda}
+# the differentiable form of an op's kernel, taken when an input
+# requires a gradient
+_CUDA_GRAD = {"flash_attention": kflash.flash_attention_grad_cuda}
 # the plain version of an op is ``ref.<op>`` unless named here (looked
 # up at call time, so a test may substitute it)
 _REF_NAMES = {"flash_attention": "mha_blocked"}
@@ -111,9 +120,11 @@ def _require_card(op: str, x: torch.Tensor) -> None:
             f"capability 9.x), {x.device} has {major}.{minor}")
 
 
-def get_impl(op: str, impl: str, x: torch.Tensor) -> Callable:
-    """The callable for (op, impl) on input ``x``; raises for an unknown
-    op, or for ``"cuda"`` where the kernel cannot run."""
+def get_impl(op: str, impl: str, x: torch.Tensor, *,
+             grad: bool = False) -> Callable:
+    """The callable for (op, impl) on input ``x``, its differentiable
+    kernel where ``grad``; raises for an unknown op, or for ``"cuda"``
+    where the kernel cannot run."""
     if op not in OPS:
         raise KeyError(f"unknown kernel op {op!r}; have {OPS}")
     impl = _canonical(impl)
@@ -121,12 +132,13 @@ def get_impl(op: str, impl: str, x: torch.Tensor) -> Callable:
         return getattr(ref, _REF_NAMES.get(op, op))
     if impl == "cuda":
         _require_card(op, x)
-        return _CUDA[op]
+        return _CUDA_GRAD[op] if grad else _CUDA[op]
     raise ValueError(f"impl {impl!r} is not concrete; resolve it first")
 
 
-def _dispatch(op: str, impl: "str | None", x: torch.Tensor) -> Callable:
-    return get_impl(op, resolve_impl(impl, x), x)
+def _dispatch(op: str, impl: "str | None", x: torch.Tensor, *,
+              grad: bool = False) -> Callable:
+    return get_impl(op, resolve_impl(impl, x), x, grad=grad)
 
 
 def fwht(x: torch.Tensor, *, normalize: bool = False,
@@ -176,8 +188,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     D): causal, sliding ``window`` (``None`` or <= 0 is none) and
     ``q_offset`` masks, online softmax in float32, output in q's dtype.
     ``block_q``/``block_k`` are the contract's blocking (they decide only
-    the value of rows that see no key); the kernel picks its own tiles."""
-    return _dispatch("flash_attention", impl, q)(
+    the value of rows that see no key); the kernel picks its own tiles.
+    When an input requires a gradient the kernel route is differentiable
+    through the backward kernel (Tq == Tk and ``q_offset`` 0 only)."""
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad)
+    return _dispatch("flash_attention", impl, q, grad=grad)(
         q, k, v, causal=causal, window=window, q_offset=q_offset,
         block_q=block_q, block_k=block_k)
 

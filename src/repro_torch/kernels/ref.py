@@ -256,3 +256,20 @@ def mha_blocked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = acc / torch.clamp(denom[..., None], min=1e-30)
     out = out.permute(0, 1, 4, 2, 3, 5).reshape(b, nq * block_q, h, d)
     return out[:, :tq].to(q.dtype)
+
+
+def mha_blocked_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     do: torch.Tensor, *, causal: bool = True,
+                     window: "int | None" = None, q_offset: int = 0,
+                     scale: "float | None" = None, block_q: int = 512,
+                     block_k: int = 1024):
+    """(dq, dk, dv): ``torch.autograd.grad`` of ``mha_blocked`` at (q, k,
+    v) against the output gradient ``do``, the derivative the reference
+    takes of its ``mha_blocked`` in training. The plain version of the
+    flash-attention backward kernel, and the CPU path's gradient."""
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        out = mha_blocked(*leaves, causal=causal, window=window,
+                          q_offset=q_offset, scale=scale, block_q=block_q,
+                          block_k=block_k)
+        return torch.autograd.grad(out, leaves, do)

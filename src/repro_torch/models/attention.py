@@ -1,9 +1,12 @@
 """Grouped-query attention with RoPE, sliding windows and KV caches.
 
-The counterpart of ``repro.models.attention`` for the serving path:
+The counterpart of ``repro.models.attention`` for serving and training:
 
-  * ``attn_full``   — full-sequence self-attention (prefill), through the
-                      ``flash_attention`` op (the CUDA kernel on the card)
+  * ``attn_full``   — full-sequence self-attention (prefill, and the
+                      training forward: no cache, rope and the
+                      projections differentiable), through the
+                      ``flash_attention`` op (the CUDA kernels on the
+                      card, the backward kernel for its gradient)
   * ``attn_decode`` — one-token step against a cache
 
 Caches store the absolute position of each slot per batch row (``pos``,

@@ -207,3 +207,66 @@ def embed(params: dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Logits x @ table.T for a (vocab, d_model) table."""
     return x @ table.T.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# cross-entropy (training loss)
+# ---------------------------------------------------------------------------
+
+def _masked_mean(nll: torch.Tensor, mask) -> torch.Tensor:
+    if mask is None:
+        return torch.mean(nll)
+    mask = mask.float()
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask=None) -> torch.Tensor:
+    """Mean next-token CE in float32. logits (B, T, V), labels (B, T);
+    ``mask`` (B, T) weights each position (its sum, at least 1, divides)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return _masked_mean(logz - gold, mask)
+
+
+def lm_cross_entropy(feats: torch.Tensor, table: torch.Tensor,
+                     labels: torch.Tensor, mask=None) -> torch.Tensor:
+    """CE from features (B, T, D) and a (vocab, D) table: the logsumexp
+    of the logits ``feats @ table.T`` (in the features' dtype) taken in
+    float32, and the gold logit as <feats, table[labels]> in float32, a
+    row gather instead of a gather from the (B, T, V) logits."""
+    logits = feats @ table.T.to(feats.dtype)
+    logz = torch.logsumexp(logits.float(), dim=-1)
+    gold_rows = table[labels.long()].float()  # (B, T, D)
+    gold = torch.einsum("btd,btd->bt", feats.float(), gold_rows)
+    return _masked_mean(logz - gold, mask)
+
+
+def chunked_cross_entropy(features: torch.Tensor, emb_table: torch.Tensor,
+                          labels: torch.Tensor, chunk: int,
+                          mask=None) -> torch.Tensor:
+    """CE over T in chunks of ``chunk`` positions, each chunk's (B, c, V)
+    logits at a time (the reference's ``lax.scan``, in its order): the
+    masked sum of the chunks' nll over the masked count, at least 1."""
+    b, t, d = features.shape
+    if t % chunk != 0:
+        raise ValueError(f"sequence length {t} must be divisible by the "
+                         f"cross-entropy chunk {chunk}")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=labels.device)
+    mask = mask.float()
+    table = emb_table.T.to(features.dtype)
+    tot = torch.zeros((), dtype=torch.float32, device=features.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=features.device)
+    for c0 in range(0, t, chunk):
+        f = features[:, c0:c0 + chunk]
+        lab = labels[:, c0:c0 + chunk]
+        mk = mask[:, c0:c0 + chunk]
+        logits = (f @ table).float()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lab[..., None].long())[..., 0]
+        tot = tot + torch.sum((logz - gold) * mk)
+        cnt = cnt + torch.sum(mk)
+    return tot / torch.clamp(cnt, min=1.0)

@@ -6,24 +6,29 @@ reference's (L, ...) layout, and run by a Python loop over the layers.
 Per-layer metadata (gemma3's 5 local : 1 global windows and thetas) is
 host ints and floats.
 
-This slice ports the serving path of the ``dense`` group kind:
-``init``, ``prefill``, ``init_decode_state`` and ``decode_step``. The
-other kinds and ``loss`` raise ``NotImplementedError`` naming the
-ROADMAP item that brings them.
+The ``dense`` group kind is ported for serving (``init``, ``prefill``,
+``init_decode_state``, ``decode_step``) and for training (``loss``, whose
+backbone builds no cache and, with ``cfg.remat``, recomputes each unit
+in the backward as the reference's ``jax.checkpoint`` does). The other
+kinds raise ``NotImplementedError`` naming the ROADMAP item that brings
+them.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (
     ModelConfig,
+    chunked_cross_entropy,
     dense_init,
     embed,
     embedding_init,
+    lm_cross_entropy,
     mlp_apply,
     mlp_init,
     rmsnorm,
@@ -31,8 +36,8 @@ from repro_torch.models.common import (
     unembed,
 )
 
-# group kinds of later slices -> what ROADMAP (queue 1, item 6.2: the
-# other LM families) calls them
+# group kinds of later slices -> what ROADMAP (queue 1, item 3: the other
+# LM families) calls them
 _LATER = {"moe": "moe", "ssd": "ssd", "rec": "rglru/griffin",
           "griffin": "rglru/griffin", "vlm": "vlm", "dec": "audio",
           "enc": "audio", "dense_sb": "dense_sb (right-sized caches)"}
@@ -138,6 +143,12 @@ def _dense_unit_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     return _mlp_half(p, x, h, cfg), k, v
 
 
+def _dense_unit_train(p: dict, x: torch.Tensor, cfg: ModelConfig, window: int,
+                      theta: float) -> torch.Tensor:
+    """One unit over a full sequence, its output alone (training)."""
+    return _dense_unit_apply(p, x, cfg, window=window, theta=theta)[0]
+
+
 def _dense_unit_decode(p: dict, x: torch.Tensor, cache: dict,
                        index: torch.Tensor, cfg: ModelConfig, *,
                        window: int, theta: float):
@@ -153,6 +164,18 @@ def _layer(tree, i: int):
     return tree[i]
 
 
+def _units(tree, n: int) -> list:
+    """The ``n`` units of a stacked parameter tree, as views from one
+    ``unbind`` a leaf: its backward stacks the units' gradients into one
+    (L, ...) tensor, where a view per unit would give each unit's
+    gradient a full-size zero tensor of its own."""
+    if isinstance(tree, dict):
+        subs = {name: _units(sub, n) for name, sub in tree.items()}
+        return [{name: sub[i] for name, sub in subs.items()}
+                for i in range(n)]
+    return list(tree.unbind(0))
+
+
 class LM:
     """Model wrapper for one ModelConfig (serving path, dense kind)."""
 
@@ -163,8 +186,8 @@ class LM:
             if g.kind != "dense":
                 raise NotImplementedError(
                     f"{cfg.arch_id}: the {g.kind!r} group kind comes with "
-                    f"ROADMAP queue 1, item 6.2 (the other LM families: "
-                    f"{_LATER[g.kind]}); this slice ports 'dense'")
+                    f"ROADMAP queue 1, item 3 (the other LM families: "
+                    f"{_LATER[g.kind]}); the port has 'dense'")
 
     # -- init ----------------------------------------------------------------
     def init(self, gen: torch.Generator) -> dict:
@@ -185,15 +208,36 @@ class LM:
                 else params["embed"]["table"])
 
     # -- full-sequence forward ------------------------------------------------
-    def _backbone(self, params: dict, x: torch.Tensor, *, cache_len: int):
+    def _backbone(self, params: dict, x: torch.Tensor, *,
+                  cache_len: "int | None" = None):
         """Run all groups over full sequences. Returns (features, the KV
-        cache of each group with ``cache_len`` slots)."""
+        cache of each group with ``cache_len`` slots); with ``cache_len``
+        None no cache is built (training, features) and the second item
+        is None."""
         caches = []
         for gi, g in enumerate(self.groups):
-            x, cache = self._run_group_full(g, params[f"group{gi}"], x,
-                                            cache_len=cache_len)
-            caches.append(cache)
-        return rmsnorm(params["final_norm"], x), caches
+            gp = params[f"group{gi}"]
+            if cache_len is None:
+                x = self._run_group_train(g, gp, x)
+            else:
+                x, cache = self._run_group_full(g, gp, x, cache_len=cache_len)
+                caches.append(cache)
+        return (rmsnorm(params["final_norm"], x),
+                None if cache_len is None else caches)
+
+    def _run_group_train(self, g: GroupSpec, gp: dict,
+                         x: torch.Tensor) -> torch.Tensor:
+        """The group's units without caches. With ``cfg.remat`` and
+        autograd recording, each unit keeps only its input for the
+        backward and runs again there (the reference's per-unit
+        ``jax.checkpoint``), so its attention's forward kernel launches
+        twice in a training step."""
+        remat = self.cfg.remat and torch.is_grad_enabled()
+        for i, p in enumerate(_units(gp, g.n)):
+            args = (p, x, self.cfg, g.windows[i], g.thetas[i])
+            x = (checkpoint(_dense_unit_train, *args, use_reentrant=False)
+                 if remat else _dense_unit_train(*args))
+        return x
 
     def _run_group_full(self, g: GroupSpec, gp: dict, x: torch.Tensor, *,
                         cache_len: int):
@@ -214,9 +258,24 @@ class LM:
         return x, cache
 
     # -- training loss --------------------------------------------------------
-    def loss(self, params, batch):
-        raise NotImplementedError(
-            "LM.loss comes with ROADMAP queue 1, item 6.1 (LM training)")
+    def loss(self, params: dict, batch: dict):
+        """batch {"inputs", "labels": (B, T) token ids, optional "mask"
+        (B, T)} -> (total, {"ce", "aux"}): the next-token CE in float32
+        (``chunked_cross_entropy`` when ``cfg.logits_chunk`` is set), and
+        the auxiliary loss, 0 for the dense kind; total = ce + 0.01 aux."""
+        cfg = self.cfg
+        x = embed(params["embed"], batch["inputs"], cfg)
+        feats, _ = self._backbone(params, x)
+        labels = batch["labels"]
+        mask = batch.get("mask")
+        table = self._table(params)
+        if cfg.logits_chunk:
+            ce = chunked_cross_entropy(feats, table, labels, cfg.logits_chunk,
+                                       mask)
+        else:
+            ce = lm_cross_entropy(feats, table, labels, mask)
+        aux = torch.zeros((), dtype=torch.float32, device=feats.device)
+        return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
     # -- prefill --------------------------------------------------------------
     def prefill(self, params: dict, batch: dict, *,

@@ -138,7 +138,9 @@ def test_codec_ops_dispatch_to_the_plain_version_on_the_cpu(monkeypatch):
     before = ops.launch_counts()
     assert set(before) == {"fwht", "srht_apply", "srht_apply_t", "topk_mask",
                            "qint8_roundtrip", "flash_attention",
-                           "flash_attention_sm90", "flash_attention_tf32x3"}
+                           "flash_attention_sm90", "flash_attention_tf32x3",
+                           "flash_attention_bwd", "flash_attention_bwd_delta",
+                           "flash_attention_bwd_dkdv", "flash_attention_bwd_dq"}
     assert torch.equal(ops.topk_mask(x, 3), ref.topk_mask(x, 3))
     assert torch.equal(ops.qint8_roundtrip(x, u), ref.qint8_roundtrip(x, u))
     assert torch.equal(ops.topk_mask(x, 3, impl="reference"),

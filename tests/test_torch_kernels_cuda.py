@@ -216,12 +216,18 @@ def test_cuda_kernels_count_launches(hopper):
     kv = torch.randn(1, 16, 2, 64, device=hopper)
     ops.flash_attention(q, kv, kv)
     ops.flash_attention(q, kv, kv, impl="ref")
+    qg = q.clone().requires_grad_(True)
+    ops.flash_attention(qg, kv, kv).sum().backward()
     assert ops.launch_counts() == {"fwht": 1, "srht_apply": 2,
                                    "srht_apply_t": 1, "topk_mask": 1,
                                    "qint8_roundtrip": 1,
-                                   "flash_attention": 1,
+                                   "flash_attention": 2,
                                    "flash_attention_sm90": 0,
-                                   "flash_attention_tf32x3": 1}
+                                   "flash_attention_tf32x3": 2,
+                                   "flash_attention_bwd": 1,
+                                   "flash_attention_bwd_delta": 1,
+                                   "flash_attention_bwd_dkdv": 1,
+                                   "flash_attention_bwd_dq": 1}
 
 
 @pytest.mark.gpu
@@ -458,6 +464,67 @@ def test_flash_attention_kernel_rejects_what_it_does_not_take(hopper):
         flat = torch.zeros(1 + q.numel(), device=hopper).bfloat16()
         kvb = kv.bfloat16()
         ops.flash_attention(flat[1:].view(q.shape), kvb, kvb, impl="cuda")
+
+
+# the flash-attention backward kernel against its plain version
+# (ref.mha_blocked_grad): (T, H, Hkv, D, causal, window), self-attention
+# only; tolerance on the largest |error| of each gradient over its largest
+# |value|: bfloat16 2e-2 (the forward's P V in bfloat16 and the gradients'
+# rounding), float32 1e-4 (the 3xTF32 forward's output and log-sum-exp)
+FLASH_BWD_CASES = [(64, 4, 4, 64, True, None), (100, 8, 2, 64, True, None),
+                   (100, 8, 1, 128, True, 7), (130, 4, 1, 256, True, 48),
+                   (77, 4, 2, 32, False, None), (90, 2, 1, 12, True, None),
+                   (50, 4, 2, 64, False, 16), (2048, 32, 4, 64, True, None),
+                   (2048, 4, 1, 256, True, 512)]
+FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,h,hkv,d,causal,window", FLASH_BWD_CASES)
+def test_flash_attention_backward_matches_plain(hopper, tdt, t, h, hkv, d,
+                                                causal, window):
+    from repro_torch.kernels import ref
+
+    g = torch.Generator(device=hopper).manual_seed(t + d)
+    q, k, v = (torch.randn(2, t, n, d, generator=g, device=hopper).to(tdt)
+               for n in (h, hkv, hkv))
+    do = torch.randn(2, t, h, d, generator=g, device=hopper).to(tdt)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    ops.reset_launch_counts()
+    out = ops.flash_attention(*leaves, causal=causal, window=window,
+                              impl="cuda")
+    got = torch.autograd.grad(out, leaves, do)
+    assert ops.launch_counts()["flash_attention_bwd"] == 1
+    want = ref.mha_blocked_grad(q, k, v, do, causal=causal, window=window)
+    again = torch.autograd.grad(
+        ops.flash_attention(*leaves, causal=causal, window=window,
+                            impl="cuda"), leaves, do)
+    torch.cuda.synchronize()
+    for x, w, a in zip(got, want, again):
+        assert x.dtype == tdt and x.shape == w.shape
+        err = float((x.float() - w.float()).abs().max()
+                    / w.float().abs().max())
+        assert err <= FLASH_BWD_TOL[tdt], err
+        assert torch.equal(x, a)  # no atomics: a run repeats bit for bit
+
+
+@pytest.mark.gpu
+def test_flash_attention_backward_rejects_what_it_does_not_take(hopper):
+    from repro_torch.kernels import flash_attention as kflash
+
+    q = torch.randn(1, 8, 4, 64, device=hopper, requires_grad=True)
+    kv = torch.randn(1, 8, 2, 64, device=hopper)
+    with pytest.raises(ValueError, match="self-attention only"):
+        ops.flash_attention(q, kv, kv, q_offset=3, impl="cuda")
+    with pytest.raises(ValueError, match="self-attention only"):
+        kv12 = torch.randn(1, 12, 2, 64, device=hopper)
+        ops.flash_attention(q, kv12, kv12, impl="cuda")
+    out, lse = kflash._forward(q.detach(), kv, kv, causal=True, window=None,
+                               q_offset=0, block_k=1024, with_lse=True)
+    with pytest.raises(ValueError, match="lse"):
+        kflash.flash_attention_bwd_cuda(q.detach(), kv, kv, out, out,
+                                        lse[:, :2])
 
 
 # the asynchronous driver and a population round on the card: FLeNS+

@@ -221,7 +221,13 @@ def test_later_families_and_loss_raise():
                        ("gemma3-1b@rightsized", "dense_sb")):
         with pytest.raises(NotImplementedError, match=f"'{kind}'.*ROADMAP"):
             tlm.LM(get_config(arch).reduced())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlm.LM(get_config("tinyllama-1.1b").reduced()).loss({}, {})
+    cfg = get_config("tinyllama-1.1b").reduced()
+    model = tlm.LM(cfg)
+    toks = torch.randint(0, cfg.vocab, (2, 9),
+                         generator=torch.Generator().manual_seed(0))
+    total, metrics = model.loss(model.init(torch.Generator().manual_seed(0)),
+                                {"inputs": toks[:, :-1], "labels": toks[:, 1:]})
+    assert total.shape == () and bool(torch.isfinite(total))
+    assert float(metrics["aux"]) == 0.0 and torch.equal(total, metrics["ce"])
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         tlm.LM(get_config("tinyllama-1.1b").reduced()).init_decode_state(1, 8)
