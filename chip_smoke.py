@@ -186,30 +186,32 @@ Phases, in order; any failure raises and the script exits non-zero:
                 off
  13. train    — LM training through the flash-attention backward kernels
                 (route sm90: csrc/flash_attention_bwd_sm90.cu, bf16 with D
-                % 8 == 0; route simt: csrc/flash_attention_bwd.cu, the
-                rest): (a) the backward against its plain version
+                % 8 == 0; route tf32x3: csrc/flash_attention_bwd.cu, 3xTF32
+                on mma.sync, the rest): (a) the backward against its plain
+                version
                 (ref.mha_blocked_grad) at (1, 2048, 32, 4, 64) and (1,
                 2048, 64, 8, 128) causal, (1, 2048, 4, 1, 256) window 512,
                 the training shape (2, 2048, 32, 4, 64) and (1, 1024, 8, 2,
                 60) causal, in bfloat16 (<= 2e-2 of each gradient's max
-                |value|; D 64, 128 and 256 on sm90, D 60 on simt) and
-                float32 (<= 1e-4, simt), each launch counted on its route,
-                a second call bit-equal, a failing sm90 entry point raising
-                with nothing launched, the forward's output bit-equal with
+                |value|; D 64, 128 and 256 on sm90, D 60 on tf32x3) and
+                float32 (<= 1e-4, tf32x3), each launch counted on its route,
+                a second call bit-equal, a failing sm90 and tf32x3 entry
+                point raising with nothing launched, the forward's output
+                bit-equal with
                 its log-sum-exp written and not (also over flash parity's
                 self-attention shapes), timed beside its bound, its plain
                 version and SDPA's backward; (b) TinyLlama-1.1B at full
                 width and depth in bf16 with remat, batch 2 x 2048 tokens
                 from FastLMStream, 12 AdamW steps with launch/train.py's
                 schedule, through the kernels (2 forward launches and 1
-                sm90 backward a layer a step, none of the simt backward)
+                sm90 backward a layer a step, none of the tf32x3 backward)
                 and through the plain versions from the same init: every
                 CE finite, the trajectories and step 0's gradients within
                 the stated tolerances, the last CE below the first; ms a
                 step, tokens/s, peak memory and a profiled step's busy
                 share, backward-kernel share and top host ops; (c) the
                 float32 twin at full width and 4 layers (the tf32x3
-                forward, the simt backward), the same checks at tight
+                forward, the tf32x3 backward), the same checks at tight
                 tolerances; (d) the FLeNS head (m = 8, 64 sequences of 32
                 tokens a client, k = 64) on the trained bf16 backbone's
                 features (D = 2048): FLeNS through the SRHT kernels
@@ -217,8 +219,8 @@ Phases, in order; any failure raises and the script exits non-zero:
  14. kernels  — one JSON line naming every ported kernel (flash
                 attention as two entries: the sm90 route and the tf32x3
                 route; its backward as two more: the sm90 route, timed and
-                counted on the bf16 training run, and the simt route, on the
-                f32 twin's); the srht_apply and fwht entries list their
+                counted on the bf16 training run, and the tf32x3 route, on
+                the f32 twin's); the srht_apply and fwht entries list their
                 routes, each with a timed shape and its bound (srht_apply's
                 batched routes at the three FedNS shapes too)
 
@@ -289,7 +291,7 @@ KERNELS = {
     "flash_attention_bwd_sm90": dict(
         source="src/repro_torch/kernels/csrc/flash_attention_bwd_sm90.cu",
         replaces="src/repro/models/attention.py:104"),
-    "flash_attention_bwd_simt": dict(
+    "flash_attention_bwd_tf32x3": dict(
         source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         replaces="src/repro/models/attention.py:104"),
 }
@@ -312,15 +314,15 @@ TABLE_ONE = [("fedavg", dict(lr=2.0, local_steps=5)),
              ("local_newton", {}), ("fednew", {}), ("fednl", {}),
              ("fedns", dict(k=SUSY["k"])), ("fedndes", {})]
 SKETCHED = ("fedns", "fedndes")  # one batched srht_apply launch a round
-# the backward's counters: its total, each route's, and each kernel's (the
-# simt route's delta, dkdv, dq; the sm90 route's sm90_delta, sm90_dkdv,
-# sm90_dq and, when the group's heads are cut into runs, sm90_sum)
-BWD_ROUTE_KERNELS = {"simt": ("delta", "dkdv", "dq"),
-                     "sm90": ("sm90_delta", "sm90_dkdv", "sm90_dq")}
-NO_BWD = {"flash_attention_bwd": 0, "flash_attention_bwd_sm90": 0,
-          "flash_attention_bwd_simt": 0, "flash_attention_bwd_sm90_sum": 0,
-          **{f"flash_attention_bwd_{k}": 0
-             for kernels in BWD_ROUTE_KERNELS.values() for k in kernels}}
+# the backward's counters: its total, each route's, and each kernel's
+# (route_delta, route_dkdv, route_dq and, when the group's heads are cut
+# into runs, route_sum)
+BWD_ROUTE_KERNELS = {route: (f"{route}_delta", f"{route}_dkdv", f"{route}_dq")
+                     for route in ("sm90", "tf32x3")}
+NO_BWD = {"flash_attention_bwd": 0,
+          **{f"flash_attention_bwd_{name}": 0
+             for route, kernels in BWD_ROUTE_KERNELS.items()
+             for name in (route, *kernels, f"{route}_sum")}}
 NO_LM = {"flash_attention": 0, "flash_attention_sm90": 0,
          "flash_attention_tf32x3": 0, **NO_BWD}
 
@@ -470,30 +472,37 @@ def phase_build() -> dict:
                      "spill_loads": int(spill.group(2))}
         check(srht[key]["spill_stores"] == srht[key]["spill_loads"] == 0,
               f"build: {key} spills: {srht[key]}")
-    # the flash backward's three kernels per dtype and head-dim width
-    # (delta per dtype only): none may spill
+    # the tf32x3 backward's kernels: delta and the split sum per dtype, dk/dv
+    # and dq per dtype, head-dim width and load path (float32 by cp.async
+    # or plain loads, bfloat16 plain loads); none may spill
     flash_bwd = {}
     for entry in re.split(r"Compiling entry function",
                           _build.build_log("flash_attention_bwd"))[1:]:
-        name = re.search(r"flash_bwd_(delta|dkdv|dq)_kernelI(f|13__nv_bfloat16)"
-                         r"(?:Li(\d+)E)?", entry)
+        name = re.search(r"flash_bwd_(delta|sum|dkdv|dq)_tf32x3_kernel"
+                         r"I(f|13__nv_bfloat16)(?:Li(\d+)ELb([01])E)?", entry)
         regs = re.search(r"Used (\d+) registers", entry)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                           entry)
         check(name and regs and spill, "build: unreadable flash_bwd ptxas "
               "report")
-        kind, dt, width = name.groups()
-        key = (f"flash_bwd_{kind}_kernel<{'float' if dt == 'f' else 'bf16'}"
-               + (f", {width}>" if width else ">"))
+        kind, dt, width, cp = name.groups()
+        args = ["float" if dt == "f" else "bf16"]
+        if width:
+            args += [width, "cp.async" if cp == "1" else "plain loads"]
+        key = f"flash_bwd_{kind}_tf32x3_kernel<{', '.join(args)}>"
         flash_bwd[key] = {"registers": int(regs.group(1)),
                           "spill_stores": int(spill.group(1)),
                           "spill_loads": int(spill.group(2))}
         check(flash_bwd[key]["spill_stores"] == flash_bwd[key]["spill_loads"]
               == 0, f"build: {key} spills: {flash_bwd[key]}")
-    check(len(flash_bwd) == 14, f"build: expected 14 flash_bwd kernel "
-          f"instantiations, got {sorted(flash_bwd)}")
-    log("[build] flash backward kernels, registers (no spills): " + ", ".join(
-        f"{k} {v['registers']}" for k, v in sorted(flash_bwd.items())))
+    kinds = [key.split("_tf32x3")[0] for key in flash_bwd]
+    check(len(flash_bwd) == 22 and kinds.count("flash_bwd_dkdv") == 9
+          and kinds.count("flash_bwd_dq") == 9, f"build: expected 22 "
+          f"flash_bwd tf32x3 kernel instantiations (delta, sum 2; dkdv, dq "
+          f"9), got {sorted(flash_bwd)}")
+    log("[build] tf32x3 flash backward kernels, registers (no spills): "
+        + ", ".join(f"{k} {v['registers']}"
+                    for k, v in sorted(flash_bwd.items())))
     # the sm90 backward's kernels: delta and the split sum once, dk/dv and
     # dq per head-dim width (64, 128, 256); none may spill
     flash_bwd_sm90 = {}
@@ -3068,8 +3077,7 @@ def _profile_call(fn) -> dict:
     busy = sum(t for _, t, _ in kernels)
     # flash_attention_sm90_kernel<...> in bf16, flash_attention_tf32x3_kernel<...> in f32
     flash = sum(t for name, t, _ in kernels if "flash_attention" in name)
-    # flash_bwd_{delta,dkdv,dq}_kernel<...> (simt) and
-    # flash_bwd_{delta,dkdv,sum,dq}_sm90_kernel<...>
+    # flash_bwd_{delta,dkdv,sum,dq}_{tf32x3,sm90}_kernel<...>
     flash_bwd = sum(t for name, t, _ in kernels if "flash_bwd" in name)
     top = sorted(kernels, key=lambda r: -r[1])[:8]
     host = sorted(((e.key, e.self_cpu_time_total, e.count)
@@ -3425,8 +3433,8 @@ def phase_flash_times() -> dict:
 
 # (a) the backward kernels against their plain version, causal: (label,
 # (B, T, H, Hkv, D), window); the training shape fourth (the kernels
-# line's row), a head dim that is not a multiple of 8 last (the simt route
-# in bf16 too)
+# line's row), a head dim that is not a multiple of 8 last (the tf32x3
+# route in bf16 too)
 FLASH_BWD_SHAPES = [
     ("TinyLlama heads (1, 2048, 32, 4, 64) causal", (1, 2048, 32, 4, 64),
      None),
@@ -3441,7 +3449,8 @@ TRAIN_SHAPE = 3  # FLASH_BWD_SHAPES' index of the training shape
 # the largest |error| of each gradient over its largest |value|: bfloat16
 # 2e-2 (the wgmma forward's P V in bfloat16, the sm90 backward's P and dS
 # rounded to bfloat16 as wgmma operands, each gradient rounded to
-# bfloat16), float32 1e-4 (the 3xTF32 forward's output and log-sum-exp)
+# bfloat16), float32 1e-4 (the 3xTF32 forward's output and log-sum-exp,
+# the 3xTF32 backward)
 FLASH_BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 TRAIN = dict(arch="tinyllama-1.1b", batch=2, seq=2048, steps=12, lr=3e-3,
              seed=0, f32_layers=4)
@@ -3457,6 +3466,15 @@ TRAIN = dict(arch="tinyllama-1.1b", batch=2, seq=2048, steps=12, lr=3e-3,
 TRAIN_TOL = {torch.bfloat16: {"ce": 1e-2, "grad": 5e-2},
              torch.float32: {"ce": 1e-4, "grad": 1e-4}}
 HEAD = dict(m=8, per_client=64, seq=32, k=64, rounds=10, lam=1e-3)
+
+
+def _bwd_splits(route, b, t, h, hkv, d) -> int:
+    """The runs of heads the route's dk/dv kernel cuts a group into."""
+    from repro_torch.kernels import flash_attention as kflash
+
+    rule = (kflash.bwd_sm90_splits if route == "sm90"
+            else kflash.bwd_tf32x3_splits)
+    return rule(b, t, h, hkv, d)
 
 
 def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -3488,7 +3506,7 @@ def _flash_bwd_row(label, dims, window, dtype, gen, dev) -> dict:
     def plain():
         return ref.mha_blocked_grad(q, k, v, do, window=window)
     route = kflash.flash_bwd_route(dtype, d)
-    splits = kflash.bwd_sm90_splits(b, t, h, hkv, d) if route == "sm90" else 1
+    splits = _bwd_splits(route, b, t, h, hkv, d)
     ops.reset_launch_counts()
     got = kern()
     counts = {op: n for op, n in ops.launch_counts().items()
@@ -3496,7 +3514,7 @@ def _flash_bwd_row(label, dims, window, dtype, gen, dev) -> dict:
     name = str(dtype).split(".")[-1]
     check(counts == {**NO_BWD, "flash_attention_bwd": 1,
                      f"flash_attention_bwd_{route}": 1,
-                     "flash_attention_bwd_sm90_sum": int(splits > 1),
+                     f"flash_attention_bwd_{route}_sum": int(splits > 1),
                      **{f"flash_attention_bwd_{k}": 1
                         for k in BWD_ROUTE_KERNELS[route]}},
           f"flash backward {name} {label}: launches {counts} are not one "
@@ -3550,7 +3568,7 @@ def _flash_bwd_row(label, dims, window, dtype, gen, dev) -> dict:
                       f"{ms:.3f}" for key, ms in by_kernel.items())
     peak = (f" at 3xTF32, FP32 SIMT bound {simt_bound:.4f}" if simt_bound
             else "")
-    runs = f", {splits} runs of heads" if route == "sm90" else ""
+    runs = f", {splits} runs of heads"
     log(f"[train] flash backward {row['shape']} ({route}{runs}): rel err dq "
         f"{rel['dq']:.2e} dk {rel['dk']:.2e} dv {rel['dv']:.2e} (tol "
         f"{FLASH_BWD_TOL[dtype]}); {row['ms']:.4f} ms, device "
@@ -3562,40 +3580,44 @@ def _flash_bwd_row(label, dims, window, dtype, gen, dev) -> dict:
 
 
 def _flash_bwd_no_fallback(dev) -> None:
-    """The sm90 backward with its entry point made to fail raises, and
+    """Each backward route with its entry point made to fail raises, and
     launches nothing of either route: no fallback."""
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import flash_attention as kflash
 
-    class Failing:
+    class Failing:  # every backward entry point reports cudaErrorInvalidValue
         def __init__(self, lib):
             self.repro_error_string = lib.repro_error_string
 
-        @staticmethod
-        def repro_flash_attention_bwd_sm90_bf16(*args):
-            return 1  # cudaErrorInvalidValue
+        def __getattr__(self, name):
+            return lambda *args: 1
 
     gen = torch.Generator(device=dev).manual_seed(16)
-    q, k, v = _flash_inputs(gen, 1, 128, 128, 4, 2, 64, torch.bfloat16, dev)
-    out, lse = kflash._forward(q, k, v, causal=True, window=None, q_offset=0,
-                               block_k=1024, with_lse=True)
     real = _build.library
-    _build.library = lambda stem="srht": (Failing(real(stem)) if stem
-                                          == "flash_attention_bwd_sm90"
-                                          else real(stem))
-    ops.reset_launch_counts()
-    try:
-        kflash.flash_attention_bwd_cuda(q, k, v, out, q, lse)
-        raised = False
-    except RuntimeError:
-        raised = True
-    finally:
-        _build.library = real
-    counts = {op: n for op, n in ops.launch_counts().items() if n}
-    check(raised and not counts, f"flash backward: a failing sm90 kernel "
-          f"raised {raised}, launches {counts} (no fallback allowed)")
-    log("[train] flash backward: a failing sm90 entry point raises, nothing "
-        "falls back to the simt route")
+    for dtype, d in ((torch.bfloat16, 64), (torch.float32, 64),
+                     (torch.bfloat16, 60)):
+        route = kflash.flash_bwd_route(dtype, d)
+        q, k, v = _flash_inputs(gen, 1, 128, 128, 4, 2, d, dtype, dev)
+        out, lse = kflash._forward(q, k, v, causal=True, window=None,
+                                   q_offset=0, block_k=1024, with_lse=True)
+        _build.library = lambda stem="srht": (
+            Failing(real(stem)) if stem.startswith("flash_attention_bwd")
+            else real(stem))
+        ops.reset_launch_counts()
+        try:
+            kflash.flash_attention_bwd_cuda(q, k, v, out, q, lse)
+            raised = False
+        except RuntimeError as err:
+            raised = f"({route})" in str(err)
+        finally:
+            _build.library = real
+        counts = {op: n for op, n in ops.launch_counts().items() if n}
+        check(raised and not counts, f"flash backward {dtype} d {d}: a "
+              f"failing {route} kernel raised {raised}, launches {counts} "
+              f"(no fallback allowed)")
+    log("[train] flash backward: a failing sm90 or tf32x3 entry point "
+        "raises (bf16 d 64; f32 d 64 and bf16 d 60), nothing falls back to "
+        "the other route")
 
 
 def phase_flash_bwd() -> dict:
@@ -3723,15 +3745,14 @@ def _train_phase(dtype, batches, n_layers=None) -> "tuple[dict, tuple]":
 
     hd = cfg.head_dim
     route = kflash.flash_bwd_route(dtype, hd)
-    splits = (kflash.bwd_sm90_splits(TRAIN["batch"], TRAIN["seq"],
-                                     cfg.n_heads, cfg.n_kv_heads, hd)
-              if route == "sm90" else 1)
+    splits = _bwd_splits(route, TRAIN["batch"], TRAIN["seq"], cfg.n_heads,
+                         cfg.n_kv_heads, hd)
     want = {**NO_LM, "fwht": 0, "srht_apply": 0, "srht_apply_t": 0,
             **NO_CODEC, "flash_attention": 2 * L * steps,
             f"flash_attention_{FLASH_ROUTE[dtype]}": 2 * L * steps,
             "flash_attention_bwd": L * steps,
             f"flash_attention_bwd_{route}": L * steps,
-            "flash_attention_bwd_sm90_sum": L * steps * (splits > 1),
+            f"flash_attention_bwd_{route}_sum": L * steps * (splits > 1),
             **{f"flash_attention_bwd_{k}": L * steps
                for k in BWD_ROUTE_KERNELS[route]}}
     check(kern["launches"] == want,
@@ -3935,8 +3956,8 @@ def main() -> int:
     # the codec kernels from the two full-size transport runs, the
     # wgmma flash kernel from the bf16 engine run of the serve phase and
     # the tf32x3 one from the f32 engine run, the backward from the bf16
-    # training run (one call of its sm90 route a layer a step) and the simt
-    # backward from the f32 twin's
+    # training run (one call of its sm90 route a layer a step) and the
+    # tf32x3 backward from the f32 twin's
     train = record["train"]
     bwd_rows = train["flash_bwd"]["rows"]
     launches = {**record["full_size"]["launches"],
@@ -3947,15 +3968,15 @@ def main() -> int:
                     record["serve_f32"]["launches"]["flash_attention_tf32x3"],
                 **{f"flash_attention_bwd_{route}": train[dt]["launches"][
                     f"flash_attention_bwd_{route}"]
-                   for route, dt in (("sm90", "bf16"), ("simt", "f32"))}}
+                   for route, dt in (("sm90", "bf16"), ("tf32x3", "f32"))}}
     # the backward's main rows: the training shape in bf16 (sm90) and in
-    # float32 (simt, the f32 twin's shape)
+    # float32 (tf32x3, the f32 twin's shape)
     train_rows = {r["dtype"]: r for r in bwd_rows
                   if r["dims"] == list(FLASH_BWD_SHAPES[TRAIN_SHAPE][1])}
     timed = {**record["full_size"]["kernels"],
              **record["transport"]["kernels"], **record["flash_times"],
              "flash_attention_bwd_sm90": [train_rows["bfloat16"]],
-             "flash_attention_bwd_simt": [train_rows["float32"]]}
+             "flash_attention_bwd_tf32x3": [train_rows["float32"]]}
     parity = {**record["parity_max_abs_err"],
               **record["codec_parity_max_abs_err"],
               **{f"flash_attention_{route}": max(

@@ -57,14 +57,10 @@ _D = ctypes.c_double
 # q, k, v, o, lse (None: not written), b, tq, tk, h, hkv, d, causal,
 # window, q_offset, scale, empty_denom, stream
 _FLASH = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _D, _D, _P)
-# q, k, v, o, dout, lse, delta, dq, dk, dv, b, t, h, hkv, d, causal,
-# window, scale, stream
-_FLASH_BWD = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-              _I, _D, _P)
 # q, k, v, o, dout, lse, scratch, dq, dk, dv, b, t, h, hkv, d, causal,
 # window, splits, scale, stream
-_FLASH_BWD_SM90 = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                   _I, _I, _I, _D, _P)
+_FLASH_BWD = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+              _I, _I, _D, _P)
 SIGNATURES = {
     "srht": {},
     "flash_attention": {
@@ -75,11 +71,11 @@ SIGNATURES = {
         "repro_flash_attention_sm90_bf16": _FLASH,
     },
     "flash_attention_bwd": {
-        "repro_flash_attention_bwd_f32": _FLASH_BWD,
-        "repro_flash_attention_bwd_bf16": _FLASH_BWD,
+        "repro_flash_attention_bwd_tf32x3_f32": _FLASH_BWD,
+        "repro_flash_attention_bwd_tf32x3_bf16": _FLASH_BWD,
     },
     "flash_attention_bwd_sm90": {
-        "repro_flash_attention_bwd_sm90_bf16": _FLASH_BWD_SM90,
+        "repro_flash_attention_bwd_sm90_bf16": _FLASH_BWD,
     },
 }
 

@@ -7,9 +7,9 @@
 // is JAX's derivative of the jnp ops of repro.kernels.ref.mha_blocked,
 // reached from src/repro/models/attention.py:104. It is the `sm90` route of
 // the port's backward (the wrapper's flash_bwd_route); float32 and
-// bfloat16 head dims that are not a multiple of 8 take the `simt` route,
+// bfloat16 head dims that are not a multiple of 8 take the `tf32x3` route,
 // csrc/flash_attention_bwd.cu, which computes the same contract on the
-// CUDA cores. Its plain version is
+// tensor cores in 3xTF32. Its plain version is
 // repro_torch.kernels.ref.mha_blocked_grad.
 //
 // What it computes, from the forward's output o and its row log-sum-exp

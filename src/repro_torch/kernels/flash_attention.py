@@ -35,9 +35,13 @@ of two routes, chosen by ``flash_bwd_route``:
     pass, the dk/dv kernel (a block a key tile), the dq kernel (a block a
     query tile) and, when ``bwd_sm90_splits`` cuts a group's heads into
     runs, a pass that adds the runs' float32 partials;
-  * ``"simt"`` — ``csrc/flash_attention_bwd.cu``: float32, and bfloat16
-    head dims that are not a multiple of 8; the same three-kernel
-    schedule in float32 FMA on the CUDA cores.
+  * ``"tf32x3"`` — ``csrc/flash_attention_bwd.cu``: float32, and
+    bfloat16 head dims that are not a multiple of 8 (the forward's tf32x3
+    inputs); the same schedule with every product on the tensor cores as
+    ``mma.sync`` m16n8k8 TF32 (float32 accumulators, each float32 operand
+    split into two TF32 halves and three products summed, as the
+    forward's), tiles brought by ``cp.async``; its runs of heads are
+    ``bwd_tf32x3_splits``.
 
 The reference has no backward kernel: its gradient is JAX's derivative of
 ``mha_blocked`` (plain version here: ``ref.mha_blocked_grad``). The
@@ -58,19 +62,15 @@ from repro_torch.kernels.fwht import device_guard, stream_of
 # launches (incremented only where a kernel is launched): the op's total
 # and each route's; the backward's total and each route's (one a call of
 # flash_attention_bwd_cuda), and one a call for each kernel it launches:
-# the simt route's flash_attention_bwd_{delta,dkdv,dq}, the sm90 route's
-# flash_attention_bwd_sm90_{delta,dkdv,dq} and, with more than one split,
-# flash_attention_bwd_sm90_sum
+# flash_attention_bwd_{route}_{delta,dkdv,dq} and, with more than one run
+# of heads, flash_attention_bwd_{route}_sum
+BWD_KERNELS = {route: tuple(f"{route}_{k}" for k in ("delta", "dkdv", "dq"))
+               for route in ("sm90", "tf32x3")}
 LAUNCHES = {"flash_attention": 0, "flash_attention_sm90": 0,
             "flash_attention_tf32x3": 0, "flash_attention_bwd": 0,
-            "flash_attention_bwd_sm90": 0, "flash_attention_bwd_simt": 0,
-            "flash_attention_bwd_delta": 0, "flash_attention_bwd_dkdv": 0,
-            "flash_attention_bwd_dq": 0, "flash_attention_bwd_sm90_delta": 0,
-            "flash_attention_bwd_sm90_dkdv": 0,
-            "flash_attention_bwd_sm90_dq": 0,
-            "flash_attention_bwd_sm90_sum": 0}
-BWD_KERNELS = {"simt": ("delta", "dkdv", "dq"),
-               "sm90": ("sm90_delta", "sm90_dkdv", "sm90_dq")}
+            **{f"flash_attention_bwd_{name}": 0 for route, kernels
+               in BWD_KERNELS.items()
+               for name in (route, *kernels, f"{route}_sum")}}
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 MAX_HEAD_DIM = 256
@@ -82,17 +82,24 @@ _INT_MAX = (1 << 31) - 1
 SM90_BLOCK_Q = 64
 SM90_BLOCK_K = 64
 TF32X3_BLOCK_Q = 64
-# the backward's smallest query tile (kBQ in csrc/flash_attention_bwd.cu;
-# the sm90 route's tile, kTile in csrc/flash_attention_bwd_sm90.cu, is
-# larger)
-BWD_BLOCK_Q = 32
+# the backward's tiles: a dk/dv block's keys and a dq block's query rows,
+# 64 on the sm90 route (kTile in csrc/flash_attention_bwd_sm90.cu); on the
+# tf32x3 route 64-row dq tiles (kDqRows) and dk/dv tiles of BwdTiles' kBK
+# keys by head-dim width (csrc/flash_attention_bwd.cu). Each grid has one
+# row of blocks per tile, at most 65535: BWD_BLOCK_Q is the smallest tile
 BWD_SM90_TILE = 64
+BWD_TF32X3_TILE = {64: 64, 128: 64, 256: 32}
+BWD_BLOCK_Q = min(BWD_SM90_TILE, *BWD_TF32X3_TILE.values())
 # the sm90 dk/dv grid's least block count by head-dim width (64, 128,
 # 256): four blocks a SM of the H100's 132 at D <= 64 (three are resident
 # at once), two at D = 128 and 256 (two and one resident); measured on
 # the card at the training, TinyLlama, qwen1.5 and gemma3-1b local heads
 # (tools/flash_bwd.py --part layouts)
 BWD_SM90_DKDV_BLOCKS = {64: 4 * 132, 128: 2 * 132, 256: 2 * 132}
+# the tf32x3 dk/dv grid's, by the same rule: three blocks of its tiles are
+# resident on a SM at D <= 64, two at D = 128 and one at 256
+# (tools/flash_bwd.py --part layouts times every count of runs)
+BWD_TF32X3_DKDV_BLOCKS = {64: 4 * 132, 128: 2 * 132, 256: 2 * 132}
 
 
 def flash_route(dtype: torch.dtype, d: int) -> str:
@@ -103,9 +110,21 @@ def flash_route(dtype: torch.dtype, d: int) -> str:
 
 def flash_bwd_route(dtype: torch.dtype, d: int) -> str:
     """The backward kernels a CUDA call of this dtype and head dim
-    launches: ``"sm90"`` where the forward's route is (bfloat16 with ``d
-    % 8 == 0``), else ``"simt"``."""
-    return "sm90" if flash_route(dtype, d) == "sm90" else "simt"
+    launches: the forward's route, ``"sm90"`` for bfloat16 with ``d % 8
+    == 0``, else ``"tf32x3"``."""
+    return flash_route(dtype, d)
+
+
+def _width(d: int) -> int:
+    """The head-dim width whose kernels a head dim takes."""
+    return next(w for w in (64, 128, 256) if d <= w)
+
+
+def _bwd_splits(b, t, h, hkv, tile, want) -> int:
+    group = h // hkv
+    blocks = b * hkv * -(-t // tile)
+    return next((s for s in range(1, group + 1)
+                 if group % s == 0 and blocks * s >= want), group)
 
 
 def bwd_sm90_splits(b: int, t: int, h: int, hkv: int, d: int) -> int:
@@ -115,11 +134,15 @@ def bwd_sm90_splits(b: int, t: int, h: int, hkv: int, d: int) -> int:
     group in one block, no partials). Each further run costs a float32
     write and read of dk and dv; too few blocks leave the causal mask's
     long key tiles (the first walks every query tile) running alone."""
-    group = h // hkv
-    want = BWD_SM90_DKDV_BLOCKS[next(w for w in (64, 128, 256) if d <= w)]
-    blocks = b * hkv * -(-t // BWD_SM90_TILE)
-    return next((s for s in range(1, group + 1)
-                 if group % s == 0 and blocks * s >= want), group)
+    return _bwd_splits(b, t, h, hkv, BWD_SM90_TILE,
+                       BWD_SM90_DKDV_BLOCKS[_width(d)])
+
+
+def bwd_tf32x3_splits(b: int, t: int, h: int, hkv: int, d: int) -> int:
+    """``bwd_sm90_splits``' rule for the tf32x3 dk/dv kernel, with its
+    tile and ``BWD_TF32X3_DKDV_BLOCKS`` at the head dim's width."""
+    return _bwd_splits(b, t, h, hkv, BWD_TF32X3_TILE[_width(d)],
+                       BWD_TF32X3_DKDV_BLOCKS[_width(d)])
 
 
 def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -272,40 +295,40 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     if q.numel() == 0:
         return dq, dk, dv
     route = flash_bwd_route(q.dtype, d)
-    args = (b, t, h, hkv, d, int(bool(causal)), _window(window))
     if route == "sm90":
         for name, x in (("out", out), ("dout", dout)):
             if x.data_ptr() % 16:
                 raise ValueError(f"{name} must start on a 16-byte boundary "
                                  f"for the sm90 backward")
         splits = bwd_sm90_splits(b, t, h, hkv, d)
-        tpad = -(-t // BWD_SM90_TILE) * BWD_SM90_TILE
-        parts = 2 * splits * dk.numel() if splits > 1 else 0
-        scratch = torch.empty(2 * b * h * tpad + parts, dtype=torch.float32,
-                              device=q.device)
+        # lse log2(e) and delta, each padded to whole tiles
+        stats = 2 * b * h * (-(-t // BWD_SM90_TILE) * BWD_SM90_TILE)
         lib = _build.library("flash_attention_bwd_sm90")
-        with device_guard(q):
-            err = lib.repro_flash_attention_bwd_sm90_bf16(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                dout.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
-                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *args, splits,
-                1.0 / d**0.5, stream_of(q))
+        fn = lib.repro_flash_attention_bwd_sm90_bf16
     else:
-        delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+        splits = bwd_tf32x3_splits(b, t, h, hkv, d)
+        stats = b * h * t  # delta
         lib = _build.library("flash_attention_bwd")
-        fn = getattr(lib, f"repro_flash_attention_bwd_{_SUFFIX[q.dtype]}")
-        with device_guard(q):
-            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                     dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                     dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *args,
-                     1.0 / d**0.5, stream_of(q))
+        fn = getattr(lib,
+                     f"repro_flash_attention_bwd_tf32x3_{_SUFFIX[q.dtype]}")
+    # the statistics, then with more than one run the float32 partials of
+    # dk and dv
+    parts = 2 * splits * dk.numel() if splits > 1 else 0
+    scratch = torch.empty(stats + parts, dtype=torch.float32,
+                          device=q.device)
+    with device_guard(q):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 dout.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, t, h, hkv, d,
+                 int(bool(causal)), _window(window), splits, 1.0 / d**0.5,
+                 stream_of(q))
     _build.check(lib, err, f"flash_attention_bwd ({route})")
     LAUNCHES["flash_attention_bwd"] += 1
     LAUNCHES[f"flash_attention_bwd_{route}"] += 1
     for kernel in BWD_KERNELS[route]:
         LAUNCHES[f"flash_attention_bwd_{kernel}"] += 1
-    if route == "sm90" and splits > 1:
-        LAUNCHES["flash_attention_bwd_sm90_sum"] += 1
+    if splits > 1:
+        LAUNCHES[f"flash_attention_bwd_{route}_sum"] += 1
     return dq, dk, dv
 
 

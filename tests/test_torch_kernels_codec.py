@@ -139,10 +139,13 @@ def test_codec_ops_dispatch_to_the_plain_version_on_the_cpu(monkeypatch):
     assert set(before) == {"fwht", "srht_apply", "srht_apply_t", "topk_mask",
                            "qint8_roundtrip", "flash_attention",
                            "flash_attention_sm90", "flash_attention_tf32x3",
-                           "flash_attention_bwd", "flash_attention_bwd_delta",
-                           "flash_attention_bwd_dkdv", "flash_attention_bwd_dq",
+                           "flash_attention_bwd",
+                           "flash_attention_bwd_tf32x3",
+                           "flash_attention_bwd_tf32x3_delta",
+                           "flash_attention_bwd_tf32x3_dkdv",
+                           "flash_attention_bwd_tf32x3_dq",
+                           "flash_attention_bwd_tf32x3_sum",
                            "flash_attention_bwd_sm90",
-                           "flash_attention_bwd_simt",
                            "flash_attention_bwd_sm90_delta",
                            "flash_attention_bwd_sm90_dkdv",
                            "flash_attention_bwd_sm90_dq",

@@ -225,10 +225,11 @@ def test_cuda_kernels_count_launches(hopper):
                                    "flash_attention_sm90": 0,
                                    "flash_attention_tf32x3": 2,
                                    "flash_attention_bwd": 1,
-                                   "flash_attention_bwd_simt": 1,
-                                   "flash_attention_bwd_delta": 1,
-                                   "flash_attention_bwd_dkdv": 1,
-                                   "flash_attention_bwd_dq": 1,
+                                   "flash_attention_bwd_tf32x3": 1,
+                                   "flash_attention_bwd_tf32x3_delta": 1,
+                                   "flash_attention_bwd_tf32x3_dkdv": 1,
+                                   "flash_attention_bwd_tf32x3_dq": 1,
+                                   "flash_attention_bwd_tf32x3_sum": 1,
                                    "flash_attention_bwd_sm90": 0,
                                    "flash_attention_bwd_sm90_delta": 0,
                                    "flash_attention_bwd_sm90_dkdv": 0,
@@ -472,8 +473,8 @@ def test_flash_attention_kernel_rejects_what_it_does_not_take(hopper):
         ops.flash_attention(flat[1:].view(q.shape), kvb, kvb, impl="cuda")
 
 
-# the flash-attention backward kernels (route sm90: bf16 with D % 8 == 0 up
-# to 128; simt: the rest) against their plain version
+# the flash-attention backward kernels (route sm90: bf16 with D % 8 == 0;
+# tf32x3: the rest) against their plain version
 # (ref.mha_blocked_grad): (T, H, Hkv, D, causal, window), self-attention
 # only; tolerance on the largest |error| of each gradient over its largest
 # |value|: bfloat16 2e-2 (the forward's P V in bfloat16, the sm90
@@ -508,7 +509,7 @@ def test_flash_attention_backward_matches_plain(hopper, tdt, t, h, hkv, d,
     got = torch.autograd.grad(out, leaves, do)
     # one call on the route of its dtype and head dim, and its kernels
     route = kflash.flash_bwd_route(tdt, d)
-    other = "simt" if route == "sm90" else "sm90"
+    other = "tf32x3" if route == "sm90" else "sm90"
     counts = ops.launch_counts()
     assert counts["flash_attention_bwd"] == 1
     assert counts[f"flash_attention_bwd_{route}"] == 1
@@ -517,9 +518,10 @@ def test_flash_attention_backward_matches_plain(hopper, tdt, t, h, hkv, d,
         assert counts[f"flash_attention_bwd_{kernel}"] == 1
     for kernel in kflash.BWD_KERNELS[other]:
         assert counts[f"flash_attention_bwd_{kernel}"] == 0
-    splits = (kflash.bwd_sm90_splits(2, t, h, hkv, d) if route == "sm90"
-              else 1)
-    assert counts["flash_attention_bwd_sm90_sum"] == int(splits > 1)
+    splits = (kflash.bwd_sm90_splits if route == "sm90"
+              else kflash.bwd_tf32x3_splits)(2, t, h, hkv, d)
+    assert counts[f"flash_attention_bwd_{route}_sum"] == int(splits > 1)
+    assert counts[f"flash_attention_bwd_{other}_sum"] == 0
     want = ref.mha_blocked_grad(q, k, v, do, causal=causal, window=window)
     again = torch.autograd.grad(
         ops.flash_attention(*leaves, causal=causal, window=window,
@@ -558,25 +560,28 @@ def test_flash_attention_backward_raises_when_its_kernel_fails(hopper,
     from repro_torch.kernels import flash_attention as kflash
 
     real = _build.library
-    lib = real("flash_attention_bwd_sm90")
 
-    class Failing:  # the sm90 entry point reports cudaErrorInvalidValue
-        repro_error_string = lib.repro_error_string
+    class Failing:  # every backward entry point reports cudaErrorInvalidValue
+        def __init__(self, lib):
+            self.repro_error_string = lib.repro_error_string
 
-        @staticmethod
-        def repro_flash_attention_bwd_sm90_bf16(*args):
-            return 1
+        def __getattr__(self, name):
+            return lambda *args: 1
 
-    monkeypatch.setattr(_build, "library", lambda stem="srht": Failing()
-                        if stem == "flash_attention_bwd_sm90" else real(stem))
-    q, kv = (torch.randn(1, 64, n, 64, device=hopper).bfloat16()
-             for n in (4, 2))
-    out, lse = kflash._forward(q, kv, kv, causal=True, window=None,
-                               q_offset=0, block_k=1024, with_lse=True)
-    ops.reset_launch_counts()
-    with pytest.raises(RuntimeError, match="flash_attention_bwd .sm90."):
-        kflash.flash_attention_bwd_cuda(q, kv, kv, out, q, lse)
-    assert not any(ops.launch_counts().values())  # nothing falls back
+    monkeypatch.setattr(_build, "library", lambda stem="srht": Failing(
+        real(stem)) if stem.startswith("flash_attention_bwd") else real(stem))
+    for dtype, d, route in ((torch.bfloat16, 64, "sm90"),
+                            (torch.float32, 64, "tf32x3"),
+                            (torch.bfloat16, 60, "tf32x3")):
+        q, kv = (torch.randn(1, 64, n, d, device=hopper).to(dtype)
+                 for n in (4, 2))
+        out, lse = kflash._forward(q, kv, kv, causal=True, window=None,
+                                   q_offset=0, block_k=1024, with_lse=True)
+        ops.reset_launch_counts()
+        with pytest.raises(RuntimeError,
+                           match=f"flash_attention_bwd .{route}."):
+            kflash.flash_attention_bwd_cuda(q, kv, kv, out, q, lse)
+        assert not any(ops.launch_counts().values())  # nothing falls back
 
 
 # the asynchronous driver and a population round on the card: FLeNS+

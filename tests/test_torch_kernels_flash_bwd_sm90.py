@@ -211,19 +211,19 @@ def test_sm90_backward_emulation_matches_the_references(b, t, h, hkv, d,
 def test_configured_head_dims_route_the_backward_to_sm90(arch):
     d = get_config(arch).head_dim
     assert kflash.flash_bwd_route(torch.bfloat16, d) == "sm90"
-    assert kflash.flash_bwd_route(torch.float32, d) == "simt"
+    assert kflash.flash_bwd_route(torch.float32, d) == "tf32x3"
 
 
 @pytest.mark.parametrize("d,route", [(8, "sm90"), (64, "sm90"), (72, "sm90"),
                                      (128, "sm90"), (136, "sm90"),
-                                     (256, "sm90"), (12, "simt"),
-                                     (60, "simt"), (255, "simt")])
+                                     (256, "sm90"), (12, "tf32x3"),
+                                     (60, "tf32x3"), (255, "tf32x3")])
 def test_backward_route_rule(d, route):
-    # TMA strides rows in 16 bytes: d % 8 == 0 in bfloat16, as the forward
+    # TMA strides rows in 16 bytes: d % 8 == 0 in bfloat16, as the forward;
+    # the backward takes the forward's route
     assert kflash.flash_bwd_route(torch.bfloat16, d) == route
-    assert kflash.flash_route(torch.bfloat16, d) == (
-        "sm90" if route == "sm90" else "tf32x3")
-    assert kflash.flash_bwd_route(torch.float32, d) == "simt"
+    assert kflash.flash_route(torch.bfloat16, d) == route
+    assert kflash.flash_bwd_route(torch.float32, d) == "tf32x3"
 
 
 @pytest.mark.parametrize("b,t,h,hkv,d,want", [

@@ -1,5 +1,6 @@
 """Check and time the flash-attention backward kernels on one card, and
-hold the forward kernels' outputs of one tree against another's:
+hold the forward kernels' outputs and the sm90 backward's gradients of
+one tree against another's:
 
     python3 tools/flash_bwd.py [--src DIR]
                                [--part errors|times|layouts|forward]
@@ -16,23 +17,28 @@ given), one JSON line per row, then the card's name and power limit:
   the forward's output with the log-sum-exp written bit-equal to the
   output without it.
 * ``times``: at the same shapes, the backward's route (``sm90`` or
-  ``simt``; a tree without ``flash_bwd_route`` has only the simt
-  kernels), its CUDA-event ms per call and the profiler's device ms by
-  kernel, the plain version's ms, SDPA's
+  ``tf32x3``, or an older tree's ``simt``; a tree without
+  ``flash_bwd_route`` has only the simt kernels), its CUDA-event ms per
+  call and the profiler's device ms by kernel, the plain version's ms,
+  SDPA's
   backward (``torch.autograd.grad`` through
   ``F.scaled_dot_product_attention(enable_gqa=True)``, TF32 off) and the
   bound: five products of 2 D flops over the visible pairs at the
   bf16 tensor-core peak (float32: three TF32 products each at the dense
   TF32 peak, and the float32 CUDA-core peak beside it).
-* ``layouts``: the sm90 route's dk/dv layouts at the bfloat16 shapes it
-  takes: every count of runs of query heads that divides the group, from
-  the whole group in one block (1) to a block a head (H / Hkv), set in
-  turn in place of the wrapper's rule ``bwd_sm90_splits``, each with its
-  ms, device ms by kernel and max error.
+* ``layouts``: each route's dk/dv layouts at the shapes it takes (sm90:
+  the bfloat16 rows; tf32x3: the float32 rows and bfloat16 at d 60): every
+  count of runs of query heads that divides the group, from the whole
+  group in one block (1) to a block a head (H / Hkv), set in turn in
+  place of the wrapper's rule (``bwd_sm90_splits``,
+  ``bwd_tf32x3_splits``), each with its ms, device ms by kernel and max
+  error.
 * ``forward``: with ``--dump FILE``, the forward kernels' outputs (no
   log-sum-exp) at the flash parity phase's (T, H, Hkv, D) grid and its
-  window cases, inputs from seed 5, saved to FILE; ``--compare A B``
-  (no card needed) then says whether two trees' dumps are bit-equal.
+  window cases, inputs from seed 5, and the sm90 backward's gradients at
+  the bfloat16 shapes above (a head dim that is a multiple of 8), inputs
+  from seed 6, saved to FILE; ``--compare A B`` (no card needed) then
+  says whether two trees' dumps are bit-equal.
 
 Imports no JAX.
 """
@@ -234,14 +240,17 @@ def part_times(torch, kflash, ref, dev) -> list:
 
 
 def part_layouts(torch, kflash, ref, dev) -> list:
-    rule = kflash.bwd_sm90_splits
     rows = []
     gen = torch.Generator(device=dev).manual_seed(15)
-    for label, (b, t, h, hkv, d), causal, window in SHAPES:
-        if _route(kflash, torch.bfloat16, d) != "sm90":
+    cases = [(torch.bfloat16, shape) for shape in SHAPES]
+    cases += [(torch.float32, shape) for shape in SHAPES]
+    for dtype, (label, (b, t, h, hkv, d), causal, window) in cases:
+        route = _route(kflash, dtype, d)
+        name = f"bwd_{route}_splits"
+        if not hasattr(kflash, name):
             continue
-        q, k, v, do = _inputs(torch, gen, b, t, h, hkv, d, torch.bfloat16,
-                              dev)
+        rule = getattr(kflash, name)
+        q, k, v, do = _inputs(torch, gen, b, t, h, hkv, d, dtype, dev)
         out, lse = kflash._forward(q, k, v, causal=causal, window=window,
                                    q_offset=0, block_k=1024, with_lse=True)
         want = ref.mha_blocked_grad(q, k, v, do, causal=causal, window=window)
@@ -251,15 +260,19 @@ def part_layouts(torch, kflash, ref, dev) -> list:
                 q, k, v, out, do, lse, causal=causal, window=window)
         for splits in [s for s in range(1, h // hkv + 1) if h // hkv % s == 0]:
             # the wrapper reads its rule at every call: each layout in turn
-            kflash.bwd_sm90_splits = lambda *shape, n=splits: n
+            setattr(kflash, name, lambda *shape, n=splits: n)
             try:
                 got = kern()
                 by_kernel = _device_kernels_ms(torch, kern, 10)
                 ms = _time_ms(torch, kern, 10)
             finally:
-                kflash.bwd_sm90_splits = rule
-            tiles = -(-t // kflash.BWD_SM90_TILE)
+                setattr(kflash, name, rule)
+            tile = (kflash.BWD_SM90_TILE if route == "sm90" else
+                    kflash.BWD_TF32X3_TILE[next(w for w in (64, 128, 256)
+                                                if d <= w)])
+            tiles = -(-t // tile)
             row = {"part": "layouts", "shape": label,
+                   "dtype": str(dtype).split(".")[-1], "route": route,
                    "dims": [b, t, h, hkv, d], "splits": splits,
                    "rule": rule(b, t, h, hkv, d),
                    "dkdv_blocks": b * hkv * splits * tiles, "ms": ms,
@@ -281,6 +294,18 @@ def part_forward(torch, kflash, dev, dump: str) -> None:
             q, k, v, _ = _inputs(torch, gen, 1, t, h, hkv, d, dtype, dev)
             out = kflash.flash_attention_cuda(q, k, v, window=window)
             outs[f"{dtype} {t} {h} {hkv} {d} {window}"] = out.cpu()
+    gen = torch.Generator(device=dev).manual_seed(6)
+    for label, (b, t, h, hkv, d), causal, window in SHAPES:
+        if d % 8:
+            continue
+        q, k, v, do = _inputs(torch, gen, b, t, h, hkv, d, torch.bfloat16,
+                              dev)
+        out, lse = kflash._forward(q, k, v, causal=causal, window=window,
+                                   q_offset=0, block_k=1024, with_lse=True)
+        grads = kflash.flash_attention_bwd_cuda(q, k, v, out, do, lse,
+                                                causal=causal, window=window)
+        for g, x in zip(("dq", "dk", "dv"), grads):
+            outs[f"backward {label} {g}"] = x.cpu()
     torch.save(outs, dump)
     print(json.dumps({"part": "forward", "dump": dump, "cases": len(outs)}))
 
