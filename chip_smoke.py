@@ -153,7 +153,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                 100), (32, 96),
                 (1, 128), (2048, 2048) x (H, Hkv) in (4, 4), (8, 1),
                 (32, 4) x D in 64, 128, 256, then windows 1, 7, 128, 512
-                (D 128 and 256 at 2048), D 8 and 112, non-causal, q_offset
+                (D 128 and 256 at 2048), 10 heads on one KV head at D 256
+                (windows 32 and 2048), D 8 and 112, non-causal, q_offset
                 with a window, rows with no key, causal rows of up to 4096
                 and 8192 keys (D 64, 128); then head dims that are
                 not a multiple of 8 (D 12, 13, 200 in float32; D 12, 13 in
@@ -176,10 +177,31 @@ Phases, in order; any failure raises and the script exits non-zero:
                 request's engine tokens equal its isolated prefill + greedy
                 decode; engine tokens/s, the 2048-token prefill's ms and
                 its profile (device time, the flash kernel's share)
+ 11b. recurrent — mamba2-780m (48 ssd layers) and recurrentgemma-2b (8
+                griffin super-blocks + 2 rec layers) at full width and
+                depth in bf16 (random weights from seed 0) through
+                ServingEngine with serve's 8 requests: the engine admits
+                each prompt unpadded (mamba2: the longest multiple of its
+                256-token chunk through prefill, the rest through
+                decode_step); launches: none for mamba2, 8 sm90 a prefill
+                for recurrentgemma, none in decode; recurrentgemma's
+                2048-token prefill logits through the kernel within 4 bf16
+                ulps of the plain version's; prefill ms by length (128 to
+                2048), decode ms per step at batch 4, engine tokens/s, peak
+                memory, a profiled prefill. Their float32 twins (TF32 off,
+                12 and 8 layers): engine tokens equal each request's
+                isolated generation, the 2048-token prefill's logits
+                within 1e-3 of the plain versions', its ms and profile
+                (phase 11's steps). One LM.loss forward and backward each
+                at 1 x 2048 tokens with remat: recurrentgemma's CE and
+                gradients within phase 13's tolerances of the plain
+                versions', 16 forward and 8 sm90 backward launches;
+                mamba2's finite; both timed
  12. flash times — the tensor-core kernel, its plain version and
                 F.scaled_dot_product_attention at (1, 2048, 32, 4, 64)
-                causal, (1, 2048, 4, 1, 256) window 512 and (1, 2048, 64,
-                8, 128) causal, bf16, beside the bound; the tf32x3 kernel
+                causal, (1, 2048, 4, 1, 256) window 512, (1, 2048, 64,
+                8, 128) causal and (1, 2048, 10, 1, 256) window 2048, bf16,
+                beside the bound; the tf32x3 kernel
                 at the same three shapes in float32, beside its bound (three
                 times the operations at the 494.7 TFLOP/s dense TF32 tensor
                 rate) and the float32 SIMT one (67 TFLOP/s), SDPA with TF32
@@ -191,8 +213,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                 version
                 (ref.mha_blocked_grad) at (1, 2048, 32, 4, 64) and (1,
                 2048, 64, 8, 128) causal, (1, 2048, 4, 1, 256) window 512,
-                the training shape (2, 2048, 32, 4, 64) and (1, 1024, 8, 2,
-                60) causal, in bfloat16 (<= 2e-2 of each gradient's max
+                the training shape (2, 2048, 32, 4, 64), recurrentgemma's
+                (1, 2048, 10, 1, 256) window 2048 and (1, 1024, 8, 2, 60)
+                causal, in bfloat16 (<= 2e-2 of each gradient's max
                 |value|; D 64, 128 and 256 on sm90, D 60 on tf32x3) and
                 float32 (<= 1e-4, tf32x3), each launch counted on its route,
                 a second call bit-equal, a failing sm90 and tf32x3 entry
@@ -2904,6 +2927,9 @@ FLASH_EXTRA = [  # (tq, tk, H, Hkv, D, causal, window, q_offset, block_k)
     (2048, 2048, 4, 1, 256, True, 512, 0, 1024),
     (2048, 2048, 16, 2, 128, True, 512, 0, 1024),
     (2048, 2048, 8, 2, 256, True, 128, 0, 1024),
+    # recurrentgemma's local attention: 10 query heads on one KV head
+    (2048, 2048, 10, 1, 256, True, 2048, 0, 1024),
+    (100, 100, 10, 1, 256, True, 32, 0, 1024),
     (64, 48, 4, 4, 64, False, None, 0, 1024),
     (48, 200, 4, 2, 64, False, 16, 70, 32),
     (32, 96, 8, 2, 64, True, 20, 500, 1024),
@@ -3007,15 +3033,17 @@ def _serve_requests(vocab: int):
             for i, n in enumerate(lengths)]
 
 
-def _serve_model(dtype):
+def _serve_model(dtype, arch=SERVE["arch"], n_layers=None):
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.core.base import root_key
     from repro_torch.models.lm import LM
 
-    cfg = dataclasses.replace(get_config(SERVE["arch"]), dtype=dtype,
+    cfg = dataclasses.replace(get_config(arch), dtype=dtype,
                               param_dtype=dtype)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     model = LM(cfg)
     t0 = time.perf_counter()
     params = model.init(root_key(0, device=torch.device("cuda", 0)))
@@ -3101,20 +3129,32 @@ def _prefill_profile(model, params, tokens) -> dict:
         params, {"inputs": tokens}, cache_len=tokens.shape[1]))
 
 
-def phase_serve() -> dict:
-    """TinyLlama-1.1B at full width and depth in bf16 (random weights from
-    seed 0): 8 requests through the engine, prefill by bucket, decode at
-    batch 4, the kernel against the plain version on a 2048-token prefill,
-    and a profile of that prefill."""
+def _attn_layers(model) -> int:
+    """Layers whose attention launches the flash kernel in a prefill: every
+    dense layer, one a griffin super-block; none in mamba2."""
+    return sum(g.n for g in model.groups if g.kind in ("dense", "griffin"))
+
+
+def _flash_want(n: int, route: str) -> dict:
+    return {**NO_LM, "flash_attention": n, f"flash_attention_{route}": n}
+
+
+def _serve_bf16(arch: str, tag: str, seed: int) -> dict:
+    """One model at full width and depth in bf16 (random weights from
+    seed 0): SERVE's requests through the engine, prefill by bucket,
+    decode at batch 4, the kernel against the plain version on a
+    2048-token prefill (where the model has attention), and a profile of
+    that prefill."""
     from repro_torch.kernels import ops
     from repro_torch.serving.engine import _bucket
 
     dev = _card()
     torch.cuda.empty_cache()
-    cfg, model, params, init_s = _serve_model(torch.bfloat16)
-    L = cfg.n_layers
-    gen = torch.Generator(device=dev).manual_seed(6)
+    cfg, model, params, init_s = _serve_model(torch.bfloat16, arch)
+    L, n_attn = cfg.n_layers, _attn_layers(model)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     out = {"arch": cfg.arch_id, "n_layers": L, "d_model": cfg.d_model,
+           "groups": [(g.kind, g.n) for g in model.groups],
            "dtype": "bfloat16", "init_s": init_s}
     with torch.no_grad():
         # warm: first use of every matmul shape of a prefill and a decode
@@ -3124,22 +3164,24 @@ def phase_serve() -> dict:
         torch.cuda.reset_peak_memory_stats()
 
         reqs = _serve_requests(cfg.vocab)
-        buckets = [min(_bucket(len(r.prompt)), SERVE["cache_len"])
-                   for r in reqs]
         run = _run_engine(model, params, reqs)
         engine = run.pop("engine")
         peak = torch.cuda.max_memory_allocated()
-        want = {"fwht": 0, "srht_apply": 0, "srht_apply_t": 0, **NO_CODEC,
-                "flash_attention": L * len(reqs),
-                "flash_attention_sm90": L * len(reqs),
-                "flash_attention_tf32x3": 0, **NO_BWD}
+        # a dense model's prompt is padded to its bucket; a recurrent one's
+        # is not, its chunk-multiple prefix is prefilled
+        prefilled = [engine._exact_prefix(len(r.prompt)) if model.recurrent
+                     else min(_bucket(len(r.prompt)), SERVE["cache_len"])
+                     for r in reqs]
+        want = {op: 0 for op in run["launches"]}
+        want.update(_flash_want(n_attn * len(reqs), "sm90"))
         check(run["launches"] == want,
-              f"serve launches {run['launches']} != {want} (one launch of "
-              f"the tensor-core kernel per layer per prefill)")
+              f"{tag} {arch}: launches {run['launches']} != {want} (one "
+              f"launch of the tensor-core kernel per attention layer per "
+              f"prefill)")
         check(all(len(r.generated) == SERVE["new_tokens"] for r in reqs),
-              "serve: a request stopped short of max_new_tokens")
+              f"{tag} {arch}: a request stopped short of max_new_tokens")
 
-        # decode at batch 4 on the engine's caches: no kernel launch
+        # decode at batch 4 on the engine's state: no kernel launch
         state = engine.state
         state["index"] = torch.tensor([2000, 1500, 1000, 500],
                                       dtype=torch.int32, device=dev)
@@ -3151,7 +3193,7 @@ def phase_serve() -> dict:
             _, state = model.decode_step(params, state, toks)
         decode_ms = _bare_ms(decode, 20)
         check(ops.launch_counts()["flash_attention"] == 0,
-              "serve: decode launched the flash kernel")
+              f"{tag} {arch}: decode launched the flash kernel")
         decode_profile = _profile_steps(decode, 3)
         del engine, state
 
@@ -3166,69 +3208,93 @@ def phase_serve() -> dict:
 
         tokens = torch.randint(0, cfg.vocab, (1, 2048), generator=gen,
                                device=dev)
+        ops.reset_launch_counts()
         got = _prefill_logits(model, params, tokens)
-        want_l = _prefill_logits(model, params, tokens, impl="ref")
-        err = _max_err(got, want_l)
-        top = float(want_l.abs().max())
-        tol = BF16_ULPS * 2.0 ** (math.floor(math.log2(top)) - 7)
-        agree = bool((got.argmax(-1) == want_l.argmax(-1)).all())
-        log(f"[serve] 2048-token prefill logits, kernel vs plain: max abs "
-            f"err {err:.4e} (tolerance {tol:.4e} = {BF16_ULPS} bf16 ulps at "
-            f"max |logit| {top:.3f}); argmax equal: {agree}")
-        check(err <= tol, f"serve: prefill logits through the kernel differ "
-              f"from the plain version by {err:.4e} > {tol:.4e}")
+        check(ops.launch_counts() == {**want, **_flash_want(n_attn, "sm90")},
+              f"{tag} {arch}: a 2048-token prefill launched "
+              f"{ops.launch_counts()}")
+        check(got.shape == (1, cfg.vocab) and bool(torch.isfinite(got).all()),
+              f"{tag} {arch}: prefill logits not finite or misshapen")
+        if n_attn:
+            want_l = _prefill_logits(model, params, tokens, impl="ref")
+            err = _max_err(got, want_l)
+            top = float(want_l.abs().max())
+            tol = BF16_ULPS * 2.0 ** (math.floor(math.log2(top)) - 7)
+            agree = bool((got.argmax(-1) == want_l.argmax(-1)).all())
+            log(f"[{tag}] {arch} 2048-token prefill logits, kernel vs plain: "
+                f"max abs err {err:.4e} (tolerance {tol:.4e} = {BF16_ULPS} "
+                f"bf16 ulps at max |logit| {top:.3f}); argmax equal: {agree}")
+            check(err <= tol, f"{tag} {arch}: prefill logits through the "
+                  f"kernel differ from the plain version by {err:.4e} > "
+                  f"{tol:.4e}")
+            out["logits_2048"] = {"max_abs_err": err, "tolerance": tol,
+                                  "max_abs_logit": top,
+                                  "argmax_equal": agree}
         profile = _prefill_profile(model, params, tokens)
 
     out.update(run)
     out.update({
-        "prompt_lengths": [len(r.prompt) for r in reqs], "buckets": buckets,
-        "peak_memory_bytes": peak,
+        "prompt_lengths": [len(r.prompt) for r in reqs],
+        "prefilled": prefilled, "peak_memory_bytes": peak,
         "decode_ms_batch4": decode_ms, "decode_profile": decode_profile,
         "prefill_ms_by_bucket": prefill_ms,
         "prefill_tokens_per_s_by_bucket":
             {b: b / ms * 1e3 for b, ms in prefill_ms.items()},
-        "logits_2048": {"max_abs_err": err, "tolerance": tol,
-                        "max_abs_logit": top, "argmax_equal": agree},
         "prefill_2048_profile": profile})
     med = sorted(decode_ms)[len(decode_ms) // 2]
-    log(f"[serve] {cfg.arch_id} bf16, {L} layers, d {cfg.d_model}: init "
-        f"{init_s:.2f} s; engine {run['generated_tokens']} tokens for "
-        f"{len(reqs)} requests (prompts {out['prompt_lengths']}) in "
+    log(f"[{tag}] {arch} bf16, {L} layers {out['groups']}, d "
+        f"{cfg.d_model}: init {init_s:.2f} s; engine "
+        f"{run['generated_tokens']} tokens for {len(reqs)} requests (prompts "
+        f"{out['prompt_lengths']}, prefilled {prefilled}) in "
         f"{run['wall_s']:.3f} s, {run['steps']} steps, "
-        f"{run['tokens_per_s']:.1f} tokens/s; launches {run['launches']}; "
-        f"peak memory {peak / 2**30:.3f} GiB")
-    log(f"[serve] decode at batch 4: {med:.3f} ms per step median "
+        f"{run['tokens_per_s']:.1f} tokens/s; launches "
+        f"{ {k: v for k, v in run['launches'].items() if v} }; peak memory "
+        f"{peak / 2**30:.3f} GiB")
+    log(f"[{tag}] {arch} decode at batch 4: {med:.3f} ms per step median "
         f"({min(decode_ms):.3f}..{max(decode_ms):.3f}); profile of 3 steps: "
         f"device busy {decode_profile['busy_share']:.1%} of "
         f"{decode_profile['wall_us'] / 3e3:.3f} ms/step")
     for r in decode_profile["top"][:6]:
-        log(f"[serve]   {r['us_per_round']:9.1f} us/step x"
+        log(f"[{tag}]   {r['us_per_round']:9.1f} us/step x"
             f"{r['launches_per_round']:.0f}  {r['kernel']}")
     for b, ms in prefill_ms.items():
-        log(f"[serve] prefill {b:5d} tokens: {ms:.3f} ms "
+        log(f"[{tag}] {arch} prefill {b:5d} tokens: {ms:.3f} ms "
             f"({b / ms * 1e3:,.0f} tokens/s)")
-    log(f"[serve] profile of a 2048-token prefill: flash kernel "
-        f"{profile['flash_us'] / 1e3:.3f} ms = "
-        f"{profile['flash_share_of_device']:.1%} of device time "
-        f"({profile['device_busy_us'] / 1e3:.3f} ms), "
-        f"{profile['flash_share_of_wall']:.1%} of wall "
-        f"({profile['wall_us'] / 1e3:.3f} ms)")
+    log(f"[{tag}] {arch} profile of a 2048-token prefill: device busy "
+        f"{profile['device_busy_us'] / 1e3:.3f} ms = "
+        f"{profile['busy_share']:.1%} of wall {profile['wall_us'] / 1e3:.3f} "
+        f"ms; flash kernel {profile['flash_us'] / 1e3:.3f} ms = "
+        f"{profile['flash_share_of_device']:.1%} of device time")
     for r in profile["top"]:
-        log(f"[serve]   {r['us']:10.1f} us x{r['launches']:<4d} {r['kernel']}")
+        log(f"[{tag}]   {r['us']:10.1f} us x{r['launches']:<4d} {r['kernel']}")
     del params
     torch.cuda.empty_cache()
     return out
 
 
+def phase_serve() -> dict:
+    """TinyLlama-1.1B at full width and depth in bf16 through the engine
+    (``_serve_bf16``): 22 launches of the tensor-core kernel a prefill."""
+    return _serve_bf16(SERVE["arch"], "serve", 6)
+
+
 def _isolated_generate(model, params, prompt, n_new):
     """Exact-length prefill + greedy decode of one request alone; returns
-    the tokens and each step's top-2 logit margin."""
+    the tokens and each step's top-2 logit margin. A length an ``ssd``
+    group's scan refuses (past the chunk and not a multiple of it) is
+    prefilled to its longest multiple of the chunk and the rest fed to
+    ``decode_step`` a token at a time."""
     dev = params["embed"]["table"].device
+    cfg, n = model.cfg, len(prompt)
+    if (any(g.kind == "ssd" for g in model.groups) and n > cfg.ssm_chunk
+            and n % cfg.ssm_chunk):
+        n -= n % cfg.ssm_chunk
     toks = torch.tensor([prompt], dtype=torch.int64, device=dev)
-    logits, state = model.prefill(params, {"inputs": toks},
+    logits, state = model.prefill(params, {"inputs": toks[:, :n]},
                                   cache_len=SERVE["cache_len"])
-    state["index"] = torch.tensor([len(prompt)], dtype=torch.int32,
-                                  device=dev)
+    state["index"] = torch.tensor([n], dtype=torch.int32, device=dev)
+    for i in range(n, len(prompt)):
+        logits, state = model.decode_step(params, state, toks[:, i:i + 1])
     out, margins = [], []
     for step in range(n_new):
         if step:
@@ -3240,26 +3306,29 @@ def _isolated_generate(model, params, prompt, n_new):
     return out, margins
 
 
-def phase_serve_f32() -> dict:
-    """The same model in float32 (TF32 off): the engine's tokens equal each
-    request's isolated prefill + greedy decode, token for token."""
+
+def _serve_f32(arch: str, tag: str, n_layers=None) -> dict:
+    """The model in float32 (TF32 off; depth cut to ``n_layers`` where
+    given): the engine's tokens equal each request's isolated prefill +
+    greedy decode, token for token; the 2048-token prefill's logits
+    through the tf32x3 kernel against the plain version, its ms and its
+    profile."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = _card()
     torch.cuda.empty_cache()
-    cfg, model, params, init_s = _serve_model(torch.float32)
+    cfg, model, params, init_s = _serve_model(torch.float32, arch, n_layers)
+    n_attn = _attn_layers(model)
     with torch.no_grad():
         torch.cuda.reset_peak_memory_stats()
         reqs = _serve_requests(cfg.vocab)
         run = _run_engine(model, params, reqs)
         run.pop("engine")
         peak = torch.cuda.max_memory_allocated()
-        n = cfg.n_layers * len(reqs)
         got = {k: run["launches"][k] for k in NO_LM}
-        check(got == {**NO_LM, "flash_attention": n,
-                      "flash_attention_tf32x3": n},
-              f"serve f32 launches {run['launches']} (one launch of the "
-              f"tf32x3 kernel per layer per prefill)")
+        check(got == _flash_want(n_attn * len(reqs), "tf32x3"),
+              f"{tag} {arch}: launches {run['launches']} (one launch of the "
+              f"tf32x3 kernel per attention layer per prefill)")
         min_margin = math.inf
         for r in reqs:
             want, margins = _isolated_generate(model, params, r.prompt,
@@ -3269,7 +3338,7 @@ def phase_serve_f32() -> dict:
                 step = next(i for i, (a, b) in enumerate(zip(r.generated,
                                                              want)) if a != b)
                 raise SmokeFailure(
-                    f"serve f32: request {r.uid} (prompt {len(r.prompt)}) "
+                    f"{tag} {arch}: request {r.uid} (prompt {len(r.prompt)}) "
                     f"differs from its isolated generation at step {step}: "
                     f"engine {r.generated[step]} vs isolated {want[step]}, "
                     f"top-2 margin there {margins[step]:.3e}")
@@ -3278,33 +3347,157 @@ def phase_serve_f32() -> dict:
                                device=dev)
         err = _max_err(_prefill_logits(model, params, tokens),
                        _prefill_logits(model, params, tokens, impl="ref"))
-        check(err <= F32_LOGIT_TOL, f"serve f32: prefill logits through the "
-              f"kernel differ from the plain version by {err:.3e}")
+        check(err <= F32_LOGIT_TOL, f"{tag} {arch}: prefill logits through "
+              f"the kernel differ from the plain version by {err:.3e}")
         ms = _bare_ms(lambda: model.prefill(
             params, {"inputs": tokens}, cache_len=SERVE["cache_len"]), 5)
         prefill_ms = sorted(ms)[len(ms) // 2]
         profile = _prefill_profile(model, params, tokens)
-    log(f"[serve f32] {len(reqs)} requests x {SERVE['new_tokens']} tokens: "
-        f"engine == isolated prefill + greedy decode, token for token "
-        f"(smallest top-2 margin {min_margin:.3e}); engine "
-        f"{run['tokens_per_s']:.1f} tokens/s in {run['wall_s']:.3f} s; "
-        f"2048-token prefill logits kernel vs plain {err:.3e} (tolerance "
+    log(f"[{tag}] {arch} at {cfg.n_layers} layers "
+        f"{[(g.kind, g.n) for g in model.groups]}: {len(reqs)} requests x "
+        f"{SERVE['new_tokens']} tokens: engine == isolated prefill + greedy "
+        f"decode, token for token (smallest top-2 margin {min_margin:.3e}); "
+        f"engine {run['tokens_per_s']:.1f} tokens/s in {run['wall_s']:.3f} "
+        f"s; launches { {k: v for k, v in got.items() if v} }; 2048-token "
+        f"prefill logits kernel vs plain {err:.3e} (tolerance "
         f"{F32_LOGIT_TOL}); peak memory {peak / 2**30:.3f} GiB; init "
         f"{init_s:.2f} s")
-    log(f"[serve f32] prefill 2048 tokens: {prefill_ms:.3f} ms median of "
+    log(f"[{tag}] {arch} prefill 2048 tokens: {prefill_ms:.3f} ms median of "
         f"{len(ms)} ({min(ms):.3f}..{max(ms):.3f}); profile: flash kernel "
         f"{profile['flash_us'] / 1e3:.3f} ms = "
         f"{profile['flash_share_of_device']:.1%} of device time "
         f"({profile['device_busy_us'] / 1e3:.3f} ms), wall "
         f"{profile['wall_us'] / 1e3:.3f} ms")
     for r in profile["top"]:
-        log(f"[serve f32]   {r['us']:10.1f} us x{r['launches']:<4d} "
+        log(f"[{tag}]   {r['us']:10.1f} us x{r['launches']:<4d} "
             f"{r['kernel']}")
     del params
     torch.cuda.empty_cache()
-    return {**run, "init_s": init_s, "peak_memory_bytes": peak,
-            "min_top2_margin": min_margin, "logits_2048_max_abs_err": err,
-            "prefill_2048_ms": ms, "prefill_2048_profile": profile}
+    return {**run, "n_layers": cfg.n_layers, "init_s": init_s,
+            "peak_memory_bytes": peak, "min_top2_margin": min_margin,
+            "logits_2048_max_abs_err": err, "prefill_2048_ms": ms,
+            "prefill_2048_profile": profile}
+
+
+def phase_serve_f32() -> dict:
+    """The TinyLlama model in float32 (TF32 off): the engine's tokens equal
+    each request's isolated prefill + greedy decode (``_serve_f32``)."""
+    return _serve_f32(SERVE["arch"], "serve f32")
+
+
+# ---------------------------------------------------------------------------
+# 11b. recurrent: mamba2-780m and recurrentgemma-2b through the engine
+# ---------------------------------------------------------------------------
+
+RECURRENT = dict(archs=("mamba2-780m", "recurrentgemma-2b"),
+                 # the float32 twins' depth: mamba2 12 of its 48 layers,
+                 # recurrentgemma 8 of its 26 (two griffin super-blocks and
+                 # a rec group of 2); their engine runs and isolated
+                 # generations step token by token, and time is the cut
+                 f32_layers={"mamba2-780m": 12, "recurrentgemma-2b": 8},
+                 loss_batch=1, loss_seq=2048, seed=0)
+
+
+def _recurrent_loss(arch: str) -> dict:
+    """One LM.loss forward and backward at full width and depth, bf16,
+    remat on, batch 1 x 2048 from FastLMStream: recurrentgemma's CE and
+    gradients through the kernels against the plain versions' (phase 13's
+    tolerances) with its launches counted; mamba2's finite; both timed."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.base import root_key
+    from repro_torch.data import FastLMStream
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import loss_and_grads
+    from repro_torch.models.lm import LM
+    from repro_torch.tree import leaves
+
+    dev = _card()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(arch), dtype=torch.bfloat16,
+                              param_dtype=torch.bfloat16, remat=True)
+    model = LM(cfg)
+    params = model.init(root_key(RECURRENT["seed"], device=dev))
+    b, t = RECURRENT["loss_batch"], RECURRENT["loss_seq"]
+    batch = next(iter(FastLMStream(cfg.vocab, t, b, seed=RECURRENT["seed"],
+                                   device=dev).batches(1)))
+    n_attn = _attn_layers(model)
+    tol = TRAIN_TOL[torch.bfloat16]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    loss, _, grads = loss_and_grads(model, params, batch)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    finite = bool(torch.isfinite(loss)) and all(
+        bool(torch.isfinite(g).all()) for g in leaves(grads))
+    check(finite, f"recurrent loss {arch}: loss or a gradient not finite")
+    route = kflash.flash_bwd_route(torch.bfloat16, cfg.head_dim)
+    splits = _bwd_splits(route, b, t, cfg.n_heads, cfg.n_kv_heads,
+                         cfg.head_dim) if n_attn else 1
+    want = {op: 0 for op in counts}
+    if n_attn:
+        want.update({**_flash_want(2 * n_attn, "sm90"),
+                     "flash_attention_bwd": n_attn,
+                     f"flash_attention_bwd_{route}": n_attn,
+                     f"flash_attention_bwd_{route}_sum":
+                         n_attn * (splits > 1),
+                     **{f"flash_attention_bwd_{k}": n_attn
+                        for k in BWD_ROUTE_KERNELS[route]}})
+    check(counts == want, f"recurrent loss {arch}: launches {counts} != "
+          f"{want} (remat: the forward twice a griffin layer, the "
+          f"backward once)")
+    del grads
+    out = {"arch": arch, "batch": b, "seq": t, "loss": float(loss),
+           "launches": counts, "peak_memory_bytes": peak, "splits": splits}
+    if n_attn:
+        out["step0"] = _step0_grads(model, params, batch)
+        ce_err = abs(out["step0"]["loss"] - out["step0"]["loss_plain"]) / abs(
+            out["step0"]["loss_plain"])
+        out["ce_rel_err"] = ce_err
+        check(ce_err <= tol["ce"], f"recurrent loss {arch}: CE through the "
+              f"kernels differs from the plain versions' by {ce_err:.3e}")
+        check(out["step0"]["grad_rel_norm_err"] <= tol["grad"],
+              f"recurrent loss {arch}: gradients differ from the plain "
+              f"versions' by {out['step0']['grad_rel_norm_err']:.3e} "
+              f"(relative norm, worst leaf) > {tol['grad']}")
+    torch.cuda.empty_cache()
+    ms = _bare_ms(lambda: loss_and_grads(model, params, batch), 3)
+    out["ms"] = ms
+    plain = (f"; vs the plain versions: CE rel err {out['ce_rel_err']:.2e} "
+             f"(tol {tol['ce']}), gradients' worst relative norm error "
+             f"{out['step0']['grad_rel_norm_err']:.2e} over "
+             f"{out['step0']['leaves']} leaves (tol {tol['grad']})"
+             if n_attn else "")
+    log(f"[recurrent loss] {arch} bf16 {cfg.n_layers} layers, remat, "
+        f"{b} x {t} tokens: loss {float(loss):.5f}, gradients finite; "
+        f"{sorted(ms)[1]:.2f} ms a forward and backward (median of 3, "
+        f"{min(ms):.2f}..{max(ms):.2f}), {b * t / sorted(ms)[1] * 1e3:,.0f} "
+        f"tokens/s; peak {peak / 2**30:.2f} GiB; launches "
+        f"{ {k: v for k, v in counts.items() if v} }{plain}")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_recurrent(card: str) -> dict:
+    """11b: mamba2-780m and recurrentgemma-2b served at full width and
+    depth in bf16, their f32 twins' engine against isolated generation,
+    and one loss step each."""
+    t0 = time.perf_counter()
+    record = {"card": card}
+    for arch in RECURRENT["archs"]:
+        record[arch] = {
+            "serve": _serve_bf16(arch, "recurrent", 17),
+            "serve_f32": _serve_f32(arch, "recurrent f32",
+                                    RECURRENT["f32_layers"][arch]),
+            "loss": _recurrent_loss(arch)}
+    record["seconds"] = time.perf_counter() - t0
+    log(f"[recurrent] phase 11b on {card} took {record['seconds']:.1f} s")
+    return record
 
 
 # ---------------------------------------------------------------------------
@@ -3318,6 +3511,8 @@ FLASH_TIMED = [  # (route, label, dtype, B, T, H, Hkv, D, window)
      torch.bfloat16, 1, 2048, 4, 1, 256, 512),
     ("sm90", "qwen1.5 heads (1, 2048, 64, 8, 128) bf16 causal",
      torch.bfloat16, 1, 2048, 64, 8, 128, None),
+    ("sm90", "recurrentgemma local (1, 2048, 10, 1, 256) bf16 window 2048",
+     torch.bfloat16, 1, 2048, 10, 1, 256, 2048),
     ("tf32x3", "TinyLlama prefill (1, 2048, 32, 4, 64) f32 causal",
      torch.float32, 1, 2048, 32, 4, 64, None),
     ("tf32x3", "qwen1.5 heads (1, 2048, 64, 8, 128) f32 causal",
@@ -3433,7 +3628,8 @@ def phase_flash_times() -> dict:
 
 # (a) the backward kernels against their plain version, causal: (label,
 # (B, T, H, Hkv, D), window); the training shape fourth (the kernels
-# line's row), a head dim that is not a multiple of 8 last (the tf32x3
+# line's row), recurrentgemma's local attention fifth (a group of 10 heads
+# cut into runs), a head dim that is not a multiple of 8 last (the tf32x3
 # route in bf16 too)
 FLASH_BWD_SHAPES = [
     ("TinyLlama heads (1, 2048, 32, 4, 64) causal", (1, 2048, 32, 4, 64),
@@ -3444,6 +3640,8 @@ FLASH_BWD_SHAPES = [
      512),
     ("TinyLlama training (2, 2048, 32, 4, 64) causal", (2, 2048, 32, 4, 64),
      None),
+    ("recurrentgemma local (1, 2048, 10, 1, 256) window 2048",
+     (1, 2048, 10, 1, 256), 2048),
     ("head dim 60 (1, 1024, 8, 2, 60) causal", (1, 1024, 8, 2, 60), None)]
 TRAIN_SHAPE = 3  # FLASH_BWD_SHAPES' index of the training shape
 # the largest |error| of each gradient over its largest |value|: bfloat16
@@ -3949,6 +4147,7 @@ def main() -> int:
     record["flash_parity"] = phase_flash_parity()
     record["serve"] = phase_serve()
     record["serve_f32"] = phase_serve_f32()
+    record["recurrent"] = phase_recurrent(card)
     record["flash_times"] = phase_flash_times()
     record["train"] = phase_train()
     # launches: the SRHT kernels from the full-size comm=None run (fwht is

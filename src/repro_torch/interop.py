@@ -18,6 +18,7 @@ from repro_torch.core.federated import (
 from repro_torch.core.losses import OBJECTIVES, Objective
 from repro_torch.core.sketch import BatchedSrhtSketch, SrhtSketch
 from repro_torch.device import resolve_device
+from repro_torch.models.common import FLOAT32_LEAVES
 
 
 def problem_from_numpy(X, y, mask, lam: float, objective: "str | Objective",
@@ -145,18 +146,22 @@ def lm_params_from_numpy(params, cfg, device: "str | torch.device" = "cuda") -> 
     """An LM parameter tree for ``repro_torch.models.lm.LM`` from
     ``repro``'s: the same nested dict of stacked (L, ...) arrays (numpy,
     or anything ``np.asarray`` reads, bfloat16 included), each leaf a
-    tensor on ``device`` in ``cfg.param_dtype``. The port keeps the
-    reference's layout, so this is the one place a layout would change."""
+    tensor on ``device`` in ``cfg.param_dtype``, but the leaves the
+    reference keeps in float32 (``common.FLOAT32_LEAVES``: mamba2's
+    ``a_log``, ``d_skip``, ``dt_bias``, the RG-LRU's ``lam``), which stay
+    float32. The port keeps the reference's layout, so this is the one
+    place a layout would change."""
     dev = resolve_device(device)
 
-    def leaf(a):
+    def leaf(name, a):
         if isinstance(a, dict):
-            return {name: leaf(sub) for name, sub in a.items()}
+            return {sub_name: leaf(sub_name, sub) for sub_name, sub in a.items()}
         # through float32: numpy has no bfloat16 torch.tensor can read,
         # and float32 holds every bfloat16 and float32 value exactly
         arr = np.asarray(a).astype(np.float32)
-        return torch.tensor(arr, device=dev).to(cfg.param_dtype)
-    return leaf(dict(params))
+        dtype = torch.float32 if name in FLOAT32_LEAVES else cfg.param_dtype
+        return torch.tensor(arr, device=dev).to(dtype)
+    return leaf(None, dict(params))
 
 
 def _tensor_keep_dtype(a, dev: torch.device) -> torch.Tensor:

@@ -131,6 +131,12 @@ class ModelConfig:
         return dataclasses.replace(self, **base)
 
 
+# the leaves the reference keeps in float32 whatever ``param_dtype`` is:
+# mamba2's decay logs, skip and step bias (``ssd.py``) and the RG-LRU's
+# Lambda (``rglru.py``)
+FLOAT32_LEAVES = ("a_log", "d_skip", "dt_bias", "lam")
+
+
 # ---------------------------------------------------------------------------
 # initializers: the reference's distributions, drawn from ``gen``
 # (parameters land on the generator's device)

@@ -6,12 +6,15 @@ reference's (L, ...) layout, and run by a Python loop over the layers.
 Per-layer metadata (gemma3's 5 local : 1 global windows and thetas) is
 host ints and floats.
 
-The ``dense`` group kind is ported for serving (``init``, ``prefill``,
-``init_decode_state``, ``decode_step``) and for training (``loss``, whose
-backbone builds no cache and, with ``cfg.remat``, recomputes each unit
-in the backward as the reference's ``jax.checkpoint`` does). The other
-kinds raise ``NotImplementedError`` naming the ROADMAP item that brings
-them.
+The group kinds ``dense``, ``ssd`` (mamba2), ``rec`` and ``griffin``
+(recurrentgemma's (rec, rec, attn) super-block) are ported for serving
+(``init``, ``prefill``, ``init_decode_state``, ``decode_step``) and for
+training (``loss``, whose backbone builds no cache and, with
+``cfg.remat``, recomputes each unit in the backward as the reference's
+``jax.checkpoint`` does; a griffin super-block is one unit). A recurrent
+group's decode state is its float32 recurrent state and its conv's last
+K-1 inputs, with a KV cache for griffin's attention. The other kinds
+raise ``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -22,6 +25,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import rglru as rg
+from repro_torch.models import ssd as ssd_mod
 from repro_torch.models.common import (
     ModelConfig,
     chunked_cross_entropy,
@@ -36,11 +41,12 @@ from repro_torch.models.common import (
     unembed,
 )
 
-# group kinds of later slices -> what ROADMAP (queue 1, item 3: the other
-# LM families) calls them
-_LATER = {"moe": "moe", "ssd": "ssd", "rec": "rglru/griffin",
-          "griffin": "rglru/griffin", "vlm": "vlm", "dec": "audio",
-          "enc": "audio", "dense_sb": "dense_sb (right-sized caches)"}
+RECURRENT = ("ssd", "rec", "griffin")  # kinds with a recurrent state
+# group kinds of later slices -> (their item in ROADMAP queue 1, its name)
+_LATER = {"moe": (1, "moe"), "vlm": (2, "cross attention: vlm"),
+          "dec": (2, "cross attention: audio"),
+          "enc": (2, "cross attention: audio"),
+          "dense_sb": (3, "dense_sb, right-sized caches")}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,6 +163,106 @@ def _dense_unit_decode(p: dict, x: torch.Tensor, cache: dict,
     return _mlp_half(p, x, h, cfg), cache
 
 
+# ---------------------------------------------------------------------------
+# the recurrent units: ssd (mamba2), rec and griffin (recurrentgemma)
+# ---------------------------------------------------------------------------
+
+def _ssd_unit_init(gen: torch.Generator, cfg: ModelConfig, n: int) -> dict:
+    return {"ln1": rmsnorm_init((n, cfg.d_model), cfg, gen.device),
+            "ssd": ssd_mod.ssd_init(gen, cfg, lead=(n,))}
+
+
+def _rec_unit_init(gen: torch.Generator, cfg: ModelConfig, n: int) -> dict:
+    dev = gen.device
+    return {"ln1": rmsnorm_init((n, cfg.d_model), cfg, dev),
+            "rec": rg.rglru_init(gen, cfg, lead=(n,)),
+            "ln2": rmsnorm_init((n, cfg.d_model), cfg, dev),
+            "mlp": mlp_init(gen, cfg, lead=(n,))}
+
+
+def _griffin_unit_init(gen: torch.Generator, cfg: ModelConfig, n: int) -> dict:
+    return {"rec0": _rec_unit_init(gen, cfg, n),
+            "rec1": _rec_unit_init(gen, cfg, n),
+            "attn": _dense_unit_init(gen, cfg, n)}
+
+
+def _ssd_unit_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                    want_state: bool = False):
+    """One mamba2 unit; with ``want_state`` returns (x, ssm state, conv
+    state)."""
+    out = ssd_mod.ssd_block_apply(p["ssd"], rmsnorm(p["ln1"], x), cfg,
+                                  return_state=want_state)
+    if want_state:
+        h, s, c = out
+        return x + h, s, c
+    return x + out
+
+
+def _rec_mlp(p: dict, x: torch.Tensor, h: torch.Tensor,
+             cfg: ModelConfig) -> torch.Tensor:
+    x = x + h
+    return x + mlp_apply(p["mlp"], rmsnorm(p["ln2"], x), cfg)
+
+
+def _rec_unit_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                    want_state: bool = False):
+    """One recurrent unit; with ``want_state`` returns (x, h, conv state)."""
+    out = rg.rglru_block_apply(p["rec"], rmsnorm(p["ln1"], x), cfg,
+                               return_state=want_state)
+    if want_state:
+        h, s, c = out
+        return _rec_mlp(p, x, h, cfg), s, c
+    return _rec_mlp(p, x, out, cfg)
+
+
+def _griffin_unit_apply(p: dict, x: torch.Tensor, cfg: ModelConfig):
+    """One (rec, rec, attn) super-block over a full sequence; returns
+    (x, (h0, conv0, h1, conv1), k, v)."""
+    x, h0, c0 = _rec_unit_apply(p["rec0"], x, cfg, want_state=True)
+    x, h1, c1 = _rec_unit_apply(p["rec1"], x, cfg, want_state=True)
+    x, k, v = _dense_unit_apply(p["attn"], x, cfg, window=cfg.window,
+                                theta=cfg.rope_theta)
+    return x, (h0, c0, h1, c1), k, v
+
+
+def _griffin_unit_train(p: dict, x: torch.Tensor,
+                        cfg: ModelConfig) -> torch.Tensor:
+    x = _rec_unit_apply(p["rec0"], x, cfg)
+    x = _rec_unit_apply(p["rec1"], x, cfg)
+    return _dense_unit_train(p["attn"], x, cfg, cfg.window, cfg.rope_theta)
+
+
+def _rec_unit_decode(p: dict, x: torch.Tensor, h: torch.Tensor,
+                     conv: torch.Tensor, cfg: ModelConfig):
+    out, h, conv = rg.rglru_decode_step(p["rec"], rmsnorm(p["ln1"], x), cfg,
+                                        state=h, conv_state=conv)
+    return _rec_mlp(p, x, out, cfg), h, conv
+
+
+_UNIT_INIT = {"dense": _dense_unit_init, "ssd": _ssd_unit_init,
+              "rec": _rec_unit_init, "griffin": _griffin_unit_init}
+# a recurrent unit over a full sequence, its output alone (training)
+_UNIT_TRAIN = {"ssd": _ssd_unit_apply, "rec": _rec_unit_apply,
+               "griffin": _griffin_unit_train}
+
+
+def _rec_state(cfg: ModelConfig, n: int, batch: int, device) -> dict:
+    """Zeroed states of ``n`` recurrent units: h (n, B, D) float32, conv
+    (n, B, K-1, D) in ``cfg.dtype``."""
+    return {"h": torch.zeros((n, batch, cfg.d_model), dtype=torch.float32,
+                             device=device),
+            "conv": torch.zeros((n, batch, cfg.rglru_conv - 1, cfg.d_model),
+                                dtype=cfg.dtype, device=device)}
+
+
+def _griffin_state(cfg: ModelConfig, n: int, batch: int, cache_len: int,
+                   device) -> dict:
+    r0, r1 = (_rec_state(cfg, n, batch, device) for _ in range(2))
+    return {"h0": r0["h"], "conv0": r0["conv"], "h1": r1["h"],
+            "conv1": r1["conv"],
+            **attn.make_cache(cfg, n, batch, cache_len, device)}
+
+
 def _layer(tree, i: int):
     """Unit ``i`` of a stacked parameter or cache tree (views)."""
     if isinstance(tree, dict):
@@ -177,17 +283,25 @@ def _units(tree, n: int) -> list:
 
 
 class LM:
-    """Model wrapper for one ModelConfig (serving path, dense kind)."""
+    """Model wrapper for one ModelConfig (the dense, ssd, rec and griffin
+    group kinds)."""
 
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
         self.groups = build_groups(cfg)
         for g in self.groups:
-            if g.kind != "dense":
+            if g.kind not in _UNIT_INIT:
+                item, name = _LATER[g.kind]
                 raise NotImplementedError(
                     f"{cfg.arch_id}: the {g.kind!r} group kind comes with "
-                    f"ROADMAP queue 1, item 3 (the other LM families: "
-                    f"{_LATER[g.kind]}); the port has 'dense'")
+                    f"ROADMAP queue 1, item {item} ({name}); the port has "
+                    f"{', '.join(map(repr, _UNIT_INIT))}")
+
+    @property
+    def recurrent(self) -> bool:
+        """Whether a group carries a recurrent state (ssd, rec, griffin):
+        its prefill must see the prompt's real tokens only."""
+        return any(g.kind in RECURRENT for g in self.groups)
 
     # -- init ----------------------------------------------------------------
     def init(self, gen: torch.Generator) -> dict:
@@ -200,7 +314,7 @@ class LM:
             params["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab),
                                            cfg.d_model, cfg.param_dtype)
         for gi, g in enumerate(self.groups):
-            params[f"group{gi}"] = _dense_unit_init(gen, cfg, g.n)
+            params[f"group{gi}"] = _UNIT_INIT[g.kind](gen, cfg, g.n)
         return params
 
     def _table(self, params: dict) -> torch.Tensor:
@@ -210,10 +324,10 @@ class LM:
     # -- full-sequence forward ------------------------------------------------
     def _backbone(self, params: dict, x: torch.Tensor, *,
                   cache_len: "int | None" = None):
-        """Run all groups over full sequences. Returns (features, the KV
-        cache of each group with ``cache_len`` slots); with ``cache_len``
-        None no cache is built (training, features) and the second item
-        is None."""
+        """Run all groups over full sequences. Returns (features, the
+        decode state of each group, its KV caches with ``cache_len``
+        slots); with ``cache_len`` None no state is built (training,
+        features) and the second item is None."""
         caches = []
         for gi, g in enumerate(self.groups):
             gp = params[f"group{gi}"]
@@ -230,27 +344,51 @@ class LM:
         """The group's units without caches. With ``cfg.remat`` and
         autograd recording, each unit keeps only its input for the
         backward and runs again there (the reference's per-unit
-        ``jax.checkpoint``), so its attention's forward kernel launches
-        twice in a training step."""
+        ``jax.checkpoint``; a griffin super-block is one unit), so its
+        attention's forward kernel launches twice in a training step."""
         remat = self.cfg.remat and torch.is_grad_enabled()
         for i, p in enumerate(_units(gp, g.n)):
-            args = (p, x, self.cfg, g.windows[i], g.thetas[i])
-            x = (checkpoint(_dense_unit_train, *args, use_reentrant=False)
-                 if remat else _dense_unit_train(*args))
+            if g.kind == "dense":
+                fn = _dense_unit_train
+                args = (p, x, self.cfg, g.windows[i], g.thetas[i])
+            else:
+                fn, args = _UNIT_TRAIN[g.kind], (p, x, self.cfg)
+            x = (checkpoint(fn, *args, use_reentrant=False) if remat
+                 else fn(*args))
         return x
 
     def _run_group_full(self, g: GroupSpec, gp: dict, x: torch.Tensor, *,
                         cache_len: int):
         b, t, _ = x.shape
-        if cache_len < t:
+        cfg, dev = self.cfg, x.device
+        if g.kind in ("dense", "griffin") and cache_len < t:
             raise ValueError(f"cache_len {cache_len} < prompt length {t}")
-        cache = attn.make_cache(self.cfg, g.n, b, cache_len, x.device)
-        cache["pos"][:, :, :t] = torch.arange(t, dtype=torch.int32,
-                                              device=x.device)
+        if g.kind == "ssd":
+            cache = ssd_mod.make_ssd_state(cfg, g.n, b, dev)
+            for i in range(g.n):
+                x, cache["ssm"][i], cache["conv"][i] = _ssd_unit_apply(
+                    _layer(gp, i), x, cfg, want_state=True)
+            return x, cache
+        if g.kind == "rec":
+            cache = _rec_state(cfg, g.n, b, dev)
+            for i in range(g.n):
+                x, cache["h"][i], cache["conv"][i] = _rec_unit_apply(
+                    _layer(gp, i), x, cfg, want_state=True)
+            return x, cache
+        if g.kind == "griffin":
+            cache = _griffin_state(cfg, g.n, b, cache_len, dev)
+        else:
+            cache = attn.make_cache(cfg, g.n, b, cache_len, dev)
+        cache["pos"][:, :, :t] = torch.arange(t, dtype=torch.int32, device=dev)
         for i in range(g.n):
-            x, k, v = _dense_unit_apply(_layer(gp, i), x, self.cfg,
-                                        window=g.windows[i],
-                                        theta=g.thetas[i])
+            if g.kind == "griffin":
+                x, states, k, v = _griffin_unit_apply(_layer(gp, i), x, cfg)
+                for name, s in zip(("h0", "conv0", "h1", "conv1"), states):
+                    cache[name][i] = s
+            else:
+                x, k, v = _dense_unit_apply(_layer(gp, i), x, cfg,
+                                            window=g.windows[i],
+                                            theta=g.thetas[i])
             # the K and V attention used: the reference recomputes the
             # same values from the unit's input (attn_cache_from)
             cache["k"][i, :, :t] = k
@@ -262,7 +400,7 @@ class LM:
         """batch {"inputs", "labels": (B, T) token ids, optional "mask"
         (B, T)} -> (total, {"ce", "aux"}): the next-token CE in float32
         (``chunked_cross_entropy`` when ``cfg.logits_chunk`` is set), and
-        the auxiliary loss, 0 for the dense kind; total = ce + 0.01 aux."""
+        the auxiliary loss, 0 for the ported kinds; total = ce + 0.01 aux."""
         cfg = self.cfg
         x = embed(params["embed"], batch["inputs"], cfg)
         feats, _ = self._backbone(params, x)
@@ -281,7 +419,9 @@ class LM:
     def prefill(self, params: dict, batch: dict, *,
                 cache_len: "int | None" = None):
         """batch {"inputs": (B, T) token ids} -> (last-position logits
-        (B, vocab), decode state with caches of ``cache_len`` slots)."""
+        (B, vocab), decode state with KV caches of ``cache_len`` slots).
+        An ``ssd`` group needs T to be at most ``cfg.ssm_chunk`` or a
+        multiple of it (``ssd_scan``)."""
         tokens = batch["inputs"]
         t = tokens.shape[1]
         x = embed(params["embed"], tokens, self.cfg)
@@ -295,9 +435,17 @@ class LM:
     # -- zeroed decode state ----------------------------------------------------
     def init_decode_state(self, batch: int, cache_len: int, *, index=None,
                           device: "str | torch.device" = "cuda") -> dict:
-        dev = resolve_device(device)
-        states = [attn.make_cache(self.cfg, g.n, batch, cache_len, dev)
-                  for g in self.groups]
+        cfg, dev = self.cfg, resolve_device(device)
+        states = []
+        for g in self.groups:
+            if g.kind == "ssd":
+                states.append(ssd_mod.make_ssd_state(cfg, g.n, batch, dev))
+            elif g.kind == "rec":
+                states.append(_rec_state(cfg, g.n, batch, dev))
+            elif g.kind == "griffin":
+                states.append(_griffin_state(cfg, g.n, batch, cache_len, dev))
+            else:
+                states.append(attn.make_cache(cfg, g.n, batch, cache_len, dev))
         index = cache_len if index is None else index
         return {"groups": states,
                 "index": torch.as_tensor(index, dtype=torch.int32,
@@ -305,18 +453,36 @@ class LM:
 
     # -- decode step --------------------------------------------------------------
     def decode_step(self, params: dict, state: dict, tokens: torch.Tensor):
-        """tokens (B, 1) -> (logits (B, vocab), new state). The caches of
-        ``state`` are updated in place and carried into the new state;
-        its index is ``state["index"] + 1``."""
+        """tokens (B, 1) -> (logits (B, vocab), new state). The caches and
+        recurrent states of ``state`` are updated in place and carried
+        into the new state; its index is ``state["index"] + 1``."""
         cfg = self.cfg
         index = state["index"]
         x = embed(params["embed"], tokens, cfg)
         for gi, g in enumerate(self.groups):
             gp, gc = params[f"group{gi}"], state["groups"][gi]
             for i in range(g.n):
-                x, _ = _dense_unit_decode(_layer(gp, i), x, _layer(gc, i),
-                                          index, cfg, window=g.windows[i],
-                                          theta=g.thetas[i])
+                p = _layer(gp, i)
+                if g.kind == "ssd":
+                    h, gc["ssm"][i], gc["conv"][i] = ssd_mod.ssd_decode_step(
+                        p["ssd"], rmsnorm(p["ln1"], x), cfg,
+                        ssm_state=gc["ssm"][i], conv_state=gc["conv"][i])
+                    x = x + h
+                elif g.kind == "rec":
+                    x, gc["h"][i], gc["conv"][i] = _rec_unit_decode(
+                        p, x, gc["h"][i], gc["conv"][i], cfg)
+                elif g.kind == "griffin":
+                    x, gc["h0"][i], gc["conv0"][i] = _rec_unit_decode(
+                        p["rec0"], x, gc["h0"][i], gc["conv0"][i], cfg)
+                    x, gc["h1"][i], gc["conv1"][i] = _rec_unit_decode(
+                        p["rec1"], x, gc["h1"][i], gc["conv1"][i], cfg)
+                    x, _ = _dense_unit_decode(
+                        p["attn"], x, _layer(gc, i), index, cfg,
+                        window=cfg.window, theta=cfg.rope_theta)
+                else:
+                    x, _ = _dense_unit_decode(p, x, _layer(gc, i), index, cfg,
+                                              window=g.windows[i],
+                                              theta=g.thetas[i])
         x = rmsnorm(params["final_norm"], x)
         logits = unembed(self._table(params), x)[:, 0]
         return logits, {"groups": state["groups"], "index": index + 1}

@@ -1,0 +1,143 @@
+"""RG-LRU recurrent block (RecurrentGemma / Griffin, arXiv:2402.19427),
+the counterpart of ``repro.models.rglru``.
+
+Recurrence (per channel):
+    r_t = sigmoid(W_a x_t + b_a)            recurrence gate
+    i_t = sigmoid(W_x x_t + b_x)            input gate
+    a_t = exp(c * softplus(Lambda) * (-r_t))   in (0,1),  c = 8
+    h_t = a_t h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
+
+``rglru_scan`` runs the recurrence over T as a log-depth scan on whole
+tensors (ceil(log2 T) elementwise stages), where the reference runs
+``lax.associative_scan``: the same pairs combined in another order.
+Decode is O(1). The residual block: linear -> causal conv(4) -> RG-LRU
+on one branch, a gelu gate on the other, merged by an output projection.
+``lam`` and the state ``h`` are float32 whatever ``cfg.param_dtype`` is.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.common import ModelConfig, dense_init, residual_out_init
+
+_C = 8.0
+
+
+def rglru_init(gen: torch.Generator, cfg: ModelConfig, lead=()) -> dict:
+    """One block's parameters; ``lead`` prepends stacking axes."""
+    d, k = cfg.d_model, cfg.rglru_conv
+    dev, dt = gen.device, cfg.param_dtype
+    w_x = dense_init(gen, (*lead, d, d), d, dt)  # input branch
+    w_gate = dense_init(gen, (*lead, d, d), d, dt)  # gelu gate branch
+    conv_w = torch.randn((*lead, k, d), generator=gen, dtype=torch.float32,
+                         device=dev)
+    w_a = dense_init(gen, (*lead, d, d), d, dt)
+    w_i = dense_init(gen, (*lead, d, d), d, dt)
+    return {
+        "w_x": w_x,
+        "w_gate": w_gate,
+        "conv_w": (conv_w * (3.0 / k) ** 0.5).to(dt),
+        "conv_b": torch.zeros((*lead, d), dtype=dt, device=dev),
+        "w_a": w_a,
+        "b_a": torch.zeros((*lead, d), dtype=dt, device=dev),
+        "w_i": w_i,
+        "b_i": torch.zeros((*lead, d), dtype=dt, device=dev),
+        # Lambda so that a^c lies roughly in [0.9, 0.999] at r = 1
+        "lam": torch.linspace(0.3, 1.5, d, dtype=torch.float32,
+                              device=dev).expand(*lead, d).clone(),
+        "w_out": residual_out_init(gen, (*lead, d, d), d, cfg),
+    }
+
+
+def _gates(params: dict, x: torch.Tensor):
+    """The decay a_t and the gated input of each step, float32. x (B,T,D)."""
+    xf = x.float()
+    r = torch.sigmoid(xf @ params["w_a"].float() + params["b_a"].float())
+    i = torch.sigmoid(xf @ params["w_i"].float() + params["b_i"].float())
+    lam = F.softplus(params["lam"])  # (D,)
+    a = torch.exp(-_C * lam * r)  # a_t, (B, T, D)
+    gated = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * xf)
+    return a, gated
+
+
+def _linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t h_{t-1} + b_t from h_0 = 0 along dim 1, for every t:
+    Hillis-Steele doubling, stage s combining each step with the one 2^s
+    before it, (a1, b1) then (a2, b2) -> (a1 a2, a2 b1 + b2)."""
+    t = a.shape[1]
+    off = 1
+    while off < t:
+        b = torch.cat([b[:, :off], a[:, off:] * b[:, :-off] + b[:, off:]],
+                      dim=1)
+        if 2 * off < t:  # the last stage's products are not read
+            a = torch.cat([a[:, :off], a[:, :-off] * a[:, off:]], dim=1)
+        off *= 2
+    return b
+
+
+def rglru_scan(params: dict, x: torch.Tensor, h0=None):
+    """The linear recurrence over T. x (B, T, D) -> (y (B, T, D) in x's
+    dtype, h_T (B, D) float32)."""
+    a, b = _gates(params, x)
+    if h0 is not None:
+        # fold the initial state into the first step: h_1 = a_1 h_0 + b_1
+        b = torch.cat([b[:, :1] + a[:, :1] * h0[:, None], b[:, 1:]], dim=1)
+    y = _linear_scan(a, b)  # h_t for every t
+    return y.to(x.dtype), y[:, -1]
+
+
+def rglru_step(params: dict, x: torch.Tensor, h: torch.Tensor):
+    """One-token recurrence. x (B, 1, D), h (B, D) float32."""
+    a, b = _gates(params, x)
+    h_new = a[:, 0] * h + b[:, 0]
+    return h_new[:, None, :].to(x.dtype), h_new
+
+
+def _causal_conv(x: torch.Tensor, conv_w: torch.Tensor, conv_b: torch.Tensor,
+                 conv_state=None):
+    """Depthwise causal conv over time, x (B, T, C), conv_w (K, C);
+    returns (out, the last K-1 rows of [conv_state, x])."""
+    k = conv_w.shape[0]
+    bsz, t, c = x.shape
+    if conv_state is None:
+        conv_state = torch.zeros((bsz, k - 1, c), dtype=x.dtype,
+                                 device=x.device)
+    ext = torch.cat([conv_state.to(x.dtype), x], dim=1)
+    out = ext[:, 0:t] * conv_w[0]
+    for i in range(1, k):
+        out = out + ext[:, i:i + t] * conv_w[i]
+    out = out + conv_b
+    return out, ext[:, ext.shape[1] - (k - 1):]
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def rglru_block_apply(params: dict, u: torch.Tensor, cfg: ModelConfig, *,
+                      state=None, conv_state=None,
+                      return_state: bool = False):
+    """Full Griffin recurrent block. u (B, T, D)."""
+    gate = _gelu(u @ params["w_gate"])
+    x = u @ params["w_x"]
+    x, new_conv = _causal_conv(x, params["conv_w"].to(u.dtype),
+                               params["conv_b"].to(u.dtype), conv_state)
+    y, h_last = rglru_scan(params, x, h0=state)
+    out = (gate * y) @ params["w_out"]
+    if return_state:
+        return out, h_last, new_conv
+    return out
+
+
+def rglru_decode_step(params: dict, u: torch.Tensor, cfg: ModelConfig, *,
+                      state: torch.Tensor, conv_state: torch.Tensor):
+    """One-token step. u (B, 1, D); returns (out, new h, new conv state)."""
+    gate = _gelu(u @ params["w_gate"])
+    x = u @ params["w_x"]
+    x, new_conv = _causal_conv(x, params["conv_w"].to(u.dtype),
+                               params["conv_b"].to(u.dtype), conv_state)
+    y, h_new = rglru_step(params, x, state)
+    out = (gate * y) @ params["w_out"]
+    return out, h_new, new_conv

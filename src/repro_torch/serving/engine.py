@@ -8,7 +8,12 @@ while others are mid-generation.
 
   * admit: single-request prefill (prompt right-padded to a power-of-two
     bucket, at least 16 and at most ``cache_len``), the cache slots the
-    padding wrote invalidated, the state written into the free slot;
+    padding wrote invalidated, the state written into the free slot. A
+    model with a recurrent state (``ssd``, ``rec``, ``griffin`` groups)
+    takes no padding, which its state would absorb: the prompt's longest
+    prefix its scan takes goes through ``prefill`` and the rest, fewer
+    than ``cfg.ssm_chunk`` tokens, through ``decode_step`` on the
+    one-row state;
   * step: one batched decode for all slots;
   * complete: slots free as sequences hit ``max_new_tokens`` or EOS.
 
@@ -83,21 +88,49 @@ class ServingEngine:
     def submit(self, req: Request) -> None:
         self.queue.append(req)
 
+    def _exact_prefix(self, n: int) -> int:
+        """The longest prefix of an n-token prompt that ``prefill`` takes
+        exactly: all of it for the rglru kinds; for an ``ssd`` group, all
+        of it when n <= ssm_chunk or a multiple of it, else the longest
+        multiple of ssm_chunk (``ssd_scan``'s chunks)."""
+        chunk = self.model.cfg.ssm_chunk
+        if (all(g.kind != "ssd" for g in self.model.groups) or n <= chunk
+                or n % chunk == 0):
+            return n
+        return n - n % chunk
+
+    def _prefill_recurrent(self, prompt: list):
+        """A recurrent model's prompt, its real tokens only: (the last
+        token's logits (1, vocab), the one-row state at len(prompt))."""
+        n = self._exact_prefix(len(prompt))
+        toks = torch.as_tensor([prompt], dtype=torch.int64, device=self.device)
+        logits, sstate = self.model.prefill(
+            self.params, {"inputs": toks[:, :n]}, cache_len=self.cache_len)
+        for i in range(n, len(prompt)):
+            logits, sstate = self.model.decode_step(self.params, sstate,
+                                                    toks[:, i:i + 1])
+        return logits, sstate
+
     def _admit(self) -> None:
         for slot in range(self.max_batch):
             if self.slots[slot] is not None or not self.queue:
                 continue
             req = self.queue.popleft()
             ltrue = len(req.prompt)
-            lpad = min(_bucket(ltrue), self.cache_len)
-            toks = torch.zeros((1, lpad), dtype=torch.int64)
-            toks[0, :ltrue] = torch.as_tensor(req.prompt)
-            logits, sstate = self.model.prefill(
-                self.params, {"inputs": toks.to(self.device)},
-                cache_len=self.cache_len)
-            sstate = self._mask_padded_positions(sstate, ltrue)
+            if self.model.recurrent:
+                logits, sstate = self._prefill_recurrent(req.prompt)
+                padded = False
+            else:
+                lpad = min(_bucket(ltrue), self.cache_len)
+                toks = torch.zeros((1, lpad), dtype=torch.int64)
+                toks[0, :ltrue] = torch.as_tensor(req.prompt)
+                logits, sstate = self.model.prefill(
+                    self.params, {"inputs": toks.to(self.device)},
+                    cache_len=self.cache_len)
+                sstate = self._mask_padded_positions(sstate, ltrue)
+                padded = lpad != ltrue
             self._insert(sstate, slot, ltrue)
-            if lpad == ltrue:
+            if not padded:
                 first = int(torch.argmax(logits[0]))
                 self.last_tokens[slot] = first
                 req.generated.append(first)
