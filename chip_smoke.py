@@ -197,12 +197,35 @@ Phases, in order; any failure raises and the script exits non-zero:
                 gradients within phase 13's tolerances of the plain
                 versions', 16 forward and 8 sm90 backward launches;
                 mamba2's finite; both timed
+ 11c. moe     — arctic-480b (2 of its 35 layers, 55.4 GB) and
+                kimi-k2-1t-a32b (its dense layer and one moe layer of 61,
+                39.8 GB) at full width in bf16 (random weights from seed
+                0) through ServingEngine with serve's 8 requests: 2 sm90
+                launches a prefill, none in decode; the 2048-token
+                prefill through the kernels and the plain versions: the
+                expert choices and keeps that flip between them counted,
+                the logits within 4 bf16 ulps where none flips, every
+                attention layer's kernel within 2e-2 of its plain version
+                on the layer's own q, k, v, each moe layer's drop
+                fraction; prefill ms by bucket, decode ms at batch 4,
+                engine tokens/s, peak memory, a profiled prefill. Their
+                float32 twins (arctic 1 layer; kimi 2 layers with 128 of
+                its 384 experts): the engine's tokens equal each request
+                alone through a one-slot engine (the same bucketed
+                capacity), the logits within 1e-3 where no route flips.
+                arctic's LM.loss forward and backward at 1 layer, 1 x
+                2048 tokens, remat: 2 forward and one sm90 backward (7
+                runs of 1 head and a sum pass), loss = ce + 0.01 aux, CE,
+                aux and every gradient against the plain versions' within
+                phase 13's tolerances where no route flips, peak memory,
+                ms
  12. flash times — the tensor-core kernel, its plain version and
                 F.scaled_dot_product_attention at (1, 2048, 32, 4, 64)
                 causal, (1, 2048, 4, 1, 256) window 512, (1, 2048, 64,
-                8, 128) causal and (1, 2048, 10, 1, 256) window 2048, bf16,
-                beside the bound; the tf32x3 kernel
-                at the same three shapes in float32, beside its bound (three
+                8, 128) causal, (1, 2048, 10, 1, 256) window 2048, and
+                arctic's (1, 2048, 56, 8, 128) and kimi-k2's (1, 2048, 64,
+                8, 112) causal, bf16, beside the bound; the tf32x3 kernel
+                at the first three shapes in float32, beside its bound (three
                 times the operations at the 494.7 TFLOP/s dense TF32 tensor
                 rate) and the float32 SIMT one (67 TFLOP/s), SDPA with TF32
                 off
@@ -214,8 +237,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                 (ref.mha_blocked_grad) at (1, 2048, 32, 4, 64) and (1,
                 2048, 64, 8, 128) causal, (1, 2048, 4, 1, 256) window 512,
                 the training shape (2, 2048, 32, 4, 64), recurrentgemma's
-                (1, 2048, 10, 1, 256) window 2048 and (1, 1024, 8, 2, 60)
-                causal, in bfloat16 (<= 2e-2 of each gradient's max
+                (1, 2048, 10, 1, 256) window 2048, (1, 1024, 8, 2, 60),
+                arctic's (1, 2048, 56, 8, 128) and kimi-k2's (1, 2048, 64,
+                8, 112) causal, in bfloat16 (<= 2e-2 of each gradient's max
                 |value|; D 64, 128 and 256 on sm90, D 60 on tf32x3) and
                 float32 (<= 1e-4, tf32x3), each launch counted on its route,
                 a second call bit-equal, a failing sm90 and tf32x3 entry
@@ -3033,7 +3057,11 @@ def _serve_requests(vocab: int):
             for i, n in enumerate(lengths)]
 
 
-def _serve_model(dtype, arch=SERVE["arch"], n_layers=None):
+def _serve_model(dtype, arch=SERVE["arch"], n_layers=None, **cuts):
+    """(cfg, model, params from seed 0 on the card, init seconds): the
+    config in ``dtype`` with its depth cut to ``n_layers`` where given
+    and any other field replaced by ``cuts`` (every cut is listed by
+    ``_cut_list``)."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -3041,7 +3069,7 @@ def _serve_model(dtype, arch=SERVE["arch"], n_layers=None):
     from repro_torch.models.lm import LM
 
     cfg = dataclasses.replace(get_config(arch), dtype=dtype,
-                              param_dtype=dtype)
+                              param_dtype=dtype, **cuts)
     if n_layers:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
     model = LM(cfg)
@@ -3049,6 +3077,20 @@ def _serve_model(dtype, arch=SERVE["arch"], n_layers=None):
     params = model.init(root_key(0, device=torch.device("cuda", 0)))
     torch.cuda.synchronize()
     return cfg, model, params, time.perf_counter() - t0
+
+
+def _cut_list(cfg) -> list:
+    """How ``cfg`` was cut from its published config: each field that
+    differs (the dtypes aside), as "field published -> run"."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    full = get_config(cfg.arch_id)
+    return [f"{f.name} {getattr(full, f.name)} -> {getattr(cfg, f.name)}"
+            for f in dataclasses.fields(cfg)
+            if f.name not in ("dtype", "param_dtype")
+            and getattr(full, f.name) != getattr(cfg, f.name)]
 
 
 def _run_engine(model, params, reqs) -> dict:
@@ -3076,13 +3118,106 @@ def _run_engine(model, params, reqs) -> dict:
             "tokens_per_s": generated / wall}
 
 
-def _prefill_logits(model, params, tokens, impl=None):
+def _prefill_routed(model, params, tokens, impl=None):
+    """A prefill's last-position logits in float32 and the routing of its
+    moe layers (``moe.record_routes``; none without a moe group)."""
     from repro_torch.kernels import ops
+    from repro_torch.models import moe
 
-    with ops.use_impl(impl):
+    with ops.use_impl(impl), moe.record_routes() as routes:
         logits, _ = model.prefill(params, {"inputs": tokens},
                                   cache_len=tokens.shape[1])
-    return logits.float()
+    return logits.float(), routes
+
+
+def _route_flips(routes: list, want: list) -> dict:
+    """The (token, slot) expert choices and keeps on which two runs'
+    recorded routes differ, over every moe layer: a choice that flips
+    between the kernel and the plain version moves an output by far more
+    than the kernel's tolerance, so a logits comparison holds only where
+    none flips."""
+    check(len(routes) == len(want), f"moe calls {len(routes)} != "
+          f"{len(want)}")
+    return {"choices": sum(int((a["ids"] != b["ids"]).sum())
+                           for a, b in zip(routes, want)),
+            "keeps": sum(int((a["keep"] != b["keep"]).sum())
+                         for a, b in zip(routes, want)),
+            "assignments": sum(a["ids"].numel() for a in routes)}
+
+
+def _attention_layer_errs(model, params, tokens) -> list:
+    """Each attention layer of a prefill of ``tokens`` through the
+    kernels: the flash kernel against its plain version on the layer's
+    own q, k and v (max abs error, one a layer), so the kernel is held
+    on identical inputs where a route flip upstream makes the model's
+    outputs incomparable."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as attn
+    from repro_torch.models import lm as lm_mod
+    from repro_torch.models.common import embed, rmsnorm
+
+    cfg = model.cfg
+    x = embed(params["embed"], tokens, cfg)
+    pos = torch.arange(tokens.shape[1], device=tokens.device)
+    errs = []
+    for gi, g in enumerate(model.groups):
+        check(g.kind in ("dense", "moe"), f"no layer walk for {g.kind}")
+        for i in range(g.n):
+            p = lm_mod._layer(params[f"group{gi}"], i)
+            q, k, v = attn._qkv(p["attn"], rmsnorm(p["ln1"], x), cfg)
+            q = attn.rope(q, pos, g.thetas[i])
+            k = attn.rope(k, pos, g.thetas[i]).contiguous()
+            got, want = (ops.flash_attention(q, k, v.contiguous(),
+                                             window=g.windows[i], impl=impl)
+                         for impl in (None, "ref"))
+            errs.append(_max_err(got.float(), want.float()))
+            unit = (lm_mod._dense_unit_apply if g.kind == "dense"
+                    else lm_mod._moe_unit_apply)
+            x = unit(p, x, cfg, window=g.windows[i], theta=g.thetas[i])[0]
+    return errs
+
+
+def _hold_kernel_in_prefill(model, params, tokens, got, routes, tol_of,
+                            label: str) -> dict:
+    """The 2048-token prefill through the kernels (``got``, ``routes``)
+    against the plain version's: the route flips between the two, the
+    logits held within ``tol_of(max |logit|)`` where none flips; for a
+    model with moe layers, every attention layer's kernel against its
+    plain version on identical inputs (``FLASH_TOL``), and each moe
+    layer's drop fraction."""
+    want, want_routes = _prefill_routed(model, params, tokens, impl="ref")
+    err = _max_err(got, want)
+    tol = tol_of(float(want.abs().max()))
+    flips = _route_flips(routes, want_routes)
+    flipped = flips["choices"] or flips["keeps"]
+    agree = bool((got.argmax(-1) == want.argmax(-1)).all())
+    out = {"max_abs_err": err, "tolerance": tol,
+           "max_abs_logit": float(want.abs().max()), "argmax_equal": agree,
+           "route_flips": flips}
+    if routes:
+        out["drop_frac_by_layer"] = [float(r["drop_frac"]) for r in routes]
+        out["capacity"] = routes[0]["capacity"]
+        errs = _attention_layer_errs(model, params, tokens)
+        flash_tol = FLASH_TOL[model.cfg.dtype]
+        out["attention_by_layer"] = {"max_abs_err": errs,
+                                     "tolerance": flash_tol}
+        log(f"{label}: {flips['choices']} of {flips['assignments']} expert "
+            f"choices and {flips['keeps']} keeps differ between the kernel's "
+            f"and the plain version's routes; drop fraction by moe layer "
+            f"{out['drop_frac_by_layer']} (capacity {out['capacity']}); "
+            f"attention kernel vs plain on each layer's own q, k, v: max "
+            f"abs err {[f'{e:.3e}' for e in errs]} (tolerance {flash_tol})")
+        check(max(errs) <= flash_tol, f"{label}: an attention layer's kernel "
+              f"differs from its plain version by {max(errs):.3e} > "
+              f"{flash_tol} on identical inputs")
+    log(f"{label}: logits kernel vs plain max abs err {err:.4e} (tolerance "
+        f"{tol:.4e}, max |logit| {out['max_abs_logit']:.3f}); argmax equal: "
+        f"{agree}" + ("; routes flipped, so the logits are held by the "
+                      "layers' attention instead" if flipped else ""))
+    if not flipped:
+        check(err <= tol, f"{label}: prefill logits through the kernel differ "
+              f"from the plain version by {err:.4e} > {tol:.4e}")
+    return out
 
 
 def _profile_call(fn) -> dict:
@@ -3131,31 +3266,33 @@ def _prefill_profile(model, params, tokens) -> dict:
 
 def _attn_layers(model) -> int:
     """Layers whose attention launches the flash kernel in a prefill: every
-    dense layer, one a griffin super-block; none in mamba2."""
-    return sum(g.n for g in model.groups if g.kind in ("dense", "griffin"))
+    dense and moe layer, one a griffin super-block; none in mamba2."""
+    return sum(g.n for g in model.groups
+               if g.kind in ("dense", "moe", "griffin"))
 
 
 def _flash_want(n: int, route: str) -> dict:
     return {**NO_LM, "flash_attention": n, f"flash_attention_{route}": n}
 
 
-def _serve_bf16(arch: str, tag: str, seed: int) -> dict:
-    """One model at full width and depth in bf16 (random weights from
-    seed 0): SERVE's requests through the engine, prefill by bucket,
-    decode at batch 4, the kernel against the plain version on a
-    2048-token prefill (where the model has attention), and a profile of
-    that prefill."""
+def _serve_bf16(arch: str, tag: str, seed: int, n_layers=None) -> dict:
+    """One model at full width in bf16 (random weights from seed 0), at
+    full depth or cut to ``n_layers`` (the cut in the record): SERVE's
+    requests through the engine, prefill by bucket, decode at batch 4,
+    the kernel against the plain version on a 2048-token prefill (where
+    the model has attention; ``_hold_kernel_in_prefill``), and a profile
+    of that prefill."""
     from repro_torch.kernels import ops
     from repro_torch.serving.engine import _bucket
 
     dev = _card()
     torch.cuda.empty_cache()
-    cfg, model, params, init_s = _serve_model(torch.bfloat16, arch)
+    cfg, model, params, init_s = _serve_model(torch.bfloat16, arch, n_layers)
     L, n_attn = cfg.n_layers, _attn_layers(model)
     gen = torch.Generator(device=dev).manual_seed(seed)
     out = {"arch": cfg.arch_id, "n_layers": L, "d_model": cfg.d_model,
            "groups": [(g.kind, g.n) for g in model.groups],
-           "dtype": "bfloat16", "init_s": init_s}
+           "cuts": _cut_list(cfg), "dtype": "bfloat16", "init_s": init_s}
     with torch.no_grad():
         # warm: first use of every matmul shape of a prefill and a decode
         warm = torch.randint(0, cfg.vocab, (1, 128), generator=gen, device=dev)
@@ -3209,27 +3346,19 @@ def _serve_bf16(arch: str, tag: str, seed: int) -> dict:
         tokens = torch.randint(0, cfg.vocab, (1, 2048), generator=gen,
                                device=dev)
         ops.reset_launch_counts()
-        got = _prefill_logits(model, params, tokens)
+        got, routes = _prefill_routed(model, params, tokens)
         check(ops.launch_counts() == {**want, **_flash_want(n_attn, "sm90")},
               f"{tag} {arch}: a 2048-token prefill launched "
               f"{ops.launch_counts()}")
         check(got.shape == (1, cfg.vocab) and bool(torch.isfinite(got).all()),
               f"{tag} {arch}: prefill logits not finite or misshapen")
         if n_attn:
-            want_l = _prefill_logits(model, params, tokens, impl="ref")
-            err = _max_err(got, want_l)
-            top = float(want_l.abs().max())
-            tol = BF16_ULPS * 2.0 ** (math.floor(math.log2(top)) - 7)
-            agree = bool((got.argmax(-1) == want_l.argmax(-1)).all())
-            log(f"[{tag}] {arch} 2048-token prefill logits, kernel vs plain: "
-                f"max abs err {err:.4e} (tolerance {tol:.4e} = {BF16_ULPS} "
-                f"bf16 ulps at max |logit| {top:.3f}); argmax equal: {agree}")
-            check(err <= tol, f"{tag} {arch}: prefill logits through the "
-                  f"kernel differ from the plain version by {err:.4e} > "
-                  f"{tol:.4e}")
-            out["logits_2048"] = {"max_abs_err": err, "tolerance": tol,
-                                  "max_abs_logit": top,
-                                  "argmax_equal": agree}
+            # BF16_ULPS bf16 ulps of the largest |logit|
+            out["logits_2048"] = _hold_kernel_in_prefill(
+                model, params, tokens, got, routes,
+                lambda top: BF16_ULPS * 2.0 ** (math.floor(math.log2(top))
+                                                - 7),
+                f"[{tag}] {arch} 2048-token prefill")
         profile = _prefill_profile(model, params, tokens)
 
     out.update(run)
@@ -3243,7 +3372,8 @@ def _serve_bf16(arch: str, tag: str, seed: int) -> dict:
         "prefill_2048_profile": profile})
     med = sorted(decode_ms)[len(decode_ms) // 2]
     log(f"[{tag}] {arch} bf16, {L} layers {out['groups']}, d "
-        f"{cfg.d_model}: init {init_s:.2f} s; engine "
+        f"{cfg.d_model}, cut {out['cuts'] or 'none'}: init {init_s:.2f} s; "
+        f"engine "
         f"{run['generated_tokens']} tokens for {len(reqs)} requests (prompts "
         f"{out['prompt_lengths']}, prefilled {prefilled}) in "
         f"{run['wall_s']:.3f} s, {run['steps']} steps, "
@@ -3307,18 +3437,63 @@ def _isolated_generate(model, params, prompt, n_new):
 
 
 
-def _serve_f32(arch: str, tag: str, n_layers=None) -> dict:
-    """The model in float32 (TF32 off; depth cut to ``n_layers`` where
-    given): the engine's tokens equal each request's isolated prefill +
-    greedy decode, token for token; the 2048-token prefill's logits
-    through the tf32x3 kernel against the plain version, its ms and its
-    profile."""
+def _one_slot_generate(model, params, prompt, n_new):
+    """One request alone through a ``max_batch=1`` engine (a moe model's
+    oracle: the same bucketed admission, so the same capacities, and a
+    decode that drops nothing); returns its tokens and the top-2 logit
+    margin of each logits row a token came from."""
+    import copy
+
+    from repro_torch.serving import Request, ServingEngine
+
+    margins = []
+
+    def margin(logits):
+        top2 = torch.topk(logits[0].float(), 2).values
+        margins.append(float(top2[0] - top2[1]))
+
+    def prefill(p, batch, **kw):  # its logits give a token when unpadded
+        logits, state = model.prefill(p, batch, **kw)
+        if batch["inputs"].shape[1] == len(prompt):
+            margin(logits)
+        return logits, state
+
+    def decode_step(p, state, toks):
+        logits, state = model.decode_step(p, state, toks)
+        margin(logits)
+        return logits, state
+    spy = copy.copy(model)
+    spy.prefill, spy.decode_step = prefill, decode_step
+    engine = ServingEngine(spy, params, max_batch=1,
+                           cache_len=SERVE["cache_len"])
+    req = Request(uid=0, prompt=prompt, max_new_tokens=n_new)
+    engine.submit(req)
+    engine.run()
+    check(req.done and len(margins) == n_new,
+          f"one-slot engine: {len(req.generated)} tokens, {len(margins)} "
+          f"logits rows")
+    return req.generated, margins
+
+
+def _serve_f32(arch: str, tag: str, n_layers=None, **cuts) -> dict:
+    """The model in float32 (TF32 off; depth cut to ``n_layers`` and any
+    other field to ``cuts`` where given): the engine's tokens equal each
+    request's oracle, token for token (its isolated prefill + greedy
+    decode; for a moe model, the request alone through a one-slot engine,
+    ``_one_slot_generate``); the 2048-token prefill's logits through the
+    tf32x3 kernel against the plain version (``_hold_kernel_in_prefill``),
+    its ms and its profile."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = _card()
     torch.cuda.empty_cache()
-    cfg, model, params, init_s = _serve_model(torch.float32, arch, n_layers)
+    cfg, model, params, init_s = _serve_model(torch.float32, arch, n_layers,
+                                              **cuts)
     n_attn = _attn_layers(model)
+    moe = any(g.kind == "moe" for g in model.groups)
+    oracle, oracle_name = ((_one_slot_generate, "a one-slot engine") if moe
+                           else (_isolated_generate, "isolated prefill + "
+                                 "greedy decode"))
     with torch.no_grad():
         torch.cuda.reset_peak_memory_stats()
         reqs = _serve_requests(cfg.vocab)
@@ -3331,32 +3506,33 @@ def _serve_f32(arch: str, tag: str, n_layers=None) -> dict:
               f"tf32x3 kernel per attention layer per prefill)")
         min_margin = math.inf
         for r in reqs:
-            want, margins = _isolated_generate(model, params, r.prompt,
-                                               r.max_new_tokens)
+            want, margins = oracle(model, params, r.prompt, r.max_new_tokens)
             min_margin = min(min_margin, min(margins))
             if r.generated != want:
                 step = next(i for i, (a, b) in enumerate(zip(r.generated,
                                                              want)) if a != b)
                 raise SmokeFailure(
                     f"{tag} {arch}: request {r.uid} (prompt {len(r.prompt)}) "
-                    f"differs from its isolated generation at step {step}: "
-                    f"engine {r.generated[step]} vs isolated {want[step]}, "
-                    f"top-2 margin there {margins[step]:.3e}")
+                    f"differs from {oracle_name} at step {step}: engine "
+                    f"{r.generated[step]} vs {want[step]}, top-2 margin "
+                    f"there {margins[step]:.3e}")
         gen = torch.Generator(device=dev).manual_seed(7)
         tokens = torch.randint(0, cfg.vocab, (1, 2048), generator=gen,
                                device=dev)
-        err = _max_err(_prefill_logits(model, params, tokens),
-                       _prefill_logits(model, params, tokens, impl="ref"))
-        check(err <= F32_LOGIT_TOL, f"{tag} {arch}: prefill logits through "
-              f"the kernel differ from the plain version by {err:.3e}")
+        logits, routes = _prefill_routed(model, params, tokens)
+        held = _hold_kernel_in_prefill(
+            model, params, tokens, logits, routes, lambda top: F32_LOGIT_TOL,
+            f"[{tag}] {arch} 2048-token prefill")
+        err = held["max_abs_err"]
         ms = _bare_ms(lambda: model.prefill(
             params, {"inputs": tokens}, cache_len=SERVE["cache_len"]), 5)
         prefill_ms = sorted(ms)[len(ms) // 2]
         profile = _prefill_profile(model, params, tokens)
     log(f"[{tag}] {arch} at {cfg.n_layers} layers "
-        f"{[(g.kind, g.n) for g in model.groups]}: {len(reqs)} requests x "
-        f"{SERVE['new_tokens']} tokens: engine == isolated prefill + greedy "
-        f"decode, token for token (smallest top-2 margin {min_margin:.3e}); "
+        f"{[(g.kind, g.n) for g in model.groups]}, cut "
+        f"{_cut_list(cfg) or 'none'}: {len(reqs)} requests x "
+        f"{SERVE['new_tokens']} tokens: engine == {oracle_name}, token for "
+        f"token (smallest top-2 margin {min_margin:.3e}); "
         f"engine {run['tokens_per_s']:.1f} tokens/s in {run['wall_s']:.3f} "
         f"s; launches { {k: v for k, v in got.items() if v} }; 2048-token "
         f"prefill logits kernel vs plain {err:.3e} (tolerance "
@@ -3373,10 +3549,11 @@ def _serve_f32(arch: str, tag: str, n_layers=None) -> dict:
             f"{r['kernel']}")
     del params
     torch.cuda.empty_cache()
-    return {**run, "n_layers": cfg.n_layers, "init_s": init_s,
+    return {**run, "n_layers": cfg.n_layers, "cuts": _cut_list(cfg),
+            "init_s": init_s, "oracle": oracle_name,
             "peak_memory_bytes": peak, "min_top2_margin": min_margin,
-            "logits_2048_max_abs_err": err, "prefill_2048_ms": ms,
-            "prefill_2048_profile": profile}
+            "logits_2048_max_abs_err": err, "logits_2048": held,
+            "prefill_2048_ms": ms, "prefill_2048_profile": profile}
 
 
 def phase_serve_f32() -> dict:
@@ -3501,6 +3678,177 @@ def phase_recurrent(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 11c. moe: arctic-480b and kimi-k2-1t-a32b through the engine
+# ---------------------------------------------------------------------------
+
+MOE = dict(archs=("arctic-480b", "kimi-k2-1t-a32b"),
+           # the bf16 serving depth, every width kept: arctic 2 of its 35
+           # layers (55.4 GB of weights; 3 would be 82.6 GB), kimi its
+           # dense first layer and one moe layer of 61 (39.8 GB)
+           layers={"arctic-480b": 2, "kimi-k2-1t-a32b": 2},
+           # the float32 twins (TF32 off): arctic 1 layer (56 GB), kimi 2
+           # layers with 128 of its 384 experts (top-8, moe_d_ff, heads
+           # and head dim kept)
+           f32={"arctic-480b": dict(n_layers=1),
+                "kimi-k2-1t-a32b": dict(n_layers=2, n_experts=128)},
+           # one LM.loss forward and backward: arctic at 1 layer, bf16,
+           # remat (kimi's 39.8 GB of bf16 weights and as many of
+           # gradients do not fit the card)
+           loss_arch="arctic-480b", loss_layers=1, loss_batch=1,
+           loss_seq=2048, seed=0)
+
+
+def _grads_rel_err(host_grads: list, grads: list, chunk: int = 1 << 27) -> list:
+    """Each leaf's relative norm error of ``host_grads`` (leaves kept on
+    the host) against ``grads`` (on the card), ``chunk`` values at a time
+    (a float32 copy of a whole expert stack's gradient does not fit)."""
+    errs = []
+    for a, b in zip(host_grads, grads):
+        a, b = a.reshape(-1), b.reshape(-1)
+        diff2 = ref2 = 0.0
+        for i in range(0, b.numel(), chunk):
+            bc = b[i:i + chunk].float()
+            ac = a[i:i + chunk].to(b.device).float()
+            diff2 += float(torch.linalg.vector_norm(ac - bc,
+                                                    dtype=torch.float64) ** 2)
+            ref2 += float(torch.linalg.vector_norm(bc,
+                                                   dtype=torch.float64) ** 2)
+        errs.append((diff2 / max(ref2, 1e-60)) ** 0.5)
+    return errs
+
+
+def _moe_loss() -> dict:
+    """One LM.loss forward and backward of arctic at full width, 1 layer,
+    bf16, remat, 1 x 2048 tokens from FastLMStream: the launches (the
+    forward twice, the sm90 backward once in 7 runs of heads and a sum
+    pass), CE, aux and every gradient against the plain versions'
+    (phase 13's tolerances where no route flips; the gradients through
+    the kernels wait on the host, since two bf16 gradient trees and the
+    weights do not fit the card), peak memory and ms."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.base import root_key
+    from repro_torch.data import FastLMStream
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import loss_and_grads
+    from repro_torch.models import moe
+    from repro_torch.models.lm import LM
+    from repro_torch.tree import leaves
+
+    dev = _card()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(MOE["loss_arch"]),
+                              dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+                              remat=True, n_layers=MOE["loss_layers"])
+    model = LM(cfg)
+    params = model.init(root_key(MOE["seed"], device=dev))
+    b, t = MOE["loss_batch"], MOE["loss_seq"]
+    batch = next(iter(FastLMStream(cfg.vocab, t, b, seed=MOE["seed"],
+                                   device=dev).batches(1)))
+    tol = TRAIN_TOL[torch.bfloat16]
+    label = f"[moe loss] {cfg.arch_id}"
+    # the routes of the loss's forward through the kernels and the plain
+    # versions (no grad: the same forward, no remat)
+    with torch.no_grad():
+        with moe.record_routes() as routes:
+            model.loss(params, batch)
+        with ops.use_impl("ref"), moe.record_routes() as want_routes:
+            model.loss(params, batch)
+    flips = _route_flips(routes, want_routes)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    loss, metrics, grads = loss_and_grads(model, params, batch)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    flat = leaves(grads)
+    check(bool(torch.isfinite(loss)) and all(bool(torch.isfinite(g).all())
+                                             for g in flat),
+          f"{label}: loss or a gradient not finite")
+    L = cfg.n_layers
+    route = kflash.flash_bwd_route(torch.bfloat16, cfg.head_dim)
+    splits = _bwd_splits(route, b, t, cfg.n_heads, cfg.n_kv_heads,
+                         cfg.head_dim)
+    want = {op: 0 for op in counts}
+    want.update({**_flash_want(2 * L, "sm90"), "flash_attention_bwd": L,
+                 f"flash_attention_bwd_{route}": L,
+                 f"flash_attention_bwd_{route}_sum": L * (splits > 1),
+                 **{f"flash_attention_bwd_{k}": L
+                    for k in BWD_ROUTE_KERNELS[route]}})
+    check(counts == want, f"{label}: launches {counts} != {want} (remat: the "
+          f"forward twice a layer, the backward once)")
+    host = [g.to("cpu") for g in flat]
+    del grads, flat
+    torch.cuda.empty_cache()
+    with ops.use_impl("ref"):
+        loss_r, metrics_r, grads_r = loss_and_grads(model, params, batch)
+    errs = _grads_rel_err(host, leaves(grads_r))
+    del host, grads_r
+    torch.cuda.empty_cache()
+    rel = {name: abs(float(metrics[name]) - float(metrics_r[name]))
+           / abs(float(metrics_r[name])) for name in ("ce", "aux")}
+    out = {"arch": cfg.arch_id, "n_layers": L, "cuts": _cut_list(cfg),
+           "batch": b, "seq": t, "loss": float(loss),
+           "ce": float(metrics["ce"]), "aux": float(metrics["aux"]),
+           "ce_plain": float(metrics_r["ce"]),
+           "aux_plain": float(metrics_r["aux"]), "rel_err": rel,
+           "grad_rel_norm_err": max(errs), "leaves": len(errs),
+           "route_flips": flips, "launches": counts, "splits": splits,
+           "peak_memory_bytes": peak, "tolerance": tol}
+    flipped = flips["choices"] or flips["keeps"]
+    check(abs(float(loss) - (float(metrics["ce"])
+                             + 0.01 * float(metrics["aux"]))) <= 1e-6 * abs(
+        float(loss)) and float(metrics["aux"]) > 0,
+          f"{label}: loss {float(loss)} != ce + 0.01 aux, or aux <= 0")
+    if not flipped:
+        check(rel["ce"] <= tol["ce"] and rel["aux"] <= tol["ce"],
+              f"{label}: CE or aux through the kernels differ from the plain "
+              f"versions' by {rel} > {tol['ce']}")
+        check(max(errs) <= tol["grad"], f"{label}: gradients differ from "
+              f"the plain versions' by {max(errs):.3e} (relative norm, "
+              f"worst leaf) > {tol['grad']}")
+    ms = _bare_ms(lambda: loss_and_grads(model, params, batch), 3)
+    out["ms"] = ms
+    log(f"{label} bf16 {L} layer, full width, remat, {b} x {t} tokens: "
+        f"loss {float(loss):.5f} = ce {out['ce']:.5f} + 0.01 aux "
+        f"{out['aux']:.5f}; {flips['choices']} of {flips['assignments']} "
+        f"expert choices and {flips['keeps']} keeps differ from the plain "
+        f"versions' routes; vs the plain versions: CE rel err "
+        f"{rel['ce']:.2e}, aux {rel['aux']:.2e} (tol {tol['ce']}), "
+        f"gradients' worst relative norm error {max(errs):.2e} over "
+        f"{len(errs)} leaves (tol {tol['grad']})"
+        + (" - not held: routes flipped; the backward is held at this "
+           "layer's attention shape in phase 13" if flipped else ""))
+    log(f"{label}: {sorted(ms)[1]:.2f} ms a forward and backward (median of "
+        f"3, {min(ms):.2f}..{max(ms):.2f}), {b * t / sorted(ms)[1] * 1e3:,.0f}"
+        f" tokens/s; peak {peak / 2**30:.2f} GiB; launches "
+        f"{ {k: v for k, v in counts.items() if v} } ({splits} runs of "
+        f"heads)")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_moe(card: str) -> dict:
+    """11c: arctic-480b and kimi-k2-1t-a32b served at full width, depth
+    cut, in bf16; their f32 twins' engines against one-slot engines; and
+    arctic's loss step."""
+    t0 = time.perf_counter()
+    record = {"card": card}
+    for arch in MOE["archs"]:
+        record[arch] = {
+            "serve": _serve_bf16(arch, "moe", 27, MOE["layers"][arch]),
+            "serve_f32": _serve_f32(arch, "moe f32", **MOE["f32"][arch])}
+    record["loss"] = _moe_loss()
+    record["seconds"] = time.perf_counter() - t0
+    log(f"[moe] phase 11c on {card} took {record['seconds']:.1f} s")
+    return record
+
+
+# ---------------------------------------------------------------------------
 # 11. flash times
 # ---------------------------------------------------------------------------
 
@@ -3513,6 +3861,12 @@ FLASH_TIMED = [  # (route, label, dtype, B, T, H, Hkv, D, window)
      torch.bfloat16, 1, 2048, 64, 8, 128, None),
     ("sm90", "recurrentgemma local (1, 2048, 10, 1, 256) bf16 window 2048",
      torch.bfloat16, 1, 2048, 10, 1, 256, 2048),
+    ("sm90", "arctic heads (1, 2048, 56, 8, 128) bf16 causal",
+     torch.bfloat16, 1, 2048, 56, 8, 128, None),
+    # TMA fills D = 112 to the kernel's 128 with zeros: the bound counts
+    # the function's own 112
+    ("sm90", "kimi-k2 heads (1, 2048, 64, 8, 112) bf16 causal",
+     torch.bfloat16, 1, 2048, 64, 8, 112, None),
     ("tf32x3", "TinyLlama prefill (1, 2048, 32, 4, 64) f32 causal",
      torch.float32, 1, 2048, 32, 4, 64, None),
     ("tf32x3", "qwen1.5 heads (1, 2048, 64, 8, 128) f32 causal",
@@ -3629,8 +3983,8 @@ def phase_flash_times() -> dict:
 # (a) the backward kernels against their plain version, causal: (label,
 # (B, T, H, Hkv, D), window); the training shape fourth (the kernels
 # line's row), recurrentgemma's local attention fifth (a group of 10 heads
-# cut into runs), a head dim that is not a multiple of 8 last (the tf32x3
-# route in bf16 too)
+# cut into runs), a head dim that is not a multiple of 8 sixth (the tf32x3
+# route in bf16 too), then arctic's and kimi-k2's heads
 FLASH_BWD_SHAPES = [
     ("TinyLlama heads (1, 2048, 32, 4, 64) causal", (1, 2048, 32, 4, 64),
      None),
@@ -3642,7 +3996,12 @@ FLASH_BWD_SHAPES = [
      None),
     ("recurrentgemma local (1, 2048, 10, 1, 256) window 2048",
      (1, 2048, 10, 1, 256), 2048),
-    ("head dim 60 (1, 1024, 8, 2, 60) causal", (1, 1024, 8, 2, 60), None)]
+    ("head dim 60 (1, 1024, 8, 2, 60) causal", (1, 1024, 8, 2, 60), None),
+    # arctic's heads (a group of 7, cut into 7 runs) and kimi-k2's (D 112)
+    ("arctic heads (1, 2048, 56, 8, 128) causal", (1, 2048, 56, 8, 128),
+     None),
+    ("kimi-k2 heads (1, 2048, 64, 8, 112) causal", (1, 2048, 64, 8, 112),
+     None)]
 TRAIN_SHAPE = 3  # FLASH_BWD_SHAPES' index of the training shape
 # the largest |error| of each gradient over its largest |value|: bfloat16
 # 2e-2 (the wgmma forward's P V in bfloat16, the sm90 backward's P and dS
@@ -4148,6 +4507,7 @@ def main() -> int:
     record["serve"] = phase_serve()
     record["serve_f32"] = phase_serve_f32()
     record["recurrent"] = phase_recurrent(card)
+    record["moe"] = phase_moe(card)
     record["flash_times"] = phase_flash_times()
     record["train"] = phase_train()
     # launches: the SRHT kernels from the full-size comm=None run (fwht is

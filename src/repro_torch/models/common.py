@@ -151,12 +151,33 @@ def dense_init(gen: torch.Generator, shape, fan_in: int, dtype, *,
     return w.mul_(scale / fan_in**0.5).to(dtype)
 
 
+def stacked_dense_init(gen: torch.Generator, shape, fan_in: int, dtype, *,
+                       scale: float = 1.0) -> torch.Tensor:
+    """``dense_init``'s distribution for a stack of (d_in, d_out)
+    matrices (experts, layers), drawn one matrix at a time in float32
+    and written into a tensor of ``dtype``: no float32 copy of the whole
+    stack exists (arctic's (2, 128, 7168, 4864) expert stack is 17.8 GB
+    in bfloat16, and its float32 draw would be 35.7 GB more)."""
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    buf = torch.empty(shape[-2:], dtype=torch.float32, device=gen.device)
+    for matrix in out.view(-1, *shape[-2:]):
+        torch.nn.init.trunc_normal_(buf, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        matrix.copy_(buf.mul_(scale / fan_in**0.5))
+    return out
+
+
+def residual_scale(cfg: ModelConfig) -> float:
+    """GPT-2-style scale of projections feeding the residual stream:
+    1/sqrt(2 L)."""
+    return 1.0 / (2.0 * max(cfg.n_layers, 1)) ** 0.5
+
+
 def residual_out_init(gen: torch.Generator, shape, fan_in: int,
                       cfg: ModelConfig) -> torch.Tensor:
-    """GPT-2-style scaled init for projections feeding the residual
-    stream: scale 1/sqrt(2 L)."""
-    scale = 1.0 / (2.0 * max(cfg.n_layers, 1)) ** 0.5
-    return dense_init(gen, shape, fan_in, cfg.param_dtype, scale=scale)
+    """``dense_init`` at ``residual_scale``, for projections feeding the
+    residual stream."""
+    return dense_init(gen, shape, fan_in, cfg.param_dtype,
+                      scale=residual_scale(cfg))
 
 
 def rmsnorm_init(shape, cfg: ModelConfig, device) -> dict:
@@ -164,9 +185,12 @@ def rmsnorm_init(shape, cfg: ModelConfig, device) -> dict:
     return {"scale": torch.zeros(shape, dtype=cfg.param_dtype, device=device)}
 
 
-def mlp_init(gen: torch.Generator, cfg: ModelConfig, lead=()) -> dict:
-    """Gated-MLP weights; ``lead`` prepends stacking axes (layers)."""
-    d, f = cfg.d_model, cfg.d_ff
+def mlp_init(gen: torch.Generator, cfg: ModelConfig, lead=(),
+             d_ff: "int | None" = None) -> dict:
+    """Gated-MLP weights of width ``d_ff`` (default ``cfg.d_ff``; a MoE's
+    shared expert passes its own); ``lead`` prepends stacking axes
+    (layers)."""
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     return {
         "w_gate": dense_init(gen, (*lead, d, f), d, cfg.param_dtype),
         "w_up": dense_init(gen, (*lead, d, f), d, cfg.param_dtype),

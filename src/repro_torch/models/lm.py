@@ -6,15 +6,18 @@ reference's (L, ...) layout, and run by a Python loop over the layers.
 Per-layer metadata (gemma3's 5 local : 1 global windows and thetas) is
 host ints and floats.
 
-The group kinds ``dense``, ``ssd`` (mamba2), ``rec`` and ``griffin``
-(recurrentgemma's (rec, rec, attn) super-block) are ported for serving
-(``init``, ``prefill``, ``init_decode_state``, ``decode_step``) and for
-training (``loss``, whose backbone builds no cache and, with
-``cfg.remat``, recomputes each unit in the backward as the reference's
-``jax.checkpoint`` does; a griffin super-block is one unit). A recurrent
-group's decode state is its float32 recurrent state and its conv's last
-K-1 inputs, with a KV cache for griffin's attention. The other kinds
-raise ``NotImplementedError`` naming the ROADMAP item that brings them.
+The group kinds ``dense``, ``moe`` (attention and a mixture of experts,
+with arctic's dense MLP beside it), ``ssd`` (mamba2), ``rec`` and
+``griffin`` (recurrentgemma's (rec, rec, attn) super-block) are ported
+for serving (``init``, ``prefill``, ``init_decode_state``,
+``decode_step``) and for training (``loss``, whose backbone builds no
+cache and, with ``cfg.remat``, recomputes each unit in the backward as
+the reference's ``jax.checkpoint`` does; a griffin super-block is one
+unit). The loss adds 0.01 times the moe layers' auxiliary losses. A
+recurrent group's decode state is its float32 recurrent state and its
+conv's last K-1 inputs, with a KV cache for griffin's attention. The
+other kinds raise ``NotImplementedError`` naming the ROADMAP item that
+brings them.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rg
 from repro_torch.models import ssd as ssd_mod
 from repro_torch.models.common import (
@@ -43,10 +47,10 @@ from repro_torch.models.common import (
 
 RECURRENT = ("ssd", "rec", "griffin")  # kinds with a recurrent state
 # group kinds of later slices -> (their item in ROADMAP queue 1, its name)
-_LATER = {"moe": (1, "moe"), "vlm": (2, "cross attention: vlm"),
-          "dec": (2, "cross attention: audio"),
-          "enc": (2, "cross attention: audio"),
-          "dense_sb": (3, "dense_sb, right-sized caches")}
+_LATER = {"vlm": (1, "cross attention: vlm"),
+          "dec": (1, "cross attention: audio"),
+          "enc": (1, "cross attention: audio"),
+          "dense_sb": (2, "dense_sb, right-sized caches")}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -164,6 +168,61 @@ def _dense_unit_decode(p: dict, x: torch.Tensor, cache: dict,
 
 
 # ---------------------------------------------------------------------------
+# the moe unit: attention, then the MoE (plus arctic's dense MLP) on the
+# same normed input
+# ---------------------------------------------------------------------------
+
+def _moe_unit_init(gen: torch.Generator, cfg: ModelConfig, n: int) -> dict:
+    """``n`` stacked moe units."""
+    dev = gen.device
+    p = {
+        "ln1": rmsnorm_init((n, cfg.d_model), cfg, dev),
+        "attn": attn.attention_init(gen, cfg, lead=(n,)),
+        "ln2": rmsnorm_init((n, cfg.d_model), cfg, dev),
+        "moe": moe_mod.moe_init(gen, cfg, lead=(n,)),
+    }
+    if cfg.moe_dense_residual:  # arctic: a dense MLP beside the MoE
+        p["dense_mlp"] = mlp_init(gen, cfg, lead=(n,))
+    return p
+
+
+def _moe_half(p: dict, x: torch.Tensor, h: torch.Tensor, cfg: ModelConfig):
+    """The unit after its attention output ``h``: (x, aux); the MoE's
+    output, then the dense MLP's, then the residual."""
+    x = x + h
+    normed = rmsnorm(p["ln2"], x)
+    mo, aux, _ = moe_mod.moe_apply(p["moe"], normed, cfg)
+    if "dense_mlp" in p:
+        mo = mo + mlp_apply(p["dense_mlp"], normed, cfg)
+    return x + mo, aux
+
+
+def _moe_unit_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                    window: int, theta: float):
+    """One unit over a full sequence: (x, k, v, aux), with the K and V its
+    attention used."""
+    h, k, v = attn.attn_full_kv(p["attn"], rmsnorm(p["ln1"], x), cfg,
+                                window=window, theta=theta)
+    x, aux = _moe_half(p, x, h, cfg)
+    return x, k, v, aux
+
+
+def _moe_unit_train(p: dict, x: torch.Tensor, cfg: ModelConfig, window: int,
+                    theta: float):
+    """One unit over a full sequence: (x, aux) (training)."""
+    x, _, _, aux = _moe_unit_apply(p, x, cfg, window=window, theta=theta)
+    return x, aux
+
+
+def _moe_unit_decode(p: dict, x: torch.Tensor, cache: dict,
+                     index: torch.Tensor, cfg: ModelConfig, *,
+                     window: int, theta: float):
+    h, cache = attn.attn_decode(p["attn"], rmsnorm(p["ln1"], x), cache,
+                                index, cfg, window=window, theta=theta)
+    return _moe_half(p, x, h, cfg)[0], cache
+
+
+# ---------------------------------------------------------------------------
 # the recurrent units: ssd (mamba2), rec and griffin (recurrentgemma)
 # ---------------------------------------------------------------------------
 
@@ -239,8 +298,9 @@ def _rec_unit_decode(p: dict, x: torch.Tensor, h: torch.Tensor,
     return _rec_mlp(p, x, out, cfg), h, conv
 
 
-_UNIT_INIT = {"dense": _dense_unit_init, "ssd": _ssd_unit_init,
-              "rec": _rec_unit_init, "griffin": _griffin_unit_init}
+_UNIT_INIT = {"dense": _dense_unit_init, "moe": _moe_unit_init,
+              "ssd": _ssd_unit_init, "rec": _rec_unit_init,
+              "griffin": _griffin_unit_init}
 # a recurrent unit over a full sequence, its output alone (training)
 _UNIT_TRAIN = {"ssd": _ssd_unit_apply, "rec": _rec_unit_apply,
                "griffin": _griffin_unit_train}
@@ -283,8 +343,8 @@ def _units(tree, n: int) -> list:
 
 
 class LM:
-    """Model wrapper for one ModelConfig (the dense, ssd, rec and griffin
-    group kinds)."""
+    """Model wrapper for one ModelConfig (the dense, moe, ssd, rec and
+    griffin group kinds)."""
 
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
@@ -324,44 +384,51 @@ class LM:
     # -- full-sequence forward ------------------------------------------------
     def _backbone(self, params: dict, x: torch.Tensor, *,
                   cache_len: "int | None" = None):
-        """Run all groups over full sequences. Returns (features, the
+        """Run all groups over full sequences. Returns (features, the moe
+        layers' auxiliary losses summed in float32 in layer order, the
         decode state of each group, its KV caches with ``cache_len``
         slots); with ``cache_len`` None no state is built (training,
-        features) and the second item is None."""
+        features) and the last item is None. The aux is 0 without a moe
+        group, and in a prefill (the reference discards it there)."""
         caches = []
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for gi, g in enumerate(self.groups):
             gp = params[f"group{gi}"]
             if cache_len is None:
-                x = self._run_group_train(g, gp, x)
+                x, aux = self._run_group_train(g, gp, x, aux)
             else:
                 x, cache = self._run_group_full(g, gp, x, cache_len=cache_len)
                 caches.append(cache)
-        return (rmsnorm(params["final_norm"], x),
+        return (rmsnorm(params["final_norm"], x), aux,
                 None if cache_len is None else caches)
 
-    def _run_group_train(self, g: GroupSpec, gp: dict,
-                         x: torch.Tensor) -> torch.Tensor:
-        """The group's units without caches. With ``cfg.remat`` and
-        autograd recording, each unit keeps only its input for the
-        backward and runs again there (the reference's per-unit
-        ``jax.checkpoint``; a griffin super-block is one unit), so its
-        attention's forward kernel launches twice in a training step."""
+    def _run_group_train(self, g: GroupSpec, gp: dict, x: torch.Tensor,
+                         aux: torch.Tensor):
+        """The group's units without caches: (x, ``aux`` plus each moe
+        unit's aux in turn). With ``cfg.remat`` and autograd recording,
+        each unit keeps only its input for the backward and runs again
+        there (the reference's per-unit ``jax.checkpoint``; a griffin
+        super-block is one unit), so its attention's forward kernel
+        launches twice in a training step."""
         remat = self.cfg.remat and torch.is_grad_enabled()
         for i, p in enumerate(_units(gp, g.n)):
-            if g.kind == "dense":
-                fn = _dense_unit_train
+            if g.kind in ("dense", "moe"):
+                fn = _dense_unit_train if g.kind == "dense" else _moe_unit_train
                 args = (p, x, self.cfg, g.windows[i], g.thetas[i])
             else:
                 fn, args = _UNIT_TRAIN[g.kind], (p, x, self.cfg)
             x = (checkpoint(fn, *args, use_reentrant=False) if remat
                  else fn(*args))
-        return x
+            if g.kind == "moe":
+                x, unit_aux = x
+                aux = aux + unit_aux
+        return x, aux
 
     def _run_group_full(self, g: GroupSpec, gp: dict, x: torch.Tensor, *,
                         cache_len: int):
         b, t, _ = x.shape
         cfg, dev = self.cfg, x.device
-        if g.kind in ("dense", "griffin") and cache_len < t:
+        if g.kind in ("dense", "moe", "griffin") and cache_len < t:
             raise ValueError(f"cache_len {cache_len} < prompt length {t}")
         if g.kind == "ssd":
             cache = ssd_mod.make_ssd_state(cfg, g.n, b, dev)
@@ -386,9 +453,10 @@ class LM:
                 for name, s in zip(("h0", "conv0", "h1", "conv1"), states):
                     cache[name][i] = s
             else:
-                x, k, v = _dense_unit_apply(_layer(gp, i), x, cfg,
-                                            window=g.windows[i],
-                                            theta=g.thetas[i])
+                unit = (_dense_unit_apply if g.kind == "dense"
+                        else _moe_unit_apply)
+                x, k, v = unit(_layer(gp, i), x, cfg, window=g.windows[i],
+                               theta=g.thetas[i])[:3]
             # the K and V attention used: the reference recomputes the
             # same values from the unit's input (attn_cache_from)
             cache["k"][i, :, :t] = k
@@ -400,10 +468,11 @@ class LM:
         """batch {"inputs", "labels": (B, T) token ids, optional "mask"
         (B, T)} -> (total, {"ce", "aux"}): the next-token CE in float32
         (``chunked_cross_entropy`` when ``cfg.logits_chunk`` is set), and
-        the auxiliary loss, 0 for the ported kinds; total = ce + 0.01 aux."""
+        the auxiliary loss, the float32 sum of the moe layers' Switch
+        losses (0 without a moe group); total = ce + 0.01 aux."""
         cfg = self.cfg
         x = embed(params["embed"], batch["inputs"], cfg)
-        feats, _ = self._backbone(params, x)
+        feats, aux, _ = self._backbone(params, x)
         labels = batch["labels"]
         mask = batch.get("mask")
         table = self._table(params)
@@ -412,7 +481,6 @@ class LM:
                                        mask)
         else:
             ce = lm_cross_entropy(feats, table, labels, mask)
-        aux = torch.zeros((), dtype=torch.float32, device=feats.device)
         return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
     # -- prefill --------------------------------------------------------------
@@ -425,7 +493,7 @@ class LM:
         tokens = batch["inputs"]
         t = tokens.shape[1]
         x = embed(params["embed"], tokens, self.cfg)
-        feats, caches = self._backbone(params, x, cache_len=cache_len or t)
+        feats, _, caches = self._backbone(params, x, cache_len=cache_len or t)
         logits = unembed(self._table(params), feats[:, -1:, :])
         state = {"groups": caches,
                  "index": torch.tensor(t, dtype=torch.int32,
@@ -480,9 +548,10 @@ class LM:
                         p["attn"], x, _layer(gc, i), index, cfg,
                         window=cfg.window, theta=cfg.rope_theta)
                 else:
-                    x, _ = _dense_unit_decode(p, x, _layer(gc, i), index, cfg,
-                                              window=g.windows[i],
-                                              theta=g.thetas[i])
+                    unit = (_dense_unit_decode if g.kind == "dense"
+                            else _moe_unit_decode)
+                    x, _ = unit(p, x, _layer(gc, i), index, cfg,
+                                window=g.windows[i], theta=g.thetas[i])
         x = rmsnorm(params["final_norm"], x)
         logits = unembed(self._table(params), x)[:, 0]
         return logits, {"groups": state["groups"], "index": index + 1}

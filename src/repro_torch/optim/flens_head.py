@@ -25,7 +25,7 @@ def extract_features(model, params, tokens: torch.Tensor, *,
     cache-free backbone's final-norm output, averaged over the positions
     (``pool="mean"``) or at the last one (``"last"``); no LM head."""
     x = embed(params["embed"], tokens, model.cfg)
-    feats, _ = model._backbone(params, x)
+    feats, _, _ = model._backbone(params, x)
     if pool == "mean":
         return torch.mean(feats.float(), dim=1)
     if pool == "last":

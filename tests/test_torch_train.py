@@ -196,9 +196,9 @@ def test_loss_features_equal_prefill_features():
     toks = torch.from_numpy(_batch(cfg.vocab)["inputs"])
     x = tcommon.embed(tparams["embed"], toks, cfg)
     with torch.no_grad():
-        feats, none = model._backbone(tparams, x)
-        full, caches = model._backbone(tparams, x, cache_len=T)
-    assert none is None and len(caches) == 1
+        feats, aux, none = model._backbone(tparams, x)
+        full, _, caches = model._backbone(tparams, x, cache_len=T)
+    assert none is None and len(caches) == 1 and float(aux) == 0.0
     assert torch.equal(feats, full)
 
 
