@@ -154,9 +154,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                 (1, 128), (2048, 2048) x (H, Hkv) in (4, 4), (8, 1),
                 (32, 4) x D in 64, 128, 256, then windows 1, 7, 128, 512
                 (D 128 and 256 at 2048), 10 heads on one KV head at D 256
-                (windows 32 and 2048), D 8 and 112, non-causal, q_offset
-                with a window, rows with no key, causal rows of up to 4096
-                and 8192 keys (D 64, 128); then head dims that are
+                (windows 32 and 2048), D 8 and 112, non-causal (whisper's
+                encoder among them: (1500, 6, 6, 64), a ragged last key
+                tile), q_offset with a window, rows with no key, causal
+                rows of up to 4096 and 8192 keys (D 64, 128); then head
+                dims that are
                 not a multiple of 8 (D 12, 13, 200 in float32; D 12, 13 in
                 bfloat16, which TMA cannot stride) through the tf32x3
                 kernel
@@ -219,13 +221,41 @@ Phases, in order; any failure raises and the script exits non-zero:
                 aux and every gradient against the plain versions' within
                 phase 13's tolerances where no route flips, peak memory,
                 ms
+ 11d. cross   — whisper-tiny whole (4 non-causal encoder and 4 dec layers)
+                and llama-3.2-vision-90b at 30 of its 100 layers (6 vlm
+                super-blocks of 4 self layers and a gated cross layer,
+                55.56 GB; every width kept) in bf16, random weights from
+                seed 0, the vlm's zero-initialised gates drawn U(0.5, 1.0)
+                (printed): launch/serve.py's batched prefill and greedy
+                decode (whisper 4 x 128 tokens over 4 x 1500 frames, 64
+                new tokens, cache 192; the vision model 4 x 512 tokens
+                over 4 x 1601 x 1280 patch embeddings, 64 new, cache 576);
+                launches a prefill: whisper 4 non-causal and 4 causal sm90,
+                the vision model 24 causal, none in decode; the prefill's
+                logits (whisper's batch, the vision model's batch-1 2048
+                tokens) and whisper's encoder output through the kernels
+                within 4 bf16 ulps of the plain versions'; prefill, the
+                encoder alone and decode ms, tokens/s, peak memory, a
+                profiled prefill with the cross attention a named range,
+                one cross layer's float32 products alone. The float32
+                twins (TF32 off; whisper whole, the vision model at 5
+                layers) on the tf32x3 kernel: the batch's tokens equal
+                each row generated alone at batch 1. One LM.loss forward
+                and backward each in bf16 with remat: whisper 8 x 448
+                tokens over 8 x 1500 frames (12 forward and 8 backward
+                launches, 4 of each non-causal: the encoder runs once), the
+                vision model at 5 layers on 1 x 2048 (8 + 4); CE and every
+                gradient (the gates' among them) within phase 13's
+                tolerances of the plain versions', peak memory, ms
  12. flash times — the tensor-core kernel, its plain version and
                 F.scaled_dot_product_attention at (1, 2048, 32, 4, 64)
                 causal, (1, 2048, 4, 1, 256) window 512, (1, 2048, 64,
                 8, 128) causal, (1, 2048, 10, 1, 256) window 2048, and
                 arctic's (1, 2048, 56, 8, 128) and kimi-k2's (1, 2048, 64,
-                8, 112) causal, bf16, beside the bound; the tf32x3 kernel
-                at the first three shapes in float32, beside its bound (three
+                8, 112) causal, whisper's encoder (1, 1500, 6, 6, 64)
+                non-causal (its bound counts all T^2 pairs), bf16, beside
+                the bound; the tf32x3 kernel at the first three shapes and
+                whisper's in float32, beside its bound (three
                 times the operations at the 494.7 TFLOP/s dense TF32 tensor
                 rate) and the float32 SIMT one (67 TFLOP/s), SDPA with TF32
                 off
@@ -239,14 +269,15 @@ Phases, in order; any failure raises and the script exits non-zero:
                 the training shape (2, 2048, 32, 4, 64), recurrentgemma's
                 (1, 2048, 10, 1, 256) window 2048, (1, 1024, 8, 2, 60),
                 arctic's (1, 2048, 56, 8, 128) and kimi-k2's (1, 2048, 64,
-                8, 112) causal, in bfloat16 (<= 2e-2 of each gradient's max
+                8, 112) causal, whisper's encoder (1, 1500, 6, 6, 64)
+                non-causal, in bfloat16 (<= 2e-2 of each gradient's max
                 |value|; D 64, 128 and 256 on sm90, D 60 on tf32x3) and
                 float32 (<= 1e-4, tf32x3), each launch counted on its route,
                 a second call bit-equal, a failing sm90 and tf32x3 entry
                 point raising with nothing launched, the forward's output
                 bit-equal with
                 its log-sum-exp written and not (also over flash parity's
-                self-attention shapes), timed beside its bound, its plain
+                self-attention shapes, causal and not), timed beside its bound, its plain
                 version and SDPA's backward; (b) TinyLlama-1.1B at full
                 width and depth in bf16 with remat, batch 2 x 2048 tokens
                 from FastLMStream, 12 AdamW steps with launch/train.py's
@@ -281,6 +312,7 @@ itself and fails when run anywhere else.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -2959,6 +2991,9 @@ FLASH_EXTRA = [  # (tq, tk, H, Hkv, D, causal, window, q_offset, block_k)
     (32, 96, 8, 2, 64, True, 20, 500, 1024),
     (4, 8, 1, 1, 8, True, 2, 20, 4),  # no row sees a key
     (64, 200, 8, 2, 64, True, 16, 300, 64),  # no row sees a key, ragged tk
+    # whisper's encoder: non-causal over 1500 frames (23 key tiles of 64
+    # and a ragged one of 28)
+    (1500, 1500, 6, 6, 64, False, None, 0, 1024),
     (4096, 4096, 4, 1, 64, True, None, 0, 1024),  # rows of up to 8192 keys
     (8192, 8192, 4, 1, 64, True, None, 0, 1024),
     (8192, 8192, 4, 1, 128, True, None, 0, 1024),
@@ -3220,10 +3255,14 @@ def _hold_kernel_in_prefill(model, params, tokens, got, routes, tol_of,
     return out
 
 
-def _profile_call(fn) -> dict:
+def _profile_call(fn, ranges=()) -> dict:
     """One profiled call of ``fn``: its wall and device busy time, the
     flash forward's device time and the flash backward's, the top kernels
-    and the host ops of most self time (where an idle device waits)."""
+    and the host ops of most self time (where an idle device waits), and
+    under ``ranges_us`` the device-side span of each of ``ranges``
+    (``torch.profiler.record_function`` names: from its first kernel's
+    start to its last kernel's end, summed over its calls; the device's
+    idle gaps inside it included)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3233,10 +3272,12 @@ def _profile_call(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    # a record_function range shows as a device-side annotation too: its
+    # time is its kernels', so it is read apart and not counted twice
     kernels = [(e.key, e.self_device_time_total, e.count)
                for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA
-               and e.self_device_time_total > 0]
+               and e.self_device_time_total > 0 and e.key not in ranges]
     busy = sum(t for _, t, _ in kernels)
     # flash_attention_sm90_kernel<...> in bf16, flash_attention_tf32x3_kernel<...> in f32
     flash = sum(t for name, t, _ in kernels if "flash_attention" in name)
@@ -3256,7 +3297,12 @@ def _profile_call(fn) -> dict:
             "flash_share_of_device": flash / busy if busy else 0.0,
             "flash_share_of_wall": flash / wall_us,
             "top": [{"kernel": n[:90], "us": t, "launches": c}
-                    for n, t, c in top]}
+                    for n, t, c in top],
+            "ranges_us": {name: sum(e.self_device_time_total
+                                    for e in prof.key_averages()
+                                    if e.key == name
+                                    and e.device_type == DeviceType.CUDA)
+                          for name in ranges}}
 
 
 def _prefill_profile(model, params, tokens) -> dict:
@@ -3849,36 +3895,574 @@ def phase_moe(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 11d. cross: whisper-tiny and llama-3.2-vision-90b, prefill + greedy decode
+# ---------------------------------------------------------------------------
+
+CROSS = dict(
+    archs=("whisper-tiny", "llama-3.2-vision-90b"),
+    # launch/serve.py's loop at batch 4: whisper whole (4 encoder + 4
+    # decoder layers), 1500 frames and 128 prompt tokens a row, a cache of
+    # 192 (its published text context is 448 tokens, arXiv:2212.04356);
+    # the vision model at 30 of its 100 layers (6 of its 20 super-blocks,
+    # 55.56 GB of bf16 weights; every width kept), 512 prompt tokens and
+    # 1601 x 1280 patch embeddings a row, a cache of 576
+    serve={"whisper-tiny": dict(n_layers=None, batch=4, prompt=128, new=64,
+                                cache_len=192),
+           "llama-3.2-vision-90b": dict(n_layers=30, batch=4, prompt=512,
+                                        new=64, cache_len=576)},
+    long_prompt=2048,  # the batch-1 prefill held against the plain versions
+    # the float32 twins (TF32 off): whisper whole, the vision model at one
+    # super-block (5 layers, 25.6 GB)
+    f32_layers={"whisper-tiny": None, "llama-3.2-vision-90b": 5},
+    # one LM.loss forward and backward in bf16 with remat: whisper whole on
+    # 8 x 448 decoder tokens over 8 x 1500 frames; the vision model at 5
+    # layers (12.8 GB of weights, as many of gradients) on 1 x 2048 tokens
+    loss={"whisper-tiny": dict(n_layers=None, batch=8, seq=448),
+          "llama-3.2-vision-90b": dict(n_layers=5, batch=1, seq=2048)},
+    # the vlm's gates start at zero, which keeps the vision memory from
+    # every output: each run draws them U(0.5, 1.0) from root_key(0, 11)
+    gates=(0.5, 1.0), seed=0)
+
+
+@contextlib.contextmanager
+def _by_causal():
+    """The flash kernels' calls while the block runs, by their causal
+    flag: {"fwd": {"causal": n, "non-causal": n}, "bwd": {...}}; each call
+    of the wrapped entry points is one launch (its counters say so)."""
+    from repro_torch.kernels import flash_attention as kflash
+
+    calls = {way: {"causal": 0, "non-causal": 0} for way in ("fwd", "bwd")}
+    fwd, bwd = kflash._forward, kflash.flash_attention_bwd_cuda
+
+    def spy_fwd(*args, causal, **kw):
+        calls["fwd"]["causal" if causal else "non-causal"] += 1
+        return fwd(*args, causal=causal, **kw)
+
+    def spy_bwd(*args, causal=True, **kw):
+        calls["bwd"]["causal" if causal else "non-causal"] += 1
+        return bwd(*args, causal=causal, **kw)
+    kflash._forward, kflash.flash_attention_bwd_cuda = spy_fwd, spy_bwd
+    try:
+        yield calls
+    finally:
+        kflash._forward, kflash.flash_attention_bwd_cuda = fwd, bwd
+
+
+@contextlib.contextmanager
+def _cross_range(name: str = "attn_cross"):
+    """``attention.attn_cross`` inside a profiler range of ``name``: the
+    float32 cross-attention products (and its two projections) named in a
+    profile."""
+    from repro_torch.models import attention as attn
+
+    plain = attn.attn_cross
+
+    def ranged(*args, **kw):
+        with torch.profiler.record_function(name):
+            return plain(*args, **kw)
+    attn.attn_cross = ranged
+    try:
+        yield
+    finally:
+        attn.attn_cross = plain
+
+
+def _cross_model(arch: str, dtype, n_layers=None):
+    """(cfg, model, params from seed 0 on the card, init s, the vlm's gate
+    values or None): ``_serve_model``'s, with the vlm's gates drawn from
+    ``CROSS["gates"]``."""
+    from repro_torch.core.base import root_key
+
+    cfg, model, params, init_s = _serve_model(dtype, arch, n_layers)
+    gates = None
+    if cfg.family == "vlm":
+        gen = root_key(CROSS["seed"], 11, device=_card())
+        cross = params["group0"]["cross"]
+        for name in ("gate", "gate_mlp"):
+            cross[name].uniform_(*CROSS["gates"], generator=gen)
+        gates = {name: cross[name].float().tolist()
+                 for name in ("gate", "gate_mlp")}
+    return cfg, model, params, init_s, gates
+
+
+def _cross_batch(cfg, b: int, t: int, gen) -> dict:
+    """launch/serve.py's synthetic batch: (B, T) token ids, then the
+    family's standard normal float32 payload."""
+    dev = _card()
+    batch = {"inputs": torch.randint(0, cfg.vocab, (b, t), generator=gen,
+                                     device=dev)}
+    if cfg.family == "vlm":
+        batch["vision"] = torch.randn((b, cfg.vision_tokens, cfg.vision_dim),
+                                      generator=gen, device=dev)
+    else:
+        batch["audio_frames"] = torch.randn(
+            (b, cfg.audio_frames, cfg.d_model), generator=gen, device=dev)
+    return batch
+
+
+def _cross_attn_layers(model) -> "tuple[int, int]":
+    """(causal, non-causal) flash launches of a prefill: the self layers of
+    the vlm super-blocks or whisper's decoder units, and whisper's encoder
+    layers."""
+    cfg = model.cfg
+    causal = sum(g.n * (cfg.cross_attn_every if g.kind == "vlm" else 1)
+                 for g in model.groups)
+    return causal, cfg.encoder_layers
+
+
+def _generate(model, params, batch, new: int, cache_len: int) -> dict:
+    """launch/serve.py's loop: a batched prefill, then greedy decode to
+    ``new`` tokens a row: the tokens (B, new), each row's smallest top-2
+    logit margin, prefill and decode seconds, and the launches of each
+    part (with the prefill's flash calls by causal flag)."""
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with _by_causal() as calls:
+        t0 = time.perf_counter()
+        logits, state = model.prefill(params, batch, cache_len=cache_len)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+    prefill_launches = ops.launch_counts()
+    ops.reset_launch_counts()
+    toks = torch.argmax(logits, dim=-1)[:, None]
+    out, margins = [toks], []
+    t0 = time.perf_counter()
+    for step in range(new):
+        top2 = torch.topk(logits.float(), 2, dim=-1).values
+        margins.append(top2[:, 0] - top2[:, 1])
+        if step == new - 1:
+            break
+        logits, state = model.decode_step(params, state, toks)
+        toks = torch.argmax(logits, dim=-1)[:, None]
+        out.append(toks)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    return {"tokens": torch.cat(out, dim=1),
+            "min_margin": torch.stack(margins).min(dim=0).values.tolist(),
+            "prefill_s": prefill_s, "decode_s": decode_s,
+            "prefill_launches": prefill_launches, "prefill_calls": calls,
+            "decode_launches": ops.launch_counts()}
+
+
+def _check_prefill_launches(run: dict, model, route: str, label: str) -> None:
+    causal, non_causal = _cross_attn_layers(model)
+    got = {k: run["prefill_launches"][k] for k in NO_LM}
+    check(got == _flash_want(causal + non_causal, route),
+          f"{label}: prefill launches {got} (want {causal} causal and "
+          f"{non_causal} non-causal {route} launches)")
+    check(run["prefill_calls"]["fwd"] == {"causal": causal,
+                                          "non-causal": non_causal},
+          f"{label}: prefill flash calls by mask {run['prefill_calls']}")
+    check(all(n == 0 for n in run["decode_launches"].values()),
+          f"{label}: decode launched {run['decode_launches']}")
+
+
+def _ulps_tol(top: float) -> float:
+    """``BF16_ULPS`` bf16 ulps of the largest |value|."""
+    return BF16_ULPS * 2.0 ** (math.floor(math.log2(top)) - 7)
+
+
+def _held(got: torch.Tensor, want: torch.Tensor, label: str) -> dict:
+    """``got`` through the kernels against ``want`` through the plain
+    versions within ``BF16_ULPS`` bf16 ulps of max |want|."""
+    got, want = got.float(), want.float()
+    check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+          f"{label}: not finite or misshapen {tuple(got.shape)}")
+    top = float(want.abs().max())
+    err, tol = _max_err(got, want), _ulps_tol(top)
+    log(f"{label}: kernels vs plain max abs err {err:.4e} (tolerance "
+        f"{tol:.4e}, {BF16_ULPS} bf16 ulps of max |value| {top:.3f})")
+    check(err <= tol, f"{label}: through the kernels differs from the plain "
+          f"versions by {err:.4e} > {tol:.4e}")
+    return {"max_abs_err": err, "tolerance": tol, "max_abs": top}
+
+
+def _serve_cross(arch: str, card: str, seed: int) -> dict:
+    """One cross-attention model in bf16 at full width (``CROSS["serve"]``'s
+    depth): launch/serve.py's batched prefill and greedy decode, checked
+    and timed; the prefill's logits (whisper: and its encoder's output)
+    through the kernels against the plain versions', the vision model's
+    on a batch-1 2048-token prefill too; a profiled prefill with the
+    cross attention as a named range, and one cross layer's products
+    alone."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as attn
+    from repro_torch.models import lm as lm_mod
+
+    dev = _card()
+    torch.cuda.empty_cache()
+    spec = CROSS["serve"][arch]
+    cfg, model, params, init_s, gates = _cross_model(arch, torch.bfloat16,
+                                                     spec["n_layers"])
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b, t, new, cache_len = (spec[k] for k in ("batch", "prompt", "new",
+                                              "cache_len"))
+    tag = f"[cross] {arch}"
+    out = {"arch": arch, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "groups": [(g.kind, g.n) for g in model.groups],
+           "cuts": _cut_list(cfg), "dtype": "bfloat16", "init_s": init_s,
+           "gates": gates, "batch": b, "prompt": t, "new_tokens": new,
+           "cache_len": cache_len}
+    with torch.no_grad():
+        warm = _cross_batch(cfg, 1, 64, gen)
+        model.prefill(params, warm, cache_len=128)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        batch = _cross_batch(cfg, b, t, gen)
+        run = _generate(model, params, batch, new, cache_len)
+        peak = torch.cuda.max_memory_allocated()
+        _check_prefill_launches(run, model, "sm90", tag)
+        toks = run["tokens"]
+        check(toks.shape == (b, new) and bool(((toks >= 0)
+                                               & (toks < cfg.vocab)).all()),
+              f"{tag}: generated tokens misshapen or out of the vocab")
+        again = _generate(model, params, batch, new, cache_len)
+        check(torch.equal(again["tokens"], toks),
+              f"{tag}: a second generation of the same batch differs")
+        prefill_ms = _bare_ms(lambda: model.prefill(params, batch,
+                                                    cache_len=cache_len), 3)
+        memory_key = "vision" if cfg.family == "vlm" else "audio_frames"
+        out.update({
+            "launches_prefill": {k: v for k, v in
+                                 run["prefill_launches"].items() if v},
+            "flash_calls_prefill": run["prefill_calls"]["fwd"],
+            "peak_memory_bytes": peak, "prefill_ms": prefill_ms,
+            "generate_prefill_ms": again["prefill_s"] * 1e3,
+            "decode_ms_per_step": again["decode_s"] * 1e3 / (new - 1),
+            "prefill_tokens_per_s": b * t / again["prefill_s"],
+            "decode_tokens_per_s": b * (new - 1) / again["decode_s"],
+            "tokens_per_s": b * new / (again["prefill_s"]
+                                       + again["decode_s"]),
+            "min_top2_margin": min(again["min_margin"])})
+        if cfg.family == "audio":
+            frames = batch["audio_frames"].to(cfg.dtype)
+            ms = _bare_ms(lambda: model._encode_audio(params, frames), 5)
+            out["encoder_ms"] = ms
+            got = model._encode_audio(params, frames)
+            with ops.use_impl("ref"):
+                want = model._encode_audio(params, frames)
+            out["encoder"] = _held(got, want, f"{tag} encoder output "
+                                   f"{tuple(got.shape)}")
+            logits_batch = batch
+        else:
+            logits_batch = _cross_batch(cfg, 1, CROSS["long_prompt"], gen)
+        ops.reset_launch_counts()
+        with _by_causal() as calls:
+            got = model.prefill(params, logits_batch,
+                                cache_len=logits_batch["inputs"].shape[1])[0]
+        causal, non_causal = _cross_attn_layers(model)
+        check(ops.launch_counts()["flash_attention_sm90"] == causal
+              + non_causal and calls["fwd"]["non-causal"] == non_causal,
+              f"{tag}: the held prefill launched {ops.launch_counts()}")
+        with ops.use_impl("ref"):
+            want = model.prefill(params, logits_batch,
+                                 cache_len=logits_batch["inputs"].shape[1])[0]
+        lb, lt = logits_batch["inputs"].shape
+        out["logits"] = _held(got, want, f"{tag} prefill logits of {lb} x "
+                              f"{lt} tokens")
+        out["logits"]["argmax_equal"] = bool(
+            (got.argmax(-1) == want.argmax(-1)).all())
+        del got, want
+        with _cross_range():
+            profile = _profile_call(lambda: model.prefill(
+                params, logits_batch, cache_len=lt), ranges=("attn_cross",))
+        out["prefill_profile"] = profile
+        # one cross layer's attention alone at the held prefill's shape
+        p = lm_mod._layer(params["group0"], 0)
+        p_attn = p["cross"]["attn"] if cfg.family == "vlm" else p["cross_attn"]
+        memory = model._inject_memory(params, logits_batch)
+        mkv = attn.cross_kv(p_attn, memory, cfg)
+        x = torch.randn((lb, lt, cfg.d_model), generator=gen,
+                        device=dev).to(cfg.dtype)
+        layer_ms = _time_ms(lambda: attn.attn_cross(p_attn, x, mkv, cfg), 5)
+        by_kernel = _device_kernels_ms(
+            lambda: attn.attn_cross(p_attn, x, mkv, cfg), 5)
+        s_mem = memory.shape[1]
+        # the two float32 products: 2 flops a multiply-add, Q K^T and P V
+        flops = 2 * 2 * lb * cfg.n_heads * lt * s_mem * cfg.head_dim
+        bound, bound_by = _bound_ms(0, 0, flops, torch.float32)
+        out["cross_layer"] = {"shape": [lb, lt, s_mem], "ms": layer_ms,
+                              "device_ms_by_kernel": by_kernel,
+                              "products_gflop": flops / 1e9,
+                              "products_fp32_bound_ms": bound}
+        del memory, mkv, x
+    med = sorted(prefill_ms)[1]
+    log(f"{tag} bf16, {cfg.n_layers} layers {out['groups']}, d "
+        f"{cfg.d_model}, cut {out['cuts'] or 'none'}; gates {gates}: batch "
+        f"{b} x {t} tokens + {memory_key} {tuple(batch[memory_key].shape)}, "
+        f"{new} new tokens, cache {cache_len}: prefill {med:.2f} ms (median "
+        f"of 3, {min(prefill_ms):.2f}..{max(prefill_ms):.2f}; "
+        f"{out['prefill_tokens_per_s']:,.0f} tokens/s), decode "
+        f"{out['decode_ms_per_step']:.3f} ms a step "
+        f"({out['decode_tokens_per_s']:,.1f} tokens/s), "
+        f"{out['tokens_per_s']:,.1f} tokens/s end to end; peak memory "
+        f"{peak / 2**30:.2f} GiB; prefill launches "
+        f"{out['launches_prefill']} ({run['prefill_calls']['fwd']}), decode "
+        f"none; smallest top-2 margin {out['min_top2_margin']:.3e}; init "
+        f"{init_s:.2f} s ({card})")
+    if "encoder_ms" in out:
+        ms = out["encoder_ms"]
+        log(f"{tag} encoder alone ({b} x {cfg.audio_frames} frames, "
+            f"{cfg.encoder_layers} non-causal layers): "
+            f"{sorted(ms)[2]:.3f} ms median of 5 ({min(ms):.3f}.."
+            f"{max(ms):.3f}) ({card})")
+    log(f"{tag} profile of a {lb} x {lt} prefill: device busy "
+        f"{profile['device_busy_us'] / 1e3:.3f} ms = "
+        f"{profile['busy_share']:.1%} of wall {profile['wall_us'] / 1e3:.3f} "
+        f"ms; flash {profile['flash_us'] / 1e3:.3f} ms; cross attention "
+        f"(the attn_cross range's device span: its projections and float32 "
+        f"products) {profile['ranges_us']['attn_cross'] / 1e3:.3f} ms "
+        f"({card})")
+    for r in profile["top"]:
+        log(f"{tag}   {r['us']:10.1f} us x{r['launches']:<4d} {r['kernel']}")
+    cl = out["cross_layer"]
+    log(f"{tag} one cross layer at ({lb}, {lt}) over {cl['shape'][2]} memory "
+        f"tokens: {cl['ms']:.3f} ms; its float32 products "
+        f"{cl['products_gflop']:.1f} GFLOP (FP32 SIMT bound "
+        f"{cl['products_fp32_bound_ms']:.3f} ms); kernels: "
+        + "; ".join(f"{k[:70]} {v:.3f}"
+                    for k, v in sorted(by_kernel.items(),
+                                       key=lambda kv: -kv[1])[:6])
+        + f" ({card})")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _serve_cross_f32(arch: str, card: str, seed: int) -> dict:
+    """The float32 twin (TF32 off, ``CROSS["f32_layers"]``): the batch's
+    generation on the tf32x3 kernel equals each row generated alone at
+    batch 1, token for token."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = _card()
+    torch.cuda.empty_cache()
+    spec = CROSS["serve"][arch]
+    cfg, model, params, init_s, gates = _cross_model(
+        arch, torch.float32, CROSS["f32_layers"][arch])
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b, t, new, cache_len = (spec[k] for k in ("batch", "prompt", "new",
+                                              "cache_len"))
+    tag = f"[cross f32] {arch}"
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        batch = _cross_batch(cfg, b, t, gen)
+        run = _generate(model, params, batch, new, cache_len)
+        peak = torch.cuda.max_memory_allocated()
+        _check_prefill_launches(run, model, "tf32x3", tag)
+        margin = min(run["min_margin"])
+        for i in range(b):
+            alone = _generate(model, params,
+                              {k: v[i:i + 1] for k, v in batch.items()}, new,
+                              cache_len)
+            margin = min(margin, alone["min_margin"][0])
+            row, want = run["tokens"][i].tolist(), alone["tokens"][0].tolist()
+            if row != want:
+                step = next(j for j, (a, c) in enumerate(zip(row, want))
+                            if a != c)
+                raise SmokeFailure(
+                    f"{tag}: row {i} of the batch differs from the row "
+                    f"alone at step {step}: {row[step]} vs {want[step]}")
+    out = {"arch": arch, "n_layers": cfg.n_layers, "cuts": _cut_list(cfg),
+           "gates": gates, "init_s": init_s, "batch": b, "prompt": t,
+           "new_tokens": new, "peak_memory_bytes": peak,
+           "min_top2_margin": margin,
+           "prefill_ms": run["prefill_s"] * 1e3,
+           "decode_ms_per_step": run["decode_s"] * 1e3 / (new - 1),
+           "launches_prefill": {k: v for k, v in
+                                run["prefill_launches"].items() if v},
+           "flash_calls_prefill": run["prefill_calls"]["fwd"]}
+    log(f"{tag} at {cfg.n_layers} layers {[(g.kind, g.n) for g in model.groups]}"
+        f", cut {out['cuts'] or 'none'}; gates {gates}: {b} rows x {new} "
+        f"tokens: the batch's generation == each row alone at batch 1, token "
+        f"for token (smallest top-2 margin {margin:.3e}); prefill "
+        f"{out['prefill_ms']:.2f} ms, decode {out['decode_ms_per_step']:.3f} "
+        f"ms a step; launches {out['launches_prefill']} "
+        f"({run['prefill_calls']['fwd']}); peak memory {peak / 2**30:.2f} GiB "
+        f"({card})")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tree_paths(tree, prefix="") -> list:
+    """(path, leaf) pairs in ``repro_torch.tree.leaves`` order."""
+    if isinstance(tree, dict):
+        return [pair for key in sorted(tree)
+                for pair in _tree_paths(tree[key], f"{prefix}/{key}")]
+    return [(prefix, tree)]
+
+
+def _cross_loss(arch: str, card: str, seed: int) -> dict:
+    """One LM.loss forward and backward in bf16 with remat
+    (``CROSS["loss"]``), FastLMStream tokens and the family's payload:
+    launches by route and causal flag (the encoder's once, the rest's
+    forward twice), CE and every gradient (the gates' among them) through
+    the kernels against the plain versions' within phase 13's tolerances,
+    peak memory, ms."""
+    from repro_torch.data import FastLMStream
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import loss_and_grads
+
+    dev = _card()
+    torch.cuda.empty_cache()
+    spec = CROSS["loss"][arch]
+    cfg, model, params, init_s, gates = _cross_model(arch, torch.bfloat16,
+                                                     spec["n_layers"])
+    check(cfg.remat, f"{arch}: the loss step runs with remat")
+    b, t = spec["batch"], spec["seq"]
+    batch = next(iter(FastLMStream(cfg.vocab, t, b, seed=CROSS["seed"],
+                                   device=dev).batches(1)))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    batch.update({k: v for k, v in _cross_batch(cfg, b, 1, gen).items()
+                  if k != "inputs"})
+    tag = f"[cross loss] {arch}"
+    tol = TRAIN_TOL[torch.bfloat16]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with _by_causal() as calls:
+        loss, metrics, grads = loss_and_grads(model, params, batch)
+        torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    causal, non_causal = _cross_attn_layers(model)
+    route = kflash.flash_bwd_route(torch.bfloat16, cfg.head_dim)
+    split_dec = _bwd_splits(route, b, t, cfg.n_heads, cfg.n_kv_heads,
+                            cfg.head_dim)
+    split_enc = _bwd_splits(route, b, cfg.audio_frames, cfg.n_heads,
+                            cfg.n_kv_heads, cfg.head_dim) if non_causal else 1
+    n_bwd = causal + non_causal
+    want = {op: 0 for op in counts}
+    want.update({**_flash_want(2 * causal + non_causal, "sm90"),
+                 "flash_attention_bwd": n_bwd,
+                 f"flash_attention_bwd_{route}": n_bwd,
+                 f"flash_attention_bwd_{route}_sum":
+                     causal * (split_dec > 1) + non_causal * (split_enc > 1),
+                 **{f"flash_attention_bwd_{k}": n_bwd
+                    for k in BWD_ROUTE_KERNELS[route]}})
+    check(counts == want, f"{tag}: launches {counts} != {want} (remat: the "
+          f"decoder's or super-blocks' forward twice, the encoder's once, "
+          f"the backward once a layer)")
+    want_calls = {"fwd": {"causal": 2 * causal, "non-causal": non_causal},
+                  "bwd": {"causal": causal, "non-causal": non_causal}}
+    check(calls == want_calls, f"{tag}: flash calls by mask {calls} != "
+          f"{want_calls}")
+    host = [(path, g.to("cpu")) for path, g in _tree_paths(grads)]
+    check(bool(torch.isfinite(loss)) and all(bool(torch.isfinite(g).all())
+                                             for _, g in host),
+          f"{tag}: loss or a gradient not finite")
+    del grads
+    torch.cuda.empty_cache()
+    with ops.use_impl("ref"):
+        loss_r, metrics_r, grads_r = loss_and_grads(model, params, batch)
+    errs = dict(zip((p for p, _ in host),
+                    _grads_rel_err([g for _, g in host],
+                                   [g for _, g in _tree_paths(grads_r)])))
+    gate_grads = {}
+    if cfg.family == "vlm":
+        for name in ("gate", "gate_mlp"):
+            path = f"/group0/cross/{name}"
+            got = dict(host)[path].float()
+            plain = grads_r["group0"]["cross"][name].float().cpu()
+            check(bool((got != 0).all()), f"{tag}: a zero {name} gradient")
+            gate_grads[name] = {"kernels": got.tolist(),
+                                "plain": plain.tolist(),
+                                "rel_norm_err": errs[path]}
+    del host, grads_r
+    torch.cuda.empty_cache()
+    ce_err = abs(float(metrics["ce"]) - float(metrics_r["ce"])) / abs(
+        float(metrics_r["ce"]))
+    worst = max(errs, key=errs.get)
+    check(ce_err <= tol["ce"], f"{tag}: CE through the kernels differs from "
+          f"the plain versions' by {ce_err:.3e} > {tol['ce']}")
+    check(errs[worst] <= tol["grad"], f"{tag}: gradient {worst} differs from "
+          f"the plain versions' by {errs[worst]:.3e} (relative norm) > "
+          f"{tol['grad']}")
+    ms = _bare_ms(lambda: loss_and_grads(model, params, batch), 3)
+    out = {"arch": arch, "n_layers": cfg.n_layers, "cuts": _cut_list(cfg),
+           "gates": gates, "batch": b, "seq": t, "loss": float(loss),
+           "ce": float(metrics["ce"]), "ce_plain": float(metrics_r["ce"]),
+           "ce_rel_err": ce_err, "grad_rel_norm_err": errs[worst],
+           "worst_leaf": worst, "leaves": len(errs),
+           "gate_grads": gate_grads, "launches": counts,
+           "flash_calls": calls, "splits": [split_dec, split_enc],
+           "peak_memory_bytes": peak, "ms": ms, "tolerance": tol}
+    memory = ("vision", tuple(batch["vision"].shape)) if "vision" in batch \
+        else ("audio_frames", tuple(batch["audio_frames"].shape))
+    log(f"{tag} bf16 {cfg.n_layers} layers, cut {out['cuts'] or 'none'}, "
+        f"remat, {b} x {t} tokens + {memory[0]} {memory[1]}; gates {gates}: "
+        f"CE {out['ce']:.5f} vs plain {out['ce_plain']:.5f} (rel err "
+        f"{ce_err:.2e}, tol {tol['ce']}); gradients' worst relative norm "
+        f"error {errs[worst]:.2e} at {worst} over {len(errs)} leaves (tol "
+        f"{tol['grad']})" + (f"; gate gradients {gate_grads}" if gate_grads
+                             else "") + f" ({card})")
+    log(f"{tag}: {sorted(ms)[1]:.2f} ms a forward and backward (median of 3, "
+        f"{min(ms):.2f}..{max(ms):.2f}), {b * t / sorted(ms)[1] * 1e3:,.0f} "
+        f"tokens/s; peak {peak / 2**30:.2f} GiB; launches "
+        f"{ {k: v for k, v in counts.items() if v} }, by mask {calls} "
+        f"({card})")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_cross(card: str) -> dict:
+    """11d: whisper-tiny whole and llama-3.2-vision-90b at 30 layers, every
+    width, in bf16 by batched prefill and greedy decode; their f32 twins'
+    batches against rows alone; one loss step each."""
+    t0 = time.perf_counter()
+    record = {"card": card}
+    for i, arch in enumerate(CROSS["archs"]):
+        record[arch] = {"serve": _serve_cross(arch, card, 41 + i),
+                        "serve_f32": _serve_cross_f32(arch, card, 43 + i),
+                        "loss": _cross_loss(arch, card, 45 + i)}
+    record["seconds"] = time.perf_counter() - t0
+    log(f"[cross] phase 11d on {card} took {record['seconds']:.1f} s")
+    return record
+
+
+# ---------------------------------------------------------------------------
 # 11. flash times
 # ---------------------------------------------------------------------------
 
-FLASH_TIMED = [  # (route, label, dtype, B, T, H, Hkv, D, window)
+FLASH_TIMED = [  # (route, label, dtype, B, T, H, Hkv, D, window, causal)
     ("sm90", "TinyLlama prefill (1, 2048, 32, 4, 64) bf16 causal",
-     torch.bfloat16, 1, 2048, 32, 4, 64, None),
+     torch.bfloat16, 1, 2048, 32, 4, 64, None, True),
     ("sm90", "gemma3-1b local (1, 2048, 4, 1, 256) bf16 window 512",
-     torch.bfloat16, 1, 2048, 4, 1, 256, 512),
+     torch.bfloat16, 1, 2048, 4, 1, 256, 512, True),
     ("sm90", "qwen1.5 heads (1, 2048, 64, 8, 128) bf16 causal",
-     torch.bfloat16, 1, 2048, 64, 8, 128, None),
+     torch.bfloat16, 1, 2048, 64, 8, 128, None, True),
     ("sm90", "recurrentgemma local (1, 2048, 10, 1, 256) bf16 window 2048",
-     torch.bfloat16, 1, 2048, 10, 1, 256, 2048),
+     torch.bfloat16, 1, 2048, 10, 1, 256, 2048, True),
     ("sm90", "arctic heads (1, 2048, 56, 8, 128) bf16 causal",
-     torch.bfloat16, 1, 2048, 56, 8, 128, None),
+     torch.bfloat16, 1, 2048, 56, 8, 128, None, True),
     # TMA fills D = 112 to the kernel's 128 with zeros: the bound counts
     # the function's own 112
     ("sm90", "kimi-k2 heads (1, 2048, 64, 8, 112) bf16 causal",
-     torch.bfloat16, 1, 2048, 64, 8, 112, None),
+     torch.bfloat16, 1, 2048, 64, 8, 112, None, True),
+    # whisper's encoder: every query sees all 1500 keys
+    ("sm90", "whisper encoder (1, 1500, 6, 6, 64) bf16 non-causal",
+     torch.bfloat16, 1, 1500, 6, 6, 64, None, False),
     ("tf32x3", "TinyLlama prefill (1, 2048, 32, 4, 64) f32 causal",
-     torch.float32, 1, 2048, 32, 4, 64, None),
+     torch.float32, 1, 2048, 32, 4, 64, None, True),
     ("tf32x3", "qwen1.5 heads (1, 2048, 64, 8, 128) f32 causal",
-     torch.float32, 1, 2048, 64, 8, 128, None),
+     torch.float32, 1, 2048, 64, 8, 128, None, True),
     ("tf32x3", "gemma3-1b local (1, 2048, 4, 1, 256) f32 window 512",
-     torch.float32, 1, 2048, 4, 1, 256, 512),
+     torch.float32, 1, 2048, 4, 1, 256, 512, True),
+    ("tf32x3", "whisper encoder (1, 1500, 6, 6, 64) f32 non-causal",
+     torch.float32, 1, 1500, 6, 6, 64, None, False),
 ]
 
 
-def _visible_pairs(t: int, window) -> int:
-    """Query-key pairs a causal (windowed) self-attention of length t
-    computes."""
+def _visible_pairs(t: int, window, causal: bool = True) -> int:
+    """Query-key pairs a self-attention of length t computes: causal
+    (windowed) rows see their past, a non-causal row all t keys."""
+    if not causal:
+        return t * t
     rows = torch.arange(t, dtype=torch.int64)
     lo = (rows - window + 1).clamp(min=0) if window else torch.zeros_like(rows)
     return int((rows - lo + 1).sum())
@@ -3917,7 +4501,7 @@ def phase_flash_times() -> dict:
     dev = _card()
     gen = torch.Generator(device=dev).manual_seed(8)
     out = {f"flash_attention_{route}": [] for route in FLASH_ROUTE.values()}
-    for route, label, dtype, b, t, h, hkv, d, window in FLASH_TIMED:
+    for route, label, dtype, b, t, h, hkv, d, window, causal in FLASH_TIMED:
         q, k, v = _flash_inputs(gen, b, t, t, h, hkv, d, dtype, dev)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         if window:
@@ -3931,16 +4515,18 @@ def phase_flash_times() -> dict:
         else:
             def lib():
                 return F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, enable_gqa=True)
+                    qt, kt, vt, is_causal=causal, enable_gqa=True)
 
         def kern():
-            return ops.flash_attention(q, k, v, window=window, impl="cuda")
+            return ops.flash_attention(q, k, v, causal=causal, window=window,
+                                       impl="cuda")
 
         def plain():
-            return ops.flash_attention(q, k, v, window=window, impl="ref")
+            return ops.flash_attention(q, k, v, causal=causal, window=window,
+                                       impl="ref")
         item = q.element_size()
         io = (2 * q.numel() + k.numel() + v.numel()) * item
-        flops = 4 * d * h * b * _visible_pairs(t, window)
+        flops = 4 * d * h * b * _visible_pairs(t, window, causal)
         bound, bound_by = _bound_ms(io, 0, flops, dtype)
         simt_bound = None
         if route == "tf32x3":
@@ -3954,6 +4540,7 @@ def phase_flash_times() -> dict:
         check(ops.launch_counts()[f"flash_attention_{route}"] == 1,
               f"flash times {label}: not on the {route} kernel")
         row = dict(shape=label, dims=[b, t, h, hkv, d], window=window,
+                   causal=causal,
                    ms=_time_ms(kern, 20), plain_ms=_time_ms(plain, 5),
                    library_ms=_time_ms(lib, 20),
                    device_ms=_device_ms(kern, 20),
@@ -3980,28 +4567,32 @@ def phase_flash_times() -> dict:
 # 13. train: LM training through the flash-attention backward kernel
 # ---------------------------------------------------------------------------
 
-# (a) the backward kernels against their plain version, causal: (label,
-# (B, T, H, Hkv, D), window); the training shape fourth (the kernels
-# line's row), recurrentgemma's local attention fifth (a group of 10 heads
-# cut into runs), a head dim that is not a multiple of 8 sixth (the tf32x3
-# route in bf16 too), then arctic's and kimi-k2's heads
+# (a) the backward kernels against their plain version: (label, (B, T, H,
+# Hkv, D), window, causal); the training shape fourth (the kernels line's
+# row), recurrentgemma's local attention fifth (a group of 10 heads cut
+# into runs), a head dim that is not a multiple of 8 sixth (the tf32x3
+# route in bf16 too), then arctic's and kimi-k2's heads, and whisper's
+# encoder, non-causal over 1500 frames (every query tile for each key tile)
 FLASH_BWD_SHAPES = [
     ("TinyLlama heads (1, 2048, 32, 4, 64) causal", (1, 2048, 32, 4, 64),
-     None),
+     None, True),
     ("qwen1.5 heads (1, 2048, 64, 8, 128) causal", (1, 2048, 64, 8, 128),
-     None),
+     None, True),
     ("gemma3-1b local (1, 2048, 4, 1, 256) window 512", (1, 2048, 4, 1, 256),
-     512),
+     512, True),
     ("TinyLlama training (2, 2048, 32, 4, 64) causal", (2, 2048, 32, 4, 64),
-     None),
+     None, True),
     ("recurrentgemma local (1, 2048, 10, 1, 256) window 2048",
-     (1, 2048, 10, 1, 256), 2048),
-    ("head dim 60 (1, 1024, 8, 2, 60) causal", (1, 1024, 8, 2, 60), None),
+     (1, 2048, 10, 1, 256), 2048, True),
+    ("head dim 60 (1, 1024, 8, 2, 60) causal", (1, 1024, 8, 2, 60), None,
+     True),
     # arctic's heads (a group of 7, cut into 7 runs) and kimi-k2's (D 112)
     ("arctic heads (1, 2048, 56, 8, 128) causal", (1, 2048, 56, 8, 128),
-     None),
+     None, True),
     ("kimi-k2 heads (1, 2048, 64, 8, 112) causal", (1, 2048, 64, 8, 112),
-     None)]
+     None, True),
+    ("whisper encoder (1, 1500, 6, 6, 64) non-causal", (1, 1500, 6, 6, 64),
+     None, False)]
 TRAIN_SHAPE = 3  # FLASH_BWD_SHAPES' index of the training shape
 # the largest |error| of each gradient over its largest |value|: bfloat16
 # 2e-2 (the wgmma forward's P V in bfloat16, the sm90 backward's P and dS
@@ -4040,7 +4631,7 @@ def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
                  / want.abs().max().clamp_min(1e-30))
 
 
-def _flash_bwd_row(label, dims, window, dtype, gen, dev) -> dict:
+def _flash_bwd_row(label, dims, window, causal, dtype, gen, dev) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as kflash
@@ -4049,19 +4640,20 @@ def _flash_bwd_row(label, dims, window, dtype, gen, dev) -> dict:
     b, t, h, hkv, d = dims
     q, k, v = _flash_inputs(gen, b, t, t, h, hkv, d, dtype, dev)
     do = torch.randn(b, t, h, d, generator=gen, device=dev).to(dtype)
-    out, lse = kflash._forward(q, k, v, causal=True, window=window,
+    out, lse = kflash._forward(q, k, v, causal=causal, window=window,
                                q_offset=0, block_k=1024, with_lse=True)
-    check(torch.equal(out, kflash.flash_attention_cuda(q, k, v,
-                                                       window=window)),
+    check(torch.equal(out, kflash.flash_attention_cuda(
+              q, k, v, causal=causal, window=window)),
           f"flash backward {label}: the forward's output changes when it "
           f"writes its log-sum-exp")
 
     def kern():
         return kflash.flash_attention_bwd_cuda(q, k, v, out, do, lse,
-                                               window=window)
+                                               causal=causal, window=window)
 
     def plain():
-        return ref.mha_blocked_grad(q, k, v, do, window=window)
+        return ref.mha_blocked_grad(q, k, v, do, causal=causal,
+                                    window=window)
     route = kflash.flash_bwd_route(dtype, d)
     splits = _bwd_splits(route, b, t, h, hkv, d)
     ops.reset_launch_counts()
@@ -4095,7 +4687,8 @@ def _flash_bwd_row(label, dims, window, dtype, gen, dev) -> dict:
         lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                  enable_gqa=True)
     else:
-        lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt,
+                                                 is_causal=causal,
                                                  enable_gqa=True)
     do_t = do.transpose(1, 2)
 
@@ -4105,7 +4698,7 @@ def _flash_bwd_row(label, dims, window, dtype, gen, dev) -> dict:
     # q, o, dO read and dq written; k, v read and dk, dv written; lse read
     io = (4 * q.numel() + 4 * k.numel()) * q.element_size() + lse.numel() * 4
     # five products (S, dP, dV, dK, dQ) of 2 D flops a visible pair a head
-    flops = 10 * d * h * b * _visible_pairs(t, window)
+    flops = 10 * d * h * b * _visible_pairs(t, window, causal)
     bound, bound_by = _bound_ms(io, 0, flops, dtype)
     simt_bound = None
     if dtype == torch.float32:
@@ -4113,7 +4706,7 @@ def _flash_bwd_row(label, dims, window, dtype, gen, dev) -> dict:
         bound, bound_by = _bound_ms(io, 0, 3 * flops, dtype, TF32_OPS_PER_S)
     by_kernel = _device_kernels_ms(kern, 10)
     row = dict(shape=f"{label} {name}", dims=list(dims), window=window,
-               dtype=name, route=route, splits=splits, rel_err=rel,
+               causal=causal, dtype=name, route=route, splits=splits, rel_err=rel,
                max_abs_err=abs_err, ms=_time_ms(kern, 10), device_ms=sum(by_kernel.values()),
                device_ms_by_kernel=by_kernel, plain_ms=_time_ms(plain, 2),
                library="SDPA backward (enable_gqa=True)",
@@ -4188,27 +4781,28 @@ def phase_flash_bwd() -> dict:
     torch.backends.cudnn.allow_tf32 = False
     dev = _card()
     gen = torch.Generator(device=dev).manual_seed(13)
-    rows = [_flash_bwd_row(label, dims, window, dtype, gen, dev)
+    rows = [_flash_bwd_row(label, dims, window, causal, dtype, gen, dev)
             for dtype in FLASH_BWD_TOL
-            for label, dims, window in FLASH_BWD_SHAPES]
+            for label, dims, window, causal in FLASH_BWD_SHAPES]
     _flash_bwd_no_fallback(dev)
     swept = 0
     for dtype in FLASH_BWD_TOL:
-        cases = [(t, h, hkv, d, None) for t, t2 in FLASH_SHAPES if t == t2
-                 for h, hkv in FLASH_HEADS for d in (64, 128, 256)]
-        cases += [(tq, h, hkv, d, window) for tq, tk, h, hkv, d, causal,
-                  window, q_offset, _ in FLASH_EXTRA
-                  if tq == tk and q_offset == 0 and causal]
-        for t, h, hkv, d, window in cases:
+        cases = [(t, h, hkv, d, None, True) for t, t2 in FLASH_SHAPES
+                 if t == t2 for h, hkv in FLASH_HEADS for d in (64, 128, 256)]
+        cases += [(tq, h, hkv, d, window, causal) for tq, tk, h, hkv, d,
+                  causal, window, q_offset, _ in FLASH_EXTRA
+                  if tq == tk and q_offset == 0]
+        for t, h, hkv, d, window, causal in cases:
             q, k, v = _flash_inputs(gen, 1, t, t, h, hkv, d, dtype, dev)
-            with_lse = kflash._forward(q, k, v, causal=True, window=window,
+            with_lse = kflash._forward(q, k, v, causal=causal, window=window,
                                        q_offset=0, block_k=1024,
                                        with_lse=True)
             check(torch.equal(with_lse[0], kflash.flash_attention_cuda(
-                q, k, v, window=window)) and bool(
+                q, k, v, causal=causal, window=window)) and bool(
                     torch.isfinite(with_lse[1]).all()),
-                  f"flash forward {dtype} {(t, h, hkv, d, window)}: output "
-                  f"with its log-sum-exp differs from the output without")
+                  f"flash forward {dtype} {(t, h, hkv, d, window, causal)}: "
+                  f"output with its log-sum-exp differs from the output "
+                  f"without")
             swept += 1
     log(f"[train] flash forward with the log-sum-exp written: {swept} "
         f"self-attention shapes, output bit-equal to the forward without")
@@ -4508,6 +5102,7 @@ def main() -> int:
     record["serve_f32"] = phase_serve_f32()
     record["recurrent"] = phase_recurrent(card)
     record["moe"] = phase_moe(card)
+    record["cross"] = phase_cross(card)
     record["flash_times"] = phase_flash_times()
     record["train"] = phase_train()
     # launches: the SRHT kernels from the full-size comm=None run (fwht is

@@ -149,8 +149,9 @@ def lm_params_from_numpy(params, cfg, device: "str | torch.device" = "cuda") -> 
     tensor on ``device`` in ``cfg.param_dtype``, but the leaves the
     reference keeps in float32 (``common.FLOAT32_LEAVES``: mamba2's
     ``a_log``, ``d_skip``, ``dt_bias``, the RG-LRU's ``lam``), which stay
-    float32. The port keeps the reference's layout, so this is the one
-    place a layout would change."""
+    float32. The port keeps the reference's layout (the vlm's two-level
+    (n, per, ...) self stack and its (n,) gates, whisper's encoder stack
+    included), so this is the one place a layout would change."""
     dev = resolve_device(device)
 
     def leaf(name, a):

@@ -6,7 +6,10 @@
         --reduced --device cpu --prompt-len 64
 
 Weights are random, drawn from ``--seed``; prompts are random tokens
-from a second stream of the same seed.
+from a second stream of the same seed, which then draws the reference's
+synthetic payloads: a vlm's patch embeddings ``vision`` (B,
+vision_tokens, vision_dim) and whisper's frame embeddings
+``audio_frames`` (B, audio_frames, d_model), standard normal float32.
 """
 from __future__ import annotations
 
@@ -43,16 +46,24 @@ def main(argv=None) -> None:
         cfg = cfg.reduced()
     model = LM(cfg)
     params = model.init(root_key(args.seed, device=dev))
-    tokens = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
-                           generator=root_key(args.seed, 1, device=dev),
-                           device=dev)
+    batch_gen = root_key(args.seed, 1, device=dev)
+    batch = {"inputs": torch.randint(0, cfg.vocab,
+                                     (args.batch, args.prompt_len),
+                                     generator=batch_gen, device=dev)}
+    if cfg.family == "vlm":
+        batch["vision"] = torch.randn(
+            (args.batch, cfg.vision_tokens, cfg.vision_dim),
+            generator=batch_gen, device=dev)
+    if cfg.family == "audio":
+        batch["audio_frames"] = torch.randn(
+            (args.batch, cfg.audio_frames, cfg.d_model), generator=batch_gen,
+            device=dev)
 
     cache_len = args.prompt_len + args.gen
     with torch.no_grad():
         _sync(dev)
         t0 = time.perf_counter()
-        logits, state = model.prefill(params, {"inputs": tokens},
-                                      cache_len=cache_len)
+        logits, state = model.prefill(params, batch, cache_len=cache_len)
         _sync(dev)
         t_prefill = time.perf_counter() - t0
 

@@ -1,4 +1,5 @@
-"""Grouped-query attention with RoPE, sliding windows and KV caches.
+"""Grouped-query attention with RoPE, sliding windows, KV caches and
+cross attention.
 
 The counterpart of ``repro.models.attention`` for serving and training:
 
@@ -8,11 +9,13 @@ The counterpart of ``repro.models.attention`` for serving and training:
                       ``flash_attention`` op (the CUDA kernels on the
                       card, the backward kernel for its gradient)
   * ``attn_decode`` — one-token step against a cache
+  * ``attn_cross``  — cross attention over a memory's precomputed K and
+                      V (``cross_kv``): the vlm's vision tokens,
+                      whisper's encoder output; non-causal, no rope,
+                      plain float32 products as the reference's einsums
 
 Caches store the absolute position of each slot per batch row (``pos``,
--1 = empty), so every row may sit at its own decode index. Cross
-attention (``attn_cross``, ``cross_kv``) comes with the vlm and audio
-families.
+-1 = empty), so every row may sit at its own decode index.
 """
 from __future__ import annotations
 
@@ -29,14 +32,18 @@ from repro_torch.models.common import (
 NEG_INF = -2.0**30  # large-negative instead of -inf: masked softmax stays NaN-free
 
 
-def attention_init(gen: torch.Generator, cfg: ModelConfig, lead=()) -> dict:
-    """QKV and output projections; ``lead`` prepends stacking axes."""
+def attention_init(gen: torch.Generator, cfg: ModelConfig, lead=(), *,
+                   d_kv_in: "int | None" = None) -> dict:
+    """QKV and output projections; ``lead`` prepends stacking axes;
+    ``d_kv_in`` is the width K and V are projected from (a cross
+    attention's memory; default ``d_model``)."""
     h, hkv, dh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
+    d_kv = d_kv_in or d
     dt, dev = cfg.param_dtype, gen.device
     p = {
         "wq": dense_init(gen, (*lead, d, h, dh), d, dt),
-        "wk": dense_init(gen, (*lead, d, hkv, dh), d, dt),
-        "wv": dense_init(gen, (*lead, d, hkv, dh), d, dt),
+        "wk": dense_init(gen, (*lead, d_kv, hkv, dh), d_kv, dt),
+        "wv": dense_init(gen, (*lead, d_kv, hkv, dh), d_kv, dt),
         "wo": residual_out_init(gen, (*lead, h, dh, d), h * dh, cfg),
     }
     if cfg.qkv_bias:
@@ -184,3 +191,48 @@ def attn_decode(params: dict, x: torch.Tensor, layer_cache: dict,
     o = probs.to(v.dtype).float() @ v.float().transpose(1, 2)  # (B, Hkv, G, Dh)
     o = o.reshape(b, 1, cfg.n_heads, dh).to(x.dtype)
     return _out(params, o, x.dtype), layer_cache
+
+
+# ---------------------------------------------------------------------------
+# cross attention (vlm, whisper's decoder)
+# ---------------------------------------------------------------------------
+
+def cross_kv(params: dict, memory: torch.Tensor, cfg: ModelConfig) -> dict:
+    """K and V of a memory (B, S, Dm), {"k", "v": (B, S, Hkv, Dh)} in the
+    memory's dtype, with the bias and ``k_norm`` where the layer has them
+    (no rope). Computed once a prefill; decode reads them from its state."""
+    k = _proj(memory, params["wk"])
+    v = _proj(memory, params["wv"])
+    if "bk" in params:
+        k = k + params["bk"].to(memory.dtype)
+        v = v + params["bv"].to(memory.dtype)
+    if "k_norm" in params:
+        k = rmsnorm(params["k_norm"], k)
+    return {"k": k, "v": v}
+
+
+def attn_cross(params: dict, x: torch.Tensor, memory_kv: dict,
+               cfg: ModelConfig) -> torch.Tensor:
+    """Cross attention of queries x (B, T, D) over ``memory_kv``
+    (``cross_kv``'s K and V): non-causal, no rope, no query bias. As the
+    reference: ``q * scale`` is rounded in x's dtype, then it, K and V
+    are upcast to float32 for both products and the softmax, and the
+    output is cast back to x's dtype. Each query group's T rows are one
+    matrix (B, Hkv, G T, Dh), so neither product broadcasts K or V over
+    the group."""
+    b, t, _ = x.shape
+    hkv, dh = cfg.n_kv_heads, cfg.head_dim
+    group = cfg.n_heads // hkv
+    q = _proj(x, params["wq"])
+    if "q_norm" in params:
+        q = rmsnorm(params["q_norm"], q)
+    k, v = memory_kv["k"], memory_kv["v"]
+    qs = (q * dh**-0.5).float().reshape(b, t, hkv, group, dh)
+    qs = qs.permute(0, 2, 3, 1, 4).reshape(b, hkv, group * t, dh)
+    logits = qs @ k.float().permute(0, 2, 3, 1)  # (B, Hkv, G T, S)
+    probs = torch.softmax(logits, dim=-1)
+    del logits
+    o = probs @ v.float().transpose(1, 2)  # (B, Hkv, G T, Dh)
+    o = o.reshape(b, hkv, group, t, dh).permute(0, 3, 1, 2, 4)
+    o = o.reshape(b, t, cfg.n_heads, dh).to(x.dtype)
+    return _out(params, o, x.dtype)

@@ -8,16 +8,24 @@ host ints and floats.
 
 The group kinds ``dense``, ``moe`` (attention and a mixture of experts,
 with arctic's dense MLP beside it), ``ssd`` (mamba2), ``rec`` and
-``griffin`` (recurrentgemma's (rec, rec, attn) super-block) are ported
-for serving (``init``, ``prefill``, ``init_decode_state``,
-``decode_step``) and for training (``loss``, whose backbone builds no
-cache and, with ``cfg.remat``, recomputes each unit in the backward as
-the reference's ``jax.checkpoint`` does; a griffin super-block is one
-unit). The loss adds 0.01 times the moe layers' auxiliary losses. A
-recurrent group's decode state is its float32 recurrent state and its
-conv's last K-1 inputs, with a KV cache for griffin's attention. The
-other kinds raise ``NotImplementedError`` naming the ROADMAP item that
-brings them.
+``griffin`` (recurrentgemma's (rec, rec, attn) super-block), ``vlm``
+(llama-3.2-vision's super-block of ``cross_attn_every`` self layers and
+one tanh-gated cross-attention layer over the projected vision tokens)
+and ``dec`` (whisper's decoder: self attention, cross attention over the
+encoder's output, MLP; the encoder is a stack of ``enc`` units, dense
+units run non-causal) are ported for serving (``init``, ``prefill``,
+``init_decode_state``, ``decode_step``) and for training (``loss``,
+whose backbone builds no cache and, with ``cfg.remat``, recomputes each
+unit in the backward as the reference's ``jax.checkpoint`` does; a
+griffin or vlm super-block is one unit). The loss adds 0.01 times the
+moe layers' auxiliary losses. A recurrent group's decode state is its
+float32 recurrent state and its conv's last K-1 inputs, with a KV cache
+for griffin's attention; a vlm or dec group's holds its self-attention
+caches and its cross attention's K and V, computed once at prefill. The
+memory (the vision tokens, the encoder's output) is an argument of the
+backbone and the group runners; ``loss`` and ``prefill`` make it from
+the batch's ``"vision"`` or ``"audio_frames"``. The ``dense_sb`` kind
+raises ``NotImplementedError`` naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -44,13 +52,11 @@ from repro_torch.models.common import (
     rmsnorm_init,
     unembed,
 )
+from repro_torch.tree import leaves, tree_map
 
 RECURRENT = ("ssd", "rec", "griffin")  # kinds with a recurrent state
 # group kinds of later slices -> (their item in ROADMAP queue 1, its name)
-_LATER = {"vlm": (1, "cross attention: vlm"),
-          "dec": (1, "cross attention: audio"),
-          "enc": (1, "cross attention: audio"),
-          "dense_sb": (2, "dense_sb, right-sized caches")}
+_LATER = {"dense_sb": (1, "dense_sb, right-sized caches")}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,18 +123,19 @@ def build_groups(cfg: ModelConfig) -> "list[GroupSpec]":
 # the dense unit
 # ---------------------------------------------------------------------------
 
-def _dense_unit_init(gen: torch.Generator, cfg: ModelConfig, n: int) -> dict:
-    """``n`` stacked dense units."""
-    dev = gen.device
+def _dense_unit_init(gen: torch.Generator, cfg: ModelConfig, *lead: int) -> dict:
+    """Dense units stacked on the axes ``lead`` ((n,), or a vlm group's
+    (n, per))."""
+    dev, d = gen.device, cfg.d_model
     p = {
-        "ln1": rmsnorm_init((n, cfg.d_model), cfg, dev),
-        "attn": attn.attention_init(gen, cfg, lead=(n,)),
-        "ln2": rmsnorm_init((n, cfg.d_model), cfg, dev),
-        "mlp": mlp_init(gen, cfg, lead=(n,)),
+        "ln1": rmsnorm_init((*lead, d), cfg, dev),
+        "attn": attn.attention_init(gen, cfg, lead=lead),
+        "ln2": rmsnorm_init((*lead, d), cfg, dev),
+        "mlp": mlp_init(gen, cfg, lead=lead),
     }
     if cfg.qk_norm:  # gemma3 sandwich norms
-        p["ln1_post"] = rmsnorm_init((n, cfg.d_model), cfg, dev)
-        p["ln2_post"] = rmsnorm_init((n, cfg.d_model), cfg, dev)
+        p["ln1_post"] = rmsnorm_init((*lead, d), cfg, dev)
+        p["ln2_post"] = rmsnorm_init((*lead, d), cfg, dev)
     return p
 
 
@@ -298,9 +305,159 @@ def _rec_unit_decode(p: dict, x: torch.Tensor, h: torch.Tensor,
     return _rec_mlp(p, x, out, cfg), h, conv
 
 
+# ---------------------------------------------------------------------------
+# cross attention: the vlm super-block, whisper's encoder and decoder
+# ---------------------------------------------------------------------------
+
+def _stack_units(n: int, draw) -> dict:
+    """``n`` units drawn one at a time by ``draw()`` (the tree of one
+    unit) and written into stacked (n, ...) leaves: one unit's float32
+    draws exist at a time, not the whole stack's (the four self-layer
+    MLPs of one llama-3.2-vision super-block are 11.3 GB in float32)."""
+    stacked = None
+    for i in range(n):
+        unit = draw()
+        if stacked is None:
+            stacked = tree_map(lambda a: a.new_empty((n, *a.shape)), unit)
+        for dst, src in zip(leaves(stacked), leaves(unit)):
+            dst[i] = src
+    return stacked
+
+
+def _vlm_unit_init(gen: torch.Generator, cfg: ModelConfig, n: int) -> dict:
+    """``n`` stacked vlm super-blocks: ``self``, dense units (n, per, ...),
+    and ``cross``, the cross-attention layer with its MLP and its two
+    scalar gates (n,), zero at init as the reference's (so the memory
+    reaches no output until training moves them)."""
+    per, d, dev = cfg.cross_attn_every, cfg.d_model, gen.device
+
+    def unit():
+        return {"self": _dense_unit_init(gen, cfg, per),
+                "cross": {"ln": rmsnorm_init((d,), cfg, dev),
+                          "attn": attn.attention_init(gen, cfg, d_kv_in=d),
+                          "gate": torch.zeros((), dtype=cfg.param_dtype,
+                                              device=dev),
+                          "ln2": rmsnorm_init((d,), cfg, dev),
+                          "mlp": mlp_init(gen, cfg),
+                          "gate_mlp": torch.zeros((), dtype=cfg.param_dtype,
+                                                  device=dev)}}
+    return _stack_units(n, unit)
+
+
+def _enc_unit_init(gen: torch.Generator, cfg: ModelConfig, n: int) -> dict:
+    """``n`` stacked encoder units: dense units, run non-causal."""
+    return _dense_unit_init(gen, cfg, n)
+
+
+def _dec_unit_init(gen: torch.Generator, cfg: ModelConfig, n: int) -> dict:
+    """``n`` stacked decoder units: causal self attention, cross attention
+    over the encoder's output, MLP, each after its norm."""
+    d, dev = cfg.d_model, gen.device
+    return {"ln1": rmsnorm_init((n, d), cfg, dev),
+            "self_attn": attn.attention_init(gen, cfg, lead=(n,)),
+            "ln2": rmsnorm_init((n, d), cfg, dev),
+            "cross_attn": attn.attention_init(gen, cfg, lead=(n,), d_kv_in=d),
+            "ln3": rmsnorm_init((n, d), cfg, dev),
+            "mlp": mlp_init(gen, cfg, lead=(n,))}
+
+
+def sinusoidal_positions(t: int, d: int, dtype, device="cpu") -> torch.Tensor:
+    """Whisper's (T, D) positions in float32, cast to ``dtype``: sines in
+    the even columns, cosines in the odd. An odd ``d`` past 1 raises, as
+    the reference's does (its cosines have one column too many)."""
+    if d % 2 and d > 1:
+        raise ValueError(f"sinusoidal positions need an even width, got {d}")
+    pos = torch.arange(t, dtype=torch.float32, device=device)[:, None]
+    # the reference's float32 scalar -log(10000) / d
+    step = -torch.log(torch.tensor(10000.0, device=device)) / d
+    div = torch.exp(torch.arange(0, d, 2, dtype=torch.float32,
+                                 device=device) * step)
+    pe = torch.zeros((t, d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div[:d // 2])
+    return pe.to(dtype)
+
+
+def _gated(gate: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """tanh(gate) in float32, cast to h's dtype, times h."""
+    return torch.tanh(gate.float()).to(h.dtype) * h
+
+
+def _cross_apply(cr: dict, x: torch.Tensor, mkv: dict,
+                 cfg: ModelConfig) -> torch.Tensor:
+    """A vlm super-block's cross layer: gated cross attention over the
+    memory's K and V, then its gated MLP, each a residual."""
+    x = x + _gated(cr["gate"], attn.attn_cross(cr["attn"],
+                                               rmsnorm(cr["ln"], x), mkv, cfg))
+    return x + _gated(cr["gate_mlp"],
+                      mlp_apply(cr["mlp"], rmsnorm(cr["ln2"], x), cfg))
+
+
+def _vlm_unit_train(p: dict, x: torch.Tensor, memory: torch.Tensor,
+                    cfg: ModelConfig) -> torch.Tensor:
+    """One vlm super-block over a full sequence (training): its self
+    layers, causal with no window, then the cross layer over ``memory``'s
+    K and V."""
+    for ps in _units(p["self"], cfg.cross_attn_every):
+        x = _dense_unit_train(ps, x, cfg, None, cfg.rope_theta)
+    mkv = attn.cross_kv(p["cross"]["attn"], memory, cfg)
+    return _cross_apply(p["cross"], x, mkv, cfg)
+
+
+def _dec_unit_apply(p: dict, x: torch.Tensor, mkv: dict, cfg: ModelConfig):
+    """One decoder unit over a full sequence; returns (x, k, v), the K and
+    V its self attention used."""
+    h, k, v = attn.attn_full_kv(p["self_attn"], rmsnorm(p["ln1"], x), cfg,
+                                causal=True, theta=cfg.rope_theta)
+    return _dec_tail(p, x + h, mkv, cfg), k, v
+
+
+def _dec_tail(p: dict, x: torch.Tensor, mkv: dict,
+              cfg: ModelConfig) -> torch.Tensor:
+    """A decoder unit after its self attention: cross attention, MLP."""
+    x = x + attn.attn_cross(p["cross_attn"], rmsnorm(p["ln2"], x), mkv, cfg)
+    return x + mlp_apply(p["mlp"], rmsnorm(p["ln3"], x), cfg)
+
+
+def _dec_unit_train(p: dict, x: torch.Tensor, memory: torch.Tensor,
+                    cfg: ModelConfig) -> torch.Tensor:
+    """One decoder unit over a full sequence (training), its cross K and
+    V from ``memory``."""
+    mkv = attn.cross_kv(p["cross_attn"], memory, cfg)
+    return _dec_unit_apply(p, x, mkv, cfg)[0]
+
+
+def _cross_state(cfg: ModelConfig, n: int, batch: int, s: int,
+                 device) -> dict:
+    """Zeroed cross K and V of ``n`` layers over a memory of ``s`` tokens:
+    (n, B, S, Hkv, Dh) each in ``cfg.dtype``."""
+    shape = (n, batch, s, cfg.n_kv_heads, cfg.head_dim)
+    return {"cross_k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "cross_v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+
+
+def _vlm_state(cfg: ModelConfig, n: int, batch: int, cache_len: int,
+               s: int, device) -> dict:
+    """A vlm group's zeroed state: its self layers' caches (n, per, ...)
+    and its cross layers' K and V."""
+    c = attn.make_cache(cfg, n * cfg.cross_attn_every, batch, cache_len,
+                        device)
+    c = {name: a.unflatten(0, (n, cfg.cross_attn_every))
+         for name, a in c.items()}
+    return {**c, **_cross_state(cfg, n, batch, s, device)}
+
+
+def _dec_state(cfg: ModelConfig, n: int, batch: int, cache_len: int,
+               s: int, device) -> dict:
+    return {**attn.make_cache(cfg, n, batch, cache_len, device),
+            **_cross_state(cfg, n, batch, s, device)}
+
+
 _UNIT_INIT = {"dense": _dense_unit_init, "moe": _moe_unit_init,
               "ssd": _ssd_unit_init, "rec": _rec_unit_init,
-              "griffin": _griffin_unit_init}
+              "griffin": _griffin_unit_init, "vlm": _vlm_unit_init,
+              "enc": _enc_unit_init, "dec": _dec_unit_init}
+CROSS = ("vlm", "dec")  # kinds that attend over a memory
 # a recurrent unit over a full sequence, its output alone (training)
 _UNIT_TRAIN = {"ssd": _ssd_unit_apply, "rec": _rec_unit_apply,
                "griffin": _griffin_unit_train}
@@ -343,8 +500,8 @@ def _units(tree, n: int) -> list:
 
 
 class LM:
-    """Model wrapper for one ModelConfig (the dense, moe, ssd, rec and
-    griffin group kinds)."""
+    """Model wrapper for one ModelConfig (the dense, moe, ssd, rec,
+    griffin, vlm and dec group kinds, and whisper's encoder)."""
 
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
@@ -365,14 +522,22 @@ class LM:
 
     # -- init ----------------------------------------------------------------
     def init(self, gen: torch.Generator) -> dict:
-        """Random parameters on the generator's device, drawn from it."""
-        cfg = self.cfg
+        """Random parameters on the generator's device, drawn from it in
+        the reference's order: the embedding, the untied head, the vision
+        projection, the encoder, the groups."""
+        cfg, dev = self.cfg, gen.device
         params: dict = {"embed": embedding_init(gen, cfg),
-                        "final_norm": rmsnorm_init((cfg.d_model,), cfg,
-                                                   gen.device)}
+                        "final_norm": rmsnorm_init((cfg.d_model,), cfg, dev)}
         if not cfg.tied_embeddings:
             params["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab),
                                            cfg.d_model, cfg.param_dtype)
+        if cfg.family == "vlm":
+            params["vision_proj"] = dense_init(
+                gen, (cfg.vision_dim, cfg.d_model), cfg.vision_dim,
+                cfg.param_dtype)
+        if cfg.family == "audio":
+            params["encoder"] = _enc_unit_init(gen, cfg, cfg.encoder_layers)
+            params["enc_final_norm"] = rmsnorm_init((cfg.d_model,), cfg, dev)
         for gi, g in enumerate(self.groups):
             params[f"group{gi}"] = _UNIT_INIT[g.kind](gen, cfg, g.n)
         return params
@@ -381,10 +546,41 @@ class LM:
         return (params["lm_head"].T if "lm_head" in params
                 else params["embed"]["table"])
 
+    # -- the memory of the non-token modality -----------------------------------
+    def _encode_audio(self, params: dict, frames: torch.Tensor) -> torch.Tensor:
+        """Whisper's encoder over frame embeddings (B, S, D): sinusoidal
+        positions added, then its units, non-causal, each with rope at
+        ``cfg.rope_theta`` (the reference's ``theta=None`` falls back to
+        it: ROADMAP section 3, record 5), then the final norm. No unit is
+        recomputed in the backward, as in the reference."""
+        cfg = self.cfg
+        x = frames + sinusoidal_positions(frames.shape[1], cfg.d_model,
+                                          frames.dtype, frames.device)
+        for p in _units(params["encoder"], cfg.encoder_layers):
+            x = _dense_unit_apply(p, x, cfg, window=None, theta=None,
+                                  causal=False)[0]
+        return rmsnorm(params["enc_final_norm"], x)
+
+    def _inject_memory(self, params: dict, batch: dict):
+        """The memory a cross-attention group attends over, from the batch:
+        the vlm's ``batch["vision"]`` (B, vision_tokens, vision_dim) cast
+        to ``cfg.dtype`` and projected by ``vision_proj``, whisper's
+        encoder over ``batch["audio_frames"]`` (B, audio_frames, d_model)
+        cast to ``cfg.dtype``; None for the other families."""
+        cfg = self.cfg
+        if cfg.family == "vlm":
+            return batch["vision"].to(cfg.dtype) @ params["vision_proj"]
+        if cfg.family == "audio":
+            return self._encode_audio(params,
+                                      batch["audio_frames"].to(cfg.dtype))
+        return None
+
     # -- full-sequence forward ------------------------------------------------
     def _backbone(self, params: dict, x: torch.Tensor, *,
+                  memory: "torch.Tensor | None" = None,
                   cache_len: "int | None" = None):
-        """Run all groups over full sequences. Returns (features, the moe
+        """Run all groups over full sequences, a vlm or dec group attending
+        over ``memory`` (``_inject_memory``). Returns (features, the moe
         layers' auxiliary losses summed in float32 in layer order, the
         decode state of each group, its KV caches with ``cache_len``
         slots); with ``cache_len`` None no state is built (training,
@@ -394,27 +590,38 @@ class LM:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for gi, g in enumerate(self.groups):
             gp = params[f"group{gi}"]
+            if g.kind in CROSS and memory is None:
+                raise ValueError(
+                    f"{self.cfg.arch_id}: the {g.kind!r} group attends over a "
+                    f"memory; pass the batch's "
+                    f"{'vision' if g.kind == 'vlm' else 'audio_frames'} "
+                    f"through loss or prefill")
             if cache_len is None:
-                x, aux = self._run_group_train(g, gp, x, aux)
+                x, aux = self._run_group_train(g, gp, x, aux, memory)
             else:
-                x, cache = self._run_group_full(g, gp, x, cache_len=cache_len)
+                x, cache = self._run_group_full(g, gp, x, memory,
+                                                cache_len=cache_len)
                 caches.append(cache)
         return (rmsnorm(params["final_norm"], x), aux,
                 None if cache_len is None else caches)
 
     def _run_group_train(self, g: GroupSpec, gp: dict, x: torch.Tensor,
-                         aux: torch.Tensor):
+                         aux: torch.Tensor, memory=None):
         """The group's units without caches: (x, ``aux`` plus each moe
         unit's aux in turn). With ``cfg.remat`` and autograd recording,
         each unit keeps only its input for the backward and runs again
-        there (the reference's per-unit ``jax.checkpoint``; a griffin
-        super-block is one unit), so its attention's forward kernel
-        launches twice in a training step."""
+        there (the reference's per-unit ``jax.checkpoint``; a griffin or
+        vlm super-block is one unit, a vlm or dec unit's cross K and V are
+        recomputed with it), so its attention's forward kernel launches
+        twice in a training step."""
         remat = self.cfg.remat and torch.is_grad_enabled()
         for i, p in enumerate(_units(gp, g.n)):
             if g.kind in ("dense", "moe"):
                 fn = _dense_unit_train if g.kind == "dense" else _moe_unit_train
                 args = (p, x, self.cfg, g.windows[i], g.thetas[i])
+            elif g.kind in CROSS:
+                fn = _vlm_unit_train if g.kind == "vlm" else _dec_unit_train
+                args = (p, x, memory, self.cfg)
             else:
                 fn, args = _UNIT_TRAIN[g.kind], (p, x, self.cfg)
             x = (checkpoint(fn, *args, use_reentrant=False) if remat
@@ -424,11 +631,11 @@ class LM:
                 aux = aux + unit_aux
         return x, aux
 
-    def _run_group_full(self, g: GroupSpec, gp: dict, x: torch.Tensor, *,
-                        cache_len: int):
+    def _run_group_full(self, g: GroupSpec, gp: dict, x: torch.Tensor,
+                        memory=None, *, cache_len: int):
         b, t, _ = x.shape
         cfg, dev = self.cfg, x.device
-        if g.kind in ("dense", "moe", "griffin") and cache_len < t:
+        if g.kind in ("dense", "moe", "griffin", *CROSS) and cache_len < t:
             raise ValueError(f"cache_len {cache_len} < prompt length {t}")
         if g.kind == "ssd":
             cache = ssd_mod.make_ssd_state(cfg, g.n, b, dev)
@@ -442,6 +649,8 @@ class LM:
                 x, cache["h"][i], cache["conv"][i] = _rec_unit_apply(
                     _layer(gp, i), x, cfg, want_state=True)
             return x, cache
+        if g.kind in CROSS:
+            return self._run_cross_full(g, gp, x, memory, cache_len)
         if g.kind == "griffin":
             cache = _griffin_state(cfg, g.n, b, cache_len, dev)
         else:
@@ -463,16 +672,48 @@ class LM:
             cache["v"][i, :, :t] = v
         return x, cache
 
+    def _run_cross_full(self, g: GroupSpec, gp: dict, x: torch.Tensor,
+                        memory: torch.Tensor, cache_len: int):
+        """A vlm or dec group over a full sequence: (x, its state), the
+        self layers' K and V in the caches' first T slots and each cross
+        layer's K and V of ``memory``."""
+        b, t, _ = x.shape
+        cfg, dev, s = self.cfg, x.device, memory.shape[1]
+        make = _vlm_state if g.kind == "vlm" else _dec_state
+        cache = make(cfg, g.n, b, cache_len, s, dev)
+        cache["pos"][..., :t] = torch.arange(t, dtype=torch.int32, device=dev)
+        for i in range(g.n):
+            p = _layer(gp, i)
+            if g.kind == "vlm":
+                for j in range(cfg.cross_attn_every):
+                    x, k, v = _dense_unit_apply(_layer(p["self"], j), x, cfg,
+                                                window=None,
+                                                theta=cfg.rope_theta)
+                    cache["k"][i, j, :, :t] = k
+                    cache["v"][i, j, :, :t] = v
+                mkv = attn.cross_kv(p["cross"]["attn"], memory, cfg)
+                x = _cross_apply(p["cross"], x, mkv, cfg)
+            else:
+                mkv = attn.cross_kv(p["cross_attn"], memory, cfg)
+                x, k, v = _dec_unit_apply(p, x, mkv, cfg)
+                cache["k"][i, :, :t] = k
+                cache["v"][i, :, :t] = v
+            cache["cross_k"][i] = mkv["k"]
+            cache["cross_v"][i] = mkv["v"]
+        return x, cache
+
     # -- training loss --------------------------------------------------------
     def loss(self, params: dict, batch: dict):
         """batch {"inputs", "labels": (B, T) token ids, optional "mask"
-        (B, T)} -> (total, {"ce", "aux"}): the next-token CE in float32
+        (B, T), and the vlm's "vision" or whisper's "audio_frames"} ->
+        (total, {"ce", "aux"}): the next-token CE in float32
         (``chunked_cross_entropy`` when ``cfg.logits_chunk`` is set), and
         the auxiliary loss, the float32 sum of the moe layers' Switch
         losses (0 without a moe group); total = ce + 0.01 aux."""
         cfg = self.cfg
+        memory = self._inject_memory(params, batch)
         x = embed(params["embed"], batch["inputs"], cfg)
-        feats, aux, _ = self._backbone(params, x)
+        feats, aux, _ = self._backbone(params, x, memory=memory)
         labels = batch["labels"]
         mask = batch.get("mask")
         table = self._table(params)
@@ -486,14 +727,17 @@ class LM:
     # -- prefill --------------------------------------------------------------
     def prefill(self, params: dict, batch: dict, *,
                 cache_len: "int | None" = None):
-        """batch {"inputs": (B, T) token ids} -> (last-position logits
-        (B, vocab), decode state with KV caches of ``cache_len`` slots).
-        An ``ssd`` group needs T to be at most ``cfg.ssm_chunk`` or a
-        multiple of it (``ssd_scan``)."""
+        """batch {"inputs": (B, T) token ids, and the vlm's "vision" or
+        whisper's "audio_frames"} -> (last-position logits (B, vocab),
+        decode state with KV caches of ``cache_len`` slots). An ``ssd``
+        group needs T to be at most ``cfg.ssm_chunk`` or a multiple of it
+        (``ssd_scan``)."""
         tokens = batch["inputs"]
         t = tokens.shape[1]
+        memory = self._inject_memory(params, batch)
         x = embed(params["embed"], tokens, self.cfg)
-        feats, _, caches = self._backbone(params, x, cache_len=cache_len or t)
+        feats, _, caches = self._backbone(params, x, memory=memory,
+                                          cache_len=cache_len or t)
         logits = unembed(self._table(params), feats[:, -1:, :])
         state = {"groups": caches,
                  "index": torch.tensor(t, dtype=torch.int32,
@@ -512,6 +756,12 @@ class LM:
                 states.append(_rec_state(cfg, g.n, batch, dev))
             elif g.kind == "griffin":
                 states.append(_griffin_state(cfg, g.n, batch, cache_len, dev))
+            elif g.kind == "vlm":
+                states.append(_vlm_state(cfg, g.n, batch, cache_len,
+                                         cfg.vision_tokens, dev))
+            elif g.kind == "dec":
+                states.append(_dec_state(cfg, g.n, batch, cache_len,
+                                         cfg.audio_frames, dev))
             else:
                 states.append(attn.make_cache(cfg, g.n, batch, cache_len, dev))
         index = cache_len if index is None else index
@@ -523,7 +773,8 @@ class LM:
     def decode_step(self, params: dict, state: dict, tokens: torch.Tensor):
         """tokens (B, 1) -> (logits (B, vocab), new state). The caches and
         recurrent states of ``state`` are updated in place and carried
-        into the new state; its index is ``state["index"] + 1``."""
+        into the new state; its index is ``state["index"] + 1``. A cross
+        layer reads its K and V from the state."""
         cfg = self.cfg
         index = state["index"]
         x = embed(params["embed"], tokens, cfg)
@@ -547,6 +798,21 @@ class LM:
                     x, _ = _dense_unit_decode(
                         p["attn"], x, _layer(gc, i), index, cfg,
                         window=cfg.window, theta=cfg.rope_theta)
+                elif g.kind == "vlm":
+                    for j in range(cfg.cross_attn_every):
+                        self_cache = {name: gc[name][i, j]
+                                      for name in ("k", "v", "pos")}
+                        x, _ = _dense_unit_decode(
+                            _layer(p["self"], j), x, self_cache, index, cfg,
+                            window=None, theta=cfg.rope_theta)
+                    mkv = {"k": gc["cross_k"][i], "v": gc["cross_v"][i]}
+                    x = _cross_apply(p["cross"], x, mkv, cfg)
+                elif g.kind == "dec":
+                    h, _ = attn.attn_decode(
+                        p["self_attn"], rmsnorm(p["ln1"], x), _layer(gc, i),
+                        index, cfg, theta=cfg.rope_theta)
+                    mkv = {"k": gc["cross_k"][i], "v": gc["cross_v"][i]}
+                    x = _dec_tail(p, x + h, mkv, cfg)
                 else:
                     unit = (_dense_unit_decode if g.kind == "dense"
                             else _moe_unit_decode)

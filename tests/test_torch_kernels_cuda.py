@@ -372,6 +372,8 @@ FLASH_CASES = [
     (64, 200, 8, 2, 64, True, 16, 300, 64),
     (2048, 2048, 16, 2, 128, True, 512, 0, 1024),
     (2048, 2048, 8, 2, 256, True, 128, 0, 1024),
+    # whisper's encoder: non-causal over 1500 frames, a ragged last tile
+    (1500, 1500, 6, 6, 64, False, None, 0, 1024),
     # causal rows of up to 4096 and 8192 keys
     (4096, 4096, 4, 1, 64, True, None, 0, 1024),
     (8192, 8192, 4, 1, 64, True, None, 0, 1024),
@@ -486,7 +488,9 @@ FLASH_BWD_CASES = [(64, 4, 4, 64, True, None), (100, 8, 2, 64, True, None),
                    (50, 4, 2, 64, False, 16), (2048, 32, 4, 64, True, None),
                    (2048, 4, 1, 256, True, 512), (3, 2, 1, 8, True, None),
                    (200, 8, 4, 72, True, 100),
-                   (2048, 16, 2, 128, True, None)]
+                   (2048, 16, 2, 128, True, None),
+                   # whisper's encoder: non-causal over 1500 frames
+                   (1500, 6, 6, 64, False, None)]
 FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 

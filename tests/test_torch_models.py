@@ -214,9 +214,7 @@ def test_init_draws_the_reference_distributions():
 
 
 def test_later_families_and_loss_raise():
-    for arch, kind, item in (("llama-3.2-vision-90b", "vlm", 1),
-                             ("whisper-tiny", "dec", 1),
-                             ("gemma3-1b@rightsized", "dense_sb", 2)):
+    for arch, kind, item in (("gemma3-1b@rightsized", "dense_sb", 1),):
         with pytest.raises(NotImplementedError,
                            match=f"'{kind}'.*ROADMAP queue 1, item {item} "):
             tlm.LM(get_config(arch).reduced())
