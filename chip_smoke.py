@@ -157,7 +157,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                 (windows 32 and 2048), D 8 and 112, non-causal (whisper's
                 encoder among them: (1500, 6, 6, 64), a ragged last key
                 tile), q_offset with a window, rows with no key, causal
-                rows of up to 4096 and 8192 keys (D 64, 128); then head
+                rows of up to 4096 and 8192 keys (D 64, 128), gemma3-4b's
+                (8192, 8, 4, 256) with window 1024 and causal; then head
                 dims that are
                 not a multiple of 8 (D 12, 13, 200 in float32; D 12, 13 in
                 bfloat16, which TMA cannot stride) through the tf32x3
@@ -247,13 +248,39 @@ Phases, in order; any failure raises and the script exits non-zero:
                 vision model at 5 layers on 1 x 2048 (8 + 4); CE and every
                 gradient (the gates' among them) within phase 13's
                 tolerances of the plain versions', peak memory, ms
+ 11e. rightsized — gemma3-1b@rightsized (4 dense_sb super-blocks of 5
+                local layers with rings of 512 slots and a global one, and
+                a remainder of 2 local layers with rings) and
+                gemma3-4b@rightsized (5 super-blocks, rings of 1024, a
+                remainder of 4) whole in bf16, random weights from seed 0,
+                through ServingEngine at their published contexts (cache
+                32,768 and 131,072): serve's 8 requests and one of 32,768
+                tokens, each prompt prefilled whole; launches 26 / 34 sm90
+                a prefill, none in decode; the decode state's bytes
+                beside the uniform caches' (from shapes), peak memory,
+                tokens/s, decode at batch 4 near the context's end with
+                its profile and the caches' float32 upcast timed alone,
+                prefill ms at 128 to 32,768 tokens with a profile of the
+                longest; the 2048-token prefill's logits through the
+                kernels within 4 bf16 ulps of the plain versions'. One
+                LM.loss forward and backward each at 1 x 4096 tokens with
+                remat (52 + 26 and 68 + 34 launches), CE and gradients
+                within phase 13's tolerances. Right-sized against uniform
+                on the same weights (gemma3-1b whole, a 1000-token prompt,
+                cache 4096): prefill logits bit-equal, 64 decode steps
+                within 2e-2 of max |logit|. The float32 twin (gemma3-1b
+                whole, TF32 off; serve's 8 prompts, 32 new tokens each):
+                the engine's tokens equal each request's isolated
+                generation (phase 11's steps)
  12. flash times — the tensor-core kernel, its plain version and
                 F.scaled_dot_product_attention at (1, 2048, 32, 4, 64)
                 causal, (1, 2048, 4, 1, 256) window 512, (1, 2048, 64,
                 8, 128) causal, (1, 2048, 10, 1, 256) window 2048, and
                 arctic's (1, 2048, 56, 8, 128) and kimi-k2's (1, 2048, 64,
                 8, 112) causal, whisper's encoder (1, 1500, 6, 6, 64)
-                non-causal (its bound counts all T^2 pairs), bf16, beside
+                non-causal (its bound counts all T^2 pairs), gemma3-4b's
+                (1, 2048, 8, 4, 256) window 1024 and (1, 32768, 8, 4, 256)
+                causal (SDPA on K and V repeated to every head), bf16, beside
                 the bound; the tf32x3 kernel at the first three shapes and
                 whisper's in float32, beside its bound (three
                 times the operations at the 494.7 TFLOP/s dense TF32 tensor
@@ -270,9 +297,12 @@ Phases, in order; any failure raises and the script exits non-zero:
                 (1, 2048, 10, 1, 256) window 2048, (1, 1024, 8, 2, 60),
                 arctic's (1, 2048, 56, 8, 128) and kimi-k2's (1, 2048, 64,
                 8, 112) causal, whisper's encoder (1, 1500, 6, 6, 64)
-                non-causal, in bfloat16 (<= 2e-2 of each gradient's max
+                non-causal, gemma3-4b's (1, 2048, 8, 4, 256) window 1024,
+                in bfloat16 (<= 2e-2 of each gradient's max
                 |value|; D 64, 128 and 256 on sm90, D 60 on tf32x3) and
-                float32 (<= 1e-4, tf32x3), each launch counted on its route,
+                float32 (<= 1e-4, tf32x3), and gemma3-4b's (1, 32768, 8,
+                4, 256) causal in bfloat16 (the plain version by blocks of
+                2048 queries), each launch counted on its route,
                 a second call bit-equal, a failing sm90 and tf32x3 entry
                 point raising with nothing launched, the forward's output
                 bit-equal with
@@ -2997,6 +3027,9 @@ FLASH_EXTRA = [  # (tq, tk, H, Hkv, D, causal, window, q_offset, block_k)
     (4096, 4096, 4, 1, 64, True, None, 0, 1024),  # rows of up to 8192 keys
     (8192, 8192, 4, 1, 64, True, None, 0, 1024),
     (8192, 8192, 4, 1, 128, True, None, 0, 1024),
+    # gemma3-4b's heads at 8192 keys: its local window and causal
+    (8192, 8192, 8, 4, 256, True, 1024, 0, 1024),
+    (8192, 8192, 8, 4, 256, True, None, 0, 1024),
 ]
 # head dims that are not a multiple of 8, in both dtypes: the tf32x3
 # kernel (bf16 D 200 would take the sm90 kernel and is left out)
@@ -3079,7 +3112,7 @@ BF16_ULPS = 4  # bf16 prefill logits: kernel vs plain within 4 ulps of max|logit
 F32_LOGIT_TOL = 1e-3
 
 
-def _serve_requests(vocab: int):
+def _serve_requests(vocab: int, new_tokens: "int | None" = None):
     import numpy as np
     from repro_torch.serving import Request
 
@@ -3088,7 +3121,7 @@ def _serve_requests(vocab: int):
                            SERVE["requests"])
     return [Request(uid=i, prompt=[int(t) for t in
                                    rng.integers(0, vocab, int(n))],
-                    max_new_tokens=SERVE["new_tokens"])
+                    max_new_tokens=new_tokens or SERVE["new_tokens"])
             for i, n in enumerate(lengths)]
 
 
@@ -3116,7 +3149,8 @@ def _serve_model(dtype, arch=SERVE["arch"], n_layers=None, **cuts):
 
 def _cut_list(cfg) -> list:
     """How ``cfg`` was cut from its published config: each field that
-    differs (the dtypes aside), as "field published -> run"."""
+    differs (the dtypes and the cache mode, a variant, aside), as "field
+    published -> run"."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -3124,16 +3158,16 @@ def _cut_list(cfg) -> list:
     full = get_config(cfg.arch_id)
     return [f"{f.name} {getattr(full, f.name)} -> {getattr(cfg, f.name)}"
             for f in dataclasses.fields(cfg)
-            if f.name not in ("dtype", "param_dtype")
+            if f.name not in ("dtype", "param_dtype", "cache_mode")
             and getattr(full, f.name) != getattr(cfg, f.name)]
 
 
-def _run_engine(model, params, reqs) -> dict:
+def _run_engine(model, params, reqs, cache_len=SERVE["cache_len"]) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.serving import ServingEngine
 
     engine = ServingEngine(model, params, max_batch=SERVE["max_batch"],
-                           cache_len=SERVE["cache_len"])
+                           cache_len=cache_len)
     for r in reqs:
         engine.submit(r)
     torch.cuda.synchronize()
@@ -3312,9 +3346,12 @@ def _prefill_profile(model, params, tokens) -> dict:
 
 def _attn_layers(model) -> int:
     """Layers whose attention launches the flash kernel in a prefill: every
-    dense and moe layer, one a griffin super-block; none in mamba2."""
-    return sum(g.n for g in model.groups
-               if g.kind in ("dense", "moe", "griffin"))
+    dense and moe layer, one a griffin super-block, local_per_global + 1 a
+    dense_sb super-block; none in mamba2."""
+    per = model.cfg.local_per_global
+    return sum(g.n * (per + 1 if g.kind == "dense_sb" else 1)
+               for g in model.groups
+               if g.kind in ("dense", "dense_sb", "moe", "griffin"))
 
 
 def _flash_want(n: int, route: str) -> dict:
@@ -3350,9 +3387,10 @@ def _serve_bf16(arch: str, tag: str, seed: int, n_layers=None) -> dict:
         run = _run_engine(model, params, reqs)
         engine = run.pop("engine")
         peak = torch.cuda.max_memory_allocated()
-        # a dense model's prompt is padded to its bucket; a recurrent one's
-        # is not, its chunk-multiple prefix is prefilled
-        prefilled = [engine._exact_prefix(len(r.prompt)) if model.recurrent
+        # a dense model's prompt is padded to its bucket; a recurrent or
+        # right-sized one's is not, its chunk-multiple prefix is prefilled
+        prefilled = [engine._exact_prefix(len(r.prompt))
+                     if model.exact_prefill
                      else min(_bucket(len(r.prompt)), SERVE["cache_len"])
                      for r in reqs]
         want = {op: 0 for op in run["launches"]}
@@ -3521,14 +3559,16 @@ def _one_slot_generate(model, params, prompt, n_new):
     return req.generated, margins
 
 
-def _serve_f32(arch: str, tag: str, n_layers=None, **cuts) -> dict:
+def _serve_f32(arch: str, tag: str, n_layers=None, *,
+               new_tokens: "int | None" = None, **cuts) -> dict:
     """The model in float32 (TF32 off; depth cut to ``n_layers`` and any
-    other field to ``cuts`` where given): the engine's tokens equal each
-    request's oracle, token for token (its isolated prefill + greedy
-    decode; for a moe model, the request alone through a one-slot engine,
-    ``_one_slot_generate``); the 2048-token prefill's logits through the
-    tf32x3 kernel against the plain version (``_hold_kernel_in_prefill``),
-    its ms and its profile."""
+    other field to ``cuts`` where given; SERVE's requests, each of
+    ``new_tokens`` new tokens, SERVE's where None): the engine's tokens
+    equal each request's oracle, token for token (its isolated prefill +
+    greedy decode; for a moe model, the request alone through a one-slot
+    engine, ``_one_slot_generate``); the 2048-token prefill's logits
+    through the tf32x3 kernel against the plain version
+    (``_hold_kernel_in_prefill``), its ms and its profile."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = _card()
@@ -3542,7 +3582,8 @@ def _serve_f32(arch: str, tag: str, n_layers=None, **cuts) -> dict:
                                  "greedy decode"))
     with torch.no_grad():
         torch.cuda.reset_peak_memory_stats()
-        reqs = _serve_requests(cfg.vocab)
+        reqs = _serve_requests(cfg.vocab, new_tokens)
+        new_tokens = reqs[0].max_new_tokens
         run = _run_engine(model, params, reqs)
         run.pop("engine")
         peak = torch.cuda.max_memory_allocated()
@@ -3577,7 +3618,7 @@ def _serve_f32(arch: str, tag: str, n_layers=None, **cuts) -> dict:
     log(f"[{tag}] {arch} at {cfg.n_layers} layers "
         f"{[(g.kind, g.n) for g in model.groups]}, cut "
         f"{_cut_list(cfg) or 'none'}: {len(reqs)} requests x "
-        f"{SERVE['new_tokens']} tokens: engine == {oracle_name}, token for "
+        f"{new_tokens} tokens: engine == {oracle_name}, token for "
         f"token (smallest top-2 margin {min_margin:.3e}); "
         f"engine {run['tokens_per_s']:.1f} tokens/s in {run['wall_s']:.3f} "
         f"s; launches { {k: v for k, v in got.items() if v} }; 2048-token "
@@ -3621,11 +3662,13 @@ RECURRENT = dict(archs=("mamba2-780m", "recurrentgemma-2b"),
                  loss_batch=1, loss_seq=2048, seed=0)
 
 
-def _recurrent_loss(arch: str) -> dict:
+def _recurrent_loss(arch: str, spec: dict = RECURRENT,
+                    tag: str = "recurrent loss", card: str = "") -> dict:
     """One LM.loss forward and backward at full width and depth, bf16,
-    remat on, batch 1 x 2048 from FastLMStream: recurrentgemma's CE and
-    gradients through the kernels against the plain versions' (phase 13's
-    tolerances) with its launches counted; mamba2's finite; both timed."""
+    remat on, batch ``spec["loss_batch"]`` x ``spec["loss_seq"]`` from
+    FastLMStream: CE and gradients through the kernels against the plain
+    versions' (phase 13's tolerances) with the launches counted where the
+    model has attention (recurrentgemma, gemma3); mamba2's finite; timed."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -3642,9 +3685,9 @@ def _recurrent_loss(arch: str) -> dict:
     cfg = dataclasses.replace(get_config(arch), dtype=torch.bfloat16,
                               param_dtype=torch.bfloat16, remat=True)
     model = LM(cfg)
-    params = model.init(root_key(RECURRENT["seed"], device=dev))
-    b, t = RECURRENT["loss_batch"], RECURRENT["loss_seq"]
-    batch = next(iter(FastLMStream(cfg.vocab, t, b, seed=RECURRENT["seed"],
+    params = model.init(root_key(spec["seed"], device=dev))
+    b, t = spec["loss_batch"], spec["loss_seq"]
+    batch = next(iter(FastLMStream(cfg.vocab, t, b, seed=spec["seed"],
                                    device=dev).batches(1)))
     n_attn = _attn_layers(model)
     tol = TRAIN_TOL[torch.bfloat16]
@@ -3657,7 +3700,7 @@ def _recurrent_loss(arch: str) -> dict:
     peak = torch.cuda.max_memory_allocated()
     finite = bool(torch.isfinite(loss)) and all(
         bool(torch.isfinite(g).all()) for g in leaves(grads))
-    check(finite, f"recurrent loss {arch}: loss or a gradient not finite")
+    check(finite, f"{tag} {arch}: loss or a gradient not finite")
     route = kflash.flash_bwd_route(torch.bfloat16, cfg.head_dim)
     splits = _bwd_splits(route, b, t, cfg.n_heads, cfg.n_kv_heads,
                          cfg.head_dim) if n_attn else 1
@@ -3670,9 +3713,9 @@ def _recurrent_loss(arch: str) -> dict:
                          n_attn * (splits > 1),
                      **{f"flash_attention_bwd_{k}": n_attn
                         for k in BWD_ROUTE_KERNELS[route]}})
-    check(counts == want, f"recurrent loss {arch}: launches {counts} != "
-          f"{want} (remat: the forward twice a griffin layer, the "
-          f"backward once)")
+    check(counts == want, f"{tag} {arch}: launches {counts} != {want} "
+          f"(remat: the forward twice an attention layer, the backward "
+          f"once)")
     del grads
     out = {"arch": arch, "batch": b, "seq": t, "loss": float(loss),
            "launches": counts, "peak_memory_bytes": peak, "splits": splits}
@@ -3681,10 +3724,10 @@ def _recurrent_loss(arch: str) -> dict:
         ce_err = abs(out["step0"]["loss"] - out["step0"]["loss_plain"]) / abs(
             out["step0"]["loss_plain"])
         out["ce_rel_err"] = ce_err
-        check(ce_err <= tol["ce"], f"recurrent loss {arch}: CE through the "
+        check(ce_err <= tol["ce"], f"{tag} {arch}: CE through the "
               f"kernels differs from the plain versions' by {ce_err:.3e}")
         check(out["step0"]["grad_rel_norm_err"] <= tol["grad"],
-              f"recurrent loss {arch}: gradients differ from the plain "
+              f"{tag} {arch}: gradients differ from the plain "
               f"versions' by {out['step0']['grad_rel_norm_err']:.3e} "
               f"(relative norm, worst leaf) > {tol['grad']}")
     torch.cuda.empty_cache()
@@ -3695,12 +3738,13 @@ def _recurrent_loss(arch: str) -> dict:
              f"{out['step0']['grad_rel_norm_err']:.2e} over "
              f"{out['step0']['leaves']} leaves (tol {tol['grad']})"
              if n_attn else "")
-    log(f"[recurrent loss] {arch} bf16 {cfg.n_layers} layers, remat, "
+    log(f"[{tag}] {arch} bf16 {cfg.n_layers} layers, remat, "
         f"{b} x {t} tokens: loss {float(loss):.5f}, gradients finite; "
         f"{sorted(ms)[1]:.2f} ms a forward and backward (median of 3, "
         f"{min(ms):.2f}..{max(ms):.2f}), {b * t / sorted(ms)[1] * 1e3:,.0f} "
         f"tokens/s; peak {peak / 2**30:.2f} GiB; launches "
-        f"{ {k: v for k, v in counts.items() if v} }{plain}")
+        f"{ {k: v for k, v in counts.items() if v} }{plain}"
+        + (f" ({card})" if card else ""))
     del params
     torch.cuda.empty_cache()
     return out
@@ -4426,6 +4470,297 @@ def phase_cross(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 11e. rightsized: gemma3-1b and gemma3-4b whole at their published contexts
+# ---------------------------------------------------------------------------
+
+RIGHTSIZED = dict(
+    archs=("gemma3-1b@rightsized", "gemma3-4b@rightsized"),
+    # the published contexts (Gemma 3 technical report, arXiv:2503.19786):
+    # the engine's cache_len, so each global layer keeps this many slots
+    context={"gemma3-1b@rightsized": 32_768, "gemma3-4b@rightsized": 131_072},
+    long_prompt=32_768,  # one request beside serve's 8
+    prefill=(128, 512, 2048, 8192, 32_768),
+    # right-sized against uniform on the same weights: a prompt past the
+    # 512-token window and decode steps, so the rings wrap in both
+    twin=dict(arch="gemma3-1b@rightsized", prompt=1000, cache_len=4096,
+              steps=64),
+    # the float32 twin's new tokens a request: its isolated generations
+    # step one token at a time (~90 ms each), and time is the cut
+    f32_new_tokens=32,
+    loss_batch=1, loss_seq=4096, seed=0)
+# right-sized against uniform decode logits in bf16, the largest |difference|
+# over max |logit| at each step: the rings hold the same keys as the uniform
+# caches in another slot order, so each attention sums in another order and
+# its bf16 output may round the other way
+RS_DECODE_TOL = 2e-2
+
+
+def _kv_leaves(tree) -> list:
+    """The ``k`` and ``v`` leaves of a decode state's groups (nested
+    dicts), the caches ``attn_decode`` upcasts."""
+    out = []
+    for name, sub in tree.items():
+        if isinstance(sub, dict):
+            out += _kv_leaves(sub)
+        elif name in ("k", "v"):
+            out.append(sub)
+    return out
+
+
+def _state_bytes(state: dict) -> int:
+    from repro_torch.tree import leaves
+
+    return sum(a.numel() * a.element_size()
+               for group in state["groups"] for a in leaves(group))
+
+
+def _uniform_twin(cfg, params):
+    """The uniform twin of a right-sized gemma3: (model, the parameters
+    restacked into one (L, ...) dense group in layer order: each
+    super-block's local units, its global unit, then the remainder)."""
+    from repro_torch.models.lm import LM
+    from repro_torch.tree import tree_map
+
+    sb = params["group0"]
+    rest = [params["group1"]] if "group1" in params else []
+
+    def restack(loc, glob, *tail):
+        return torch.cat([torch.cat([loc, glob[:, None]], 1).flatten(0, 1),
+                          *tail])
+    model = LM(dataclasses.replace(cfg, cache_mode="uniform"))
+    out = {name: a for name, a in params.items()
+           if not name.startswith("group")}
+    out["group0"] = tree_map(restack, sb["loc"], sb["glob"], *rest)
+    check([(g.kind, g.n) for g in model.groups] == [("dense", cfg.n_layers)],
+          f"uniform twin's groups {model.groups}")
+    return model, out
+
+
+def _rs_serve(arch: str, card: str, seed: int) -> dict:
+    """One right-sized gemma3 whole in bf16 (random weights from seed 0)
+    at its published context: serve's 8 requests and one of
+    ``long_prompt`` tokens through the engine (each prompt prefilled
+    unpadded), the launches, peak memory, the decode state's bytes beside
+    the uniform one's (from shapes), decode at batch 4 near the context's
+    end with its profile and the caches' float32 upcast (the cast and
+    the layout copy ``attn_decode``'s products read) timed alone,
+    prefill by length with a profile of the longest, and the 2048-token
+    prefill's logits through the kernels against the plain versions."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.lm import LM
+    from repro_torch.serving import Request
+
+    dev = _card()
+    torch.cuda.empty_cache()
+    context = RIGHTSIZED["context"][arch]
+    cfg, model, params, init_s = _serve_model(torch.bfloat16, arch)
+    n_attn = _attn_layers(model)
+    tag = f"[rightsized] {arch}"
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        warm = torch.randint(0, cfg.vocab, (1, 128), generator=gen, device=dev)
+        model.prefill(params, {"inputs": warm}, cache_len=256)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reqs = _serve_requests(cfg.vocab)
+        long = np.random.default_rng(seed).integers(0, cfg.vocab,
+                                                     RIGHTSIZED["long_prompt"])
+        reqs.append(Request(uid=len(reqs), prompt=[int(t) for t in long],
+                            max_new_tokens=SERVE["new_tokens"]))
+        run = _run_engine(model, params, reqs, cache_len=context)
+        engine = run.pop("engine")
+        peak = torch.cuda.max_memory_allocated()
+        want = {op: 0 for op in run["launches"]}
+        want.update(_flash_want(n_attn * len(reqs), "sm90"))
+        check(run["launches"] == want,
+              f"{tag}: launches {run['launches']} != {want} (one sm90 launch "
+              f"an attention layer a prefill, each prompt prefilled whole)")
+        check(all(len(r.generated) == SERVE["new_tokens"] for r in reqs),
+              f"{tag}: a request stopped short of max_new_tokens")
+        state_bytes = _state_bytes(engine.state)
+        uniform = LM(dataclasses.replace(cfg, cache_mode="uniform"))
+        uniform_bytes = _state_bytes(uniform.init_decode_state(
+            SERVE["max_batch"], context, device="meta"))
+
+        # decode at batch 4, every row near the end of the context
+        state = engine.state
+        state["index"] = torch.tensor(
+            [context - 64 - 1000 * i for i in range(SERVE["max_batch"])],
+            dtype=torch.int32, device=dev)
+        toks = torch.randint(0, cfg.vocab, (SERVE["max_batch"], 1),
+                             generator=gen, device=dev)
+        ops.reset_launch_counts()
+
+        def decode():
+            nonlocal state
+            _, state = model.decode_step(params, state, toks)
+        decode_ms = _bare_ms(decode, 10)
+        check(ops.launch_counts()["flash_attention"] == 0,
+              f"{tag}: decode launched the flash kernel")
+        decode_profile = _profile_steps(decode, 3)
+        kv = [a for group in state["groups"] for a in _kv_leaves(group)]
+
+        def upcast():
+            # attn_decode's copies of every cache a step: the float32 cast,
+            # then the (B, Hkv, S, Dh) layout its batched products read
+            for a in kv:
+                for layer in a.flatten(0, -5):
+                    layer.float().transpose(1, 2).contiguous()
+        upcast_ms = _time_ms(upcast, 5)
+        del engine, state, kv
+
+        prefill_ms = {}
+        for t in RIGHTSIZED["prefill"]:
+            tokens = torch.randint(0, cfg.vocab, (1, t), generator=gen,
+                                   device=dev)
+            ms = _bare_ms(lambda: model.prefill(
+                params, {"inputs": tokens}, cache_len=context), 3)
+            prefill_ms[t] = sorted(ms)[1]
+        long_t = RIGHTSIZED["prefill"][-1]
+        prefill_profile = _profile_call(lambda: model.prefill(
+            params, {"inputs": tokens}, cache_len=context))
+
+        tokens = torch.randint(0, cfg.vocab, (1, 2048), generator=gen,
+                               device=dev)
+        ops.reset_launch_counts()
+        got, routes = _prefill_routed(model, params, tokens)
+        check(ops.launch_counts() == {**want, **_flash_want(n_attn, "sm90")},
+              f"{tag}: a 2048-token prefill launched {ops.launch_counts()}")
+        check(got.shape == (1, cfg.vocab) and bool(torch.isfinite(got).all()),
+              f"{tag}: prefill logits not finite or misshapen")
+        held = _hold_kernel_in_prefill(
+            model, params, tokens, got, routes,
+            lambda top: BF16_ULPS * 2.0 ** (math.floor(math.log2(top)) - 7),
+            f"{tag} 2048-token prefill")
+    med = sorted(decode_ms)[len(decode_ms) // 2]
+    out = {"arch": arch, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "groups": [(g.kind, g.n) for g in model.groups],
+           "cuts": _cut_list(cfg), "dtype": "bfloat16", "init_s": init_s,
+           "context": context, **run,
+           "prompt_lengths": [len(r.prompt) for r in reqs],
+           "peak_memory_bytes": peak, "state_bytes": state_bytes,
+           "uniform_state_bytes": uniform_bytes,
+           "decode_ms_batch4": decode_ms, "decode_profile": decode_profile,
+           "upcast_ms": upcast_ms, "upcast_share_of_decode": upcast_ms / med,
+           "prefill_ms": prefill_ms,
+           "prefill_tokens_per_s": {t: t / ms * 1e3
+                                    for t, ms in prefill_ms.items()},
+           f"prefill_{long_t}_profile": prefill_profile, "logits_2048": held}
+    log(f"{tag} bf16, {cfg.n_layers} layers {out['groups']}, d "
+        f"{cfg.d_model}, cut {out['cuts'] or 'none'}, context {context}: "
+        f"init {init_s:.2f} s; engine {run['generated_tokens']} tokens for "
+        f"{len(reqs)} requests (prompts {out['prompt_lengths']}, each "
+        f"prefilled whole) in {run['wall_s']:.3f} s, {run['steps']} steps, "
+        f"{run['tokens_per_s']:.1f} tokens/s; launches "
+        f"{ {k: v for k, v in run['launches'].items() if v} }; peak memory "
+        f"{peak / 2**30:.3f} GiB; decode state at batch "
+        f"{SERVE['max_batch']}: {state_bytes / 1e9:.3f} GB right-sized, "
+        f"{uniform_bytes / 1e9:.3f} GB uniform (from shapes) ({card})")
+    log(f"{tag} decode at batch {SERVE['max_batch']}: {med:.3f} ms a step "
+        f"median ({min(decode_ms):.3f}..{max(decode_ms):.3f}); the caches' "
+        f"float32 upcast and layout copies alone {upcast_ms:.3f} ms = "
+        f"{upcast_ms / med:.1%} of a step; profile of 3 steps: device busy "
+        f"{decode_profile['busy_share']:.1%} of "
+        f"{decode_profile['wall_us'] / 3e3:.3f} ms a step ({card})")
+    for r in decode_profile["top"][:8]:
+        log(f"{tag}   {r['us_per_round']:9.1f} us/step x"
+            f"{r['launches_per_round']:.0f}  {r['kernel']}")
+    for t, ms in prefill_ms.items():
+        log(f"{tag} prefill {t:6d} tokens: {ms:.3f} ms ({t / ms * 1e3:,.0f} "
+            f"tokens/s) ({card})")
+    log(f"{tag} profile of a {long_t}-token prefill: device busy "
+        f"{prefill_profile['device_busy_us'] / 1e3:.3f} ms = "
+        f"{prefill_profile['busy_share']:.1%} of wall "
+        f"{prefill_profile['wall_us'] / 1e3:.3f} ms; flash kernel "
+        f"{prefill_profile['flash_us'] / 1e3:.3f} ms = "
+        f"{prefill_profile['flash_share_of_device']:.1%} of device time "
+        f"({card})")
+    for r in prefill_profile["top"]:
+        log(f"{tag}   {r['us']:10.1f} us x{r['launches']:<4d} {r['kernel']}")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rs_twin(card: str) -> dict:
+    """Right-sized against uniform on the same weights (gemma3-1b whole,
+    bf16): a prompt past the window prefilled by both, logits bit-equal,
+    then teacher-forced decode steps within ``RS_DECODE_TOL``; the rings
+    wrap in the prefill and again in decode."""
+    spec = RIGHTSIZED["twin"]
+    dev = _card()
+    torch.cuda.empty_cache()
+    cfg, model, params, _ = _serve_model(torch.bfloat16, spec["arch"])
+    umodel, uparams = _uniform_twin(cfg, params)
+    gen = torch.Generator(device=dev).manual_seed(61)
+    tokens = torch.randint(0, cfg.vocab, (1, spec["prompt"]), generator=gen,
+                           device=dev)
+    tag = f"[rightsized twin] {spec['arch']}"
+    check(spec["prompt"] > cfg.window, f"{tag}: the prompt must pass the "
+          f"window")
+    errs, agree = [], 0
+    with torch.no_grad():
+        rl, rs = model.prefill(params, {"inputs": tokens},
+                               cache_len=spec["cache_len"])
+        ul, us = umodel.prefill(uparams, {"inputs": tokens},
+                                cache_len=spec["cache_len"])
+        equal = torch.equal(rl, ul)
+        check(equal, f"{tag}: prefill logits differ from the uniform twin's "
+              f"by {_max_err(rl.float(), ul.float()):.3e}")
+        tok = ul.argmax(-1, keepdim=True)
+        for _ in range(spec["steps"]):
+            rl, rs = model.decode_step(params, rs, tok)
+            ul, us = umodel.decode_step(uparams, us, tok)
+            errs.append(_max_err(rl.float(), ul.float())
+                        / float(ul.float().abs().max()))
+            agree += int(torch.equal(rl.argmax(-1), ul.argmax(-1)))
+            tok = ul.argmax(-1, keepdim=True)
+    ring = rs["groups"][0]["loc"]["pos"]
+    out = {"arch": spec["arch"], "prompt": spec["prompt"],
+           "cache_len": spec["cache_len"], "steps": spec["steps"],
+           "prefill_logits_bit_equal": equal, "decode_rel_err": errs,
+           "argmax_equal_steps": agree, "tolerance": RS_DECODE_TOL,
+           "ring_slots": ring.shape[-1],
+           "state_bytes": _state_bytes(rs), "uniform_state_bytes":
+               _state_bytes(us)}
+    log(f"{tag} bf16 whole, {spec['prompt']}-token prompt, cache_len "
+        f"{spec['cache_len']}: prefill logits bit-equal to the uniform "
+        f"twin's: {equal}; {spec['steps']} decode steps: largest |logit "
+        f"difference| over max |logit| {max(errs):.3e} (tolerance "
+        f"{RS_DECODE_TOL}), argmax equal at {agree} of {spec['steps']}; "
+        f"rings of {out['ring_slots']} slots; state "
+        f"{out['state_bytes'] / 1e6:.1f} MB against "
+        f"{out['uniform_state_bytes'] / 1e6:.1f} MB ({card})")
+    check(max(errs) <= RS_DECODE_TOL, f"{tag}: decode logits differ from the "
+          f"uniform twin's by {max(errs):.3e} > {RS_DECODE_TOL}")
+    del params, uparams
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_rightsized(card: str) -> dict:
+    """11e: gemma3-1b and gemma3-4b right-sized, whole, in bf16 through the
+    engine at their published contexts and one loss step each; right-
+    sized against uniform; the float32 twin's engine against isolated
+    generation."""
+    t0 = time.perf_counter()
+    record = {"card": card}
+    for i, arch in enumerate(RIGHTSIZED["archs"]):
+        record[arch] = {"serve": _rs_serve(arch, card, 51 + i),
+                        "loss": _recurrent_loss(arch, RIGHTSIZED,
+                                                "rightsized loss", card)}
+    record["twin"] = _rs_twin(card)
+    record["serve_f32"] = _serve_f32(
+        RIGHTSIZED["twin"]["arch"], "rightsized f32",
+        new_tokens=RIGHTSIZED["f32_new_tokens"])
+    record["seconds"] = time.perf_counter() - t0
+    log(f"[rightsized] phase 11e on {card} took {record['seconds']:.1f} s")
+    return record
+
+
+# ---------------------------------------------------------------------------
 # 11. flash times
 # ---------------------------------------------------------------------------
 
@@ -4447,6 +4782,11 @@ FLASH_TIMED = [  # (route, label, dtype, B, T, H, Hkv, D, window, causal)
     # whisper's encoder: every query sees all 1500 keys
     ("sm90", "whisper encoder (1, 1500, 6, 6, 64) bf16 non-causal",
      torch.bfloat16, 1, 1500, 6, 6, 64, None, False),
+    # gemma3-4b: a local layer, and a global one at the 32,768-token prompt
+    ("sm90", "gemma3-4b local (1, 2048, 8, 4, 256) bf16 window 1024",
+     torch.bfloat16, 1, 2048, 8, 4, 256, 1024, True),
+    ("sm90", "gemma3-4b global (1, 32768, 8, 4, 256) bf16 causal",
+     torch.bfloat16, 1, 32768, 8, 4, 256, None, True),
     ("tf32x3", "TinyLlama prefill (1, 2048, 32, 4, 64) f32 causal",
      torch.float32, 1, 2048, 32, 4, 64, None, True),
     ("tf32x3", "qwen1.5 heads (1, 2048, 64, 8, 128) f32 causal",
@@ -4456,6 +4796,24 @@ FLASH_TIMED = [  # (route, label, dtype, B, T, H, Hkv, D, window, causal)
     ("tf32x3", "whisper encoder (1, 1500, 6, 6, 64) f32 non-causal",
      torch.float32, 1, 1500, 6, 6, 64, None, False),
 ]
+
+
+# past this length SDPA is given K and V repeated to every query head
+# (outside the timed call): its GQA path is not bound to a fused backend,
+# and the math backend's (T, T) logits for every head would not fit
+SDPA_GQA_MAX_T = 8192
+
+
+def _sdpa_inputs(q, k, v):
+    """(q, k, v) with heads second for F.scaled_dot_product_attention, and
+    whether to pass ``enable_gqa`` (K and V repeated to every query head
+    past ``SDPA_GQA_MAX_T``)."""
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if q.shape[1] <= SDPA_GQA_MAX_T:
+        return qt, kt, vt, True
+    group = q.shape[2] // k.shape[2]
+    return (qt, kt.repeat_interleave(group, dim=1),
+            vt.repeat_interleave(group, dim=1), False)
 
 
 def _visible_pairs(t: int, window, causal: bool = True) -> int:
@@ -4503,7 +4861,7 @@ def phase_flash_times() -> dict:
     out = {f"flash_attention_{route}": [] for route in FLASH_ROUTE.values()}
     for route, label, dtype, b, t, h, hkv, d, window, causal in FLASH_TIMED:
         q, k, v = _flash_inputs(gen, b, t, t, h, hkv, d, dtype, dev)
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        qt, kt, vt, gqa = _sdpa_inputs(q, k, v)
         if window:
             pos = torch.arange(t, device=dev)
             mask = (pos[None, :] <= pos[:, None]) & (
@@ -4511,11 +4869,11 @@ def phase_flash_times() -> dict:
 
             def lib():
                 return F.scaled_dot_product_attention(
-                    qt, kt, vt, attn_mask=mask, enable_gqa=True)
+                    qt, kt, vt, attn_mask=mask, enable_gqa=gqa)
         else:
             def lib():
                 return F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=causal, enable_gqa=True)
+                    qt, kt, vt, is_causal=causal, enable_gqa=gqa)
 
         def kern():
             return ops.flash_attention(q, k, v, causal=causal, window=window,
@@ -4545,7 +4903,9 @@ def phase_flash_times() -> dict:
                    library_ms=_time_ms(lib, 20),
                    device_ms=_device_ms(kern, 20),
                    library_device_ms=_device_ms(lib, 20),
-                   library="F.scaled_dot_product_attention(enable_gqa=True)",
+                   library=("F.scaled_dot_product_attention(enable_gqa="
+                            "True)" if gqa else "F.scaled_dot_product_"
+                            "attention on K, V repeated to H heads"),
                    bound_ms=bound, bound_by=bound_by, gflop=flops / 1e9,
                    simt_bound_ms=simt_bound,
                    max_abs_err=_max_err(got.float(), plain().float()),
@@ -4592,7 +4952,13 @@ FLASH_BWD_SHAPES = [
     ("kimi-k2 heads (1, 2048, 64, 8, 112) causal", (1, 2048, 64, 8, 112),
      None, True),
     ("whisper encoder (1, 1500, 6, 6, 64) non-causal", (1, 1500, 6, 6, 64),
-     None, False)]
+     None, False),
+    ("gemma3-4b local (1, 2048, 8, 4, 256) window 1024",
+     (1, 2048, 8, 4, 256), 1024, True)]
+# bf16 only: gemma3-4b's global layer at its 32,768-token prompt (the plain
+# version's gradient by query blocks, SDPA on K and V repeated to every head)
+FLASH_BWD_LONG = [("gemma3-4b global (1, 32768, 8, 4, 256) causal",
+                   (1, 32768, 8, 4, 256), None, True)]
 TRAIN_SHAPE = 3  # FLASH_BWD_SHAPES' index of the training shape
 # the largest |error| of each gradient over its largest |value|: bfloat16
 # 2e-2 (the wgmma forward's P V in bfloat16, the sm90 backward's P and dS
@@ -4631,6 +4997,31 @@ def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
                  / want.abs().max().clamp_min(1e-30))
 
 
+def _plain_grad_by_query_blocks(q, k, v, do, causal, window,
+                                rows: int = 2048):
+    """``ref.mha_blocked_grad`` in float32 over blocks of ``rows`` queries
+    (causal: each block's keys up to its last query), dk and dv summed
+    over the blocks in float32, each gradient cast to q's dtype: the plain
+    version at a length whose whole autograd graph would not fit (every
+    key block's float32 logits for all queries kept for the backward)."""
+    from repro_torch.kernels import ref
+
+    t, tk = q.shape[1], k.shape[1]
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=q.device)
+    for s in range(0, t, rows):
+        e = min(t, s + rows)
+        end = e if causal else tk
+        gq, gk, gv = ref.mha_blocked_grad(
+            q[:, s:e].float(), k[:, :end].float(), v[:, :end].float(),
+            do[:, s:e].float(), causal=causal, window=window, q_offset=s)
+        dq[:, s:e] = gq
+        dk[:, :end] += gk
+        dv[:, :end] += gv
+    return tuple(g.to(q.dtype) for g in (dq, dk, dv))
+
+
 def _flash_bwd_row(label, dims, window, causal, dtype, gen, dev) -> dict:
     import torch.nn.functional as F
 
@@ -4652,6 +5043,8 @@ def _flash_bwd_row(label, dims, window, causal, dtype, gen, dev) -> dict:
                                                causal=causal, window=window)
 
     def plain():
+        if t > SDPA_GQA_MAX_T:
+            return _plain_grad_by_query_blocks(q, k, v, do, causal, window)
         return ref.mha_blocked_grad(q, k, v, do, causal=causal,
                                     window=window)
     route = kflash.flash_bwd_route(dtype, d)
@@ -4678,18 +5071,18 @@ def _flash_bwd_row(label, dims, window, causal, dtype, gen, dev) -> dict:
     check(all(torch.equal(x, y) for x, y in zip(got, again)),
           f"flash backward {name} {label}: a second call differs")
     # the yardstick: SDPA's backward on the same inputs (heads second)
-    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
-                  for x in (q, k, v))
+    qt, kt, vt, gqa = _sdpa_inputs(q, k, v)
+    qt, kt, vt = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
     if window:
         pos = torch.arange(t, device=dev)
         mask = (pos[None, :] <= pos[:, None]) & (
             pos[None, :] > pos[:, None] - window)
         lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                                 enable_gqa=True)
+                                                 enable_gqa=gqa)
     else:
         lib_out = F.scaled_dot_product_attention(qt, kt, vt,
                                                  is_causal=causal,
-                                                 enable_gqa=True)
+                                                 enable_gqa=gqa)
     do_t = do.transpose(1, 2)
 
     def lib():
@@ -4709,7 +5102,8 @@ def _flash_bwd_row(label, dims, window, causal, dtype, gen, dev) -> dict:
                causal=causal, dtype=name, route=route, splits=splits, rel_err=rel,
                max_abs_err=abs_err, ms=_time_ms(kern, 10), device_ms=sum(by_kernel.values()),
                device_ms_by_kernel=by_kernel, plain_ms=_time_ms(plain, 2),
-               library="SDPA backward (enable_gqa=True)",
+               library=("SDPA backward (enable_gqa=True)" if gqa else
+                        "SDPA backward on K, V repeated to H heads"),
                library_ms=_time_ms(lib, 10),
                library_device_ms=_device_ms(lib, 10), bound_ms=bound,
                bound_by=bound_by, simt_bound_ms=simt_bound,
@@ -4784,6 +5178,9 @@ def phase_flash_bwd() -> dict:
     rows = [_flash_bwd_row(label, dims, window, causal, dtype, gen, dev)
             for dtype in FLASH_BWD_TOL
             for label, dims, window, causal in FLASH_BWD_SHAPES]
+    rows += [_flash_bwd_row(label, dims, window, causal, torch.bfloat16, gen,
+                            dev)
+             for label, dims, window, causal in FLASH_BWD_LONG]
     _flash_bwd_no_fallback(dev)
     swept = 0
     for dtype in FLASH_BWD_TOL:
@@ -5103,6 +5500,7 @@ def main() -> int:
     record["recurrent"] = phase_recurrent(card)
     record["moe"] = phase_moe(card)
     record["cross"] = phase_cross(card)
+    record["rightsized"] = phase_rightsized(card)
     record["flash_times"] = phase_flash_times()
     record["train"] = phase_train()
     # launches: the SRHT kernels from the full-size comm=None run (fwht is

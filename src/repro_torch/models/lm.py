@@ -17,15 +17,25 @@ units run non-causal) are ported for serving (``init``, ``prefill``,
 ``init_decode_state``, ``decode_step``) and for training (``loss``,
 whose backbone builds no cache and, with ``cfg.remat``, recomputes each
 unit in the backward as the reference's ``jax.checkpoint`` does; a
-griffin or vlm super-block is one unit). The loss adds 0.01 times the
-moe layers' auxiliary losses. A recurrent group's decode state is its
-float32 recurrent state and its conv's last K-1 inputs, with a KV cache
-for griffin's attention; a vlm or dec group's holds its self-attention
-caches and its cross attention's K and V, computed once at prefill. The
-memory (the vision tokens, the encoder's output) is an argument of the
-backbone and the group runners; ``loss`` and ``prefill`` make it from
-the batch's ``"vision"`` or ``"audio_frames"``. The ``dense_sb`` kind
-raises ``NotImplementedError`` naming the ROADMAP item that brings it.
+griffin, vlm or dense_sb super-block is one unit). The loss adds 0.01
+times the moe layers' auxiliary losses. A recurrent group's decode state
+is its float32 recurrent state and its conv's last K-1 inputs, with a KV
+cache for griffin's attention; a vlm or dec group's holds its
+self-attention caches and its cross attention's K and V, computed once
+at prefill. The memory (the vision tokens, the encoder's output) is an
+argument of the backbone and the group runners; ``loss`` and
+``prefill`` make it from the batch's ``"vision"`` or ``"audio_frames"``.
+
+Under ``cfg.cache_mode == "rightsized"`` a sliding-window attention
+layer keeps a ring of ``min(window, cache_len)`` slots, position p at
+slot p % S (the reference's ``ring_cache``): gemma3's layers run as
+``dense_sb`` super-blocks (``local_per_global`` local units, each with
+its ring, then one global unit with a full cache), and a dense or moe
+group whose every window is > 0 (gemma3's remainder layers) and
+griffin's attention take rings too. Prefill writes the same rings
+``init_decode_state`` allocates (``_cache_slots``), where the
+reference's prefill gives the remainder group and griffin full caches
+(ROADMAP section 3, record 6).
 """
 from __future__ import annotations
 
@@ -55,8 +65,6 @@ from repro_torch.models.common import (
 from repro_torch.tree import leaves, tree_map
 
 RECURRENT = ("ssd", "rec", "griffin")  # kinds with a recurrent state
-# group kinds of later slices -> (their item in ROADMAP queue 1, its name)
-_LATER = {"dense_sb": (1, "dense_sb, right-sized caches")}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -306,6 +314,73 @@ def _rec_unit_decode(p: dict, x: torch.Tensor, h: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# right-sized caches: gemma3's (local x per, global) super-block and rings
+# ---------------------------------------------------------------------------
+
+def _dense_sb_init(gen: torch.Generator, cfg: ModelConfig, n: int) -> dict:
+    """``n`` stacked super-blocks: ``loc``, the ``local_per_global`` local
+    dense units (n, per, ...), then ``glob``, the global unit (n, ...)."""
+    return {"loc": _dense_unit_init(gen, cfg, n, cfg.local_per_global),
+            "glob": _dense_unit_init(gen, cfg, n)}
+
+
+def _theta_global(cfg: ModelConfig) -> float:
+    return cfg.rope_theta_global or cfg.rope_theta
+
+
+def _sb_unit_train(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """One super-block over a full sequence (training): its local units
+    with ``cfg.window`` and ``cfg.rope_theta``, then its global unit with
+    no window and the global theta."""
+    for pl in _units(p["loc"], cfg.local_per_global):
+        x = _dense_unit_train(pl, x, cfg, cfg.window, cfg.rope_theta)
+    return _dense_unit_train(p["glob"], x, cfg, None, _theta_global(cfg))
+
+
+def _cache_slots(cfg: ModelConfig, g: GroupSpec, cache_len: int) -> int:
+    """Slots of a group's attention caches (a ``dense_sb`` group's local
+    rings): ``min(window, cache_len)`` for a right-sized sliding window
+    (``dense_sb`` locals, griffin's attention, a dense or moe group whose
+    every window is > 0), else ``cache_len``."""
+    ring = cfg.cache_mode == "rightsized" and bool(cfg.window) and (
+        g.kind in ("dense_sb", "griffin")
+        or (g.kind in ("dense", "moe") and all(w > 0 for w in g.windows)))
+    return min(cfg.window, cache_len) if ring else cache_len
+
+
+def _sb_state(cfg: ModelConfig, n: int, batch: int, cache_len: int,
+              device) -> dict:
+    """A ``dense_sb`` group's zeroed state: ``loc``, the local units'
+    rings (n, per, B, min(window, cache_len), ...), and ``glob``, the
+    global units' caches of ``cache_len`` slots."""
+    per = cfg.local_per_global
+    loc = attn.make_cache(cfg, n * per, batch, min(cfg.window, cache_len),
+                          device)
+    return {"loc": {name: a.unflatten(0, (n, per)) for name, a in loc.items()},
+            "glob": attn.make_cache(cfg, n, batch, cache_len, device)}
+
+
+def _cache_put(cache: dict, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Write a prefill's K and V (B, T, Hkv, Dh) into one layer's cache of
+    S slots ({"k", "v": (B, S, Hkv, Dh), "pos": (B, S)}, views): the last
+    min(T, S) positions, position p at slot p % S (the first T slots when
+    S >= T; a ring shorter than T keeps the last S, the reference's
+    ``ring_cache``); the other slots keep pos -1."""
+    t, s = k.shape[1], cache["k"].shape[1]
+    if s >= t:
+        cache["k"][:, :t] = k
+        cache["v"][:, :t] = v
+        cache["pos"][:, :t] = torch.arange(t, dtype=torch.int32,
+                                           device=k.device)
+        return
+    keep = torch.arange(t - s, t, device=k.device)
+    slots = keep % s
+    cache["k"][:, slots] = k[:, t - s:]
+    cache["v"][:, slots] = v[:, t - s:]
+    cache["pos"][:, slots] = keep.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
 # cross attention: the vlm super-block, whisper's encoder and decoder
 # ---------------------------------------------------------------------------
 
@@ -453,14 +528,16 @@ def _dec_state(cfg: ModelConfig, n: int, batch: int, cache_len: int,
             **_cross_state(cfg, n, batch, s, device)}
 
 
-_UNIT_INIT = {"dense": _dense_unit_init, "moe": _moe_unit_init,
-              "ssd": _ssd_unit_init, "rec": _rec_unit_init,
-              "griffin": _griffin_unit_init, "vlm": _vlm_unit_init,
-              "enc": _enc_unit_init, "dec": _dec_unit_init}
+_UNIT_INIT = {"dense": _dense_unit_init, "dense_sb": _dense_sb_init,
+              "moe": _moe_unit_init, "ssd": _ssd_unit_init,
+              "rec": _rec_unit_init, "griffin": _griffin_unit_init,
+              "vlm": _vlm_unit_init, "enc": _enc_unit_init,
+              "dec": _dec_unit_init}
 CROSS = ("vlm", "dec")  # kinds that attend over a memory
-# a recurrent unit over a full sequence, its output alone (training)
+# a recurrent unit or a super-block over a full sequence, its output alone
+# (training)
 _UNIT_TRAIN = {"ssd": _ssd_unit_apply, "rec": _rec_unit_apply,
-               "griffin": _griffin_unit_train}
+               "griffin": _griffin_unit_train, "dense_sb": _sb_unit_train}
 
 
 def _rec_state(cfg: ModelConfig, n: int, batch: int, device) -> dict:
@@ -474,6 +551,8 @@ def _rec_state(cfg: ModelConfig, n: int, batch: int, device) -> dict:
 
 def _griffin_state(cfg: ModelConfig, n: int, batch: int, cache_len: int,
                    device) -> dict:
+    """Two rec units' states and the attention's cache of ``cache_len``
+    slots (the caller passes ``_cache_slots``)."""
     r0, r1 = (_rec_state(cfg, n, batch, device) for _ in range(2))
     return {"h0": r0["h"], "conv0": r0["conv"], "h1": r1["h"],
             "conv1": r1["conv"],
@@ -500,25 +579,26 @@ def _units(tree, n: int) -> list:
 
 
 class LM:
-    """Model wrapper for one ModelConfig (the dense, moe, ssd, rec,
-    griffin, vlm and dec group kinds, and whisper's encoder)."""
+    """Model wrapper for one ModelConfig (the dense, dense_sb, moe, ssd,
+    rec, griffin, vlm and dec group kinds, and whisper's encoder)."""
 
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
         self.groups = build_groups(cfg)
-        for g in self.groups:
-            if g.kind not in _UNIT_INIT:
-                item, name = _LATER[g.kind]
-                raise NotImplementedError(
-                    f"{cfg.arch_id}: the {g.kind!r} group kind comes with "
-                    f"ROADMAP queue 1, item {item} ({name}); the port has "
-                    f"{', '.join(map(repr, _UNIT_INIT))}")
 
     @property
     def recurrent(self) -> bool:
         """Whether a group carries a recurrent state (ssd, rec, griffin):
         its prefill must see the prompt's real tokens only."""
         return any(g.kind in RECURRENT for g in self.groups)
+
+    @property
+    def exact_prefill(self) -> bool:
+        """Whether a prompt must be prefilled at its own length, unpadded:
+        a recurrent state would absorb padding, and a right-sized ring
+        shorter than a padded prompt would keep the padding and drop the
+        prompt's last real keys."""
+        return self.recurrent or self.cfg.cache_mode == "rightsized"
 
     # -- init ----------------------------------------------------------------
     def init(self, gen: torch.Generator) -> dict:
@@ -610,10 +690,10 @@ class LM:
         """The group's units without caches: (x, ``aux`` plus each moe
         unit's aux in turn). With ``cfg.remat`` and autograd recording,
         each unit keeps only its input for the backward and runs again
-        there (the reference's per-unit ``jax.checkpoint``; a griffin or
-        vlm super-block is one unit, a vlm or dec unit's cross K and V are
-        recomputed with it), so its attention's forward kernel launches
-        twice in a training step."""
+        there (the reference's per-unit ``jax.checkpoint``; a griffin, vlm
+        or dense_sb super-block is one unit, a vlm or dec unit's cross K
+        and V are recomputed with it), so its attention's forward kernel
+        launches twice in a training step."""
         remat = self.cfg.remat and torch.is_grad_enabled()
         for i, p in enumerate(_units(gp, g.n)):
             if g.kind in ("dense", "moe"):
@@ -635,7 +715,8 @@ class LM:
                         memory=None, *, cache_len: int):
         b, t, _ = x.shape
         cfg, dev = self.cfg, x.device
-        if g.kind in ("dense", "moe", "griffin", *CROSS) and cache_len < t:
+        if (g.kind in ("dense", "dense_sb", "moe", "griffin", *CROSS)
+                and cache_len < t):
             raise ValueError(f"cache_len {cache_len} < prompt length {t}")
         if g.kind == "ssd":
             cache = ssd_mod.make_ssd_state(cfg, g.n, b, dev)
@@ -651,11 +732,13 @@ class LM:
             return x, cache
         if g.kind in CROSS:
             return self._run_cross_full(g, gp, x, memory, cache_len)
+        if g.kind == "dense_sb":
+            return self._run_sb_full(g, gp, x, cache_len)
+        slots = _cache_slots(cfg, g, cache_len)
         if g.kind == "griffin":
-            cache = _griffin_state(cfg, g.n, b, cache_len, dev)
+            cache = _griffin_state(cfg, g.n, b, slots, dev)
         else:
-            cache = attn.make_cache(cfg, g.n, b, cache_len, dev)
-        cache["pos"][:, :, :t] = torch.arange(t, dtype=torch.int32, device=dev)
+            cache = attn.make_cache(cfg, g.n, b, slots, dev)
         for i in range(g.n):
             if g.kind == "griffin":
                 x, states, k, v = _griffin_unit_apply(_layer(gp, i), x, cfg)
@@ -668,8 +751,27 @@ class LM:
                                theta=g.thetas[i])[:3]
             # the K and V attention used: the reference recomputes the
             # same values from the unit's input (attn_cache_from)
-            cache["k"][i, :, :t] = k
-            cache["v"][i, :, :t] = v
+            _cache_put(_layer(cache, i), k, v)
+        return x, cache
+
+    def _run_sb_full(self, g: GroupSpec, gp: dict, x: torch.Tensor,
+                     cache_len: int):
+        """A ``dense_sb`` group over a full sequence: (x, its state), each
+        local unit's K and V in its ring, each global unit's in its cache's
+        first T slots."""
+        cfg = self.cfg
+        cache = _sb_state(cfg, g.n, x.shape[0], cache_len, x.device)
+        for i in range(g.n):
+            p = _layer(gp, i)
+            for j in range(cfg.local_per_global):
+                x, k, v = _dense_unit_apply(_layer(p["loc"], j), x, cfg,
+                                            window=cfg.window,
+                                            theta=cfg.rope_theta)
+                _cache_put({name: a[i, j] for name, a in cache["loc"].items()},
+                           k, v)
+            x, k, v = _dense_unit_apply(p["glob"], x, cfg, window=None,
+                                        theta=_theta_global(cfg))
+            _cache_put(_layer(cache["glob"], i), k, v)
         return x, cache
 
     def _run_cross_full(self, g: GroupSpec, gp: dict, x: torch.Tensor,
@@ -755,7 +857,11 @@ class LM:
             elif g.kind == "rec":
                 states.append(_rec_state(cfg, g.n, batch, dev))
             elif g.kind == "griffin":
-                states.append(_griffin_state(cfg, g.n, batch, cache_len, dev))
+                states.append(_griffin_state(cfg, g.n, batch,
+                                             _cache_slots(cfg, g, cache_len),
+                                             dev))
+            elif g.kind == "dense_sb":
+                states.append(_sb_state(cfg, g.n, batch, cache_len, dev))
             elif g.kind == "vlm":
                 states.append(_vlm_state(cfg, g.n, batch, cache_len,
                                          cfg.vision_tokens, dev))
@@ -763,7 +869,8 @@ class LM:
                 states.append(_dec_state(cfg, g.n, batch, cache_len,
                                          cfg.audio_frames, dev))
             else:
-                states.append(attn.make_cache(cfg, g.n, batch, cache_len, dev))
+                states.append(attn.make_cache(
+                    cfg, g.n, batch, _cache_slots(cfg, g, cache_len), dev))
         index = cache_len if index is None else index
         return {"groups": states,
                 "index": torch.as_tensor(index, dtype=torch.int32,
@@ -798,6 +905,15 @@ class LM:
                     x, _ = _dense_unit_decode(
                         p["attn"], x, _layer(gc, i), index, cfg,
                         window=cfg.window, theta=cfg.rope_theta)
+                elif g.kind == "dense_sb":
+                    for j in range(cfg.local_per_global):
+                        ring = {name: a[i, j] for name, a in gc["loc"].items()}
+                        x, _ = _dense_unit_decode(
+                            _layer(p["loc"], j), x, ring, index, cfg,
+                            window=cfg.window, theta=cfg.rope_theta)
+                    x, _ = _dense_unit_decode(
+                        p["glob"], x, _layer(gc["glob"], i), index, cfg,
+                        window=None, theta=_theta_global(cfg))
                 elif g.kind == "vlm":
                     for j in range(cfg.cross_attn_every):
                         self_cache = {name: gc[name][i, j]

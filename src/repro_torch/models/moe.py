@@ -9,7 +9,7 @@ dropped (a dummy slot, contributing 0). The kept rows go through the
 experts' gated MLPs as three batched products over (E, C, .) and come
 back weighted, each token's k contributions summed in slot order in the
 activations' dtype. The reference's sharded and decode branches
-(``shard_map`` over an expert mesh) come with ROADMAP queue 1, item 3.
+(``shard_map`` over an expert mesh) come with ROADMAP queue 1, item 2.
 """
 from __future__ import annotations
 
@@ -28,7 +28,7 @@ from repro_torch.models.common import (
 )
 
 # the ROADMAP item that brings moe_apply's sharded and decode branches
-DISTRIBUTION_ITEM = 3
+DISTRIBUTION_ITEM = 2
 # where ``record_routes`` collects each call's routing (None: off)
 _routes: "list | None" = None
 

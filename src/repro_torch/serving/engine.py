@@ -8,12 +8,15 @@ while others are mid-generation.
 
   * admit: single-request prefill (prompt right-padded to a power-of-two
     bucket, at least 16 and at most ``cache_len``), the cache slots the
-    padding wrote invalidated, the state written into the free slot. A
-    model with a recurrent state (``ssd``, ``rec``, ``griffin`` groups)
-    takes no padding, which its state would absorb: the prompt's longest
-    prefix its scan takes goes through ``prefill`` and the rest, fewer
-    than ``cfg.ssm_chunk`` tokens, through ``decode_step`` on the
-    one-row state;
+    padding wrote invalidated, the state written into the free slot along
+    each leaf's batch axis. A model with a recurrent state (``ssd``,
+    ``rec``, ``griffin`` groups) or right-sized ring caches
+    (``LM.exact_prefill``) takes no padding, which its state would absorb
+    or which would push the prompt's last real keys out of a ring: the
+    prompt's longest prefix ``prefill`` takes (all of it but for an
+    ``ssd`` group) goes through ``prefill`` and the rest, fewer than
+    ``cfg.ssm_chunk`` tokens, through ``decode_step`` on the one-row
+    state;
   * step: one batched decode for all slots;
   * complete: slots free as sequences hit ``max_new_tokens`` or EOS.
 
@@ -31,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.lm import LM
+from repro_torch.tree import tree_map
 
 
 @dataclasses.dataclass
@@ -50,6 +54,13 @@ def _bucket(n: int, minimum: int = 16) -> int:
     return b
 
 
+def _batch_axis(one: torch.Tensor, two: torch.Tensor) -> int:
+    for axis, (a, b) in enumerate(zip(one.shape, two.shape)):
+        if a != b:
+            return axis
+    raise ValueError(f"a state leaf {tuple(one.shape)} has no batch axis")
+
+
 class ServingEngine:
     def __init__(self, model: LM, params: dict, *, max_batch: int = 4,
                  cache_len: int = 512):
@@ -65,23 +76,40 @@ class ServingEngine:
                                              device=self.device)
         self.state["index"] = torch.zeros(max_batch, dtype=torch.int32,
                                           device=self.device)
+        # each state leaf's batch axis: the first axis on which the shapes
+        # of a batch-1 and a batch-2 state differ (the reference's
+        # structural discovery; shapes only, on the meta device)
+        self._batch_axes = [
+            tree_map(_batch_axis, one, two) for one, two in zip(
+                *(model.init_decode_state(b, cache_len, device="meta")
+                  ["groups"] for b in (1, 2)))]
         self.active = np.zeros(max_batch, dtype=bool)
         self.last_tokens = np.zeros(max_batch, dtype=np.int64)
 
     # -- state surgery ---------------------------------------------------------
     def _insert(self, single_state: dict, slot: int, index: int) -> None:
         """Write a one-row prefill state into batch row ``slot`` at
-        position ``index``: every cache leaf is (L, B, ...)."""
-        for big, small in zip(self.state["groups"], single_state["groups"]):
-            for name, leaf in big.items():
-                leaf[:, slot] = small[name][:, 0].to(leaf.dtype)
+        position ``index``, along each leaf's batch axis ((L, B, ...), a
+        ``dense_sb`` ring's (n, per, B, ...))."""
+        def put(big, small, axis):
+            big.select(axis, slot).copy_(small.select(axis, 0))
+        for big, small, axes in zip(self.state["groups"],
+                                    single_state["groups"], self._batch_axes):
+            tree_map(put, big, small, axes)
         self.state["index"][slot] = index
 
     @staticmethod
     def _mask_padded_positions(state: dict, true_len: int) -> dict:
-        """Invalidate cache slots written by right-padding garbage."""
+        """Invalidate cache slots written by right-padding garbage: every
+        ``pos`` leaf of the state's groups, nested dicts included."""
+        def walk(node):
+            for name, sub in node.items():
+                if isinstance(sub, dict):
+                    walk(sub)
+                elif name == "pos":
+                    sub.masked_fill_(sub >= true_len, -1)
         for cache in state["groups"]:
-            cache["pos"].masked_fill_(cache["pos"] >= true_len, -1)
+            walk(cache)
         return state
 
     # -- admission ----------------------------------------------------------------
@@ -99,9 +127,10 @@ class ServingEngine:
             return n
         return n - n % chunk
 
-    def _prefill_recurrent(self, prompt: list):
-        """A recurrent model's prompt, its real tokens only: (the last
-        token's logits (1, vocab), the one-row state at len(prompt))."""
+    def _prefill_exact(self, prompt: list):
+        """A prompt's real tokens only (a recurrent or right-sized model):
+        (the last token's logits (1, vocab), the one-row state at
+        len(prompt))."""
         n = self._exact_prefix(len(prompt))
         toks = torch.as_tensor([prompt], dtype=torch.int64, device=self.device)
         logits, sstate = self.model.prefill(
@@ -117,8 +146,8 @@ class ServingEngine:
                 continue
             req = self.queue.popleft()
             ltrue = len(req.prompt)
-            if self.model.recurrent:
-                logits, sstate = self._prefill_recurrent(req.prompt)
+            if self.model.exact_prefill:
+                logits, sstate = self._prefill_exact(req.prompt)
                 padded = False
             else:
                 lpad = min(_bucket(ltrue), self.cache_len)

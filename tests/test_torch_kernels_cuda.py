@@ -378,6 +378,11 @@ FLASH_CASES = [
     (4096, 4096, 4, 1, 64, True, None, 0, 1024),
     (8192, 8192, 4, 1, 64, True, None, 0, 1024),
     (8192, 8192, 4, 1, 128, True, None, 0, 1024),
+    # gemma3-4b's heads: its local window of 1024, and at 8192 keys
+    # windowed and causal
+    (2048, 2048, 8, 4, 256, True, 1024, 0, 1024),
+    (8192, 8192, 8, 4, 256, True, 1024, 0, 1024),
+    (8192, 8192, 8, 4, 256, True, None, 0, 1024),
     # head dims that are not a multiple of 8 (the k-steps pad them with
     # zeros): float32 through cp.async (d % 4 == 0) or plain loads (13),
     # bf16 D 12 and 13 through the tf32x3 kernel's plain loads
@@ -490,7 +495,10 @@ FLASH_BWD_CASES = [(64, 4, 4, 64, True, None), (100, 8, 2, 64, True, None),
                    (200, 8, 4, 72, True, 100),
                    (2048, 16, 2, 128, True, None),
                    # whisper's encoder: non-causal over 1500 frames
-                   (1500, 6, 6, 64, False, None)]
+                   (1500, 6, 6, 64, False, None),
+                   # gemma3-4b's heads: its local window, and 8192 keys
+                   (2048, 8, 4, 256, True, 1024),
+                   (8192, 8, 4, 256, True, None)]
 FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 

@@ -214,10 +214,11 @@ def test_init_draws_the_reference_distributions():
 
 
 def test_later_families_and_loss_raise():
-    for arch, kind, item in (("gemma3-1b@rightsized", "dense_sb", 1),):
-        with pytest.raises(NotImplementedError,
-                           match=f"'{kind}'.*ROADMAP queue 1, item {item} "):
-            tlm.LM(get_config(arch).reduced())
+    # every group kind is ported: right-sized gemma3 builds, reduced() to a
+    # super-block group of 0 units and a remainder of 2
+    model = tlm.LM(get_config("gemma3-1b@rightsized").reduced())
+    assert [(g.kind, g.n) for g in model.groups] == [("dense_sb", 0),
+                                                     ("dense", 2)]
     cfg = get_config("tinyllama-1.1b").reduced()
     model = tlm.LM(cfg)
     toks = torch.randint(0, cfg.vocab, (2, 9),

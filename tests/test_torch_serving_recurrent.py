@@ -116,7 +116,7 @@ def test_admission_equals_a_decode_walk_from_a_zero_state(arch):
     engine = ServingEngine(model, params, max_batch=2, cache_len=CACHE_LEN)
     with torch.no_grad():
         for n, prompt in zip(LENGTHS, _prompts(cfg.vocab, LENGTHS, seed=4)):
-            logits, state = engine._prefill_recurrent(prompt)
+            logits, state = engine._prefill_exact(prompt)
             walk = model.init_decode_state(1, CACHE_LEN, index=0,
                                            device="cpu")
             for tok in prompt:
