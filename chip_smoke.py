@@ -123,6 +123,20 @@ Phases, in order; any failure raises and the script exits non-zero:
                 transmit equal bytes (checked), their final-loss gaps to
                 the clean run printed; bare ms a step with dynamics off and
                 on in turns (off, on, on, off) printed beside each other
+ 5h. distributed — DistributedFLeNS (repro_torch.core.distributed) at
+                SUSY's full size (5,000,000 x 18 float64, k 10, beta 0, 10
+                rounds): (a) one NCCL rank on a ("data",) DeviceMesh of 1,
+                the whole dataset one client, within 1e-10 (relative) of
+                the simulator FLeNS(k, beta=0, restart=False) at m = 1 on
+                the same rows and operators, a round profiled (the
+                device's busy share); (b) 4 ranks on the one card, gloo
+                over CUDA tensors (child processes `chip_smoke.py
+                --distributed-child`, which load the built kernels and are
+                joined with a timeout), 1,250,000 rows each: every rank's
+                iterates bit-equal to the others' and within 1e-10 of the
+                simulator's at m = 4. Launches checked on each rank (3
+                srht_apply + 2 srht_apply_t a round); ms a round beside the
+                simulator's on the same rows
  6. long rows — fwht, srht_apply and srht_apply_t past the single-pass
                 length (n = 2^15, 2^17, 2^20) against their plain versions,
                 bit-equal; fwht timed at (64, 2^17) and (1, 2^20),
@@ -346,6 +360,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import pathlib
 import re
 import shutil
@@ -2528,6 +2543,242 @@ def phase_dynamics(card: str, problem, w0, w_star, populations: dict) -> dict:
                 log(f"[dynamics]   {where} {name}: {med['off']:.3f} -> "
                     f"{med['on']:.3f} ms ({med['on'] - med['off']:+.3f})")
     return {"susy": susy, "gaps": gaps, "population": populations}
+
+
+# ---------------------------------------------------------------------------
+# 5h. distributed
+# ---------------------------------------------------------------------------
+
+DIST_DIR = ROOT / "chiprun_out" / "distributed"
+# DistributedFLeNS at SUSY's size: beta 0 (the simulator's FLeNS without
+# its guard is the same step), 10 rounds, 4 gloo ranks on the one card
+DIST = dict(rounds=10, ranks=4, tol=1e-10, timeout_s=300)
+DIST_LAUNCHES = {"srht_apply": 3, "srht_apply_t": 2}  # a round, a rank
+
+
+def _susy_rows(dev):
+    """SUSY's rows and labels (phase 5's, seed 1) on ``dev``."""
+    from repro_torch.data import make_classification
+
+    return make_classification(
+        1, n=SUSY["n"], dim=SUSY["dim"], spectrum_decay=SUSY["spectrum_decay"],
+        label_noise=SUSY["label_noise"], device=dev)
+
+
+def _dist_flens(mesh):
+    from repro_torch.core import logistic
+    from repro_torch.core.distributed import DistributedFLeNS
+
+    return DistributedFLeNS(mesh=mesh, objective=logistic, dim=SUSY["dim"],
+                            k=SUSY["k"], lam=SUSY["lam"], beta=0.0,
+                            client_axes=("data",))
+
+
+def _dist_rounds(step, X, y, rounds: int) -> dict:
+    """``rounds`` rounds of a DistributedFLeNS step from w = 0, each timed
+    on the host clock around work that ends in a synchronize, with the
+    launches of the rounds counted (reset just before, read just after)."""
+    from repro_torch.kernels import ops
+
+    w = w_prev = torch.zeros(SUSY["dim"], dtype=torch.float64,
+                             device=X.device)
+    ws, ms = [], []
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    for t in range(rounds):
+        t0 = time.perf_counter()
+        w, w_prev = step(X, y, w, w_prev, t)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        ws.append(w)
+    return {"w": torch.stack(ws), "ms": ms, "launches": ops.launch_counts()}
+
+
+def _simulator_rounds(X, y, m: int, rounds: int) -> dict:
+    """The port's simulator FLeNS(k, beta=0, restart=False) on the same
+    rows cut in m contiguous clients, round t keyed by key_from_ints(t):
+    the operators DistributedFLeNS draws from the round seed t; then
+    three more rounds profiled."""
+    from repro_torch.core import FederatedProblem, FLeNS, logistic
+    from repro_torch.keys import key_from_ints
+
+    dim = SUSY["dim"]
+    problem = FederatedProblem(
+        X=X.reshape(m, -1, dim), y=y.reshape(m, -1),
+        mask=torch.ones(m, X.shape[0] // m, dtype=X.dtype, device=X.device),
+        lam=SUSY["lam"], objective=logistic)
+    opt = FLeNS(k=SUSY["k"], beta=0.0, restart=False)
+    state = opt.init(problem, torch.zeros(dim, dtype=X.dtype, device=X.device))
+    ws, ms = [], []
+    torch.cuda.synchronize()
+    for t in range(rounds):
+        t0 = time.perf_counter()
+        state = opt.round(problem, state, key_from_ints(t))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        ws.append(state["w"])
+    profile = _profile_rounds(opt, problem, state,
+                              [key_from_ints(rounds + i) for i in range(3)])
+    return {"w": torch.stack(ws), "ms": ms, "profile": profile}
+
+
+def _iterate_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| / max |want| in the iterates' own dtype."""
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _median(ms: list) -> float:
+    """The median round after the first (which opens the communicator)."""
+    return float(np.median(ms[1:]))
+
+
+def distributed_child(job_path: str, rank: int) -> int:
+    """One rank of 5h (b): SUSY from its seed on the card, this rank's
+    rows, DistributedFLeNS over gloo on CUDA tensors; writes its iterates,
+    round times and launches. Loads the kernels the parent's build phase
+    built (a missing library fails: no rank builds it)."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_mesh, process_group
+
+    job = json.loads(pathlib.Path(job_path).read_text())
+    check(_build._target(_build.CSRC / "srht.cu").exists(),
+          "distributed child: srht.cu is not built (the parent builds it)")
+    dev = _card()
+    torch.cuda.set_device(dev)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // job["ranks"]))
+    _build.module()
+    X, y = _susy_rows(dev)
+    with process_group(rank, job["ranks"], job["store"], backend="gloo",
+                       timeout_s=job["timeout_s"]):
+        mesh = make_mesh((job["ranks"],), ("data",), "cuda")
+        flens = _dist_flens(mesh)
+        Xs, ys = (a.clone() for a in flens.shard_data(X, y))
+        del X, y
+        torch.cuda.empty_cache()
+        step = flens.round_fn()
+        torch.distributed.barrier()
+        run = _dist_rounds(step, Xs, ys, job["rounds"])
+    np.savez(pathlib.Path(job["out"]) / f"rank{rank}.npz",
+             w=run["w"].cpu().numpy(), ms=np.array(run["ms"]),
+             rows=np.array([Xs.shape[0]]),
+             launches=np.array(json.dumps(run["launches"])))
+    return 0
+
+
+def phase_distributed(card: str) -> dict:
+    """(a) one NCCL rank on the whole of SUSY against the simulator at
+    m = 1, a round profiled; (b) 4 gloo ranks on the card against the
+    simulator at m = 4, bit-equal to each other."""
+    from repro_torch.launch.mesh import make_mesh, process_group, spawn
+
+    t_phase = time.perf_counter()
+    dev = _card()
+    rounds, tol = DIST["rounds"], DIST["tol"]
+    want = {"fwht": 0, **{op: n * rounds for op, n in DIST_LAUNCHES.items()},
+            **NO_CODEC, **NO_LM}
+    if DIST_DIR.exists():
+        shutil.rmtree(DIST_DIR)
+    DIST_DIR.mkdir(parents=True)
+    X, y = _susy_rows(dev)
+    out = {"rows": SUSY["n"], "dim": SUSY["dim"], "k": SUSY["k"],
+           "rounds": rounds, "tolerance": tol}
+
+    # (a) one rank: NCCL, the whole dataset as one client
+    torch.cuda.set_device(dev)
+    with process_group(0, 1, DIST_DIR / "store_one", backend="nccl",
+                       timeout_s=120):
+        flens = _dist_flens(make_mesh((1,), ("data",), "cuda"))
+        step = flens.round_fn()
+        Xs, ys = flens.shard_data(X, y)
+        one = _dist_rounds(step, Xs, ys, rounds)
+        w_last = one["w"][-1]
+        profile = _profile_steps(
+            lambda: step(Xs, ys, w_last, w_last, rounds), 1)
+    check(one["launches"] == want,
+          f"distributed (a): launches {one['launches']} != {want}")
+    sim1 = _simulator_rounds(X, y, 1, rounds)
+    err1 = _iterate_rel_err(one["w"], sim1["w"])
+    check(bool(torch.isfinite(one["w"]).all()) and err1 <= tol,
+          f"distributed (a): one rank differs from the simulator at m = 1 "
+          f"by {err1:.3e} > {tol} (relative)")
+    a = {"backend": "nccl", "ms": one["ms"], "ms_median": _median(one["ms"]),
+         "simulator_ms": sim1["ms"],
+         "simulator_ms_median": _median(sim1["ms"]),
+         "simulator_profile": sim1["profile"], "rel_err": err1,
+         "launches": one["launches"],
+         "launches_per_round": {op: one["launches"][op] / rounds
+                                for op in DIST_LAUNCHES},
+         "profile": profile}
+    out["one_rank"] = a
+    del one, sim1, Xs, ys, step, flens
+    log(f"[distributed] (a) 1 NCCL rank, {SUSY['n']:,} x {SUSY['dim']} f64, "
+        f"k {SUSY['k']}: {a['ms_median']:.3f} ms a round (median of rounds "
+        f"2-{rounds}; first {a['ms'][0]:.1f}), simulator m = 1 "
+        f"{a['simulator_ms_median']:.3f} ms; w within {err1:.2e} of the "
+        f"simulator's (tol {tol}); launches {a['launches_per_round']} a round")
+    log(f"[distributed]   a profiled round: device busy "
+        f"{profile['busy_share']:.1%} of {profile['wall_us'] / 1e3:.3f} ms")
+    for r in profile["top"][:6]:
+        log(f"[distributed]     {r['us_per_round']:9.1f} us x"
+            f"{r['launches_per_round']:.0f}  {r['kernel']}")
+
+    # (b) four ranks on the one card: gloo over CUDA tensors
+    ranks = DIST["ranks"]
+    sim4 = _simulator_rounds(X, y, ranks, rounds)
+    del X, y
+    torch.cuda.empty_cache()
+    job = {"ranks": ranks, "rounds": rounds, "store": str(DIST_DIR / "store"),
+           "out": str(DIST_DIR), "timeout_s": DIST["timeout_s"]}
+    (DIST_DIR / "job.json").write_text(json.dumps(job))
+    t0 = time.perf_counter()
+    spawn(lambda r: [sys.executable, str(ROOT / "chip_smoke.py"),
+                     "--distributed-child", str(DIST_DIR / "job.json"),
+                     str(r)], ranks, timeout_s=DIST["timeout_s"])
+    spawn_s = time.perf_counter() - t0
+    got = [np.load(DIST_DIR / f"rank{r}.npz") for r in range(ranks)]
+    w4 = [torch.from_numpy(g["w"]).to(dev) for g in got]
+    launches = [json.loads(str(g["launches"])) for g in got]
+    for r in range(ranks):
+        check(int(got[r]["rows"][0]) == SUSY["n"] // ranks,
+              f"distributed (b): rank {r} holds {int(got[r]['rows'][0])} rows")
+        check(launches[r] == want,
+              f"distributed (b): rank {r} launches {launches[r]} != {want}")
+        check(torch.equal(w4[r], w4[0]),
+              f"distributed (b): rank {r}'s iterates differ from rank 0's")
+    err4 = _iterate_rel_err(w4[0], sim4["w"])
+    check(bool(torch.isfinite(w4[0]).all()) and err4 <= tol,
+          f"distributed (b): {ranks} ranks differ from the simulator at "
+          f"m = {ranks} by {err4:.3e} > {tol} (relative)")
+    rank_ms = [g["ms"].tolist() for g in got]
+    b = {"backend": "gloo", "ms": rank_ms,
+         "ms_median": [_median(ms) for ms in rank_ms],
+         "simulator_ms": sim4["ms"],
+         "simulator_ms_median": _median(sim4["ms"]),
+         "simulator_profile": sim4["profile"], "rel_err": err4,
+         "bitwise_equal_ranks": True, "launches": launches,
+         "launches_per_round": [{op: n[op] / rounds for op in DIST_LAUNCHES}
+                                for n in launches],
+         "spawn_s": spawn_s}
+    out["four_ranks"] = b
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[distributed] (b) {ranks} gloo ranks on one card, "
+        f"{SUSY['n'] // ranks:,} rows each: "
+        + " / ".join(f"{ms:.3f}" for ms in b["ms_median"])
+        + f" ms a round (medians by rank), simulator m = {ranks} "
+        f"{b['simulator_ms_median']:.3f} ms; ranks bit-equal, w within "
+        f"{err4:.2e} of the simulator's; launches "
+        f"{b['launches_per_round'][0]} a round a rank; spawn to join "
+        f"{spawn_s:.1f} s")
+    for m, prof in ((1, a["simulator_profile"]),
+                    (ranks, b["simulator_profile"])):
+        log(f"[distributed]   simulator m = {m}, 3 profiled rounds: device "
+            f"busy {prof['busy_share']:.1%} of "
+            f"{prof['wall_us'] / prof['rounds'] / 1e3:.3f} ms a round")
+        for r in prof["top"][:5]:
+            log(f"[distributed]     {r['us_per_round']:9.1f} us/round x"
+                f"{r['launches_per_round']:.0f}  {r['kernel']}")
+    log(f"[distributed] on {card}; phase 5h took {out['seconds']:.1f} s")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -5489,6 +5740,7 @@ def main() -> int:
                                           record["populations"])
     record["dynamics"] = phase_dynamics(card, *susy,
                                         record["populations"]["dynamics"])
+    record["distributed"] = phase_distributed(card)
     record["long_rows"] = phase_long_rows()
     record["codec_parity_max_abs_err"] = phase_codec_parity()
     record["transport"] = phase_transport(*susy)
@@ -5574,6 +5826,15 @@ def main() -> int:
             "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"],
         }
+        if name in DIST_LAUNCHES:
+            # phase 5h: launches a round a rank of DistributedFLeNS
+            dist_rec = record["distributed"]
+            entry["distributed_launches_per_round"] = {
+                "one_rank_nccl":
+                    dist_rec["one_rank"]["launches_per_round"][name],
+                "four_ranks_gloo": [
+                    r[name] for r in
+                    dist_rec["four_ranks"]["launches_per_round"]]}
         if name in routes:
             entry["routes"] = [
                 {"kernel": r["route"], "shape": r["shape"], "dims": r["dims"],
@@ -5594,4 +5855,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:] == ["--population-child"]:
         sys.exit(population_child())
+    if sys.argv[1:2] == ["--distributed-child"]:
+        sys.exit(distributed_child(sys.argv[2], int(sys.argv[3])))
     sys.exit(main())

@@ -681,3 +681,42 @@ def test_population_round_on_the_card_equals_the_plain_versions(hopper):
     a, b = pop.materialize([3, 4000]), cpu.materialize([3, 4000])
     assert torch.equal(a.mask.cpu(), b.mask)
     torch.testing.assert_close(a.X.cpu(), b.X, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.gpu
+def test_one_nccl_rank_distributed_flens_equals_the_simulator(hopper,
+                                                              tmp_path):
+    """A 1-rank NCCL DistributedFLeNS on the card: 3 rounds through the
+    SRHT kernels (3 srht_apply + 2 srht_apply_t a round) within 1e-10
+    (relative) of the simulator FLeNS(k, beta=0, restart=False) at m = 1
+    on the same rows and operators."""
+    from repro_torch.core import FederatedProblem, FLeNS, logistic
+    from repro_torch.core.distributed import DistributedFLeNS, run_distributed
+    from repro_torch.data import make_classification
+    from repro_torch.keys import key_from_ints
+    from repro_torch.launch.mesh import make_mesh, process_group
+
+    n, dim, k, rounds = 4000, 64, 32, 3
+    X, y = make_classification(0, n=n, dim=dim, device=hopper)
+    w0 = torch.zeros(dim, dtype=torch.float64, device=hopper)
+    torch.cuda.set_device(hopper)
+    with process_group(0, 1, tmp_path / "store", backend="nccl",
+                       timeout_s=60):
+        flens = DistributedFLeNS(mesh=make_mesh((1,), ("data",), "cuda"),
+                                 objective=logistic, dim=dim, k=k, lam=1e-3,
+                                 client_axes=("data",))
+        ops.reset_launch_counts()
+        _, ws = run_distributed(flens, X, y, w0, rounds)
+        counts = ops.launch_counts()
+    assert counts["srht_apply"] == 3 * rounds
+    assert counts["srht_apply_t"] == 2 * rounds
+    problem = FederatedProblem(X=X[None], y=y[None],
+                               mask=torch.ones_like(y)[None], lam=1e-3,
+                               objective=logistic)
+    opt = FLeNS(k=k, beta=0.0, restart=False)
+    state = opt.init(problem, w0)
+    for t in range(rounds):
+        state = opt.round(problem, state, key_from_ints(t))
+        err = float((ws[t + 1] - state["w"]).abs().max()
+                    / state["w"].abs().max())
+        assert err <= 1e-10, (t, err)

@@ -325,12 +325,3 @@ def test_bfloat16_moe_apply_matches_the_reference(arch):
     _close(out, jout, BF16_TOL)
     _close(aux, jaux, AUX_TOL, "aux")
     assert float(drop) == float(jdrop)
-
-
-def test_a_mesh_raises_and_names_the_distribution_item():
-    _, cfg, _, tp = _setup("arctic-480b")
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP queue 1, item "
-                             f"{tmoe.DISTRIBUTION_ITEM} \\(distribution\\)"):
-        tmoe.moe_apply(tp, torch.zeros(1, 4, cfg.d_model), cfg,
-                       mesh=object())
