@@ -137,6 +137,26 @@ Phases, in order; any failure raises and the script exits non-zero:
                 simulator's at m = 4. Launches checked on each rank (3
                 srht_apply + 2 srht_apply_t a round); ms a round beside the
                 simulator's on the same rows
+ 5i. client mesh — SUSY's rows as a DatasetPopulation of m 1000
+                (uniform:0.1, a cohort of 100) under phase 5e's edge channel
+                and comp+sched+ef's codecs with EF, FLeNS+ 10 rounds through
+                run_rounds(..., client_mesh=): (a) one NCCL rank, the
+                cohort's one block, bit-equal to the run without a mesh
+                (iterates, losses, bytes, traces, EF residuals); (b) 4 gloo
+                ranks on the card (children `chip_smoke.py
+                --client-mesh-child`), 25 clients of each cohort a rank,
+                bit-equal to each other and within 1e-10 of the one-process
+                run; (c) the async driver on the straggler channel, 5
+                commits, the same way. Launches checked on every rank (4
+                srht_apply + 3 srht_apply_t + 1 topk_mask + 3
+                qint8_roundtrip a round); ms a round a rank beside the
+                one-process run's, a profiled round each. (d) moe_apply's
+                backward, one arctic-480b layer at its widths with 8 of its
+                128 experts in float32: the expert branch on a ("model",)
+                mesh of 2 gloo ranks and the decode branch on (2 data, 2
+                model), each rank's gradients of x, the router and its
+                expert shard within 1e-4 of the one-process backward's
+                largest on the card
  6. long rows — fwht, srht_apply and srht_apply_t past the single-pass
                 length (n = 2^15, 2^17, 2^20) against their plain versions,
                 bit-equal; fwht timed at (64, 2^17) and (1, 2^20),
@@ -2778,6 +2798,427 @@ def phase_distributed(card: str) -> dict:
             log(f"[distributed]     {r['us_per_round']:9.1f} us/round x"
                 f"{r['launches_per_round']:.0f}  {r['kernel']}")
     log(f"[distributed] on {card}; phase 5h took {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 5i. cohorts split over ranks
+# ---------------------------------------------------------------------------
+
+CM_DIR = ROOT / "chiprun_out" / "client_mesh"
+# FLeNS+ (k 10) on SUSY's rows as a DatasetPopulation of m 1000,
+# uniform:0.1 (a cohort of 100), phase 5e's edge channel (10% dropout)
+# and comp+sched+ef's codecs with EF, 10 rounds; the async driver on the
+# straggler channel, 5 commits; 4 gloo ranks on the one card, 25 clients
+# of a cohort each
+CLIENT_MESH = dict(rounds=10, commits=5, ranks=4, tol=1e-10, timeout_s=420,
+                   q=0.1)
+CM_KERNELS = ("srht_apply", "srht_apply_t", "topk_mask", "qint8_roundtrip")
+# one MoE layer at arctic-480b's widths (d_model 7168, moe_d_ff 4864,
+# top-2) with 8 of its 128 experts, float32: the expert branch on a
+# ("model",) mesh of 2 ranks at (2, 2304) tokens (b t > 4096), the decode
+# branch on a (2 data, 2 model) mesh at (4, 16)
+MOE_GRAD = dict(arch="arctic-480b", n_experts=8, expert=(2, 2304),
+                decode=(4, 16), tol=1e-4, seed=0)
+
+
+def _cm_configs():
+    """5i's (sync, async) transports."""
+    from repro_torch.comm import ChannelModel, CommConfig
+
+    base = dict(codecs=TRANSPORTS["comp+sched+ef"][1], seed=1,
+                scheduler=f"uniform:{CLIENT_MESH['q']}", error_feedback=True)
+    return (CommConfig(channel=ChannelModel(**POP_EDGE), **base),
+            CommConfig(channel=_straggler_channel(SUSY["m"]), async_mode=True,
+                       buffer_size=50, staleness="inverse", **base))
+
+
+def _susy_population(dev):
+    """SUSY's rows as a DatasetPopulation of m clients, w0 and w*."""
+    from repro_torch.core import DatasetPopulation, logistic, newton_solve
+
+    X, y = _susy_rows(dev)
+    pop = DatasetPopulation(X, y, m=SUSY["m"], lam=SUSY["lam"],
+                            objective=logistic, device=dev)
+    del X, y
+    torch.cuda.empty_cache()
+    w0 = torch.zeros(SUSY["dim"], dtype=torch.float64, device=dev)
+    return pop, w0, newton_solve(pop.eval_problem(), w0)
+
+
+def _cm_run(pop, w0, w_star, cfg, rounds: int, mesh) -> dict:
+    """run_rounds of FLeNS+ with ``client_mesh=mesh``: the iterate of
+    every round the optimizer ran (an async commit's group rounds too),
+    the losses, bytes and launches (reset just before, read just after),
+    ms a round (the loop's wall time over the rounds, evaluation
+    included) and, for the sync driver, the median of the times between
+    one round's start and the next's after the first (which opens a
+    communicator; the loop reads the loss back every round)."""
+    from repro_torch.core import make_optimizer, run_rounds
+    from repro_torch.kernels import ops
+
+    opt = make_optimizer("flens_plus", k=SUSY["k"])
+    ws, starts = [], []
+    inner = opt.round
+
+    def round_(problem, state, key, comm=None):
+        starts.append(time.perf_counter())
+        out = inner(problem, state, key, comm=comm)
+        ws.append(out["w"])
+        return out
+
+    opt.round = round_
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    hist = run_rounds(opt, pop, w0, w_star, rounds, comm=cfg,
+                      client_mesh=mesh)
+    counts = {k: v for k, v in ops.launch_counts().items()}
+    groups = (_groups_per_commit(hist) if cfg.async_mode else [1] * rounds)
+    executed = sum(groups) + (1 if cfg.async_mode else 0)  # + the probe
+    return {"w": torch.stack(ws), "loss": hist.loss,
+            "bytes": hist.cumulative_bytes,
+            "traces": [t.to_dict() for t in hist.traces],
+            "launches": counts,
+            "want": _expected_launches(cfg, executed),
+            "ms_per_round": hist.wall_time_s * 1e3 / rounds,
+            "ms_median": (None if cfg.async_mode else
+                          _median(list(np.diff(starts) * 1e3))),
+            "ef_residuals": hist.ef_residuals}
+
+
+def _cm_profile(pop, w0, w_star, cfg, mesh) -> dict:
+    """One round of run_rounds under the profiler (init and evaluation
+    included)."""
+    from repro_torch.core import make_optimizer, run_rounds
+
+    return _profile_steps(lambda: run_rounds(
+        make_optimizer("flens_plus", k=SUSY["k"]), pop, w0, w_star, 1,
+        comm=cfg, client_mesh=mesh), 1)
+
+
+def _moe_grad_cfg():
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(MOE_GRAD["arch"]),
+                               n_experts=MOE_GRAD["n_experts"],
+                               param_dtype=torch.float32,
+                               dtype=torch.float32)
+
+
+def _moe_backward(params: dict, x, g, cfg, mesh) -> "tuple[dict, float]":
+    """Gradients of sum(out * g) + aux through moe_apply under ``mesh``
+    (x's and every parameter's; the parameters are the leaves), and the
+    forward and backward's ms on the host clock."""
+    from repro_torch.models import moe
+    from repro_torch.sharding.ctx import use_mesh
+
+    x = x.clone().requires_grad_()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with use_mesh(mesh):
+        o, aux, _ = moe.moe_apply(params, x, cfg)
+    (torch.sum(o * g) + aux).backward()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    grads = {"x": x.grad, **{k: v.grad for k, v in params.items()}}
+    for v in params.values():
+        v.grad = None
+    return grads, ms
+
+
+def _moe_grad_child(job: dict, rank: int) -> dict:
+    """One rank of 5i (d): the one-process backward of the layer on the
+    card, then this rank's backward on each mesh it belongs to, each
+    gradient held to its slice of the one-process one."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe
+    from repro_torch.sharding import rules
+
+    dev = _card()
+    cfg = _moe_grad_cfg()
+    gen = torch.Generator(device=dev).manual_seed(MOE_GRAD["seed"])
+    params = moe.moe_init(gen, cfg)
+    meshes = {"expert": (DeviceMesh("cuda", torch.arange(2),
+                                    mesh_dim_names=("model",)), (0, 1)),
+              "decode": (make_mesh((2, 2), ("data", "model"), "cuda"),
+                         (0, 1, 2, 3))}
+    out = {}
+    for name, (mesh, members) in meshes.items():
+        # every rank draws every case's inputs: the generator stays in step
+        b, t = MOE_GRAD[name]
+        x = torch.randn((b, t, cfg.d_model), generator=gen, device=dev)
+        g = torch.randn((b, t, cfg.d_model), generator=gen, device=dev)
+        if rank not in members:
+            continue
+        for v in params.values():
+            v.requires_grad_(True)
+        # the second of two calls is timed (the first initialises the
+        # libraries and the allocator)
+        _moe_backward(params, x, g, cfg, None)
+        whole, one_ms = _moe_backward(params, x, g, cfg, None)
+        branch = moe.moe_branch(mesh, b, t)
+        spec = rules.batch_spec(mesh, (), x)
+        want = {"x": rules.local_shard(mesh, whole.pop("x"), spec).clone()}
+        for k, v in whole.items():
+            pspec = moe.moe_param_spec(mesh, ("moe", k), v, branch=branch)
+            want[k] = rules.local_shard(mesh, v, pspec).clone()
+        del whole
+        local = {k: v.detach().clone().requires_grad_()
+                 for k, v in moe.moe_local_params(mesh, params,
+                                                  branch).items()}
+        xs, gs = rules.local_shard(mesh, x, spec), rules.local_shard(mesh, g,
+                                                                     spec)
+        _moe_backward(local, xs, gs, cfg, mesh)
+        got, mesh_ms = _moe_backward(local, xs, gs, cfg, mesh)
+        out[name] = {
+            "branch": branch, "one_process_ms": one_ms, "mesh_ms": mesh_ms,
+            "rel_err": {k: float((got[k] - want[k]).abs().max()
+                                 / want[k].abs().max()) for k in want},
+            "finite": all(bool(torch.isfinite(v).all())
+                          for v in got.values()),
+            "shapes": {k: list(v.shape) for k, v in got.items()}}
+        del got, want, local
+        torch.cuda.empty_cache()
+    torch.distributed.barrier()
+    return out
+
+
+def client_mesh_child(job_path: str, rank: int) -> int:
+    """One rank of 5i (b) and (c) (SUSY's population on the card, this
+    rank's block of each cohort, gloo over CUDA tensors) or of 5i (d)
+    (the MoE backward); writes its results. Loads the kernels the
+    parent's build phase built."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_mesh, process_group
+
+    job = json.loads(pathlib.Path(job_path).read_text())
+    check(_build._target(_build.CSRC / "srht.cu").exists(),
+          "client-mesh child: srht.cu is not built (the parent builds it)")
+    dev = _card()
+    torch.cuda.set_device(dev)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // job["ranks"]))
+    out = {}
+    if job["kind"] == "moe":
+        with process_group(rank, job["ranks"], job["store"], backend="gloo",
+                           timeout_s=job["timeout_s"]):
+            out["moe"] = _moe_grad_child(job, rank)
+        (pathlib.Path(job["out"]) / f"moe{rank}.json").write_text(
+            json.dumps(out))
+        return 0
+    _build.module()
+    _build.module("codec")
+    pop, w0, w_star = _susy_population(dev)
+    sync, asyn = _cm_configs()
+    arrays = {}
+    with process_group(rank, job["ranks"], job["store"], backend="gloo",
+                       timeout_s=job["timeout_s"]):
+        mesh = make_mesh((job["ranks"],), ("data",), "cuda")
+        torch.distributed.barrier()
+        for name, cfg, n in (("sync", sync, job["rounds"]),
+                             ("async", asyn, job["commits"])):
+            run = _cm_run(pop, w0, w_star, cfg, n, mesh)
+            arrays[f"{name}_w"] = run.pop("w").cpu().numpy()
+            arrays[f"{name}_loss"] = run.pop("loss")
+            arrays[f"{name}_bytes"] = run.pop("bytes")
+            out[name] = run
+        out["profile"] = _cm_profile(pop, w0, w_star, sync, mesh)
+    np.savez(pathlib.Path(job["out"]) / f"rank{rank}.npz", **arrays)
+    (pathlib.Path(job["out"]) / f"rank{rank}.json").write_text(
+        json.dumps(out, default=str))
+    return 0
+
+
+def _cm_check_run(label: str, got: dict, want: dict, *, bitwise: bool,
+                  tol: float) -> float:
+    """A split run against the one-process run: launches as FLeNS+ and
+    the codec chains imply, bytes and traces equal, the iterates bit-equal
+    or within ``tol`` (relative); returns the relative error."""
+    check(got["launches"] == got["want"],
+          f"{label}: launches {got['launches']} != {got['want']}")
+    check(got["launches"] == want["launches"],
+          f"{label}: launches {got['launches']} != the one-process run's "
+          f"{want['launches']}")
+    check(np.array_equal(got["bytes"], want["bytes"])
+          and got["traces"] == want["traces"],
+          f"{label}: bytes or traces differ from the one-process run's")
+    gw = torch.as_tensor(got["w"])
+    ww = torch.as_tensor(want["w"]).to(gw.device)
+    check(gw.shape == ww.shape and bool(torch.isfinite(gw).all()),
+          f"{label}: iterates {tuple(gw.shape)} against {tuple(ww.shape)}")
+    err = _iterate_rel_err(gw, ww)
+    if bitwise:
+        check(torch.equal(gw, ww),
+              f"{label}: not bit-equal to the one-process run ({err:.3e})")
+    check(err <= tol, f"{label}: {err:.3e} > {tol} from the one-process run")
+    return err
+
+
+def phase_client_mesh(card: str) -> dict:
+    """(a) one NCCL rank: FLeNS+ on SUSY's population split over a 1-rank
+    client mesh, bit-equal to the run without a mesh; (b) 4 gloo ranks on
+    the card, 25 clients of each cohort a rank, bit-equal to each other
+    and within 1e-10 of the one-process run; (c) the async driver the
+    same way; (d) the MoE backward on two meshes against the one-process
+    backward on the card."""
+    from repro_torch.launch.mesh import make_mesh, process_group, spawn
+
+    t_phase = time.perf_counter()
+    dev = _card()
+    spec = CLIENT_MESH
+    tol, ranks = spec["tol"], spec["ranks"]
+    if CM_DIR.exists():
+        shutil.rmtree(CM_DIR)
+    CM_DIR.mkdir(parents=True)
+    sync, asyn = _cm_configs()
+    pop, w0, w_star = _susy_population(dev)
+    cohort = sync.scheduler.cohort_size(SUSY["m"])
+    out = {"rows": SUSY["n"], "dim": SUSY["dim"], "m": SUSY["m"],
+           "cohort": cohort, "rounds": spec["rounds"],
+           "commits": spec["commits"], "tolerance": tol}
+
+    # one process, no mesh: the runs every split run is held to
+    plain = {"sync": _cm_run(pop, w0, w_star, sync, spec["rounds"], None),
+             "async": _cm_run(pop, w0, w_star, asyn, spec["commits"], None)}
+    for name, run in plain.items():
+        check(run["launches"] == run["want"],
+              f"client mesh, one process {name}: launches "
+              f"{run['launches']} != {run['want']}")
+        check(bool(np.isfinite(run["loss"]).all())
+              and run["loss"][-1] < run["loss"][0],
+              f"client mesh, one process {name}: loss {run['loss'].tolist()}")
+    plain_profile = _cm_profile(pop, w0, w_star, sync, None)
+
+    # (a) one NCCL rank: the cohort's one block, the gather through NCCL
+    torch.cuda.set_device(dev)
+    with process_group(0, 1, CM_DIR / "store_one", backend="nccl",
+                       timeout_s=120):
+        mesh = make_mesh((1,), ("data",), "cuda")
+        one = _cm_run(pop, w0, w_star, sync, spec["rounds"], mesh)
+        one_profile = _cm_profile(pop, w0, w_star, sync, mesh)
+    _cm_check_run("client mesh (a) one NCCL rank", one, plain["sync"],
+                  bitwise=True, tol=0.0)
+    check(one["ef_residuals"] == plain["sync"]["ef_residuals"],
+          "client mesh (a): EF residuals differ from the one-process run's")
+    out["one_rank"] = {"backend": "nccl", "ms_per_round": one["ms_per_round"],
+                       "ms_median": one["ms_median"],
+                       "launches": one["launches"], "profile": one_profile,
+                       "bitwise_equal": True}
+    out["one_process"] = {k: {"ms_per_round": v["ms_per_round"],
+                              "ms_median": v["ms_median"],
+                              "launches": v["launches"]}
+                          for k, v in plain.items()}
+    out["one_process"]["profile"] = plain_profile
+    del pop
+    torch.cuda.empty_cache()
+
+    # (b), (c) four gloo ranks on the one card
+    job = {"kind": "rounds", "ranks": ranks, "rounds": spec["rounds"],
+           "commits": spec["commits"], "store": str(CM_DIR / "store"),
+           "out": str(CM_DIR), "timeout_s": spec["timeout_s"]}
+    (CM_DIR / "job.json").write_text(json.dumps(job))
+    t0 = time.perf_counter()
+    spawn(lambda r: [sys.executable, str(ROOT / "chip_smoke.py"),
+                     "--client-mesh-child", str(CM_DIR / "job.json"), str(r)],
+          ranks, timeout_s=spec["timeout_s"])
+    spawn_s = time.perf_counter() - t0
+    for name in ("sync", "async"):
+        runs = []
+        for r in range(ranks):
+            rec = json.loads((CM_DIR / f"rank{r}.json").read_text())
+            arr = np.load(CM_DIR / f"rank{r}.npz")
+            run = {**rec[name], "w": torch.from_numpy(arr[f"{name}_w"]),
+                   "loss": arr[f"{name}_loss"], "bytes": arr[f"{name}_bytes"]}
+            runs.append((rec, run))
+        errs = []
+        for r, (_, run) in enumerate(runs):
+            check(torch.equal(run["w"], runs[0][1]["w"])
+                  and np.array_equal(run["loss"], runs[0][1]["loss"]),
+                  f"client mesh ({'b' if name == 'sync' else 'c'}): rank "
+                  f"{r}'s iterates differ from rank 0's")
+            errs.append(_cm_check_run(
+                f"client mesh ({'b' if name == 'sync' else 'c'}) rank {r}",
+                run, {**plain[name], "w": plain[name]["w"].cpu()},
+                bitwise=False, tol=tol))
+        out["four_ranks_" + name] = {
+            "backend": "gloo", "rel_err": errs[0], "bitwise_equal_ranks": True,
+            "ms_per_round": [run["ms_per_round"] for _, run in runs],
+            "ms_median": [run["ms_median"] for _, run in runs],
+            "launches": [run["launches"] for _, run in runs],
+            "profile": [rec["profile"] for rec, _ in runs]
+            if name == "sync" else None}
+    out["spawn_s"] = spawn_s
+
+    # (d) the MoE backward: 2 ranks on ("model",), 4 on (data, model)
+    job = {"kind": "moe", "ranks": ranks, "store": str(CM_DIR / "store_moe"),
+           "out": str(CM_DIR), "timeout_s": spec["timeout_s"]}
+    (CM_DIR / "job_moe.json").write_text(json.dumps(job))
+    spawn(lambda r: [sys.executable, str(ROOT / "chip_smoke.py"),
+                     "--client-mesh-child", str(CM_DIR / "job_moe.json"),
+                     str(r)], ranks, timeout_s=spec["timeout_s"])
+    moe_out = [json.loads((CM_DIR / f"moe{r}.json").read_text())["moe"]
+               for r in range(ranks)]
+    for name, members in (("expert", (0, 1)), ("decode", (0, 1, 2, 3))):
+        for r in members:
+            row = moe_out[r][name]
+            check(row["branch"] == name and row["finite"],
+                  f"client mesh (d) {name} rank {r}: branch {row['branch']}, "
+                  f"finite {row['finite']}")
+            worst = max(row["rel_err"].values())
+            check(worst <= MOE_GRAD["tol"],
+                  f"client mesh (d) {name} rank {r}: gradients "
+                  f"{row['rel_err']} > {MOE_GRAD['tol']} of the one-process "
+                  f"backward's largest")
+    out["moe_backward"] = {
+        "arch": MOE_GRAD["arch"], "cut": f"{MOE_GRAD['n_experts']} of 128 "
+        "experts, one layer, float32", "tolerance": MOE_GRAD["tol"],
+        "ranks": moe_out}
+    out["seconds"] = time.perf_counter() - t_phase
+
+    b, c = out["four_ranks_sync"], out["four_ranks_async"]
+    per_round = {op: one["launches"][op] / spec["rounds"] for op in CM_KERNELS}
+    log(f"[client mesh] FLeNS+ k {SUSY['k']} on SUSY {SUSY['n']:,} x "
+        f"{SUSY['dim']} f64 as m {SUSY['m']}, cohort {cohort}, edge channel "
+        f"+ comp+sched+ef codecs with EF; launches a round a rank "
+        f"{per_round}")
+    log(f"[client mesh] (a) 1 NCCL rank: bit-equal to the run without a mesh "
+        f"(iterates, losses, bytes, traces, EF); "
+        f"{one['ms_median']:.3f} ms a round (median of rounds 2-"
+        f"{spec['rounds']}; {one['ms_per_round']:.3f} over all 10, the "
+        f"first opening NCCL) against {plain['sync']['ms_median']:.3f} "
+        f"({plain['sync']['ms_per_round']:.3f}) without a mesh")
+    log(f"[client mesh] (b) {ranks} gloo ranks, {cohort // ranks} clients "
+        f"each: " + " / ".join(f"{ms:.3f}" for ms in b["ms_median"])
+        + " ms a round a rank (medians; over all rounds "
+        + " / ".join(f"{ms:.3f}" for ms in b["ms_per_round"])
+        + f") against {plain['sync']['ms_median']:.3f} in one process; "
+        f"ranks bit-equal, within {b['rel_err']:.2e} of it")
+    log(f"[client mesh] (c) async, {spec['commits']} commits on {ranks} "
+        f"ranks: " + " / ".join(f"{ms:.3f}" for ms in c["ms_per_round"])
+        + f" ms a commit a rank against "
+        f"{plain['async']['ms_per_round']:.3f}; ranks bit-equal, within "
+        f"{c['rel_err']:.2e}; launches "
+        f"{ {op: c['launches'][0][op] for op in CM_KERNELS} }")
+    for label, prof in (("one process", plain_profile),
+                        ("1 NCCL rank", one_profile),
+                        ("gloo rank 0", b["profile"][0])):
+        log(f"[client mesh]   {label}, a profiled one-round run_rounds: "
+            f"device busy {prof['busy_share']:.1%} of "
+            f"{prof['wall_us'] / 1e3:.3f} ms")
+        for r in prof["top"][:5]:
+            log(f"[client mesh]     {r['us_per_round']:9.1f} us x"
+                f"{r['launches_per_round']:.0f}  {r['kernel']}")
+    for name in ("expert", "decode"):
+        rows = [moe_out[r][name] for r in range(ranks) if name in moe_out[r]]
+        log(f"[client mesh] (d) moe backward {name} branch "
+            f"({MOE_GRAD['n_experts']} of 128 arctic experts, f32, "
+            f"{len(rows)} ranks): worst relative gradient error "
+            f"{max(max(r['rel_err'].values()) for r in rows):.2e} (tol "
+            f"{MOE_GRAD['tol']}); ms " + " / ".join(
+                f"{r['mesh_ms']:.1f}" for r in rows)
+            + f" against {rows[0]['one_process_ms']:.1f} in one process")
+    log(f"[client mesh] on {card}; phase 5i took {out['seconds']:.1f} s")
     return out
 
 
@@ -5741,6 +6182,7 @@ def main() -> int:
     record["dynamics"] = phase_dynamics(card, *susy,
                                         record["populations"]["dynamics"])
     record["distributed"] = phase_distributed(card)
+    record["client_mesh"] = phase_client_mesh(card)
     record["long_rows"] = phase_long_rows()
     record["codec_parity_max_abs_err"] = phase_codec_parity()
     record["transport"] = phase_transport(*susy)
@@ -5835,6 +6277,15 @@ def main() -> int:
                 "four_ranks_gloo": [
                     r[name] for r in
                     dist_rec["four_ranks"]["launches_per_round"]]}
+        if name in CM_KERNELS:
+            # phase 5i: launches of the population runs split over ranks
+            cm = record["client_mesh"]
+            entry["client_mesh_launches"] = {
+                "one_rank_nccl": cm["one_rank"]["launches"][name],
+                "four_ranks_gloo": [n[name] for n in
+                                    cm["four_ranks_sync"]["launches"]],
+                "async_four_ranks_gloo": [n[name] for n in
+                                          cm["four_ranks_async"]["launches"]]}
         if name in routes:
             entry["routes"] = [
                 {"kernel": r["route"], "shape": r["shape"], "dims": r["dims"],
@@ -5857,4 +6308,6 @@ if __name__ == "__main__":
         sys.exit(population_child())
     if sys.argv[1:2] == ["--distributed-child"]:
         sys.exit(distributed_child(sys.argv[2], int(sys.argv[3])))
+    if sys.argv[1:2] == ["--client-mesh-child"]:
+        sys.exit(client_mesh_child(sys.argv[2], int(sys.argv[3])))
     sys.exit(main())

@@ -63,6 +63,7 @@ import torch
 
 from repro_torch.comm import feedback
 from repro_torch.comm.config import (
+    CohortSplit,
     CommRound,
     SessionDynamics,
     apply_churn,
@@ -217,9 +218,10 @@ class AsyncSession(SessionDynamics):
                 "already in flight were priced at dispatch time; use the "
                 "synchronous driver")
 
-    def comm_round(self, memory, mask, codec_key) -> CommRound:
+    def comm_round(self, memory, mask, codec_key, block=None) -> CommRound:
         return CommRound(self.config, self.plan, mask, codec_key,
-                         memory=memory, round_idx=self._group_version)
+                         memory=memory, round_idx=self._group_version,
+                         block=block)
 
     def finalize(self) -> Transport:
         self._observe_ef()
@@ -495,7 +497,7 @@ class AsyncSession(SessionDynamics):
             del self._snapshots[v]
 
 
-class PopulationAsyncSession(AsyncSession):
+class PopulationAsyncSession(CohortSplit, AsyncSession):
     """Event-driven driver over a ``ClientPopulation``.
 
     The clock of ``AsyncSession`` with cohorts of ids in place of the
@@ -519,16 +521,19 @@ class PopulationAsyncSession(AsyncSession):
     and a full quorum the whole population is one cohort with
     ``mask=None``, bit-identical to ``PopulationCommSession``. A
     departed client's landed upload returns it to the pool.
+    ``client_mesh`` splits each group's padded cohort over ranks, as
+    ``PopulationCommSession`` splits its cohorts (every block one width).
     """
 
     def __init__(self, config, population, *, keys: torch.Tensor,
                  state0: Any = None, mask_dtype: torch.dtype = torch.float64,
                  device: "str | torch.device" = "cuda",
-                 obs=NULL_TELEMETRY):
+                 obs=NULL_TELEMETRY, client_mesh=None):
         super().__init__(config, population.m, population.client_weights,
                          keys=keys, state0=state0, mask_dtype=mask_dtype,
                          device=device, obs=obs)
         self.population = population
+        self.client_mesh = client_mesh
         self.cohort_size = config.scheduler.cohort_size(population.m)
         # the quorum counts against what can be in flight: one cohort
         if config.buffer_size is not None:
@@ -555,7 +560,7 @@ class PopulationAsyncSession(AsyncSession):
         mask = (None if self.lockstep else torch.ones(
             self.cohort_size, dtype=self._mask_dtype, device=self._device))
         probe_ids = np.zeros(self.cohort_size, dtype=np.int64)
-        probe = self.population.materialize(probe_ids)
+        probe = self._cohort(probe_ids)
         self._probe(lambda s, mem, k, msk, ck: round_fn(probe, s, mem, k, msk,
                                                         ck),
                     self._pack_threat(mask, probe_ids))
@@ -637,17 +642,19 @@ class PopulationAsyncSession(AsyncSession):
             members = groups[v]
             # a fixed-width cohort: the first member pads under a zero mask
             padded = members + [members[0]] * (self.cohort_size - len(members))
-            cohort = self.population.materialize(np.asarray(padded))
+            cohort = self._cohort(np.asarray(padded))
             memory = self.ef_store.gather(padded) if self.ef_store else {}
             _, _, k_codec = round_keys(self.config.seed, v)
             self._group_version = v
             mask = self._mask(self.cohort_size, slice(0, len(members)))
             outputs[v], mem_out, stats = round_fn(
-                cohort, self._snapshots[v], memory, self.keys[v],
-                self._pack_threat(mask, np.asarray(padded)), k_codec)
+                cohort, self._snapshots[v], self._memory_in(cohort, memory),
+                self.keys[v], self._pack_threat(mask, np.asarray(padded)),
+                k_codec)
             self._consume_stats(stats)
             if self.ef_store is not None:
-                self.ef_store.scatter(members, mem_out)
+                self.ef_store.scatter(members,
+                                      self._memory_out(cohort, mem_out))
         state_new = self._combine(groups, order, outputs)
         self._record_trace(committed, commit_time)
         for client, _, _, _ in committed:

@@ -290,18 +290,27 @@ class CommRound:
     carried in from the previous round, ``plan`` the variant's byte plan
     (filled here), ``round_idx`` the round's index. With a threat model
     the sessions pass ``(mask, attackers)``, the second the (m,) 0/1
-    attacker indicator on the device."""
+    attacker indicator on the device.
+
+    ``block`` (a ``sharding.rules.CohortBlock``) splits the cohort over
+    ranks: the payloads, the memory and the per-client gate are the
+    block's rows; the mask and the attackers stay whole. ``uplink`` runs
+    the threat, the codec and EF on the block, each draw made at the
+    whole cohort's shape and cut to the block's rows, then gathers the
+    decoded rows of every rank, so the robust aggregator and every
+    server sum see the whole cohort as one process does."""
 
     def __init__(self, config: CommConfig, plan: Dict[str, int],
                  mask, codec_key: "torch.Tensor | None",
                  memory: "Dict[str, torch.Tensor] | None" = None,
-                 round_idx: int = 0):
+                 round_idx: int = 0, block=None):
         self._config = config
         self._plan = plan
         self.attackers = None
         if isinstance(mask, tuple):
             mask, self.attackers = mask
         self.mask = mask
+        self._block = block
         self._key = codec_key
         self.round_idx = round_idx
         self._n_payloads = 0
@@ -338,11 +347,21 @@ class CommRound:
         return torch.randn(shape, generator=generator(key, device),
                            dtype=dtype, device=device)
 
+    def _rows(self, x):
+        """The block's rows of a whole-cohort tensor (x without a block)."""
+        if self._block is None or x is None:
+            return x
+        return self._block.take(x)
+
+    def _width(self, x: torch.Tensor) -> int:
+        return x.shape[0] if self._block is None else self._block.width
+
     def _noise(self, codec: Codec, stream: int, x: torch.Tensor):
         if codec.deterministic:
             return None
-        shape = (x.shape[0],) + tuple(codec.noise_shape(tuple(x.shape[1:])))
-        return self.codec_noise(stream, shape, x.dtype, x.device)
+        shape = (self._width(x),) + tuple(
+            codec.noise_shape(tuple(x.shape[1:])))
+        return self._rows(self.codec_noise(stream, shape, x.dtype, x.device))
 
     def uplink(self, name: str, x: torch.Tensor,
                wire_shape: "tuple | None" = None, ef_eligible: bool = True,
@@ -369,21 +388,27 @@ class CommRound:
         self._n_payloads += 1
         dyn = self._config.dynamics
         if dyn is None:
-            return self._roundtrip(codec, name, pkey, x, ef_eligible,
-                                   ef_reset)
+            return self._gather(self._roundtrip(codec, name, pkey, x,
+                                                ef_eligible, ef_reset))
         threat = dyn.threat
         if (threat is not None and self.attackers is not None
                 and threat.applies(name)):
-            noise = (self.threat_noise(
-                _THREAT_KEY_STREAM + self._n_payloads, tuple(x.shape),
-                x.dtype, x.device) if threat.kind == "noise" else None)
-            x = threat.corrupt(x, self.attackers, noise)
-        decoded = self._roundtrip(codec, name, pkey, x, ef_eligible, ef_reset)
+            noise = (self._rows(self.threat_noise(
+                _THREAT_KEY_STREAM + self._n_payloads,
+                (self._width(x),) + tuple(x.shape[1:]), x.dtype, x.device))
+                if threat.kind == "noise" else None)
+            x = threat.corrupt(x, self._rows(self.attackers), noise)
+        decoded = self._gather(self._roundtrip(codec, name, pkey, x,
+                                               ef_eligible, ef_reset))
         if dyn.robust is not None:
             # the server's defence on what it received; the clients'
             # EF memory above tracks the wire payload
             decoded = dyn.robust(decoded, self.mask, self.stats_out)
         return decoded
+
+    def _gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's decoded rows: the whole cohort's payload."""
+        return x if self._block is None else self._block.gather(x)
 
     def _roundtrip(self, codec: Codec, name: str, pkey: str, x: torch.Tensor,
                    ef_eligible: bool, ef_reset) -> torch.Tensor:
@@ -433,11 +458,11 @@ class CommRound:
 
     def where_delivered(self, new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
         """Per-client update gate: non-delivering clients keep ``old``.
-        The leading axis is the client axis."""
+        The leading axis is the client axis (the block's rows)."""
         if self.mask is None:
             return new
         shape = (-1,) + (1,) * (new.ndim - 1)
-        return torch.where(self.mask.reshape(shape) > 0, new, old)
+        return torch.where(self._rows(self.mask).reshape(shape) > 0, new, old)
 
 
 class _NullComm:
@@ -601,10 +626,11 @@ class CommSession(SessionDynamics):
         byte plan (adaptive-k policies change payload sizes)."""
         self._variant = sig
 
-    def comm_round(self, memory, mask, codec_key) -> CommRound:
-        """The transport view the round builder hands to the optimizer."""
+    def comm_round(self, memory, mask, codec_key, block=None) -> CommRound:
+        """The transport view the round builder hands to the optimizer
+        (``block``: the rank's block of a cohort split over ranks)."""
         return CommRound(self.config, self.plan, mask, codec_key,
-                         memory=memory, round_idx=self._t)
+                         memory=memory, round_idx=self._t, block=block)
 
     def step(self, round_fn) -> Any:
         """One lock-step round: draw the cohort, execute, account."""
@@ -699,7 +725,37 @@ class CommSession(SessionDynamics):
             sim_time_s=float(trace.sim_time_s))
 
 
-class PopulationCommSession(CommSession):
+class CohortSplit:
+    """A population session's cohort split over ranks (``client_mesh``):
+    each round's cohort is cut into equal blocks of the client axis by
+    ``sharding.rules.cohort_block``, each rank materializes and runs only
+    its block, and the EF rows go out as the block's rows and come back
+    gathered, so every rank keeps the whole store. A cohort that does not
+    divide the client axis runs whole on every rank. The sessions set
+    ``population`` and ``client_mesh``."""
+
+    def _cohort(self, ids):
+        """The round's problem: the cohort ``ids``, or this rank's block
+        of it."""
+        if self.client_mesh is None:
+            return self.population.materialize(ids)
+        from repro_torch.sharding.rules import cohort_block
+
+        block = cohort_block(self.client_mesh, len(ids))
+        return self.population.materialize_block(ids, block)
+
+    @staticmethod
+    def _memory_in(cohort, memory: Dict[str, torch.Tensor]):
+        """The block's rows of the cohort's EF rows."""
+        return {name: cohort.cohort_rows(v) for name, v in memory.items()}
+
+    @staticmethod
+    def _memory_out(cohort, memory: Dict[str, torch.Tensor]):
+        """The whole cohort's EF rows from every rank's block."""
+        return {name: cohort.gather_cohort(v) for name, v in memory.items()}
+
+
+class PopulationCommSession(CohortSplit, CommSession):
     """Synchronous driver over a ``ClientPopulation``.
 
     Per round: sample the cohort's ids (``Scheduler.sample_ids``, the
@@ -716,15 +772,20 @@ class PopulationCommSession(CommSession):
     round runs with ``mask=None``. When churn leaves fewer eligible ids
     than the cohort size, the cohort is padded with its first id under
     a zero mask, so every round has the one cohort width.
+
+    ``client_mesh`` (a ``DeviceMesh``) splits each cohort over the ranks
+    of its client axis (``CohortSplit``); sampling, coins, churn and the
+    byte accounting are the same host computation on every rank.
     """
 
     def __init__(self, config: CommConfig, population, *, keys: torch.Tensor,
                  state0: Any, mask_dtype: torch.dtype = torch.float64,
                  device: "str | torch.device" = "cuda",
-                 obs=NULL_TELEMETRY):
+                 obs=NULL_TELEMETRY, client_mesh=None):
         super().__init__(config, population.m, keys=keys, state0=state0,
                          mask_dtype=mask_dtype, device=device, obs=obs)
         self.population = population
+        self.client_mesh = client_mesh
         self.cohort_size = config.scheduler.cohort_size(population.m)
         self.ef_store = (feedback.BoundedMemory(ef_capacity(
             config, population.m, self.cohort_size))
@@ -773,14 +834,16 @@ class PopulationCommSession(CommSession):
         """One cohort round: sample ids, materialize, execute, account."""
         t = self._t
         ids, mask, ck = self.begin_round(t)
-        cohort = self.population.materialize(ids)
+        cohort = self._cohort(ids)
         memory = self.ef_store.gather(ids) if self.ef_store else {}
-        self._state, mem_out, stats = round_fn(cohort, self._state, memory,
-                                               self.keys[t], mask, ck)
+        self._state, mem_out, stats = round_fn(
+            cohort, self._state, self._memory_in(cohort, memory),
+            self.keys[t], mask, ck)
         self._consume_stats(stats)
         if self.ef_store is not None:
             # real ids only: churn's pad rows repeat ids[0]
-            self.ef_store.scatter(ids[:self._pending_real], mem_out)
+            self.ef_store.scatter(ids[:self._pending_real],
+                                  self._memory_out(cohort, mem_out))
         self.end_round()
         self._t += 1
         return self._state

@@ -162,14 +162,16 @@ def make_session(comm, *, m: int, keys: torch.Tensor, state0,
                  mask_dtype: torch.dtype = torch.float64,
                  device: "str | torch.device" = "cuda",
                  population=None, client_weights=None,
-                 obs=NULL_TELEMETRY) -> Session:
+                 obs=NULL_TELEMETRY, client_mesh=None) -> Session:
     """Resolve the transport configuration to its session: ``None`` is
     the no-transport ``NullSession``, a ``CommConfig`` the lock-step
     ``CommSession`` or, with ``async_mode=True``, the event-driven
     ``AsyncSession`` (which weighs groups by ``client_weights``, (m,) on
     the host). A ``population`` selects ``PopulationCommSession`` or
     ``PopulationAsyncSession`` and needs a ``CommConfig``. ``obs`` is the
-    run's telemetry (``repro_torch.obs.Telemetry``) or the shared no-op."""
+    run's telemetry (``repro_torch.obs.Telemetry``) or the shared no-op.
+    ``client_mesh`` (a ``DeviceMesh``) splits each cohort of a population
+    over the ranks of its client axis; a dense problem is not split."""
     if comm is not None and not isinstance(comm, CommConfig):
         raise TypeError(f"comm must be a repro_torch CommConfig or None, "
                         f"got {type(comm).__name__}")
@@ -182,7 +184,8 @@ def make_session(comm, *, m: int, keys: torch.Tensor, state0,
                 "population.materialize_all() for the dense problem)")
         cls = PopulationAsyncSession if comm.async_mode else PopulationCommSession
         return cls(comm, population, keys=keys, state0=state0,
-                   mask_dtype=mask_dtype, device=device, obs=obs)
+                   mask_dtype=mask_dtype, device=device, obs=obs,
+                   client_mesh=client_mesh)
     if comm is None:
         return NullSession(keys, state0, m, obs=obs)
     if comm.async_mode:

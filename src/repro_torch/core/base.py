@@ -87,7 +87,8 @@ def build_round(opt: "FederatedOptimizer", problem, session, *,
     dict, and without robust aggregation the stats (device scalars) do."""
     if population is not None:
         def _round(cohort, state, memory, key, mask, codec_key):
-            cr = session.comm_round(memory, mask, codec_key)
+            cr = session.comm_round(memory, mask, codec_key,
+                                    block=cohort.block)
             state = opt.round(cohort, state, key, comm=cr)
             return state, cr.memory_out, cr.stats_out
         return _round
@@ -334,6 +335,7 @@ def run_rounds(
     seed: int = 0,
     comm=None,
     obs=None,
+    client_mesh=None,
 ) -> History:
     """Drive ``rounds`` communication rounds and record the trajectory.
 
@@ -345,7 +347,13 @@ def run_rounds(
     scheduled cohort is materialized each round, a ``CommConfig`` is
     required, loss and gradient come from ``problem.eval_problem()``, and
     optimizers with dense per-client state (``per_client_state``, FedNew's
-    duals) are refused. The round itself never waits on the device; the
+    duals) are refused. ``client_mesh`` (a ``DeviceMesh`` over the
+    ranks of an initialised process group, every rank calling
+    ``run_rounds`` alike) splits each cohort of a population over the
+    ranks of its client axis (``sharding.rules.cohort_block``): each rank
+    materializes and runs its block, the transport gathers the decoded
+    payloads, and every rank takes the same server step; a dense problem
+    is not split. The round itself never waits on the device; the
     loop reads the loss and gradient norm back once per round.
 
     ``obs=TelemetryConfig(...)`` turns on the ``repro_torch.obs``
@@ -389,7 +397,7 @@ def run_rounds(
     session = make_session(comm, m=m, keys=keys, state0=state,
                            mask_dtype=eval_prob.X.dtype, device=dev,
                            population=population, client_weights=weights,
-                           obs=telemetry)
+                           obs=telemetry, client_mesh=client_mesh)
     _check_async_policy(opt, comm)
     loss_star = float(eval_prob.global_value(w_star))
     _round = build_round(opt, problem, session, population=population)

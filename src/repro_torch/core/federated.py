@@ -41,9 +41,15 @@ class FederatedProblem:
     mask: torch.Tensor  # (m, n_shard) 1.0 for real rows, 0.0 for padding
     lam: float
     objective: Objective
+    # a rank's block of a cohort split over ranks
+    # (``sharding.rules.CohortBlock``) and the whole cohort's p_j; None
+    # for a whole problem
+    block: "object | None" = None
+    weights: "torch.Tensor | None" = None
 
     @property
     def m(self) -> int:
+        """The clients held here (a block's rows)."""
         return self.X.shape[0]
 
     @property
@@ -52,9 +58,43 @@ class FederatedProblem:
 
     @property
     def client_weights(self) -> torch.Tensor:
-        """p_j = n_j / N."""
+        """p_j = n_j / N, (width,): over the whole cohort for a block."""
+        if self.weights is not None:
+            return self.weights
         nj = torch.sum(self.mask, dim=1)
         return nj / torch.sum(nj)
+
+    # -- a block of a cohort split over ranks --------------------------------
+    @property
+    def cohort_width(self) -> int:
+        """The whole cohort's client count (``m`` for a whole problem)."""
+        return self.m if self.block is None else self.block.width
+
+    @property
+    def block_span(self) -> "tuple[int, int]":
+        """(first row, rows) of this block in the cohort."""
+        if self.block is None:
+            return 0, self.m
+        return self.block.offset, self.block.rows
+
+    def cohort_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This block's rows of a whole-cohort (width, ...) tensor: the
+        per-client draws are made for the whole cohort, each rank keeping
+        its rows, so a split run draws what one process draws."""
+        return x if self.block is None else self.block.take(x)
+
+    def gather_cohort(self, x: torch.Tensor) -> torch.Tensor:
+        """The whole cohort's (width, ...) rows of a per-client (m, ...)
+        tensor, from every rank's block: the server's read of a value it
+        takes outside the transport."""
+        return x if self.block is None else self.block.gather(x)
+
+    def block_of(self, block) -> "FederatedProblem":
+        """Rows ``block`` of this (whole) cohort, with its weights kept."""
+        lo, hi = block.offset, block.offset + block.rows
+        return dataclasses.replace(
+            self, X=self.X[lo:hi], y=self.y[lo:hi], mask=self.mask[lo:hi],
+            block=block, weights=self.client_weights)
 
     def _margins(self, w: torch.Tensor) -> torch.Tensor:
         return self.y * (self.X @ w)  # (m, n)
@@ -242,6 +282,18 @@ class ClientPopulation:
         """The cohort ``ids`` as a ``FederatedProblem`` (an id's shard is
         the same whatever cohort it rides in)."""
         raise NotImplementedError
+
+    def materialize_block(self, ids, block) -> FederatedProblem:
+        """Rows ``block`` (``sharding.rules.CohortBlock``) of the cohort
+        ``ids``: only the block's ids are materialized, and the problem
+        carries the whole cohort's client weights (the values
+        ``client_weights`` of the whole cohort's problem takes)."""
+        ids = np.asarray(ids, dtype=np.int64)
+        part = self.materialize(ids[block.offset:block.offset + block.rows])
+        nj = host_to(np.minimum(self.sizes[ids], self.n_shard), part.X.device,
+                     part.X.dtype)
+        return dataclasses.replace(part, block=block,
+                                   weights=nj / torch.sum(nj))
 
     def materialize_all(self) -> FederatedProblem:
         """Every client materialized (workstation scale only)."""

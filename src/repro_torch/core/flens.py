@@ -188,7 +188,8 @@ class FLeNS(FederatedOptimizer):
             lv = problem.local_value(comm.downlink("w_next", w_next))
             lv = comm.uplink("loss", lv)
         else:
-            lv = problem.local_value(w_next)
+            # the server reads the local losses without an uplink
+            lv = problem.gather_cohort(problem.local_value(w_next))
         loss_next = torch.sum(p * lv)
         if self.restart:
             # NaN-safe acceptance: a NaN loss is a rejected step

@@ -220,7 +220,8 @@ class FedNL(FederatedOptimizer):
         gs = comm.uplink("grad", problem.local_grad(w_bcast))
         g = torch.einsum("j,jm->m", p, gs)
         hs = problem.local_hessian(w_bcast)  # (m, M, M)
-        v0 = self.power_init(key, problem.m, problem.dim, w)
+        v0 = problem.cohort_rows(
+            self.power_init(key, problem.cohort_width, problem.dim, w))
         comps = self._rank1_compress(hs - B, v0)
         # the native wire format is one (value, vector) eigenpair per
         # client, not the (M, M) outer product; the B update is already

@@ -186,6 +186,13 @@ class BatchedSrhtSketch(Sketch):
     def apply(self, x, *, impl=None):
         return kops.srht_apply(x, self.signs, self.rows, impl=impl)
 
+    def clients(self, first: int, n: int) -> "BatchedSrhtSketch":
+        """Operators [first, first + n) (a rank's block of a cohort)."""
+        if first == 0 and n == self.signs.shape[0]:
+            return self
+        return dataclasses.replace(self, signs=self.signs[first:first + n],
+                                   rows=self.rows[first:first + n])
+
     @property
     def op_dtype(self):
         return self.signs.dtype
@@ -210,6 +217,12 @@ class BatchedDenseSketch(Sketch):
         flat = x.reshape(m, -1, self.dim)
         return torch.bmm(flat, self.mat.transpose(1, 2)).reshape(
             x.shape[:-1] + (self.k,))
+
+    def clients(self, first: int, n: int) -> "BatchedDenseSketch":
+        """Operators [first, first + n) (a rank's block of a cohort)."""
+        if first == 0 and n == self.mat.shape[0]:
+            return self
+        return dataclasses.replace(self, mat=self.mat[first:first + n])
 
     @property
     def op_dtype(self):

@@ -72,9 +72,10 @@ class FedNS(FederatedOptimizer):
         gs = comm.uplink("grad", problem.local_grad(w_bcast))
         g = torch.einsum("j,jm->m", p, gs)
         a = problem.local_hess_sqrt(w_bcast)  # (m, n_shard, M)
+        # the whole cohort's operators, this block's kept
         s = self.policy.materialize_batch(
-            self.policy.basis_key(key, t), problem.m, a.shape[1],
-            dtype=a.dtype, device=a.device)
+            self.policy.basis_key(key, t), problem.cohort_width, a.shape[1],
+            dtype=a.dtype, device=a.device).clients(*problem.block_span)
         sa = sketch_sqrt_rows(s, a)  # (m, k, M)
         # a fresh basis makes cross-round EF memory meaningless; a fixed
         # or rotating one keeps the payload in a stable coordinate

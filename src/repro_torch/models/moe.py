@@ -15,14 +15,15 @@ expert-parallel branch (experts over ``model``, tokens over the batch
 axes, outputs summed over ``model``) and the decode branch (tokens
 all-gathered over ``data``, expert weights F-sharded over it, outputs
 summed over (``data``, ``model``)). ``moe_local_params`` cuts a rank's
-shard of the experts out of the global weights.
+shard of the experts out of the global weights. The collectives carry
+the gradients ``jax.grad`` gives through the reference's body
+(``repro_torch.sharding.collectives``).
 """
 from __future__ import annotations
 
 import contextlib
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.launch.mesh import axis_group, axis_sizes
@@ -34,7 +35,8 @@ from repro_torch.models.common import (
     residual_scale,
     stacked_dense_init,
 )
-from repro_torch.sharding import rules
+from repro_torch.sharding import collectives as coll
+from repro_torch.sharding import ctx, rules
 from repro_torch.sharding.ctx import get_mesh
 
 # where ``record_routes`` collects each call's routing (None: off)
@@ -130,7 +132,8 @@ def _moe_shard_body(x_flat: torch.Tensor, router_w: torch.Tensor,
     experts [shard_idx E_loc, (shard_idx + 1) E_loc): (out (T, D), aux,
     drop_frac). Every token is routed over all E experts; the shard keeps
     the assignments to its own experts. With ``model_group`` the partial
-    outputs are summed and the drop fractions averaged over it."""
+    outputs are summed (``psum``: the cotangent passes through) and the
+    drop fractions averaged over it."""
     t, d = x_flat.shape
     e, k = cfg.n_experts, cfg.top_k
     e_loc = e // n_exp_shards
@@ -173,22 +176,13 @@ def _moe_shard_body(x_flat: torch.Tensor, router_w: torch.Tensor,
 
     drop_frac = 1.0 - torch.sum(keep.float()) / assigned
     if model_group is not None:
-        dist.all_reduce(out, group=model_group)
-        drop_frac = _pmean(drop_frac, model_group)
+        out = coll.sum_replicated(out, model_group)
+        drop_frac = coll.mean_replicated(drop_frac, model_group)
     if _routes is not None:
         _routes.append({"ids": ids.detach(), "keep": keep.reshape(t, k),
                         "slot": slot.reshape(t, k), "capacity": capacity,
                         "drop_frac": drop_frac.detach()})
     return out, aux, drop_frac
-
-
-def _pmean(x: torch.Tensor, group) -> torch.Tensor:
-    """The mean of ``x`` over a process group (the sum, then / size)."""
-    if group is None:
-        return x
-    x = x.clone()
-    dist.all_reduce(x, group=group)
-    return x / dist.get_world_size(group)
 
 
 def _shards(mesh) -> "tuple[int, int]":
@@ -261,7 +255,11 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
         over (``data``, ``model``) and the rank keeps its own rows; aux
         and drop averaged over (``data``, ``model``) and ``pod``.
 
-    Forward only: the collectives carry no gradient."""
+    A backward gives each rank what ``jax.grad`` of the reference's
+    ``moe_apply`` gives for its shard, of a loss on the global output
+    and aux: x's rows, the router's whole gradient (summed over the
+    mesh), the expert shard's (summed over the axes that replicate it)
+    and the shared expert's (summed over the batch axes)."""
     b, t, d = x.shape
     mesh = get_mesh()
     n_exp, n_data = _shards(mesh)
@@ -285,35 +283,53 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
                              / max(cfg.n_experts, 1)))
         cap_dec = min(cap_dec, gb * t * cfg.top_k)
         data_group = axis_group(mesh, ("data",))
-        parts = [torch.empty_like(x_flat)
-                 for _ in range(dist.get_world_size(data_group))]
-        dist.all_gather(parts, x_flat.contiguous(), group=data_group)
-        o, aux, drop = _moe_shard_body(
-            torch.cat(parts), *weights, cfg=cfg, capacity=cap_dec,
-            n_exp_shards=n_exp, shard_idx=coord.get("model", 0))
         # o is partial over both the F-slice (data) and the experts (model)
         dm = axis_group(mesh, ("data", "model"))
-        dist.all_reduce(o, group=dm)
-        out = o[coord["data"] * b * t:(coord["data"] + 1) * b * t]
-        stats = _pmean(_pmean(torch.stack([aux, drop]), dm),
-                       axis_group(mesh, ("pod",)))
+        pod = axis_group(mesh, ("pod",))
+        # the router is read by every rank, the experts' F-slices by
+        # every pod; x's rows gathered over data and read by every model
+        # rank
+        weights = (coll.replicated_input(weights[0], _whole(mesh)),
+                   *(coll.replicated_input(w, pod) for w in weights[1:]))
+        x_all = coll.gather_rows(x_flat, data_group, dm, coord["data"])
+        o, aux, drop = _moe_shard_body(
+            x_all, *weights, cfg=cfg, capacity=cap_dec,
+            n_exp_shards=n_exp, shard_idx=coord.get("model", 0))
+        out = coll.sum_then_rows(o, dm, data_group, coord["data"], b * t)
+        stats = coll.mean_replicated(
+            coll.mean_replicated(torch.stack([aux, drop]), dm), pod)
         aux, drop = stats[0], stats[1]
     else:
         _check_local(weights[1:], cfg, n_exp, 1)
+        model_group = axis_group(mesh, ("model",))
+        weights = (coll.replicated_input(weights[0], _whole(mesh)),
+                   *(coll.replicated_input(w, axis_group(mesh, ctx.BATCH))
+                     for w in weights[1:]))
         out, aux, drop = _moe_shard_body(
-            x_flat, *weights, cfg=cfg, capacity=capacity,
-            n_exp_shards=n_exp,
+            coll.replicated_input(x_flat, model_group), *weights, cfg=cfg,
+            capacity=capacity, n_exp_shards=n_exp,
             shard_idx=rules.coordinate(mesh).get("model", 0),
-            model_group=axis_group(mesh, ("model",)))
-        # aux and drop: averaged over the token shards for logging
-        stats = torch.stack([aux, drop])
-        for ax in ("pod", "data"):
-            stats = _pmean(stats, axis_group(mesh, (ax,)))
+            model_group=model_group)
+        # aux and drop: averaged over the token shards for logging; aux
+        # is the same on every model rank, one copy of n_exp
+        stats = torch.stack([coll.split_copies(aux, n_exp), drop])
+        for ax in ctx.BATCH:
+            stats = coll.mean_replicated(stats, axis_group(mesh, (ax,)))
         aux, drop = stats[0], stats[1]
     out = out.reshape(b, t, d)
     if cfg.n_shared_experts:
-        out = out + mlp_apply(params["shared"], x, cfg)
+        shared = params["shared"]
+        if branch != "one":
+            # every batch shard reads the shared expert
+            shared = {k: coll.replicated_input(v, axis_group(mesh, ctx.BATCH))
+                      for k, v in shared.items()}
+        out = out + mlp_apply(shared, x, cfg)
     return out, aux, drop
+
+
+def _whole(mesh):
+    """The group of every rank of the mesh."""
+    return axis_group(mesh, tuple(axis_sizes(mesh)))
 
 
 def _check_local(experts, cfg: ModelConfig, n_exp: int, n_f: int) -> None:

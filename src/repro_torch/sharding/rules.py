@@ -19,15 +19,18 @@ sizes (``launch.mesh.axis_sizes``), so it takes a ``DeviceMesh`` or a
 path is the tuple of keys from the tree's root to the leaf (a list's
 index as its string, as the reference's ``SequenceKey``). ``placements``
 turns a spec into DTensor placements, ``local_shard`` and ``shard_tree``
-cut a rank's shard out of a global tensor or tree.
+cut a rank's shard out of a global tensor or tree. ``cohort_block`` and
+``shard_cohort`` give a rank its block of a federated cohort.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
 
-from repro_torch.launch.mesh import axis_sizes
+from repro_torch.launch.mesh import axis_group, axis_sizes
+from repro_torch.sharding import collectives
 
 
 def _axsize(mesh, axes) -> int:
@@ -189,6 +192,59 @@ def cohort_spec(mesh, leaf) -> tuple:
         return ()
     return _guard(mesh, tuple(leaf.shape),
                   (axes[0],) + (None,) * (leaf.ndim - 1))
+
+
+@dataclasses.dataclass(frozen=True)
+class CohortBlock:
+    """A rank's block of a cohort of ``width`` clients: rows [offset,
+    offset + rows) of the client axis. ``group`` is the process group
+    whose ranks hold the other blocks, in rank order (None where the
+    cohort is replicated, or for a mesh without ranks behind it)."""
+
+    offset: int
+    rows: int
+    width: int
+    group: object = dataclasses.field(default=None, compare=False)
+
+    def take(self, x: torch.Tensor) -> torch.Tensor:
+        """This block's rows of a whole-cohort tensor (``x`` itself when
+        the block is the whole cohort)."""
+        if self.rows == self.width:
+            return x
+        return x[self.offset:self.offset + self.rows]
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The whole cohort's rows from every rank's block (``x`` itself
+        when the cohort is replicated)."""
+        if self.group is None:
+            return x
+        return collectives.all_gather_rows(x, self.group)
+
+
+def cohort_block(mesh, width: int, rank: "int | None" = None) -> CohortBlock:
+    """The block of a ``width``-client cohort that ``rank`` (this
+    process's on a ``DeviceMesh``) holds under ``cohort_spec``: an equal
+    contiguous block of the client axis by the rank's coordinate on the
+    client mesh axis, or the whole cohort where the guard replicates."""
+    spec = cohort_spec(mesh, torch.empty((width,), device="meta"))
+    if not spec:
+        return CohortBlock(0, width, width)
+    axis = spec[0]
+    n = axis_sizes(mesh)[axis]
+    rows = width // n
+    group = axis_group(mesh, (axis,)) if rank is None else None
+    return CohortBlock(coordinate(mesh, rank)[axis] * rows, rows, width,
+                       group)
+
+
+def shard_cohort(mesh, cohort, rank: "int | None" = None):
+    """This rank's block of a cohort ``FederatedProblem``: (the block's
+    problem, its offset, the cohort's width). The block keeps the whole
+    cohort's client weights for the server step; a cohort that does not
+    divide the client axis stays whole, as the reference falls back to
+    replication."""
+    block = cohort_block(mesh, cohort.m, rank)
+    return cohort.block_of(block), block.offset, block.width
 
 
 # -- trees, placements, shards --------------------------------------------------

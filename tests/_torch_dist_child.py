@@ -2,7 +2,8 @@
 
     python tests/_torch_dist_child.py JOB.json RANK
 
-``JOB.json`` names the job (``"flens"`` or ``"moe"``), the world size,
+``JOB.json`` names the job (``"flens"``, ``"moe"``, ``"moe_grad"`` or
+``"client_mesh"``), the world size,
 the store file, the input ``.npz`` and the output directory; the rank
 writes ``rank{RANK}.npz`` there. It imports the port only (no JAX): the
 reference's draws and parameters arrive as numpy arrays. The tests
@@ -44,6 +45,13 @@ class InjectedPolicy(SketchPolicy):
                                        device=device),
                           torch.tensor(self.rows[round_idx],
                                        dtype=torch.int64, device=device))
+
+    def basis_key(self, key, round_idx):
+        return torch.tensor([int(round_idx)])
+
+    def materialize(self, key, dim, dtype=torch.float32, device="cuda"):
+        """Round ``key[0]``'s operator (``basis_key`` carries the round)."""
+        return self.sample(None, int(key[0]), dim, dtype, device)
 
 
 def unflatten(flat: dict) -> dict:
@@ -131,6 +139,249 @@ def moe_job(job: dict, rank: int) -> dict:
     return out
 
 
+def flatten(tree, prefix: str = "") -> dict:
+    """``{"a": {"b": x}}`` -> ``{"a/b": x}`` (numpy leaves)."""
+    if isinstance(tree, dict):
+        out = {}
+        for name, sub in tree.items():
+            out.update(flatten(sub, f"{prefix}{name}{KEY_SEP}"))
+        return out
+    return {prefix[:-1]: tree.detach().numpy()}
+
+
+def moe_grad_job(job: dict, rank: int) -> dict:
+    """The backward of moe_apply on every case of the job: this rank's
+    gradients of x (its batch rows), the router, its expert shard and
+    the shared expert, of sum(out * g) + aux_coef aux; and the P1 case:
+    a ("model",) mesh of ranks 0 and 1 beside the no-mesh backward."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.interop import lm_params_from_numpy
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.ctx import use_mesh
+
+    d = np.load(job["data"])
+    coef = float(job["aux_coef"])
+
+    def grads(params, x, g, mesh):
+        params = _leaves_requiring_grad(params)
+        x = x.clone().requires_grad_()
+        with use_mesh(mesh):
+            o, aux, _ = moe.moe_apply(params, x, cfg)
+        (torch.sum(o * g) + coef * aux).backward()
+        out = flatten(_grads_of(params))
+        out["x"] = x.grad.numpy()
+        return out
+
+    meshes = {}
+    out = {}
+    for case in job["cases"]:
+        name, arch = case["name"], case["arch"]
+        cfg = get_config(arch).reduced()
+        key = (tuple(case["shape"]), tuple(case["axes"]))
+        if key not in meshes:
+            meshes[key] = make_mesh(*key, "cpu")
+        mesh = meshes[key]
+        params = lm_params_from_numpy(unflatten(
+            {p[len(arch) + 1:]: d[p] for p in d.files
+             if p.startswith(arch + KEY_SEP)}), cfg, device="cpu")
+        x = torch.from_numpy(d[f"x/{name}"])
+        g = torch.from_numpy(d[f"g/{name}"])
+        spec = rules.batch_spec(mesh, (), x)
+        branch = moe.moe_branch(mesh, *x.shape[:2])
+        local = moe.moe_local_params(mesh, params, branch)
+        got = grads(local, rules.local_shard(mesh, x, spec),
+                    rules.local_shard(mesh, g, spec), mesh)
+        out.update({f"{name}/{k}": v for k, v in got.items()})
+    # P1: two ranks of a ("model",) mesh (ranks 2 and 3 take no part)
+    arch = job["p1"]["arch"]
+    cfg = get_config(arch).reduced()
+    params = lm_params_from_numpy(unflatten(
+        {p[len(arch) + 1:]: d[p] for p in d.files
+         if p.startswith(arch + KEY_SEP)}), cfg, device="cpu")
+    mesh = DeviceMesh("cpu", torch.arange(2), mesh_dim_names=("model",))
+    if rank < 2:
+        x, g = torch.from_numpy(d["x/p1"]), torch.from_numpy(d["g/p1"])
+        local = moe.moe_local_params(mesh, params, "expert")
+        out["p1/mesh/x"] = grads(local, x, g, mesh)["x"]
+        out["p1/none/x"] = grads(params, x, g, None)["x"]
+    torch.distributed.barrier()
+    return out
+
+
+def _leaves_requiring_grad(tree):
+    if isinstance(tree, dict):
+        return {k: _leaves_requiring_grad(v) for k, v in tree.items()}
+    return tree.detach().clone().requires_grad_()
+
+
+def _grads_of(tree):
+    if isinstance(tree, dict):
+        return {k: _grads_of(v) for k, v in tree.items()}
+    return tree.grad
+
+
+# -- cohorts split over ranks (run_rounds(..., client_mesh=)) ----------------
+
+# m 40 clients of 20 rows, 8 features; cohorts of 8 (uniform:0.2), 20
+# (uniform:0.5) and 6 (uniform:0.15, which does not divide 4 ranks)
+CM_M, CM_ROWS, CM_DIM, CM_ROUNDS = 40, 800, 8, 3
+EDGE = dict(uplink_bytes_per_s="loguniform:3e4,3e6",
+            downlink_bytes_per_s="loguniform:3e5,3e7", latency_s=0.08,
+            straggler_prob=0.20, straggler_slowdown=10.0, dropout_prob=0.10)
+EDGE_CODECS = {"h_sk": "sympack+qint8", "sg": "qint8",
+               "grad": "topk0.1+qint8", "default": "qint8"}
+# every Table-I optimizer a population admits (all but FedNew), and
+# FLeNS without its guard (the server's loss read outside the uplink)
+CM_OPTIMIZERS = {
+    "flens": ("flens", dict(k=4)),
+    "flens_plus": ("flens_plus", dict(k=4)),
+    "flens_noguard": ("flens", dict(k=4, restart=False)),
+    "fedavg": ("fedavg", {}),
+    "fedprox": ("fedprox", {}),
+    "fednewton": ("fednewton", {}),
+    "distributed_newton": ("distributed_newton", {}),
+    "local_newton": ("local_newton", {}),
+    "fednl": ("fednl", {}),
+    "fedns": ("fedns", dict(k=4)),
+    "fedndes": ("fedndes", dict(k_min=4)),
+}
+
+
+def client_mesh_config(name: str):
+    """The transports of the client-mesh runs, by name."""
+    from repro_torch.comm import ChannelModel, CommConfig
+    from repro_torch.dynamics import DynamicsConfig
+
+    if name == "identity":
+        return CommConfig(scheduler="uniform:0.2", seed=1)
+    if name == "edge_ef":
+        return CommConfig(scheduler="uniform:0.2", seed=1, codecs=EDGE_CODECS,
+                          error_feedback=True, channel=ChannelModel(**EDGE))
+    if name == "robust":
+        return CommConfig(scheduler="uniform:0.2", seed=1,
+                          channel=ChannelModel(dropout_prob=0.25),
+                          dynamics=DynamicsConfig(threat="noise:0.2,1.0",
+                                                  robust="median", seed=3))
+    if name == "churn":
+        return CommConfig(scheduler="uniform:0.5", seed=1,
+                          dynamics=DynamicsConfig(churn="step:t=1,frac=0.6",
+                                                  seed=2))
+    if name == "replicated":
+        return CommConfig(scheduler="uniform:0.15", seed=1)
+    if name == "async":
+        return CommConfig(scheduler="uniform:0.2", seed=1, async_mode=True,
+                          buffer_size=4, staleness="inverse",
+                          channel=ChannelModel(straggler_prob=0.3,
+                                               straggler_slowdown=10.0))
+    raise ValueError(name)
+
+
+def client_mesh_runs() -> "list[dict]":
+    """Every (transport, optimizer) run of the client-mesh test."""
+    runs = [{"config": c, "opt": o}
+            for c in ("identity", "edge_ef", "robust", "churn")
+            for o in CM_OPTIMIZERS]
+    runs += [{"config": "replicated", "opt": o}
+             for o in ("flens_plus", "fedavg", "fedns")]
+    runs += [{"config": "async", "opt": o}
+             for o in ("flens_plus", "fedavg", "fedns")]
+    for r in runs:
+        r["name"] = f"{r['config']}-{r['opt']}"
+    return runs
+
+
+def client_mesh_data():
+    """The runs' rows: (800, 8) features and +-1 labels, from a seed."""
+    rng = np.random.default_rng(11)
+    X = rng.standard_normal((CM_ROWS, CM_DIM))
+    w = rng.standard_normal(CM_DIM)
+    y = np.where(X @ w + 0.5 * rng.standard_normal(CM_ROWS) > 0, 1.0, -1.0)
+    return X, y
+
+
+def population_run(run: dict, mesh) -> dict:
+    """One run on the CPU: the population of ``client_mesh_data``, the
+    run's optimizer and transport, ``client_mesh=mesh``. Returns the
+    iterate of every round the optimizer ran (an async commit's group
+    rounds too), the losses and the bytes."""
+    from repro_torch.core import (
+        DatasetPopulation,
+        logistic,
+        make_optimizer,
+        newton_solve,
+        run_rounds,
+    )
+
+    X, y = client_mesh_data()
+    pop = DatasetPopulation(X, y, CM_M, 1e-3, logistic, seed=0, device="cpu")
+    w0 = torch.zeros(CM_DIM, dtype=torch.float64)
+    w_star = newton_solve(pop.eval_problem(), w0)
+    name, kw = CM_OPTIMIZERS[run["opt"]]
+    opt = make_optimizer(name, **kw)
+    ws = []
+    inner = opt.round
+
+    def round_(problem, state, key, comm=None):
+        out = inner(problem, state, key, comm=comm)
+        ws.append(out["w"])
+        return out
+
+    opt.round = round_
+    h = run_rounds(opt, pop, w0, w_star, CM_ROUNDS, seed=0,
+                   comm=client_mesh_config(run["config"]), client_mesh=mesh)
+    return {"w": torch.stack(ws).numpy(), "loss": h.loss,
+            "bytes": h.cumulative_bytes}
+
+
+def reference_run(d, mesh) -> dict:
+    """FLeNS (k 4) on the reference's population rows with its cohorts
+    and operators injected (``ids`` (R, c), ``signs``, ``rows``), the
+    identity transport, ``client_mesh=mesh``: losses and bytes."""
+    from repro_torch import interop
+    from repro_torch.comm import scheduler
+    from repro_torch.core import FLeNS, run_rounds
+
+    pop = interop.dataset_population_from_numpy(
+        d["rows_X"], d["rows_y"], d["sizes"], int(d["n_shard"]), 1e-3,
+        "logistic", device="cpu")
+    ids = d["ids"]
+
+    def sample_ids(self, key, round_idx, m, channel, eligible=None):
+        return np.asarray(ids[round_idx], dtype=np.int64)
+
+    inner = scheduler.UniformSampler.sample_ids
+    scheduler.UniformSampler.sample_ids = sample_ids
+    try:
+        opt = FLeNS(k=4, sketch=InjectedPolicy.of("srht", 4, d["signs"],
+                                                   d["rows"]))
+        h = run_rounds(opt, pop, torch.zeros(CM_DIM, dtype=torch.float64),
+                       torch.from_numpy(d["w_star"]), len(ids), seed=0,
+                       comm=client_mesh_config("identity"), client_mesh=mesh)
+    finally:
+        scheduler.UniformSampler.sample_ids = inner
+    return {"loss": h.loss, "bytes": h.cumulative_bytes,
+            "ids": np.stack([tr.ids for tr in h.traces])}
+
+
+def client_mesh_job(job: dict, rank: int) -> dict:
+    """Every client-mesh run on a (4,) "data" mesh, and the run against
+    the reference's with its draws injected."""
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((4,), ("data",), "cpu")
+    out = {}
+    for run in client_mesh_runs():
+        for k, v in population_run(run, mesh).items():
+            out[f"{run['name']}/{k}"] = v
+    for k, v in reference_run(np.load(job["data"]), mesh).items():
+        out[f"reference/{k}"] = v
+    return out
+
+
 def main(job_path: str, rank: int) -> int:
     from repro_torch.launch.mesh import process_group
 
@@ -138,7 +389,8 @@ def main(job_path: str, rank: int) -> int:
     job = json.loads(pathlib.Path(job_path).read_text())
     with process_group(rank, job["world"], job["store"], backend="gloo",
                        timeout_s=job.get("timeout_s", 60)):
-        out = {"flens": flens_job, "moe": moe_job}[job["kind"]](job, rank)
+        out = {"flens": flens_job, "moe": moe_job, "moe_grad": moe_grad_job,
+               "client_mesh": client_mesh_job}[job["kind"]](job, rank)
     np.savez(pathlib.Path(job["out"]) / f"rank{rank}.npz", **out)
     return 0
 

@@ -720,3 +720,44 @@ def test_one_nccl_rank_distributed_flens_equals_the_simulator(hopper,
         err = float((ws[t + 1] - state["w"]).abs().max()
                     / state["w"].abs().max())
         assert err <= 1e-10, (t, err)
+
+
+@pytest.mark.gpu
+def test_one_nccl_rank_client_mesh_round_equals_the_no_mesh_round(hopper,
+                                                                 tmp_path):
+    """A population round split over a 1-rank NCCL client mesh on the
+    card (the cohort's one block, the transport's gather through NCCL)
+    equals the round without a mesh bit for bit, through the SRHT and
+    codec kernels (4 srht_apply, 1 topk_mask, 3 qint8_roundtrip)."""
+    from repro_torch.comm import ChannelModel, CommConfig
+    from repro_torch.core import (
+        SyntheticPopulation,
+        make_optimizer,
+        newton_solve,
+        run_rounds,
+    )
+    from repro_torch.launch.mesh import make_mesh, process_group
+
+    pop = SyntheticPopulation(m=2000, dim=16, seed=1, device=hopper)
+    w0 = torch.zeros(16, dtype=torch.float64, device=hopper)
+    w_star = newton_solve(pop.eval_problem(), w0)
+    cfg = CommConfig(channel=ChannelModel(
+        uplink_bytes_per_s="loguniform:3e4,3e6", dropout_prob=0.1),
+        scheduler="uniform:0.05", seed=1, codecs=_EDGE_CODECS,
+        error_feedback=True)
+
+    def run(mesh):
+        return run_rounds(make_optimizer("flens_plus", k=8), pop, w0, w_star,
+                          rounds=1, comm=cfg, client_mesh=mesh)
+
+    want = run(None)
+    torch.cuda.set_device(hopper)
+    with process_group(0, 1, tmp_path / "store", backend="nccl",
+                       timeout_s=60):
+        ops.reset_launch_counts()
+        got = run(make_mesh((1,), ("data",), "cuda"))
+        counts = ops.launch_counts()
+    _assert_same(got, want)
+    assert got.ef_residuals == want.ef_residuals
+    assert counts["srht_apply"] == 4 and counts["srht_apply_t"] == 3
+    assert counts["topk_mask"] == 1 and counts["qint8_roundtrip"] == 3
