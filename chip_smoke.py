@@ -3854,11 +3854,12 @@ def _cut_list(cfg) -> list:
             and getattr(full, f.name) != getattr(cfg, f.name)]
 
 
-def _run_engine(model, params, reqs, cache_len=SERVE["cache_len"]) -> dict:
+def _run_engine(model, params, reqs, cache_len=SERVE["cache_len"],
+                max_batch=SERVE["max_batch"]) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.serving import ServingEngine
 
-    engine = ServingEngine(model, params, max_batch=SERVE["max_batch"],
+    engine = ServingEngine(model, params, max_batch=max_batch,
                            cache_len=cache_len)
     for r in reqs:
         engine.submit(r)
@@ -5453,6 +5454,570 @@ def phase_rightsized(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 11f. LMs served over a mesh
+# ---------------------------------------------------------------------------
+
+MESH_DIR = ROOT / "chiprun_out" / "mesh_serving"
+# (a) qwen1.5-110b at full width, 4 layers, bf16, a 4-way ("model",) mesh:
+# a 2048-token batch-1 prefill and a batch-4 prefill of 512-token prompts,
+# each then 32 teacher-forced decode steps (tokens from the seed, a cache
+# of T + 32 slots); (b) tinyllama whole in bf16 on (2 data, 2 model):
+# SERVE's 8 requests through the engine, all 8 in its batch (its decode
+# steps each gather the layers' FSDP weights through gloo, which the
+# card's machine moves at ~0.1-0.2 GB/s: 8 slots halve the steps of
+# SERVE's 4), and the batch-4 prefill with 4 steps for the logits; (c)
+# its float32 twin at 4 layers, the requests at 8 new tokens; (d) one
+# NCCL rank (a 1 x 1 mesh), tinyllama at 4 layers in bf16, SERVE's engine
+B4 = (("b4", 4, 512),)
+MESH_SERVE = dict(
+    ranks=4, timeout_s=600, seed=7,
+    parts={"qwen": dict(arch="qwen1.5-110b", n_layers=4, dtype="bfloat16",
+                        mesh=((4,), ("model",)), engine=None, steps=32,
+                        inputs=(("b1", 1, 2048), *B4)),
+           "tiny": dict(arch="tinyllama-1.1b", n_layers=None,
+                        dtype="bfloat16", mesh=((2, 2), ("data", "model")),
+                        engine=dict(max_batch=8, new_tokens=64), steps=4,
+                        inputs=B4),
+           "twin": dict(arch="tinyllama-1.1b", n_layers=4, dtype="float32",
+                        mesh=((2, 2), ("data", "model")),
+                        engine=dict(max_batch=8, new_tokens=8), steps=4,
+                        inputs=B4)},
+    one_rank=dict(arch="tinyllama-1.1b", n_layers=4, dtype="bfloat16",
+                  engine=dict(max_batch=SERVE["max_batch"],
+                              new_tokens=SERVE["new_tokens"]), steps=4,
+                  inputs=B4),
+    twin_tol=1e-4)
+MESH_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def _mesh_model(part: dict):
+    """(cfg, model, params from seed 0 on the card) of a part, as
+    ``_serve_model`` draws them."""
+    cfg, model, params, _ = _serve_model(MESH_DTYPES[part["dtype"]],
+                                         part["arch"], part["n_layers"])
+    return cfg, model, params
+
+
+def _mesh_inputs(vocab: int, part: dict) -> dict:
+    """name -> (prompt tokens (B, T), decode-step tokens (steps, B, 1)) of
+    a part's teacher-forced runs, numpy, from MESH_SERVE's seed."""
+    rng = np.random.default_rng(MESH_SERVE["seed"])
+    return {name: (rng.integers(0, vocab, (b, t)),
+                   rng.integers(0, vocab, (part["steps"], b, 1)))
+            for name, b, t in part["inputs"]}
+
+
+@contextlib.contextmanager
+def _flash_calls():
+    """Record the (q shape, k shape, dtype) of every flash call inside
+    the block (the call goes through unchanged)."""
+    from repro_torch.kernels import ops
+
+    calls, inner = [], ops.flash_attention
+
+    def recorded(q, k, v, **kw):
+        calls.append((list(q.shape), list(k.shape), str(q.dtype)))
+        return inner(q, k, v, **kw)
+    ops.flash_attention = recorded
+    try:
+        yield calls
+    finally:
+        ops.flash_attention = inner
+
+
+def _forced(model, params, inputs: dict) -> dict:
+    """Each input's prefill (a cache of T + steps slots), then its
+    teacher-forced decode steps, under no_grad: the logits of every call
+    (steps + 1, B, V) in float32 on the host, the prefill's ms, launches
+    and flash calls, ms a decode step, the launches of the steps and the
+    bytes the mesh's collectives brought to this rank a step; the final
+    state on the card."""
+    from repro_torch.kernels import ops
+    from repro_torch.sharding import tensor_parallel as tp
+
+    dev = _card()
+    out = {}
+    for name, (toks, steps) in inputs.items():
+        toks = torch.from_numpy(toks).to(dev)
+        steps = torch.from_numpy(steps).to(dev)
+        cache_len = toks.shape[1] + steps.shape[0]
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        tp.reset_moved_bytes()
+        with torch.no_grad(), _flash_calls() as calls:
+            t0 = time.perf_counter()
+            logits, state = model.prefill(params, {"inputs": toks},
+                                          cache_len=cache_len)
+            torch.cuda.synchronize()
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+        prefill_launches = {k: ops.launch_counts()[k] for k in NO_LM}
+        prefill_moved = tp.moved_bytes()
+        prefill_coll_s = tp.collective_seconds()
+        got, ms = [logits], []
+        ops.reset_launch_counts()
+        tp.reset_moved_bytes()
+        with torch.no_grad():
+            for step in steps:
+                t0 = time.perf_counter()
+                logits, state = model.decode_step(params, state, step)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                got.append(logits)
+        moved = tp.moved_bytes()
+        coll_s = tp.collective_seconds()
+        out[name] = {
+            "logits": torch.stack(got).float().cpu(), "state": state,
+            "prefill_ms": prefill_ms, "decode_ms": ms,
+            "decode_ms_median": _median(ms),
+            "prefill_launches": prefill_launches,
+            "prefill_flash_calls": calls,
+            "prefill_moved_bytes": prefill_moved,
+            "prefill_collective_ms": {k: v * 1e3
+                                      for k, v in prefill_coll_s.items()},
+            "collective_ms_per_step": {k: v * 1e3 / len(ms)
+                                       for k, v in coll_s.items()},
+            "decode_launches": {k: ops.launch_counts()[k] for k in NO_LM},
+            "moved_bytes_per_step": {k: v / len(ms) for k, v in moved.items()}}
+    return out
+
+
+def _mesh_engine(model, params, spec: dict) -> dict:
+    """SERVE's requests at ``spec``'s new tokens through the engine with
+    ``spec``'s slots (``_run_engine``): the token streams, tokens/s and
+    the launches of the run."""
+    reqs = _serve_requests(model.cfg.vocab, spec["new_tokens"])
+    run = _run_engine(model, params, reqs, max_batch=spec["max_batch"])
+    return {"streams": [r.generated for r in reqs],
+            "tokens_per_s": run["tokens_per_s"], "wall_s": run["wall_s"],
+            "steps": run["steps"], "launches": run["launches"]}
+
+
+def _tree_bytes(tree) -> int:
+    from repro_torch.tree import leaves
+
+    return sum(a.numel() * a.element_size() for a in leaves(tree))
+
+
+def _logits_errs(got, plain, yard) -> dict:
+    """The mesh run's logits ``got`` and the no-mesh run's ``plain``
+    against the float32 no-mesh yardstick ``yard`` (same weights): max
+    abs errors, the bf16 tolerance 2 x the no-mesh error + 1 bf16 ulp of
+    max |yard|, and the share of positions whose argmax agrees."""
+    top = float(yard.abs().max())
+    err, err_plain = _max_err(got, yard), _max_err(plain, yard)
+    return {"max_abs_err": err, "plain_max_abs_err": err_plain,
+            "tolerance": 2 * err_plain + 2.0 ** (math.floor(math.log2(top))
+                                                 - 7),
+            "max_abs_logit": top,
+            "argmax_agree": float((got.argmax(-1) == yard.argmax(-1))
+                                  .float().mean()),
+            "plain_argmax_agree": float((plain.argmax(-1) == yard.argmax(-1))
+                                        .float().mean()),
+            "argmax_agree_plain": float((got.argmax(-1) == plain.argmax(-1))
+                                        .float().mean())}
+
+
+def _mesh_reference(name: str, part: dict, tmp: pathlib.Path) -> dict:
+    """A part's runs in this process without a mesh: the teacher-forced
+    logits in the part's dtype and (for bf16) of the same weights in
+    float32 (the yardstick), and the engine's streams; saved to ``tmp``
+    for the ranks, stats returned. Frees the card."""
+    out = {}
+    cfg, model, params = _mesh_model(part)
+    inputs = _mesh_inputs(cfg.vocab, part)
+    n_attn = _attn_layers(model)
+    route = FLASH_ROUTE[cfg.dtype]
+    plain = _forced(model, params, inputs)
+    saved = {"plain": {k: r["logits"] for k, r in plain.items()}}
+    for k, r in plain.items():
+        check(r["prefill_launches"] == _flash_want(n_attn, route),
+              f"mesh serving {name}: no-mesh prefill launches "
+              f"{r['prefill_launches']}")
+        out[k] = {"prefill_ms": r["prefill_ms"],
+                  "decode_ms_median": r["decode_ms_median"]}
+    del plain
+    if part["engine"]:
+        eng = _mesh_engine(model, params, part["engine"])
+        saved["streams"] = eng["streams"]
+        out["engine_tokens_per_s"] = eng["tokens_per_s"]
+    out["param_bytes"] = _tree_bytes(params)
+    if cfg.dtype == torch.bfloat16:
+        # the yardstick: the same weights, upcast, in a float32 model
+        import dataclasses
+
+        f32 = dataclasses.replace(cfg, dtype=torch.float32,
+                                  param_dtype=torch.float32)
+        from repro_torch.models.lm import LM
+        from repro_torch.tree import tree_map
+
+        params = tree_map(lambda a: a.float(), params)
+        torch.cuda.empty_cache()
+        yard = _forced(LM(f32), params, inputs)
+        saved["yard"] = {k: r["logits"] for k, r in yard.items()}
+        del yard
+    del params, model
+    torch.cuda.empty_cache()
+    torch.save(saved, tmp / f"{name}.pt")
+    return out
+
+
+def _draw_shard(part: dict, mesh, rank: int, ranks: int):
+    """(cfg, model, this rank's serving shard of the part's weights from
+    seed 0): the ranks draw the whole tree on the card one after another,
+    each keeping its shard and freeing the rest before the next draws."""
+    from repro_torch.sharding import rules
+
+    for turn in range(ranks):
+        if turn == rank:
+            cfg, model, params = _mesh_model(part)
+            local = rules.serving_shard(mesh, params)
+            del params
+            torch.cuda.empty_cache()
+        torch.distributed.barrier()
+    return cfg, model, local
+
+
+def mesh_serving_child(job_path: str, rank: int) -> int:
+    """One rank of 11f (a)-(c): each part's weights drawn and sharded,
+    the teacher-forced runs (and the engine) under the part's mesh,
+    gloo over CUDA tensors; writes its stats and its errors against the
+    parent's no-mesh runs. Loads the flash kernels the parent built."""
+    import hashlib
+
+    from repro_torch.kernels import _build
+    from repro_torch.launch.input_specs import param_shapes
+    from repro_torch.launch.mesh import make_mesh, process_group
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.ctx import use_mesh
+
+    job = json.loads(pathlib.Path(job_path).read_text())
+    for stem in ("flash_attention_sm90", "flash_attention"):
+        check(_build._target(_build.CSRC / f"{stem}.cu").exists(),
+              f"mesh serving child: {stem}.cu is not built (the parent "
+              f"builds it)")
+    dev = _card()
+    torch.cuda.set_device(dev)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // job["ranks"]))
+    tmp = pathlib.Path(job["tmp"])
+    out, meshes = {}, {}
+    progress = open(pathlib.Path(job["out"]) / f"rank{rank}.log", "w")
+    t_child = time.perf_counter()
+
+    def note(what):
+        progress.write(f"{time.perf_counter() - t_child:8.1f} s  {what}\n")
+        progress.flush()
+    with process_group(rank, job["ranks"], job["store"], backend="gloo",
+                       timeout_s=job["timeout_s"]):
+        for name, part in MESH_SERVE["parts"].items():
+            shape, axes = part["mesh"]
+            if (shape, axes) not in meshes:
+                meshes[shape, axes] = make_mesh(shape, axes, "cuda")
+            mesh = meshes[shape, axes]
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            note(f"{name}: drawing")
+            cfg, model, local = _draw_shard(part, mesh, rank, job["ranks"])
+            draw_s = time.perf_counter() - t0
+            note(f"{name}: drawn in {draw_s:.1f} s")
+            draw_peak = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            want = rules.shard_tree(mesh, param_shapes(cfg),
+                                    rules.serving_param_spec)
+            rec = {"param_bytes": _tree_bytes(local),
+                   "layout_param_bytes": _tree_bytes(want),
+                   "draw_s": draw_s, "draw_peak_bytes": draw_peak}
+            torch.distributed.barrier()
+            with use_mesh(mesh):
+                runs = _forced(model, local, _mesh_inputs(cfg.vocab, part))
+                note(f"{name}: forced runs " + ", ".join(
+                    f"{k} prefill {r['prefill_ms']:.0f} ms (collectives "
+                    f"{sum(r['prefill_collective_ms'].values()):.0f}), decode "
+                    f"{r['decode_ms_median']:.1f} ms a step (collectives "
+                    f"{sum(r['collective_ms_per_step'].values()):.1f})"
+                    for k, r in runs.items()))
+                if part["engine"]:
+                    rec["engine"] = _mesh_engine(model, local, part["engine"])
+                    note(f"{name}: engine {rec['engine']['wall_s']:.1f} s, "
+                         f"{rec['engine']['steps']} steps")
+            ref = torch.load(tmp / f"{name}.pt")
+            for k, r in runs.items():
+                got = r.pop("logits")
+                rec[k] = {key: r[key] for key in r if key != "state"}
+                rec[k]["logits_sha1"] = hashlib.sha1(
+                    got.numpy().tobytes()).hexdigest()
+                rec[k]["state_shapes"] = [
+                    {leaf: list(a.shape) for leaf, a in g.items()}
+                    for g in r["state"]["groups"]]
+                if "yard" in ref:
+                    rec[k]["errs"] = _logits_errs(got, ref["plain"][k],
+                                                  ref["yard"][k])
+                else:
+                    plain = ref["plain"][k]
+                    top = float(plain.abs().max())
+                    rec[k]["errs"] = {
+                        "max_abs_err": _max_err(got, plain),
+                        "max_abs_logit": top,
+                        "tolerance": MESH_SERVE["twin_tol"] * top,
+                        "argmax_agree": float((got.argmax(-1)
+                                               == plain.argmax(-1))
+                                              .float().mean())}
+            if "streams" in ref:
+                rec["engine"]["streams_equal"] = (rec["engine"]["streams"]
+                                                  == ref["streams"])
+                rec["engine"]["token_agree"] = float(np.mean(
+                    [a == b for s, t in zip(rec["engine"]["streams"],
+                                            ref["streams"])
+                     for a, b in zip(s, t)]))
+            rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+            if name == "qwen" and rank == 0:
+                rec["flash_parity"] = _mesh_flash_parity(runs)
+            del local, runs, model
+            out[name] = rec
+            torch.distributed.barrier()
+    (pathlib.Path(job["out"]) / f"rank{rank}.json").write_text(
+        json.dumps(out, default=str))
+    return 0
+
+
+def _mesh_flash_parity(runs: dict) -> dict:
+    """The flash kernel at a rank's prefill shapes (its q heads and the
+    KV heads they read) against its plain version on the same random
+    inputs; these launches are not counted in the runs."""
+    from repro_torch.kernels import ops
+
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    out = {}
+    for name, r in runs.items():
+        (q_shape, k_shape, _), *_ = r["prefill_flash_calls"]
+        q = torch.randn(q_shape, generator=gen, device=dev).to(torch.bfloat16)
+        k = torch.randn(k_shape, generator=gen, device=dev).to(torch.bfloat16)
+        v = torch.randn(k_shape, generator=gen, device=dev).to(torch.bfloat16)
+        got, want = (ops.flash_attention(q, k, v, impl=impl)
+                     for impl in (None, "ref"))
+        err = _max_err(got.float(), want.float())
+        check(err <= FLASH_TOL[torch.bfloat16],
+              f"mesh serving: the flash kernel at {q_shape} / {k_shape} "
+              f"differs from its plain version by {err:.3e}")
+        out[name] = {"q": q_shape, "k": k_shape, "max_abs_err": err}
+    return out
+
+
+def _mesh_one_rank(card: str) -> dict:
+    """(d) one NCCL rank, a 1 x 1 mesh: tinyllama at 4 layers in bf16,
+    the teacher-forced runs and the engine bit-equal to the same runs
+    without a mesh (logits, every cache leaf, the streams)."""
+    from repro_torch.launch.mesh import make_mesh, process_group
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.ctx import use_mesh
+
+    part = MESH_SERVE["one_rank"]
+    cfg, model, params = _mesh_model(part)
+    inputs = _mesh_inputs(cfg.vocab, part)
+    want = _forced(model, params, inputs)
+    want_eng = _mesh_engine(model, params, part["engine"])
+    with process_group(0, 1, MESH_DIR / "store_one", backend="nccl",
+                       timeout_s=120):
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        local = rules.serving_shard(mesh, params)
+        with use_mesh(mesh):
+            got = _forced(model, local, inputs)
+            got_eng = _mesh_engine(model, local, part["engine"])
+    out = {}
+    for k in inputs:
+        g, w = got[k], want[k]
+        check(torch.equal(g["logits"], w["logits"]),
+              f"mesh serving (d) {k}: logits not bit-equal to no mesh")
+        for gg, ww in zip(g["state"]["groups"], w["state"]["groups"]):
+            for leaf in ww:
+                check(torch.equal(gg[leaf], ww[leaf]),
+                      f"mesh serving (d) {k}: cache {leaf} not bit-equal")
+        check(g["prefill_launches"] == w["prefill_launches"],
+              f"mesh serving (d) {k}: launches {g['prefill_launches']}")
+        out[k] = {"prefill_ms": g["prefill_ms"],
+                  "plain_prefill_ms": w["prefill_ms"],
+                  "decode_ms_median": g["decode_ms_median"],
+                  "plain_decode_ms_median": w["decode_ms_median"]}
+    check(got_eng["streams"] == want_eng["streams"],
+          "mesh serving (d): engine streams differ from no mesh")
+    out["engine_tokens_per_s"] = got_eng["tokens_per_s"]
+    out["plain_engine_tokens_per_s"] = want_eng["tokens_per_s"]
+    del got, want, params, local, model
+    torch.cuda.empty_cache()
+    log(f"[mesh] (d) 1 NCCL rank, {cfg.arch_id} {cfg.n_layers} layers bf16: "
+        f"logits, caches and {len(want_eng['streams'])} engine streams "
+        f"bit-equal to no mesh; engine {out['engine_tokens_per_s']:.1f} "
+        f"tokens/s (no mesh {out['plain_engine_tokens_per_s']:.1f}) on "
+        f"{card}")
+    return out
+
+
+def phase_mesh_serving(card: str) -> dict:
+    """11f: the dense kind served over a mesh (``sharding.ctx.use_mesh``):
+    (a)-(c) on 4 gloo ranks of the one card against the same weights
+    without a mesh in this process, (d) one NCCL rank bit-equal."""
+    import tempfile
+
+    from repro_torch.launch.mesh import spawn
+
+    t_phase = time.perf_counter()
+    if MESH_DIR.exists():
+        shutil.rmtree(MESH_DIR)
+    MESH_DIR.mkdir(parents=True)
+    record = {"card": card, "ranks": MESH_SERVE["ranks"],
+              "one_rank": _mesh_one_rank(card)}
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="mesh_serving_"))
+    try:
+        plain = {name: _mesh_reference(name, part, tmp)
+                 for name, part in MESH_SERVE["parts"].items()}
+        ranks = MESH_SERVE["ranks"]
+        job = {"ranks": ranks, "store": str(MESH_DIR / "store"),
+               "out": str(MESH_DIR), "tmp": str(tmp),
+               "timeout_s": MESH_SERVE["timeout_s"]}
+        (MESH_DIR / "job.json").write_text(json.dumps(job))
+        t0 = time.perf_counter()
+        spawn(lambda r: [sys.executable, str(ROOT / "chip_smoke.py"),
+                         "--mesh-serving-child", str(MESH_DIR / "job.json"),
+                         str(r)], ranks, timeout_s=MESH_SERVE["timeout_s"])
+        spawn_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    got = [json.loads((MESH_DIR / f"rank{r}.json").read_text())
+           for r in range(ranks)]
+    for name, part in MESH_SERVE["parts"].items():
+        record[name] = _mesh_check_part(name, part, plain[name],
+                                        [g[name] for g in got], card)
+    record["spawn_s"] = spawn_s
+    record["seconds"] = time.perf_counter() - t_phase
+    log(f"[mesh] phase 11f on {card} took {record['seconds']:.1f} s (the "
+        f"ranks {spawn_s:.1f} s from spawn to join)")
+    return record
+
+
+def _mesh_check_part(name: str, part: dict, plain: dict, ranks: list,
+                     card: str) -> dict:
+    """Check one part's ranks: parameter bytes as the layout's, logits
+    bit-equal across ranks and within the part's tolerance, each
+    prefill's flash launches on the route at the rank's heads, no
+    launch in a decode step, the engine's streams (equal to no mesh for
+    float32); log the times, bytes and memory."""
+    from repro_torch.configs import get_config
+
+    dtype = MESH_DTYPES[part["dtype"]]
+    cfg = get_config(part["arch"])
+    layers = part["n_layers"] or cfg.n_layers
+    sizes = dict(zip(part["mesh"][1], part["mesh"][0]))
+    m = sizes["model"]
+    route = FLASH_ROUTE[dtype]
+    label = f"mesh serving ({name})"
+    for r, rec in enumerate(ranks):
+        check(rec["param_bytes"] == rec["layout_param_bytes"],
+              f"{label}: rank {r} holds {rec['param_bytes']} parameter bytes, "
+              f"its serving shard {rec['layout_param_bytes']}")
+    out = {"arch": part["arch"], "n_layers": layers, "dtype": part["dtype"],
+           "mesh": sizes, "plain": plain,
+           "param_bytes_per_rank": [r["param_bytes"] for r in ranks],
+           "plain_param_bytes": plain["param_bytes"],
+           "peak_bytes_per_rank": [r["peak_bytes"] for r in ranks],
+           "draw_peak_bytes_per_rank": [r["draw_peak_bytes"] for r in ranks],
+           "draw_s_per_rank": [r["draw_s"] for r in ranks]}
+    for k, b, t in part["inputs"]:
+        rows = [rec[k] for rec in ranks]
+        check(len({r["logits_sha1"] for r in rows}) == 1,
+              f"{label} {k}: the ranks' logits differ")
+        errs = rows[0]["errs"]
+        check(errs["max_abs_err"] <= errs["tolerance"],
+              f"{label} {k}: logits {errs['max_abs_err']:.4e} from the "
+              f"yardstick > tolerance {errs['tolerance']:.4e}")
+        # the rank's batch rows, q heads and KV heads (both divide here)
+        n_data = sizes.get("data", 1)
+        heads = (cfg.n_heads // m, cfg.n_kv_heads // m)
+        want_shape = [b // n_data if b % n_data == 0 else b, t, heads[0],
+                      cfg.head_dim]
+        for r, row in enumerate(rows):
+            check(row["prefill_launches"] == _flash_want(layers, route),
+                  f"{label} {k}: rank {r} prefill launches "
+                  f"{row['prefill_launches']}, want {layers} on {route}")
+            check(all(c[0] == want_shape and c[1][2] == heads[1]
+                      for c in row["prefill_flash_calls"]),
+                  f"{label} {k}: rank {r} flash calls "
+                  f"{row['prefill_flash_calls'][:1]}, want q {want_shape} "
+                  f"and {heads[1]} KV heads")
+            check(all(v == 0 for v in row["decode_launches"].values()),
+                  f"{label} {k}: rank {r} decode launched "
+                  f"{row['decode_launches']}")
+        moved = rows[0]["moved_bytes_per_step"]
+        out[k] = {"errs": errs,
+                  "prefill_ms": [r["prefill_ms"] for r in rows],
+                  "decode_ms_median": [r["decode_ms_median"] for r in rows],
+                  "moved_bytes_per_decode_step": moved,
+                  "prefill_moved_bytes": rows[0]["prefill_moved_bytes"],
+                  "flash_call": rows[0]["prefill_flash_calls"][0],
+                  "launches_per_prefill": rows[0]["prefill_launches"],
+                  "state_shapes": rows[0]["state_shapes"]}
+        log(f"[mesh] ({name}) {part['arch']} {layers} layers {part['dtype']} "
+            f"on {sizes}, {k} ({b} x {t}): prefill "
+            + " / ".join(f"{x:.1f}" for x in out[k]["prefill_ms"])
+            + " ms, decode " + " / ".join(f"{x:.2f}" for x in
+                                          out[k]["decode_ms_median"])
+            + f" ms a step by rank (no mesh {plain[k]['prefill_ms']:.1f} / "
+            f"{plain[k]['decode_ms_median']:.2f} ms); "
+            f"{sum(moved.values()) / 1e6:.3f} MB through the collectives a "
+            f"decode step a rank ({ {kk: int(v) for kk, v in moved.items()} }"
+            f"); flash q {out[k]['flash_call'][0]} k "
+            f"{out[k]['flash_call'][1]} x{layers} a prefill a rank")
+        log(f"[mesh]   logits vs the float32 no-mesh yardstick: max abs err "
+            f"{errs['max_abs_err']:.4e} (tolerance {errs['tolerance']:.4e}"
+            + (f", no-mesh {part['dtype']} {errs['plain_max_abs_err']:.4e}"
+               if "plain_max_abs_err" in errs else "")
+            + f", max |logit| {errs['max_abs_logit']:.3f}); argmax agrees "
+            f"at {errs['argmax_agree']:.4f} of positions"
+            + (f" (no mesh {errs['plain_argmax_agree']:.4f}; with the "
+               f"no-mesh run {errs['argmax_agree_plain']:.4f})"
+               if "plain_argmax_agree" in errs else ""))
+    if part["engine"]:
+        eng = ranks[0]["engine"]
+        n_attn = layers
+        check(all(r["engine"]["streams"] == eng["streams"] for r in ranks),
+              f"{label}: the ranks' engine streams differ")
+        reqs = SERVE["requests"]
+        spec = part["engine"]
+        for r, rec in enumerate(ranks):
+            fl = rec["engine"]["launches"]
+            check(fl["flash_attention"] == reqs * n_attn
+                  and fl[f"flash_attention_{route}"] == reqs * n_attn,
+                  f"{label}: rank {r} engine launches {fl}, want "
+                  f"{reqs} prefills x {n_attn} on {route}")
+        if dtype == torch.float32:
+            check(eng["streams_equal"],
+                  f"{label}: engine streams differ from no mesh")
+        out["engine"] = {k: eng[k] for k in ("tokens_per_s", "wall_s", "steps",
+                                             "streams_equal", "token_agree")}
+        out["engine"]["tokens_per_s_by_rank"] = [
+            r["engine"]["tokens_per_s"] for r in ranks]
+        log(f"[mesh] ({name}) engine, {reqs} requests x {spec['new_tokens']} "
+            f"new tokens, {spec['max_batch']} slots: " + " / ".join(
+                f"{x:.1f}" for x in out["engine"]["tokens_per_s_by_rank"])
+            + f" tokens/s by rank (no mesh "
+            f"{plain['engine_tokens_per_s']:.1f}); streams equal to no mesh: "
+            f"{eng['streams_equal']} ({eng['token_agree']:.4f} of tokens "
+            f"agree)")
+    if name == "qwen":
+        out["flash_parity"] = ranks[0]["flash_parity"]
+    log(f"[mesh] ({name}) parameter bytes a rank "
+        + " / ".join(f"{b / 1e9:.3f}" for b in out["param_bytes_per_rank"])
+        + f" GB (the layout's; whole {plain['param_bytes'] / 1e9:.3f} GB), "
+        f"peak device memory a rank serving " + " / ".join(
+            f"{b / 2**30:.2f}" for b in out["peak_bytes_per_rank"])
+        + " GiB, drawing the weights in turn " + " / ".join(
+            f"{b / 2**30:.2f}" for b in out["draw_peak_bytes_per_rank"])
+        + f" GiB; 4 ranks share one card and gloo stages through the host, "
+        f"so these times say nothing of 4 cards; on {card}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # 11. flash times
 # ---------------------------------------------------------------------------
 
@@ -6195,6 +6760,7 @@ def main() -> int:
     record["moe"] = phase_moe(card)
     record["cross"] = phase_cross(card)
     record["rightsized"] = phase_rightsized(card)
+    record["mesh_serving"] = phase_mesh_serving(card)
     record["flash_times"] = phase_flash_times()
     record["train"] = phase_train()
     # launches: the SRHT kernels from the full-size comm=None run (fwht is
@@ -6286,6 +6852,15 @@ def main() -> int:
                                     cm["four_ranks_sync"]["launches"]],
                 "async_four_ranks_gloo": [n[name] for n in
                                           cm["four_ranks_async"]["launches"]]}
+        if name in ("flash_attention_sm90", "flash_attention_tf32x3"):
+            # phase 11f: launches a prefill a rank of an LM over a mesh
+            mesh = record["mesh_serving"]
+            parts = [p for p, spec in MESH_SERVE["parts"].items()
+                     if FLASH_ROUTE[MESH_DTYPES[spec["dtype"]]] ==
+                     name.rsplit("_", 1)[1]]
+            entry["mesh_launches_per_prefill_per_rank"] = {
+                f"{p} {k}": mesh[p][k]["launches_per_prefill"][name]
+                for p in parts for k, _, _ in MESH_SERVE["parts"][p]["inputs"]}
         if name in routes:
             entry["routes"] = [
                 {"kernel": r["route"], "shape": r["shape"], "dims": r["dims"],
@@ -6310,4 +6885,6 @@ if __name__ == "__main__":
         sys.exit(distributed_child(sys.argv[2], int(sys.argv[3])))
     if sys.argv[1:2] == ["--client-mesh-child"]:
         sys.exit(client_mesh_child(sys.argv[2], int(sys.argv[3])))
+    if sys.argv[1:2] == ["--mesh-serving-child"]:
+        sys.exit(mesh_serving_child(sys.argv[2], int(sys.argv[3])))
     sys.exit(main())

@@ -19,6 +19,7 @@ from repro_torch.core.losses import OBJECTIVES, Objective
 from repro_torch.core.sketch import BatchedSrhtSketch, SrhtSketch
 from repro_torch.device import resolve_device
 from repro_torch.models.common import FLOAT32_LEAVES
+from repro_torch.tree import tree_map
 
 
 def problem_from_numpy(X, y, mask, lam: float, objective: "str | Objective",
@@ -163,6 +164,22 @@ def lm_params_from_numpy(params, cfg, device: "str | torch.device" = "cuda") -> 
         dtype = torch.float32 if name in FLOAT32_LEAVES else cfg.param_dtype
         return torch.tensor(arr, device=dev).to(dtype)
     return leaf(None, dict(params))
+
+
+def lm_shard_from_numpy(params, cfg, mesh,
+                        device: "str | torch.device" = "cuda",
+                        rank: "int | None" = None) -> dict:
+    """The rank's shard of ``repro``'s LM parameters for serving over
+    ``mesh``: ``lm_params_from_numpy`` (on the host), then each leaf's
+    block under ``rules.serving_param_spec`` (``rules.serving_shard``)
+    on ``device``; ``rank`` defaults to this process's on a
+    ``DeviceMesh``."""
+    from repro_torch.sharding import rules
+
+    dev = resolve_device(device)
+    shard = rules.serving_shard(mesh, lm_params_from_numpy(params, cfg,
+                                                           device="cpu"), rank)
+    return tree_map(lambda a: a.to(dev), shard)
 
 
 def _tensor_keep_dtype(a, dev: torch.device) -> torch.Tensor:

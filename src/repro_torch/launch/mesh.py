@@ -124,17 +124,19 @@ def axis_index(mesh, axes) -> int:
     return idx
 
 
-def axis_group(mesh, axes):
+def axis_group(mesh, axes, copy: int = 0):
     """The process group of this rank's slice along the named axes (the
     ranks that differ from it only there), or None when no named axis is
-    in the mesh. Every rank of the mesh must ask for the same axes in
-    the same order: the first call makes a group for every slice."""
+    in the mesh; ``copy`` k > 0 gives the k-th other group of the same
+    ranks (a collective cut in stripes moves each over its own group).
+    Every rank of the mesh must ask for the same axes and copies in the
+    same order: the first call makes a group for every slice."""
     axes = _present(mesh, axes)
     if not axes:
         return None
-    if len(axes) == 1:
+    if len(axes) == 1 and copy == 0:
         return mesh.get_group(axes[0])
-    key = (id(mesh), axes)
+    key = (id(mesh), axes, copy)
     if key not in _GROUPS:
         names = list(mesh.mesh_dim_names)
         ranks = mesh.mesh

@@ -16,8 +16,21 @@ The counterpart of ``repro.models.attention`` for serving and training:
 
 Caches store the absolute position of each slot per batch row (``pos``,
 -1 = empty), so every row may sit at its own decode index.
+
+On a mesh (``sharding.ctx.use_mesh``) ``attn_full_kv`` and
+``attn_decode`` take the rank's ``model`` block of the heads of
+``wq``/``wo`` (and of ``wk``/``wv`` where their heads divide, else the
+whole of them): a prefill projects and attends over the rank's heads
+(the flash kernel on those heads alone), sums ``wo``'s partial outputs
+over ``model`` and returns K and V of every KV head for the cache; a
+decode step is sequence-parallel over the cache's slots, as the
+reference's: q replicated over ``model``, each rank's slots scored, the
+softmax's max and sum and the probability-weighted V summed over the
+cache's sequence shards (``SeqShard``).
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -28,6 +41,8 @@ from repro_torch.models.common import (
     residual_out_init,
     rmsnorm,
 )
+from repro_torch.sharding import tensor_parallel as tp
+from repro_torch.sharding.ctx import get_mesh
 
 NEG_INF = -2.0**30  # large-negative instead of -inf: masked softmax stays NaN-free
 
@@ -80,14 +95,17 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.to(x.dtype).reshape(d, heads * dh)).unflatten(-1, (heads, dh))
 
 
-def _qkv(params: dict, x: torch.Tensor, cfg: ModelConfig):
+def _qkv(params: dict, x: torch.Tensor, cfg: ModelConfig,
+         q_heads: slice = slice(None), kv_heads: slice = slice(None)):
+    """q, k, v of the projections' heads; the (whole) biases' rows
+    ``q_heads`` and ``kv_heads`` are those heads'."""
     q = _proj(x, params["wq"])
     k = _proj(x, params["wk"])
     v = _proj(x, params["wv"])
     if "bq" in params:
-        q = q + params["bq"].to(x.dtype)
-        k = k + params["bk"].to(x.dtype)
-        v = v + params["bv"].to(x.dtype)
+        q = q + params["bq"][q_heads].to(x.dtype)
+        k = k + params["bk"][kv_heads].to(x.dtype)
+        v = v + params["bv"][kv_heads].to(x.dtype)
     if "q_norm" in params:
         q = rmsnorm(params["q_norm"], q)
         k = rmsnorm(params["k_norm"], k)
@@ -100,21 +118,77 @@ def _out(params: dict, o: torch.Tensor, dtype) -> torch.Tensor:
     return o.flatten(-2) @ params["wo"].to(dtype).reshape(h * dh, d)
 
 
+class Heads(NamedTuple):
+    """The heads a rank's projections hold: q heads [q0, q0 + hq) of
+    ``wq`` and ``wo``, KV heads [k0, k0 + hk) of ``wk`` and ``wv``;
+    ``lay`` the rank's ``tensor_parallel.Layout`` (None: whole
+    projections, no collective; else ``wq``'s heads are split, and
+    ``wk``'s too where hk < Hkv)."""
+
+    lay: object
+    q0: int
+    hq: int
+    k0: int
+    hk: int
+
+
+def _heads(params: dict, cfg: ModelConfig) -> Heads:
+    """The heads of the rank's projections: fewer than the config's are
+    its ``model`` block (``rules.serving_param_spec``; ``wk``/``wv`` stay
+    whole where their heads do not divide over ``model``)."""
+    h, hkv = cfg.n_heads, cfg.n_kv_heads
+    hq, hk = params["wq"].shape[-2], params["wk"].shape[-2]
+    mesh = get_mesh()
+    if mesh is None or (hq == h and hk == hkv):
+        return Heads(None, 0, h, 0, hkv)
+    lay = tp.layout(mesh)
+    m = lay.model_index
+    return Heads(lay, m * hq if hq < h else 0, hq, m * hk if hk < hkv else 0,
+                 hk)
+
+
+def _kv_of_q_heads(k: torch.Tensor, heads: Heads, cfg: ModelConfig):
+    """The KV heads (B, T, ., Dh) of ``k`` (heads [k0, k0 + hk)) that the
+    rank's q heads read, q head j reading KV head j // (H / Hkv): a run
+    of heads each read by a group of q heads, one head read by all, or
+    else one KV head a q head."""
+    group = cfg.n_heads // cfg.n_kv_heads
+    first = heads.q0 // group
+    last = (heads.q0 + heads.hq - 1) // group
+    if (heads.q0 % group == 0 and heads.hq % group == 0) or first == last:
+        return k[:, :, first - heads.k0:last + 1 - heads.k0]
+    ids = torch.arange(heads.q0, heads.q0 + heads.hq, device=k.device)
+    return k[:, :, ids // group - heads.k0]
+
+
 def attn_full_kv(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
                  causal: bool = True, window: "int | None" = None,
                  theta: "float | None" = None):
     """``attn_full`` that also returns the rotated K and the V it
-    attended over, (B, T, Hkv, Dh) each: prefill caches them."""
+    attended over, (B, T, Hkv, Dh) each: prefill caches them. On a mesh
+    the kernel runs on the rank's q heads and the KV heads they read,
+    and K and V come back with every KV head (all-gathered over
+    ``model`` where ``wk`` holds a block of them)."""
     t = x.shape[1]
     theta = cfg.rope_theta if theta is None else theta
     positions = torch.arange(t, device=x.device)
-    q, k, v = _qkv(params, x, cfg)
+    heads = _heads(params, cfg)
+    q, k, v = _qkv(params, x, cfg, slice(heads.q0, heads.q0 + heads.hq),
+                   slice(heads.k0, heads.k0 + heads.hk))
     if theta is not None:
         q = rope(q, positions, theta)
         k = rope(k, positions, theta)
-    o = kops.flash_attention(q, k.contiguous(), v.contiguous(), causal=causal,
-                             window=window)
-    return _out(params, o, x.dtype), k, v
+    if heads.lay is None:
+        o = kops.flash_attention(q, k.contiguous(), v.contiguous(),
+                                 causal=causal, window=window)
+        return _out(params, o, x.dtype), k, v
+    o = kops.flash_attention(q, _kv_of_q_heads(k, heads, cfg).contiguous(),
+                             _kv_of_q_heads(v, heads, cfg).contiguous(),
+                             causal=causal, window=window)
+    out = tp.sum_over(_out(params, o, x.dtype), heads.lay.model)
+    if heads.hk < cfg.n_kv_heads:
+        k, v = tp.gather_fused([k, v], heads.lay.model, [2, 2])
+    return out, k, v
 
 
 def attn_full(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
@@ -143,9 +217,32 @@ def make_cache(cfg: ModelConfig, n_layers: int, batch: int, length: int,
     }
 
 
+class SeqShard(NamedTuple):
+    """A cache's sequence shard on a mesh: slots [offset, offset + S) of
+    ``slots`` (S the local cache's), the other shards on the ranks of
+    ``group`` (None: the whole sequence is here)."""
+
+    offset: int
+    slots: int
+    group: object
+
+
+def _write_slot(cache: torch.Tensor, rows, slot, value, seq: SeqShard):
+    """Row r's value into slot ``slot[r]`` of the rank's shard (slot
+    offset ``seq.offset``), on the rank that owns it; elsewhere the slot
+    keeps its value (clamped in range, so no row syncs the host)."""
+    s = cache.shape[1]
+    local = slot - seq.offset
+    owned = (local >= 0) & (local < s)
+    local = local.clamp(0, s - 1)
+    mask = owned.reshape(-1, *([1] * (value.ndim - 1)))
+    cache[rows, local] = torch.where(mask, value, cache[rows, local])
+
+
 def attn_decode(params: dict, x: torch.Tensor, layer_cache: dict,
                 index: torch.Tensor, cfg: ModelConfig, *,
-                window: "int | None" = None, theta: "float | None" = None):
+                window: "int | None" = None, theta: "float | None" = None,
+                seq: "SeqShard | None" = None):
     """One decode step. x (B, 1, D); ``layer_cache`` one layer's
     {"k", "v": (B, S, Hkv, Dh), "pos": (B, S)}; ``index`` a scalar or
     (B,) tensor of absolute positions (rows may differ). Returns
@@ -154,23 +251,45 @@ def attn_decode(params: dict, x: torch.Tensor, layer_cache: dict,
     The cache is written in place (an index write at slot index % S of
     each row, the values the reference's one-hot ``where`` writes), so
     the returned cache is the one passed in.
+
+    On a mesh, x holds the rank's batch rows and ``seq`` places the
+    cache's slots: q, K and V of the new token come from the rank's
+    heads, all-gathered over ``model`` (q is replicated there); the rank
+    that owns slot index % slots writes it; the softmax runs over the
+    slots of every shard of ``seq.group`` (its max and sum reduced over
+    it, then the rounded probabilities times V summed over it).
     """
     b = x.shape[0]
     theta = cfg.rope_theta if theta is None else theta
     idx = torch.as_tensor(index, device=x.device).to(torch.int64).reshape(-1)
     idx = idx.expand(b)
     pos = idx[:, None]  # (B, 1) positions for rope
-    q, k_new, v_new = _qkv(params, x, cfg)
+    heads = _heads(params, cfg)
+    q, k_new, v_new = _qkv(params, x, cfg, slice(heads.q0, heads.q0 + heads.hq),
+                           slice(heads.k0, heads.k0 + heads.hk))
     if theta is not None:
         q = rope(q, pos, theta)
         k_new = rope(k_new, pos, theta)
+    if heads.lay is not None and heads.hk < cfg.n_kv_heads:
+        # every KV head a block of the rank's: so are its q heads
+        q, k_new, v_new = tp.gather_fused([q, k_new, v_new],
+                                          heads.lay.model, [2, 2, 2])
+    elif heads.lay is not None:
+        q = tp.gather(q, heads.lay.model, 2)
 
     k, v, pos_arr = layer_cache["k"], layer_cache["v"], layer_cache["pos"]
     rows = torch.arange(b, device=x.device)
-    slot = torch.remainder(idx, k.shape[1])
-    k[rows, slot] = k_new[:, 0].to(k.dtype)
-    v[rows, slot] = v_new[:, 0].to(v.dtype)
-    pos_arr[rows, slot] = idx.to(pos_arr.dtype)
+    if seq is None or seq.slots == k.shape[1]:
+        slot = torch.remainder(idx, k.shape[1])
+        k[rows, slot] = k_new[:, 0].to(k.dtype)
+        v[rows, slot] = v_new[:, 0].to(v.dtype)
+        pos_arr[rows, slot] = idx.to(pos_arr.dtype)
+    else:
+        slot = torch.remainder(idx, seq.slots)
+        _write_slot(k, rows, slot, k_new[:, 0].to(k.dtype), seq)
+        _write_slot(v, rows, slot, v_new[:, 0].to(v.dtype), seq)
+        _write_slot(pos_arr, rows, slot, idx.to(pos_arr.dtype), seq)
+    seq_group = None if seq is None else seq.group
 
     hkv, dh = cfg.n_kv_heads, cfg.head_dim
     group = cfg.n_heads // hkv
@@ -187,10 +306,19 @@ def attn_decode(params: dict, x: torch.Tensor, layer_cache: dict,
     if window is not None and window > 0:
         valid &= pos_arr > (idx[:, None] - window)
     logits = torch.where(valid[:, None, None, :], logits, NEG_INF)
-    probs = torch.softmax(logits, dim=-1)
+    if seq_group is None:
+        probs = torch.softmax(logits, dim=-1)
+    else:
+        top = tp.max_over(logits.amax(dim=-1, keepdim=True), seq_group)
+        e = torch.exp(logits - top)
+        probs = e / tp.sum_over(e.sum(dim=-1, keepdim=True), seq_group)
     o = probs.to(v.dtype).float() @ v.float().transpose(1, 2)  # (B, Hkv, G, Dh)
+    o = tp.sum_over(o, seq_group)
     o = o.reshape(b, 1, cfg.n_heads, dh).to(x.dtype)
-    return _out(params, o, x.dtype), layer_cache
+    if heads.lay is None:
+        return _out(params, o, x.dtype), layer_cache
+    out = _out(params, o[:, :, heads.q0:heads.q0 + heads.hq], x.dtype)
+    return tp.sum_over(out, heads.lay.model), layer_cache
 
 
 # ---------------------------------------------------------------------------

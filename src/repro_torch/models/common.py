@@ -15,6 +15,9 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding import tensor_parallel as tp
+from repro_torch.sharding.ctx import get_mesh
+
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
@@ -216,27 +219,59 @@ def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return (normed * (1.0 + params["scale"].float())).to(x.dtype)
 
 
-def mlp_apply(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def mlp_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
+              d_ff: "int | None" = None) -> torch.Tensor:
     """Gated MLP (SwiGLU / GeGLU). x: (..., d_model). ``jax.nn.gelu``
-    defaults to the tanh approximation, and so does this."""
+    defaults to the tanh approximation, and so does this.
+
+    On a mesh, weights narrower than the MLP's width ``d_ff`` (default
+    ``cfg.d_ff``) are this rank's ``model`` block of it: ``w_gate`` and
+    ``w_up`` column-parallel, ``w_down`` row-parallel, its partial output
+    summed over ``model``."""
     gate = x @ params["w_gate"]
     up = x @ params["w_up"]
     act = F.silu(gate) if cfg.act == "silu" else F.gelu(gate, approximate="tanh")
-    return (act * up) @ params["w_down"]
+    out = (act * up) @ params["w_down"]
+    mesh = get_mesh()
+    if mesh is not None and params["w_gate"].shape[-1] != (d_ff or cfg.d_ff):
+        out = tp.sum_over(out, tp.layout(mesh).model)
+    return out
 
 
 def embed(params: dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Row gather, cast to ``cfg.dtype``; dense-like families scale by
-    sqrt(d_model) with the scalar rounded to ``cfg.dtype`` first."""
-    x = params["table"][tokens].to(cfg.dtype)
+    sqrt(d_model) with the scalar rounded to ``cfg.dtype`` first.
+
+    On a mesh, a table of fewer than ``cfg.vocab`` rows is this rank's
+    ``model`` block of the vocab: the rows of the tokens outside it are
+    zero, and the rows are summed over ``model`` (exact: one rank holds
+    each token's row)."""
+    table = params["table"]
+    mesh = get_mesh()
+    if mesh is None or table.shape[0] == cfg.vocab:
+        x = table[tokens].to(cfg.dtype)
+    else:
+        lay = tp.layout(mesh)
+        rows = table.shape[0]
+        local = tokens - lay.model_index * rows
+        mine = (local >= 0) & (local < rows)
+        x = table[local.clamp(0, rows - 1)].to(cfg.dtype)
+        x = tp.sum_over(torch.where(mine[..., None], x, 0.0), lay.model)
     if cfg.family in ("dense", "moe", "vlm", "hybrid"):
         x = x * torch.tensor(cfg.d_model**0.5, dtype=cfg.dtype)
     return x
 
 
-def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Logits x @ table.T for a (vocab, d_model) table."""
-    return x @ table.T.to(x.dtype)
+def unembed(table: torch.Tensor, x: torch.Tensor, *,
+            vocab: "int | None" = None) -> torch.Tensor:
+    """Logits x @ table.T for a (vocab, d_model) table. On a mesh, a
+    table of fewer than ``vocab`` rows is this rank's ``model`` block of
+    the vocab, and the blocks' logits are all-gathered over ``model``."""
+    logits = x @ table.T.to(x.dtype)
+    mesh = get_mesh()
+    if mesh is not None and vocab is not None and table.shape[0] != vocab:
+        logits = tp.gather(logits, tp.layout(mesh).model, -1)
+    return logits
 
 
 # ---------------------------------------------------------------------------

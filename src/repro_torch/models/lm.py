@@ -36,6 +36,18 @@ griffin's attention take rings too. Prefill writes the same rings
 ``init_decode_state`` allocates (``_cache_slots``), where the
 reference's prefill gives the remainder group and griffin full caches
 (ROADMAP section 3, record 6).
+
+Under a mesh (``sharding.ctx.use_mesh``) the ``dense`` and ``moe``
+kinds serve in the reference's layout (``_OnMesh``): ``prefill``,
+``init_decode_state`` and ``decode_step`` take token ids and return
+logits of the global batch on every rank, while each rank holds its
+shard of the parameters (``rules.serving_shard``: each leaf's block
+under ``rules.serving_param_spec``) and of the decode state (under
+``rules.state_spec``). The activations are the rank's batch rows, every
+weight's FSDP dim is all-gathered over ``data`` as its unit runs, and
+the layers split their heads, MLP width and vocab over ``model``
+(``models.common``, ``models.attention``). Training and the other
+kinds raise under a mesh.
 """
 from __future__ import annotations
 
@@ -62,6 +74,9 @@ from repro_torch.models.common import (
     rmsnorm_init,
     unembed,
 )
+from repro_torch.sharding import rules
+from repro_torch.sharding import tensor_parallel as tp
+from repro_torch.sharding.ctx import get_mesh
 from repro_torch.tree import leaves, tree_map
 
 RECURRENT = ("ssd", "rec", "griffin")  # kinds with a recurrent state
@@ -176,9 +191,10 @@ def _dense_unit_train(p: dict, x: torch.Tensor, cfg: ModelConfig, window: int,
 
 def _dense_unit_decode(p: dict, x: torch.Tensor, cache: dict,
                        index: torch.Tensor, cfg: ModelConfig, *,
-                       window: int, theta: float):
+                       window: int, theta: float, seq=None):
     h, cache = attn.attn_decode(p["attn"], rmsnorm(p["ln1"], x), cache,
-                                index, cfg, window=window, theta=theta)
+                                index, cfg, window=window, theta=theta,
+                                seq=seq)
     return _mlp_half(p, x, h, cfg), cache
 
 
@@ -231,9 +247,10 @@ def _moe_unit_train(p: dict, x: torch.Tensor, cfg: ModelConfig, window: int,
 
 def _moe_unit_decode(p: dict, x: torch.Tensor, cache: dict,
                      index: torch.Tensor, cfg: ModelConfig, *,
-                     window: int, theta: float):
+                     window: int, theta: float, seq=None):
     h, cache = attn.attn_decode(p["attn"], rmsnorm(p["ln1"], x), cache,
-                                index, cfg, window=window, theta=theta)
+                                index, cfg, window=window, theta=theta,
+                                seq=seq)
     return _moe_half(p, x, h, cfg)[0], cache
 
 
@@ -360,13 +377,24 @@ def _sb_state(cfg: ModelConfig, n: int, batch: int, cache_len: int,
             "glob": attn.make_cache(cfg, n, batch, cache_len, device)}
 
 
-def _cache_put(cache: dict, k: torch.Tensor, v: torch.Tensor) -> None:
+def _cache_put(cache: dict, k: torch.Tensor, v: torch.Tensor,
+               seq: "attn.SeqShard | None" = None) -> None:
     """Write a prefill's K and V (B, T, Hkv, Dh) into one layer's cache of
     S slots ({"k", "v": (B, S, Hkv, Dh), "pos": (B, S)}, views): the last
     min(T, S) positions, position p at slot p % S (the first T slots when
     S >= T; a ring shorter than T keeps the last S, the reference's
-    ``ring_cache``); the other slots keep pos -1."""
+    ``ring_cache``); the other slots keep pos -1. On a mesh the cache is
+    the slots from ``seq.offset`` of a full cache (``seq.slots`` >= T),
+    and takes the positions that fall there."""
     t, s = k.shape[1], cache["k"].shape[1]
+    if seq is not None:
+        lo = seq.offset
+        n = max(0, min(t - lo, s))
+        cache["k"][:, :n] = k[:, lo:lo + n]
+        cache["v"][:, :n] = v[:, lo:lo + n]
+        cache["pos"][:, :n] = torch.arange(lo, lo + n, dtype=torch.int32,
+                                           device=k.device)
+        return
     if s >= t:
         cache["k"][:, :t] = k
         cache["v"][:, :t] = v
@@ -578,6 +606,144 @@ def _units(tree, n: int) -> list:
     return list(tree.unbind(0))
 
 
+# ---------------------------------------------------------------------------
+# serving over a mesh
+# ---------------------------------------------------------------------------
+
+MESH_KINDS = ("dense", "moe")  # the kinds served over a mesh
+# leaves whose ``model`` block a rank keeps: the projections, the MLPs'
+# (dense, arctic's dense_mlp, the shared expert's, the experts') and the
+# vocab's; every other leaf is gathered whole on use
+_MODEL_BLOCK_LEAVES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
+                       "table", "lm_head")
+
+
+def _meta(*shape) -> torch.Tensor:
+    return torch.empty(shape, device="meta")
+
+
+@dataclasses.dataclass(eq=False)
+class _OnMesh:
+    """One call of a model served over a mesh: the rank's
+    ``tensor_parallel.Layout``, the specs of the global parameter tree
+    under ``rules.serving_param_spec`` (None where no weight is read)
+    and the global batch, whose rows [row0, row0 + rows) are the rank's
+    (``rules.batch_spec``: over ``data``, every row where the batch does
+    not divide; ``row_group`` gathers the blocks)."""
+
+    lay: tp.Layout
+    specs: "dict | None"
+    batch: int
+
+    def __post_init__(self):
+        spec = rules.batch_spec(self.lay.mesh, (), _meta(self.batch))
+        self.row0, self.rows, self.row_group = self.lay.block(
+            spec, 0, self.batch)
+
+    def take_rows(self, a: torch.Tensor) -> torch.Tensor:
+        return a[self.row0:self.row0 + self.rows]
+
+    def gather_rows(self, a: torch.Tensor) -> torch.Tensor:
+        return tp.gather(a, self.row_group, 0)
+
+    def weights(self, tree, specs, *, path: tuple, layer=None,
+                branch: "str | None" = None):
+        """The rank's weights of ``tree`` (unit ``layer`` of a stacked
+        group's, or top-level leaves) as a layer reads them: each FSDP
+        dim all-gathered over ``data`` (one collective for all of them,
+        ``tensor_parallel.unshard_all``), the ``model`` blocks of
+        ``_MODEL_BLOCK_LEAVES`` kept (an expert's ``data`` block too on
+        the moe decode branch, whose ``moe_apply`` takes it), every
+        other leaf whole. The gathered copies live as long as the
+        layer's call."""
+        items, paths = [], []
+
+        def walk(node, spec, at):
+            if isinstance(node, dict):
+                for name, sub in node.items():
+                    walk(sub, spec[name], at + (name,))
+                return
+            if layer is not None:
+                if spec and spec[0] is not None:
+                    raise NotImplementedError(
+                        f"{'/'.join(at)}: its layer axis is sharded over "
+                        f"{spec[0]}; serving over a mesh takes whole layers")
+                node, spec = node[layer], spec[1:]
+            keep = ()
+            if at[-1] in _MODEL_BLOCK_LEAVES:
+                expert = len(at) >= 2 and at[-2] == "moe"
+                keep = (("model", "data") if expert and branch == "decode"
+                        else ("model",))
+            items.append((node, spec, keep))
+            paths.append(at[len(path):])
+        walk(tree, specs, path)
+        out: dict = {}
+        for at, x in zip(paths, tp.unshard_all(items, self.lay)):
+            if not at:
+                return x
+            node = out
+            for name in at[:-1]:
+                node = node.setdefault(name, {})
+            node[at[-1]] = x
+        return out
+
+    def top(self, params: dict):
+        """(the embedding, the final norm, the unembedding table (V, D)
+        or the rank's vocab block of it), as ``weights`` gives them."""
+        def get(name):
+            return self.weights(params[name], self.specs[name], path=(name,))
+        table = get("lm_head").T if "lm_head" in params else None
+        emb = get("embed")
+        return emb, get("final_norm"), (emb["table"] if table is None
+                                         else table)
+
+    def cache_block(self, cache_len: int) -> "tuple[int, int, attn.SeqShard]":
+        """(the rows, the slots, the sequence shard) of the rank's block
+        of a cache of ``cache_len`` slots under ``rules.state_spec``; its
+        rows are the rank's rows of the batch."""
+        spec = rules.state_spec(self.lay.mesh, ("k",),
+                                _meta(1, self.batch, cache_len, 1, 1),
+                                batch=self.batch)
+        row0, rows, _ = self.lay.block(spec, 1, self.batch)
+        if (row0, rows) != (self.row0, self.rows):
+            raise NotImplementedError(
+                f"the cache's rows [{row0}, {row0 + rows}) are not the "
+                f"batch's [{self.row0}, {self.row0 + self.rows}) on this "
+                f"mesh {self.lay.sizes}")
+        off, slots, group = self.lay.block(spec, 2, cache_len)
+        return rows, slots, attn.SeqShard(off, cache_len, group)
+
+    def moe_branch(self, t: int) -> str:
+        """The branch ``moe_apply`` takes on this call's (batch, t), which
+        takes the rank's batch rows: a batch that does not divide over
+        the batch axes raises, as the reference's ``shard_map`` does."""
+        branch = moe_mod.moe_branch(self.lay.mesh, self.batch, t)
+        n_batch = self.lay.size(("pod", "data"))
+        if branch != "one" and n_batch > 1 and self.rows * n_batch != self.batch:
+            raise ValueError(
+                f"a moe unit over a mesh takes a batch that divides over "
+                f"(pod, data) = {n_batch}; got {self.batch} rows")
+        return branch
+
+
+def _check_shard(params, want, path=()) -> None:
+    """Raise unless ``params`` has ``want``'s leaves at their shapes."""
+    if isinstance(want, dict):
+        if not isinstance(params, dict) or set(params) != set(want):
+            raise ValueError(f"{'/'.join(path) or 'params'}: keys "
+                             f"{sorted(params) if isinstance(params, dict) else params}"
+                             f" != {sorted(want)}")
+        for name in want:
+            _check_shard(params[name], want[name], path + (name,))
+        return
+    if tuple(params.shape) != tuple(want.shape):
+        raise ValueError(
+            f"{'/'.join(path)}: shape {tuple(params.shape)} is not this "
+            f"rank's shard {tuple(want.shape)} under "
+            f"rules.serving_param_spec (pass rules.serving_shard(mesh, "
+            f"params))")
+
+
 class LM:
     """Model wrapper for one ModelConfig (the dense, dense_sb, moe, ssd,
     rec, griffin, vlm and dec group kinds, and whisper's encoder)."""
@@ -585,6 +751,48 @@ class LM:
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
         self.groups = build_groups(cfg)
+        self._mesh_specs: dict = {}  # id(mesh) -> (mesh, specs, shards)
+
+    # -- serving over a mesh ---------------------------------------------------
+    def _check_mesh(self, mesh) -> tp.Layout:
+        """This rank's layout on ``mesh``; raise where the model cannot be
+        served over it."""
+        for g in self.groups:
+            if g.kind not in MESH_KINDS:
+                raise NotImplementedError(
+                    f"{self.cfg.arch_id}: the {g.kind!r} kind over a mesh "
+                    f"is not ported (ROADMAP.md queue 1, 'the other group "
+                    f"kinds over a mesh')")
+        if self.cfg.cache_mode == "rightsized":
+            raise NotImplementedError(
+                f"{self.cfg.arch_id}: right-sized caches over a mesh are not "
+                f"ported (ROADMAP.md queue 1, 'the other group kinds over a "
+                f"mesh')")
+        lay = tp.layout(mesh)
+        if "pod" in lay.sizes:
+            raise NotImplementedError(
+                "serving over a mesh with a 'pod' axis is not ported "
+                "(ROADMAP.md queue 1, 'the other group kinds over a mesh')")
+        return lay
+
+    def _on_mesh(self, params: dict, batch: int) -> "_OnMesh | None":
+        """The call's ``_OnMesh`` under the active mesh (None without one),
+        after checking that ``params`` is this rank's serving shard."""
+        mesh = get_mesh()
+        if mesh is None:
+            return None
+        lay = self._check_mesh(mesh)
+        key = id(mesh)
+        if key not in self._mesh_specs or self._mesh_specs[key][0] is not mesh:
+            from repro_torch.launch.input_specs import param_shapes
+
+            shapes = param_shapes(self.cfg)
+            self._mesh_specs[key] = (
+                mesh, rules.tree_specs(mesh, shapes, rules.serving_param_spec),
+                rules.shard_tree(mesh, shapes, rules.serving_param_spec))
+        _, specs, shards = self._mesh_specs[key]
+        _check_shard(params, shards)
+        return _OnMesh(lay, specs, batch)
 
     @property
     def recurrent(self) -> bool:
@@ -813,6 +1021,10 @@ class LM:
         the auxiliary loss, the float32 sum of the moe layers' Switch
         losses (0 without a moe group); total = ce + 0.01 aux."""
         cfg = self.cfg
+        if get_mesh() is not None:
+            raise NotImplementedError(
+                "training over a mesh (LM.loss) is not ported (ROADMAP.md "
+                "queue 1, 'training over a mesh')")
         memory = self._inject_memory(params, batch)
         x = embed(params["embed"], batch["inputs"], cfg)
         feats, aux, _ = self._backbone(params, x, memory=memory)
@@ -833,9 +1045,18 @@ class LM:
         whisper's "audio_frames"} -> (last-position logits (B, vocab),
         decode state with KV caches of ``cache_len`` slots). An ``ssd``
         group needs T to be at most ``cfg.ssm_chunk`` or a multiple of it
-        (``ssd_scan``)."""
+        (``ssd_scan``).
+
+        Under a mesh (the dense and moe kinds): ``batch`` holds the
+        global batch's token ids and the logits are the global batch's on
+        every rank; ``params`` is the rank's serving shard and the state
+        its shard under ``rules.state_spec``, with the global
+        ``cache_len`` beside the index."""
         tokens = batch["inputs"]
         t = tokens.shape[1]
+        on = self._on_mesh(params, tokens.shape[0])
+        if on is not None:
+            return self._prefill_mesh(params, tokens, cache_len or t, on)
         memory = self._inject_memory(params, batch)
         x = embed(params["embed"], tokens, self.cfg)
         feats, _, caches = self._backbone(params, x, memory=memory,
@@ -846,10 +1067,54 @@ class LM:
                                        device=tokens.device)}
         return logits[:, 0], state
 
+    def _mesh_cache(self, on: _OnMesh, n: int, cache_len: int, device):
+        """A group's zeroed cache shard and its ``SeqShard``."""
+        rows, slots, seq = on.cache_block(cache_len)
+        return attn.make_cache(self.cfg, n, rows, slots, device), seq
+
+    def _prefill_mesh(self, params: dict, tokens: torch.Tensor,
+                      cache_len: int, on: _OnMesh):
+        cfg = self.cfg
+        t = tokens.shape[1]
+        if cache_len < t:
+            raise ValueError(f"cache_len {cache_len} < prompt length {t}")
+        emb, norm, table = on.top(params)
+        x = embed(emb, on.take_rows(tokens), cfg)
+        caches = []
+        for gi, g in enumerate(self.groups):
+            cache, seq = self._mesh_cache(on, g.n, cache_len, x.device)
+            branch = on.moe_branch(t) if g.kind == "moe" else None
+            unit = _dense_unit_apply if g.kind == "dense" else _moe_unit_apply
+            for i in range(g.n):
+                p = on.weights(params[f"group{gi}"], on.specs[f"group{gi}"],
+                               path=(f"group{gi}",), layer=i, branch=branch)
+                x, k, v = unit(p, x, cfg, window=g.windows[i],
+                               theta=g.thetas[i])[:3]
+                _cache_put(_layer(cache, i), k, v, seq)
+            caches.append(cache)
+        feats = rmsnorm(norm, x)
+        logits = unembed(table, feats[:, -1:, :], vocab=cfg.vocab)[:, 0]
+        return on.gather_rows(logits), {
+            "groups": caches, "cache_len": cache_len,
+            "index": torch.tensor(t, dtype=torch.int32, device=tokens.device)}
+
     # -- zeroed decode state ----------------------------------------------------
     def init_decode_state(self, batch: int, cache_len: int, *, index=None,
                           device: "str | torch.device" = "cuda") -> dict:
+        """The zeroed decode state of ``batch`` rows and caches of
+        ``cache_len`` slots; under a mesh the rank's shard of it under
+        ``rules.state_spec``, with the global ``cache_len`` beside the
+        index."""
         cfg, dev = self.cfg, resolve_device(device)
+        mesh = get_mesh()
+        if mesh is not None:
+            on = _OnMesh(self._check_mesh(mesh), None, batch)
+            index = cache_len if index is None else index
+            return {"groups": [self._mesh_cache(on, g.n, cache_len, dev)[0]
+                               for g in self.groups],
+                    "cache_len": cache_len,
+                    "index": torch.as_tensor(index, dtype=torch.int32,
+                                             device=dev).clone()}
         states = []
         for g in self.groups:
             if g.kind == "ssd":
@@ -881,8 +1146,14 @@ class LM:
         """tokens (B, 1) -> (logits (B, vocab), new state). The caches and
         recurrent states of ``state`` are updated in place and carried
         into the new state; its index is ``state["index"] + 1``. A cross
-        layer reads its K and V from the state."""
+        layer reads its K and V from the state. Under a mesh, tokens and
+        logits are the global batch's, ``state`` the rank's shard (as
+        ``prefill`` and ``init_decode_state`` make it) and its index the
+        global batch's."""
         cfg = self.cfg
+        on = self._on_mesh(params, tokens.shape[0])
+        if on is not None:
+            return self._decode_mesh(params, state, tokens, on)
         index = state["index"]
         x = embed(params["embed"], tokens, cfg)
         for gi, g in enumerate(self.groups):
@@ -937,3 +1208,29 @@ class LM:
         x = rmsnorm(params["final_norm"], x)
         logits = unembed(self._table(params), x)[:, 0]
         return logits, {"groups": state["groups"], "index": index + 1}
+
+    def _decode_mesh(self, params: dict, state: dict, tokens: torch.Tensor,
+                     on: _OnMesh):
+        cfg = self.cfg
+        if "cache_len" not in state:
+            raise ValueError("decode over a mesh takes the state that "
+                             "prefill or init_decode_state made under it")
+        cache_len, index = state["cache_len"], state["index"]
+        seq = on.cache_block(cache_len)[2]
+        idx = on.take_rows(index) if index.ndim else index
+        emb, norm, table = on.top(params)
+        x = embed(emb, on.take_rows(tokens), cfg)
+        for gi, g in enumerate(self.groups):
+            gc = state["groups"][gi]
+            branch = on.moe_branch(1) if g.kind == "moe" else None
+            unit = (_dense_unit_decode if g.kind == "dense"
+                    else _moe_unit_decode)
+            for i in range(g.n):
+                p = on.weights(params[f"group{gi}"], on.specs[f"group{gi}"],
+                               path=(f"group{gi}",), layer=i, branch=branch)
+                x, _ = unit(p, x, _layer(gc, i), idx, cfg,
+                            window=g.windows[i], theta=g.thetas[i], seq=seq)
+        x = rmsnorm(norm, x)
+        logits = on.gather_rows(unembed(table, x, vocab=cfg.vocab)[:, 0])
+        return logits, {"groups": state["groups"], "cache_len": cache_len,
+                        "index": index + 1}

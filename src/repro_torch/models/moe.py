@@ -323,7 +323,8 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
             # every batch shard reads the shared expert
             shared = {k: coll.replicated_input(v, axis_group(mesh, ctx.BATCH))
                       for k, v in shared.items()}
-        out = out + mlp_apply(shared, x, cfg)
+        out = out + mlp_apply(shared, x, cfg,
+                              d_ff=cfg.moe_d_ff * cfg.n_shared_experts)
     return out, aux, drop
 
 

@@ -23,6 +23,15 @@ while others are mid-generation.
 Correctness contract (as ``tests/test_serving_engine.py`` states it for
 the reference): every request's continuous-batched output equals its
 isolated prefill + greedy-decode output exactly.
+
+Under a mesh (``sharding.ctx.use_mesh``, the dense and moe kinds) every
+rank runs this loop on the global batch's logits, which ``LM.prefill``
+and ``LM.decode_step`` return on every rank, with ``params`` the rank's
+serving shard and the decode state its shard under
+``rules.state_spec``: the slots' rows over ``data``, their sequence
+over ``model``. A request's prefill state (one row, its sequence over
+``data`` and ``model``) is gathered whole and cut to the slots' layout,
+and the rank that holds row ``slot`` writes it (``_insert``).
 """
 from __future__ import annotations
 
@@ -34,7 +43,10 @@ import numpy as np
 import torch
 
 from repro_torch.models.lm import LM
-from repro_torch.tree import tree_map
+from repro_torch.sharding import rules
+from repro_torch.sharding import tensor_parallel as tp
+from repro_torch.sharding.ctx import get_mesh, use_mesh
+from repro_torch.tree import leaves, tree_map
 
 
 @dataclasses.dataclass
@@ -78,25 +90,62 @@ class ServingEngine:
                                           device=self.device)
         # each state leaf's batch axis: the first axis on which the shapes
         # of a batch-1 and a batch-2 state differ (the reference's
-        # structural discovery; shapes only, on the meta device)
+        # structural discovery; global shapes only, on the meta device)
         self._batch_axes = [
             tree_map(_batch_axis, one, two) for one, two in zip(
-                *(model.init_decode_state(b, cache_len, device="meta")
-                  ["groups"] for b in (1, 2)))]
+                *(self._global_state(b) for b in (1, 2)))]
         self.active = np.zeros(max_batch, dtype=bool)
         self.last_tokens = np.zeros(max_batch, dtype=np.int64)
+
+    def _global_state(self, batch: int) -> list:
+        """The groups of a ``batch``-row decode state of the global shapes,
+        on the meta device."""
+        with use_mesh(None):
+            return self.model.init_decode_state(
+                batch, self.cache_len, device="meta")["groups"]
 
     # -- state surgery ---------------------------------------------------------
     def _insert(self, single_state: dict, slot: int, index: int) -> None:
         """Write a one-row prefill state into batch row ``slot`` at
         position ``index``, along each leaf's batch axis ((L, B, ...), a
         ``dense_sb`` ring's (n, per, B, ...))."""
-        def put(big, small, axis):
-            big.select(axis, slot).copy_(small.select(axis, 0))
-        for big, small, axes in zip(self.state["groups"],
-                                    single_state["groups"], self._batch_axes):
-            tree_map(put, big, small, axes)
+        mesh = get_mesh()
+        if mesh is not None:
+            self._insert_on_mesh(mesh, single_state, slot)
+        else:
+            def put(big, small, axis):
+                big.select(axis, slot).copy_(small.select(axis, 0))
+            for big, small, axes in zip(self.state["groups"],
+                                        single_state["groups"],
+                                        self._batch_axes):
+                tree_map(put, big, small, axes)
         self.state["index"][slot] = index
+
+    def _insert_on_mesh(self, mesh, single_state: dict, slot: int) -> None:
+        """``_insert`` of the rank's shards: each leaf of the one-row state
+        gathered whole (its ``state_spec`` at batch 1), cut to the slots'
+        layout (``state_spec`` at ``max_batch``, the batch axis aside),
+        and written by the rank whose rows hold ``slot``."""
+        lay = tp.layout(mesh)
+        one, full = ([leaves(rules.tree_specs(mesh, g, rules.state_spec,
+                                              batch=b))
+                      for g in self._global_state(b)]
+                     for b in (1, self.max_batch))
+        bigs, smalls, axes = ([leaves(g) for g in tree]
+                              for tree in (self.state["groups"],
+                                           single_state["groups"],
+                                           self._batch_axes))
+        flat = [(big, small, axis, s1, s2)
+                for gs in zip(bigs, smalls, axes, one, full)
+                for big, small, axis, s1, s2 in zip(*gs)]
+        wholes = tp.unshard_all([(small, s1, ()) for _, small, _, s1, _ in flat],
+                                lay)
+        for (big, _, axis, _, spec), whole in zip(flat, wholes):
+            cut = tuple(None if d == axis else ax for d, ax in enumerate(spec))
+            piece = rules.local_shard(mesh, whole, cut)
+            row0, rows, _ = lay.block(spec, axis, self.max_batch)
+            if row0 <= slot < row0 + rows:
+                big.select(axis, slot - row0).copy_(piece.select(axis, 0))
 
     @staticmethod
     def _mask_padded_positions(state: dict, true_len: int) -> dict:

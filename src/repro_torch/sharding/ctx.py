@@ -1,14 +1,20 @@
 """The active mesh, the counterpart of ``repro.sharding.ctx``.
 
-Code that runs differently on a mesh (``models.moe.moe_apply``) reads
-the mesh set here, as the reference reads its own. A mesh is a
-``DeviceMesh`` (``repro_torch.launch.mesh.make_mesh``), or a
-``MeshShape`` where only its axis names and sizes are read.
+Code that runs differently on a mesh reads the mesh set here, as the
+reference reads its own: ``models.moe.moe_apply``, and the dense and
+moe kinds of ``models.lm.LM`` served over a mesh (``models.common``'s
+embedding, MLP and unembedding, ``models.attention``'s prefill and
+decode, ``serving.engine``), whose weights and decode state are each
+rank's shard under ``rules.serving_param_spec`` and
+``rules.state_spec``. A mesh is a ``DeviceMesh``
+(``repro_torch.launch.mesh.make_mesh``), or a ``MeshShape`` where only
+its axis names and sizes are read.
 
 The reference's ``shard`` and ``named_sharding`` are activation sharding
 constraints for GSPMD. Eager PyTorch has none for plain tensors: each
-rank holds its own shard and the collectives are explicit. The port's
-models do not call them, and the port has no stand-in for them.
+rank holds its own shard, and the collectives GSPMD would insert are
+explicit (``sharding.tensor_parallel``), so the port has no stand-in
+for them.
 """
 from __future__ import annotations
 

@@ -324,3 +324,13 @@ def shard_tree(mesh, tree, rule, *, rank: "int | None" = None,
         lambda path, leaf: local_shard(mesh, leaf,
                                        rule(mesh, prefix + path, leaf, **kw),
                                        rank), tree)
+
+
+def serving_shard(mesh, params: dict, rank: "int | None" = None) -> dict:
+    """The rank's serving shard of a global LM parameter tree: each leaf's
+    block under ``serving_param_spec``, copied, so that the global tree
+    can be freed (``shard_tree``'s blocks are views of it)."""
+    return _map_with_path(
+        lambda path, leaf: local_shard(
+            mesh, leaf, serving_param_spec(mesh, path, leaf), rank).clone(),
+        params)

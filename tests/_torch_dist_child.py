@@ -2,8 +2,8 @@
 
     python tests/_torch_dist_child.py JOB.json RANK
 
-``JOB.json`` names the job (``"flens"``, ``"moe"``, ``"moe_grad"`` or
-``"client_mesh"``), the world size,
+``JOB.json`` names the job (``"flens"``, ``"moe"``, ``"moe_grad"``,
+``"client_mesh"`` or ``"lm_mesh"``), the world size,
 the store file, the input ``.npz`` and the output directory; the rank
 writes ``rank{RANK}.npz`` there. It imports the port only (no JAX): the
 reference's draws and parameters arrive as numpy arrays. The tests
@@ -382,6 +382,101 @@ def client_mesh_job(job: dict, rank: int) -> dict:
     return out
 
 
+# -- LMs served over a mesh ---------------------------------------------------
+
+def lm_mesh_run(model, params, tokens, steps, cache_len: int):
+    """A prefill of ``tokens`` then a decode step of each of ``steps``
+    (teacher-forced, (n, B, 1)): (the logits of every call (n + 1, B, V),
+    the final state)."""
+    with torch.no_grad():
+        logits, state = model.prefill(params, {"inputs": tokens},
+                                      cache_len=cache_len)
+        out = [logits]
+        for step in steps:
+            logits, state = model.decode_step(params, state, step)
+            out.append(logits)
+    return torch.stack(out), state
+
+
+def lm_mesh_engine(model, params, prompts, new_tokens: int, max_batch: int,
+                   cache_len: int) -> list:
+    """Every request's generated tokens through ``ServingEngine``."""
+    from repro_torch.serving import Request, ServingEngine
+
+    engine = ServingEngine(model, params, max_batch=max_batch,
+                           cache_len=cache_len)
+    reqs = [Request(uid=i, prompt=list(p), max_new_tokens=new_tokens)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        engine.submit(r)
+    with torch.no_grad():
+        engine.run()
+    return [r.generated for r in reqs]
+
+
+def lm_mesh_job(job: dict, rank: int) -> dict:
+    """Each case of the job under its mesh: this rank's serving shard of
+    the arch's parameters (``interop.lm_shard_from_numpy``), a prefill
+    and teacher-forced decode steps of the global batch (logits, the
+    final state's shards, the parameter and state shapes), the engine
+    cases' token streams, and the error a prefill raises when autograd
+    records through the mesh's collectives."""
+    from repro_torch.configs import get_config
+    from repro_torch.interop import lm_shard_from_numpy
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.lm import LM
+    from repro_torch.sharding.ctx import use_mesh
+
+    d = np.load(job["data"])
+    meshes, shards, out = {}, {}, {}
+
+    def setup(arch, mesh_name):
+        shape, axes = job["meshes"][mesh_name]
+        if mesh_name not in meshes:
+            meshes[mesh_name] = make_mesh(tuple(shape), tuple(axes), "cpu")
+        mesh = meshes[mesh_name]
+        cfg = get_config(arch).reduced()
+        key = (arch, mesh_name)
+        if key not in shards:
+            shards[key] = lm_shard_from_numpy(unflatten(
+                {p[len(arch) + 1:]: d[p] for p in d.files
+                 if p.startswith(arch + KEY_SEP)}), cfg, mesh, device="cpu")
+        return mesh, cfg, LM(cfg), shards[key]
+
+    for case in job["cases"]:
+        name = case["name"]
+        mesh, cfg, model, params = setup(case["arch"], case["mesh"])
+        with use_mesh(mesh):
+            logits, state = lm_mesh_run(
+                model, params, torch.from_numpy(d[f"tokens/{name}"]),
+                torch.from_numpy(d[f"steps/{name}"]), case["cache_len"])
+        out[f"{name}/logits"] = logits.numpy()
+        out.update({f"{name}/state/{k}": v for k, v in
+                    flatten({str(gi): g for gi, g in
+                             enumerate(state["groups"])}).items()})
+        out.update({f"{name}/params/{k}": np.array(v.shape) for k, v in
+                    flatten(params).items()})
+    for case in job["engine"]:
+        mesh, cfg, model, params = setup(case["arch"], case["mesh"])
+        with use_mesh(mesh):
+            streams = lm_mesh_engine(model, params, job["prompts"],
+                                     job["new_tokens"], job["max_batch"],
+                                     job["cache_len"])
+        out[f"engine/{case['name']}"] = np.array(streams)
+    # a backward through the collectives: the first one raises, on every
+    # rank alike (the embedding's sum over model)
+    mesh, cfg, model, params = setup(*job["grad_case"])
+    leaves = _leaves_requiring_grad(params)
+    with use_mesh(mesh):
+        try:
+            model.prefill(leaves, {"inputs": torch.zeros((4, 8),
+                                                         dtype=torch.int64)})
+            out["grad_error"] = np.array("")
+        except RuntimeError as err:
+            out["grad_error"] = np.array(str(err))
+    return out
+
+
 def main(job_path: str, rank: int) -> int:
     from repro_torch.launch.mesh import process_group
 
@@ -390,7 +485,8 @@ def main(job_path: str, rank: int) -> int:
     with process_group(rank, job["world"], job["store"], backend="gloo",
                        timeout_s=job.get("timeout_s", 60)):
         out = {"flens": flens_job, "moe": moe_job, "moe_grad": moe_grad_job,
-               "client_mesh": client_mesh_job}[job["kind"]](job, rank)
+               "client_mesh": client_mesh_job,
+               "lm_mesh": lm_mesh_job}[job["kind"]](job, rank)
     np.savez(pathlib.Path(job["out"]) / f"rank{rank}.npz", **out)
     return 0
 

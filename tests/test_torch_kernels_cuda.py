@@ -761,3 +761,57 @@ def test_one_nccl_rank_client_mesh_round_equals_the_no_mesh_round(hopper,
     assert got.ef_residuals == want.ef_residuals
     assert counts["srht_apply"] == 4 and counts["srht_apply_t"] == 3
     assert counts["topk_mask"] == 1 and counts["qint8_roundtrip"] == 3
+
+
+@pytest.mark.gpu
+def test_one_nccl_rank_lm_over_a_mesh_equals_no_mesh(hopper, tmp_path):
+    """TinyLlama-1.1B at 2 layers in bf16 served over a 1 x 1 NCCL mesh on
+    the card (its serving shard, the decode state's shard, every
+    collective an identity): a prefill of 2 x 256 tokens, 4 decode steps
+    and every cache leaf bit-equal to the same run without a mesh, 2
+    launches of the sm90 flash kernel a prefill."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.base import root_key
+    from repro_torch.launch.mesh import make_mesh, process_group
+    from repro_torch.models.lm import LM
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.ctx import use_mesh
+
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b"), n_layers=2,
+                              dtype=torch.bfloat16,
+                              param_dtype=torch.bfloat16)
+    model = LM(cfg)
+    params = model.init(root_key(0, device=hopper))
+    gen = torch.Generator(device=hopper).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (2, 256), generator=gen,
+                           device=hopper)
+    steps = torch.randint(0, cfg.vocab, (4, 2, 1), generator=gen,
+                          device=hopper)
+
+    def run(p):
+        with torch.no_grad():
+            ops.reset_launch_counts()
+            logits, state = model.prefill(p, {"inputs": tokens},
+                                          cache_len=264)
+            launches = ops.launch_counts()["flash_attention_sm90"]
+            out = [logits]
+            for step in steps:
+                logits, state = model.decode_step(p, state, step)
+                out.append(logits)
+        return torch.stack(out), state, launches
+
+    want, want_state, want_launches = run(params)
+    torch.cuda.set_device(hopper)
+    with process_group(0, 1, tmp_path / "store", backend="nccl",
+                       timeout_s=60):
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        local = rules.serving_shard(mesh, params)
+        with use_mesh(mesh):
+            got, state, launches = run(local)
+    assert launches == want_launches == 2
+    assert torch.equal(got, want)
+    for g, w in zip(state["groups"], want_state["groups"]):
+        for leaf in w:
+            assert torch.equal(g[leaf], w[leaf]), leaf
