@@ -306,6 +306,24 @@ Phases, in order; any failure raises and the script exits non-zero:
                 whole, TF32 off; serve's 8 prompts, 32 new tokens each):
                 the engine's tokens equal each request's isolated
                 generation (phase 11's steps)
+ 11f. mesh serving — LMs served over a mesh, 4 gloo ranks on the one
+                card (children `chip_smoke.py --mesh-serving-child`) in
+                the reference's serving layout: qwen1.5-110b (4 layers,
+                bf16, a 4-way model mesh), TinyLlama whole on (2 data, 2
+                model) with the engine, its float32 twin (streams equal
+                to no mesh), one NCCL rank bit-equal to no mesh
+ 11g. mesh recurrent — the recurrent kinds the same way: mamba2-780m (4
+                layers, bf16, a 4-way model mesh: 12 SSD heads a rank),
+                recurrentgemma-2b (4 layers: a griffin super-block and a
+                rec layer, bf16, (2, 2): 5 q heads and half the RG-LRU
+                width a rank) with the engine, its float32 twin (logits
+                within 1e-5 of max |logit|, streams equal to no mesh), one
+                NCCL rank each bit-equal to no mesh. In both: each rank's
+                parameter and decode-state bytes equal to its shard's,
+                the bf16 logits within 2x the no-mesh run's error + 1 ulp
+                of a float32 yardstick, the flash launches a prefill a
+                rank on the rank's heads, the kernel held against its
+                plain version at them, ms and collective bytes a step
  12. flash times — the tensor-core kernel, its plain version and
                 F.scaled_dot_product_attention at (1, 2048, 32, 4, 64)
                 causal, (1, 2048, 4, 1, 256) window 512, (1, 2048, 64,
@@ -3804,13 +3822,16 @@ BF16_ULPS = 4  # bf16 prefill logits: kernel vs plain within 4 ulps of max|logit
 F32_LOGIT_TOL = 1e-3
 
 
-def _serve_requests(vocab: int, new_tokens: "int | None" = None):
+def _serve_requests(vocab: int, new_tokens: "int | None" = None,
+                    spec: dict = SERVE):
+    """``spec``'s requests (its count and prompt lengths; SERVE's by
+    default), from seed 0."""
     import numpy as np
     from repro_torch.serving import Request
 
     rng = np.random.default_rng(0)
-    lengths = rng.integers(SERVE["min_prompt"], SERVE["max_prompt"] + 1,
-                           SERVE["requests"])
+    lengths = rng.integers(spec["min_prompt"], spec["max_prompt"] + 1,
+                           spec["requests"])
     return [Request(uid=i, prompt=[int(t) for t in
                                    rng.integers(0, vocab, int(n))],
                     max_new_tokens=new_tokens or SERVE["new_tokens"])
@@ -5454,7 +5475,7 @@ def phase_rightsized(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# 11f. LMs served over a mesh
+# 11f and 11g. LMs served over a mesh
 # ---------------------------------------------------------------------------
 
 MESH_DIR = ROOT / "chiprun_out" / "mesh_serving"
@@ -5465,29 +5486,63 @@ MESH_DIR = ROOT / "chiprun_out" / "mesh_serving"
 # SERVE's 8 requests through the engine, all 8 in its batch (its decode
 # steps each gather the layers' FSDP weights through gloo, which the
 # card's machine moves at ~0.1-0.2 GB/s: 8 slots halve the steps of
-# SERVE's 4), and the batch-4 prefill with 4 steps for the logits; (c)
-# its float32 twin at 4 layers, the requests at 8 new tokens; (d) one
-# NCCL rank (a 1 x 1 mesh), tinyllama at 4 layers in bf16, SERVE's engine
+# SERVE's 4; 32 new tokens, SERVE's 64 cut to make room for 11g), and
+# the batch-4 prefill with 4 steps for the logits; (c) its float32 twin at
+# 4 layers, the requests at 8 new tokens; (d) one NCCL rank (a 1 x 1
+# mesh), tinyllama at 4 layers in bf16, SERVE's engine
 B4 = (("b4", 4, 512),)
 MESH_SERVE = dict(
-    ranks=4, timeout_s=600, seed=7,
+    tag="mesh", dir=MESH_DIR, ranks=4, timeout_s=600, seed=7,
     parts={"qwen": dict(arch="qwen1.5-110b", n_layers=4, dtype="bfloat16",
                         mesh=((4,), ("model",)), engine=None, steps=32,
-                        inputs=(("b1", 1, 2048), *B4)),
+                        inputs=(("b1", 1, 2048), *B4), flash_parity=True),
            "tiny": dict(arch="tinyllama-1.1b", n_layers=None,
                         dtype="bfloat16", mesh=((2, 2), ("data", "model")),
-                        engine=dict(max_batch=8, new_tokens=64), steps=4,
+                        engine=dict(max_batch=8, new_tokens=32), steps=4,
                         inputs=B4),
            "twin": dict(arch="tinyllama-1.1b", n_layers=4, dtype="float32",
                         mesh=((2, 2), ("data", "model")),
                         engine=dict(max_batch=8, new_tokens=8), steps=4,
                         inputs=B4)},
-    one_rank=dict(arch="tinyllama-1.1b", n_layers=4, dtype="bfloat16",
-                  engine=dict(max_batch=SERVE["max_batch"],
-                              new_tokens=SERVE["new_tokens"]), steps=4,
-                  inputs=B4),
+    one_rank={"tiny": dict(arch="tinyllama-1.1b", n_layers=4,
+                           dtype="bfloat16",
+                           engine=dict(max_batch=SERVE["max_batch"],
+                                       new_tokens=SERVE["new_tokens"]),
+                           steps=4, inputs=B4)},
     twin_tol=1e-4)
 MESH_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# 11g, the recurrent kinds over a mesh, as 11f: (a) mamba2-780m at full
+# width, 4 of its 48 layers, bf16, a 4-way ("model",) mesh (12 SSD heads a
+# rank): a 1 x 2048 and a 4 x 256 prefill, each then 8 teacher-forced
+# decode steps; (b) recurrentgemma-2b at full width, 4 layers (a griffin
+# super-block and a rec layer), bf16, (2 data, 2 model) (5 of the 10 q
+# heads a rank, the KV head whole, half the RG-LRU width): a 4 x 512
+# prefill and 4 steps, then 4 requests of 100-300 tokens, 16 new tokens
+# each, through the engine; (c) its float32 twin, 8 new tokens; (d) one
+# NCCL rank for each model at 4 layers in bf16
+RG_ENGINE = dict(max_batch=4, requests=4, min_prompt=100, max_prompt=300,
+                 cache_len=512)
+MESH_RECURRENT = dict(
+    tag="mesh recurrent", dir=ROOT / "chiprun_out"
+    / "mesh_recurrent", ranks=4, timeout_s=600, seed=7,
+    parts={"mamba2": dict(arch="mamba2-780m", n_layers=4, dtype="bfloat16",
+                          mesh=((4,), ("model",)), engine=None, steps=8,
+                          inputs=(("b1", 1, 2048), ("b4", 4, 256))),
+           "rg": dict(arch="recurrentgemma-2b", n_layers=4, dtype="bfloat16",
+                      mesh=((2, 2), ("data", "model")),
+                      engine=dict(RG_ENGINE, new_tokens=16), steps=4,
+                      inputs=B4, flash_parity=True),
+           "rg_twin": dict(arch="recurrentgemma-2b", n_layers=4,
+                           dtype="float32", mesh=((2, 2), ("data", "model")),
+                           engine=dict(RG_ENGINE, new_tokens=8), steps=4,
+                           inputs=B4)},
+    one_rank={name: dict(arch=arch, n_layers=4, dtype="bfloat16",
+                         engine=dict(RG_ENGINE, new_tokens=8), steps=4,
+                         inputs=(("b4", 4, 256),))
+              for name, arch in (("mamba2", "mamba2-780m"),
+                                 ("rg", "recurrentgemma-2b"))},
+    twin_tol=1e-5)
+MESH_SPECS = {"11f": MESH_SERVE, "11g": MESH_RECURRENT}
 
 
 def _mesh_model(part: dict):
@@ -5500,7 +5555,7 @@ def _mesh_model(part: dict):
 
 def _mesh_inputs(vocab: int, part: dict) -> dict:
     """name -> (prompt tokens (B, T), decode-step tokens (steps, B, 1)) of
-    a part's teacher-forced runs, numpy, from MESH_SERVE's seed."""
+    a part's teacher-forced runs, numpy, from the 11f and 11g seed."""
     rng = np.random.default_rng(MESH_SERVE["seed"])
     return {name: (rng.integers(0, vocab, (b, t)),
                    rng.integers(0, vocab, (part["steps"], b, 1)))
@@ -5509,14 +5564,15 @@ def _mesh_inputs(vocab: int, part: dict) -> dict:
 
 @contextlib.contextmanager
 def _flash_calls():
-    """Record the (q shape, k shape, dtype) of every flash call inside
-    the block (the call goes through unchanged)."""
+    """Record the (q shape, k shape, dtype, its keywords: causal and
+    window) of every flash call inside the block (the call goes through
+    unchanged)."""
     from repro_torch.kernels import ops
 
     calls, inner = [], ops.flash_attention
 
     def recorded(q, k, v, **kw):
-        calls.append((list(q.shape), list(k.shape), str(q.dtype)))
+        calls.append((list(q.shape), list(k.shape), str(q.dtype), kw))
         return inner(q, k, v, **kw)
     ops.flash_attention = recorded
     try:
@@ -5567,6 +5623,7 @@ def _forced(model, params, inputs: dict) -> dict:
         coll_s = tp.collective_seconds()
         out[name] = {
             "logits": torch.stack(got).float().cpu(), "state": state,
+            "state_bytes": _tree_bytes(dict(enumerate(state["groups"]))),
             "prefill_ms": prefill_ms, "decode_ms": ms,
             "decode_ms_median": _median(ms),
             "prefill_launches": prefill_launches,
@@ -5582,11 +5639,14 @@ def _forced(model, params, inputs: dict) -> dict:
 
 
 def _mesh_engine(model, params, spec: dict) -> dict:
-    """SERVE's requests at ``spec``'s new tokens through the engine with
-    ``spec``'s slots (``_run_engine``): the token streams, tokens/s and
-    the launches of the run."""
-    reqs = _serve_requests(model.cfg.vocab, spec["new_tokens"])
-    run = _run_engine(model, params, reqs, max_batch=spec["max_batch"])
+    """``spec``'s requests (SERVE's where it names none) at its new
+    tokens through the engine with its slots and cache (``_run_engine``):
+    the token streams, tokens/s and the launches of the run."""
+    reqs = _serve_requests(model.cfg.vocab, spec["new_tokens"],
+                           spec if "requests" in spec else SERVE)
+    run = _run_engine(model, params, reqs,
+                      cache_len=spec.get("cache_len", SERVE["cache_len"]),
+                      max_batch=spec["max_batch"])
     return {"streams": [r.generated for r in reqs],
             "tokens_per_s": run["tokens_per_s"], "wall_s": run["wall_s"],
             "steps": run["steps"], "launches": run["launches"]}
@@ -5678,10 +5738,12 @@ def _draw_shard(part: dict, mesh, rank: int, ranks: int):
 
 
 def mesh_serving_child(job_path: str, rank: int) -> int:
-    """One rank of 11f (a)-(c): each part's weights drawn and sharded,
-    the teacher-forced runs (and the engine) under the part's mesh,
-    gloo over CUDA tensors; writes its stats and its errors against the
-    parent's no-mesh runs. Loads the flash kernels the parent built."""
+    """One rank of 11f or 11g (a)-(c) (the job's ``phase``): each part's
+    weights drawn and sharded, the teacher-forced runs (and the engine)
+    under the part's mesh, gloo over CUDA tensors; writes its stats, its
+    parameter and state bytes beside the layout's and its errors against
+    the parent's no-mesh runs. Loads the flash kernels the parent
+    built."""
     import hashlib
 
     from repro_torch.kernels import _build
@@ -5691,6 +5753,7 @@ def mesh_serving_child(job_path: str, rank: int) -> int:
     from repro_torch.sharding.ctx import use_mesh
 
     job = json.loads(pathlib.Path(job_path).read_text())
+    spec = MESH_SPECS[job["phase"]]
     for stem in ("flash_attention_sm90", "flash_attention"):
         check(_build._target(_build.CSRC / f"{stem}.cu").exists(),
               f"mesh serving child: {stem}.cu is not built (the parent "
@@ -5708,7 +5771,7 @@ def mesh_serving_child(job_path: str, rank: int) -> int:
         progress.flush()
     with process_group(rank, job["ranks"], job["store"], backend="gloo",
                        timeout_s=job["timeout_s"]):
-        for name, part in MESH_SERVE["parts"].items():
+        for name, part in spec["parts"].items():
             shape, axes = part["mesh"]
             if (shape, axes) not in meshes:
                 meshes[shape, axes] = make_mesh(shape, axes, "cuda")
@@ -5726,7 +5789,8 @@ def mesh_serving_child(job_path: str, rank: int) -> int:
                                     rules.serving_param_spec)
             rec = {"param_bytes": _tree_bytes(local),
                    "layout_param_bytes": _tree_bytes(want),
-                   "draw_s": draw_s, "draw_peak_bytes": draw_peak}
+                   "draw_s": draw_s, "draw_peak_bytes": draw_peak,
+                   "attn_layers": _attn_layers(model)}
             torch.distributed.barrier()
             with use_mesh(mesh):
                 runs = _forced(model, local, _mesh_inputs(cfg.vocab, part))
@@ -5744,6 +5808,13 @@ def mesh_serving_child(job_path: str, rank: int) -> int:
             for k, r in runs.items():
                 got = r.pop("logits")
                 rec[k] = {key: r[key] for key in r if key != "state"}
+                b = {n: bb for n, bb, _ in part["inputs"]}[k]
+                with use_mesh(None):
+                    glob = model.init_decode_state(
+                        b, r["state"]["cache_len"], device="meta")["groups"]
+                rec[k]["layout_state_bytes"] = _tree_bytes(dict(enumerate(
+                    rules.shard_tree(mesh, glob, rules.state_spec,
+                                     batch=b))))
                 rec[k]["logits_sha1"] = hashlib.sha1(
                     got.numpy().tobytes()).hexdigest()
                 rec[k]["state_shapes"] = [
@@ -5758,7 +5829,7 @@ def mesh_serving_child(job_path: str, rank: int) -> int:
                     rec[k]["errs"] = {
                         "max_abs_err": _max_err(got, plain),
                         "max_abs_logit": top,
-                        "tolerance": MESH_SERVE["twin_tol"] * top,
+                        "tolerance": spec["twin_tol"] * top,
                         "argmax_agree": float((got.argmax(-1)
                                                == plain.argmax(-1))
                                               .float().mean())}
@@ -5770,7 +5841,7 @@ def mesh_serving_child(job_path: str, rank: int) -> int:
                                             ref["streams"])
                      for a, b in zip(s, t)]))
             rec["peak_bytes"] = torch.cuda.max_memory_allocated()
-            if name == "qwen" and rank == 0:
+            if part.get("flash_parity") and rank == 0:
                 rec["flash_parity"] = _mesh_flash_parity(runs)
             del local, runs, model
             out[name] = rec
@@ -5790,35 +5861,36 @@ def _mesh_flash_parity(runs: dict) -> dict:
     gen = torch.Generator(device=dev).manual_seed(3)
     out = {}
     for name, r in runs.items():
-        (q_shape, k_shape, _), *_ = r["prefill_flash_calls"]
+        (q_shape, k_shape, _, kw), *_ = r["prefill_flash_calls"]
         q = torch.randn(q_shape, generator=gen, device=dev).to(torch.bfloat16)
         k = torch.randn(k_shape, generator=gen, device=dev).to(torch.bfloat16)
         v = torch.randn(k_shape, generator=gen, device=dev).to(torch.bfloat16)
-        got, want = (ops.flash_attention(q, k, v, impl=impl)
+        got, want = (ops.flash_attention(q, k, v, impl=impl, **kw)
                      for impl in (None, "ref"))
         err = _max_err(got.float(), want.float())
         check(err <= FLASH_TOL[torch.bfloat16],
               f"mesh serving: the flash kernel at {q_shape} / {k_shape} "
               f"differs from its plain version by {err:.3e}")
-        out[name] = {"q": q_shape, "k": k_shape, "max_abs_err": err}
+        out[name] = {"q": q_shape, "k": k_shape, **kw, "max_abs_err": err}
     return out
 
 
-def _mesh_one_rank(card: str) -> dict:
-    """(d) one NCCL rank, a 1 x 1 mesh: tinyllama at 4 layers in bf16,
-    the teacher-forced runs and the engine bit-equal to the same runs
-    without a mesh (logits, every cache leaf, the streams)."""
+def _mesh_one_rank(card: str, spec: dict, name: str) -> dict:
+    """(d) one NCCL rank, a 1 x 1 mesh: the spec's ``one_rank`` part
+    ``name`` (a model at 4 layers in bf16), the teacher-forced runs and
+    the engine bit-equal to the same runs without a mesh (logits, every
+    state leaf, the streams)."""
     from repro_torch.launch.mesh import make_mesh, process_group
     from repro_torch.sharding import rules
     from repro_torch.sharding.ctx import use_mesh
 
-    part = MESH_SERVE["one_rank"]
+    part = spec["one_rank"][name]
     cfg, model, params = _mesh_model(part)
     inputs = _mesh_inputs(cfg.vocab, part)
     want = _forced(model, params, inputs)
     want_eng = _mesh_engine(model, params, part["engine"])
-    with process_group(0, 1, MESH_DIR / "store_one", backend="nccl",
-                       timeout_s=120):
+    with process_group(0, 1, spec["dir"] / f"store_one_{name}",
+                       backend="nccl", timeout_s=120):
         mesh = make_mesh((1, 1), ("data", "model"), "cuda")
         local = rules.serving_shard(mesh, params)
         with use_mesh(mesh):
@@ -5830,9 +5902,11 @@ def _mesh_one_rank(card: str) -> dict:
         check(torch.equal(g["logits"], w["logits"]),
               f"mesh serving (d) {k}: logits not bit-equal to no mesh")
         for gg, ww in zip(g["state"]["groups"], w["state"]["groups"]):
+            check(set(gg) == set(ww), f"mesh serving (d) {k}: state leaves "
+                  f"{sorted(gg)}, want {sorted(ww)}")
             for leaf in ww:
                 check(torch.equal(gg[leaf], ww[leaf]),
-                      f"mesh serving (d) {k}: cache {leaf} not bit-equal")
+                      f"mesh serving (d) {k}: state {leaf} not bit-equal")
         check(g["prefill_launches"] == w["prefill_launches"],
               f"mesh serving (d) {k}: launches {g['prefill_launches']}")
         out[k] = {"prefill_ms": g["prefill_ms"],
@@ -5845,63 +5919,70 @@ def _mesh_one_rank(card: str) -> dict:
     out["plain_engine_tokens_per_s"] = want_eng["tokens_per_s"]
     del got, want, params, local, model
     torch.cuda.empty_cache()
-    log(f"[mesh] (d) 1 NCCL rank, {cfg.arch_id} {cfg.n_layers} layers bf16: "
-        f"logits, caches and {len(want_eng['streams'])} engine streams "
+    log(f"[{spec['tag']}] (d) 1 NCCL rank, {cfg.arch_id} {cfg.n_layers} "
+        f"layers bf16: logits, states and {len(want_eng['streams'])} engine "
+        f"streams "
         f"bit-equal to no mesh; engine {out['engine_tokens_per_s']:.1f} "
         f"tokens/s (no mesh {out['plain_engine_tokens_per_s']:.1f}) on "
         f"{card}")
     return out
 
 
-def phase_mesh_serving(card: str) -> dict:
-    """11f: the dense kind served over a mesh (``sharding.ctx.use_mesh``):
-    (a)-(c) on 4 gloo ranks of the one card against the same weights
-    without a mesh in this process, (d) one NCCL rank bit-equal."""
+def phase_mesh_serving(card: str, phase: str = "11f") -> dict:
+    """11f: the dense kind served over a mesh (``sharding.ctx.use_mesh``);
+    11g: the recurrent kinds (``MESH_SPECS``): (a)-(c) on 4 gloo ranks of
+    the one card against the same weights without a mesh in this
+    process, (d) one NCCL rank bit-equal."""
     import tempfile
 
     from repro_torch.launch.mesh import spawn
 
+    spec = MESH_SPECS[phase]
+    out_dir = spec["dir"]
     t_phase = time.perf_counter()
-    if MESH_DIR.exists():
-        shutil.rmtree(MESH_DIR)
-    MESH_DIR.mkdir(parents=True)
-    record = {"card": card, "ranks": MESH_SERVE["ranks"],
-              "one_rank": _mesh_one_rank(card)}
+    if out_dir.exists():
+        shutil.rmtree(out_dir)
+    out_dir.mkdir(parents=True)
+    record = {"card": card, "ranks": spec["ranks"],
+              "one_rank": {name: _mesh_one_rank(card, spec, name)
+                           for name in spec["one_rank"]}}
     tmp = pathlib.Path(tempfile.mkdtemp(prefix="mesh_serving_"))
     try:
         plain = {name: _mesh_reference(name, part, tmp)
-                 for name, part in MESH_SERVE["parts"].items()}
-        ranks = MESH_SERVE["ranks"]
-        job = {"ranks": ranks, "store": str(MESH_DIR / "store"),
-               "out": str(MESH_DIR), "tmp": str(tmp),
-               "timeout_s": MESH_SERVE["timeout_s"]}
-        (MESH_DIR / "job.json").write_text(json.dumps(job))
+                 for name, part in spec["parts"].items()}
+        ranks = spec["ranks"]
+        job = {"phase": phase, "ranks": ranks, "store": str(out_dir / "store"),
+               "out": str(out_dir), "tmp": str(tmp),
+               "timeout_s": spec["timeout_s"]}
+        (out_dir / "job.json").write_text(json.dumps(job))
         t0 = time.perf_counter()
         spawn(lambda r: [sys.executable, str(ROOT / "chip_smoke.py"),
-                         "--mesh-serving-child", str(MESH_DIR / "job.json"),
-                         str(r)], ranks, timeout_s=MESH_SERVE["timeout_s"])
+                         "--mesh-serving-child", str(out_dir / "job.json"),
+                         str(r)], ranks, timeout_s=spec["timeout_s"])
         spawn_s = time.perf_counter() - t0
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    got = [json.loads((MESH_DIR / f"rank{r}.json").read_text())
+    got = [json.loads((out_dir / f"rank{r}.json").read_text())
            for r in range(ranks)]
-    for name, part in MESH_SERVE["parts"].items():
+    for name, part in spec["parts"].items():
         record[name] = _mesh_check_part(name, part, plain[name],
-                                        [g[name] for g in got], card)
+                                        [g[name] for g in got], card, spec)
     record["spawn_s"] = spawn_s
     record["seconds"] = time.perf_counter() - t_phase
-    log(f"[mesh] phase 11f on {card} took {record['seconds']:.1f} s (the "
-        f"ranks {spawn_s:.1f} s from spawn to join)")
+    log(f"[{spec['tag']}] phase {phase} on {card} took "
+        f"{record['seconds']:.1f} s (the ranks {spawn_s:.1f} s from spawn "
+        f"to join)")
     return record
 
 
 def _mesh_check_part(name: str, part: dict, plain: dict, ranks: list,
-                     card: str) -> dict:
-    """Check one part's ranks: parameter bytes as the layout's, logits
-    bit-equal across ranks and within the part's tolerance, each
-    prefill's flash launches on the route at the rank's heads, no
-    launch in a decode step, the engine's streams (equal to no mesh for
-    float32); log the times, bytes and memory."""
+                     card: str, spec: dict = MESH_SERVE) -> dict:
+    """Check one part's ranks: parameter and decode-state bytes as the
+    layout's, logits bit-equal across ranks and within the part's
+    tolerance, each prefill's flash launches on the route at the rank's
+    heads (none for mamba2), no launch in a decode step, the engine's
+    streams (equal to no mesh for float32); log the times, bytes and
+    memory."""
     from repro_torch.configs import get_config
 
     dtype = MESH_DTYPES[part["dtype"]]
@@ -5910,11 +5991,18 @@ def _mesh_check_part(name: str, part: dict, plain: dict, ranks: list,
     sizes = dict(zip(part["mesh"][1], part["mesh"][0]))
     m = sizes["model"]
     route = FLASH_ROUTE[dtype]
-    label = f"mesh serving ({name})"
+    tag = spec["tag"]
+    label = f"{tag} ({name})"
+    n_attn = ranks[0]["attn_layers"]
     for r, rec in enumerate(ranks):
         check(rec["param_bytes"] == rec["layout_param_bytes"],
               f"{label}: rank {r} holds {rec['param_bytes']} parameter bytes, "
               f"its serving shard {rec['layout_param_bytes']}")
+        for k, _, _ in part["inputs"]:
+            check(rec[k]["state_bytes"] == rec[k]["layout_state_bytes"],
+                  f"{label} {k}: rank {r} holds {rec[k]['state_bytes']} "
+                  f"decode-state bytes, its shard "
+                  f"{rec[k]['layout_state_bytes']}")
     out = {"arch": part["arch"], "n_layers": layers, "dtype": part["dtype"],
            "mesh": sizes, "plain": plain,
            "param_bytes_per_rank": [r["param_bytes"] for r in ranks],
@@ -5930,15 +6018,17 @@ def _mesh_check_part(name: str, part: dict, plain: dict, ranks: list,
         check(errs["max_abs_err"] <= errs["tolerance"],
               f"{label} {k}: logits {errs['max_abs_err']:.4e} from the "
               f"yardstick > tolerance {errs['tolerance']:.4e}")
-        # the rank's batch rows, q heads and KV heads (both divide here)
+        # the rank's batch rows, q heads and KV heads (whole where they
+        # do not divide over model)
         n_data = sizes.get("data", 1)
-        heads = (cfg.n_heads // m, cfg.n_kv_heads // m)
+        heads = (cfg.n_heads // m, cfg.n_kv_heads // m
+                 if cfg.n_kv_heads % m == 0 else cfg.n_kv_heads)
         want_shape = [b // n_data if b % n_data == 0 else b, t, heads[0],
                       cfg.head_dim]
         for r, row in enumerate(rows):
-            check(row["prefill_launches"] == _flash_want(layers, route),
+            check(row["prefill_launches"] == _flash_want(n_attn, route),
                   f"{label} {k}: rank {r} prefill launches "
-                  f"{row['prefill_launches']}, want {layers} on {route}")
+                  f"{row['prefill_launches']}, want {n_attn} on {route}")
             check(all(c[0] == want_shape and c[1][2] == heads[1]
                       for c in row["prefill_flash_calls"]),
                   f"{label} {k}: rank {r} flash calls "
@@ -5948,15 +6038,20 @@ def _mesh_check_part(name: str, part: dict, plain: dict, ranks: list,
                   f"{label} {k}: rank {r} decode launched "
                   f"{row['decode_launches']}")
         moved = rows[0]["moved_bytes_per_step"]
+        calls = rows[0]["prefill_flash_calls"]
         out[k] = {"errs": errs,
                   "prefill_ms": [r["prefill_ms"] for r in rows],
                   "decode_ms_median": [r["decode_ms_median"] for r in rows],
                   "moved_bytes_per_decode_step": moved,
+                  "collective_ms_per_decode_step": [
+                      r["collective_ms_per_step"] for r in rows],
                   "prefill_moved_bytes": rows[0]["prefill_moved_bytes"],
-                  "flash_call": rows[0]["prefill_flash_calls"][0],
+                  "flash_call": calls[0][:2] if calls else None,
                   "launches_per_prefill": rows[0]["prefill_launches"],
+                  "state_bytes": [r["state_bytes"] for r in rows],
                   "state_shapes": rows[0]["state_shapes"]}
-        log(f"[mesh] ({name}) {part['arch']} {layers} layers {part['dtype']} "
+        coll = out[k]["collective_ms_per_decode_step"]
+        log(f"[{tag}] ({name}) {part['arch']} {layers} layers {part['dtype']} "
             f"on {sizes}, {k} ({b} x {t}): prefill "
             + " / ".join(f"{x:.1f}" for x in out[k]["prefill_ms"])
             + " ms, decode " + " / ".join(f"{x:.2f}" for x in
@@ -5965,9 +6060,13 @@ def _mesh_check_part(name: str, part: dict, plain: dict, ranks: list,
             f"{plain[k]['decode_ms_median']:.2f} ms); "
             f"{sum(moved.values()) / 1e6:.3f} MB through the collectives a "
             f"decode step a rank ({ {kk: int(v) for kk, v in moved.items()} }"
-            f"); flash q {out[k]['flash_call'][0]} k "
-            f"{out[k]['flash_call'][1]} x{layers} a prefill a rank")
-        log(f"[mesh]   logits vs the float32 no-mesh yardstick: max abs err "
+            f"), " + " / ".join(f"{sum(c.values()):.1f}" for c in coll)
+            + " ms of it in them by rank; decode state "
+            + " / ".join(f"{x / 1e6:.3f}" for x in out[k]["state_bytes"])
+            + " MB a rank (the layout's); "
+            + (f"flash q {calls[0][0]} k {calls[0][1]} x{n_attn} a prefill "
+               f"a rank" if calls else "no flash call"))
+        log(f"[{tag}]   logits vs the float32 no-mesh yardstick: max abs err "
             f"{errs['max_abs_err']:.4e} (tolerance {errs['tolerance']:.4e}"
             + (f", no-mesh {part['dtype']} {errs['plain_max_abs_err']:.4e}"
                if "plain_max_abs_err" in errs else "")
@@ -5978,11 +6077,10 @@ def _mesh_check_part(name: str, part: dict, plain: dict, ranks: list,
                if "plain_argmax_agree" in errs else ""))
     if part["engine"]:
         eng = ranks[0]["engine"]
-        n_attn = layers
         check(all(r["engine"]["streams"] == eng["streams"] for r in ranks),
               f"{label}: the ranks' engine streams differ")
-        reqs = SERVE["requests"]
-        spec = part["engine"]
+        espec = part["engine"]
+        reqs = espec.get("requests", SERVE["requests"])
         for r, rec in enumerate(ranks):
             fl = rec["engine"]["launches"]
             check(fl["flash_attention"] == reqs * n_attn
@@ -5996,16 +6094,17 @@ def _mesh_check_part(name: str, part: dict, plain: dict, ranks: list,
                                              "streams_equal", "token_agree")}
         out["engine"]["tokens_per_s_by_rank"] = [
             r["engine"]["tokens_per_s"] for r in ranks]
-        log(f"[mesh] ({name}) engine, {reqs} requests x {spec['new_tokens']} "
-            f"new tokens, {spec['max_batch']} slots: " + " / ".join(
+        log(f"[{tag}] ({name}) engine, {reqs} requests x "
+            f"{espec['new_tokens']} new tokens, {espec['max_batch']} slots: "
+            + " / ".join(
                 f"{x:.1f}" for x in out["engine"]["tokens_per_s_by_rank"])
             + f" tokens/s by rank (no mesh "
             f"{plain['engine_tokens_per_s']:.1f}); streams equal to no mesh: "
             f"{eng['streams_equal']} ({eng['token_agree']:.4f} of tokens "
             f"agree)")
-    if name == "qwen":
+    if part.get("flash_parity"):
         out["flash_parity"] = ranks[0]["flash_parity"]
-    log(f"[mesh] ({name}) parameter bytes a rank "
+    log(f"[{tag}] ({name}) parameter bytes a rank "
         + " / ".join(f"{b / 1e9:.3f}" for b in out["param_bytes_per_rank"])
         + f" GB (the layout's; whole {plain['param_bytes'] / 1e9:.3f} GB), "
         f"peak device memory a rank serving " + " / ".join(
@@ -6761,6 +6860,7 @@ def main() -> int:
     record["cross"] = phase_cross(card)
     record["rightsized"] = phase_rightsized(card)
     record["mesh_serving"] = phase_mesh_serving(card)
+    record["mesh_recurrent"] = phase_mesh_serving(card, "11g")
     record["flash_times"] = phase_flash_times()
     record["train"] = phase_train()
     # launches: the SRHT kernels from the full-size comm=None run (fwht is
@@ -6853,14 +6953,17 @@ def main() -> int:
                 "async_four_ranks_gloo": [n[name] for n in
                                           cm["four_ranks_async"]["launches"]]}
         if name in ("flash_attention_sm90", "flash_attention_tf32x3"):
-            # phase 11f: launches a prefill a rank of an LM over a mesh
-            mesh = record["mesh_serving"]
-            parts = [p for p, spec in MESH_SERVE["parts"].items()
-                     if FLASH_ROUTE[MESH_DTYPES[spec["dtype"]]] ==
-                     name.rsplit("_", 1)[1]]
+            # phases 11f and 11g: launches a prefill a rank of an LM over a
+            # mesh, by the part's arch and input
             entry["mesh_launches_per_prefill_per_rank"] = {
-                f"{p} {k}": mesh[p][k]["launches_per_prefill"][name]
-                for p in parts for k, _, _ in MESH_SERVE["parts"][p]["inputs"]}
+                f"{phase} {spec['arch']} {k}":
+                    record[key][p][k]["launches_per_prefill"][name]
+                for phase, key in (("11f", "mesh_serving"),
+                                   ("11g", "mesh_recurrent"))
+                for p, spec in MESH_SPECS[phase]["parts"].items()
+                if FLASH_ROUTE[MESH_DTYPES[spec["dtype"]]]
+                == name.rsplit("_", 1)[1]
+                for k, _, _ in spec["inputs"]}
         if name in routes:
             entry["routes"] = [
                 {"kernel": r["route"], "shape": r["shape"], "dims": r["dims"],

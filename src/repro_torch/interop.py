@@ -173,7 +173,10 @@ def lm_shard_from_numpy(params, cfg, mesh,
     ``mesh``: ``lm_params_from_numpy`` (on the host), then each leaf's
     block under ``rules.serving_param_spec`` (``rules.serving_shard``)
     on ``device``; ``rank`` defaults to this process's on a
-    ``DeviceMesh``."""
+    ``DeviceMesh``. The recurrent leaves take the same path: mamba2's
+    ``w_in`` and the RG-LRU's projections cut by columns over ``model``
+    and rows over ``data``, ``w_out`` the other way round, the conv
+    weights, the float32 leaves and the norms whole."""
     from repro_torch.sharding import rules
 
     dev = resolve_device(device)

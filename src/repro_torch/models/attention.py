@@ -26,7 +26,8 @@ over ``model`` and returns K and V of every KV head for the cache; a
 decode step is sequence-parallel over the cache's slots, as the
 reference's: q replicated over ``model``, each rank's slots scored, the
 softmax's max and sum and the probability-weighted V summed over the
-cache's sequence shards (``SeqShard``).
+cache's sequence shards (``SeqShard``), a sliding window's mask read
+from each slot's global position (griffin's).
 """
 from __future__ import annotations
 

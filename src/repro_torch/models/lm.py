@@ -37,21 +37,25 @@ griffin's attention take rings too. Prefill writes the same rings
 reference's prefill gives the remainder group and griffin full caches
 (ROADMAP section 3, record 6).
 
-Under a mesh (``sharding.ctx.use_mesh``) the ``dense`` and ``moe``
-kinds serve in the reference's layout (``_OnMesh``): ``prefill``,
-``init_decode_state`` and ``decode_step`` take token ids and return
-logits of the global batch on every rank, while each rank holds its
-shard of the parameters (``rules.serving_shard``: each leaf's block
-under ``rules.serving_param_spec``) and of the decode state (under
-``rules.state_spec``). The activations are the rank's batch rows, every
+Under a mesh (``sharding.ctx.use_mesh``) the ``dense``, ``moe``,
+``ssd``, ``rec`` and ``griffin`` kinds serve in the reference's layout
+(``_OnMesh``): ``prefill``, ``init_decode_state`` and ``decode_step``
+take token ids and return logits of the global batch on every rank,
+while each rank holds its shard of the parameters
+(``rules.serving_shard``: each leaf's block under
+``rules.serving_param_spec``) and of the decode state (under
+``rules.state_spec``; ``_mesh_states``). The activations are the rank's batch rows, every
 weight's FSDP dim is all-gathered over ``data`` as its unit runs, and
 the layers split their heads, MLP width and vocab over ``model``
-(``models.common``, ``models.attention``). Training and the other
-kinds raise under a mesh.
+(``models.common``, ``models.attention``), mamba2's SSD heads and the
+RG-LRU's width too (``models.ssd``, ``models.rglru``). Training, the
+``dense_sb``, ``vlm`` and ``dec`` kinds and a ``pod`` axis raise under a
+mesh.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -76,7 +80,7 @@ from repro_torch.models.common import (
 )
 from repro_torch.sharding import rules
 from repro_torch.sharding import tensor_parallel as tp
-from repro_torch.sharding.ctx import get_mesh
+from repro_torch.sharding.ctx import get_mesh, use_mesh
 from repro_torch.tree import leaves, tree_map
 
 RECURRENT = ("ssd", "rec", "griffin")  # kinds with a recurrent state
@@ -610,12 +614,18 @@ def _units(tree, n: int) -> list:
 # serving over a mesh
 # ---------------------------------------------------------------------------
 
-MESH_KINDS = ("dense", "moe")  # the kinds served over a mesh
+MESH_KINDS = ("dense", "moe", *RECURRENT)  # the kinds served over a mesh
 # leaves whose ``model`` block a rank keeps: the projections, the MLPs'
-# (dense, arctic's dense_mlp, the shared expert's, the experts') and the
-# vocab's; every other leaf is gathered whole on use
+# (dense, arctic's dense_mlp, the shared expert's, the experts'), the
+# recurrent blocks' (mamba2's w_in and w_out; the RG-LRU's w_x, w_a, w_i,
+# w_out and its gelu gate, which shares the MLP's name w_gate and its
+# (data, model) spec) and the vocab's; every other leaf is gathered whole
+# on use
 _MODEL_BLOCK_LEAVES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
-                       "table", "lm_head")
+                       "w_in", "w_x", "w_a", "w_i", "w_out", "table",
+                       "lm_head")
+_NOT_ON_MESH = ("ROADMAP.md queue 1, 'dense_sb rings, vlm and dec, the pod "
+                "axis over a mesh'")
 
 
 def _meta(*shape) -> torch.Tensor:
@@ -645,6 +655,13 @@ class _OnMesh:
 
     def gather_rows(self, a: torch.Tensor) -> torch.Tensor:
         return tp.gather(a, self.row_group, 0)
+
+    def unit(self, params: dict, gi: int, branch: "str | None" = None):
+        """Unit i of group ``gi`` -> its weights as ``weights`` gives
+        them."""
+        name = f"group{gi}"
+        return lambda i: self.weights(params[name], self.specs[name],
+                                      path=(name,), layer=i, branch=branch)
 
     def weights(self, tree, specs, *, path: tuple, layer=None,
                 branch: "str | None" = None):
@@ -761,18 +778,16 @@ class LM:
             if g.kind not in MESH_KINDS:
                 raise NotImplementedError(
                     f"{self.cfg.arch_id}: the {g.kind!r} kind over a mesh "
-                    f"is not ported (ROADMAP.md queue 1, 'the other group "
-                    f"kinds over a mesh')")
+                    f"is not ported ({_NOT_ON_MESH})")
         if self.cfg.cache_mode == "rightsized":
             raise NotImplementedError(
                 f"{self.cfg.arch_id}: right-sized caches over a mesh are not "
-                f"ported (ROADMAP.md queue 1, 'the other group kinds over a "
-                f"mesh')")
+                f"ported ({_NOT_ON_MESH})")
         lay = tp.layout(mesh)
         if "pod" in lay.sizes:
             raise NotImplementedError(
-                "serving over a mesh with a 'pod' axis is not ported "
-                "(ROADMAP.md queue 1, 'the other group kinds over a mesh')")
+                f"serving over a mesh with a 'pod' axis is not ported "
+                f"({_NOT_ON_MESH})")
         return lay
 
     def _on_mesh(self, params: dict, batch: int) -> "_OnMesh | None":
@@ -922,45 +937,45 @@ class LM:
     def _run_group_full(self, g: GroupSpec, gp: dict, x: torch.Tensor,
                         memory=None, *, cache_len: int):
         b, t, _ = x.shape
-        cfg, dev = self.cfg, x.device
         if (g.kind in ("dense", "dense_sb", "moe", "griffin", *CROSS)
                 and cache_len < t):
             raise ValueError(f"cache_len {cache_len} < prompt length {t}")
-        if g.kind == "ssd":
-            cache = ssd_mod.make_ssd_state(cfg, g.n, b, dev)
-            for i in range(g.n):
-                x, cache["ssm"][i], cache["conv"][i] = _ssd_unit_apply(
-                    _layer(gp, i), x, cfg, want_state=True)
-            return x, cache
-        if g.kind == "rec":
-            cache = _rec_state(cfg, g.n, b, dev)
-            for i in range(g.n):
-                x, cache["h"][i], cache["conv"][i] = _rec_unit_apply(
-                    _layer(gp, i), x, cfg, want_state=True)
-            return x, cache
         if g.kind in CROSS:
             return self._run_cross_full(g, gp, x, memory, cache_len)
         if g.kind == "dense_sb":
             return self._run_sb_full(g, gp, x, cache_len)
-        slots = _cache_slots(cfg, g, cache_len)
-        if g.kind == "griffin":
-            cache = _griffin_state(cfg, g.n, b, slots, dev)
-        else:
-            cache = attn.make_cache(cfg, g.n, b, slots, dev)
+        cache = self._group_state(g, b, cache_len, x.device)
+        return self._run_units_full(g, functools.partial(_layer, gp), x,
+                                    cache), cache
+
+    def _run_units_full(self, g: GroupSpec, unit, x: torch.Tensor,
+                        cache: dict, seq=None) -> torch.Tensor:
+        """A dense, moe, ssd, rec or griffin group over a full sequence,
+        unit i's weights ``unit(i)``: its states and its K and V written
+        into ``cache`` (a cache's sequence shard ``seq`` on a mesh)."""
+        cfg = self.cfg
         for i in range(g.n):
+            p = unit(i)
+            if g.kind == "ssd":
+                x, cache["ssm"][i], cache["conv"][i] = _ssd_unit_apply(
+                    p, x, cfg, want_state=True)
+                continue
+            if g.kind == "rec":
+                x, cache["h"][i], cache["conv"][i] = _rec_unit_apply(
+                    p, x, cfg, want_state=True)
+                continue
             if g.kind == "griffin":
-                x, states, k, v = _griffin_unit_apply(_layer(gp, i), x, cfg)
+                x, states, k, v = _griffin_unit_apply(p, x, cfg)
                 for name, s in zip(("h0", "conv0", "h1", "conv1"), states):
                     cache[name][i] = s
             else:
-                unit = (_dense_unit_apply if g.kind == "dense"
-                        else _moe_unit_apply)
-                x, k, v = unit(_layer(gp, i), x, cfg, window=g.windows[i],
-                               theta=g.thetas[i])[:3]
+                fn = _dense_unit_apply if g.kind == "dense" else _moe_unit_apply
+                x, k, v = fn(p, x, cfg, window=g.windows[i],
+                             theta=g.thetas[i])[:3]
             # the K and V attention used: the reference recomputes the
             # same values from the unit's input (attn_cache_from)
-            _cache_put(_layer(cache, i), k, v)
-        return x, cache
+            _cache_put(_layer(cache, i), k, v, seq)
+        return x
 
     def _run_sb_full(self, g: GroupSpec, gp: dict, x: torch.Tensor,
                      cache_len: int):
@@ -1047,10 +1062,11 @@ class LM:
         group needs T to be at most ``cfg.ssm_chunk`` or a multiple of it
         (``ssd_scan``).
 
-        Under a mesh (the dense and moe kinds): ``batch`` holds the
-        global batch's token ids and the logits are the global batch's on
-        every rank; ``params`` is the rank's serving shard and the state
-        its shard under ``rules.state_spec``, with the global
+        Under a mesh (the dense, moe, ssd, rec and griffin kinds):
+        ``batch`` holds the global batch's token ids and the logits are
+        the global batch's on every rank; ``params`` is the rank's
+        serving shard and the state its shard under ``rules.state_spec``,
+        with the global
         ``cache_len`` beside the index."""
         tokens = batch["inputs"]
         t = tokens.shape[1]
@@ -1067,10 +1083,22 @@ class LM:
                                        device=tokens.device)}
         return logits[:, 0], state
 
-    def _mesh_cache(self, on: _OnMesh, n: int, cache_len: int, device):
-        """A group's zeroed cache shard and its ``SeqShard``."""
-        rows, slots, seq = on.cache_block(cache_len)
-        return attn.make_cache(self.cfg, n, rows, slots, device), seq
+    def _mesh_states(self, batch: int, cache_len: int, device) -> list:
+        """Each group's zeroed state shard under ``rules.state_spec``: the
+        global state's leaves made on the meta device, cut to the rank's
+        block (``pos`` -1, every other leaf 0)."""
+        mesh = get_mesh()
+        with use_mesh(None):
+            glob = self.init_decode_state(batch, cache_len,
+                                          device="meta")["groups"]
+        states = [tree_map(lambda a: torch.zeros(a.shape, dtype=a.dtype,
+                                                 device=device), g)
+                  for g in rules.shard_tree(mesh, glob, rules.state_spec,
+                                            batch=batch)]
+        for st in states:
+            if "pos" in st:
+                st["pos"].fill_(-1)
+        return states
 
     def _prefill_mesh(self, params: dict, tokens: torch.Tensor,
                       cache_len: int, on: _OnMesh):
@@ -1080,18 +1108,12 @@ class LM:
             raise ValueError(f"cache_len {cache_len} < prompt length {t}")
         emb, norm, table = on.top(params)
         x = embed(emb, on.take_rows(tokens), cfg)
-        caches = []
+        caches = self._mesh_states(on.batch, cache_len, x.device)
+        seq = on.cache_block(cache_len)[2]
         for gi, g in enumerate(self.groups):
-            cache, seq = self._mesh_cache(on, g.n, cache_len, x.device)
             branch = on.moe_branch(t) if g.kind == "moe" else None
-            unit = _dense_unit_apply if g.kind == "dense" else _moe_unit_apply
-            for i in range(g.n):
-                p = on.weights(params[f"group{gi}"], on.specs[f"group{gi}"],
-                               path=(f"group{gi}",), layer=i, branch=branch)
-                x, k, v = unit(p, x, cfg, window=g.windows[i],
-                               theta=g.thetas[i])[:3]
-                _cache_put(_layer(cache, i), k, v, seq)
-            caches.append(cache)
+            x = self._run_units_full(g, on.unit(params, gi, branch), x,
+                                     caches[gi], seq)
         feats = rmsnorm(norm, x)
         logits = unembed(table, feats[:, -1:, :], vocab=cfg.vocab)[:, 0]
         return on.gather_rows(logits), {
@@ -1105,41 +1127,38 @@ class LM:
         ``cache_len`` slots; under a mesh the rank's shard of it under
         ``rules.state_spec``, with the global ``cache_len`` beside the
         index."""
-        cfg, dev = self.cfg, resolve_device(device)
+        dev = resolve_device(device)
+        index = torch.as_tensor(cache_len if index is None else index,
+                                dtype=torch.int32, device=dev).clone()
         mesh = get_mesh()
         if mesh is not None:
-            on = _OnMesh(self._check_mesh(mesh), None, batch)
-            index = cache_len if index is None else index
-            return {"groups": [self._mesh_cache(on, g.n, cache_len, dev)[0]
-                               for g in self.groups],
-                    "cache_len": cache_len,
-                    "index": torch.as_tensor(index, dtype=torch.int32,
-                                             device=dev).clone()}
-        states = []
-        for g in self.groups:
-            if g.kind == "ssd":
-                states.append(ssd_mod.make_ssd_state(cfg, g.n, batch, dev))
-            elif g.kind == "rec":
-                states.append(_rec_state(cfg, g.n, batch, dev))
-            elif g.kind == "griffin":
-                states.append(_griffin_state(cfg, g.n, batch,
-                                             _cache_slots(cfg, g, cache_len),
-                                             dev))
-            elif g.kind == "dense_sb":
-                states.append(_sb_state(cfg, g.n, batch, cache_len, dev))
-            elif g.kind == "vlm":
-                states.append(_vlm_state(cfg, g.n, batch, cache_len,
-                                         cfg.vision_tokens, dev))
-            elif g.kind == "dec":
-                states.append(_dec_state(cfg, g.n, batch, cache_len,
-                                         cfg.audio_frames, dev))
-            else:
-                states.append(attn.make_cache(
-                    cfg, g.n, batch, _cache_slots(cfg, g, cache_len), dev))
-        index = cache_len if index is None else index
-        return {"groups": states,
-                "index": torch.as_tensor(index, dtype=torch.int32,
-                                         device=dev).clone()}
+            self._check_mesh(mesh)
+            return {"groups": self._mesh_states(batch, cache_len, dev),
+                    "cache_len": cache_len, "index": index}
+        return {"groups": [self._group_state(g, batch, cache_len, dev)
+                           for g in self.groups], "index": index}
+
+    def _group_state(self, g: GroupSpec, batch: int, cache_len: int,
+                     dev) -> dict:
+        """A group's zeroed decode state of ``batch`` rows."""
+        cfg = self.cfg
+        if g.kind == "ssd":
+            return ssd_mod.make_ssd_state(cfg, g.n, batch, dev)
+        if g.kind == "rec":
+            return _rec_state(cfg, g.n, batch, dev)
+        if g.kind == "griffin":
+            return _griffin_state(cfg, g.n, batch,
+                                  _cache_slots(cfg, g, cache_len), dev)
+        if g.kind == "dense_sb":
+            return _sb_state(cfg, g.n, batch, cache_len, dev)
+        if g.kind == "vlm":
+            return _vlm_state(cfg, g.n, batch, cache_len, cfg.vision_tokens,
+                              dev)
+        if g.kind == "dec":
+            return _dec_state(cfg, g.n, batch, cache_len, cfg.audio_frames,
+                              dev)
+        return attn.make_cache(cfg, g.n, batch,
+                               _cache_slots(cfg, g, cache_len), dev)
 
     # -- decode step --------------------------------------------------------------
     def decode_step(self, params: dict, state: dict, tokens: torch.Tensor):
@@ -1152,14 +1171,28 @@ class LM:
         global batch's."""
         cfg = self.cfg
         on = self._on_mesh(params, tokens.shape[0])
-        if on is not None:
-            return self._decode_mesh(params, state, tokens, on)
         index = state["index"]
-        x = embed(params["embed"], tokens, cfg)
+        if on is None:
+            emb, norm, table = (params["embed"], params["final_norm"],
+                                self._table(params))
+            idx, seq, vocab = index, None, None
+        else:
+            if "cache_len" not in state:
+                raise ValueError("decode over a mesh takes the state that "
+                                 "prefill or init_decode_state made under it")
+            seq = on.cache_block(state["cache_len"])[2]
+            idx = on.take_rows(index) if index.ndim else index
+            emb, norm, table = on.top(params)
+            tokens, vocab = on.take_rows(tokens), cfg.vocab
+        x = embed(emb, tokens, cfg)
         for gi, g in enumerate(self.groups):
-            gp, gc = params[f"group{gi}"], state["groups"][gi]
+            gc = state["groups"][gi]
+            unit = (functools.partial(_layer, params[f"group{gi}"])
+                    if on is None else on.unit(
+                        params, gi,
+                        on.moe_branch(1) if g.kind == "moe" else None))
             for i in range(g.n):
-                p = _layer(gp, i)
+                p = unit(i)
                 if g.kind == "ssd":
                     h, gc["ssm"][i], gc["conv"][i] = ssd_mod.ssd_decode_step(
                         p["ssd"], rmsnorm(p["ln1"], x), cfg,
@@ -1174,63 +1207,41 @@ class LM:
                     x, gc["h1"][i], gc["conv1"][i] = _rec_unit_decode(
                         p["rec1"], x, gc["h1"][i], gc["conv1"][i], cfg)
                     x, _ = _dense_unit_decode(
-                        p["attn"], x, _layer(gc, i), index, cfg,
-                        window=cfg.window, theta=cfg.rope_theta)
+                        p["attn"], x, _layer(gc, i), idx, cfg,
+                        window=cfg.window, theta=cfg.rope_theta, seq=seq)
                 elif g.kind == "dense_sb":
                     for j in range(cfg.local_per_global):
                         ring = {name: a[i, j] for name, a in gc["loc"].items()}
                         x, _ = _dense_unit_decode(
-                            _layer(p["loc"], j), x, ring, index, cfg,
+                            _layer(p["loc"], j), x, ring, idx, cfg,
                             window=cfg.window, theta=cfg.rope_theta)
                     x, _ = _dense_unit_decode(
-                        p["glob"], x, _layer(gc["glob"], i), index, cfg,
+                        p["glob"], x, _layer(gc["glob"], i), idx, cfg,
                         window=None, theta=_theta_global(cfg))
                 elif g.kind == "vlm":
                     for j in range(cfg.cross_attn_every):
                         self_cache = {name: gc[name][i, j]
                                       for name in ("k", "v", "pos")}
                         x, _ = _dense_unit_decode(
-                            _layer(p["self"], j), x, self_cache, index, cfg,
+                            _layer(p["self"], j), x, self_cache, idx, cfg,
                             window=None, theta=cfg.rope_theta)
                     mkv = {"k": gc["cross_k"][i], "v": gc["cross_v"][i]}
                     x = _cross_apply(p["cross"], x, mkv, cfg)
                 elif g.kind == "dec":
                     h, _ = attn.attn_decode(
                         p["self_attn"], rmsnorm(p["ln1"], x), _layer(gc, i),
-                        index, cfg, theta=cfg.rope_theta)
+                        idx, cfg, theta=cfg.rope_theta)
                     mkv = {"k": gc["cross_k"][i], "v": gc["cross_v"][i]}
                     x = _dec_tail(p, x + h, mkv, cfg)
                 else:
-                    unit = (_dense_unit_decode if g.kind == "dense"
-                            else _moe_unit_decode)
-                    x, _ = unit(p, x, _layer(gc, i), index, cfg,
-                                window=g.windows[i], theta=g.thetas[i])
-        x = rmsnorm(params["final_norm"], x)
-        logits = unembed(self._table(params), x)[:, 0]
-        return logits, {"groups": state["groups"], "index": index + 1}
-
-    def _decode_mesh(self, params: dict, state: dict, tokens: torch.Tensor,
-                     on: _OnMesh):
-        cfg = self.cfg
-        if "cache_len" not in state:
-            raise ValueError("decode over a mesh takes the state that "
-                             "prefill or init_decode_state made under it")
-        cache_len, index = state["cache_len"], state["index"]
-        seq = on.cache_block(cache_len)[2]
-        idx = on.take_rows(index) if index.ndim else index
-        emb, norm, table = on.top(params)
-        x = embed(emb, on.take_rows(tokens), cfg)
-        for gi, g in enumerate(self.groups):
-            gc = state["groups"][gi]
-            branch = on.moe_branch(1) if g.kind == "moe" else None
-            unit = (_dense_unit_decode if g.kind == "dense"
-                    else _moe_unit_decode)
-            for i in range(g.n):
-                p = on.weights(params[f"group{gi}"], on.specs[f"group{gi}"],
-                               path=(f"group{gi}",), layer=i, branch=branch)
-                x, _ = unit(p, x, _layer(gc, i), idx, cfg,
-                            window=g.windows[i], theta=g.thetas[i], seq=seq)
-        x = rmsnorm(norm, x)
-        logits = on.gather_rows(unembed(table, x, vocab=cfg.vocab)[:, 0])
-        return logits, {"groups": state["groups"], "cache_len": cache_len,
-                        "index": index + 1}
+                    fn = (_dense_unit_decode if g.kind == "dense"
+                          else _moe_unit_decode)
+                    x, _ = fn(p, x, _layer(gc, i), idx, cfg,
+                              window=g.windows[i], theta=g.thetas[i],
+                              seq=seq)
+        logits = unembed(table, rmsnorm(norm, x), vocab=vocab)[:, 0]
+        new = {"groups": state["groups"], "index": index + 1}
+        if on is None:
+            return logits, new
+        return on.gather_rows(logits), {**new,
+                                        "cache_len": state["cache_len"]}

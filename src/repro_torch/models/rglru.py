@@ -13,6 +13,16 @@ tensors (ceil(log2 T) elementwise stages), where the reference runs
 Decode is O(1). The residual block: linear -> causal conv(4) -> RG-LRU
 on one branch, a gelu gate on the other, merged by an output projection.
 ``lam`` and the state ``h`` are float32 whatever ``cfg.param_dtype`` is.
+
+On a mesh (``sharding.ctx.use_mesh``) a rank holds its ``model`` block
+of the width in ``w_x``, ``w_gate``, ``w_a`` and ``w_i``'s columns and
+``w_out``'s rows, the reference's constraint on x (``shard(x, BATCH,
+None, MODEL)``). The gates contract x over the whole width, and the
+conv state is whole over ``model``: the ``w_x`` product is all-gathered
+over ``model`` and the conv runs over every channel. The recurrence is
+diagonal, so each rank runs it on its block alone, and its block of
+``h`` is all-gathered so that the stored state is whole; the gated
+output's product with ``w_out`` is summed over ``model``.
 """
 from __future__ import annotations
 
@@ -20,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import ModelConfig, dense_init, residual_out_init
+from repro_torch.sharding import tensor_parallel as tp
 
 _C = 8.0
 
@@ -50,14 +61,16 @@ def rglru_init(gen: torch.Generator, cfg: ModelConfig, lead=()) -> dict:
     }
 
 
-def _gates(params: dict, x: torch.Tensor):
-    """The decay a_t and the gated input of each step, float32. x (B,T,D)."""
+def _gates(params: dict, x: torch.Tensor, cols: slice = slice(None)):
+    """The decay a_t and the gated input of each step, float32, of the
+    channels ``cols`` (those of ``w_a``'s and ``w_i``'s columns). x
+    (B, T, D), the whole width the gates contract."""
     xf = x.float()
-    r = torch.sigmoid(xf @ params["w_a"].float() + params["b_a"].float())
-    i = torch.sigmoid(xf @ params["w_i"].float() + params["b_i"].float())
-    lam = F.softplus(params["lam"])  # (D,)
+    r = torch.sigmoid(xf @ params["w_a"].float() + params["b_a"][cols].float())
+    i = torch.sigmoid(xf @ params["w_i"].float() + params["b_i"][cols].float())
+    lam = F.softplus(params["lam"][cols])  # (D,)
     a = torch.exp(-_C * lam * r)  # a_t, (B, T, D)
-    gated = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * xf)
+    gated = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * xf[..., cols])
     return a, gated
 
 
@@ -76,10 +89,12 @@ def _linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return b
 
 
-def rglru_scan(params: dict, x: torch.Tensor, h0=None):
-    """The linear recurrence over T. x (B, T, D) -> (y (B, T, D) in x's
-    dtype, h_T (B, D) float32)."""
-    a, b = _gates(params, x)
+def rglru_scan(params: dict, x: torch.Tensor, h0=None,
+               cols: slice = slice(None)):
+    """The linear recurrence over T of the channels ``cols``. x (B, T, D)
+    -> (y (B, T, D) in x's dtype, h_T (B, D) float32), of those
+    channels; ``h0`` holds them too."""
+    a, b = _gates(params, x, cols)
     if h0 is not None:
         # fold the initial state into the first step: h_1 = a_1 h_0 + b_1
         b = torch.cat([b[:, :1] + a[:, :1] * h0[:, None], b[:, 1:]], dim=1)
@@ -87,9 +102,11 @@ def rglru_scan(params: dict, x: torch.Tensor, h0=None):
     return y.to(x.dtype), y[:, -1]
 
 
-def rglru_step(params: dict, x: torch.Tensor, h: torch.Tensor):
-    """One-token recurrence. x (B, 1, D), h (B, D) float32."""
-    a, b = _gates(params, x)
+def rglru_step(params: dict, x: torch.Tensor, h: torch.Tensor,
+               cols: slice = slice(None)):
+    """One-token recurrence of the channels ``cols``. x (B, 1, D), h
+    (B, D) float32 of those channels."""
+    a, b = _gates(params, x, cols)
     h_new = a[:, 0] * h + b[:, 0]
     return h_new[:, None, :].to(x.dtype), h_new
 
@@ -116,16 +133,38 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
+def _width(cfg: ModelConfig) -> "tuple[tp.Layout | None, slice]":
+    """(the layout, the channels) of the rank's ``model`` block of the
+    width: (None, every channel) off a mesh or where it does not split."""
+    lay, lo, n = tp.model_block(cfg.d_model)
+    return lay, slice(lo, lo + n)
+
+
+def _conv_whole(params: dict, u: torch.Tensor, lay, conv_state):
+    """The conv of ``u @ w_x`` over every channel (the product of the
+    rank's columns all-gathered over ``model`` on a mesh): (out, the new
+    conv state)."""
+    x = u @ params["w_x"]
+    if lay is not None:
+        x = tp.gather(x, lay.model, -1)
+    return _causal_conv(x, params["conv_w"].to(u.dtype),
+                        params["conv_b"].to(u.dtype), conv_state)
+
+
 def rglru_block_apply(params: dict, u: torch.Tensor, cfg: ModelConfig, *,
                       state=None, conv_state=None,
                       return_state: bool = False):
-    """Full Griffin recurrent block. u (B, T, D)."""
+    """Full Griffin recurrent block. u (B, T, D); the states in and out
+    are whole (on a mesh too)."""
+    lay, cols = _width(cfg)
     gate = _gelu(u @ params["w_gate"])
-    x = u @ params["w_x"]
-    x, new_conv = _causal_conv(x, params["conv_w"].to(u.dtype),
-                               params["conv_b"].to(u.dtype), conv_state)
-    y, h_last = rglru_scan(params, x, h0=state)
+    x, new_conv = _conv_whole(params, u, lay, conv_state)
+    y, h_last = rglru_scan(params, x, None if state is None else
+                           state[:, cols], cols)
     out = (gate * y) @ params["w_out"]
+    if lay is not None:
+        h_last = tp.gather(h_last, lay.model, -1)
+        out = tp.sum_over(out, lay.model)
     if return_state:
         return out, h_last, new_conv
     return out
@@ -133,11 +172,14 @@ def rglru_block_apply(params: dict, u: torch.Tensor, cfg: ModelConfig, *,
 
 def rglru_decode_step(params: dict, u: torch.Tensor, cfg: ModelConfig, *,
                       state: torch.Tensor, conv_state: torch.Tensor):
-    """One-token step. u (B, 1, D); returns (out, new h, new conv state)."""
+    """One-token step. u (B, 1, D); returns (out, new h, new conv state),
+    the states whole (on a mesh too)."""
+    lay, cols = _width(cfg)
     gate = _gelu(u @ params["w_gate"])
-    x = u @ params["w_x"]
-    x, new_conv = _causal_conv(x, params["conv_w"].to(u.dtype),
-                               params["conv_b"].to(u.dtype), conv_state)
-    y, h_new = rglru_step(params, x, state)
+    x, new_conv = _conv_whole(params, u, lay, conv_state)
+    y, h_new = rglru_step(params, x, state[:, cols], cols)
     out = (gate * y) @ params["w_out"]
+    if lay is not None:
+        h_new = tp.gather(h_new, lay.model, -1)
+        out = tp.sum_over(out, lay.model)
     return out, h_new, new_conv

@@ -17,6 +17,17 @@ states. Each of the reference's four-operand einsums is one product of a
 scaled operand, so no (..., Q, Q, P) intermediate appears. ``a_log``,
 ``d_skip`` and ``dt_bias`` are float32 whatever ``cfg.param_dtype`` is,
 and so is the recurrent state.
+
+On a mesh (``sharding.ctx.use_mesh``) a rank runs the scan on its
+``model`` block of the heads, the reference's constraint on ``xh``
+(``shard(xh, BATCH, None, MODEL, None)``). ``w_in``'s columns are cut
+into z | x | B | C | dt, so a ``model`` block of them crosses those
+boundaries: its product is all-gathered over ``model`` and every rank
+runs the depthwise conv over every channel (the conv state is whole over
+``model``, and B and C are shared by all heads), then takes its heads of
+x and dt. The gated RMSNorm spans all of d_inner: each rank's float32
+sum of squares is summed over ``model`` and scales the rank's block,
+whose product with ``w_out``'s rows is summed over ``model``.
 """
 from __future__ import annotations
 
@@ -31,6 +42,7 @@ from repro_torch.models.common import (
     residual_out_init,
     rmsnorm,
 )
+from repro_torch.sharding import tensor_parallel as tp
 
 
 def ssd_init(gen: torch.Generator, cfg: ModelConfig, lead=()) -> dict:
@@ -60,12 +72,41 @@ def ssd_init(gen: torch.Generator, cfg: ModelConfig, lead=()) -> dict:
 
 
 def _split_proj(params: dict, u: torch.Tensor, cfg: ModelConfig):
+    """z, [x, B, C] and the raw dt of every channel; on a mesh the
+    product with the rank's block of ``w_in``'s columns is all-gathered
+    over ``model``."""
     din, n = cfg.ssm_d_inner, cfg.ssm_state
     zxbcdt = u @ params["w_in"]
+    lay = tp.model_block(2 * din + 2 * n + cfg.ssm_heads)[0]
+    if lay is not None:
+        zxbcdt = tp.gather(zxbcdt, lay.model, -1)
     z = zxbcdt[..., :din]
     xbc = zxbcdt[..., din:2 * din + 2 * n]
     dt_raw = zxbcdt[..., 2 * din + 2 * n:]
     return z, xbc, dt_raw
+
+
+def _gated_out(params: dict, y: torch.Tensor, z: torch.Tensor,
+               cfg: ModelConfig, lay, lo: int) -> torch.Tensor:
+    """``rmsnorm(norm, y * silu(z)) @ w_out`` for y, channels [lo, lo +
+    width) of d_inner (the rank's heads on a mesh, ``lay`` its layout,
+    else all of them and None): the norm's sum of squares summed over
+    ``model``, the product with ``w_out``'s rows of those channels
+    summed over ``model`` where ``w_out`` holds a block of them."""
+    din, width = cfg.ssm_d_inner, y.shape[-1]
+    g = y * F.silu(z[..., lo:lo + width])
+    if lay is None:
+        g = rmsnorm(params["norm"], g)
+    else:
+        ss = tp.sum_of_squares(g, lay.model)
+        scale = params["norm"]["scale"][lo:lo + width].float()
+        g = (g.float() * torch.rsqrt(ss / din + 1e-6)
+             * (1.0 + scale)).to(y.dtype)
+    w = params["w_out"]
+    if w.shape[-2] == din:
+        return g @ w
+    wlay, w0, wn = tp.model_block(din)
+    return tp.sum_over(g[..., w0 - lo:w0 - lo + wn] @ w, wlay.model)
 
 
 def _post_conv(xbc: torch.Tensor, cfg: ModelConfig):
@@ -157,7 +198,8 @@ def ssd_scan(x, dt, a_neg, b_, c_, d_skip, *, chunk: int, init_state=None):
 def ssd_block_apply(params: dict, u: torch.Tensor, cfg: ModelConfig, *,
                     ssm_state=None, conv_state=None,
                     return_state: bool = False):
-    """Full mamba2 block over a sequence. u (B, T, D)."""
+    """Full mamba2 block over a sequence. u (B, T, D); on a mesh the ssm
+    state in and out holds the rank's heads."""
     h, p = cfg.ssm_heads, cfg.ssm_head_dim
     z, xbc_raw, dt_raw = _split_proj(params, u, cfg)
     xbc, new_conv_state = _causal_conv(
@@ -165,14 +207,16 @@ def ssd_block_apply(params: dict, u: torch.Tensor, cfg: ModelConfig, *,
         conv_state)
     x, b_, c_ = _post_conv(xbc, cfg)
     bsz, t, _ = u.shape
-    dt = F.softplus(dt_raw.float() + params["dt_bias"])
-    a_neg = -torch.exp(params["a_log"])
+    lay, h0, hn = tp.model_block(h)  # the rank's heads
+    heads = slice(h0, h0 + hn)
+    dt = F.softplus(dt_raw[..., heads].float() + params["dt_bias"][heads])
+    a_neg = -torch.exp(params["a_log"][heads])
     y, final_state = ssd_scan(
-        x.reshape(bsz, t, h, p), dt, a_neg, b_, c_, params["d_skip"],
-        chunk=min(cfg.ssm_chunk, t), init_state=ssm_state)
-    y = y.reshape(bsz, t, h * p).to(u.dtype)
-    y = rmsnorm(params["norm"], y * F.silu(z))
-    out = y @ params["w_out"]
+        x.reshape(bsz, t, h, p)[:, :, heads], dt, a_neg, b_, c_,
+        params["d_skip"][heads], chunk=min(cfg.ssm_chunk, t),
+        init_state=ssm_state)
+    y = y.reshape(bsz, t, hn * p).to(u.dtype)
+    out = _gated_out(params, y, z, cfg, lay, h0 * p)
     if return_state:
         return out, final_state, new_conv_state
     return out
@@ -181,7 +225,8 @@ def ssd_block_apply(params: dict, u: torch.Tensor, cfg: ModelConfig, *,
 def ssd_decode_step(params: dict, u: torch.Tensor, cfg: ModelConfig, *,
                     ssm_state: torch.Tensor, conv_state: torch.Tensor):
     """One-token step. u (B, 1, D); states from ``make_ssd_state`` or a
-    prefill. Returns (out (B, 1, D), new ssm state, new conv state)."""
+    prefill (on a mesh the ssm state holds the rank's heads). Returns
+    (out (B, 1, D), new ssm state, new conv state)."""
     h, p = cfg.ssm_heads, cfg.ssm_head_dim
     z, xbc_raw, dt_raw = _split_proj(params, u, cfg)
     xbc, new_conv_state = _causal_conv(
@@ -189,19 +234,23 @@ def ssd_decode_step(params: dict, u: torch.Tensor, cfg: ModelConfig, *,
         conv_state)
     x, b_, c_ = _post_conv(xbc, cfg)
     bsz = u.shape[0]
-    xh = x.reshape(bsz, h, p).float()
-    dt = F.softplus(dt_raw[:, 0].float() + params["dt_bias"])  # (B, H)
-    a_neg = -torch.exp(params["a_log"])
+    lay, h0, hn = tp.model_block(h)  # the rank's heads, the state's
+    heads = slice(h0, h0 + hn)
+    xh = x.reshape(bsz, h, p)[:, heads].float()
+    dt = F.softplus(dt_raw[:, 0, heads].float()
+                    + params["dt_bias"][heads])  # (B, H)
+    a_neg = -torch.exp(params["a_log"][heads])
     dec = torch.exp(dt * a_neg)  # (B, H)
     bf = b_[:, 0].float()  # (B, N)
     cf = c_[:, 0].float()
     # einsum("bh,bn,bhp->bhnp") and einsum("bn,bhnp->bhp")
     new_state = (ssm_state * dec[:, :, None, None]
                  + bf[:, None, :, None] * (dt[..., None] * xh)[:, :, None, :])
-    y = (cf[:, None, None, :] @ new_state)[:, :, 0] + params["d_skip"][:, None] * xh
-    y = y.reshape(bsz, 1, h * p).to(u.dtype)
-    y = rmsnorm(params["norm"], y * F.silu(z))
-    return y @ params["w_out"], new_state, new_conv_state
+    y = ((cf[:, None, None, :] @ new_state)[:, :, 0]
+         + params["d_skip"][heads, None] * xh)
+    y = y.reshape(bsz, 1, hn * p).to(u.dtype)
+    return (_gated_out(params, y, z, cfg, lay, h0 * p), new_state,
+            new_conv_state)
 
 
 def make_ssd_state(cfg: ModelConfig, n_layers: int, batch: int,

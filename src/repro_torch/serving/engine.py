@@ -24,12 +24,15 @@ Correctness contract (as ``tests/test_serving_engine.py`` states it for
 the reference): every request's continuous-batched output equals its
 isolated prefill + greedy-decode output exactly.
 
-Under a mesh (``sharding.ctx.use_mesh``, the dense and moe kinds) every
-rank runs this loop on the global batch's logits, which ``LM.prefill``
-and ``LM.decode_step`` return on every rank, with ``params`` the rank's
-serving shard and the decode state its shard under
-``rules.state_spec``: the slots' rows over ``data``, their sequence
-over ``model``. A request's prefill state (one row, its sequence over
+Under a mesh (``sharding.ctx.use_mesh``, the dense, moe, ssd, rec and
+griffin kinds) every rank runs this loop on the global batch's logits,
+which ``LM.prefill`` and ``LM.decode_step`` return on every rank, with
+``params`` the rank's serving shard and the decode state its shard
+under ``rules.state_spec``: the slots' rows over ``data``, their
+sequence over ``model``, an ssm state's heads over ``model`` (conv and
+RG-LRU states whole there). A recurrent prompt's unpadded admission runs
+its prefix through ``prefill`` and its tail through ``decode_step`` on
+the mesh alike. A request's prefill state (one row, its sequence over
 ``data`` and ``model``) is gathered whole and cut to the slots' layout,
 and the rank that holds row ``slot`` writes it (``_insert``).
 """

@@ -1,10 +1,12 @@
 """The active mesh, the counterpart of ``repro.sharding.ctx``.
 
 Code that runs differently on a mesh reads the mesh set here, as the
-reference reads its own: ``models.moe.moe_apply``, and the dense and
-moe kinds of ``models.lm.LM`` served over a mesh (``models.common``'s
-embedding, MLP and unembedding, ``models.attention``'s prefill and
-decode, ``serving.engine``), whose weights and decode state are each
+reference reads its own: ``models.moe.moe_apply``, and the dense, moe,
+ssd, rec and griffin kinds of ``models.lm.LM`` served over a mesh
+(``models.common``'s embedding, MLP and unembedding,
+``models.attention``'s prefill and decode, ``models.ssd``'s heads,
+``models.rglru``'s width, ``serving.engine``), whose weights and decode
+state are each
 rank's shard under ``rules.serving_param_spec`` and
 ``rules.state_spec``. A mesh is a ``DeviceMesh``
 (``repro_torch.launch.mesh.make_mesh``), or a ``MeshShape`` where only

@@ -1,16 +1,20 @@
 """Forward collectives and a rank's place in an LM served over a mesh.
 
-Under ``sharding.ctx.use_mesh`` the port's dense and moe kinds hold the
-reference's serving layout: weights as ``rules.serving_param_spec``
-cuts them, the decode state as ``rules.state_spec`` does. Where the
-reference's GSPMD partitioner inserts collectives of its own, the port
-calls these explicitly:
+Under ``sharding.ctx.use_mesh`` the port's dense, moe, ssd, rec and
+griffin kinds hold the reference's serving layout: weights as
+``rules.serving_param_spec`` cuts them, the decode state as
+``rules.state_spec`` does. Where the reference's GSPMD partitioner
+inserts collectives of its own, the port calls these explicitly:
 
   * ``gather`` over ``data`` of a weight's FSDP-sharded dim, on use
     (``unshard_all``: a unit's weights in one collective), and over
-    ``model`` of vocab-sharded logits and of the heads of q, K and V;
+    ``model`` of vocab-sharded logits, of the heads of q, K and V, of
+    the last dim of a recurrent block's column-parallel activation
+    (mamba2's ``w_in`` product, the RG-LRU's ``w_x`` product) and of
+    the RG-LRU's state;
   * ``sum_over`` ``model`` of row-parallel partial outputs (``wo``,
-    ``w_down``) and of a vocab-parallel embedding's rows;
+    ``w_down``, ``w_out``) and of a vocab-parallel embedding's rows,
+    and ``sum_of_squares`` over ``model`` of mamba2's gated RMSNorm;
   * ``max_over`` and ``sum_over`` the cache's sequence shards of a
     softmax's max and sum, then of the probability-weighted V.
 
@@ -39,6 +43,7 @@ import torch.distributed as dist
 
 from repro_torch.launch.mesh import axis_group, axis_sizes
 from repro_torch.sharding import rules
+from repro_torch.sharding.ctx import get_mesh
 
 STRIPES = 4
 STRIPE_MIN_BYTES = 1 << 20
@@ -117,6 +122,14 @@ def sum_over(x: torch.Tensor, group) -> torch.Tensor:
     return _all_reduce(x, group, dist.ReduceOp.SUM, "sum")
 
 
+def sum_of_squares(x: torch.Tensor, group) -> torch.Tensor:
+    """The float32 sum of squares of ``x`` over its last dim, (..., 1),
+    summed over ``group``: the rank's block of a norm's width, the
+    whole width's sum on every rank."""
+    xf = x.float()
+    return sum_over((xf * xf).sum(dim=-1, keepdim=True), group)
+
+
 def max_over(x: torch.Tensor, group) -> torch.Tensor:
     """The elementwise max of ``x`` over ``group``, on every rank of it."""
     if group is None:
@@ -177,6 +190,21 @@ class Layout:
             return 0, length, None
         n = self.size(axes)
         return self.index(axes) * (length // n), length // n, self.group(axes)
+
+
+def model_block(length: int) -> "tuple[Layout | None, int, int]":
+    """(layout, offset, length) of this rank's ``model`` block of a dim
+    of ``length`` under the active mesh, as the rules' guard cuts it:
+    (None, 0, ``length``) without a mesh, where ``model`` holds one rank
+    or where ``length`` does not divide over it."""
+    mesh = get_mesh()
+    if mesh is None:
+        return None, 0, length
+    lay = layout(mesh)
+    m = lay.size("model")
+    if m == 1 or length % m:
+        return None, 0, length
+    return lay, lay.model_index * (length // m), length // m
 
 
 def _axes(axes) -> tuple:

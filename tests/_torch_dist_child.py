@@ -3,7 +3,8 @@
     python tests/_torch_dist_child.py JOB.json RANK
 
 ``JOB.json`` names the job (``"flens"``, ``"moe"``, ``"moe_grad"``,
-``"client_mesh"`` or ``"lm_mesh"``), the world size,
+``"client_mesh"``, ``"lm_mesh"`` or ``"lm_mesh_recurrent"``), the world
+size,
 the store file, the input ``.npz`` and the output directory; the rank
 writes ``rank{RANK}.npz`` there. It imports the port only (no JAX): the
 reference's draws and parameters arrive as numpy arrays. The tests
@@ -384,6 +385,16 @@ def client_mesh_job(job: dict, rank: int) -> dict:
 
 # -- LMs served over a mesh ---------------------------------------------------
 
+def model_config(job: dict, name: str):
+    """The reduced config a model name of the job stands for: the arch
+    ``job["configs"][name]`` (``name`` itself by default) with the
+    overrides ``job["overrides"][name]``."""
+    from repro_torch.configs import get_config
+
+    arch = job.get("configs", {}).get(name, name)
+    return get_config(arch).reduced(**job.get("overrides", {}).get(name, {}))
+
+
 def lm_mesh_run(model, params, tokens, steps, cache_len: int):
     """A prefill of ``tokens`` then a decode step of each of ``steps``
     (teacher-forced, (n, B, 1)): (the logits of every call (n + 1, B, V),
@@ -420,8 +431,8 @@ def lm_mesh_job(job: dict, rank: int) -> dict:
     and teacher-forced decode steps of the global batch (logits, the
     final state's shards, the parameter and state shapes), the engine
     cases' token streams, and the error a prefill raises when autograd
-    records through the mesh's collectives."""
-    from repro_torch.configs import get_config
+    records through the mesh's collectives (where the job names a
+    ``grad_case``). A case's ``arch`` names its model (``model_config``)."""
     from repro_torch.interop import lm_shard_from_numpy
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.lm import LM
@@ -435,7 +446,7 @@ def lm_mesh_job(job: dict, rank: int) -> dict:
         if mesh_name not in meshes:
             meshes[mesh_name] = make_mesh(tuple(shape), tuple(axes), "cpu")
         mesh = meshes[mesh_name]
-        cfg = get_config(arch).reduced()
+        cfg = model_config(job, arch)
         key = (arch, mesh_name)
         if key not in shards:
             shards[key] = lm_shard_from_numpy(unflatten(
@@ -463,6 +474,8 @@ def lm_mesh_job(job: dict, rank: int) -> dict:
                                      job["new_tokens"], job["max_batch"],
                                      job["cache_len"])
         out[f"engine/{case['name']}"] = np.array(streams)
+    if "grad_case" not in job:
+        return out
     # a backward through the collectives: the first one raises, on every
     # rank alike (the embedding's sum over model)
     mesh, cfg, model, params = setup(*job["grad_case"])
@@ -477,6 +490,42 @@ def lm_mesh_job(job: dict, rank: int) -> dict:
     return out
 
 
+def lm_mesh_recurrent_job(job: dict, rank: int) -> dict:
+    """``lm_mesh_job`` on the recurrent kinds, then each case named in
+    ``job["window_off"]`` again with griffin's window lifted from its
+    decode steps alone (the prefill as before): their logits, which the
+    window's mask over the cache's sequence shards must change."""
+    import dataclasses
+
+    from repro_torch.interop import lm_shard_from_numpy
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.lm import LM
+    from repro_torch.sharding.ctx import use_mesh
+
+    out = lm_mesh_job(job, rank)
+    d = np.load(job["data"])
+    cases = {c["name"]: c for c in job["cases"]}
+    for name in job.get("window_off", ()):
+        case = cases[name]
+        arch = case["arch"]
+        cfg = model_config(job, arch)
+        mesh = make_mesh(*map(tuple, job["meshes"][case["mesh"]]), "cpu")
+        params = lm_shard_from_numpy(unflatten(
+            {p[len(arch) + 1:]: d[p] for p in d.files
+             if p.startswith(arch + KEY_SEP)}), cfg, mesh, device="cpu")
+        unbounded = LM(dataclasses.replace(cfg, window=1 << 20))
+        with use_mesh(mesh), torch.no_grad():
+            _, state = LM(cfg).prefill(
+                params, {"inputs": torch.from_numpy(d[f"tokens/{name}"])},
+                cache_len=case["cache_len"])
+            got = []
+            for step in torch.from_numpy(d[f"steps/{name}"]):
+                logits, state = unbounded.decode_step(params, state, step)
+                got.append(logits)
+        out[f"{name}/window_off"] = torch.stack(got).numpy()
+    return out
+
+
 def main(job_path: str, rank: int) -> int:
     from repro_torch.launch.mesh import process_group
 
@@ -486,7 +535,9 @@ def main(job_path: str, rank: int) -> int:
                        timeout_s=job.get("timeout_s", 60)):
         out = {"flens": flens_job, "moe": moe_job, "moe_grad": moe_grad_job,
                "client_mesh": client_mesh_job,
-               "lm_mesh": lm_mesh_job}[job["kind"]](job, rank)
+               "lm_mesh": lm_mesh_job,
+               "lm_mesh_recurrent": lm_mesh_recurrent_job}[job["kind"]](
+                   job, rank)
     np.savez(pathlib.Path(job["out"]) / f"rank{rank}.npz", **out)
     return 0
 

@@ -815,3 +815,74 @@ def test_one_nccl_rank_lm_over_a_mesh_equals_no_mesh(hopper, tmp_path):
     for g, w in zip(state["groups"], want_state["groups"]):
         for leaf in w:
             assert torch.equal(g[leaf], w[leaf]), leaf
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tdt,route", [(torch.float32, "tf32x3"),
+                                       (torch.bfloat16, "sm90")])
+def test_one_nccl_rank_recurrent_lm_over_a_mesh_equals_no_mesh(
+        hopper, tmp_path, tdt, route):
+    """recurrentgemma-2b ``reduced(n_layers=4)`` (a griffin super-block
+    and a rec layer) served over a 1 x 1 NCCL mesh on the card, in
+    float32 and in bf16: a prefill of 2 x 48 tokens (past its window of
+    32), 6 decode steps, every state leaf (RG-LRU states, conv states,
+    the attention's cache) and the engine's streams bit-equal to the same
+    runs without a mesh, one launch of the flash kernel on its route a
+    prefill."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.base import root_key
+    from repro_torch.launch.mesh import make_mesh, process_group
+    from repro_torch.models.lm import LM
+    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.ctx import use_mesh
+
+    cfg = dataclasses.replace(
+        get_config("recurrentgemma-2b").reduced(n_layers=4), dtype=tdt,
+        param_dtype=tdt)
+    model = LM(cfg)
+    params = model.init(root_key(0, device=hopper))
+    gen = torch.Generator(device=hopper).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (2, 48), generator=gen,
+                           device=hopper)
+    steps = torch.randint(0, cfg.vocab, (6, 2, 1), generator=gen,
+                          device=hopper)
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=gen,
+                             device=hopper).tolist() for n in (5, 40, 17)]
+
+    def run(p):
+        with torch.no_grad():
+            ops.reset_launch_counts()
+            logits, state = model.prefill(p, {"inputs": tokens},
+                                          cache_len=64)
+            launches = ops.launch_counts()[f"flash_attention_{route}"]
+            out = [logits]
+            for step in steps:
+                logits, state = model.decode_step(p, state, step)
+                out.append(logits)
+            engine = ServingEngine(model, p, max_batch=2, cache_len=64)
+            reqs = [Request(uid=i, prompt=q, max_new_tokens=4)
+                    for i, q in enumerate(prompts)]
+            for r in reqs:
+                engine.submit(r)
+            engine.run()
+        return (torch.stack(out), state, launches,
+                [r.generated for r in reqs])
+
+    want, want_state, want_launches, want_streams = run(params)
+    torch.cuda.set_device(hopper)
+    with process_group(0, 1, tmp_path / "store", backend="nccl",
+                       timeout_s=60):
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        local = rules.serving_shard(mesh, params)
+        with use_mesh(mesh):
+            got, state, launches, streams = run(local)
+    assert launches == want_launches == 1
+    assert torch.equal(got, want)
+    for g, w in zip(state["groups"], want_state["groups"]):
+        assert set(g) == set(w)
+        for leaf in w:
+            assert torch.equal(g[leaf], w[leaf]), leaf
+    assert streams == want_streams

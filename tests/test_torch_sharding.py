@@ -5,7 +5,8 @@ Trees: every config of ``repro.configs`` at full size through
 ``jax.eval_shape`` (parameters, decode states at batch 128 x 32,768 and
 batch 1 x 4,096, a training batch of 8 x 4,096), and the port's own
 trees: its parameters at ``reduced()`` and its decode states at full
-size on the meta device. Meshes: (1, 1), (2, 2), the production 16 x 16
+size on the meta device. Meshes: (1, 1), (2, 2), a 4-way ``model`` axis
+alone, the production 16 x 16
 ``data``/``model`` and 2 x 16 x 16 ``pod``/``data``/``model`` layouts
 (``launch.mesh.make_production_mesh``), as ``MeshShape``s: the rules
 read axis names and sizes only, and the reference's rule gets a stand-in
@@ -45,6 +46,7 @@ torch.set_num_threads(worker_threads())
 
 MESHES = {"1x1": MeshShape(("data", "model"), (1, 1)),
           "2x2": MeshShape(("data", "model"), (2, 2)),
+          "m4": MeshShape(("model",), (4,)),
           "16x16": make_production_mesh(),
           "2x16x16": make_production_mesh(multi_pod=True)}
 # (batch, cache) of the decode states
@@ -99,12 +101,16 @@ def test_rules_match_the_reference_on_every_config(arch, mesh):
 
 @pytest.mark.parametrize("mesh", list(MESHES))
 @pytest.mark.parametrize("arch", ["arctic_480b", "kimi_k2_1t_a32b",
-                                  "tinyllama_1_1b", "llama32_vision_90b"])
+                                  "tinyllama_1_1b", "llama32_vision_90b",
+                                  "mamba2_780m", "recurrentgemma_2b"])
 def test_serving_layout_matches_the_reference(arch, mesh, monkeypatch):
     """``serving_param_spec`` against ``input_specs._serving_param_
     shardings`` (the experts F-sharded over data, the vocab table's
-    d_model whole), whose ``NamedSharding`` is swapped for the spec it
-    is given."""
+    d_model whole; the recurrent blocks' ``w_in``, ``w_x``, ``w_gate``,
+    ``w_a``, ``w_i`` (data, model), ``w_out`` (model, data), ``conv_w``,
+    ``conv_b``, ``a_log``, ``dt_bias``, ``d_skip``, ``lam`` and the norms
+    whole), whose ``NamedSharding`` is swapped for the spec it is
+    given."""
     import repro.launch.input_specs as jspecs
 
     _, params, _ = _reference_trees(arch)
