@@ -318,12 +318,27 @@ Phases, in order; any failure raises and the script exits non-zero:
                 rec layer, bf16, (2, 2): 5 q heads and half the RG-LRU
                 width a rank) with the engine, its float32 twin (logits
                 within 1e-5 of max |logit|, streams equal to no mesh), one
-                NCCL rank each bit-equal to no mesh. In both: each rank's
-                parameter and decode-state bytes equal to its shard's,
-                the bf16 logits within 2x the no-mesh run's error + 1 ulp
-                of a float32 yardstick, the flash launches a prefill a
-                rank on the rank's heads, the kernel held against its
-                plain version at them, ms and collective bytes a step
+                NCCL rank each bit-equal to no mesh
+ 11h. mesh rings cross — right-sized rings and cross attention the same
+                way: gemma3-4b@rightsized (8 layers, bf16, a 4-way model
+                mesh: 256 of each 1024-slot ring a rank; 1 x 2048 past
+                the window, 4 x 1020 whose steps wrap the rings),
+                gemma3-1b@rightsized (8 layers, bf16, (2, 2)) with the
+                engine (4 prompts of 300-700 tokens admitted unpadded) and
+                its float32 twin (logits within 1e-4 of max |logit|,
+                streams equal to no mesh), whisper-tiny whole (bf16, (2,
+                2): 3 of 6 heads a rank, 4 x 128 over 4 x 1500 frames,
+                the encoder non-causal) and its float32 twin,
+                llama-3.2-vision-90b (5 layers, bf16, a 4-way model mesh,
+                1 x 2048 over 1601 vision tokens, gates drawn as 11d's),
+                one NCCL rank each for gemma3-1b@rightsized and
+                whisper-tiny bit-equal to no mesh. In 11f-11h: each
+                rank's parameter and decode-state bytes equal to its
+                shard's, the bf16 logits within 2x the no-mesh run's error
+                + 1 ulp of a float32 yardstick, the flash launches a
+                prefill a rank on the rank's heads by (causal, window),
+                the kernel held against its plain version at each
+                distinct call, ms and collective bytes a step
  12. flash times — the tensor-core kernel, its plain version and
                 F.scaled_dot_product_attention at (1, 2048, 32, 4, 64)
                 causal, (1, 2048, 4, 1, 256) window 512, (1, 2048, 64,
@@ -4061,8 +4076,11 @@ def _prefill_profile(model, params, tokens) -> dict:
 def _attn_layers(model) -> int:
     """Layers whose attention launches the flash kernel in a prefill: every
     dense and moe layer, one a griffin super-block, local_per_global + 1 a
-    dense_sb super-block; none in mamba2."""
+    dense_sb super-block, a vlm super-block's self layers, whisper's
+    decoder and encoder layers; none in mamba2."""
     per = model.cfg.local_per_global
+    if model.cfg.family in ("vlm", "audio"):
+        return sum(_cross_attn_layers(model))
     return sum(g.n * (per + 1 if g.kind == "dense_sb" else 1)
                for g in model.groups
                if g.kind in ("dense", "dense_sb", "moe", "griffin"))
@@ -5475,7 +5493,7 @@ def phase_rightsized(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# 11f and 11g. LMs served over a mesh
+# 11f-11h. LMs served over a mesh
 # ---------------------------------------------------------------------------
 
 MESH_DIR = ROOT / "chiprun_out" / "mesh_serving"
@@ -5542,24 +5560,92 @@ MESH_RECURRENT = dict(
               for name, arch in (("mamba2", "mamba2-780m"),
                                  ("rg", "recurrentgemma-2b"))},
     twin_tol=1e-5)
-MESH_SPECS = {"11f": MESH_SERVE, "11g": MESH_RECURRENT}
+# 11h, right-sized rings and cross attention over a mesh, as 11f: (a)
+# gemma3-4b@rightsized at full width, 8 layers (a super-block of 5 local
+# layers and the global one, and a remainder of 2 ring layers), bf16, a
+# 4-way ("model",) mesh (2 q heads, 1 KV head and 256 of each 1024-slot
+# ring a rank): a 1 x 2048 prefill (past the window: each ring keeps the
+# last 1024 positions) and a 4 x 1020 prefill, whose 8 steps wrap the
+# rings; (b) gemma3-1b@rightsized at full width, 8 layers, bf16, (2 data,
+# 2 model) (its KV head whole): 4 requests of 300-700 tokens through the
+# engine (some past the 512 window, each admitted unpadded), 8 new tokens
+# each, and a 4 x 512 prefill with 4 steps; (c) its float32 twin; (d)
+# whisper-tiny whole (4 encoder and 4 decoder layers), bf16, (2, 2) (3 of
+# its 6 heads a rank): a 4 x 128 prefill over 4 x 1500 frames and 8
+# steps, (e) its float32 twin; (f) llama-3.2-vision-90b at full width, 5
+# layers (one vlm super-block of 4 self layers and the cross layer), bf16,
+# ("model",) 4 (16 q and 2 KV heads a rank): a 1 x 2048 prefill over 1601
+# vision tokens and 8 steps, its gates drawn as 11d's; (g) one NCCL rank
+# for gemma3-1b@rightsized at 8 layers and whisper-tiny, in bf16
+RS_MESH_ENGINE = dict(max_batch=4, requests=4, min_prompt=300,
+                      max_prompt=700, cache_len=1024, new_tokens=8)
+MESH_RINGS_CROSS = dict(
+    tag="mesh rings cross", dir=ROOT / "chiprun_out" / "mesh_rings_cross",
+    ranks=4, timeout_s=600, seed=7,
+    parts={"gemma4b": dict(arch="gemma3-4b@rightsized", n_layers=8,
+                           dtype="bfloat16", mesh=((4,), ("model",)),
+                           engine=None, steps=8,
+                           inputs=(("b1", 1, 2048), ("b4", 4, 1020)),
+                           flash_parity=True),
+           "gemma1b": dict(arch="gemma3-1b@rightsized", n_layers=8,
+                           dtype="bfloat16", mesh=((2, 2), ("data", "model")),
+                           engine=RS_MESH_ENGINE, steps=4, inputs=B4,
+                           flash_parity=True),
+           "gemma1b_twin": dict(arch="gemma3-1b@rightsized", n_layers=8,
+                                dtype="float32",
+                                mesh=((2, 2), ("data", "model")),
+                                engine=RS_MESH_ENGINE, steps=4, inputs=B4),
+           "whisper": dict(arch="whisper-tiny", n_layers=None,
+                           dtype="bfloat16", mesh=((2, 2), ("data", "model")),
+                           engine=None, steps=8, inputs=(("b4", 4, 128),),
+                           flash_parity=True),
+           "whisper_twin": dict(arch="whisper-tiny", n_layers=None,
+                                dtype="float32",
+                                mesh=((2, 2), ("data", "model")),
+                                engine=None, steps=8,
+                                inputs=(("b4", 4, 128),)),
+           "vision": dict(arch="llama-3.2-vision-90b", n_layers=5,
+                          dtype="bfloat16", mesh=((4,), ("model",)),
+                          engine=None, steps=8, inputs=(("b1", 1, 2048),),
+                          flash_parity=True)},
+    one_rank={"gemma1b": dict(arch="gemma3-1b@rightsized", n_layers=8,
+                              dtype="bfloat16", engine=RS_MESH_ENGINE,
+                              steps=4, inputs=B4),
+              "whisper": dict(arch="whisper-tiny", n_layers=None,
+                              dtype="bfloat16", engine=None, steps=4,
+                              inputs=(("b4", 4, 128),))},
+    twin_tol=1e-4)
+MESH_SPECS = {"11f": MESH_SERVE, "11g": MESH_RECURRENT,
+              "11h": MESH_RINGS_CROSS}
 
 
 def _mesh_model(part: dict):
     """(cfg, model, params from seed 0 on the card) of a part, as
-    ``_serve_model`` draws them."""
-    cfg, model, params, _ = _serve_model(MESH_DTYPES[part["dtype"]],
-                                         part["arch"], part["n_layers"])
+    ``_cross_model`` draws them (a vlm's gates from ``CROSS["gates"]``)."""
+    cfg, model, params, _, _ = _cross_model(
+        part["arch"], MESH_DTYPES[part["dtype"]], part["n_layers"])
     return cfg, model, params
 
 
-def _mesh_inputs(vocab: int, part: dict) -> dict:
-    """name -> (prompt tokens (B, T), decode-step tokens (steps, B, 1)) of
-    a part's teacher-forced runs, numpy, from the 11f and 11g seed."""
+def _mesh_inputs(cfg, part: dict) -> dict:
+    """name -> (prompt tokens (B, T), decode-step tokens (steps, B, 1),
+    the memory's inputs: {"vision" or "audio_frames": standard normal
+    float32 (B, S, width)} for a vlm or whisper, else {}) of a part's
+    teacher-forced runs, numpy, from the 11f-11h seed."""
     rng = np.random.default_rng(MESH_SERVE["seed"])
-    return {name: (rng.integers(0, vocab, (b, t)),
-                   rng.integers(0, vocab, (part["steps"], b, 1)))
-            for name, b, t in part["inputs"]}
+    out = {}
+    for name, b, t in part["inputs"]:
+        toks = rng.integers(0, cfg.vocab, (b, t))
+        steps = rng.integers(0, cfg.vocab, (part["steps"], b, 1))
+        memory = {}
+        if cfg.family == "vlm":
+            memory["vision"] = rng.standard_normal(
+                (b, cfg.vision_tokens, cfg.vision_dim), dtype=np.float32)
+        elif cfg.family == "audio":
+            memory["audio_frames"] = rng.standard_normal(
+                (b, cfg.audio_frames, cfg.d_model), dtype=np.float32)
+        out[name] = (toks, steps, memory)
+    return out
 
 
 @contextlib.contextmanager
@@ -5582,8 +5668,9 @@ def _flash_calls():
 
 
 def _forced(model, params, inputs: dict) -> dict:
-    """Each input's prefill (a cache of T + steps slots), then its
-    teacher-forced decode steps, under no_grad: the logits of every call
+    """Each input's prefill (a cache of T + steps slots; over its memory
+    inputs too), then its teacher-forced decode steps, under no_grad: the
+    logits of every call
     (steps + 1, B, V) in float32 on the host, the prefill's ms, launches
     and flash calls, ms a decode step, the launches of the steps and the
     bytes the mesh's collectives brought to this rank a step; the final
@@ -5593,17 +5680,18 @@ def _forced(model, params, inputs: dict) -> dict:
 
     dev = _card()
     out = {}
-    for name, (toks, steps) in inputs.items():
+    for name, (toks, steps, memory) in inputs.items():
         toks = torch.from_numpy(toks).to(dev)
         steps = torch.from_numpy(steps).to(dev)
+        batch = {"inputs": toks, **{key: torch.from_numpy(a).to(dev)
+                                    for key, a in memory.items()}}
         cache_len = toks.shape[1] + steps.shape[0]
         torch.cuda.synchronize()
         ops.reset_launch_counts()
         tp.reset_moved_bytes()
         with torch.no_grad(), _flash_calls() as calls:
             t0 = time.perf_counter()
-            logits, state = model.prefill(params, {"inputs": toks},
-                                          cache_len=cache_len)
+            logits, state = model.prefill(params, batch, cache_len=cache_len)
             torch.cuda.synchronize()
             prefill_ms = (time.perf_counter() - t0) * 1e3
         prefill_launches = {k: ops.launch_counts()[k] for k in NO_LM}
@@ -5684,7 +5772,7 @@ def _mesh_reference(name: str, part: dict, tmp: pathlib.Path) -> dict:
     for the ranks, stats returned. Frees the card."""
     out = {}
     cfg, model, params = _mesh_model(part)
-    inputs = _mesh_inputs(cfg.vocab, part)
+    inputs = _mesh_inputs(cfg, part)
     n_attn = _attn_layers(model)
     route = FLASH_ROUTE[cfg.dtype]
     plain = _forced(model, params, inputs)
@@ -5738,7 +5826,7 @@ def _draw_shard(part: dict, mesh, rank: int, ranks: int):
 
 
 def mesh_serving_child(job_path: str, rank: int) -> int:
-    """One rank of 11f or 11g (a)-(c) (the job's ``phase``): each part's
+    """One rank of 11f, 11g or 11h (the job's ``phase``): each part's
     weights drawn and sharded, the teacher-forced runs (and the engine)
     under the part's mesh, gloo over CUDA tensors; writes its stats, its
     parameter and state bytes beside the layout's and its errors against
@@ -5793,7 +5881,7 @@ def mesh_serving_child(job_path: str, rank: int) -> int:
                    "attn_layers": _attn_layers(model)}
             torch.distributed.barrier()
             with use_mesh(mesh):
-                runs = _forced(model, local, _mesh_inputs(cfg.vocab, part))
+                runs = _forced(model, local, _mesh_inputs(cfg, part))
                 note(f"{name}: forced runs " + ", ".join(
                     f"{k} prefill {r['prefill_ms']:.0f} ms (collectives "
                     f"{sum(r['prefill_collective_ms'].values()):.0f}), decode "
@@ -5818,7 +5906,7 @@ def mesh_serving_child(job_path: str, rank: int) -> int:
                 rec[k]["logits_sha1"] = hashlib.sha1(
                     got.numpy().tobytes()).hexdigest()
                 rec[k]["state_shapes"] = [
-                    {leaf: list(a.shape) for leaf, a in g.items()}
+                    {path: list(a.shape) for path, a in _tree_paths(g)}
                     for g in r["state"]["groups"]]
                 if "yard" in ref:
                     rec[k]["errs"] = _logits_errs(got, ref["plain"][k],
@@ -5852,26 +5940,33 @@ def mesh_serving_child(job_path: str, rank: int) -> int:
 
 
 def _mesh_flash_parity(runs: dict) -> dict:
-    """The flash kernel at a rank's prefill shapes (its q heads and the
-    KV heads they read) against its plain version on the same random
-    inputs; these launches are not counted in the runs."""
+    """The flash kernel at each of a rank's distinct prefill calls (its q
+    heads and the KV heads they read, the call's causality and window)
+    against its plain version on the same random inputs; these launches
+    are not counted in the runs."""
     from repro_torch.kernels import ops
 
     dev = _card()
     gen = torch.Generator(device=dev).manual_seed(3)
     out = {}
     for name, r in runs.items():
-        (q_shape, k_shape, _, kw), *_ = r["prefill_flash_calls"]
-        q = torch.randn(q_shape, generator=gen, device=dev).to(torch.bfloat16)
-        k = torch.randn(k_shape, generator=gen, device=dev).to(torch.bfloat16)
-        v = torch.randn(k_shape, generator=gen, device=dev).to(torch.bfloat16)
-        got, want = (ops.flash_attention(q, k, v, impl=impl, **kw)
-                     for impl in (None, "ref"))
-        err = _max_err(got.float(), want.float())
-        check(err <= FLASH_TOL[torch.bfloat16],
-              f"mesh serving: the flash kernel at {q_shape} / {k_shape} "
-              f"differs from its plain version by {err:.3e}")
-        out[name] = {"q": q_shape, "k": k_shape, **kw, "max_abs_err": err}
+        rows, seen = [], []
+        for q_shape, k_shape, _, kw in r["prefill_flash_calls"]:
+            if (q_shape, k_shape, kw) in seen:
+                continue
+            seen.append((q_shape, k_shape, kw))
+            q, k, v = (torch.randn(shape, generator=gen, device=dev)
+                       .to(torch.bfloat16)
+                       for shape in (q_shape, k_shape, k_shape))
+            got, want = (ops.flash_attention(q, k, v, impl=impl, **kw)
+                         for impl in (None, "ref"))
+            err = _max_err(got.float(), want.float())
+            check(err <= FLASH_TOL[torch.bfloat16],
+                  f"mesh serving: the flash kernel at {q_shape} / {k_shape} "
+                  f"{kw} differs from its plain version by {err:.3e}")
+            rows.append({"q": q_shape, "k": k_shape, **kw,
+                         "max_abs_err": err})
+        out[name] = rows
     return out
 
 
@@ -5886,53 +5981,60 @@ def _mesh_one_rank(card: str, spec: dict, name: str) -> dict:
 
     part = spec["one_rank"][name]
     cfg, model, params = _mesh_model(part)
-    inputs = _mesh_inputs(cfg.vocab, part)
+    inputs = _mesh_inputs(cfg, part)
+    engine = part["engine"]
     want = _forced(model, params, inputs)
-    want_eng = _mesh_engine(model, params, part["engine"])
+    want_eng = engine and _mesh_engine(model, params, engine)
     with process_group(0, 1, spec["dir"] / f"store_one_{name}",
                        backend="nccl", timeout_s=120):
         mesh = make_mesh((1, 1), ("data", "model"), "cuda")
         local = rules.serving_shard(mesh, params)
         with use_mesh(mesh):
             got = _forced(model, local, inputs)
-            got_eng = _mesh_engine(model, local, part["engine"])
+            got_eng = engine and _mesh_engine(model, local, engine)
     out = {}
     for k in inputs:
         g, w = got[k], want[k]
         check(torch.equal(g["logits"], w["logits"]),
               f"mesh serving (d) {k}: logits not bit-equal to no mesh")
         for gg, ww in zip(g["state"]["groups"], w["state"]["groups"]):
-            check(set(gg) == set(ww), f"mesh serving (d) {k}: state leaves "
-                  f"{sorted(gg)}, want {sorted(ww)}")
-            for leaf in ww:
-                check(torch.equal(gg[leaf], ww[leaf]),
-                      f"mesh serving (d) {k}: state {leaf} not bit-equal")
+            gp, wp = _tree_paths(gg), _tree_paths(ww)
+            check([p for p, _ in gp] == [p for p, _ in wp],
+                  f"mesh serving (d) {k}: state leaves "
+                  f"{[p for p, _ in gp]}, want {[p for p, _ in wp]}")
+            for (path, ga), (_, wa) in zip(gp, wp):
+                check(torch.equal(ga, wa),
+                      f"mesh serving (d) {k}: state {path} not bit-equal")
         check(g["prefill_launches"] == w["prefill_launches"],
               f"mesh serving (d) {k}: launches {g['prefill_launches']}")
         out[k] = {"prefill_ms": g["prefill_ms"],
                   "plain_prefill_ms": w["prefill_ms"],
                   "decode_ms_median": g["decode_ms_median"],
-                  "plain_decode_ms_median": w["decode_ms_median"]}
-    check(got_eng["streams"] == want_eng["streams"],
-          "mesh serving (d): engine streams differ from no mesh")
-    out["engine_tokens_per_s"] = got_eng["tokens_per_s"]
-    out["plain_engine_tokens_per_s"] = want_eng["tokens_per_s"]
+                  "plain_decode_ms_median": w["decode_ms_median"],
+                  "launches_per_prefill": g["prefill_launches"]}
+    if engine:
+        check(got_eng["streams"] == want_eng["streams"],
+              "mesh serving (d): engine streams differ from no mesh")
+        out["engine_tokens_per_s"] = got_eng["tokens_per_s"]
+        out["plain_engine_tokens_per_s"] = want_eng["tokens_per_s"]
     del got, want, params, local, model
     torch.cuda.empty_cache()
-    log(f"[{spec['tag']}] (d) 1 NCCL rank, {cfg.arch_id} {cfg.n_layers} "
-        f"layers bf16: logits, states and {len(want_eng['streams'])} engine "
-        f"streams "
-        f"bit-equal to no mesh; engine {out['engine_tokens_per_s']:.1f} "
-        f"tokens/s (no mesh {out['plain_engine_tokens_per_s']:.1f}) on "
-        f"{card}")
+    log(f"[{spec['tag']}] one NCCL rank, {cfg.arch_id} {cfg.n_layers} "
+        f"layers bf16: logits and states" + (
+            f" and {len(want_eng['streams'])} engine streams" if engine
+            else "") + " bit-equal to no mesh" + (
+            f"; engine {out['engine_tokens_per_s']:.1f} tokens/s (no mesh "
+            f"{out['plain_engine_tokens_per_s']:.1f})" if engine else "")
+        + f" on {card}")
     return out
 
 
 def phase_mesh_serving(card: str, phase: str = "11f") -> dict:
     """11f: the dense kind served over a mesh (``sharding.ctx.use_mesh``);
-    11g: the recurrent kinds (``MESH_SPECS``): (a)-(c) on 4 gloo ranks of
-    the one card against the same weights without a mesh in this
-    process, (d) one NCCL rank bit-equal."""
+    11g: the recurrent kinds; 11h: right-sized rings and the cross kinds
+    (``MESH_SPECS``): the parts on 4 gloo ranks of the one card against
+    the same weights without a mesh in this process, the ``one_rank``
+    parts on one NCCL rank bit-equal."""
     import tempfile
 
     from repro_torch.launch.mesh import spawn
@@ -5973,6 +6075,45 @@ def phase_mesh_serving(card: str, phase: str = "11f") -> dict:
         f"{record['seconds']:.1f} s (the ranks {spawn_s:.1f} s from spawn "
         f"to join)")
     return record
+
+
+def _kind_counts(pairs) -> dict:
+    """The count of each (causal, window) of ``pairs`` ((causal, window
+    or None), n), keyed "causal/window"."""
+    out: dict = {}
+    for key, n in pairs:
+        if n:
+            out[key] = out.get(key, 0) + n
+    return {f"{c}/{w}": n for (c, w), n in sorted(
+        out.items(), key=lambda kv: (kv[0][0], kv[0][1] or 0))}
+
+
+def _flash_kinds(cfg) -> dict:
+    """``_kind_counts`` of a prefill's flash calls (``_attn_layers``'
+    count): a dense_sb super-block's local layers and a remainder of ring
+    layers at the window, the global ones and every other causal layer
+    without, whisper's encoder non-causal."""
+    from repro_torch.models.lm import build_groups
+
+    pairs = [((False, None), cfg.encoder_layers)]
+    for g in build_groups(cfg):
+        if g.kind == "dense_sb":
+            pairs += [((True, cfg.window), g.n * cfg.local_per_global),
+                      ((True, None), g.n)]
+        elif g.kind in ("dense", "moe"):
+            pairs += [((True, w or None), 1) for w in g.windows]
+        elif g.kind == "griffin":
+            pairs.append(((True, cfg.window), g.n))
+        elif g.kind in ("vlm", "dec"):
+            pairs.append(((True, None), g.n * (cfg.cross_attn_every
+                                               if g.kind == "vlm" else 1)))
+    return _kind_counts(pairs)
+
+
+def _call_kinds(calls) -> dict:
+    """``_kind_counts`` of recorded flash calls."""
+    return _kind_counts(((kw.get("causal", True), kw.get("window") or None),
+                         1) for _, _, _, kw in calls)
 
 
 def _mesh_check_part(name: str, part: dict, plain: dict, ranks: list,
@@ -6018,22 +6159,28 @@ def _mesh_check_part(name: str, part: dict, plain: dict, ranks: list,
         check(errs["max_abs_err"] <= errs["tolerance"],
               f"{label} {k}: logits {errs['max_abs_err']:.4e} from the "
               f"yardstick > tolerance {errs['tolerance']:.4e}")
-        # the rank's batch rows, q heads and KV heads (whole where they
-        # do not divide over model)
+        # the rank's batch rows, q heads (whole where they do not divide
+        # over model) and the KV heads they read; a causal call over the
+        # prompt, whisper's encoder's non-causal over its frames
         n_data = sizes.get("data", 1)
-        heads = (cfg.n_heads // m, cfg.n_kv_heads // m
-                 if cfg.n_kv_heads % m == 0 else cfg.n_kv_heads)
-        want_shape = [b // n_data if b % n_data == 0 else b, t, heads[0],
-                      cfg.head_dim]
+        hq = cfg.n_heads // m if cfg.n_heads % m == 0 else cfg.n_heads
+        group = cfg.n_heads // cfg.n_kv_heads
+        kv = cfg.n_kv_heads if hq == cfg.n_heads else (hq - 1) // group + 1
+        rows_b = b // n_data if b % n_data == 0 else b
+        kinds = _flash_kinds(dataclasses.replace(cfg, n_layers=layers))
         for r, row in enumerate(rows):
+            calls = row["prefill_flash_calls"]
             check(row["prefill_launches"] == _flash_want(n_attn, route),
                   f"{label} {k}: rank {r} prefill launches "
                   f"{row['prefill_launches']}, want {n_attn} on {route}")
-            check(all(c[0] == want_shape and c[1][2] == heads[1]
-                      for c in row["prefill_flash_calls"]),
-                  f"{label} {k}: rank {r} flash calls "
-                  f"{row['prefill_flash_calls'][:1]}, want q {want_shape} "
-                  f"and {heads[1]} KV heads")
+            check(all(c[0] == [rows_b, t if c[3].get("causal", True)
+                               else cfg.audio_frames, hq, cfg.head_dim]
+                      and c[1][2] == kv for c in calls),
+                  f"{label} {k}: rank {r} flash calls {calls[:1]}, want q "
+                  f"[{rows_b}, {t}, {hq}, {cfg.head_dim}] and {kv} KV heads")
+            check(_call_kinds(calls) == kinds,
+                  f"{label} {k}: rank {r} flash calls by (causal, window) "
+                  f"{_call_kinds(calls)}, want {kinds}")
             check(all(v == 0 for v in row["decode_launches"].values()),
                   f"{label} {k}: rank {r} decode launched "
                   f"{row['decode_launches']}")
@@ -6861,6 +7008,7 @@ def main() -> int:
     record["rightsized"] = phase_rightsized(card)
     record["mesh_serving"] = phase_mesh_serving(card)
     record["mesh_recurrent"] = phase_mesh_serving(card, "11g")
+    record["mesh_rings_cross"] = phase_mesh_serving(card, "11h")
     record["flash_times"] = phase_flash_times()
     record["train"] = phase_train()
     # launches: the SRHT kernels from the full-size comm=None run (fwht is
@@ -6953,13 +7101,14 @@ def main() -> int:
                 "async_four_ranks_gloo": [n[name] for n in
                                           cm["four_ranks_async"]["launches"]]}
         if name in ("flash_attention_sm90", "flash_attention_tf32x3"):
-            # phases 11f and 11g: launches a prefill a rank of an LM over a
+            # phases 11f-11h: launches a prefill a rank of an LM over a
             # mesh, by the part's arch and input
             entry["mesh_launches_per_prefill_per_rank"] = {
                 f"{phase} {spec['arch']} {k}":
                     record[key][p][k]["launches_per_prefill"][name]
                 for phase, key in (("11f", "mesh_serving"),
-                                   ("11g", "mesh_recurrent"))
+                                   ("11g", "mesh_recurrent"),
+                                   ("11h", "mesh_rings_cross"))
                 for p, spec in MESH_SPECS[phase]["parts"].items()
                 if FLASH_ROUTE[MESH_DTYPES[spec["dtype"]]]
                 == name.rsplit("_", 1)[1]

@@ -173,10 +173,14 @@ def lm_shard_from_numpy(params, cfg, mesh,
     ``mesh``: ``lm_params_from_numpy`` (on the host), then each leaf's
     block under ``rules.serving_param_spec`` (``rules.serving_shard``)
     on ``device``; ``rank`` defaults to this process's on a
-    ``DeviceMesh``. The recurrent leaves take the same path: mamba2's
-    ``w_in`` and the RG-LRU's projections cut by columns over ``model``
-    and rows over ``data``, ``w_out`` the other way round, the conv
-    weights, the float32 leaves and the norms whole."""
+    ``DeviceMesh``. Every leaf takes the same path: mamba2's ``w_in``
+    and the RG-LRU's projections cut by columns over ``model`` and rows
+    over ``data``, ``w_out`` the other way round; a ``dense_sb`` group's
+    ``loc`` (n, per, ...) and ``glob`` (n, ...) stacks, whisper's
+    ``encoder`` stack and the vlm's and dec's cross layers as any
+    attention layer and MLP; ``vision_proj`` by its d_model over
+    ``data``; the conv weights, the float32 leaves, the gates, the norms
+    (``enc_final_norm`` too) whole."""
     from repro_torch.sharding import rules
 
     dev = resolve_device(device)

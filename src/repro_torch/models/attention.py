@@ -17,17 +17,20 @@ The counterpart of ``repro.models.attention`` for serving and training:
 Caches store the absolute position of each slot per batch row (``pos``,
 -1 = empty), so every row may sit at its own decode index.
 
-On a mesh (``sharding.ctx.use_mesh``) ``attn_full_kv`` and
-``attn_decode`` take the rank's ``model`` block of the heads of
-``wq``/``wo`` (and of ``wk``/``wv`` where their heads divide, else the
-whole of them): a prefill projects and attends over the rank's heads
-(the flash kernel on those heads alone), sums ``wo``'s partial outputs
-over ``model`` and returns K and V of every KV head for the cache; a
-decode step is sequence-parallel over the cache's slots, as the
-reference's: q replicated over ``model``, each rank's slots scored, the
-softmax's max and sum and the probability-weighted V summed over the
-cache's sequence shards (``SeqShard``), a sliding window's mask read
-from each slot's global position (griffin's).
+On a mesh (``sharding.ctx.use_mesh``) ``attn_full_kv``,
+``attn_decode``, ``cross_kv`` and ``attn_cross`` take the rank's
+``model`` block of the heads of ``wq``/``wo`` (and of ``wk``/``wv``
+where their heads divide, else the whole of them): a prefill projects
+and attends over the rank's heads (the flash kernel on those heads
+alone), sums ``wo``'s partial outputs over ``model`` and returns K and V
+of every KV head for the cache; a decode step is sequence-parallel over
+the cache's slots, as the reference's: q replicated over ``model``,
+each rank's slots scored, the softmax's max and sum and the
+probability-weighted V summed over the cache's sequence shards
+(``SeqShard``, whose ``slots`` is the cache's own length: a right-sized
+ring's ``min(window, cache_len)``), a sliding window's mask read from
+each slot's global position; cross attention runs the rank's q heads
+over the memory's K and V, which every rank holds whole.
 """
 from __future__ import annotations
 
@@ -329,14 +332,21 @@ def attn_decode(params: dict, x: torch.Tensor, layer_cache: dict,
 def cross_kv(params: dict, memory: torch.Tensor, cfg: ModelConfig) -> dict:
     """K and V of a memory (B, S, Dm), {"k", "v": (B, S, Hkv, Dh)} in the
     memory's dtype, with the bias and ``k_norm`` where the layer has them
-    (no rope). Computed once a prefill; decode reads them from its state."""
+    (no rope). Computed once a prefill; decode reads them from its state.
+    On a mesh ``wk`` and ``wv`` may hold the rank's block of the KV
+    heads: K and V of those heads, all-gathered over ``model`` (the state
+    keeps them whole there)."""
+    heads = _heads(params, cfg)
+    kv = slice(heads.k0, heads.k0 + heads.hk)
     k = _proj(memory, params["wk"])
     v = _proj(memory, params["wv"])
     if "bk" in params:
-        k = k + params["bk"].to(memory.dtype)
-        v = v + params["bv"].to(memory.dtype)
+        k = k + params["bk"][kv].to(memory.dtype)
+        v = v + params["bv"][kv].to(memory.dtype)
     if "k_norm" in params:
         k = rmsnorm(params["k_norm"], k)
+    if heads.lay is not None and heads.hk < cfg.n_kv_heads:
+        k, v = tp.gather_fused([k, v], heads.lay.model, [2, 2])
     return {"k": k, "v": v}
 
 
@@ -348,14 +358,21 @@ def attn_cross(params: dict, x: torch.Tensor, memory_kv: dict,
     are upcast to float32 for both products and the softmax, and the
     output is cast back to x's dtype. Each query group's T rows are one
     matrix (B, Hkv, G T, Dh), so neither product broadcasts K or V over
-    the group."""
+    the group. On a mesh the rank's q heads attend over the KV heads they
+    read (of every one in ``memory_kv``) and ``wo``'s partial outputs are
+    summed over ``model``."""
     b, t, _ = x.shape
-    hkv, dh = cfg.n_kv_heads, cfg.head_dim
-    group = cfg.n_heads // hkv
+    dh = cfg.head_dim
+    heads = _heads(params, cfg)
     q = _proj(x, params["wq"])
     if "q_norm" in params:
         q = rmsnorm(params["q_norm"], q)
     k, v = memory_kv["k"], memory_kv["v"]
+    if heads.lay is not None:
+        every = heads._replace(k0=0, hk=cfg.n_kv_heads)
+        k, v = _kv_of_q_heads(k, every, cfg), _kv_of_q_heads(v, every, cfg)
+    hkv = k.shape[2]
+    group = heads.hq // hkv
     qs = (q * dh**-0.5).float().reshape(b, t, hkv, group, dh)
     qs = qs.permute(0, 2, 3, 1, 4).reshape(b, hkv, group * t, dh)
     logits = qs @ k.float().permute(0, 2, 3, 1)  # (B, Hkv, G T, S)
@@ -363,5 +380,7 @@ def attn_cross(params: dict, x: torch.Tensor, memory_kv: dict,
     del logits
     o = probs @ v.float().transpose(1, 2)  # (B, Hkv, G T, Dh)
     o = o.reshape(b, hkv, group, t, dh).permute(0, 3, 1, 2, 4)
-    o = o.reshape(b, t, cfg.n_heads, dh).to(x.dtype)
-    return _out(params, o, x.dtype)
+    o = o.reshape(b, t, heads.hq, dh).to(x.dtype)
+    if heads.lay is None:
+        return _out(params, o, x.dtype)
+    return tp.sum_over(_out(params, o, x.dtype), heads.lay.model)

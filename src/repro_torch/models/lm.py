@@ -37,20 +37,22 @@ griffin's attention take rings too. Prefill writes the same rings
 reference's prefill gives the remainder group and griffin full caches
 (ROADMAP section 3, record 6).
 
-Under a mesh (``sharding.ctx.use_mesh``) the ``dense``, ``moe``,
-``ssd``, ``rec`` and ``griffin`` kinds serve in the reference's layout
-(``_OnMesh``): ``prefill``, ``init_decode_state`` and ``decode_step``
-take token ids and return logits of the global batch on every rank,
-while each rank holds its shard of the parameters
-(``rules.serving_shard``: each leaf's block under
-``rules.serving_param_spec``) and of the decode state (under
-``rules.state_spec``; ``_mesh_states``). The activations are the rank's batch rows, every
-weight's FSDP dim is all-gathered over ``data`` as its unit runs, and
-the layers split their heads, MLP width and vocab over ``model``
-(``models.common``, ``models.attention``), mamba2's SSD heads and the
-RG-LRU's width too (``models.ssd``, ``models.rglru``). Training, the
-``dense_sb``, ``vlm`` and ``dec`` kinds and a ``pod`` axis raise under a
-mesh.
+Under a mesh (``sharding.ctx.use_mesh``) every kind serves in the
+reference's layout (``_OnMesh``): ``prefill``, ``init_decode_state``
+and ``decode_step`` take token ids (and the memory's inputs) and return
+logits of the global batch on every rank, while each rank holds its
+shard of the parameters (``rules.serving_shard``: each leaf's block
+under ``rules.serving_param_spec``) and of the decode state (under
+``rules.state_spec``; ``_mesh_states``). The activations and the memory
+are the rank's batch rows, every weight's FSDP dim is all-gathered over
+``data`` as its unit runs, and the layers split their heads, MLP width
+and vocab over ``model`` (``models.common``, ``models.attention``: the
+cross layers' and whisper's encoder's too), mamba2's SSD heads and the
+RG-LRU's width too (``models.ssd``, ``models.rglru``). Each cache is
+cut by its own length (``_seqs``): a right-sized ring's
+``min(window, cache_len)`` slots over the sequence's axes apart from
+the global caches' ``cache_len``; the cross K and V are whole over
+``model``. Training and a ``pod`` axis raise under a mesh.
 """
 from __future__ import annotations
 
@@ -61,6 +63,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import axis_sizes
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rg
@@ -80,7 +83,7 @@ from repro_torch.models.common import (
 )
 from repro_torch.sharding import rules
 from repro_torch.sharding import tensor_parallel as tp
-from repro_torch.sharding.ctx import get_mesh, use_mesh
+from repro_torch.sharding.ctx import get_mesh
 from repro_torch.tree import leaves, tree_map
 
 RECURRENT = ("ssd", "rec", "griffin")  # kinds with a recurrent state
@@ -388,28 +391,24 @@ def _cache_put(cache: dict, k: torch.Tensor, v: torch.Tensor,
     min(T, S) positions, position p at slot p % S (the first T slots when
     S >= T; a ring shorter than T keeps the last S, the reference's
     ``ring_cache``); the other slots keep pos -1. On a mesh the cache is
-    the slots from ``seq.offset`` of a full cache (``seq.slots`` >= T),
-    and takes the positions that fall there."""
-    t, s = k.shape[1], cache["k"].shape[1]
-    if seq is not None:
-        lo = seq.offset
-        n = max(0, min(t - lo, s))
-        cache["k"][:, :n] = k[:, lo:lo + n]
-        cache["v"][:, :n] = v[:, lo:lo + n]
-        cache["pos"][:, :n] = torch.arange(lo, lo + n, dtype=torch.int32,
-                                           device=k.device)
-        return
-    if s >= t:
-        cache["k"][:, :t] = k
-        cache["v"][:, :t] = v
-        cache["pos"][:, :t] = torch.arange(t, dtype=torch.int32,
-                                           device=k.device)
-        return
-    keep = torch.arange(t - s, t, device=k.device)
-    slots = keep % s
-    cache["k"][:, slots] = k[:, t - s:]
-    cache["v"][:, slots] = v[:, t - s:]
-    cache["pos"][:, slots] = keep.to(torch.int32)
+    the block of slots [``seq.offset``, ``seq.offset`` + its length) of
+    S = ``seq.slots``, and takes the kept positions whose slot falls
+    there (a ring's block may hold a wrapped mix of them)."""
+    t, local = k.shape[1], cache["k"].shape[1]
+    s, off = (local, 0) if seq is None else (seq.slots, seq.offset)
+    lo = max(0, t - s)
+    wrap = min(t, lo - lo % s + s)
+    # two runs of positions, each at consecutive slots from p0 % s: the
+    # block's local slot of position p is p - base
+    for p0, p1 in ((lo, wrap), (wrap, t)):
+        base = p0 - p0 % s + off
+        a, b = max(p0, base), min(p1, base + local)
+        if a >= b:
+            continue
+        cache["k"][:, a - base:b - base] = k[:, a:b]
+        cache["v"][:, a - base:b - base] = v[:, a:b]
+        cache["pos"][:, a - base:b - base] = torch.arange(
+            a, b, dtype=torch.int32, device=k.device)
 
 
 # ---------------------------------------------------------------------------
@@ -614,9 +613,9 @@ def _units(tree, n: int) -> list:
 # serving over a mesh
 # ---------------------------------------------------------------------------
 
-MESH_KINDS = ("dense", "moe", *RECURRENT)  # the kinds served over a mesh
-# leaves whose ``model`` block a rank keeps: the projections, the MLPs'
-# (dense, arctic's dense_mlp, the shared expert's, the experts'), the
+# leaves whose ``model`` block a rank keeps: the projections (a cross
+# layer's and whisper's encoder's too), the MLPs' (dense, a vlm cross
+# layer's, arctic's dense_mlp, the shared expert's, the experts'), the
 # recurrent blocks' (mamba2's w_in and w_out; the RG-LRU's w_x, w_a, w_i,
 # w_out and its gelu gate, which shares the MLP's name w_gate and its
 # (data, model) spec) and the vocab's; every other leaf is gathered whole
@@ -624,8 +623,7 @@ MESH_KINDS = ("dense", "moe", *RECURRENT)  # the kinds served over a mesh
 _MODEL_BLOCK_LEAVES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
                        "w_in", "w_x", "w_a", "w_i", "w_out", "table",
                        "lm_head")
-_NOT_ON_MESH = ("ROADMAP.md queue 1, 'dense_sb rings, vlm and dec, the pod "
-                "axis over a mesh'")
+_NOT_ON_MESH = "ROADMAP.md queue 1, 'the pod axis over a mesh'"
 
 
 def _meta(*shape) -> torch.Tensor:
@@ -656,12 +654,16 @@ class _OnMesh:
     def gather_rows(self, a: torch.Tensor) -> torch.Tensor:
         return tp.gather(a, self.row_group, 0)
 
-    def unit(self, params: dict, gi: int, branch: "str | None" = None):
-        """Unit i of group ``gi`` -> its weights as ``weights`` gives
-        them."""
-        name = f"group{gi}"
+    def unit(self, params: dict, name: str, branch: "str | None" = None):
+        """Unit i of the stacked tree ``params[name]`` (a group's,
+        ``"group{gi}"``, or whisper's ``"encoder"``) -> its weights as
+        ``weights`` gives them."""
         return lambda i: self.weights(params[name], self.specs[name],
                                       path=(name,), layer=i, branch=branch)
+
+    def leaf(self, params: dict, name: str):
+        """The top-level tree ``params[name]`` as ``weights`` gives it."""
+        return self.weights(params[name], self.specs[name], path=(name,))
 
     def weights(self, tree, specs, *, path: tuple, layer=None,
                 branch: "str | None" = None):
@@ -707,19 +709,19 @@ class _OnMesh:
     def top(self, params: dict):
         """(the embedding, the final norm, the unembedding table (V, D)
         or the rank's vocab block of it), as ``weights`` gives them."""
-        def get(name):
-            return self.weights(params[name], self.specs[name], path=(name,))
-        table = get("lm_head").T if "lm_head" in params else None
-        emb = get("embed")
-        return emb, get("final_norm"), (emb["table"] if table is None
-                                         else table)
+        table = (self.leaf(params, "lm_head").T if "lm_head" in params
+                 else None)
+        emb = self.leaf(params, "embed")
+        return emb, self.leaf(params, "final_norm"), (
+            emb["table"] if table is None else table)
 
-    def cache_block(self, cache_len: int) -> "tuple[int, int, attn.SeqShard]":
-        """(the rows, the slots, the sequence shard) of the rank's block
-        of a cache of ``cache_len`` slots under ``rules.state_spec``; its
-        rows are the rank's rows of the batch."""
+    def seq(self, slots: int) -> attn.SeqShard:
+        """The sequence shard of the rank's block of a cache (or a ring)
+        of ``slots`` slots under ``rules.state_spec``, whose rows must be
+        the rank's rows of the batch: its offset, ``slots`` and the group
+        of the other blocks (None where the guard keeps it whole)."""
         spec = rules.state_spec(self.lay.mesh, ("k",),
-                                _meta(1, self.batch, cache_len, 1, 1),
+                                _meta(1, self.batch, slots, 1, 1),
                                 batch=self.batch)
         row0, rows, _ = self.lay.block(spec, 1, self.batch)
         if (row0, rows) != (self.row0, self.rows):
@@ -727,8 +729,8 @@ class _OnMesh:
                 f"the cache's rows [{row0}, {row0 + rows}) are not the "
                 f"batch's [{self.row0}, {self.row0 + self.rows}) on this "
                 f"mesh {self.lay.sizes}")
-        off, slots, group = self.lay.block(spec, 2, cache_len)
-        return rows, slots, attn.SeqShard(off, cache_len, group)
+        off, _, group = self.lay.block(spec, 2, slots)
+        return attn.SeqShard(off, slots, group)
 
     def moe_branch(self, t: int) -> str:
         """The branch ``moe_apply`` takes on this call's (batch, t), which
@@ -773,22 +775,12 @@ class LM:
     # -- serving over a mesh ---------------------------------------------------
     def _check_mesh(self, mesh) -> tp.Layout:
         """This rank's layout on ``mesh``; raise where the model cannot be
-        served over it."""
-        for g in self.groups:
-            if g.kind not in MESH_KINDS:
-                raise NotImplementedError(
-                    f"{self.cfg.arch_id}: the {g.kind!r} kind over a mesh "
-                    f"is not ported ({_NOT_ON_MESH})")
-        if self.cfg.cache_mode == "rightsized":
-            raise NotImplementedError(
-                f"{self.cfg.arch_id}: right-sized caches over a mesh are not "
-                f"ported ({_NOT_ON_MESH})")
-        lay = tp.layout(mesh)
-        if "pod" in lay.sizes:
+        served over it (a ``pod`` axis)."""
+        if "pod" in axis_sizes(mesh):
             raise NotImplementedError(
                 f"serving over a mesh with a 'pod' axis is not ported "
                 f"({_NOT_ON_MESH})")
-        return lay
+        return tp.layout(mesh)
 
     def _on_mesh(self, params: dict, batch: int) -> "_OnMesh | None":
         """The call's ``_OnMesh`` under the active mesh (None without one),
@@ -850,32 +842,48 @@ class LM:
                 else params["embed"]["table"])
 
     # -- the memory of the non-token modality -----------------------------------
-    def _encode_audio(self, params: dict, frames: torch.Tensor) -> torch.Tensor:
+    def _encode_audio(self, params: dict, frames: torch.Tensor,
+                      on: "_OnMesh | None" = None) -> torch.Tensor:
         """Whisper's encoder over frame embeddings (B, S, D): sinusoidal
         positions added, then its units, non-causal, each with rope at
         ``cfg.rope_theta`` (the reference's ``theta=None`` falls back to
         it: ROADMAP section 3, record 5), then the final norm. No unit is
-        recomputed in the backward, as in the reference."""
+        recomputed in the backward, as in the reference. On a mesh the
+        frames are the rank's rows and each unit's weights the rank's
+        (``on.unit``): its heads and MLP width, summed over ``model``."""
         cfg = self.cfg
         x = frames + sinusoidal_positions(frames.shape[1], cfg.d_model,
                                           frames.dtype, frames.device)
-        for p in _units(params["encoder"], cfg.encoder_layers):
+        if on is None:
+            units = _units(params["encoder"], cfg.encoder_layers)
+            norm = params["enc_final_norm"]
+        else:
+            unit = on.unit(params, "encoder")
+            units = (unit(i) for i in range(cfg.encoder_layers))
+            norm = on.leaf(params, "enc_final_norm")
+        for p in units:
             x = _dense_unit_apply(p, x, cfg, window=None, theta=None,
                                   causal=False)[0]
-        return rmsnorm(params["enc_final_norm"], x)
+        return rmsnorm(norm, x)
 
-    def _inject_memory(self, params: dict, batch: dict):
+    def _inject_memory(self, params: dict, batch: dict,
+                       on: "_OnMesh | None" = None):
         """The memory a cross-attention group attends over, from the batch:
         the vlm's ``batch["vision"]`` (B, vision_tokens, vision_dim) cast
         to ``cfg.dtype`` and projected by ``vision_proj``, whisper's
         encoder over ``batch["audio_frames"]`` (B, audio_frames, d_model)
-        cast to ``cfg.dtype``; None for the other families."""
+        cast to ``cfg.dtype``; None for the other families. On a mesh the
+        batch is the global one and the memory the rank's rows of it
+        (``vision_proj`` gathered whole over ``data``)."""
         cfg = self.cfg
+        rows = (lambda a: a) if on is None else on.take_rows
         if cfg.family == "vlm":
-            return batch["vision"].to(cfg.dtype) @ params["vision_proj"]
+            proj = (params["vision_proj"] if on is None
+                    else on.leaf(params, "vision_proj"))
+            return rows(batch["vision"]).to(cfg.dtype) @ proj
         if cfg.family == "audio":
-            return self._encode_audio(params,
-                                      batch["audio_frames"].to(cfg.dtype))
+            return self._encode_audio(
+                params, rows(batch["audio_frames"]).to(cfg.dtype), on)
         return None
 
     # -- full-sequence forward ------------------------------------------------
@@ -901,10 +909,16 @@ class LM:
                     f"through loss or prefill")
             if cache_len is None:
                 x, aux = self._run_group_train(g, gp, x, aux, memory)
-            else:
-                x, cache = self._run_group_full(g, gp, x, memory,
-                                                cache_len=cache_len)
-                caches.append(cache)
+                continue
+            b, t, _ = x.shape
+            if g.kind not in ("ssd", "rec") and cache_len < t:
+                raise ValueError(f"cache_len {cache_len} < prompt length {t}")
+            cache = self._group_state(
+                g, b, cache_len, x.device,
+                None if memory is None else memory.shape[1])
+            x = self._run_group_full(g, functools.partial(_layer, gp), x,
+                                     cache, memory)
+            caches.append(cache)
         return (rmsnorm(params["final_norm"], x), aux,
                 None if cache_len is None else caches)
 
@@ -934,25 +948,16 @@ class LM:
                 aux = aux + unit_aux
         return x, aux
 
-    def _run_group_full(self, g: GroupSpec, gp: dict, x: torch.Tensor,
-                        memory=None, *, cache_len: int):
-        b, t, _ = x.shape
-        if (g.kind in ("dense", "dense_sb", "moe", "griffin", *CROSS)
-                and cache_len < t):
-            raise ValueError(f"cache_len {cache_len} < prompt length {t}")
+    def _run_group_full(self, g: GroupSpec, unit, x: torch.Tensor,
+                        cache: dict, memory=None, seqs=(None, None)):
+        """A group over a full sequence, unit i's weights ``unit(i)``: its
+        states and its K and V written into ``cache`` (on a mesh the
+        rank's shard, ``seqs`` the sequence shards of its caches,
+        ``_seqs``); returns x."""
         if g.kind in CROSS:
-            return self._run_cross_full(g, gp, x, memory, cache_len)
+            return self._run_cross_full(g, unit, x, memory, cache, seqs[1])
         if g.kind == "dense_sb":
-            return self._run_sb_full(g, gp, x, cache_len)
-        cache = self._group_state(g, b, cache_len, x.device)
-        return self._run_units_full(g, functools.partial(_layer, gp), x,
-                                    cache), cache
-
-    def _run_units_full(self, g: GroupSpec, unit, x: torch.Tensor,
-                        cache: dict, seq=None) -> torch.Tensor:
-        """A dense, moe, ssd, rec or griffin group over a full sequence,
-        unit i's weights ``unit(i)``: its states and its K and V written
-        into ``cache`` (a cache's sequence shard ``seq`` on a mesh)."""
+            return self._run_sb_full(g, unit, x, cache, seqs)
         cfg = self.cfg
         for i in range(g.n):
             p = unit(i)
@@ -974,58 +979,55 @@ class LM:
                              theta=g.thetas[i])[:3]
             # the K and V attention used: the reference recomputes the
             # same values from the unit's input (attn_cache_from)
-            _cache_put(_layer(cache, i), k, v, seq)
+            _cache_put(_layer(cache, i), k, v, seqs[0])
         return x
 
-    def _run_sb_full(self, g: GroupSpec, gp: dict, x: torch.Tensor,
-                     cache_len: int):
-        """A ``dense_sb`` group over a full sequence: (x, its state), each
-        local unit's K and V in its ring, each global unit's in its cache's
-        first T slots."""
+    def _run_sb_full(self, g: GroupSpec, unit, x: torch.Tensor, cache: dict,
+                     seqs) -> torch.Tensor:
+        """A ``dense_sb`` group over a full sequence: each local unit's K
+        and V in its ring (sequence shard ``seqs[0]``), each global unit's
+        in its cache's first T slots (``seqs[1]``)."""
         cfg = self.cfg
-        cache = _sb_state(cfg, g.n, x.shape[0], cache_len, x.device)
+        ring, full = seqs
         for i in range(g.n):
-            p = _layer(gp, i)
+            p = unit(i)
             for j in range(cfg.local_per_global):
                 x, k, v = _dense_unit_apply(_layer(p["loc"], j), x, cfg,
                                             window=cfg.window,
                                             theta=cfg.rope_theta)
                 _cache_put({name: a[i, j] for name, a in cache["loc"].items()},
-                           k, v)
+                           k, v, ring)
             x, k, v = _dense_unit_apply(p["glob"], x, cfg, window=None,
                                         theta=_theta_global(cfg))
-            _cache_put(_layer(cache["glob"], i), k, v)
-        return x, cache
+            _cache_put(_layer(cache["glob"], i), k, v, full)
+        return x
 
-    def _run_cross_full(self, g: GroupSpec, gp: dict, x: torch.Tensor,
-                        memory: torch.Tensor, cache_len: int):
-        """A vlm or dec group over a full sequence: (x, its state), the
-        self layers' K and V in the caches' first T slots and each cross
-        layer's K and V of ``memory``."""
-        b, t, _ = x.shape
-        cfg, dev, s = self.cfg, x.device, memory.shape[1]
-        make = _vlm_state if g.kind == "vlm" else _dec_state
-        cache = make(cfg, g.n, b, cache_len, s, dev)
-        cache["pos"][..., :t] = torch.arange(t, dtype=torch.int32, device=dev)
+    def _run_cross_full(self, g: GroupSpec, unit, x: torch.Tensor,
+                        memory: torch.Tensor, cache: dict,
+                        seq=None) -> torch.Tensor:
+        """A vlm or dec group over a full sequence: the self layers' K and
+        V in the caches' first T slots (sequence shard ``seq``) and each
+        cross layer's K and V of ``memory``."""
+        cfg = self.cfg
         for i in range(g.n):
-            p = _layer(gp, i)
+            p = unit(i)
             if g.kind == "vlm":
                 for j in range(cfg.cross_attn_every):
                     x, k, v = _dense_unit_apply(_layer(p["self"], j), x, cfg,
                                                 window=None,
                                                 theta=cfg.rope_theta)
-                    cache["k"][i, j, :, :t] = k
-                    cache["v"][i, j, :, :t] = v
+                    _cache_put({name: cache[name][i, j]
+                                for name in ("k", "v", "pos")}, k, v, seq)
                 mkv = attn.cross_kv(p["cross"]["attn"], memory, cfg)
                 x = _cross_apply(p["cross"], x, mkv, cfg)
             else:
                 mkv = attn.cross_kv(p["cross_attn"], memory, cfg)
                 x, k, v = _dec_unit_apply(p, x, mkv, cfg)
-                cache["k"][i, :, :t] = k
-                cache["v"][i, :, :t] = v
+                _cache_put({name: cache[name][i] for name in ("k", "v", "pos")},
+                           k, v, seq)
             cache["cross_k"][i] = mkv["k"]
             cache["cross_v"][i] = mkv["v"]
-        return x, cache
+        return x
 
     # -- training loss --------------------------------------------------------
     def loss(self, params: dict, batch: dict):
@@ -1062,17 +1064,16 @@ class LM:
         group needs T to be at most ``cfg.ssm_chunk`` or a multiple of it
         (``ssd_scan``).
 
-        Under a mesh (the dense, moe, ssd, rec and griffin kinds):
-        ``batch`` holds the global batch's token ids and the logits are
-        the global batch's on every rank; ``params`` is the rank's
-        serving shard and the state its shard under ``rules.state_spec``,
-        with the global
-        ``cache_len`` beside the index."""
+        Under a mesh: ``batch`` holds the global batch's token ids (and
+        memory inputs) and the logits are the global batch's on every
+        rank; ``params`` is the rank's serving shard and the state its
+        shard under ``rules.state_spec``, with the global ``cache_len``
+        beside the index."""
         tokens = batch["inputs"]
         t = tokens.shape[1]
         on = self._on_mesh(params, tokens.shape[0])
         if on is not None:
-            return self._prefill_mesh(params, tokens, cache_len or t, on)
+            return self._prefill_mesh(params, batch, cache_len or t, on)
         memory = self._inject_memory(params, batch)
         x = embed(params["embed"], tokens, self.cfg)
         feats, _, caches = self._backbone(params, x, memory=memory,
@@ -1083,37 +1084,51 @@ class LM:
                                        device=tokens.device)}
         return logits[:, 0], state
 
-    def _mesh_states(self, batch: int, cache_len: int, device) -> list:
+    def _mesh_states(self, batch: int, cache_len: int, device,
+                     memory_len: "int | None" = None) -> list:
         """Each group's zeroed state shard under ``rules.state_spec``: the
         global state's leaves made on the meta device, cut to the rank's
-        block (``pos`` -1, every other leaf 0)."""
-        mesh = get_mesh()
-        with use_mesh(None):
-            glob = self.init_decode_state(batch, cache_len,
-                                          device="meta")["groups"]
+        block (every ``pos`` -1, every other leaf 0)."""
+        glob = [self._group_state(g, batch, cache_len, "meta", memory_len)
+                for g in self.groups]
         states = [tree_map(lambda a: torch.zeros(a.shape, dtype=a.dtype,
                                                  device=device), g)
-                  for g in rules.shard_tree(mesh, glob, rules.state_spec,
-                                            batch=batch)]
+                  for g in rules.shard_tree(get_mesh(), glob,
+                                            rules.state_spec, batch=batch)]
         for st in states:
-            if "pos" in st:
-                st["pos"].fill_(-1)
+            for cache in (st, *(c for c in st.values() if isinstance(c, dict))):
+                if "pos" in cache:
+                    cache["pos"].fill_(-1)
         return states
 
-    def _prefill_mesh(self, params: dict, tokens: torch.Tensor,
-                      cache_len: int, on: _OnMesh):
+    def _seqs(self, g: GroupSpec, cache_len: int,
+              on: "_OnMesh | None") -> tuple:
+        """(the sequence shard of group ``g``'s attention caches of
+        ``_cache_slots`` slots (a ``dense_sb`` group's local rings), that
+        of its caches of ``cache_len`` slots (a ``dense_sb`` group's
+        global ones)) on the mesh; (None, None) without one."""
+        if on is None:
+            return None, None
+        return on.seq(_cache_slots(self.cfg, g, cache_len)), on.seq(cache_len)
+
+    def _prefill_mesh(self, params: dict, batch: dict, cache_len: int,
+                      on: _OnMesh):
         cfg = self.cfg
+        tokens = batch["inputs"]
         t = tokens.shape[1]
         if cache_len < t:
             raise ValueError(f"cache_len {cache_len} < prompt length {t}")
         emb, norm, table = on.top(params)
         x = embed(emb, on.take_rows(tokens), cfg)
-        caches = self._mesh_states(on.batch, cache_len, x.device)
-        seq = on.cache_block(cache_len)[2]
+        memory = self._inject_memory(params, batch, on)
+        caches = self._mesh_states(
+            on.batch, cache_len, x.device,
+            None if memory is None else memory.shape[1])
         for gi, g in enumerate(self.groups):
             branch = on.moe_branch(t) if g.kind == "moe" else None
-            x = self._run_units_full(g, on.unit(params, gi, branch), x,
-                                     caches[gi], seq)
+            x = self._run_group_full(g, on.unit(params, f"group{gi}", branch),
+                                     x, caches[gi], memory,
+                                     self._seqs(g, cache_len, on))
         feats = rmsnorm(norm, x)
         logits = unembed(table, feats[:, -1:, :], vocab=cfg.vocab)[:, 0]
         return on.gather_rows(logits), {
@@ -1139,8 +1154,10 @@ class LM:
                            for g in self.groups], "index": index}
 
     def _group_state(self, g: GroupSpec, batch: int, cache_len: int,
-                     dev) -> dict:
-        """A group's zeroed decode state of ``batch`` rows."""
+                     dev, memory_len: "int | None" = None) -> dict:
+        """A group's zeroed decode state of ``batch`` rows; a vlm or dec
+        group's cross K and V over ``memory_len`` memory tokens (the
+        config's vision tokens or audio frames by default)."""
         cfg = self.cfg
         if g.kind == "ssd":
             return ssd_mod.make_ssd_state(cfg, g.n, batch, dev)
@@ -1152,11 +1169,11 @@ class LM:
         if g.kind == "dense_sb":
             return _sb_state(cfg, g.n, batch, cache_len, dev)
         if g.kind == "vlm":
-            return _vlm_state(cfg, g.n, batch, cache_len, cfg.vision_tokens,
-                              dev)
+            return _vlm_state(cfg, g.n, batch, cache_len,
+                              memory_len or cfg.vision_tokens, dev)
         if g.kind == "dec":
-            return _dec_state(cfg, g.n, batch, cache_len, cfg.audio_frames,
-                              dev)
+            return _dec_state(cfg, g.n, batch, cache_len,
+                              memory_len or cfg.audio_frames, dev)
         return attn.make_cache(cfg, g.n, batch,
                                _cache_slots(cfg, g, cache_len), dev)
 
@@ -1167,8 +1184,9 @@ class LM:
         into the new state; its index is ``state["index"] + 1``. A cross
         layer reads its K and V from the state. Under a mesh, tokens and
         logits are the global batch's, ``state`` the rank's shard (as
-        ``prefill`` and ``init_decode_state`` make it) and its index the
-        global batch's."""
+        ``prefill`` and ``init_decode_state`` make it; each cache written
+        by the rank that owns its slot ``index % slots``) and its index
+        the global batch's."""
         cfg = self.cfg
         on = self._on_mesh(params, tokens.shape[0])
         index = state["index"]
@@ -1180,7 +1198,6 @@ class LM:
             if "cache_len" not in state:
                 raise ValueError("decode over a mesh takes the state that "
                                  "prefill or init_decode_state made under it")
-            seq = on.cache_block(state["cache_len"])[2]
             idx = on.take_rows(index) if index.ndim else index
             emb, norm, table = on.top(params)
             tokens, vocab = on.take_rows(tokens), cfg.vocab
@@ -1189,8 +1206,9 @@ class LM:
             gc = state["groups"][gi]
             unit = (functools.partial(_layer, params[f"group{gi}"])
                     if on is None else on.unit(
-                        params, gi,
+                        params, f"group{gi}",
                         on.moe_branch(1) if g.kind == "moe" else None))
+            seq, full = self._seqs(g, state.get("cache_len"), on)
             for i in range(g.n):
                 p = unit(i)
                 if g.kind == "ssd":
@@ -1214,23 +1232,23 @@ class LM:
                         ring = {name: a[i, j] for name, a in gc["loc"].items()}
                         x, _ = _dense_unit_decode(
                             _layer(p["loc"], j), x, ring, idx, cfg,
-                            window=cfg.window, theta=cfg.rope_theta)
+                            window=cfg.window, theta=cfg.rope_theta, seq=seq)
                     x, _ = _dense_unit_decode(
                         p["glob"], x, _layer(gc["glob"], i), idx, cfg,
-                        window=None, theta=_theta_global(cfg))
+                        window=None, theta=_theta_global(cfg), seq=full)
                 elif g.kind == "vlm":
                     for j in range(cfg.cross_attn_every):
                         self_cache = {name: gc[name][i, j]
                                       for name in ("k", "v", "pos")}
                         x, _ = _dense_unit_decode(
                             _layer(p["self"], j), x, self_cache, idx, cfg,
-                            window=None, theta=cfg.rope_theta)
+                            window=None, theta=cfg.rope_theta, seq=full)
                     mkv = {"k": gc["cross_k"][i], "v": gc["cross_v"][i]}
                     x = _cross_apply(p["cross"], x, mkv, cfg)
                 elif g.kind == "dec":
                     h, _ = attn.attn_decode(
                         p["self_attn"], rmsnorm(p["ln1"], x), _layer(gc, i),
-                        idx, cfg, theta=cfg.rope_theta)
+                        idx, cfg, theta=cfg.rope_theta, seq=full)
                     mkv = {"k": gc["cross_k"][i], "v": gc["cross_v"][i]}
                     x = _dec_tail(p, x + h, mkv, cfg)
                 else:

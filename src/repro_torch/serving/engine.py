@@ -24,17 +24,21 @@ Correctness contract (as ``tests/test_serving_engine.py`` states it for
 the reference): every request's continuous-batched output equals its
 isolated prefill + greedy-decode output exactly.
 
-Under a mesh (``sharding.ctx.use_mesh``, the dense, moe, ssd, rec and
-griffin kinds) every rank runs this loop on the global batch's logits,
-which ``LM.prefill`` and ``LM.decode_step`` return on every rank, with
-``params`` the rank's serving shard and the decode state its shard
-under ``rules.state_spec``: the slots' rows over ``data``, their
-sequence over ``model``, an ssm state's heads over ``model`` (conv and
-RG-LRU states whole there). A recurrent prompt's unpadded admission runs
-its prefix through ``prefill`` and its tail through ``decode_step`` on
-the mesh alike. A request's prefill state (one row, its sequence over
-``data`` and ``model``) is gathered whole and cut to the slots' layout,
-and the rank that holds row ``slot`` writes it (``_insert``).
+Under a mesh (``sharding.ctx.use_mesh``) every rank runs this loop on
+the global batch's logits, which ``LM.prefill`` and ``LM.decode_step``
+return on every rank, with ``params`` the rank's serving shard and the
+decode state its shard under ``rules.state_spec``: the slots' rows over
+``data``, their sequence over ``model`` (a right-sized ring's
+``min(window, cache_len)`` slots apart from the global caches'), an ssm
+state's heads over ``model`` (conv and RG-LRU states whole there). A
+recurrent or right-sized prompt's unpadded admission runs its prefix
+through ``prefill`` and its tail through ``decode_step`` on the mesh
+alike. A request's prefill state (one row, its sequence over ``data``
+and ``model``) is gathered whole and cut to the slots' layout along each
+leaf's batch axis (2 for a ``dense_sb`` ring (n, per, B, S, ...)), and
+the rank that holds row ``slot`` writes it (``_insert``). The engine
+takes no memory, so the vlm and dec kinds serve through ``LM.prefill``
+and ``LM.decode_step`` alone, as without a mesh.
 """
 from __future__ import annotations
 

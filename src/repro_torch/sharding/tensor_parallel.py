@@ -1,22 +1,24 @@
 """Forward collectives and a rank's place in an LM served over a mesh.
 
-Under ``sharding.ctx.use_mesh`` the port's dense, moe, ssd, rec and
-griffin kinds hold the reference's serving layout: weights as
-``rules.serving_param_spec`` cuts them, the decode state as
-``rules.state_spec`` does. Where the reference's GSPMD partitioner
-inserts collectives of its own, the port calls these explicitly:
+Under ``sharding.ctx.use_mesh`` the port's LMs hold the reference's
+serving layout: weights as ``rules.serving_param_spec`` cuts them, the
+decode state as ``rules.state_spec`` does. Where the reference's GSPMD
+partitioner inserts collectives of its own, the port calls these
+explicitly:
 
   * ``gather`` over ``data`` of a weight's FSDP-sharded dim, on use
     (``unshard_all``: a unit's weights in one collective), and over
-    ``model`` of vocab-sharded logits, of the heads of q, K and V, of
+    ``model`` of vocab-sharded logits, of the heads of q, K and V (a
+    cross layer's K and V of the memory too), of
     the last dim of a recurrent block's column-parallel activation
     (mamba2's ``w_in`` product, the RG-LRU's ``w_x`` product) and of
     the RG-LRU's state;
   * ``sum_over`` ``model`` of row-parallel partial outputs (``wo``,
     ``w_down``, ``w_out``) and of a vocab-parallel embedding's rows,
     and ``sum_of_squares`` over ``model`` of mamba2's gated RMSNorm;
-  * ``max_over`` and ``sum_over`` the cache's sequence shards of a
-    softmax's max and sum, then of the probability-weighted V.
+  * ``max_over`` and ``sum_over`` the cache's sequence shards (a
+    right-sized ring's apart from a full cache's) of a softmax's max
+    and sum, then of the probability-weighted V.
 
 Serving has no backward, and these collectives have none either: each
 raises when autograd records through it, where c10d's would give a

@@ -3,8 +3,9 @@
     python tests/_torch_dist_child.py JOB.json RANK
 
 ``JOB.json`` names the job (``"flens"``, ``"moe"``, ``"moe_grad"``,
-``"client_mesh"``, ``"lm_mesh"`` or ``"lm_mesh_recurrent"``), the world
-size,
+``"client_mesh"``, ``"lm_mesh"``, ``"lm_mesh_recurrent"``,
+``"lm_mesh_rightsized"`` or ``"lm_mesh_cross"``; the last two run
+``lm_mesh_job``), the world size,
 the store file, the input ``.npz`` and the output directory; the rank
 writes ``rank{RANK}.npz`` there. It imports the port only (no JAX): the
 reference's draws and parameters arrive as numpy arrays. The tests
@@ -395,12 +396,17 @@ def model_config(job: dict, name: str):
     return get_config(arch).reduced(**job.get("overrides", {}).get(name, {}))
 
 
-def lm_mesh_run(model, params, tokens, steps, cache_len: int):
-    """A prefill of ``tokens`` then a decode step of each of ``steps``
-    (teacher-forced, (n, B, 1)): (the logits of every call (n + 1, B, V),
-    the final state)."""
+MEMORY_KEYS = ("vision", "audio_frames")  # a batch's memory inputs
+
+
+def lm_mesh_run(model, params, tokens, steps, cache_len: int,
+                memory: "dict | None" = None):
+    """A prefill of ``tokens`` (and the batch's ``memory`` inputs) then a
+    decode step of each of ``steps`` (teacher-forced, (n, B, 1)): (the
+    logits of every call (n + 1, B, V), the final state)."""
     with torch.no_grad():
-        logits, state = model.prefill(params, {"inputs": tokens},
+        logits, state = model.prefill(params, {"inputs": tokens,
+                                               **(memory or {})},
                                       cache_len=cache_len)
         out = [logits]
         for step in steps:
@@ -428,7 +434,9 @@ def lm_mesh_engine(model, params, prompts, new_tokens: int, max_batch: int,
 def lm_mesh_job(job: dict, rank: int) -> dict:
     """Each case of the job under its mesh: this rank's serving shard of
     the arch's parameters (``interop.lm_shard_from_numpy``), a prefill
-    and teacher-forced decode steps of the global batch (logits, the
+    (with the case's memory inputs, the global batch's ``vision`` or
+    ``audio_frames``, where the data has them) and teacher-forced decode
+    steps of the global batch (logits, the
     final state's shards, the parameter and state shapes), the engine
     cases' token streams, and the error a prefill raises when autograd
     records through the mesh's collectives (where the job names a
@@ -457,10 +465,13 @@ def lm_mesh_job(job: dict, rank: int) -> dict:
     for case in job["cases"]:
         name = case["name"]
         mesh, cfg, model, params = setup(case["arch"], case["mesh"])
+        memory = {key: torch.from_numpy(d[f"{key}/{name}"])
+                  for key in MEMORY_KEYS if f"{key}/{name}" in d.files}
         with use_mesh(mesh):
             logits, state = lm_mesh_run(
                 model, params, torch.from_numpy(d[f"tokens/{name}"]),
-                torch.from_numpy(d[f"steps/{name}"]), case["cache_len"])
+                torch.from_numpy(d[f"steps/{name}"]), case["cache_len"],
+                memory)
         out[f"{name}/logits"] = logits.numpy()
         out.update({f"{name}/state/{k}": v for k, v in
                     flatten({str(gi): g for gi, g in
@@ -536,7 +547,9 @@ def main(job_path: str, rank: int) -> int:
         out = {"flens": flens_job, "moe": moe_job, "moe_grad": moe_grad_job,
                "client_mesh": client_mesh_job,
                "lm_mesh": lm_mesh_job,
-               "lm_mesh_recurrent": lm_mesh_recurrent_job}[job["kind"]](
+               "lm_mesh_recurrent": lm_mesh_recurrent_job,
+               "lm_mesh_rightsized": lm_mesh_job,
+               "lm_mesh_cross": lm_mesh_job}[job["kind"]](
                    job, rank)
     np.savez(pathlib.Path(job["out"]) / f"rank{rank}.npz", **out)
     return 0

@@ -886,3 +886,83 @@ def test_one_nccl_rank_recurrent_lm_over_a_mesh_equals_no_mesh(
         for leaf in w:
             assert torch.equal(g[leaf], w[leaf]), leaf
     assert streams == want_streams
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,overrides,launches", [
+    ("gemma3-1b@rightsized", {"n_layers": 8, "window": 8}, 8),
+    ("whisper-tiny", {}, 4)])
+def test_one_nccl_rank_rings_and_cross_attention_over_a_mesh_equal_no_mesh(
+        hopper, tmp_path, arch, overrides, launches):
+    """gemma3-1b@rightsized ``reduced(n_layers=8, window=8)`` (two
+    ``dense_sb`` super-blocks and a remainder of ring layers) and
+    whisper-tiny ``reduced()`` (its encoder non-causal, the decoder's
+    cross attention) in bf16 served over a 1 x 1 NCCL mesh on the card:
+    a prefill of 2 x 12 tokens (1.5 windows: the rings wrap; whisper over
+    32 frames a row), 6 decode steps, every state leaf (rings, caches,
+    cross K and V) and gemma3's engine streams bit-equal to the same runs
+    without a mesh, the sm90 flash kernel on every attention layer of a
+    prefill (the encoder's too)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.base import root_key
+    from repro_torch.launch.mesh import make_mesh, process_group
+    from repro_torch.models.lm import LM
+    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.ctx import use_mesh
+    from repro_torch.tree import leaves
+
+    cfg = dataclasses.replace(get_config(arch).reduced(**overrides),
+                              dtype=torch.bfloat16,
+                              param_dtype=torch.bfloat16)
+    model = LM(cfg)
+    params = model.init(root_key(0, device=hopper))
+    gen = torch.Generator(device=hopper).manual_seed(1)
+    batch = {"inputs": torch.randint(0, cfg.vocab, (2, 12), generator=gen,
+                                     device=hopper)}
+    if cfg.family == "audio":
+        batch["audio_frames"] = torch.randn(
+            (2, cfg.audio_frames, cfg.d_model), generator=gen, device=hopper)
+    steps = torch.randint(0, cfg.vocab, (6, 2, 1), generator=gen,
+                          device=hopper)
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=gen,
+                             device=hopper).tolist() for n in (5, 17, 11)]
+
+    def run(p):
+        with torch.no_grad():
+            ops.reset_launch_counts()
+            logits, state = model.prefill(p, batch, cache_len=24)
+            n = ops.launch_counts()["flash_attention_sm90"]
+            out = [logits]
+            for step in steps:
+                logits, state = model.decode_step(p, state, step)
+                out.append(logits)
+            streams = None
+            if cfg.family != "audio":  # the engine takes no memory
+                engine = ServingEngine(model, p, max_batch=2, cache_len=24)
+                reqs = [Request(uid=i, prompt=q, max_new_tokens=4)
+                        for i, q in enumerate(prompts)]
+                for r in reqs:
+                    engine.submit(r)
+                engine.run()
+                streams = [r.generated for r in reqs]
+        return torch.stack(out), state, n, streams
+
+    want, want_state, want_launches, want_streams = run(params)
+    torch.cuda.set_device(hopper)
+    with process_group(0, 1, tmp_path / "store", backend="nccl",
+                       timeout_s=60):
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        local = rules.serving_shard(mesh, params)
+        with use_mesh(mesh):
+            got, state, n, streams = run(local)
+    assert n == want_launches == launches
+    assert torch.equal(got, want)
+    for g, w in zip(state["groups"], want_state["groups"]):
+        got_leaves, want_leaves = leaves(g), leaves(w)
+        assert len(got_leaves) == len(want_leaves)
+        for a, b in zip(got_leaves, want_leaves):
+            assert torch.equal(a, b)
+    assert streams == want_streams

@@ -29,8 +29,8 @@ mesh in this process. Cases:
   * the engine's token streams equal to the reference engine's under
     the same mesh (6 requests, 5 new tokens each, 4 slots);
   * a 1 x 1 mesh bit-equal to no mesh (logits, caches, engine);
-  * the ``dec`` and ``dense_sb`` kinds and ``LM.loss`` raise
-    ``NotImplementedError`` under a mesh, weights that are not the
+  * a mesh with a ``pod`` axis (for the ``dec`` and ``dense_sb`` kinds)
+    and ``LM.loss`` raise ``NotImplementedError``, weights that are not the
     rank's shard raise ``ValueError``, and a prefill whose weights require grad raises at
     the first collective.
 """
@@ -119,18 +119,28 @@ _REFERENCE = textwrap.dedent("""
             0)
         return jax.device_put(params, sh)
 
+    def leaves_of(tree, prefix):
+        if isinstance(tree, dict):
+            for key, sub in tree.items():
+                yield from leaves_of(sub, f"{prefix}/{key}")
+        else:
+            yield prefix, tree
+
     out = {}
     for case in job["cases"]:
         name, arch = case["name"], case["arch"]
         mesh = meshes[case["mesh"]]
         model = LM(get_config(job.get("configs", {}).get(arch, arch))
                    .reduced(**job.get("overrides", {}).get(arch, {})))
+        batch = {"inputs": jnp.asarray(d["tokens/" + name], jnp.int32)}
+        for key in ("vision", "audio_frames"):
+            if f"{key}/{name}" in d.files:
+                batch[key] = jnp.asarray(d[f"{key}/{name}"])
         with use_mesh(mesh):
             params = params_of(arch, mesh)
             prefill = jax.jit(lambda p, b: model.prefill(
                 p, b, cache_len=case["cache_len"]))
-            logits, state = prefill(params, {"inputs": jnp.asarray(
-                d["tokens/" + name], jnp.int32)})
+            logits, state = prefill(params, batch)
             got = [np.asarray(logits)]
             decode = jax.jit(model.decode_step)
             for step in d["steps/" + name]:
@@ -139,8 +149,8 @@ _REFERENCE = textwrap.dedent("""
                 got.append(np.asarray(logits))
         out[name + "/logits"] = np.stack(got)
         for gi, g in enumerate(state["groups"]):
-            for leaf, a in g.items():
-                out[f"{name}/state/{gi}/{leaf}"] = np.asarray(a)
+            for path, a in leaves_of(g, f"{name}/state/{gi}"):
+                out[path] = np.asarray(a)
     for case in job["engine"]:
         mesh = meshes[case["mesh"]]
         model = LM(get_config(case["arch"]).reduced())
@@ -349,14 +359,15 @@ def test_a_one_by_one_mesh_is_the_no_mesh_path_bit_for_bit(tmp_path, arch):
 
 @pytest.mark.parametrize("arch", ["whisper-tiny", "gemma3-1b@rightsized"])
 def test_other_kinds_raise_under_a_mesh(arch):
+    """Every kind serves over a (data, model) mesh; a mesh with a ``pod``
+    axis raises for each, naming its ROADMAP item."""
     cfg = get_config(arch).reduced()
     model = LM(cfg)
-    mesh = MeshShape(("data", "model"), (2, 2))
-    with use_mesh(mesh), pytest.raises(NotImplementedError,
-                                       match="ROADMAP.md queue 1"):
+    mesh = MeshShape(("pod", "data", "model"), (2, 2, 2))
+    match = "ROADMAP.md queue 1, 'the pod axis over a mesh'"
+    with use_mesh(mesh), pytest.raises(NotImplementedError, match=match):
         model.prefill({}, {"inputs": torch.zeros((1, 8), dtype=torch.int64)})
-    with use_mesh(mesh), pytest.raises(NotImplementedError,
-                                       match="ROADMAP.md queue 1"):
+    with use_mesh(mesh), pytest.raises(NotImplementedError, match=match):
         model.init_decode_state(2, 16, device="cpu")
 
 

@@ -1,9 +1,11 @@
 """The port's sharding rules (``repro_torch.sharding.rules``) against
 ``repro.sharding.rules``, spec for spec, on the CPU.
 
-Trees: every config of ``repro.configs`` at full size through
-``jax.eval_shape`` (parameters, decode states at batch 128 x 32,768 and
-batch 1 x 4,096, a training batch of 8 x 4,096), and the port's own
+Trees: every config of ``repro.configs`` and gemma3's right-sized
+variants (``dense_sb`` rings of 1024 / 512 slots, over (``data``,
+``model``) at batch 1) at full size through ``jax.eval_shape``
+(parameters, decode states at batch 128 x 32,768 and batch 1 x 4,096, a
+training batch of 8 x 4,096), and the port's own
 trees: its parameters at ``reduced()`` and its decode states at full
 size on the meta device. Meshes: (1, 1), (2, 2), a 4-way ``model`` axis
 alone, the production 16 x 16
@@ -51,6 +53,8 @@ MESHES = {"1x1": MeshShape(("data", "model"), (1, 1)),
           "2x16x16": make_production_mesh(multi_pod=True)}
 # (batch, cache) of the decode states
 STATES = ((128, 32_768), (1, 4_096))
+# the right-sized variants: dense_sb rings of min(window, cache) slots
+RIGHTSIZED = ("gemma3_1b@rightsized", "gemma3_4b@rightsized")
 
 
 def _stand_in(mesh: MeshShape):
@@ -88,7 +92,7 @@ def _reference_trees(arch):
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))
-@pytest.mark.parametrize("arch", ARCH_IDS)
+@pytest.mark.parametrize("arch", ARCH_IDS + RIGHTSIZED)
 def test_rules_match_the_reference_on_every_config(arch, mesh):
     cfg, params, states = _reference_trees(arch)
     m = MESHES[mesh]
@@ -102,7 +106,8 @@ def test_rules_match_the_reference_on_every_config(arch, mesh):
 @pytest.mark.parametrize("mesh", list(MESHES))
 @pytest.mark.parametrize("arch", ["arctic_480b", "kimi_k2_1t_a32b",
                                   "tinyllama_1_1b", "llama32_vision_90b",
-                                  "mamba2_780m", "recurrentgemma_2b"])
+                                  "mamba2_780m", "recurrentgemma_2b",
+                                  "whisper_tiny", "gemma3_1b@rightsized"])
 def test_serving_layout_matches_the_reference(arch, mesh, monkeypatch):
     """``serving_param_spec`` against ``input_specs._serving_param_
     shardings`` (the experts F-sharded over data, the vocab table's
