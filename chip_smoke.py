@@ -391,7 +391,34 @@ Phases, in order; any failure raises and the script exits non-zero:
                 tokens a client, k = 64) on the trained bf16 backbone's
                 features (D = 2048): FLeNS through the SRHT kernels
                 bit-equal to the plain versions, with FedAvg and FedNewton
- 14. kernels  — one JSON line naming every ported kernel (flash
+ 14. mesh train — LM training over a mesh (LM.loss, train_step and
+                adamw_update under sharding.ctx.use_mesh) in the
+                reference's train_4k layout: every leaf of the
+                parameters, gradients and AdamW moments its block under
+                rules.param_spec (FSDP over data, heads, MLP width,
+                experts and vocab over model), the batch's rows over data;
+                4 gloo ranks on the one card (children `chip_smoke.py
+                --mesh-train-child`), each part's run without a mesh in
+                this process first from the same weights and batches: (a)
+                TinyLlama-1.1B whole in bf16 with remat on (2 data, 2
+                model), 2 x 2048 tokens (one row a data rank), 3 AdamW
+                steps; (b) its float32 twin at 4 layers (the tf32x3
+                forward and backward); (c) arctic-480b at full width, 1
+                layer and 8 of its 128 experts, float32, one AdamW step
+                on the moe decode branch ((2, 2)) and one on the expert
+                branch (a 4-way model mesh). Every step's CE equal on all
+                ranks and within phase 13's tolerance (bf16; float32
+                1e-5) of the no-mesh run's, step 0's gradient blocks
+                within phase 13's (bf16) or 1e-5 of max |g| (float32;
+                arctic 1e-4), each rank's parameter and moment bytes the
+                layout's, the flash launches a step a rank on the rank's
+                heads (2 forward and 1 backward a layer), the forward and
+                backward kernels held against their plain versions at the
+                rank's call; ms a step a rank beside the no-mesh run's,
+                the collectives' bytes and host ms a step by kind
+                (forward gather / sum / max, backward reduce_scatter /
+                sum_bwd), peak memory a rank
+ 15. kernels  — one JSON line naming every ported kernel (flash
                 attention as two entries: the sm90 route and the tf32x3
                 route; its backward as two more: the sm90 route, timed and
                 counted on the bf16 training run, and the tf32x3 route, on
@@ -5499,12 +5526,13 @@ def phase_rightsized(card: str) -> dict:
 MESH_DIR = ROOT / "chiprun_out" / "mesh_serving"
 # (a) qwen1.5-110b at full width, 4 layers, bf16, a 4-way ("model",) mesh:
 # a 2048-token batch-1 prefill and a batch-4 prefill of 512-token prompts,
-# each then 32 teacher-forced decode steps (tokens from the seed, a cache
-# of T + 32 slots); (b) tinyllama whole in bf16 on (2 data, 2 model):
-# SERVE's 8 requests through the engine, all 8 in its batch (its decode
-# steps each gather the layers' FSDP weights through gloo, which the
-# card's machine moves at ~0.1-0.2 GB/s: 8 slots halve the steps of
-# SERVE's 4; 32 new tokens, SERVE's 64 cut to make room for 11g), and
+# each then 8 teacher-forced decode steps (tokens from the seed, a cache
+# of T + 8 slots; 32 until phase 14 came); (b) tinyllama whole in bf16 on
+# (2 data, 2 model): SERVE's 8 requests through the engine, all 8 in its
+# batch (its decode steps each gather the layers' FSDP weights through
+# gloo, which the card's machine moves at ~0.1-0.2 GB/s: 8 slots halve the
+# steps of SERVE's 4; 8 new tokens, SERVE's 64 cut to make room for 11g,
+# 11h and 14), and
 # the batch-4 prefill with 4 steps for the logits; (c) its float32 twin at
 # 4 layers, the requests at 8 new tokens; (d) one NCCL rank (a 1 x 1
 # mesh), tinyllama at 4 layers in bf16, SERVE's engine
@@ -5512,11 +5540,11 @@ B4 = (("b4", 4, 512),)
 MESH_SERVE = dict(
     tag="mesh", dir=MESH_DIR, ranks=4, timeout_s=600, seed=7,
     parts={"qwen": dict(arch="qwen1.5-110b", n_layers=4, dtype="bfloat16",
-                        mesh=((4,), ("model",)), engine=None, steps=32,
+                        mesh=((4,), ("model",)), engine=None, steps=8,
                         inputs=(("b1", 1, 2048), *B4), flash_parity=True),
            "tiny": dict(arch="tinyllama-1.1b", n_layers=None,
                         dtype="bfloat16", mesh=((2, 2), ("data", "model")),
-                        engine=dict(max_batch=8, new_tokens=32), steps=4,
+                        engine=dict(max_batch=8, new_tokens=8), steps=4,
                         inputs=B4),
            "twin": dict(arch="tinyllama-1.1b", n_layers=4, dtype="float32",
                         mesh=((2, 2), ("data", "model")),
@@ -5531,28 +5559,29 @@ MESH_SERVE = dict(
 MESH_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 # 11g, the recurrent kinds over a mesh, as 11f: (a) mamba2-780m at full
 # width, 4 of its 48 layers, bf16, a 4-way ("model",) mesh (12 SSD heads a
-# rank): a 1 x 2048 and a 4 x 256 prefill, each then 8 teacher-forced
+# rank): a 1 x 2048 and a 4 x 256 prefill, each then 4 teacher-forced
 # decode steps; (b) recurrentgemma-2b at full width, 4 layers (a griffin
 # super-block and a rec layer), bf16, (2 data, 2 model) (5 of the 10 q
 # heads a rank, the KV head whole, half the RG-LRU width): a 4 x 512
-# prefill and 4 steps, then 4 requests of 100-300 tokens, 16 new tokens
-# each, through the engine; (c) its float32 twin, 8 new tokens; (d) one
-# NCCL rank for each model at 4 layers in bf16
+# prefill and 4 steps, then 4 requests of 100-300 tokens, 8 new tokens
+# each, through the engine; (c) its float32 twin, 4 new tokens; (d) one
+# NCCL rank for each model at 4 layers in bf16 (the steps and new tokens
+# halved to make room for phase 14)
 RG_ENGINE = dict(max_batch=4, requests=4, min_prompt=100, max_prompt=300,
                  cache_len=512)
 MESH_RECURRENT = dict(
     tag="mesh recurrent", dir=ROOT / "chiprun_out"
     / "mesh_recurrent", ranks=4, timeout_s=600, seed=7,
     parts={"mamba2": dict(arch="mamba2-780m", n_layers=4, dtype="bfloat16",
-                          mesh=((4,), ("model",)), engine=None, steps=8,
+                          mesh=((4,), ("model",)), engine=None, steps=4,
                           inputs=(("b1", 1, 2048), ("b4", 4, 256))),
            "rg": dict(arch="recurrentgemma-2b", n_layers=4, dtype="bfloat16",
                       mesh=((2, 2), ("data", "model")),
-                      engine=dict(RG_ENGINE, new_tokens=16), steps=4,
+                      engine=dict(RG_ENGINE, new_tokens=8), steps=4,
                       inputs=B4, flash_parity=True),
            "rg_twin": dict(arch="recurrentgemma-2b", n_layers=4,
                            dtype="float32", mesh=((2, 2), ("data", "model")),
-                           engine=dict(RG_ENGINE, new_tokens=8), steps=4,
+                           engine=dict(RG_ENGINE, new_tokens=4), steps=4,
                            inputs=B4)},
     one_rank={name: dict(arch=arch, n_layers=4, dtype="bfloat16",
                          engine=dict(RG_ENGINE, new_tokens=8), steps=4,
@@ -5568,8 +5597,9 @@ MESH_RECURRENT = dict(
 # last 1024 positions) and a 4 x 1020 prefill, whose 8 steps wrap the
 # rings; (b) gemma3-1b@rightsized at full width, 8 layers, bf16, (2 data,
 # 2 model) (its KV head whole): 4 requests of 300-700 tokens through the
-# engine (some past the 512 window, each admitted unpadded), 8 new tokens
-# each, and a 4 x 512 prefill with 4 steps; (c) its float32 twin; (d)
+# engine (some past the 512 window, each admitted unpadded), 4 new tokens
+# each (8 until phase 14 came), and a 4 x 512 prefill with 4 steps; (c)
+# its float32 twin; (d)
 # whisper-tiny whole (4 encoder and 4 decoder layers), bf16, (2, 2) (3 of
 # its 6 heads a rank): a 4 x 128 prefill over 4 x 1500 frames and 8
 # steps, (e) its float32 twin; (f) llama-3.2-vision-90b at full width, 5
@@ -5578,7 +5608,7 @@ MESH_RECURRENT = dict(
 # vision tokens and 8 steps, its gates drawn as 11d's; (g) one NCCL rank
 # for gemma3-1b@rightsized at 8 layers and whisper-tiny, in bf16
 RS_MESH_ENGINE = dict(max_batch=4, requests=4, min_prompt=300,
-                      max_prompt=700, cache_len=1024, new_tokens=8)
+                      max_prompt=700, cache_len=1024, new_tokens=4)
 MESH_RINGS_CROSS = dict(
     tag="mesh rings cross", dir=ROOT / "chiprun_out" / "mesh_rings_cross",
     ranks=4, timeout_s=600, seed=7,
@@ -6077,6 +6107,15 @@ def phase_mesh_serving(card: str, phase: str = "11f") -> dict:
     return record
 
 
+def _rank_heads(cfg, m: int) -> "tuple[int, int]":
+    """(a rank's q heads on a ``model`` axis of ``m``: whole where they do
+    not divide, the KV heads they read)."""
+    hq = cfg.n_heads // m if cfg.n_heads % m == 0 else cfg.n_heads
+    group = cfg.n_heads // cfg.n_kv_heads
+    return hq, (cfg.n_kv_heads if hq == cfg.n_heads
+                else (hq - 1) // group + 1)
+
+
 def _kind_counts(pairs) -> dict:
     """The count of each (causal, window) of ``pairs`` ((causal, window
     or None), n), keyed "causal/window"."""
@@ -6163,9 +6202,7 @@ def _mesh_check_part(name: str, part: dict, plain: dict, ranks: list,
         # over model) and the KV heads they read; a causal call over the
         # prompt, whisper's encoder's non-causal over its frames
         n_data = sizes.get("data", 1)
-        hq = cfg.n_heads // m if cfg.n_heads % m == 0 else cfg.n_heads
-        group = cfg.n_heads // cfg.n_kv_heads
-        kv = cfg.n_kv_heads if hq == cfg.n_heads else (hq - 1) // group + 1
+        hq, kv = _rank_heads(cfg, m)
         rows_b = b // n_data if b % n_data == 0 else b
         kinds = _flash_kinds(dataclasses.replace(cfg, n_layers=layers))
         for r, row in enumerate(rows):
@@ -6977,6 +7014,478 @@ def phase_train() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 14. train over a mesh
+# ---------------------------------------------------------------------------
+
+MESH_TRAIN_DIR = ROOT / "chiprun_out" / "mesh_train"
+# 14: LM training over a mesh in the reference's train_4k layout (the
+# parameters, gradients and AdamW moments each leaf's block under
+# rules.param_spec, the batch's rows over data), 4 gloo ranks on the one
+# card: (a) TinyLlama-1.1B whole in bf16 with remat on (2 data, 2 model),
+# 2 x 2048 tokens (one row a data rank: q (1, 2048, 16, 64) and K, V (1,
+# 2048, 2, 64) a rank), TRAIN's schedule, 3 AdamW steps; (b) its float32
+# twin at 4 layers (tf32x3 forward and backward); (c) arctic-480b at full
+# width (d_model 7168, expert d_ff 4864, top-2, its dense residual MLP), 1
+# layer, 8 of its 128 experts (16 do not fit: four ranks' float32
+# parameters, gradients and moments and the decode branch's gathered
+# experts and their cotangents), float32, one AdamW step on the decode
+# branch ((2, 2) at 2 x 2048) and on the expert branch (model 4). Each
+# part's no-mesh run from the same weights and batches comes first, in
+# this process; the ranks hold step 0's gradient blocks and every step's
+# CE to it
+MT_CUTS = {"arctic": dict(n_layers=1, n_experts=8)}
+MESH_TRAIN = dict(
+    ranks=4, timeout_s=900, seed=0, batch=2, seq=2048,
+    parts={"tiny": dict(arch="tinyllama-1.1b", cuts={}, dtype="bfloat16",
+                        mesh=((2, 2), ("data", "model")), steps=3,
+                        yardstick=True),
+           "twin": dict(arch="tinyllama-1.1b", cuts=dict(n_layers=4),
+                        dtype="float32", mesh=((2, 2), ("data", "model")),
+                        steps=3),
+           "arctic_decode": dict(arch="arctic-480b", cuts=MT_CUTS["arctic"],
+                                 dtype="float32",
+                                 mesh=((2, 2), ("data", "model")), steps=1,
+                                 weights="arctic"),
+           "arctic_expert": dict(arch="arctic-480b", cuts=MT_CUTS["arctic"],
+                                 dtype="float32", mesh=((4,), ("model",)),
+                                 steps=1, weights="arctic")},
+    # step 0's gradient blocks against the no-mesh run's: bf16 each leaf's
+    # relative norm error (phase 13's); float32 each leaf's largest |error|
+    # over its largest |value|, 1e-5 (arctic: 5i's 1e-4, its experts'
+    # products summed over data in another order)
+    grad_tol={"tiny": ("rel_norm", TRAIN_TOL[torch.bfloat16]["grad"]),
+              "twin": ("max_abs", 1e-5), "arctic_decode": ("max_abs", 1e-4),
+              "arctic_expert": ("max_abs", 1e-4)},
+    ce_tol={"bfloat16": TRAIN_TOL[torch.bfloat16]["ce"], "float32": 1e-5})
+
+
+def _mt_model(part: dict):
+    """(cfg, model) of a phase 14 part: its arch in its dtype, cut."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import LM
+
+    dtype = MESH_DTYPES[part["dtype"]]
+    cfg = dataclasses.replace(get_config(part["arch"]), dtype=dtype,
+                              param_dtype=dtype, **part["cuts"])
+    return cfg, LM(cfg)
+
+
+def _mt_lr(step: int, steps: int):
+    from repro_torch.launch.train import WARMUP_STEPS
+    from repro_torch.optim import linear_warmup_cosine
+
+    return linear_warmup_cosine(step, base_lr=TRAIN["lr"],
+                                warmup_steps=WARMUP_STEPS, total_steps=steps)
+
+
+def _mt_steps(model, params, batches, steps: int) -> dict:
+    """step 0's (loss, ce, aux, gradients), then ``steps`` AdamW steps
+    from ``params`` on ``batches`` (under the active mesh, if any): CE and
+    gnorm a step, ms a step, the launches, the collectives' bytes and host
+    seconds a step by kind, and the peak memory of the steps."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import loss_and_grads, train_step
+    from repro_torch.optim import adamw_init
+    from repro_torch.sharding import tensor_parallel as tp
+
+    loss, met, grads = loss_and_grads(model, params, batches[0])
+    step0 = {"loss": float(loss), "ce": float(met["ce"]),
+             "aux": float(met["aux"])}
+    opt = adamw_init(params)
+    state_bytes = _tree_bytes({"m": opt["m"], "v": opt["v"]})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    tp.reset_moved_bytes()
+    ces, gnorms, ms = [], [], []
+    for step in range(steps):
+        t0 = time.perf_counter()
+        params, opt, _, ce, gnorm = train_step(
+            model, params, opt, batches[step], _mt_lr(step, steps))
+        ces.append(float(ce))  # waits for the step
+        ms.append((time.perf_counter() - t0) * 1e3)
+        gnorms.append(float(gnorm))
+    return {"step0": step0, "grads": grads, "ce": ces, "gnorm": gnorms,
+            "ms": ms, "launches": ops.launch_counts(),
+            "moved_bytes_per_step": {k: v / steps for k, v in
+                                     tp.moved_bytes().items()},
+            "collective_ms_per_step": {k: v * 1e3 / steps for k, v in
+                                       tp.collective_seconds().items()},
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "state_bytes": state_bytes, "params": params}
+
+
+def _mt_reference(name: str, part: dict, tmp: pathlib.Path,
+                  done: dict) -> dict:
+    """A part's run without a mesh in this process (once for the parts
+    that share ``weights``: the same model, weights, batches and steps):
+    its weights drawn from the seed on the card, its batches, step 0's
+    gradients and CEs saved to ``tmp`` for the ranks under the part's
+    ``weights`` name; returns the run's stats. Frees the card."""
+    from repro_torch.core.base import root_key
+    from repro_torch.data import FastLMStream
+    from repro_torch.launch.input_specs import param_shapes
+    from repro_torch.tree import tree_map
+
+    key = part.get("weights", name)
+    if key in done:
+        return done[key]
+    dev = _card()
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 in float32
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, model = _mt_model(part)
+    params = model.init(root_key(MESH_TRAIN["seed"], device=dev))
+    batches = list(FastLMStream(cfg.vocab, MESH_TRAIN["seq"],
+                                MESH_TRAIN["batch"], seed=MESH_TRAIN["seed"],
+                                device=dev).batches(part["steps"]))
+    torch.save(tree_map(lambda a: a.cpu(), params), tmp / f"{key}.pt")
+    torch.save([{k: v.cpu() for k, v in b.items()} for b in batches],
+               tmp / f"{key}_batches.pt")
+    run = _mt_steps(model, params, batches, part["steps"])
+    torch.save(tree_map(lambda a: a.cpu(), run.pop("grads")),
+               tmp / f"{key}_grads.pt")
+    del run["params"]
+    torch.cuda.empty_cache()
+    if part.get("yardstick"):
+        # step 0's gradient of the same weights in float32
+        from repro_torch.launch.train import loss_and_grads
+        from repro_torch.models.lm import LM
+
+        f32 = dataclasses.replace(cfg, dtype=torch.float32,
+                                  param_dtype=torch.float32)
+        params = tree_map(lambda a: a.float(), params)
+        grads = loss_and_grads(LM(f32), params, batches[0])[2]
+        torch.save(tree_map(lambda a: a.cpu(), grads),
+                   tmp / f"{key}_grads_f32.pt")
+        del grads
+    del params, batches, model
+    torch.cuda.empty_cache()
+    torch.save({"ce": run["ce"], "step0": run["step0"]},
+               tmp / f"{key}_plain.pt")
+    run["param_bytes"] = _tree_bytes(param_shapes(cfg))
+    done[key] = run
+    log(f"[mesh train] ({key}) no mesh: {cfg.arch_id} {cfg.n_layers} layers "
+        f"{part['dtype']}, CE " + " ".join(f"{c:.5f}" for c in run["ce"])
+        + f", " + " / ".join(f"{x:.1f}" for x in run["ms"]) + " ms a step, "
+        f"peak {run['peak_bytes'] / 2**30:.2f} GiB")
+    return run
+
+
+def _mt_flash_parity(cfg, lay) -> dict:
+    """The flash forward and backward at the rank's training call (its
+    rows, q heads and the KV heads they read; the part's dtype) against
+    their plain versions on random inputs; not counted in the runs."""
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import ops, ref
+
+    dev = _card()
+    m = lay.size("model")
+    b = MESH_TRAIN["batch"] // lay.size("data")
+    t, d = MESH_TRAIN["seq"], cfg.head_dim
+    h, hkv = _rank_heads(cfg, m)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = _flash_inputs(gen, b, t, t, h, hkv, d, cfg.dtype, dev)
+    do = torch.randn(b, t, h, d, generator=gen, device=dev).to(cfg.dtype)
+    fwd = _max_err(ops.flash_attention(q, k, v).float(),
+                   ops.flash_attention(q, k, v, impl="ref").float())
+    out, lse = kflash._forward(q, k, v, causal=True, window=None, q_offset=0,
+                               block_k=1024, with_lse=True)
+    got = kflash.flash_attention_bwd_cuda(q, k, v, out, do, lse, causal=True,
+                                          window=None)
+    want = ref.mha_blocked_grad(q, k, v, do, causal=True, window=None)
+    bwd = {g: _rel_err(x, w) for g, x, w in zip(("dq", "dk", "dv"), got, want)}
+    route = FLASH_ROUTE[cfg.dtype]
+    check(fwd <= FLASH_TOL[cfg.dtype],
+          f"mesh train: the {route} forward at q {list(q.shape)} k "
+          f"{list(k.shape)} differs from its plain version by {fwd:.3e}")
+    check(max(bwd.values()) <= FLASH_BWD_TOL[cfg.dtype],
+          f"mesh train: the {kflash.flash_bwd_route(cfg.dtype, d)} backward "
+          f"at q {list(q.shape)} k {list(k.shape)} differs from its plain "
+          f"version by {bwd}")
+    return {"q": list(q.shape), "k": list(k.shape), "route": route,
+            "bwd_route": kflash.flash_bwd_route(cfg.dtype, d),
+            "splits": _bwd_splits(kflash.flash_bwd_route(cfg.dtype, d), b, t,
+                                  h, hkv, d),
+            "forward_max_abs_err": fwd, "backward_rel_err": bwd}
+
+
+def _mt_err(g: torch.Tensor, w: torch.Tensor, kind: str) -> float:
+    """The relative norm error of ``g`` against ``w``, or the largest
+    |error| over the largest |w|."""
+    g, w = g.float(), w.to(g.device).float()
+    if kind == "rel_norm":
+        return float(torch.linalg.vector_norm(g - w)
+                     / torch.linalg.vector_norm(w).clamp_min(1e-30))
+    return float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+
+
+def _mt_grad_errs(got, want, kind: str, yard=None) -> dict:
+    """Each leaf's error (``_mt_err``) of the rank's gradient block against
+    its block of the no-mesh gradient ``want``: the worst, and the three
+    worst leaves by path; with a float32 yardstick ``yard`` (the same
+    weights' gradient in float32) each of those leaves' relative norm
+    errors of the mesh run and of the no-mesh run against it."""
+    pairs = [(path, _mt_err(g, w, kind)) for (path, g), (_, w) in
+             zip(_tree_paths(got), _tree_paths(want))]
+    worst = sorted(pairs, key=lambda pe: -pe[1])[:3]
+    rows = []
+    for path, err in worst:
+        row = {"leaf": path, "err": err}
+        if yard is not None:
+            at = {p: (g, w, y) for (p, g), (_, w), (_, y) in zip(
+                _tree_paths(got), _tree_paths(want), _tree_paths(yard))}
+            g, w, y = at[path]
+            row["mesh_vs_f32"] = _mt_err(g, y, "rel_norm")
+            row["no_mesh_vs_f32"] = _mt_err(w, y, "rel_norm")
+        rows.append(row)
+    return {"max": worst[0][1], "worst": rows, "leaves": len(pairs),
+            "finite": all(bool(torch.isfinite(g).all())
+                          for _, g in _tree_paths(got))}
+
+
+def mesh_train_child(job_path: str, rank: int) -> int:
+    """One rank of phase 14: each part's weights (the parent's, from
+    ``tmp``) cut to the rank's training shard, step 0's gradient blocks
+    against the no-mesh run's, then the part's AdamW steps under its mesh,
+    gloo over CUDA tensors; writes its stats. Loads the flash kernels the
+    parent built."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch.input_specs import param_shapes
+    from repro_torch.launch.mesh import make_mesh, process_group
+    from repro_torch.sharding import rules
+    from repro_torch.sharding import tensor_parallel as tp
+    from repro_torch.sharding.ctx import use_mesh
+    from repro_torch.tree import leaves, tree_map
+
+    job = json.loads(pathlib.Path(job_path).read_text())
+    for stem in ("flash_attention_sm90", "flash_attention",
+                 "flash_attention_bwd_sm90", "flash_attention_bwd"):
+        check(_build._target(_build.CSRC / f"{stem}.cu").exists(),
+              f"mesh train child: {stem}.cu is not built (the parent "
+              f"builds it)")
+    dev = _card()
+    torch.cuda.set_device(dev)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // job["ranks"]))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tmp = pathlib.Path(job["tmp"])
+    out, meshes = {}, {}
+    progress = open(pathlib.Path(job["out"]) / f"rank{rank}.log", "w")
+    t_child = time.perf_counter()
+
+    def note(what):
+        progress.write(f"{time.perf_counter() - t_child:8.1f} s  {what}\n")
+        progress.flush()
+    with process_group(rank, job["ranks"], job["store"], backend="gloo",
+                       timeout_s=job["timeout_s"]):
+        for name, part in MESH_TRAIN["parts"].items():
+            shape, axes = part["mesh"]
+            if (shape, axes) not in meshes:
+                meshes[shape, axes] = make_mesh(shape, axes, "cuda")
+            mesh = meshes[shape, axes]
+            cfg, model = _mt_model(part)
+            key = part.get("weights", name)
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            whole = torch.load(tmp / f"{key}.pt", mmap=True)
+            local = tree_map(lambda a: a.to(dev),
+                             rules.training_shard(mesh, whole))
+            want = rules.training_shard(mesh, torch.load(
+                tmp / f"{key}_grads.pt", mmap=True))
+            del whole
+            batches = [{k: v.to(dev) for k, v in b.items()}
+                       for b in torch.load(tmp / f"{key}_batches.pt")]
+            layout = rules.shard_tree(mesh, param_shapes(cfg),
+                                      rules.param_spec)
+            rec = {"param_bytes": _tree_bytes(local),
+                   "layout_param_bytes": _tree_bytes(layout),
+                   # m and v in float32
+                   "layout_state_bytes": 2 * 4 * sum(
+                       a.numel() for a in leaves(layout)),
+                   "load_s": time.perf_counter() - t0}
+            note(f"{name}: loaded in {rec['load_s']:.1f} s")
+            torch.distributed.barrier()
+            with use_mesh(mesh):
+                run = _mt_steps(model, local, batches, part["steps"])
+            note(f"{name}: steps " + " / ".join(f"{x:.0f}" for x in run["ms"])
+                 + " ms")
+            kind, _ = MESH_TRAIN["grad_tol"][name]
+            yard = (rules.training_shard(mesh, torch.load(
+                tmp / f"{key}_grads_f32.pt", mmap=True))
+                if part.get("yardstick") else None)
+            rec["grad_errs"] = _mt_grad_errs(run.pop("grads"), want, kind,
+                                             yard)
+            del want, yard, run["params"], local
+            rec.update(run)
+            lay = tp.layout(mesh)
+            rec["coord"] = lay.coord
+            plain = torch.load(tmp / f"{key}_plain.pt")
+            rec["plain_ce"] = plain["ce"]
+            rec["plain_step0"] = plain["step0"]
+            if rank == 0:
+                rec["flash_parity"] = _mt_flash_parity(cfg, lay)
+            out[name] = rec
+            torch.cuda.empty_cache()
+            torch.distributed.barrier()
+    (pathlib.Path(job["out"]) / f"rank{rank}.json").write_text(
+        json.dumps(out, default=str))
+    return 0
+
+
+def phase_mesh_train(card: str) -> dict:
+    """14: the dense and moe kinds trained over a mesh (``LM.loss``,
+    ``launch/train.py``'s ``train_step`` and ``adamw_update`` under
+    ``sharding.ctx.use_mesh``), ``MESH_TRAIN``'s parts on 4 gloo ranks of
+    the one card against the same weights and batches without a mesh in
+    this process."""
+    import tempfile
+
+    from repro_torch.launch.mesh import spawn
+
+    out_dir = MESH_TRAIN_DIR
+    t_phase = time.perf_counter()
+    if out_dir.exists():
+        shutil.rmtree(out_dir)
+    out_dir.mkdir(parents=True)
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="mesh_train_"))
+    try:
+        done: dict = {}
+        plain = {name: _mt_reference(name, part, tmp, done)
+                 for name, part in MESH_TRAIN["parts"].items()}
+        ranks = MESH_TRAIN["ranks"]
+        job = {"ranks": ranks, "store": str(out_dir / "store"),
+               "out": str(out_dir), "tmp": str(tmp),
+               "timeout_s": MESH_TRAIN["timeout_s"]}
+        (out_dir / "job.json").write_text(json.dumps(job))
+        t0 = time.perf_counter()
+        spawn(lambda r: [sys.executable, str(ROOT / "chip_smoke.py"),
+                         "--mesh-train-child", str(out_dir / "job.json"),
+                         str(r)], ranks, timeout_s=MESH_TRAIN["timeout_s"])
+        spawn_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    got = [json.loads((out_dir / f"rank{r}.json").read_text())
+           for r in range(ranks)]
+    record = {"card": card, "ranks": ranks}
+    for name, part in MESH_TRAIN["parts"].items():
+        record[name] = _mt_check_part(name, part, plain[name],
+                                      [g[name] for g in got], card)
+    record["spawn_s"] = spawn_s
+    record["seconds"] = time.perf_counter() - t_phase
+    log(f"[mesh train] phase 14 on {card} took {record['seconds']:.1f} s "
+        f"(the ranks {spawn_s:.1f} s from spawn to join)")
+    return record
+
+
+def _mt_check_part(name: str, part: dict, plain: dict, ranks: list,
+                   card: str) -> dict:
+    """Check one part's ranks: parameter and moment bytes as the layout's,
+    every step's CE equal across ranks and within tolerance of the no-mesh
+    run's, step 0's gradient blocks within tolerance, the flash launches a
+    step a rank on the part's routes (forward twice a layer with remat,
+    the backward once), the flash kernels held against their plain
+    versions at the rank's call; log times, bytes and memory."""
+    cfg, _ = _mt_model(part)
+    layers = cfg.n_layers
+    sizes = dict(zip(part["mesh"][1], part["mesh"][0]))
+    label = f"mesh train ({name})"
+    steps = part["steps"]
+    for r, rec in enumerate(ranks):
+        check(rec["param_bytes"] == rec["layout_param_bytes"],
+              f"{label}: rank {r} holds {rec['param_bytes']} parameter bytes, "
+              f"its training shard {rec['layout_param_bytes']}")
+        check(rec["state_bytes"] == rec["layout_state_bytes"],
+              f"{label}: rank {r} holds {rec['state_bytes']} moment bytes, "
+              f"the layout's {rec['layout_state_bytes']}")
+    ces = [rec["ce"] for rec in ranks]
+    check(all(c == ces[0] for c in ces),
+          f"{label}: the ranks' CEs differ: {ces}")
+    check(all(math.isfinite(c) for c in ces[0]),
+          f"{label}: a CE is not finite: {ces[0]}")
+    ce_tol = MESH_TRAIN["ce_tol"][part["dtype"]]
+    ce_err = max(abs(a - b) / abs(b) for a, b in zip(ces[0], plain["ce"]))
+    check(ce_err <= ce_tol,
+          f"{label}: CE {ces[0]} differs from the no-mesh run's "
+          f"{plain['ce']} by {ce_err:.3e} > {ce_tol} (relative)")
+    kind, tol = MESH_TRAIN["grad_tol"][name]
+    grad_err = max(rec["grad_errs"]["max"] for rec in ranks)
+    worst = max((row for rec in ranks for row in rec["grad_errs"]["worst"]),
+                key=lambda row: row["err"])
+    check(all(rec["grad_errs"]["finite"] for rec in ranks),
+          f"{label}: a gradient is not finite")
+    check(grad_err <= tol,
+          f"{label}: step 0's gradient blocks differ from the no-mesh "
+          f"run's by {grad_err:.3e} > {tol} ({kind}, worst leaf)")
+    flash = ranks[0]["flash_parity"]
+    route, bwd = flash["route"], flash["bwd_route"]
+    attn_layers = layers
+    want = {**NO_LM, "flash_attention": 2 * attn_layers * steps,
+            f"flash_attention_{route}": 2 * attn_layers * steps,
+            "flash_attention_bwd": attn_layers * steps,
+            f"flash_attention_bwd_{bwd}": attn_layers * steps,
+            f"flash_attention_bwd_{bwd}_sum":
+                attn_layers * steps * (flash["splits"] > 1),
+            **{f"flash_attention_bwd_{k}": attn_layers * steps
+               for k in BWD_ROUTE_KERNELS[bwd]}}
+    for r, rec in enumerate(ranks):
+        got = {k: rec["launches"][k] for k in NO_LM}
+        check(got == want, f"{label}: rank {r} launches {got} != {want} (with "
+              f"remat the forward twice a layer a step, the {bwd} backward "
+              f"once, on the rank's heads)")
+    launches = {k: v // steps for k, v in want.items() if v}
+    ms = [rec["ms"] for rec in ranks]
+    moved = ranks[0]["moved_bytes_per_step"]
+    coll = [rec["collective_ms_per_step"] for rec in ranks]
+    out = {"arch": part["arch"], "n_layers": layers, "dtype": part["dtype"],
+           "cuts": part["cuts"], "mesh": sizes, "steps": steps,
+           "ce": ces[0], "plain_ce": plain["ce"], "ce_rel_err": ce_err,
+           "gnorm": ranks[0]["gnorm"], "plain_gnorm": plain["gnorm"],
+           "step0": ranks[0]["step0"], "plain_step0": ranks[0]["plain_step0"],
+           "grad_err": grad_err, "grad_err_kind": kind, "grad_tol": tol,
+           "grad_worst_by_rank": [r["grad_errs"]["worst"] for r in ranks],
+           "ms_per_step_by_rank": ms, "plain_ms_per_step": plain["ms"],
+           "launches_per_step_per_rank": launches,
+           "moved_bytes_per_step": moved,
+           "collective_ms_per_step_by_rank": coll,
+           "param_bytes_per_rank": [r["param_bytes"] for r in ranks],
+           "state_bytes_per_rank": [r["state_bytes"] for r in ranks],
+           "plain_param_bytes": plain["param_bytes"],
+           "peak_bytes_per_rank": [r["peak_bytes"] for r in ranks],
+           "plain_peak_bytes": plain["peak_bytes"],
+           "flash_parity": flash}
+    log(f"[mesh train] ({name}) {part['arch']} {layers} layers {part['dtype']}"
+        f" {part['cuts'] or ''} on {sizes}, {MESH_TRAIN['batch']} x "
+        f"{MESH_TRAIN['seq']} tokens: CE " + " ".join(
+            f"{c:.5f}" for c in ces[0]) + " on every rank (no mesh "
+        + " ".join(f"{c:.5f}" for c in plain["ce"]) + f"; worst relative "
+        f"{ce_err:.2e}, tol {ce_tol}); step 0's gradient blocks {kind} "
+        f"{grad_err:.2e} (tol {tol}; worst leaf {worst['leaf']}"
+        + (f", its relative norm error against the float32 gradient "
+           f"{worst['mesh_vs_f32']:.2e} with the mesh, "
+           f"{worst['no_mesh_vs_f32']:.2e} without" if "mesh_vs_f32" in worst
+           else "") + "); gnorm " + " ".join(
+            f"{g:.4f}" for g in ranks[0]["gnorm"]))
+    log(f"[mesh train]   ms a step by rank " + "; ".join(
+        " / ".join(f"{x:.0f}" for x in m) for m in ms) + " (no mesh "
+        + " / ".join(f"{x:.1f}" for x in plain["ms"]) + "); a step a rank "
+        + ", ".join(f"{k} {v / 1e6:.1f} MB" for k, v in moved.items() if v)
+        + " through the collectives, host ms in them (rank 0) "
+        + ", ".join(f"{k} {v:.0f}" for k, v in coll[0].items() if v))
+    log(f"[mesh train]   parameter bytes a rank " + " / ".join(
+        f"{r['param_bytes'] / 1e9:.3f}" for r in ranks) + " GB and moments "
+        + " / ".join(f"{r['state_bytes'] / 1e9:.3f}" for r in ranks)
+        + f" GB (the layout's; whole {plain['param_bytes'] / 1e9:.3f} GB); "
+        f"peak " + " / ".join(f"{r['peak_bytes'] / 2**30:.2f}" for r in ranks)
+        + f" GiB a rank (no mesh {plain['peak_bytes'] / 2**30:.2f}); flash a "
+        f"step a rank {launches}; {route} forward at q {flash['q']} k "
+        f"{flash['k']} within {flash['forward_max_abs_err']:.2e} of its plain "
+        f"version, the {bwd} backward {max(flash['backward_rel_err'].values()):.2e}"
+        f"; 4 ranks share one card and gloo stages through the host, so these "
+        f"times say nothing of 4 cards; on {card}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     card = phase_device()
@@ -7011,6 +7520,7 @@ def main() -> int:
     record["mesh_rings_cross"] = phase_mesh_serving(card, "11h")
     record["flash_times"] = phase_flash_times()
     record["train"] = phase_train()
+    record["mesh_train"] = phase_mesh_train(card)
     # launches: the SRHT kernels from the full-size comm=None run (fwht is
     # the butterfly they share and is never launched on its own there),
     # the codec kernels from the two full-size transport runs, the
@@ -7113,6 +7623,15 @@ def main() -> int:
                 if FLASH_ROUTE[MESH_DTYPES[spec["dtype"]]]
                 == name.rsplit("_", 1)[1]
                 for k, _, _ in spec["inputs"]}
+        if name.startswith("flash_attention"):
+            # phase 14: launches a training step a rank over a mesh, by
+            # part (the forward kernels twice a layer with remat, each
+            # backward route once)
+            entry["mesh_train_launches_per_step_per_rank"] = {
+                f"14 {spec['arch']} {p}":
+                    record["mesh_train"][p]["launches_per_step_per_rank"]
+                    .get(name, 0)
+                for p, spec in MESH_TRAIN["parts"].items()}
         if name in routes:
             entry["routes"] = [
                 {"kernel": r["route"], "shape": r["shape"], "dims": r["dims"],
@@ -7139,4 +7658,6 @@ if __name__ == "__main__":
         sys.exit(client_mesh_child(sys.argv[2], int(sys.argv[3])))
     if sys.argv[1:2] == ["--mesh-serving-child"]:
         sys.exit(mesh_serving_child(sys.argv[2], int(sys.argv[3])))
+    if sys.argv[1:2] == ["--mesh-train-child"]:
+        sys.exit(mesh_train_child(sys.argv[2], int(sys.argv[3])))
     sys.exit(main())

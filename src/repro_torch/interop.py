@@ -189,6 +189,23 @@ def lm_shard_from_numpy(params, cfg, mesh,
     return tree_map(lambda a: a.to(dev), shard)
 
 
+def lm_train_shard_from_numpy(params, cfg, mesh,
+                              device: "str | torch.device" = "cuda",
+                              rank: "int | None" = None) -> dict:
+    """The rank's shard of ``repro``'s LM parameters for training over
+    ``mesh``: ``lm_params_from_numpy`` (on the host), then each leaf's
+    block under ``rules.param_spec`` (``rules.training_shard``: the FSDP
+    dims over ``data``, the heads, MLP width, experts and vocab over
+    ``model``) on ``device``; ``rank`` defaults to this process's on a
+    ``DeviceMesh``."""
+    from repro_torch.sharding import rules
+
+    dev = resolve_device(device)
+    shard = rules.training_shard(mesh, lm_params_from_numpy(params, cfg,
+                                                            device="cpu"), rank)
+    return tree_map(lambda a: a.to(dev), shard)
+
+
 def _tensor_keep_dtype(a, dev: torch.device) -> torch.Tensor:
     """A tensor on ``dev`` with the array's dtype, bfloat16 included."""
     arr = np.asarray(a)
@@ -212,3 +229,18 @@ def adamw_state_from_numpy(state, device: "str | torch.device" = "cuda") -> dict
     return {"m": tree(dict(state["m"])), "v": tree(dict(state["v"])),
             "step": torch.tensor(int(np.asarray(state["step"])),
                                  dtype=torch.int32, device=dev)}
+
+
+def adamw_shard_from_numpy(state, mesh, device: "str | torch.device" = "cuda",
+                           rank: "int | None" = None) -> dict:
+    """The rank's shard of ``repro``'s AdamW state for training over
+    ``mesh``: ``adamw_state_from_numpy``'s moments cut as the parameters
+    are (``rules.training_shard``: the reference's ``train_4k`` layout
+    keeps ``m`` and ``v`` in the parameters' sharding), ``step`` whole."""
+    from repro_torch.sharding import rules
+
+    dev = resolve_device(device)
+    whole = adamw_state_from_numpy(state, device="cpu")
+    return {name: tree_map(lambda a: a.to(dev),
+                           rules.training_shard(mesh, whole[name], rank))
+            for name in ("m", "v")} | {"step": whole["step"].to(dev)}

@@ -36,7 +36,8 @@ WARMUP_STEPS = 20
 def loss_and_grads(model: LM, params: dict, batch: dict):
     """(loss, metrics, grads): ``model.loss`` at ``params`` and its
     gradient with respect to every leaf, a tree like ``params`` (the
-    reference's ``jax.value_and_grad(..., has_aux=True)``)."""
+    reference's ``jax.value_and_grad(..., has_aux=True)``); under a mesh
+    each rank's block of the global loss's gradient."""
     flat = [p.detach().requires_grad_(True) for p in leaves(params)]
     loss, metrics = model.loss(unflatten(params, flat), batch)
     grads = torch.autograd.grad(loss, flat, allow_unused=True)
@@ -47,9 +48,13 @@ def loss_and_grads(model: LM, params: dict, batch: dict):
 
 
 def train_step(model: LM, params: dict, opt_state: dict, batch: dict, lr):
-    """One AdamW step on ``batch``: (params, opt_state, loss, ce, gnorm)."""
+    """One AdamW step on ``batch``: (params, opt_state, loss, ce, gnorm).
+    Under a mesh ``params`` and ``opt_state``'s moments are the rank's
+    training shards (``rules.training_shard``) and ``batch`` the global
+    batch; loss, ce and gnorm are the same on every rank."""
     loss, metrics, grads = loss_and_grads(model, params, batch)
-    params, opt_state, gnorm = adamw_update(params, grads, opt_state, lr=lr)
+    params, opt_state, gnorm = adamw_update(params, grads, opt_state, lr=lr,
+                                            specs=model.param_specs())
     return params, opt_state, loss, metrics["ce"], gnorm
 
 

@@ -30,7 +30,10 @@ probability-weighted V summed over the cache's sequence shards
 (``SeqShard``, whose ``slots`` is the cache's own length: a right-sized
 ring's ``min(window, cache_len)``), a sliding window's mask read from
 each slot's global position; cross attention runs the rank's q heads
-over the memory's K and V, which every rank holds whole.
+over the memory's K and V, which every rank holds whole. In training
+(``attn_full``) the rank's heads run through the flash kernels' forward
+and backward, the input's cotangent summed over ``model`` and ``wo``'s
+partial outputs summed forward; no K and V are gathered.
 """
 from __future__ import annotations
 
@@ -102,7 +105,12 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def _qkv(params: dict, x: torch.Tensor, cfg: ModelConfig,
          q_heads: slice = slice(None), kv_heads: slice = slice(None)):
     """q, k, v of the projections' heads; the (whole) biases' rows
-    ``q_heads`` and ``kv_heads`` are those heads'."""
+    ``q_heads`` and ``kv_heads`` are those heads'. On a mesh x is read by
+    every rank of ``model``, each projecting its own heads: its cotangent
+    is summed over ``model`` (``tensor_parallel.replicated_input``)."""
+    heads = _heads(params, cfg)
+    if heads.lay is not None:
+        x = tp.replicated_input(x, heads.lay.model)
     q = _proj(x, params["wq"])
     k = _proj(x, params["wk"])
     v = _proj(x, params["wv"])
@@ -167,12 +175,13 @@ def _kv_of_q_heads(k: torch.Tensor, heads: Heads, cfg: ModelConfig):
 
 def attn_full_kv(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
                  causal: bool = True, window: "int | None" = None,
-                 theta: "float | None" = None):
+                 theta: "float | None" = None, want_kv: bool = True):
     """``attn_full`` that also returns the rotated K and the V it
     attended over, (B, T, Hkv, Dh) each: prefill caches them. On a mesh
     the kernel runs on the rank's q heads and the KV heads they read,
     and K and V come back with every KV head (all-gathered over
-    ``model`` where ``wk`` holds a block of them)."""
+    ``model`` where ``wk`` holds a block of them; not without
+    ``want_kv``, as in training, where the rank's own are returned)."""
     t = x.shape[1]
     theta = cfg.rope_theta if theta is None else theta
     positions = torch.arange(t, device=x.device)
@@ -190,7 +199,7 @@ def attn_full_kv(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
                              _kv_of_q_heads(v, heads, cfg).contiguous(),
                              causal=causal, window=window)
     out = tp.sum_over(_out(params, o, x.dtype), heads.lay.model)
-    if heads.hk < cfg.n_kv_heads:
+    if want_kv and heads.hk < cfg.n_kv_heads:
         k, v = tp.gather_fused([k, v], heads.lay.model, [2, 2])
     return out, k, v
 
@@ -198,9 +207,9 @@ def attn_full_kv(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
 def attn_full(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
               causal: bool = True, window: "int | None" = None,
               theta: "float | None" = None) -> torch.Tensor:
-    """Full-sequence self-attention (prefill). x (B, T, D)."""
+    """Full-sequence self-attention (prefill, training). x (B, T, D)."""
     return attn_full_kv(params, x, cfg, causal=causal, window=window,
-                        theta=theta)[0]
+                        theta=theta, want_kv=False)[0]
 
 
 # ---------------------------------------------------------------------------

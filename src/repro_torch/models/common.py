@@ -227,15 +227,15 @@ def mlp_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     On a mesh, weights narrower than the MLP's width ``d_ff`` (default
     ``cfg.d_ff``) are this rank's ``model`` block of it: ``w_gate`` and
     ``w_up`` column-parallel, ``w_down`` row-parallel, its partial output
-    summed over ``model``."""
+    summed over ``model`` (x's cotangent too, in the backward)."""
+    mesh = get_mesh()
+    model = (tp.layout(mesh).model if mesh is not None
+             and params["w_gate"].shape[-1] != (d_ff or cfg.d_ff) else None)
+    x = tp.replicated_input(x, model)
     gate = x @ params["w_gate"]
     up = x @ params["w_up"]
     act = F.silu(gate) if cfg.act == "silu" else F.gelu(gate, approximate="tanh")
-    out = (act * up) @ params["w_down"]
-    mesh = get_mesh()
-    if mesh is not None and params["w_gate"].shape[-1] != (d_ff or cfg.d_ff):
-        out = tp.sum_over(out, tp.layout(mesh).model)
-    return out
+    return tp.sum_over((act * up) @ params["w_down"], model)
 
 
 def embed(params: dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -267,11 +267,12 @@ def unembed(table: torch.Tensor, x: torch.Tensor, *,
     """Logits x @ table.T for a (vocab, d_model) table. On a mesh, a
     table of fewer than ``vocab`` rows is this rank's ``model`` block of
     the vocab, and the blocks' logits are all-gathered over ``model``."""
-    logits = x @ table.T.to(x.dtype)
     mesh = get_mesh()
-    if mesh is not None and vocab is not None and table.shape[0] != vocab:
-        logits = tp.gather(logits, tp.layout(mesh).model, -1)
-    return logits
+    if mesh is None or vocab is None or table.shape[0] == vocab:
+        return x @ table.T.to(x.dtype)
+    model = tp.layout(mesh).model
+    logits = tp.replicated_input(x, model) @ table.T.to(x.dtype)
+    return tp.gather(logits, model, -1)
 
 
 # ---------------------------------------------------------------------------
@@ -334,4 +335,63 @@ def chunked_cross_entropy(features: torch.Tensor, emb_table: torch.Tensor,
         gold = torch.gather(logits, -1, lab[..., None].long())[..., 0]
         tot = tot + torch.sum((logz - gold) * mk)
         cnt = cnt + torch.sum(mk)
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def mesh_cross_entropy(feats: torch.Tensor, table: torch.Tensor,
+                       labels: torch.Tensor, mask=None, *, vocab: int,
+                       chunk: int = 0, model=None, model_index: int = 0,
+                       rows=None) -> torch.Tensor:
+    """``lm_cross_entropy`` (``chunk`` 0) or ``chunked_cross_entropy``
+    over a mesh: ``feats``, ``labels`` and ``mask`` are this rank's rows
+    of the batch, split over the group ``rows`` (None: every row is
+    here), and ``table`` the whole (vocab, D) table or this rank's
+    ``model`` block of the vocab (block ``model_index`` of the group
+    ``model``). A vocab block's logits give their max (no gradient) and
+    their sum of exponentials, summed over ``model``, and the gold logit
+    comes from the rank that holds its row (``lm_cross_entropy``'s
+    <feats, table[label]>, or the chunked CE's gathered logit). The CE is
+    the global masked sum over the global count: both summed over
+    ``rows``. Without either split it is the no-mesh function itself."""
+    if rows is None and table.shape[0] == vocab:
+        if chunk:
+            return chunked_cross_entropy(feats, table, labels, chunk, mask)
+        return lm_cross_entropy(feats, table, labels, mask)
+    b, t, _ = feats.shape
+    if chunk and t % chunk:
+        raise ValueError(f"sequence length {t} must be divisible by the "
+                         f"cross-entropy chunk {chunk}")
+    mask = (torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
+            if mask is None else mask.float())
+    n = table.shape[0]
+    split = n != vocab
+    if split:
+        feats = tp.replicated_input(feats, model)
+    tab = table.T.to(feats.dtype)
+    tot = torch.zeros((), dtype=torch.float32, device=feats.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=feats.device)
+    step = chunk or t
+    for c0 in range(0, t, step):
+        f = feats[:, c0:c0 + step]
+        mk = mask[:, c0:c0 + step]
+        local = labels[:, c0:c0 + step].long() - (model_index * n if split
+                                                  else 0)
+        mine = (local >= 0) & (local < n)
+        local = local.clamp(0, n - 1)
+        logits = (f @ tab).float()
+        if chunk:
+            gold = torch.gather(logits, -1, local[..., None])[..., 0]
+        else:
+            gold = torch.einsum("btd,btd->bt", f.float(), table[local].float())
+        if split:
+            top = tp.max_over(logits.amax(dim=-1), model)
+            sums = tp.sum_over(torch.stack([
+                torch.exp(logits - top[..., None]).sum(dim=-1),
+                torch.where(mine, gold, 0.0)]), model)
+            nll = torch.log(sums[0]) + top - sums[1]
+        else:
+            nll = torch.logsumexp(logits, dim=-1) - gold
+        tot = tot + torch.sum(nll * mk)
+        cnt = cnt + torch.sum(mk)
+    tot, cnt = tp.sum_over(torch.stack([tot, cnt]), rows)
     return tot / torch.clamp(cnt, min=1.0)

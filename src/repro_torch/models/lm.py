@@ -52,12 +52,23 @@ RG-LRU's width too (``models.ssd``, ``models.rglru``). Each cache is
 cut by its own length (``_seqs``): a right-sized ring's
 ``min(window, cache_len)`` slots over the sequence's axes apart from
 the global caches' ``cache_len``; the cross K and V are whole over
-``model``. Training and a ``pod`` axis raise under a mesh.
+``model``.
+
+The dense and moe kinds train over a mesh too (``loss``, in the
+reference's ``train_4k`` layout): each rank holds its shard of the
+parameters under ``rules.param_spec`` (``rules.training_shard``; the
+gradients and AdamW's moments in the same layout), runs its rows of the
+global batch, gathers each unit's FSDP weights inside the unit's call
+(under remat, again in its recomputation), and a backward through the
+collectives' transposes (``sharding.tensor_parallel``) gives each leaf
+its block of the global loss's gradient. The other kinds raise under a
+training mesh, and every kind under a mesh with a ``pod`` axis.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -75,6 +86,7 @@ from repro_torch.models.common import (
     embed,
     embedding_init,
     lm_cross_entropy,
+    mesh_cross_entropy,
     mlp_apply,
     mlp_init,
     rmsnorm,
@@ -193,7 +205,9 @@ def _dense_unit_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
 def _dense_unit_train(p: dict, x: torch.Tensor, cfg: ModelConfig, window: int,
                       theta: float) -> torch.Tensor:
     """One unit over a full sequence, its output alone (training)."""
-    return _dense_unit_apply(p, x, cfg, window=window, theta=theta)[0]
+    h = attn.attn_full(p["attn"], rmsnorm(p["ln1"], x), cfg, window=window,
+                       theta=theta)
+    return _mlp_half(p, x, h, cfg)
 
 
 def _dense_unit_decode(p: dict, x: torch.Tensor, cache: dict,
@@ -248,8 +262,9 @@ def _moe_unit_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
 def _moe_unit_train(p: dict, x: torch.Tensor, cfg: ModelConfig, window: int,
                     theta: float):
     """One unit over a full sequence: (x, aux) (training)."""
-    x, _, _, aux = _moe_unit_apply(p, x, cfg, window=window, theta=theta)
-    return x, aux
+    h = attn.attn_full(p["attn"], rmsnorm(p["ln1"], x), cfg, window=window,
+                       theta=theta)
+    return _moe_half(p, x, h, cfg)
 
 
 def _moe_unit_decode(p: dict, x: torch.Tensor, cache: dict,
@@ -624,24 +639,67 @@ _MODEL_BLOCK_LEAVES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
                        "w_in", "w_x", "w_a", "w_i", "w_out", "table",
                        "lm_head")
 _NOT_ON_MESH = "ROADMAP.md queue 1, 'the pod axis over a mesh'"
+_NOT_TRAINED_ON_MESH = ("ROADMAP.md queue 1, 'training over a mesh of the "
+                        "other kinds'")
+TRAINED_ON_MESH = ("dense", "moe")  # the kinds LM.loss takes under a mesh
+_EXPERTS = ("w_gate", "w_up", "w_down")
 
 
 def _meta(*shape) -> torch.Tensor:
     return torch.empty(shape, device="meta")
 
 
+_UNIT = object()  # ``_OnMesh.weights``' layer: the tree is one unit's
+
+
+def _sharded(spec, axis: str) -> bool:
+    """Whether a spec shards some dim over ``axis``."""
+    return any(ax == axis or (isinstance(ax, tuple) and axis in ax)
+               for ax in spec)
+
+
+def _experts_on_decode(lay: tp.Layout, path: tuple, spec: tuple,
+                       shard: torch.Tensor):
+    """The cut from an expert weight gathered whole over ``data`` (its
+    ``rules.param_spec`` shard's FSDP dim) to the rank's block of the
+    decode branch's layout (``moe.moe_param_spec``, the serving one): each
+    dim that layout shards over ``data`` narrowed to the rank's block."""
+    sizes = lay.sizes
+    glob = [n * math.prod(sizes[a] for a in _spec_axes(spec, d))
+            for d, n in enumerate(shard.shape)]
+    want = moe_mod.moe_param_spec(lay.mesh, path, _meta(*glob),
+                                  branch="decode")
+    cuts = [(d, glob[d] // sizes["data"]) for d in range(len(want))
+            if _sharded((want[d],), "data")]
+
+    def narrow(x):
+        for d, n in cuts:
+            x = x.narrow(d, lay.coord["data"] * n, n)
+        return x
+    return narrow
+
+
+def _spec_axes(spec, d: int) -> tuple:
+    axes = spec[d] if d < len(spec) else None
+    if axes is None:
+        return ()
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
 @dataclasses.dataclass(eq=False)
 class _OnMesh:
-    """One call of a model served over a mesh: the rank's
+    """One call of a model over a mesh: the rank's
     ``tensor_parallel.Layout``, the specs of the global parameter tree
-    under ``rules.serving_param_spec`` (None where no weight is read)
-    and the global batch, whose rows [row0, row0 + rows) are the rank's
-    (``rules.batch_spec``: over ``data``, every row where the batch does
-    not divide; ``row_group`` gathers the blocks)."""
+    (under ``rules.serving_param_spec``, or ``rules.param_spec`` for
+    ``train``; None where no weight is read) and the global batch, whose
+    rows [row0, row0 + rows) are the rank's (``rules.batch_spec``: over
+    ``data``, every row where the batch does not divide; ``row_group``
+    gathers the blocks, None where the rows are whole)."""
 
     lay: tp.Layout
     specs: "dict | None"
     batch: int
+    train: bool = False
 
     def __post_init__(self):
         spec = rules.batch_spec(self.lay.mesh, (), _meta(self.batch))
@@ -661,6 +719,14 @@ class _OnMesh:
         return lambda i: self.weights(params[name], self.specs[name],
                                       path=(name,), layer=i, branch=branch)
 
+    def unit_of(self, name: str, branch: "str | None" = None):
+        """A unit of the stacked tree named ``name`` (its leaves already
+        the unit's: ``_units``' views of the rank's shard) -> its weights
+        as ``weights`` gives them (a training step's units gather inside
+        their recomputation)."""
+        return lambda p: self.weights(p, self.specs[name], path=(name,),
+                                      layer=_UNIT, branch=branch)
+
     def leaf(self, params: dict, name: str):
         """The top-level tree ``params[name]`` as ``weights`` gives it."""
         return self.weights(params[name], self.specs[name], path=(name,))
@@ -668,36 +734,82 @@ class _OnMesh:
     def weights(self, tree, specs, *, path: tuple, layer=None,
                 branch: "str | None" = None):
         """The rank's weights of ``tree`` (unit ``layer`` of a stacked
-        group's, or top-level leaves) as a layer reads them: each FSDP
-        dim all-gathered over ``data`` (one collective for all of them,
+        group's, ``_UNIT`` where ``tree`` is the unit's already, or
+        top-level leaves) as a layer reads them: each FSDP dim
+        all-gathered over ``data`` (one collective for all of them,
         ``tensor_parallel.unshard_all``), the ``model`` blocks of
-        ``_MODEL_BLOCK_LEAVES`` kept (an expert's ``data`` block too on
-        the moe decode branch, whose ``moe_apply`` takes it), every
-        other leaf whole. The gathered copies live as long as the
-        layer's call."""
-        items, paths = [], []
+        ``_MODEL_BLOCK_LEAVES`` kept, every other leaf whole. The experts
+        arrive in the layout of ``moe_apply``'s branch
+        (``moe.moe_param_spec``): on the decode branch the serving
+        layout's ``data`` block is kept, and the training layout's
+        FSDP dim is gathered and its F dim cut to the ``data`` block. The
+        gathered copies live as long as the layer's call.
 
-        def walk(node, spec, at):
+        Each leaf's gradient comes back to the rank's shard as the
+        gradient of the global loss: a gather over ``data`` is
+        reduce-scattered where the batch's rows are split over ``data``
+        (each rank read the weight on its own rows); a leaf with no
+        ``data`` dim is summed over ``data`` there; a leaf an attention
+        with split heads reads whole (``wk`` and ``wv`` whose heads do
+        not divide, the biases, the q and k norms: each rank uses the
+        part its heads read) is summed over ``model``. The MoE's leaves
+        are left to ``moe_apply``, which sums its router, experts and
+        shared expert over the axes that read them alike."""
+        items, paths, sums = [], [], {}
+        rows_split = self.row_group is not None
+
+        def walk(node, spec, at, split_heads):
             if isinstance(node, dict):
+                if "wq" in node:
+                    split_heads = _sharded(spec["wq"], "model")
                 for name, sub in node.items():
-                    walk(sub, spec[name], at + (name,))
+                    walk(sub, spec[name], at + (name,), split_heads)
                 return
             if layer is not None:
                 if spec and spec[0] is not None:
                     raise NotImplementedError(
                         f"{'/'.join(at)}: its layer axis is sharded over "
-                        f"{spec[0]}; serving over a mesh takes whole layers")
-                node, spec = node[layer], spec[1:]
+                        f"{spec[0]}; a model over a mesh takes whole layers")
+                node = node if layer is _UNIT else node[layer]
+                spec = spec[1:]
+            in_moe = "moe" in at[len(path):]
+            expert = len(at) >= 2 and at[-2] == "moe" and at[-1] in _EXPERTS
+            # the axes whose gathers sum the gradient: each data rank
+            # read the weight on its own rows (the MoE sums its own)
             keep = ()
+            reduce = ("data",) if rows_split and not in_moe else ()
             if at[-1] in _MODEL_BLOCK_LEAVES:
-                expert = len(at) >= 2 and at[-2] == "moe"
                 keep = (("model", "data") if expert and branch == "decode"
-                        else ("model",))
-            items.append((node, spec, keep))
+                        and not self.train else ("model",))
+            narrow = None
+            if expert and branch == "decode" and self.train:
+                # param_spec's FSDP dim gathered (each data rank's F block
+                # of the gradient summed into its D block), then the
+                # rank's data block of F kept
+                reduce = ("data",)
+                narrow = _experts_on_decode(self.lay, at, spec, node)
+            axes = tuple(
+                a for a, partial in (
+                    ("data", rows_split and not in_moe
+                     and not _sharded(spec, "data")),
+                    ("model", split_heads and not _sharded(spec, "model")))
+                if partial)
+            if axes:
+                sums.setdefault(axes, []).append(len(items))
+            items.append([node, spec, keep, reduce, narrow])
             paths.append(at[len(path):])
-        walk(tree, specs, path)
+        walk(tree, specs, path, False)
+        for axes, idx in sums.items():
+            got = tp.replicated_inputs([items[i][0] for i in idx],
+                                       self.lay.group(axes))
+            for i, x in zip(idx, got):
+                items[i][0] = x
         out: dict = {}
-        for at, x in zip(paths, tp.unshard_all(items, self.lay)):
+        for at, item, x in zip(paths, items,
+                               tp.unshard_all([it[:4] for it in items],
+                                              self.lay)):
+            if item[4] is not None:
+                x = item[4](x)
             if not at:
                 return x
             node = out
@@ -745,7 +857,12 @@ class _OnMesh:
         return branch
 
 
-def _check_shard(params, want, path=()) -> None:
+def _with_weights(fn, weights, p, *args):
+    """``fn`` on the weights ``weights`` makes of the shard ``p``."""
+    return fn(weights(p), *args)
+
+
+def _check_shard(params, want, train: bool, path=()) -> None:
     """Raise unless ``params`` has ``want``'s leaves at their shapes."""
     if isinstance(want, dict):
         if not isinstance(params, dict) or set(params) != set(want):
@@ -753,14 +870,15 @@ def _check_shard(params, want, path=()) -> None:
                              f"{sorted(params) if isinstance(params, dict) else params}"
                              f" != {sorted(want)}")
         for name in want:
-            _check_shard(params[name], want[name], path + (name,))
+            _check_shard(params[name], want[name], train, path + (name,))
         return
     if tuple(params.shape) != tuple(want.shape):
+        rule, shard = (("param_spec", "training_shard") if train
+                       else ("serving_param_spec", "serving_shard"))
         raise ValueError(
             f"{'/'.join(path)}: shape {tuple(params.shape)} is not this "
-            f"rank's shard {tuple(want.shape)} under "
-            f"rules.serving_param_spec (pass rules.serving_shard(mesh, "
-            f"params))")
+            f"rank's shard {tuple(want.shape)} under rules.{rule} (pass "
+            f"rules.{shard}(mesh, params))")
 
 
 class LM:
@@ -770,36 +888,60 @@ class LM:
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
         self.groups = build_groups(cfg)
-        self._mesh_specs: dict = {}  # id(mesh) -> (mesh, specs, shards)
+        self._mesh_specs: dict = {}  # (id(mesh), train) -> (mesh, specs, shards)
 
-    # -- serving over a mesh ---------------------------------------------------
-    def _check_mesh(self, mesh) -> tp.Layout:
-        """This rank's layout on ``mesh``; raise where the model cannot be
-        served over it (a ``pod`` axis)."""
+    # -- a model over a mesh -------------------------------------------------
+    def _check_mesh(self, mesh, train: bool = False) -> tp.Layout:
+        """This rank's layout on ``mesh``; raise where the model cannot run
+        over it (a ``pod`` axis; in training, a kind other than
+        ``TRAINED_ON_MESH``)."""
+        what = "training" if train else "serving"
         if "pod" in axis_sizes(mesh):
             raise NotImplementedError(
-                f"serving over a mesh with a 'pod' axis is not ported "
+                f"{what} over a mesh with a 'pod' axis is not ported "
                 f"({_NOT_ON_MESH})")
+        kinds = sorted({g.kind for g in self.groups} - set(TRAINED_ON_MESH))
+        if train and kinds:
+            raise NotImplementedError(
+                f"{self.cfg.arch_id}: training the {', '.join(kinds)} "
+                f"kind{'s' if len(kinds) > 1 else ''} over a mesh is not "
+                f"ported ({_NOT_TRAINED_ON_MESH})")
         return tp.layout(mesh)
 
-    def _on_mesh(self, params: dict, batch: int) -> "_OnMesh | None":
-        """The call's ``_OnMesh`` under the active mesh (None without one),
-        after checking that ``params`` is this rank's serving shard."""
-        mesh = get_mesh()
-        if mesh is None:
-            return None
-        lay = self._check_mesh(mesh)
-        key = id(mesh)
+    def _specs(self, mesh, train: bool):
+        """(the specs of the global parameter tree on ``mesh`` under
+        ``rules.param_spec`` (``train``) or ``rules.serving_param_spec``,
+        the rank's shard of it on the meta device), made once a mesh."""
+        key = (id(mesh), train)
         if key not in self._mesh_specs or self._mesh_specs[key][0] is not mesh:
             from repro_torch.launch.input_specs import param_shapes
 
+            rule = rules.param_spec if train else rules.serving_param_spec
             shapes = param_shapes(self.cfg)
-            self._mesh_specs[key] = (
-                mesh, rules.tree_specs(mesh, shapes, rules.serving_param_spec),
-                rules.shard_tree(mesh, shapes, rules.serving_param_spec))
-        _, specs, shards = self._mesh_specs[key]
-        _check_shard(params, shards)
-        return _OnMesh(lay, specs, batch)
+            self._mesh_specs[key] = (mesh, rules.tree_specs(mesh, shapes, rule),
+                                     rules.shard_tree(mesh, shapes, rule))
+        return self._mesh_specs[key][1:]
+
+    def param_specs(self):
+        """The specs of the global parameter tree under ``rules.param_spec``
+        on the active mesh (None without one): the layout of a training
+        step's parameters, gradients and AdamW moments, which
+        ``adamw_update`` reads for the gradient's norm."""
+        mesh = get_mesh()
+        return None if mesh is None else self._specs(mesh, True)[0]
+
+    def _on_mesh(self, params: dict, batch: int,
+                 train: bool = False) -> "_OnMesh | None":
+        """The call's ``_OnMesh`` under the active mesh (None without one),
+        after checking that ``params`` is this rank's shard (serving's, or
+        training's for ``train``)."""
+        mesh = get_mesh()
+        if mesh is None:
+            return None
+        lay = self._check_mesh(mesh, train)
+        specs, shards = self._specs(mesh, train)
+        _check_shard(params, shards, train)
+        return _OnMesh(lay, specs, batch, train)
 
     @property
     def recurrent(self) -> bool:
@@ -923,14 +1065,18 @@ class LM:
                 None if cache_len is None else caches)
 
     def _run_group_train(self, g: GroupSpec, gp: dict, x: torch.Tensor,
-                         aux: torch.Tensor, memory=None):
+                         aux: torch.Tensor, memory=None, weights=None):
         """The group's units without caches: (x, ``aux`` plus each moe
         unit's aux in turn). With ``cfg.remat`` and autograd recording,
         each unit keeps only its input for the backward and runs again
         there (the reference's per-unit ``jax.checkpoint``; a griffin, vlm
         or dense_sb super-block is one unit, a vlm or dec unit's cross K
         and V are recomputed with it), so its attention's forward kernel
-        launches twice in a training step."""
+        launches twice in a training step. On a mesh ``gp`` is the rank's
+        shard and ``weights`` (``_OnMesh.unit_of``) makes a unit's weights
+        of its shard inside the unit's call: under remat its FSDP gathers
+        run again in the recomputation, and no unit's gathered weights
+        outlive it."""
         remat = self.cfg.remat and torch.is_grad_enabled()
         for i, p in enumerate(_units(gp, g.n)):
             if g.kind in ("dense", "moe"):
@@ -941,6 +1087,8 @@ class LM:
                 args = (p, x, memory, self.cfg)
             else:
                 fn, args = _UNIT_TRAIN[g.kind], (p, x, self.cfg)
+            if weights is not None:
+                fn, args = _with_weights, (fn, weights, *args)
             x = (checkpoint(fn, *args, use_reentrant=False) if remat
                  else fn(*args))
             if g.kind == "moe":
@@ -1036,12 +1184,21 @@ class LM:
         (total, {"ce", "aux"}): the next-token CE in float32
         (``chunked_cross_entropy`` when ``cfg.logits_chunk`` is set), and
         the auxiliary loss, the float32 sum of the moe layers' Switch
-        losses (0 without a moe group); total = ce + 0.01 aux."""
+        losses (0 without a moe group); total = ce + 0.01 aux.
+
+        Under a mesh (the dense and moe kinds; ``_loss_mesh``): ``batch``
+        is the global batch and ``params`` the rank's training shard
+        (``rules.training_shard``: each leaf's block under
+        ``rules.param_spec``); total, ce and aux are the global batch's on
+        every rank, and a backward gives each leaf of the shard its block
+        of the global loss's gradient. A ``pod`` axis raises
+        ``NotImplementedError`` naming ROADMAP queue 1's "the pod axis
+        over a mesh", the other kinds naming its "training over a mesh of
+        the other kinds"."""
         cfg = self.cfg
-        if get_mesh() is not None:
-            raise NotImplementedError(
-                "training over a mesh (LM.loss) is not ported (ROADMAP.md "
-                "queue 1, 'training over a mesh')")
+        on = self._on_mesh(params, batch["inputs"].shape[0], train=True)
+        if on is not None:
+            return self._loss_mesh(params, batch, on)
         memory = self._inject_memory(params, batch)
         x = embed(params["embed"], batch["inputs"], cfg)
         feats, aux, _ = self._backbone(params, x, memory=memory)
@@ -1053,6 +1210,33 @@ class LM:
                                        mask)
         else:
             ce = lm_cross_entropy(feats, table, labels, mask)
+        return ce + 0.01 * aux, {"ce": ce, "aux": aux}
+
+    def _loss_mesh(self, params: dict, batch: dict, on: _OnMesh):
+        """``loss`` in the reference's ``train_4k`` layout: the rank's rows
+        of the batch (over ``data``) through its units, each gathering its
+        FSDP weights over ``data`` on use and splitting its heads, MLP
+        width (and on the moe units its experts, on ``moe_apply``'s
+        branch of the global batch) over ``model``; the vocab-parallel CE
+        (``mesh_cross_entropy``) summed over the batch's rows on every
+        rank."""
+        cfg = self.cfg
+        t = batch["inputs"].shape[1]
+        emb, norm, table = on.top(params)
+        x = embed(emb, on.take_rows(batch["inputs"]), cfg)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for gi, g in enumerate(self.groups):
+            branch = on.moe_branch(t) if g.kind == "moe" else None
+            x, aux = self._run_group_train(
+                g, params[f"group{gi}"], x, aux,
+                weights=on.unit_of(f"group{gi}", branch))
+        feats = rmsnorm(norm, x)
+        mask = batch.get("mask")
+        ce = mesh_cross_entropy(
+            feats, table, on.take_rows(batch["labels"]),
+            None if mask is None else on.take_rows(mask), vocab=cfg.vocab,
+            chunk=cfg.logits_chunk, model=on.lay.model,
+            model_index=on.lay.model_index, rows=on.row_group)
         return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
     # -- prefill --------------------------------------------------------------

@@ -8,7 +8,9 @@ ssd, rec and griffin kinds of ``models.lm.LM`` served over a mesh
 ``models.rglru``'s width, ``serving.engine``), whose weights and decode
 state are each
 rank's shard under ``rules.serving_param_spec`` and
-``rules.state_spec``. A mesh is a ``DeviceMesh``
+``rules.state_spec``; and ``LM.loss`` of the dense and moe kinds, whose
+weights are each rank's shard under ``rules.param_spec``, with
+``optim.adamw_update``. A mesh is a ``DeviceMesh``
 (``repro_torch.launch.mesh.make_mesh``), or a ``MeshShape`` where only
 its axis names and sizes are read.
 

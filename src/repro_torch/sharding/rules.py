@@ -330,7 +330,18 @@ def serving_shard(mesh, params: dict, rank: "int | None" = None) -> dict:
     """The rank's serving shard of a global LM parameter tree: each leaf's
     block under ``serving_param_spec``, copied, so that the global tree
     can be freed (``shard_tree``'s blocks are views of it)."""
+    return _copied_shard(mesh, params, serving_param_spec, rank)
+
+
+def training_shard(mesh, tree: dict, rank: "int | None" = None) -> dict:
+    """The rank's training shard of a global LM parameter tree, or of a
+    tree in its layout (a gradient, an AdamW moment: the reference keeps
+    them in the parameters' sharding): each leaf's block under
+    ``param_spec``, copied."""
+    return _copied_shard(mesh, tree, param_spec, rank)
+
+
+def _copied_shard(mesh, tree: dict, rule, rank) -> dict:
     return _map_with_path(
-        lambda path, leaf: local_shard(
-            mesh, leaf, serving_param_spec(mesh, path, leaf), rank).clone(),
-        params)
+        lambda path, leaf: local_shard(mesh, leaf, rule(mesh, path, leaf),
+                                       rank).clone(), tree)

@@ -4,8 +4,8 @@
 
 ``JOB.json`` names the job (``"flens"``, ``"moe"``, ``"moe_grad"``,
 ``"client_mesh"``, ``"lm_mesh"``, ``"lm_mesh_recurrent"``,
-``"lm_mesh_rightsized"`` or ``"lm_mesh_cross"``; the last two run
-``lm_mesh_job``), the world size,
+``"lm_mesh_rightsized"``, ``"lm_mesh_cross"`` (these two run
+``lm_mesh_job``) or ``"lm_mesh_train"``), the world size,
 the store file, the input ``.npz`` and the output directory; the rank
 writes ``rank{RANK}.npz`` there. It imports the port only (no JAX): the
 reference's draws and parameters arrive as numpy arrays. The tests
@@ -438,9 +438,8 @@ def lm_mesh_job(job: dict, rank: int) -> dict:
     ``audio_frames``, where the data has them) and teacher-forced decode
     steps of the global batch (logits, the
     final state's shards, the parameter and state shapes), the engine
-    cases' token streams, and the error a prefill raises when autograd
-    records through the mesh's collectives (where the job names a
-    ``grad_case``). A case's ``arch`` names its model (``model_config``)."""
+    cases' token streams, and (where the job names a ``grad_case``) the
+    gradients of a prefill's logits through the mesh's collectives. A case's ``arch`` names its model (``model_config``)."""
     from repro_torch.interop import lm_shard_from_numpy
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.lm import LM
@@ -487,17 +486,17 @@ def lm_mesh_job(job: dict, rank: int) -> dict:
         out[f"engine/{case['name']}"] = np.array(streams)
     if "grad_case" not in job:
         return out
-    # a backward through the collectives: the first one raises, on every
-    # rank alike (the embedding's sum over model)
+    # a backward through the serving run's collectives: the gradient of
+    # sum(logits * g) (the prefill's global logits, g from the data) with
+    # respect to the rank's serving shard
     mesh, cfg, model, params = setup(*job["grad_case"])
     leaves = _leaves_requiring_grad(params)
     with use_mesh(mesh):
-        try:
-            model.prefill(leaves, {"inputs": torch.zeros((4, 8),
-                                                         dtype=torch.int64)})
-            out["grad_error"] = np.array("")
-        except RuntimeError as err:
-            out["grad_error"] = np.array(str(err))
+        logits, _ = model.prefill(leaves, {"inputs": torch.from_numpy(
+            d["grad/tokens"])})
+        torch.sum(logits * torch.from_numpy(d["grad/g"])).backward()
+    out.update({f"grad/{k}": v for k, v in
+                flatten(_grads_of(leaves)).items()})
     return out
 
 
@@ -537,6 +536,94 @@ def lm_mesh_recurrent_job(job: dict, rank: int) -> dict:
     return out
 
 
+def lm_mesh_train_job(job: dict, rank: int) -> dict:
+    """Each case of the job under its mesh: this rank's training shard of
+    the model's parameters (``interop.lm_train_shard_from_numpy``), the
+    loss, ce, aux and gradient blocks of the global batch
+    (``loss_and_grads``), then one ``train_step`` from the case's AdamW
+    state (``interop.adamw_shard_from_numpy``): its loss, ce and gnorm
+    and the blocks of the new parameters and moments. Then each CE case: ``mesh_cross_entropy`` of
+    the rank's rows and vocab block, and its gradients of the rank's
+    features and table block."""
+    from repro_torch.interop import (adamw_shard_from_numpy,
+                                     lm_train_shard_from_numpy)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import loss_and_grads, train_step
+    from repro_torch.models.common import mesh_cross_entropy
+    from repro_torch.models.lm import LM
+    from repro_torch.sharding import rules
+    from repro_torch.sharding import tensor_parallel as tp
+    from repro_torch.sharding.ctx import use_mesh
+
+    d = np.load(job["data"])
+    meshes, out = {}, {}
+
+    def mesh_of(name):
+        if name not in meshes:
+            shape, axes = job["meshes"][name]
+            meshes[name] = make_mesh(tuple(shape), tuple(axes), "cpu")
+        return meshes[name]
+
+    def tree_of(prefix):
+        return unflatten({p[len(prefix):]: d[p] for p in d.files
+                          if p.startswith(prefix)})
+
+    for case in job["cases"]:
+        name, model_name = case["name"], case["model"]
+        mesh = mesh_of(case["mesh"])
+        cfg = model_config(job, model_name)
+        model = LM(cfg)
+        params = lm_train_shard_from_numpy(tree_of(model_name + KEY_SEP), cfg,
+                                           mesh, device="cpu")
+        batch = {key: torch.from_numpy(d[f"{key}/{name}"])
+                 for key in ("inputs", "labels", "mask")
+                 if f"{key}/{name}" in d.files}
+        state = adamw_shard_from_numpy(
+            {"m": tree_of(f"m/{model_name}/"), "v": tree_of(f"v/{model_name}/"),
+             "step": np.array(job["adam_step"])}, mesh, device="cpu")
+        with use_mesh(mesh):
+            loss, metrics, grads = loss_and_grads(model, params, batch)
+            p2, s2, loss2, ce2, gnorm = train_step(model, params, state, batch,
+                                                   job["lr"])
+        out[f"{name}/loss"] = loss.numpy()
+        out[f"{name}/ce"] = metrics["ce"].numpy()
+        out[f"{name}/aux"] = metrics["aux"].numpy()
+        out[f"{name}/step_loss"] = loss2.numpy()
+        out[f"{name}/step_ce"] = ce2.numpy()
+        out[f"{name}/gnorm"] = gnorm.numpy()
+        for key, tree in (("grads", grads), ("params", p2), ("m", s2["m"]),
+                          ("v", s2["v"])):
+            out.update({f"{name}/{key}/{k}": v
+                        for k, v in flatten(tree).items()})
+    for case in job.get("ce_cases", ()):
+        name = case["name"]
+        mesh = mesh_of(case["mesh"])
+        lay = tp.layout(mesh)
+        feats = torch.from_numpy(d[f"feats/{name}"])
+        table = torch.from_numpy(d[f"table/{name}"])
+        labels = torch.from_numpy(d[f"labels/{name}"])
+        mask = torch.from_numpy(d[f"mask/{name}"])
+        spec = rules.batch_spec(mesh, (), feats)
+        rows = lambda a: rules.local_shard(mesh, a, spec)  # noqa: E731
+        vocab = table.shape[0]
+        tspec = rules.param_spec(mesh, ("embed", "table"), table)[:1]
+        f = rows(feats).clone().requires_grad_()
+        t = rules.local_shard(mesh, table, tspec).clone().requires_grad_()
+        row_group = lay.block(spec, 0, len(feats))[2]
+        with use_mesh(mesh):
+            # each data rank reads the table on its own rows, as the
+            # LM's weights do (_OnMesh.weights)
+            ce = mesh_cross_entropy(
+                f, tp.replicated_input(t, row_group), rows(labels),
+                rows(mask), vocab=vocab, chunk=case["chunk"],
+                model=lay.model, model_index=lay.model_index, rows=row_group)
+            ce.backward()
+        out[f"ce/{name}/ce"] = ce.detach().numpy()
+        out[f"ce/{name}/feats"] = f.grad.numpy()
+        out[f"ce/{name}/table"] = t.grad.numpy()
+    return out
+
+
 def main(job_path: str, rank: int) -> int:
     from repro_torch.launch.mesh import process_group
 
@@ -549,7 +636,8 @@ def main(job_path: str, rank: int) -> int:
                "lm_mesh": lm_mesh_job,
                "lm_mesh_recurrent": lm_mesh_recurrent_job,
                "lm_mesh_rightsized": lm_mesh_job,
-               "lm_mesh_cross": lm_mesh_job}[job["kind"]](
+               "lm_mesh_cross": lm_mesh_job,
+               "lm_mesh_train": lm_mesh_train_job}[job["kind"]](
                    job, rank)
     np.savez(pathlib.Path(job["out"]) / f"rank{rank}.npz", **out)
     return 0

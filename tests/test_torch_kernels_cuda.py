@@ -966,3 +966,60 @@ def test_one_nccl_rank_rings_and_cross_attention_over_a_mesh_equal_no_mesh(
         for a, b in zip(got_leaves, want_leaves):
             assert torch.equal(a, b)
     assert streams == want_streams
+
+
+@pytest.mark.gpu
+def test_one_nccl_rank_train_step_over_a_mesh_equals_no_mesh(hopper,
+                                                              tmp_path):
+    """TinyLlama-1.1B at 2 layers in bf16 with remat trained over a 1 x 1
+    NCCL mesh on the card (its training shard under ``rules.param_spec``,
+    every collective an identity both ways): ``loss_and_grads`` and one
+    ``train_step`` of 2 x 256 tokens bit-equal to the same without a
+    mesh (loss, CE, gnorm, every gradient, parameter and moment), 4
+    forward and 2 backward launches of the sm90 kernels each."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.base import root_key
+    from repro_torch.launch.mesh import make_mesh, process_group
+    from repro_torch.launch.train import loss_and_grads, train_step
+    from repro_torch.models.lm import LM
+    from repro_torch.optim import adamw_init
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.ctx import use_mesh
+    from repro_torch.tree import leaves
+
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b"), n_layers=2,
+                              dtype=torch.bfloat16,
+                              param_dtype=torch.bfloat16, remat=True)
+    model = LM(cfg)
+    params = model.init(root_key(0, device=hopper))
+    gen = torch.Generator(device=hopper).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (2, 257), generator=gen,
+                         device=hopper)
+    batch = {"inputs": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def run(p):
+        ops.reset_launch_counts()
+        loss, met, grads = loss_and_grads(model, p, batch)
+        counts = ops.launch_counts()
+        p2, s2, loss2, ce2, gnorm = train_step(model, p, adamw_init(p),
+                                               batch, 1e-3)
+        return ([loss, met["ce"], met["aux"], loss2, ce2, gnorm,
+                 *leaves(grads), *leaves(p2), *leaves(s2["m"]),
+                 *leaves(s2["v"])],
+                (counts["flash_attention_sm90"],
+                 counts["flash_attention_bwd_sm90"]))
+
+    want, want_launches = run(params)
+    torch.cuda.set_device(hopper)
+    with process_group(0, 1, tmp_path / "store", backend="nccl",
+                       timeout_s=60):
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        local = rules.training_shard(mesh, params)
+        with use_mesh(mesh):
+            got, launches = run(local)
+    assert launches == want_launches == (4, 2)
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert torch.equal(g, w), i
