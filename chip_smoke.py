@@ -27,8 +27,12 @@ Phases, in order; any failure raises and the script exits non-zero:
                 per leading index (signs (G, n), rows (G, k)) on every
                 forward route: one row an operator, odd groups, groups
                 that straddle a chunk, k = 1 and k = n, the FedNS shapes,
-                signs other than +-1 and a view off a 16-byte boundary:
-                bit-equality required (the kernels keep the plain
+                signs other than +-1 and a view off a 16-byte boundary;
+                then srht_rows_kernel (srht_apply_rows, A (G, n_rows, M)
+                read in place) at every slab size that fits, at the FedNS
+                shapes cut in clients, one client, k = 1 and k = n, rows
+                off a power of two, a wide row, with those signs and
+                views: bit-equality required (the kernels keep the plain
                 versions' op order and are built with -fmad=false)
   4. quickstart — FLeNS at the quickstart size (n=4000, dim=64, m=8,
                 k=32, float64, 12 rounds) through the kernels; launch
@@ -63,15 +67,19 @@ Phases, in order; any failure raises and the script exits non-zero:
                 FedNS with k=10, FedNDES) on the SUSY problem at full size,
                 10 rounds each with comm=None: loss finite and gap falling,
                 gap per round, ms per round (run_rounds and bare), peak
-                memory; FedNS and FedNDES launch one batched srht_apply a
-                round and their trajectories equal the plain versions' on
-                the card (each with a profiled round); then the batched
-                srht_apply at the three FedNS shapes (SUSY 1000 x 18 rows
-                of 5000 -> n 8192, k 10; covtype 200 x 54 of 2906 -> 4096,
-                k 20; the quickstart 8 x 64 of 500 -> 512, k 32): events,
-                the profiler's device time by kernel, the transpose copy
-                of A on its own, the bound, the plain version and torch.bmm
-                of dense per-client S; and FedNS srht:fixed under one
+                memory; FedNS and FedNDES launch one srht_apply_rows a
+                round (srht_rows_kernel, counted under srht_apply too) and
+                their trajectories equal the plain versions' on the card
+                (each with profiled rounds, which must hold no copy of the
+                clients' A); then srht_apply_rows at the three FedNS
+                shapes (SUSY 1000 x 5000 rows x 18 -> n 8192, k 10;
+                covtype 200 x 2906 x 54 -> 4096, k 20; the quickstart 8 x
+                500 x 64 -> 512, k 32), in turns with the parent's way (A's
+                transpose copy, then the batched srht_apply kernel): events,
+                the profiler's device time by kernel (which must find the
+                kernel), the copy on its own, the bound, the plain version
+                and torch.bmm of dense per-client S; and FedNS srht:fixed
+                under one
                 CommConfig at the quickstart size, its trajectory, bytes
                 and traces equal to the plain versions'
  5d. async   — FLeNS+ at SUSY's size on the straggler channel: the
@@ -480,6 +488,10 @@ KERNELS = {
                        replaces="src/repro/kernels/srht.py:98"),
     "srht_apply_t": dict(source="src/repro_torch/kernels/csrc/srht.cu",
                          replaces="src/repro/kernels/srht.py:130"),
+    # srht_rows_kernel: srht_apply_pallas under jax.vmap along the clients'
+    # data axes (FedNS, FedNDES), A read in place
+    "srht_apply_rows": dict(source="src/repro_torch/kernels/csrc/srht.cu",
+                            replaces="src/repro/kernels/srht.py:98"),
     "topk_mask": dict(source="src/repro_torch/kernels/csrc/codec.cu",
                       replaces="src/repro/kernels/codec_kernels.py:85"),
     "qint8_roundtrip": dict(source="src/repro_torch/kernels/csrc/codec.cu",
@@ -500,6 +512,9 @@ KERNELS = {
         replaces="src/repro/models/attention.py:104"),
 }
 NO_CODEC = {"topk_mask": 0, "qint8_roundtrip": 0}
+# srht_rows_kernel's own count (FedNS's and FedNDES's data-axis sketch; its
+# launches count under srht_apply too)
+NO_ROWS = {"srht_apply_rows": 0}
 # (operators G, rows a operator as an inner batch, dim, n, k): batched
 # srht_apply on every forward route (n <= 32, 33..2^14, past 2^14): one
 # row an operator, odd groups, groups that straddle a chunk of the
@@ -510,6 +525,14 @@ BATCHED = [(5, (1,), 18, 32, 10), (7, (3,), 30, 32, 1), (3, (33,), 32, 32, 32),
            (6, (64,), 500, 512, 32), (3, (54,), 2906, 4096, 20),
            (11, (18,), 5000, 8192, 10), (2, (3,), 16383, 16384, 16384),
            (3, (2,), 20000, 1 << 15, 64), (2, (1,), (1 << 17) - 5, 1 << 17, 300)]
+# (G, n_rows, M, n, k): srht_rows_kernel, srht_apply_rows read in place:
+# the three FedNS shapes cut in clients, one client, k = 1 and k = n, rows
+# under one slab and off a power of two, a row wider than a 32 KB slab,
+# the longest single-pass n
+ROWS = [(100, 5000, 18, 8192, 10), (20, 2906, 54, 4096, 20),
+        (8, 500, 64, 512, 32), (1, 5000, 18, 8192, 10), (3, 100, 7, 128, 1),
+        (2, 64, 5, 64, 64), (4, 61, 3, 64, 64), (5, 13, 4, 16, 16),
+        (2, 1000, 300, 1024, 8), (2, 16383, 2, 16384, 20)]
 # the nine Table-I baselines at examples/federated_logreg.py's settings,
 # FedNS at SUSY's k (paper Table II)
 TABLE_ONE = [("fedavg", dict(lr=2.0, local_steps=5)),
@@ -656,12 +679,13 @@ def phase_build() -> dict:
         f"{k} {v['registers']}" for k, v in sorted(codec.items())))
     # the SRHT source's register kernels: the forward one per dtype, LOG_N
     # (6..14) and operator form (one, or one per group of rows), the
-    # strided pass per dtype and LOG_R (1..14)
+    # strided pass per dtype and LOG_R (1..14), the in-place forward along
+    # A's rows per dtype and LOG_P (0..4)
     srht = {}
     for entry in re.split(r"Compiling entry function",
                           _build.build_log("srht"))[1:]:
-        name = re.search(r"(srht_fwd_reg|fwht_strided)_kernelI([df])Li(\d+)E"
-                         r"(?:Lb([01])E)?", entry)
+        name = re.search(r"(srht_fwd_reg|fwht_strided|srht_rows)_kernelI([df])"
+                         r"Li(\d+)E(?:Lb([01])E)?", entry)
         if not name:
             continue
         regs = re.search(r"Used (\d+) registers", entry)
@@ -734,8 +758,9 @@ def phase_build() -> dict:
                     for k, v in sorted(flash_bwd_sm90.items())))
     kinds = [key.split("_kernel")[0] for key in srht]
     check(kinds.count("srht_fwd_reg") == 36 and kinds.count("fwht_strided")
-          == 28, f"build: expected 36 srht_fwd_reg and 28 fwht_strided "
-          f"instantiations, got {sorted(srht)}")
+          == 28 and kinds.count("srht_rows") == 10, f"build: expected 36 "
+          f"srht_fwd_reg, 28 fwht_strided and 10 srht_rows instantiations, "
+          f"got {sorted(srht)}")
     log("[build] srht register kernels, registers (no spills): " + ", ".join(
         f"{k} {v['registers']}" for k, v in sorted(srht.items())))
     return {"seconds": total, "per_source": per_source,
@@ -902,12 +927,59 @@ def phase_parity() -> dict:
                       f"batched srht_apply {dtype} G={g} rows {inner} dim="
                       f"{dim} n={n} k={k} with {what}: kernel differs from "
                       f"the plain version (max abs err {err:.3e})")
+    # srht_rows_kernel (srht_apply_rows, A read in place), called alone
+    # whatever the route, at every slab size that fits: the same inputs
+    worst["srht_apply_rows"] = _rows_parity(dev)
     torch.cuda.synchronize()
     log(f"[parity] {len(cases)} shapes x 2 dtypes x 3 kernels, "
         f"{len(views)} misaligned srht_apply views x 2 dtypes, "
         f"{len(signed)} shapes with signs other than +-1 x 2 dtypes x 2 "
-        f"kernels and {len(BATCHED)} batched srht_apply shapes x 3 inputs x "
-        f"2 dtypes bit-equal to the plain versions (max abs err {worst})")
+        f"kernels, {len(BATCHED)} batched srht_apply shapes x 3 inputs x "
+        f"2 dtypes and {len(ROWS)} srht_rows_kernel shapes x 3 inputs x 2 "
+        f"dtypes at each slab bit-equal to the plain versions (max abs err "
+        f"{worst})")
+    return worst
+
+
+def _rows_parity(dev) -> float:
+    from repro_torch.kernels import fwht as kfwht
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import srht as ksrht
+
+    worst = 0.0
+    for dtype in (torch.float64, torch.float32):
+        gen = torch.Generator(device=dev).manual_seed(9)
+        for g, n_rows, m, n, k in ROWS:
+            a = torch.randn((g, n_rows, m), generator=gen, dtype=dtype,
+                            device=dev)
+            signs = (2 * torch.randint(0, 2, (g, n), generator=gen, device=dev)
+                     - 1).to(dtype)
+            rows = torch.stack([torch.randperm(n, generator=gen,
+                                               device=dev)[:k]
+                                for _ in range(g)])
+            odd = torch.randn((g, n), generator=gen, dtype=dtype, device=dev)
+            odd[:, :3] = torch.tensor([1.0, -1.0, -0.0], dtype=dtype)
+            flat = torch.randn(a.numel() + 1, generator=gen, dtype=dtype,
+                               device=dev)
+            view = flat[1:].view(a.shape)
+            check(view.data_ptr() % 16 != 0, "parity: view is aligned")
+            slabs = [p for p in range(kfwht.ROWS_MAX_LOG_P + 1)
+                     if kfwht.ROWS_LEAF << p <= n and kfwht.rows_smem(
+                         p, n_rows, m, k, a.element_size())
+                     <= kfwht.ROWS_MAX_SMEM]
+            for what, aa, ss in (("+-1 signs", a, signs),
+                                 ("signs other than +-1", a, odd),
+                                 ("a view off a 16-byte boundary", view, odd)):
+                want = ops.srht_apply_rows(aa, ss, rows, impl="ref")
+                for log_p in slabs:
+                    got = ksrht.srht_rows_kernel(aa, ss, rows, log_p=log_p)
+                    err = _max_err(got, want)
+                    worst = max(worst, err)
+                    check(torch.equal(got, want),
+                          f"srht_rows_kernel {dtype} A ({g}, {n_rows}, {m}) "
+                          f"n={n} k={k} slabs of 16 * 2^{log_p} rows with "
+                          f"{what}: differs from the plain version (max abs "
+                          f"err {err:.3e})")
     return worst
 
 
@@ -950,7 +1022,7 @@ def phase_quickstart() -> dict:
     _, hist = _flens_run(problem, w0, w_star, rounds, k=QUICK["k"])
     counts = ops.launch_counts()
     want = {"fwht": 0, "srht_apply": 3 * rounds, "srht_apply_t": 2 * rounds,
-            **NO_CODEC, **NO_LM}
+            **NO_ROWS, **NO_CODEC, **NO_LM}
     check(counts == want, f"quickstart launches {counts} != {want}")
     _check_trajectory(hist, "quickstart")
     _, plain = _flens_run(problem, w0, w_star, rounds, impl="ref",
@@ -963,7 +1035,8 @@ def phase_quickstart() -> dict:
                          variant="plus")
     counts_plus = ops.launch_counts()
     check(counts_plus == {"fwht": 0, "srht_apply": 4 * rounds,
-                          "srht_apply_t": 3 * rounds, **NO_CODEC, **NO_LM},
+                          "srht_apply_t": 3 * rounds, **NO_ROWS, **NO_CODEC,
+                          **NO_LM},
           f"FLeNS+ launches {counts_plus}")
     _check_trajectory(plus, "quickstart FLeNS+")
     log("[quickstart] gap " + " ".join(f"{g:.3e}" for g in hist.gap))
@@ -1236,23 +1309,25 @@ def _kernel_timings(s, a, gs) -> dict:
     return out
 
 
-def _profile_rounds(opt, problem, state, keys) -> dict:
+def _profile_rounds(opt, problem, state, keys, copies_of=None) -> dict:
     """Device time by kernel over a few bare rounds (torch.profiler), and
-    the device's busy share of the window's wall time."""
+    the device's busy share of the window's wall time; with ``copies_of``
+    (a numel), the copies (``aten::copy_``, ``clone``, ``contiguous``) of
+    a tensor of that many values the rounds made."""
     keys = iter(keys)
 
     def step():
         nonlocal state
         state = opt.round(problem, state, next(keys))
-    return _profile_steps(step, 3)
+    return _profile_steps(step, 3, copies_of)
 
 
-def _profile_steps(step, rounds: int) -> dict:
+def _profile_steps(step, rounds: int, copies_of=None) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=copies_of is not None) as prof:
         t0 = time.perf_counter()
         for _ in range(rounds):
             step()
@@ -1264,11 +1339,18 @@ def _profile_steps(step, rounds: int) -> dict:
          if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
         key=lambda r: -r[1])
     busy_us = sum(t for _, t, _ in kernels)
-    return {"rounds": rounds, "wall_us": wall_us, "device_busy_us": busy_us,
-            "busy_share": busy_us / wall_us,
-            "top": [{"kernel": name[:90], "us_per_round": t / rounds,
-                     "launches_per_round": c / rounds}
-                    for name, t, c in kernels[:12]]}
+    out = {"rounds": rounds, "wall_us": wall_us, "device_busy_us": busy_us,
+           "busy_share": busy_us / wall_us,
+           "top": [{"kernel": name[:90], "us_per_round": t / rounds,
+                    "launches_per_round": c / rounds}
+                   for name, t, c in kernels[:12]]}
+    if copies_of is not None:
+        out["copies"] = [
+            {"op": e.name, "shapes": e.input_shapes} for e in prof.events()
+            if e.name in ("aten::copy_", "aten::clone", "aten::contiguous")
+            and any(math.prod(sh) == copies_of for sh in e.input_shapes
+                    if isinstance(sh, list) and sh)]
+    return out
 
 
 def phase_full_size() -> "tuple[dict, tuple]":
@@ -1307,7 +1389,7 @@ def phase_full_size() -> "tuple[dict, tuple]":
     hist = run_rounds(opt, problem, w0, w_star, rounds=rounds)
     counts = ops.launch_counts()
     want = {"fwht": 0, "srht_apply": 3 * rounds, "srht_apply_t": 2 * rounds,
-            **NO_CODEC, **NO_LM}
+            **NO_ROWS, **NO_CODEC, **NO_LM}
     check(counts == want, f"full-size launches {counts} != {want}")
     _check_trajectory(hist, "full size")
 
@@ -1408,7 +1490,7 @@ def phase_covtype() -> dict:
     opt, hist = _flens_run(problem, w0, w_star, rounds, k=k)
     counts = ops.launch_counts()
     want = {"fwht": 0, "srht_apply": 3 * rounds, "srht_apply_t": 2 * rounds,
-            **NO_CODEC, **NO_LM}
+            **NO_ROWS, **NO_CODEC, **NO_LM}
     check(counts == want, f"covtype launches {counts} != {want}")
     _check_trajectory(hist, "covtype")
     _, plain = _flens_run(problem, w0, w_star, rounds, impl="ref", k=k)
@@ -1507,59 +1589,80 @@ def _dense_operators(signs: torch.Tensor, rows: torch.Tensor,
 
 
 def _srht_batched_row(label, a, k, seed) -> dict:
-    """FedNS's call: srht_apply with one operator per client on the
-    contiguous transpose of A (m, n_shard, M), one launch. Events and the
-    profiler's device time by kernel, the transpose copy on its own, the
-    bound, the plain version and torch.bmm of the dense per-client S_j
-    with A_j (the build not timed)."""
+    """FedNS's call: srht_apply_rows of A (m, n_shard, M), one operator a
+    client, which must take srht_rows_kernel (A read in place). Beside it,
+    in turns in this call: the parent's way (A's contiguous transpose,
+    then the batched srht_apply kernel; the copy alone too), torch.bmm of
+    the dense per-client S_j with A_j (the build not timed), the plain
+    version and the bound. Events, and the profiler's device time by
+    kernel, which must find srht_rows_kernel."""
     from repro_torch.core.sketch import make_sketches
     from repro_torch.keys import key_from_ints
     from repro_torch.kernels import ops
-    from repro_torch.kernels.fwht import kernel_route
+    from repro_torch.kernels import srht as ksrht
+    from repro_torch.kernels.fwht import ROWS_LEAF, kernel_route, rows_route
 
     m, n_shard, dim_f = a.shape
     s = make_sketches(key_from_ints(seed), "srht", m, k, n_shard,
                       dtype=a.dtype, device=a.device)
     n = s.signs.shape[1]
-    at = a.transpose(1, 2).contiguous()
+    route = rows_route(n, n_shard, dim_f, k, a.element_size())
+    check(route == "srht_rows_kernel", f"srht_apply_rows {label}: routed "
+          f"to {route}, not to srht_rows_kernel")
     dense = _dense_operators(s.signs, s.rows, n_shard)
     item = a.element_size()
     reps = 20 if a.numel() > 1_000_000 else 200
 
+    def kern():
+        return ops.srht_apply_rows(a, s.signs, s.rows, impl="cuda")
+
+    def parent():
+        return ksrht.srht_apply_cuda(a.transpose(1, 2).contiguous(), s.signs,
+                                     s.rows).transpose(1, 2)
+
     def copy():
         return a.transpose(1, 2).contiguous()
 
-    def kern():
-        return ops.srht_apply(at, s.signs, s.rows, impl="cuda")
-
     def plain():
-        return ops.srht_apply(at, s.signs, s.rows, impl="ref")
+        return ops.srht_apply_rows(a, s.signs, s.rows, impl="ref")
 
     def lib():
         return torch.bmm(dense, a)
-    before = ops.launch_counts()["srht_apply"]
+    before = ops.launch_counts()
     got = kern()
-    check(ops.launch_counts()["srht_apply"] == before + 1,
-          f"batched srht_apply {label}: not one launch")
+    after = ops.launch_counts()
+    check(after["srht_apply"] - before["srht_apply"] == 1
+          and after["srht_apply_rows"] - before["srht_apply_rows"] == 1,
+          f"srht_apply_rows {label}: not one srht_rows_kernel launch")
     want = plain()
-    check(torch.equal(got, want), f"batched srht_apply {label}: kernel "
-          f"differs from the plain version (max abs err "
-          f"{_max_err(got, want):.3e})")
-    lib_err = _max_err(got.transpose(1, 2), lib())
+    check(torch.equal(got, want), f"srht_apply_rows {label}: kernel differs "
+          f"from the plain version (max abs err {_max_err(got, want):.3e})")
+    check(torch.equal(parent(), want), f"srht_apply_rows {label}: the "
+          f"parent's way differs from the plain version")
+    lib_err = _max_err(got, lib())
     check(lib_err < 1e-9 * float(got.abs().max()),
-          f"batched srht_apply {label}: bmm yardstick off by {lib_err:.3e}")
-    rows_n = m * dim_f
-    # x, the m operators' signs and rows read once, the outputs written
-    # once; per row n log2(n) adds, n sign flips, x norm x scale on k
-    bound, bound_by = _bound_ms(at.numel() * item + m * n * item + m * k * 8,
-                                rows_n * k * item,
-                                rows_n * (n * int(math.log2(n)) + n + 2 * k),
-                                a.dtype)
+          f"srht_apply_rows {label}: bmm yardstick off by {lib_err:.3e}")
+    # A, the signs of A's n_shard rows and the kept rows of the m
+    # operators read once, the outputs written once; the operations: a
+    # sign and 4 stages a value of each 16-row leaf, then k (leaves - 1)
+    # sums and x norm x scale a column
+    leaves = -(-n_shard // ROWS_LEAF)
+    bound, bound_by = _bound_ms(
+        (a.numel() + m * n_shard) * item + m * k * 8, m * k * dim_f * item,
+        m * dim_f * (leaves * ROWS_LEAF * 5 + k * (leaves - 1) + 2 * k),
+        a.dtype)
+    turns = {"kernel": [], "parent": []}
+    for name in ("kernel", "parent", "parent", "kernel"):
+        turns[name].append(_time_ms(kern if name == "kernel" else parent, reps))
     by_kernel = _device_kernels_ms(kern, reps)
-    row = dict(shape=label, dims=list(at.shape), operators=m, n=n, k=k,
-               route=kernel_route("srht_apply", n) + ", one operator a client",
-               ms=_time_ms(kern, reps), device_ms=sum(by_kernel.values()),
-               device_kernels_ms=by_kernel,
+    check(any("srht_rows_kernel" in name for name in by_kernel),
+          f"srht_apply_rows {label}: the profiler found no {route} launch "
+          f"(device kernels {sorted(by_kernel)})")
+    parent_by_kernel = _device_kernels_ms(parent, reps)
+    row = dict(shape=label, dims=list(a.shape), operators=m, n=n, k=k,
+               route=route + ", A (m, n_shard, M) as it lies",
+               ms=sum(turns["kernel"]) / 2, ms_turns=turns["kernel"],
+               device_ms=sum(by_kernel.values()), device_kernels_ms=by_kernel,
                transpose_ms=_time_ms(copy, reps),
                transpose_device_ms=_device_ms(copy, reps),
                plain_ms=_time_ms(plain, max(reps // 4, 5)),
@@ -1568,7 +1671,20 @@ def _srht_batched_row(label, a, k, seed) -> dict:
                library_device_ms=_device_ms(lib, reps),
                library_max_abs_err=lib_err, bound_ms=bound, bound_by=bound_by,
                max_abs_err=_max_err(got, want))
-    del at, dense, got, want
+    # the parent's route (the copy, then the batched forward kernel) as a
+    # route of srht_apply, timed in turns with the kernel above
+    row["parent"] = dict(
+        shape=label, dims=[m, dim_f, n_shard],
+        route="transpose copy + " + kernel_route("srht_apply", n)
+        + ", one operator a client (the parent's route)",
+        ms=sum(turns["parent"]) / 2, ms_turns=turns["parent"],
+        device_ms=sum(parent_by_kernel.values()),
+        device_kernels_ms=parent_by_kernel, plain_ms=row["plain_ms"],
+        library_ms=row["library_ms"])
+    row["parent"]["bound_ms"], row["parent"]["bound_by"] = _bound_ms(
+        (a.numel() + m * n_shard) * item + m * k * 8, m * k * dim_f * item,
+        m * dim_f * (n * int(math.log2(n)) + n + 2 * k), a.dtype)
+    del dense, got, want
     return row
 
 
@@ -1606,6 +1722,7 @@ def _fedns_transport(rounds: int = 12) -> dict:
     hist, plain = runs[None], runs["ref"]
     per_round = _codec_launches_per_round(cfg, ("grad", "sa"))
     want = {"fwht": 0, "srht_apply": rounds, "srht_apply_t": 0, **NO_LM,
+            "srht_apply_rows": rounds,
             **{op: c * rounds for op, c in per_round.items()}}
     check(counts == want, f"FedNS under transport launches {counts} != {want}")
     check((hist.loss == plain.loss).all(),
@@ -1652,7 +1769,8 @@ def phase_table_one(problem, w0, w_star) -> dict:
         counts = ops.launch_counts()
         peak = torch.cuda.max_memory_allocated()
         want = {"fwht": 0, "srht_apply": rounds if name in SKETCHED else 0,
-                "srht_apply_t": 0, **NO_CODEC, **NO_LM}
+                "srht_apply_t": 0, **NO_CODEC, **NO_LM,
+                "srht_apply_rows": rounds if name in SKETCHED else 0}
         check(counts == want, f"{name} launches {counts} != {want}")
         check(bool(torch.isfinite(torch.as_tensor(hist.loss)).all()),
               f"{name}: non-finite loss {hist.loss.tolist()}")
@@ -1678,8 +1796,12 @@ def phase_table_one(problem, w0, w_star) -> dict:
                "round_ms": bare, "peak_memory_bytes": peak}
         if name in SKETCHED:
             row["k"] = opt.k
+            # the clients' A (m, n_shard, M): no copy of it in a round
             row["profile"] = _profile_rounds(opt, problem, state,
-                                             split(root_key(8, device=dev), 3))
+                                             split(root_key(8, device=dev), 3),
+                                             copies_of=problem.X.numel())
+            check(not row["profile"]["copies"], f"{name}: the profiled "
+                  f"rounds copied A: {row['profile']['copies'][:4]}")
         out[name] = row
         log(f"[table-I] {name:<18} gap " + " ".join(f"{g:.2e}" for g in hist.gap))
         log(f"[table-I] {name:<18} run_rounds "
@@ -1687,18 +1809,21 @@ def phase_table_one(problem, w0, w_star) -> dict:
             f"eval; bare rounds {sorted(bare)[len(bare) // 2]:.2f} ms median "
             f"({min(bare):.2f}..{max(bare):.2f}); peak memory "
             f"{peak / 2**30:.2f} GiB; uplink {hist.uplink_floats} floats"
-            + (f"; k {opt.k}; srht_apply launches {counts['srht_apply']}, "
+            + (f"; k {opt.k}; srht_apply launches {counts['srht_apply']} "
+               f"(srht_rows_kernel {counts['srht_apply_rows']}), "
                f"trajectory equal to the plain version's"
                if name in SKETCHED else ""))
         if name in SKETCHED:
             prof = row["profile"]
             log(f"[table-I]   profile: device busy {prof['busy_share']:.1%} "
-                f"of {prof['wall_us'] / prof['rounds'] / 1e3:.2f} ms/round")
+                f"of {prof['wall_us'] / prof['rounds'] / 1e3:.2f} ms/round; "
+                f"copies of A's {problem.X.numel():,} values: "
+                f"{len(prof['copies'])}")
             for r in prof["top"][:8]:
                 log(f"[table-I]   {r['us_per_round']:9.1f} us/round x"
                     f"{r['launches_per_round']:.0f}  {r['kernel']}")
-    # the batched srht_apply at the three FedNS shapes: SUSY's A_j (at
-    # w*), covtype's and the quickstart's (random A of their shapes)
+    # srht_apply_rows at the three FedNS shapes: SUSY's A_j (at w*),
+    # covtype's and the quickstart's (random A of their shapes)
     gen = torch.Generator(device=dev).manual_seed(12)
     timings = [_srht_batched_row("SUSY A_j (1000, 5000, 18) -> n 8192, k 10",
                                  problem.local_hess_sqrt(w_star), SUSY["k"], 1)]
@@ -1711,16 +1836,23 @@ def phase_table_one(problem, w0, w_star) -> dict:
         timings.append(_srht_batched_row(label, a, k, 2))
         del a
     for r in timings:
-        log(f"[table-I] batched srht_apply {r['shape']}: {r['ms']:.4f} ms, "
-            f"device {r['device_ms']:.4f} (bound {r['bound_ms']:.4f} by "
+        par = r["parent"]
+        log(f"[table-I] srht_apply_rows {r['shape']}: {r['ms']:.4f} ms "
+            f"({' / '.join(f'{t:.4f}' for t in r['ms_turns'])}), device "
+            f"{r['device_ms']:.4f} (bound {r['bound_ms']:.4f} by "
             f"{r['bound_by']}, plain {r['plain_ms']:.4f}, bmm "
             f"{r['library_ms']:.4f}, device {r['library_device_ms']:.4f}); "
             f"{r['route']}")
-        log(f"[table-I]   transpose copy A -> (m, M, n_shard) alone: "
-            f"{r['transpose_ms']:.4f} ms, device {r['transpose_device_ms']:.4f}")
-        for name, ms in r["device_kernels_ms"].items():
+        log(f"[table-I]   the parent's way, in turns with it: "
+            f"{par['ms']:.4f} ms ({' / '.join(f'{t:.4f}' for t in par['ms_turns'])}), "
+            f"device {par['device_ms']:.4f}; the transpose copy A -> (m, M, "
+            f"n_shard) alone {r['transpose_ms']:.4f}, device "
+            f"{r['transpose_device_ms']:.4f}")
+        for name, ms in {**r["device_kernels_ms"],
+                         **{f"(parent) {k}": v for k, v
+                            in par["device_kernels_ms"].items()}}.items():
             log(f"[table-I]   {ms:.4f} ms  {name}")
-    return {"optimizers": out, "srht_apply_batched": timings,
+    return {"optimizers": out, "srht_apply_rows": timings,
             "fedns_transport": _fedns_transport()}
 
 
@@ -1774,7 +1906,7 @@ def _expected_launches(cfg, executed: int) -> dict:
     codec stage one kernel a round."""
     per_round = _codec_launches_per_round(cfg, FLENS_PLUS_UPLINKS)
     return {"fwht": 0, "srht_apply": 4 * executed,
-            "srht_apply_t": 3 * executed, **NO_LM,
+            "srht_apply_t": 3 * executed, **NO_ROWS, **NO_LM,
             **{op: n * executed for op, n in per_round.items()}}
 
 
@@ -2274,7 +2406,8 @@ def _telemetry_runs(problem, w0, w_star, runs, label: str,
         if cfg is None:  # FLeNS: 3 srht_apply and 2 srht_apply_t a round
             executed = rounds
             want = {"fwht": 0, "srht_apply": 3 * rounds,
-                    "srht_apply_t": 2 * rounds, **NO_CODEC, **NO_LM}
+                    "srht_apply_t": 2 * rounds, **NO_ROWS, **NO_CODEC,
+                    **NO_LM}
         else:
             executed = (sum(_groups_per_commit(on)) + 1 if cfg.async_mode
                         else rounds)  # + the async probe round
@@ -2755,7 +2888,7 @@ def phase_distributed(card: str) -> dict:
     dev = _card()
     rounds, tol = DIST["rounds"], DIST["tol"]
     want = {"fwht": 0, **{op: n * rounds for op, n in DIST_LAUNCHES.items()},
-            **NO_CODEC, **NO_LM}
+            **NO_ROWS, **NO_CODEC, **NO_LM}
     if DIST_DIR.exists():
         shutil.rmtree(DIST_DIR)
     DIST_DIR.mkdir(parents=True)
@@ -3675,7 +3808,7 @@ def phase_transport(problem, w0, w_star) -> dict:
         counts = ops.launch_counts()
         peak = torch.cuda.max_memory_allocated()
         want = {"fwht": 0, "srht_apply": 4 * rounds,
-                "srht_apply_t": 3 * rounds, **NO_LM,
+                "srht_apply_t": 3 * rounds, **NO_ROWS, **NO_LM,
                 **{op: n * rounds for op, n in per_round.items()}}
         check(counts == want, f"{name} launches {counts} != {want}")
         for op in NO_CODEC:
@@ -5245,7 +5378,7 @@ RIGHTSIZED = dict(
               steps=64),
     # the float32 twin's new tokens a request: its isolated generations
     # step one token at a time (~90 ms each), and time is the cut
-    f32_new_tokens=32,
+    f32_new_tokens=16,
     loss_batch=1, loss_seq=4096, seed=0)
 # right-sized against uniform decode logits in bf16, the largest |difference|
 # over max |logit| at each step: the rings hold the same keys as the uniform
@@ -6836,7 +6969,7 @@ def _train_phase(dtype, batches, n_layers=None) -> "tuple[dict, tuple]":
     splits = _bwd_splits(route, TRAIN["batch"], TRAIN["seq"], cfg.n_heads,
                          cfg.n_kv_heads, hd)
     want = {**NO_LM, "fwht": 0, "srht_apply": 0, "srht_apply_t": 0,
-            **NO_CODEC, "flash_attention": 2 * L * steps,
+            **NO_ROWS, **NO_CODEC, "flash_attention": 2 * L * steps,
             f"flash_attention_{FLASH_ROUTE[dtype]}": 2 * L * steps,
             "flash_attention_bwd": L * steps,
             f"flash_attention_bwd_{route}": L * steps,
@@ -6955,7 +7088,7 @@ def phase_flens_head(model, params) -> dict:
         check(np.isfinite(hist.loss).all() and (
             name == "fedavg" or hist.gap[-1] < hist.gap[0]),
               f"head {name}: gap {hist.gap.tolist()}")
-        want = {**NO_LM, **NO_CODEC, "fwht": 0, "srht_apply": 0,
+        want = {**NO_LM, **NO_CODEC, **NO_ROWS, "fwht": 0, "srht_apply": 0,
                 "srht_apply_t": 0}
         if name == "flens":
             want.update(srht_apply=3 * rounds, srht_apply_t=2 * rounds)
@@ -7487,40 +7620,57 @@ def _mt_check_part(name: str, part: dict, plain: dict, ranks: list,
 
 # ---------------------------------------------------------------------------
 
+def _timed(seconds: dict, key: str, fn, *args):
+    """fn(*args), its wall seconds logged and kept under ``key``."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    seconds[key] = time.perf_counter() - t0
+    log(f"[time] {key}: {seconds[key]:.1f} s")
+    return out
+
+
 def main() -> int:
+    seconds = {}
     card = phase_device()
-    record = {"card": card, "build": phase_build(),
-              "parity_max_abs_err": phase_parity(),
-              "quickstart": phase_quickstart()}
-    record["full_size"], susy = phase_full_size()
-    record["covtype"] = phase_covtype()
-    record["table_one"] = phase_table_one(*susy)
-    record["async"] = phase_async(*susy)
-    record["populations"] = phase_populations()
-    record["telemetry"] = phase_telemetry(card, *susy,
-                                          record["populations"])
-    record["dynamics"] = phase_dynamics(card, *susy,
-                                        record["populations"]["dynamics"])
-    record["distributed"] = phase_distributed(card)
-    record["client_mesh"] = phase_client_mesh(card)
-    record["long_rows"] = phase_long_rows()
-    record["codec_parity_max_abs_err"] = phase_codec_parity()
-    record["transport"] = phase_transport(*susy)
+    record = {"card": card, "phase_seconds": seconds,
+              "build": _timed(seconds, "build", phase_build),
+              "parity_max_abs_err": _timed(seconds, "parity", phase_parity),
+              "quickstart": _timed(seconds, "quickstart", phase_quickstart)}
+    record["full_size"], susy = _timed(seconds, "full_size", phase_full_size)
+    record["covtype"] = _timed(seconds, "covtype", phase_covtype)
+    record["table_one"] = _timed(seconds, "table_one", phase_table_one, *susy)
+    record["async"] = _timed(seconds, "async", phase_async, *susy)
+    record["populations"] = _timed(seconds, "populations", phase_populations)
+    record["telemetry"] = _timed(seconds, "telemetry", phase_telemetry, card,
+                                 *susy, record["populations"])
+    record["dynamics"] = _timed(seconds, "dynamics", phase_dynamics, card,
+                                *susy, record["populations"]["dynamics"])
+    record["distributed"] = _timed(seconds, "distributed", phase_distributed,
+                                   card)
+    record["client_mesh"] = _timed(seconds, "client_mesh", phase_client_mesh,
+                                   card)
+    record["long_rows"] = _timed(seconds, "long_rows", phase_long_rows)
+    record["codec_parity_max_abs_err"] = _timed(seconds, "codec_parity",
+                                                phase_codec_parity)
+    record["transport"] = _timed(seconds, "transport", phase_transport, *susy)
     del susy
     torch.cuda.empty_cache()
-    record["flash_parity"] = phase_flash_parity()
-    record["serve"] = phase_serve()
-    record["serve_f32"] = phase_serve_f32()
-    record["recurrent"] = phase_recurrent(card)
-    record["moe"] = phase_moe(card)
-    record["cross"] = phase_cross(card)
-    record["rightsized"] = phase_rightsized(card)
-    record["mesh_serving"] = phase_mesh_serving(card)
-    record["mesh_recurrent"] = phase_mesh_serving(card, "11g")
-    record["mesh_rings_cross"] = phase_mesh_serving(card, "11h")
-    record["flash_times"] = phase_flash_times()
-    record["train"] = phase_train()
-    record["mesh_train"] = phase_mesh_train(card)
+    record["flash_parity"] = _timed(seconds, "flash_parity", phase_flash_parity)
+    record["serve"] = _timed(seconds, "serve", phase_serve)
+    record["serve_f32"] = _timed(seconds, "serve_f32", phase_serve_f32)
+    record["recurrent"] = _timed(seconds, "recurrent", phase_recurrent, card)
+    record["moe"] = _timed(seconds, "moe", phase_moe, card)
+    record["cross"] = _timed(seconds, "cross", phase_cross, card)
+    record["rightsized"] = _timed(seconds, "rightsized", phase_rightsized, card)
+    record["mesh_serving"] = _timed(seconds, "mesh_serving", phase_mesh_serving,
+                                    card)
+    record["mesh_recurrent"] = _timed(seconds, "mesh_recurrent",
+                                      phase_mesh_serving, card, "11g")
+    record["mesh_rings_cross"] = _timed(seconds, "mesh_rings_cross",
+                                        phase_mesh_serving, card, "11h")
+    record["flash_times"] = _timed(seconds, "flash_times", phase_flash_times)
+    record["train"] = _timed(seconds, "train", phase_train)
+    record["mesh_train"] = _timed(seconds, "mesh_train", phase_mesh_train, card)
     # launches: the SRHT kernels from the full-size comm=None run (fwht is
     # the butterfly they share and is never launched on its own there),
     # the codec kernels from the two full-size transport runs, the
@@ -7562,21 +7712,34 @@ def main() -> int:
     # covtype: the register route)
     long_times = record["long_rows"]["timings"]
     covtype = record["covtype"]["srht_apply"]
-    # the batched routes: SUSY's per-client call, launched by FedNS and
+    # srht_apply_rows: SUSY's per-client call, launched by FedNS and
     # FedNDES in 5c; covtype's (not on a path here); the quickstart's,
-    # launched by FedNS under the transport
+    # launched by FedNS under the transport. Each beside the parent's
+    # route (the copy, then the batched srht_apply kernel), a route of
+    # srht_apply that takes what srht_rows_kernel does not
     table = record["table_one"]
-    batched = table["srht_apply_batched"]
+    batched = table["srht_apply_rows"]
+    sketched = {op: sum(table["optimizers"][name]["launches"][op]
+                        for name in SKETCHED)
+                for op in ("srht_apply", "srht_apply_rows")}
+    transport = table["fedns_transport"]["launches"]
+    launches["srht_apply_rows"] = sketched["srht_apply_rows"]
+    timed["srht_apply_rows"] = batched
+    parity["srht_apply_rows"] = max(parity["srht_apply_rows"],
+                                    *(r["max_abs_err"] for r in batched))
     routes = {
         "srht_apply": [(timed["srht_apply"][0], launches["srht_apply"]),
                        (covtype[0], record["covtype"]["launches"]["srht_apply"]),
                        (covtype[-1], 0),
                        *[(r, 0) for r in long_times if r["op"] == "srht_apply"],
-                       (batched[0], sum(table["optimizers"][name]["launches"]
-                                        ["srht_apply"] for name in SKETCHED)),
-                       (batched[1], 0),
-                       (batched[2], table["fedns_transport"]["launches"]
-                        ["srht_apply"])],
+                       (batched[0]["parent"], sketched["srht_apply"]
+                        - sketched["srht_apply_rows"]),
+                       (batched[1]["parent"], 0),
+                       (batched[2]["parent"], transport["srht_apply"]
+                        - transport["srht_apply_rows"])],
+        "srht_apply_rows": [(batched[0], sketched["srht_apply_rows"]),
+                            (batched[1], 0),
+                            (batched[2], transport["srht_apply_rows"])],
         "fwht": [*[(r, 0) for r in timed["fwht"]],
                  *[(r, 0) for r in long_times if r["op"] == "fwht"]],
     }

@@ -15,7 +15,8 @@ batch at once, so a call site launches one kernel whatever the number of
 clients. ``make_sketches`` draws m operators at once (one per client,
 as FedNS sketches each client's data axis): ``BatchedSrhtSketch``
 applies them with one batched ``srht_apply`` launch, the dense kinds
-with one ``torch.bmm``.
+with one ``torch.bmm``; ``sketch_sqrt_rows`` sketches A (m, n_rows, M)
+along its rows with one ``srht_apply_rows`` launch.
 """
 from __future__ import annotations
 
@@ -273,8 +274,12 @@ def sketch_sqrt_rows(sketch: Sketch, a_mat: torch.Tensor) -> torch.Tensor:
     """Left sketch of the Hessian square root, S @ A, on the data axis
     (``sketch.dim`` = A's rows): A (n_rows, dim_feat) -> (k, dim_feat),
     or, with m operators, A (m, n_rows, dim_feat) -> (m, k, dim_feat).
-    The data axis is made the last axis by one contiguous copy of A's
-    transpose."""
+    m SRHT operators go through ``srht_apply_rows``, which reads A along
+    its rows as it lies (on the card, one launch and no copy of A where
+    ``fwht.rows_route`` takes the in-place kernel); one operator, or a
+    dense kind, is applied to the contiguous copy of A's transpose."""
+    if isinstance(sketch, BatchedSrhtSketch):
+        return kops.srht_apply_rows(a_mat, sketch.signs, sketch.rows)
     at = a_mat.transpose(-1, -2).contiguous()
     return sketch.apply(at).transpose(-1, -2)
 

@@ -47,6 +47,12 @@
 //     holds 32/n rows, one value per lane, runs the stages as shuffles
 //     and gathers the k kept entries by a shuffle, with several rows in
 //     flight per lane.
+//   * the forward SRHT along the rows of A (G, n_rows, M), one operator a
+//     client (srht_rows_kernel, FedNS's data-axis sketch): a block walks
+//     its client's slabs of rows by double-buffered bulk copies of A as it
+//     lies (no transpose), transforms each 16-row leaf block of each
+//     column in registers, and for the k kept outputs only sums the leaves
+//     and slabs in the plain transform's tree order (see the kernel).
 //   * longer rows of the transpose (srht_t_kernel): a block loads R rows
 //     into shared memory (the scaled scatter applied on load), runs the
 //     stages there with a barrier each (`butterfly`), and writes only
@@ -499,21 +505,36 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
       : "memory");
 }
 
-// `bytes` (a multiple of 16) from the 16-byte-aligned src to the
-// 16-byte-aligned shared address dst; the copy arrives on bar, which
-// expects it. The block's earlier accesses of dst (generic proxy) are
-// ordered before the copy's writes (async proxy).
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
-                                          uint32_t bar) {
+// The block's earlier accesses of shared memory (generic proxy) are
+// ordered before the bulk copies started after this (async proxy).
+__device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Arrive on bar, which then expects `bytes` of copies to complete.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
                "r"(bytes)
                : "memory");
+}
+
+// `bytes` (a multiple of 16) from the 16-byte-aligned src to the
+// 16-byte-aligned shared address dst, completing on bar.
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
           "r"(dst),
       "l"(src), "r"(bytes), "r"(bar)
       : "memory");
+}
+
+// One bulk copy that bar expects alone.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  fence_proxy_async();
+  mbar_expect_tx(bar, bytes);
+  bulk_copy(dst, src, bytes, bar);
 }
 
 // The sign bit of v: 1 for -1, 0 for +1.
@@ -709,6 +730,226 @@ srht_fwd_reg_kernel(const T* __restrict__ x, const T* __restrict__ signs,
       const int next = ci + 1;
       if (next < last && next % chunks_per_op == 0) by_bit = set_up(next / chunks_per_op);
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The forward SRHT along the rows of A (G, n_rows, M): each client's data
+// axis sketched by its own operator (FedNS, FedNDES), A read in its own
+// layout. S_g A_g is the SRHT of each of A_g's M columns; only its k kept
+// outputs are computed.
+//
+// Why this is bit-equal to the plain version: output r of the plain
+// transform of a column (stages h = 1, 2, 4, ...) is a balanced tree over
+// its n padded, signed values: a node over 2^(b+1) contiguous values is
+// lower + upper where bit b of r is clear, lower - upper where it is set,
+// each half evaluated at output r of its own transform. So the kernel runs
+// the low kRowsLogC stages of each leaf block of 16 rows in full (each of
+// a leaf's outputs serves the kept rows of that residue mod 16), then for
+// each kept r only the
+// nodes above: the leaf's output r mod 16, then the leaves of a slab, then
+// the slabs, each node as the plain version forms it. A subtree made only
+// of padding adds an exact zero (of either sign) and is skipped.
+//
+// What bounds it: bytes. A is read once (the plain transform's padding is
+// never read or formed); the work is (1 + kRowsLogC) operations a value
+// plus k(n_rows / 16) for the kept outputs, far below the FP64 rate.
+// ---------------------------------------------------------------------------
+
+constexpr int kRowsLogC = 4;     // stages in registers: leaf blocks of 16 rows (ROWS_LEAF in fwht.py)
+constexpr int kRowsMaxLogP = 4;  // leaf blocks of a slab: at most 16 (ROWS_MAX_LOG_P)
+constexpr int kRowsThreads = 256;  // a block's threads (ROWS_THREADS)
+
+// srht_rows_kernel's shared memory, byte offsets: the two stages'
+// mbarriers; the operator's kept rows (int); the two stages' signs (R
+// values each); the two stages' slabs (R M values each and a 16-byte
+// granule for the slab's offset from a 16-byte boundary); the counter
+// over slabs (levels x k M values). fwht.rows_geometry mirrors it.
+struct RowsSmem {
+  size_t sel, signs, slab, slab_stride, stack, total;
+  __host__ __device__ RowsSmem(int r, int m, int k, int levels, int item) {
+    sel = 16;
+    signs = sel + ((size_t)k * 4 + 15) / 16 * 16;
+    slab = signs + 2 * (size_t)r * item;
+    slab_stride = ((size_t)r * m * item + 16 + 15) / 16 * 16;
+    stack = slab + 2 * slab_stride;
+    total = stack + (size_t)levels * k * m * item;
+  }
+};
+
+// S_g A_g for client g = blockIdx.x: A_g (n_rows, M) at a + g n_rows M,
+// operator signs + g n, sel + g k (n = 2^log_n), out (G, k, M). The block
+// walks its client's slabs of R = 16 2^LOG_P rows in order, double
+// buffered: slab s + 1 (its whole 16-byte granules by one bulk copy, with
+// the signs of its rows; the at most 15 bytes at each end by plain loads
+// started a slab ahead) lands while slab s is worked on.
+//   * leaves: a task is leaf block q of column m: its 16 values times
+//     their signs (zero past n_rows), the 4 stages in registers, written
+//     back in place.
+//   * kept outputs: a task is output (c, m), r = sel[c]: leaf output
+//     r mod 16 of each leaf block of the slab, the tree over the slab's
+//     leaves (bits 4.. of r), then the counter over slabs: the slab's
+//     subtree merges with the stored lower subtrees, as a binary counter
+//     carries (bits log2 R.. of r); at the last slab the stored subtrees
+//     take the rest in, lower first; x norm, x scale, stored.
+// A slab's tasks are spread over the block's threads; the counter's
+// entries are in shared memory. No atomics: every sum is in the tree's
+// order. Launch bounds of two blocks an SM: at most 128 registers a thread.
+template <typename T, int LOG_P>
+__global__ void __launch_bounds__(kRowsThreads, 2)
+srht_rows_kernel(const T* __restrict__ a, const T* __restrict__ signs,
+                 const int64_t* __restrict__ sel, T* __restrict__ out, int n_rows, int m_feat,
+                 int log_n, int k, int levels, T norm, T scale) {
+  constexpr int C = 1 << kRowsLogC;
+  constexpr int P = 1 << LOG_P;
+  constexpr int kLogR = kRowsLogC + LOG_P;
+  constexpr int R = 1 << kLogR;
+  constexpr int kAlign = 16 / sizeof(T);  // values of a 16-byte granule
+  const RowsSmem lay(R, m_feat, k, levels, sizeof(T));
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t bar0 = smem_addr(smem_raw);  // stage s's at bar0 + 8 s
+  int* rsel = reinterpret_cast<int*>(smem_raw + lay.sel);
+  T* rsign = reinterpret_cast<T*>(smem_raw + lay.signs);
+  T* stack = reinterpret_cast<T*>(smem_raw + lay.stack);
+  const int tid = threadIdx.x;
+  const int slabs = (n_rows + R - 1) >> kLogR;
+  const int outs = k * m_feat;
+  // a task t of either phase is (t / M, t % M): leaf block and column, or
+  // kept row and column. This thread's are tid, tid + blockDim.x, ...: the
+  // first (q0, m0), then steps of (dq, dm) with a carry, no division
+  const int q0 = tid / m_feat;
+  const int m0 = tid - q0 * m_feat;
+  const int dq = blockDim.x / m_feat;
+  const int dm = blockDim.x - dq * m_feat;
+  const T* ag = a + (long long)blockIdx.x * n_rows * m_feat;
+  const T* sg = signs + ((long long)blockIdx.x << log_n);
+  if (tid == 0) {
+    mbar_init(bar0);
+    mbar_init(bar0 + 8);
+  }
+  for (int c = tid; c < k; c += blockDim.x) rsel[c] = (int)sel[(long long)blockIdx.x * k + c];
+  // slab s: its rows; its values' offset from a 16-byte boundary (lead),
+  // the values before the first boundary (head), its whole granules
+  // (body) and the rest (tail, fewer than kAlign)
+  struct Span {
+    int rows, lead, head, body, tail;
+  };
+  const auto span = [&](int s) {
+    Span p;
+    p.rows = min(R, n_rows - (s << kLogR));
+    const int count = p.rows * m_feat;
+    p.lead = (int)((reinterpret_cast<uintptr_t>(ag + ((long long)s << kLogR) * m_feat) & 15) /
+                   sizeof(T));
+    p.head = min(count, (kAlign - p.lead) & (kAlign - 1));
+    p.body = (count - p.head) / kAlign * kAlign;
+    p.tail = count - p.head - p.body;
+    return p;
+  };
+  // slab s's values in its stage (at their offset from a 16-byte boundary,
+  // so the body lands on one)
+  const auto slab_of = [&](int s, const Span& p) {
+    return reinterpret_cast<T*>(smem_raw + lay.slab + (s & 1) * lay.slab_stride) + p.lead;
+  };
+  // thread 0: slab s's body and its rows' signs into its stage
+  const auto fetch = [&](int s) {
+    const Span p = span(s);
+    const uint32_t bar = bar0 + 8 * (s & 1);
+    fence_proxy_async();
+    mbar_expect_tx(bar, (uint32_t)((p.body + R) * sizeof(T)));
+    bulk_copy(smem_addr(rsign + (s & 1) * R), sg + ((long long)s << kLogR),
+              (uint32_t)(R * sizeof(T)), bar);
+    if (p.body > 0) {
+      bulk_copy(smem_addr(slab_of(s, p) + p.head),
+                ag + ((long long)s << kLogR) * m_feat + p.head, (uint32_t)(p.body * sizeof(T)),
+                bar);
+    }
+  };
+  // this thread's value of slab s's head (threads 0..) or tail (32..)
+  const auto edge_load = [&](int s) {
+    const Span p = span(s);
+    const T* src = ag + ((long long)s << kLogR) * m_feat;
+    if (tid < p.head) return src[tid];
+    if (tid >= 32 && tid - 32 < p.tail) return src[p.head + p.body + tid - 32];
+    return T(0);
+  };
+  __syncthreads();  // the barriers are initialized, the kept rows stored
+  if (tid == 0) fetch(0);
+  T edge = edge_load(0);
+  for (int s = 0; s < slabs; ++s) {
+    // the next slab's copy and edge loads fly while this one is worked on
+    // (its stage's last reads ended at the previous slab's last barrier)
+    if (tid == 0 && s + 1 < slabs) fetch(s + 1);
+    const T next = s + 1 < slabs ? edge_load(s + 1) : T(0);
+    const Span p = span(s);
+    T* x = slab_of(s, p);
+    if (tid < p.head) x[tid] = edge;
+    if (tid >= 32 && tid - 32 < p.tail) x[p.head + p.body + tid - 32] = edge;
+    edge = next;
+    const T* sgn = rsign + (s & 1) * R;
+    const int leaves = (p.rows + C - 1) >> kRowsLogC;  // leaf blocks holding data
+    mbar_wait(bar0 + 8 * (s & 1), (s >> 1) & 1);
+    __syncthreads();  // the head and tail
+    for (int q = q0, m = m0; q < leaves;) {
+      T* col = x + q * C * m_feat + m;
+      T v[C];
+#pragma unroll
+      for (int u = 0; u < C; ++u) {
+        const int i = q * C + u;
+        v[u] = i < p.rows ? col[u * m_feat] * sgn[i] : T(0);
+      }
+#pragma unroll
+      for (int h = 1; h < C; h <<= 1) reg_stage(v, h);
+#pragma unroll
+      for (int u = 0; u < C; ++u) col[u * m_feat] = v[u];
+      q += dq;
+      m += dm;
+      if (m >= m_feat) m -= m_feat, ++q;
+    }
+    __syncthreads();  // every leaf is transformed
+    for (int c = q0, m = m0; c < k;) {
+      const int t = c * m_feat + m;
+      const int r = rsel[c];
+      const T* col = x + (r & (C - 1)) * m_feat + m;
+      T v[P];
+#pragma unroll
+      for (int q = 0; q < P; ++q) v[q] = q < leaves ? col[q * C * m_feat] : T(0);
+      // the slab's leaves, 2^b apart at level b; an upper half past the
+      // data is padding
+#pragma unroll
+      for (int b = 0; b < LOG_P; ++b) {
+        const bool minus = (r >> (kRowsLogC + b)) & 1;
+#pragma unroll
+        for (int j = 0; j < P; j += 2 << b) {
+          if (j + (1 << b) < leaves) {
+            v[j] = minus ? v[j] - v[j + (1 << b)] : v[j] + v[j + (1 << b)];
+          }
+        }
+      }
+      T val = v[0];
+      int l = 0;
+      for (; (s >> l) & 1; ++l) {  // merge with the stored lower subtrees
+        const T lo = stack[l * outs + t];
+        val = ((r >> (kLogR + l)) & 1) ? lo - val : lo + val;
+      }
+      if (s + 1 < slabs) {
+        stack[l * outs + t] = val;
+      } else {
+        // the last slab: each stored subtree is the lower half of a node
+        // whose upper half is val (the rest is padding)
+        for (++l; slabs >> l; ++l) {
+          if ((slabs >> l) & 1) {
+            const T lo = stack[l * outs + t];
+            val = ((r >> (kLogR + l)) & 1) ? lo - val : lo + val;
+          }
+        }
+        const T h = val * norm;
+        out[(long long)blockIdx.x * outs + t] = h * scale;
+      }
+      c += dq;
+      m += dm;
+      if (m >= m_feat) m -= m_feat, ++c;
+    }
+    __syncthreads();  // every read of this stage is done
   }
 }
 
@@ -1133,6 +1374,54 @@ cudaError_t launch_srht(const T* x, const T* signs, const int64_t* sel, T* out,
                          (T)scale, (cudaStream_t)stream);
 }
 
+template <typename T, int LOG_P>
+cudaError_t launch_srht_rows_p(const T* a, const T* signs, const int64_t* sel, T* out, int groups,
+                               int n_rows, int m_feat, int log_n, int k, T norm, T scale,
+                               cudaStream_t stream) {
+  constexpr int R = 1 << (kRowsLogC + LOG_P);
+  const int levels = log2_int((n_rows + R - 1) / R);  // the counter's: ceil(log2(slabs))
+  const RowsSmem lay(R, m_feat, k, levels, sizeof(T));
+  cudaError_t err = allow_smem(srht_rows_kernel<T, LOG_P>, lay.total);
+  if (err != cudaSuccess) return err;
+  srht_rows_kernel<T, LOG_P><<<(unsigned)groups, kRowsThreads, lay.total, stream>>>(
+      a, signs, sel, out, n_rows, m_feat, log_n, k, levels, norm, scale);
+  return cudaGetLastError();
+}
+
+template <typename T, int LOG_P = 0>
+cudaError_t srht_rows(int log_p, const T* a, const T* signs, const int64_t* sel, T* out,
+                      int groups, int n_rows, int m_feat, int log_n, int k, T norm, T scale,
+                      cudaStream_t stream) {
+  if constexpr (LOG_P > kRowsMaxLogP) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (log_p == LOG_P) {
+      return launch_srht_rows_p<T, LOG_P>(a, signs, sel, out, groups, n_rows, m_feat, log_n, k,
+                                          norm, scale, stream);
+    }
+    return srht_rows<T, LOG_P + 1>(log_p, a, signs, sel, out, groups, n_rows, m_feat, log_n, k,
+                                   norm, scale, stream);
+  }
+}
+
+// S_g A_g for G operators along the rows of A (G, n_rows, M), in slabs of
+// 16 2^log_p rows (at most n); the signs 16-byte aligned (their bulk
+// copy).
+template <typename T>
+cudaError_t launch_srht_rows(const T* a, const T* signs, const int64_t* sel, T* out,
+                             long long groups, int n_rows, int m_feat, int n, int k, int log_p,
+                             double norm, double scale, void* stream) {
+  if (n < 1 || n > kMaxN || (n & (n - 1)) != 0 || log_p < 0 || log_p > kRowsMaxLogP ||
+      (1 << (kRowsLogC + log_p)) > n || n_rows < 1 || n_rows > n || m_feat < 1 || k < 1 ||
+      k > n || groups < 1 || groups > 0x7fffffffLL ||
+      (long long)k * m_feat > 0x7fffffffLL / 16 ||
+      reinterpret_cast<uintptr_t>(signs) % 16 != 0) {
+    return cudaErrorInvalidValue;
+  }
+  return srht_rows<T>(log_p, a, signs, sel, out, (int)groups, n_rows, m_feat, log2_int(n), k,
+                      (T)norm, (T)scale, (cudaStream_t)stream);
+}
+
 template <typename T, int LOG_P = 0>
 void launch_srht_t_warp(unsigned blocks, cudaStream_t stream, int log_p, const T* y,
                         const T* signs, const int64_t* sel, T* out, long long nrows, int dim,
@@ -1252,6 +1541,24 @@ cudaError_t repro_srht_apply_f64(const double* x, const double* signs, const int
                              stream);
 }
 
+// The forward SRHT along the rows of a (G, n_rows, M): S_g a_g into out
+// (G, k, M), operator g = signs + g n, sel + g k; slabs of 16 2^log_p rows.
+cudaError_t repro_srht_apply_rows_f32(const float* a, const float* signs, const int64_t* sel,
+                                      float* out, long long groups, int n_rows, int m_feat,
+                                      int n, int k, int log_p, double norm, double scale,
+                                      void* stream) {
+  return launch_srht_rows<float>(a, signs, sel, out, groups, n_rows, m_feat, n, k, log_p, norm,
+                                 scale, stream);
+}
+
+cudaError_t repro_srht_apply_rows_f64(const double* a, const double* signs, const int64_t* sel,
+                                      double* out, long long groups, int n_rows, int m_feat,
+                                      int n, int k, int log_p, double norm, double scale,
+                                      void* stream) {
+  return launch_srht_rows<double>(a, signs, sel, out, groups, n_rows, m_feat, n, k, log_p, norm,
+                                  scale, stream);
+}
+
 cudaError_t repro_srht_apply_t_f32(const float* y, const float* signs, const int64_t* sel,
                                    float* out, long long nrows, int dim, int n, int k,
                                    double norm, double scale, void* stream) {
@@ -1311,6 +1618,8 @@ PyMethodDef kMethods[] = {
     REPRO_METHOD(repro_fwht_f64),
     REPRO_METHOD(repro_srht_apply_f32),
     REPRO_METHOD(repro_srht_apply_f64),
+    REPRO_METHOD(repro_srht_apply_rows_f32),
+    REPRO_METHOD(repro_srht_apply_rows_f64),
     REPRO_METHOD(repro_srht_apply_t_f32),
     REPRO_METHOD(repro_srht_apply_t_f64),
     REPRO_METHOD(repro_srht_apply_large_f32),

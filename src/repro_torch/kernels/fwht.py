@@ -43,6 +43,63 @@ LOW_PASS_N = 1 << 12
 STRIDED_REG_ROWS = 16
 
 
+# srht_rows_kernel (the forward SRHT along the rows of A (G, n_rows, M)):
+# leaf blocks of 16 rows transformed in registers (kRowsLogC), slabs of
+# 2^log_p leaf blocks (at most 2^ROWS_MAX_LOG_P, kRowsMaxLogP), the
+# largest whose values fit ROWS_SLAB_BYTES; a block's shared memory on
+# the H100 (227 KB) bounds the rest
+ROWS_LEAF = 1 << 4
+ROWS_MAX_LOG_P = 4
+ROWS_SLAB_BYTES = 40 * 1024
+ROWS_MAX_SMEM = 232_448
+# a block's threads (kRowsThreads)
+ROWS_THREADS = 256
+# the route: the kernel takes n from ROWS_MIN_N to SINGLE_PASS_N and k to
+# ROWS_MAX_K where its shared memory fits. On the H100 it beat the
+# transpose copy and the batched kernel at every k to 128 that fits, at
+# SUSY's and covtype's A (tools/srht_rows.py, PERF.md row 2d); past 128 it
+# was not measured
+ROWS_MIN_N = 64
+ROWS_MAX_K = 128
+
+
+def rows_smem(log_p: int, n_rows: int, m_feat: int, k: int,
+              itemsize: int) -> int:
+    """srht_rows_kernel's shared-memory bytes with slabs of 16 * 2^log_p
+    rows: ``RowsSmem``'s total in ``csrc/srht.cu``."""
+    r = ROWS_LEAF << log_p
+    levels = (-(-n_rows // r) - 1).bit_length()  # ceil(log2(slabs))
+    signs = 16 + -(-4 * k // 16) * 16
+    slab = signs + 2 * r * itemsize
+    stride = -(-(r * m_feat * itemsize + 16) // 16) * 16
+    return slab + 2 * stride + levels * k * m_feat * itemsize
+
+
+def rows_geometry(n: int, n_rows: int, m_feat: int, k: int, itemsize: int,
+                  slab_bytes: int = ROWS_SLAB_BYTES) -> "tuple[int, int]":
+    """srht_rows_kernel's (log_p, shared-memory bytes) for A (G, n_rows,
+    m_feat): the largest slab of 16 * 2^log_p <= n rows whose values fit
+    ``slab_bytes`` (one leaf block at least)."""
+    log_p = 0
+    while (log_p < ROWS_MAX_LOG_P and ROWS_LEAF << (log_p + 1) <= n
+           and (ROWS_LEAF << (log_p + 1)) * m_feat * itemsize <= slab_bytes):
+        log_p += 1
+    return log_p, rows_smem(log_p, n_rows, m_feat, k, itemsize)
+
+
+def rows_route(n: int, n_rows: int, m_feat: int, k: int, itemsize: int) -> str:
+    """The kernels that compute ``srht_apply_rows`` of A (G, n_rows,
+    m_feat) with G operators of (n, k): ``srht_rows_kernel`` (A read in
+    place) for ROWS_MIN_N <= n <= SINGLE_PASS_N and k <= ROWS_MAX_K where
+    its shared memory fits; otherwise A's contiguous transpose, then the
+    batched ``srht_apply`` kernel (``kernel_route``)."""
+    if (ROWS_MIN_N <= n <= SINGLE_PASS_N and k <= ROWS_MAX_K
+            and rows_geometry(n, n_rows, m_feat, k, itemsize)[1]
+            <= ROWS_MAX_SMEM):
+        return "srht_rows_kernel"
+    return "transpose copy + " + kernel_route("srht_apply", n)
+
+
 def _low_pass_log(n: int) -> int:
     """log2 of the low pass's chunk for a plain transform of n > 2^14."""
     log_n, log_max = n.bit_length() - 1, SINGLE_PASS_N.bit_length() - 1

@@ -18,7 +18,8 @@ Selection precedence, most local wins:
   3. the ``REPRO_TORCH_KERNEL_IMPL`` environment variable,
   4. ``"auto"``.
 
-Ops: ``fwht``, ``srht_apply``, ``srht_apply_t`` (the sketch),
+Ops: ``fwht``, ``srht_apply``, ``srht_apply_t``, ``srht_apply_rows``
+(the sketch; the last is ``srht_apply`` along A's rows for FedNS),
 ``topk_mask`` and ``qint8_roundtrip`` (the transport codecs) and
 ``flash_attention`` (the LM's attention; its plain version is
 ``ref.mha_blocked``). The kernels are built only when the first
@@ -52,6 +53,7 @@ _ALIASES = {"reference": "ref"}
 _CUDA = {"fwht": kfwht.fwht_cuda,
          "srht_apply": ksrht.srht_apply_cuda,
          "srht_apply_t": ksrht.srht_apply_t_cuda,
+         "srht_apply_rows": ksrht.srht_apply_rows_cuda,
          "topk_mask": kcodec.topk_mask_cuda,
          "qint8_roundtrip": kcodec.qint8_roundtrip_cuda,
          "flash_attention": kflash.flash_attention_cuda}
@@ -157,6 +159,18 @@ def srht_apply(x: torch.Tensor, signs: torch.Tensor, rows: torch.Tensor, *,
     if signs.ndim == 2 or rows.ndim == 2:
         ksrht.check_operators(x, signs, rows)
     return _dispatch("srht_apply", impl, x)(x, signs, rows)
+
+
+def srht_apply_rows(a: torch.Tensor, signs: torch.Tensor, rows: torch.Tensor,
+                    *, impl: "str | None" = None) -> torch.Tensor:
+    """Fused SRHT forward along the rows of a (G, n_rows, M), operator g
+    (``signs`` (G, n), ``rows`` (G, k)) on a[g]: -> (G, k, M), contiguous
+    (FedNS's data-axis sketch). On the card one launch, counted under
+    ``srht_apply``: ``srht_rows_kernel`` reads a in place where
+    ``fwht.rows_route`` lets it, else a's transpose goes through the
+    batched ``srht_apply`` kernel."""
+    ksrht.check_rows(a, signs, rows)
+    return _dispatch("srht_apply_rows", impl, a)(a, signs, rows)
 
 
 def srht_apply_t(y: torch.Tensor, signs: torch.Tensor, rows: torch.Tensor,

@@ -105,6 +105,16 @@ def srht_apply(x: torch.Tensor, signs: torch.Tensor,
     return torch.gather(h, -1, idx.expand(h.shape[:-1] + (k,))) * scale
 
 
+def srht_apply_rows(a: torch.Tensor, signs: torch.Tensor,
+                    rows: torch.Tensor) -> torch.Tensor:
+    """S_g @ a_g along the rows of a (G, n_rows, M), one operator a client
+    (``signs`` (G, n), ``rows`` (G, k)) -> (G, k, M), contiguous:
+    ``srht_apply`` on a's contiguous transpose, transposed back (the
+    reference's ``sketch_sqrt_rows`` under ``jax.vmap``)."""
+    at = a.transpose(-1, -2).contiguous()
+    return srht_apply(at, signs, rows).transpose(-1, -2).contiguous()
+
+
 def srht_apply_t(y: torch.Tensor, signs: torch.Tensor, rows: torch.Tensor,
                  dim: int) -> torch.Tensor:
     """Transpose SRHT: y (..., k) -> (..., dim). The scaled k entries are

@@ -19,11 +19,20 @@ gather or the sign flip and truncation). The plain versions are
 ``repro_torch.kernels.ref.srht_apply``/``srht_apply_t``.
 
 The forward op also takes G operators at once (``signs`` (G, n),
-``rows`` (G, k), x (G, ..., dim)), as FedNS and FedNDES sketch each
-client's data axis with its own operator: one launch for all of them,
-counted once, on every forward route (the kernels take the rows of one
+``rows`` (G, k), x (G, ..., dim)): one launch for all of them, counted
+once, on every forward route (the kernels take the rows of one
 operator, ``group``, and row r uses operator r / group). The transpose
 takes one operator; 2-D ``signs`` or ``rows`` raise there.
+
+FedNS and FedNDES sketch each client's data axis with its own operator:
+A (G, n_rows, M) along its rows, S_g @ A_g -> (G, k, M). ``srht_apply_rows``
+does that without a copy of A: ``srht_rows_kernel`` reads each client's
+rows in place, slab by slab, runs the low four butterfly stages of each
+16-row leaf block of each column in registers and, for the k kept
+outputs only, sums the leaves and slabs in the plain transform's tree
+order (bit-equal to it; ``fwht.rows_route`` states which (n, k) it
+takes). Other (n, k) go through A's contiguous transpose and the batched
+forward kernel above. Either way the launch counts under ``srht_apply``.
 
 The main path's transpose calls are a few rows, where the host's launch
 path is the whole time, so that path does only what a launch needs: the
@@ -36,7 +45,8 @@ check that on the device. ``signs`` may hold any values. Where all are
 +1 or -1, as the sketch samplers draw them, ``srht_fwd_reg_kernel``
 takes each sign from its bit in shared memory; otherwise it multiplies
 by the sign as read, so every route computes the plain version's
-function.
+function (``srht_rows_kernel`` always multiplies, and skips the padding:
+signs past n_rows are not read, so they must be finite there).
 """
 from __future__ import annotations
 
@@ -46,15 +56,23 @@ import torch
 
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.fwht import (
+    ROWS_LEAF,
+    ROWS_MAX_LOG_P,
+    ROWS_MAX_SMEM,
     SINGLE_PASS_N,
     check_input,
     check_length,
     device_guard,
+    rows_geometry,
+    rows_route,
+    rows_smem,
     stream_of,
 )
 
-# launches of each kernel (incremented only where it is launched)
-LAUNCHES = {"srht_apply": 0, "srht_apply_t": 0}
+# launches of each op's kernels (incremented only where one is launched);
+# srht_rows_kernel's launches count under srht_apply too, the op whose
+# function it computes
+LAUNCHES = {"srht_apply": 0, "srht_apply_t": 0, "srht_apply_rows": 0}
 
 
 def check_operators(x: torch.Tensor, signs: torch.Tensor,
@@ -167,3 +185,75 @@ def srht_apply_t_cuda(y: torch.Tensor, signs: torch.Tensor,
         _launch("srht_apply_t", suffix, y, signs, rows, out, (nrows, dim),
                 n, k)
     return out
+
+
+def check_rows(a: torch.Tensor, signs: torch.Tensor,
+               rows: torch.Tensor) -> None:
+    """``srht_apply_rows``'s shapes: a (G, n_rows, M), signs (G, n) and
+    rows (G, k), one G; raises for anything else."""
+    if a.ndim != 3:
+        raise ValueError(f"srht_apply_rows needs a (G, n_rows, M), got "
+                         f"{tuple(a.shape)}")
+    check_operators(a, signs, rows)
+
+
+def srht_rows_kernel(a: torch.Tensor, signs: torch.Tensor,
+                     rows: torch.Tensor, *,
+                     log_p: "int | None" = None) -> torch.Tensor:
+    """``srht_rows_kernel`` on the card, whatever the route: S_g @ a_g for
+    a (G, n_rows, M) -> (G, k, M), bit-equal to
+    ``ref.srht_apply_rows``. ``log_p`` sets the slab (16 * 2^log_p rows;
+    default ``fwht.rows_geometry``'s); raises where the kernel cannot take
+    the shape."""
+    check_rows(a, signs, rows)
+    return _rows_kernel(a, signs, rows, log_p)
+
+
+def _rows_kernel(a, signs, rows, log_p):
+    """``srht_rows_kernel`` with a's rank and G already checked."""
+    suffix = check_input(a, "a")
+    g, n_rows, m_feat = a.shape
+    n, k = _check_operator(a, signs, rows, n_rows, batched=True)
+    if log_p is None:
+        log_p = rows_geometry(n, n_rows, m_feat, k, a.element_size())[0]
+    if not 0 <= log_p <= ROWS_MAX_LOG_P or ROWS_LEAF << log_p > n:
+        raise ValueError(f"srht_rows_kernel: slabs of {ROWS_LEAF} * "
+                         f"2^{log_p} rows need 0 <= log_p <= "
+                         f"{ROWS_MAX_LOG_P} and at most n = {n} rows")
+    smem = rows_smem(log_p, n_rows, m_feat, k, a.element_size())
+    if smem > ROWS_MAX_SMEM:
+        raise ValueError(f"srht_rows_kernel: (n_rows, M, k) = ({n_rows}, "
+                         f"{m_feat}, {k}) needs {smem} bytes of shared "
+                         f"memory, more than a block has ({ROWS_MAX_SMEM})")
+    out = a.new_empty((g, k, m_feat))
+    if g == 0 or m_feat == 0:
+        return out
+    if signs.data_ptr() % 16:  # the signs of a slab come by a bulk copy
+        signs = signs.clone()
+    norm, scale = _factors(n, k, a.dtype)
+    fn = _entry("srht_apply_rows", suffix, False)
+    with device_guard(a):
+        err = fn(a.data_ptr(), signs.data_ptr(), rows.data_ptr(),
+                 out.data_ptr(), g, n_rows, m_feat, n, k, log_p, norm, scale,
+                 stream_of(a))
+    if err:
+        _build.check(_build.library(), err, "srht_apply_rows")
+    LAUNCHES["srht_apply"] += 1
+    LAUNCHES["srht_apply_rows"] += 1
+    return out
+
+
+def srht_apply_rows_cuda(a: torch.Tensor, signs: torch.Tensor,
+                         rows: torch.Tensor) -> torch.Tensor:
+    """S_g @ a_g along the rows of a (G, n_rows, M) -> (G, k, M)
+    (contiguous) on the card, bit-equal to ``ref.srht_apply_rows``, by
+    ``fwht.rows_route``: ``srht_rows_kernel`` reads a in place; any other
+    (n, k) takes a's contiguous transpose through ``srht_apply_cuda``.
+    One counted ``srht_apply`` launch either way. a's rank and G are
+    checked by ``ops.srht_apply_rows`` (``check_rows``)."""
+    n_rows, m_feat = a.shape[1:]
+    n, k = signs.shape[-1], rows.shape[-1]
+    if rows_route(n, n_rows, m_feat, k, a.element_size()) == "srht_rows_kernel":
+        return _rows_kernel(a, signs, rows, None)
+    at = a.transpose(1, 2).contiguous()
+    return srht_apply_cuda(at, signs, rows).transpose(1, 2).contiguous()

@@ -136,7 +136,8 @@ def test_codec_ops_dispatch_to_the_plain_version_on_the_cpu(monkeypatch):
     x = torch.from_numpy(rng.standard_normal((4, 18)))
     u = torch.from_numpy(rng.random((4, 18)))
     before = ops.launch_counts()
-    assert set(before) == {"fwht", "srht_apply", "srht_apply_t", "topk_mask",
+    assert set(before) == {"fwht", "srht_apply", "srht_apply_t",
+                           "srht_apply_rows", "topk_mask",
                            "qint8_roundtrip", "flash_attention",
                            "flash_attention_sm90", "flash_attention_tf32x3",
                            "flash_attention_bwd",

@@ -129,6 +129,95 @@ def test_batched_srht_apply_bit_equal_to_plain(hopper, tdt, g, inner, dim, n,
     torch.cuda.synchronize()
 
 
+# (G, n_rows, M, n, k): srht_rows_kernel (srht_apply_rows read in place):
+# the three FedNS shapes (SUSY's, covtype's, the quickstart's), one
+# client, k = 1 and k = n, n_rows off and on a power of two and under one
+# slab, a row wider than a slab of 32 KB, the longest single-pass n, and a
+# k past the route's limit (the kernel takes it when called alone)
+ROWS = [(1000, 5000, 18, 8192, 10), (200, 2906, 54, 4096, 20),
+        (8, 500, 64, 512, 32), (1, 5000, 18, 8192, 10), (3, 100, 7, 128, 1),
+        (2, 64, 5, 64, 64), (4, 61, 3, 64, 64), (5, 13, 4, 16, 16),
+        (3, 1024, 6, 1024, 200), (2, 1000, 300, 1024, 8),
+        (2, 16383, 2, 16384, 20), (2, 300, 3, 512, 512)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tdt", [torch.float64, torch.float32])
+@pytest.mark.parametrize("g,n_rows,m,n,k", ROWS)
+def test_srht_rows_kernel_bit_equal_to_plain(hopper, tdt, g, n_rows, m, n, k):
+    from repro_torch.kernels import fwht as kfwht
+    from repro_torch.kernels import srht as ksrht
+
+    gen = torch.Generator(device=hopper).manual_seed(g + n_rows + k)
+    a = torch.randn(g, n_rows, m, generator=gen, dtype=tdt, device=hopper)
+    signs = (2 * torch.randint(0, 2, (g, n), generator=gen, device=hopper)
+             - 1).to(tdt)
+    rows = torch.stack([torch.randperm(n, generator=gen, device=hopper)[:k]
+                        for _ in range(g)])
+    want = ops.srht_apply_rows(a, signs, rows, impl="ref")
+    before = ops.launch_counts()
+    got = ksrht.srht_rows_kernel(a, signs, rows)
+    after = ops.launch_counts()
+    assert (after["srht_apply"] - before["srht_apply"],
+            after["srht_apply_rows"] - before["srht_apply_rows"]) == (1, 1)
+    assert got.shape == (g, k, m) and got.is_contiguous()
+    assert torch.equal(got, want)
+    # every slab the kernel has that fits
+    item = a.element_size()
+    for log_p in range(kfwht.ROWS_MAX_LOG_P + 1):
+        if (kfwht.ROWS_LEAF << log_p <= n and kfwht.rows_smem(
+                log_p, n_rows, m, k, item) <= kfwht.ROWS_MAX_SMEM):
+            assert torch.equal(ksrht.srht_rows_kernel(a, signs, rows,
+                                                      log_p=log_p), want)
+    # the op by its route
+    route = kfwht.rows_route(n, n_rows, m, k, item)
+    before = ops.launch_counts()
+    assert torch.equal(ops.srht_apply_rows(a, signs, rows, impl="cuda"), want)
+    after = ops.launch_counts()
+    assert after["srht_apply"] - before["srht_apply"] == 1
+    assert after["srht_apply_rows"] - before["srht_apply_rows"] == (
+        route == "srht_rows_kernel")
+    # signs other than +1 and -1, and a off a 16-byte boundary
+    signs = torch.randn((g, n), generator=gen, dtype=tdt, device=hopper)
+    signs[:, 0] = -0.0
+    want = ops.srht_apply_rows(a, signs, rows, impl="ref")
+    assert torch.equal(ksrht.srht_rows_kernel(a, signs, rows), want)
+    flat = torch.randn(a.numel() + 1, generator=gen, dtype=tdt, device=hopper)
+    av = flat[1:].view(a.shape)
+    assert av.data_ptr() % 16
+    assert torch.equal(ksrht.srht_rows_kernel(av, signs, rows),
+                       ops.srht_apply_rows(av, signs, rows, impl="ref"))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_srht_rows_kernel_rejects_what_it_cannot_take(hopper):
+    from repro_torch.kernels import srht as ksrht
+
+    a = torch.randn(3, 40, 4, dtype=torch.float64, device=hopper)
+    signs = torch.ones(3, 64, dtype=torch.float64, device=hopper)
+    rows = torch.zeros(3, 5, dtype=torch.int64, device=hopper)
+    with pytest.raises(ValueError, match="batched operators"):
+        ksrht.srht_rows_kernel(a[:2], signs, rows)
+    with pytest.raises(ValueError, match="G, n_rows, M"):
+        ksrht.srht_rows_kernel(a[0], signs, rows)
+    with pytest.raises(ValueError, match="contiguous"):
+        ksrht.srht_rows_kernel(a.transpose(1, 2), signs[:, :4], rows)
+    with pytest.raises(ValueError, match="need 1 <= k <= n"):
+        ksrht.srht_rows_kernel(torch.randn(3, 65, 4, dtype=torch.float64,
+                                           device=hopper), signs, rows)
+    with pytest.raises(TypeError, match="signs"):
+        ksrht.srht_rows_kernel(a, signs.float(), rows)
+    with pytest.raises(ValueError, match="log_p"):  # a slab past n rows
+        ksrht.srht_rows_kernel(a, signs, rows, log_p=3)
+    with pytest.raises(ValueError, match="shared memory"):  # a wide row
+        ksrht.srht_rows_kernel(torch.randn(3, 40, 5000, dtype=torch.float64,
+                                           device=hopper), signs, rows)
+    with pytest.raises(ValueError, match="power of two"):
+        ksrht.srht_rows_kernel(a, torch.ones(3, 48, dtype=torch.float64,
+                                             device=hopper), rows)
+
+
 @pytest.mark.gpu
 def test_batched_srht_apply_rejects_what_it_cannot_take(hopper):
     from repro_torch.kernels import srht as ksrht
@@ -219,7 +308,8 @@ def test_cuda_kernels_count_launches(hopper):
     qg = q.clone().requires_grad_(True)
     ops.flash_attention(qg, kv, kv).sum().backward()
     assert ops.launch_counts() == {"fwht": 1, "srht_apply": 2,
-                                   "srht_apply_t": 1, "topk_mask": 1,
+                                   "srht_apply_t": 1, "srht_apply_rows": 0,
+                                   "topk_mask": 1,
                                    "qint8_roundtrip": 1,
                                    "flash_attention": 2,
                                    "flash_attention_sm90": 0,
