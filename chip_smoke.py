@@ -225,7 +225,8 @@ Phases, in order; any failure raises and the script exits non-zero:
  11b. recurrent — mamba2-780m (48 ssd layers) and recurrentgemma-2b (8
                 griffin super-blocks + 2 rec layers) at full width and
                 depth in bf16 (random weights from seed 0) through
-                ServingEngine with serve's 8 requests: the engine admits
+                ServingEngine with serve's 8 prompts, 16 new tokens each
+                (64 before phase 14 trained every kind): the engine admits
                 each prompt unpadded (mamba2: the longest multiple of its
                 256-token chunk through prefill, the rest through
                 decode_step); launches: none for mamba2, 8 sm90 a prefill
@@ -234,8 +235,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                 ulps of the plain version's; prefill ms by length (128 to
                 2048), decode ms per step at batch 4, engine tokens/s, peak
                 memory, a profiled prefill. Their float32 twins (TF32 off,
-                12 and 8 layers): engine tokens equal each request's
-                isolated generation, the 2048-token prefill's logits
+                6 and 8 layers; mamba2's 12 before): engine tokens equal
+                each request's isolated generation, the 2048-token
+                prefill's logits
                 within 1e-3 of the plain versions', its ms and profile
                 (phase 11's steps). One LM.loss forward and backward each
                 at 1 x 2048 tokens with remat: recurrentgemma's CE and
@@ -296,8 +298,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                 gemma3-4b@rightsized (5 super-blocks, rings of 1024, a
                 remainder of 4) whole in bf16, random weights from seed 0,
                 through ServingEngine at their published contexts (cache
-                32,768 and 131,072): serve's 8 requests and one of 32,768
-                tokens, each prompt prefilled whole; launches 26 / 34 sm90
+                32,768 and 131,072): serve's 8 prompts and one of 32,768
+                tokens, 16 new tokens each (64 before phase 14 trained
+                every kind), each prompt prefilled whole; launches 26 / 34 sm90
                 a prefill, none in decode; the decode state's bytes
                 beside the uniform caches' (from shapes), peak memory,
                 tokens/s, decode at batch 4 near the context's end with
@@ -311,7 +314,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                 on the same weights (gemma3-1b whole, a 1000-token prompt,
                 cache 4096): prefill logits bit-equal, 64 decode steps
                 within 2e-2 of max |logit|. The float32 twin (gemma3-1b
-                whole, TF32 off; serve's 8 prompts, 32 new tokens each):
+                whole, TF32 off; serve's 8 prompts, 16 new tokens each):
                 the engine's tokens equal each request's isolated
                 generation (phase 11's steps)
  11f. mesh serving — LMs served over a mesh, 4 gloo ranks on the one
@@ -403,26 +406,40 @@ Phases, in order; any failure raises and the script exits non-zero:
                 adamw_update under sharding.ctx.use_mesh) in the
                 reference's train_4k layout: every leaf of the
                 parameters, gradients and AdamW moments its block under
-                rules.param_spec (FSDP over data, heads, MLP width,
-                experts and vocab over model), the batch's rows over data;
-                4 gloo ranks on the one card (children `chip_smoke.py
-                --mesh-train-child`), each part's run without a mesh in
-                this process first from the same weights and batches: (a)
-                TinyLlama-1.1B whole in bf16 with remat on (2 data, 2
-                model), 2 x 2048 tokens (one row a data rank), 3 AdamW
-                steps; (b) its float32 twin at 4 layers (the tf32x3
-                forward and backward); (c) arctic-480b at full width, 1
-                layer and 8 of its 128 experts, float32, one AdamW step
-                on the moe decode branch ((2, 2)) and one on the expert
-                branch (a 4-way model mesh). Every step's CE equal on all
-                ranks and within phase 13's tolerance (bf16; float32
-                1e-5) of the no-mesh run's, step 0's gradient blocks
-                within phase 13's (bf16) or 1e-5 of max |g| (float32;
-                arctic 1e-4), each rank's parameter and moment bytes the
-                layout's, the flash launches a step a rank on the rank's
-                heads (2 forward and 1 backward a layer), the forward and
-                backward kernels held against their plain versions at the
-                rank's call; ms a step a rank beside the no-mesh run's,
+                rules.param_spec (FSDP over data, heads, SSD heads, RG-LRU
+                width, MLP width, experts and vocab over model), the
+                batch's rows over data; 4 gloo ranks on the one card
+                (children `chip_smoke.py --mesh-train-child`, drawing the
+                weights from the seed one after another), each part's
+                run without a mesh in this process first from the same
+                weights and batches: (a) TinyLlama-1.1B whole in bf16
+                with remat on (2 data, 2 model), 2 x 2048 tokens (one row
+                a data rank), 3 AdamW steps; (b) its float32 twin at 4
+                layers (the tf32x3 forward and backward); (c) arctic-480b
+                at full width, 1 layer and 8 of its 128 experts, float32,
+                one AdamW step on the moe decode branch ((2, 2)) and one
+                on the expert branch (a 4-way model mesh); (d)
+                mamba2-780m at full width, 4 layers, bf16, (2, 2), 2
+                steps; (e) recurrentgemma-2b at full width, one (rec,
+                rec, attn) super-block, bf16, (2, 2), 2 steps; (f)
+                gemma3-4b@rightsized at full width, one super-block (5
+                local layers at window 1024, a global one), bf16, model 4,
+                2 steps; (g) whisper-tiny whole in float32, (2, 2), 2 x
+                448 tokens over 2 x 1500 frames, 2 steps (the encoder's
+                non-causal tf32x3 backward); (h) llama-3.2-vision-90b at
+                full width, one super-block (4 self layers, a cross layer
+                over 1601 vision tokens), bf16, model 4, step 0's loss and
+                gradients alone (its AdamW moments do not fit beside the
+                no-mesh run). Every step's CE equal on all ranks and
+                within phase 13's tolerance (bf16; float32 1e-5) of the
+                no-mesh run's, step 0's gradient blocks within phase 13's
+                (bf16) or 1e-5 of max |g| (float32; arctic 1e-4), each
+                rank's parameter and moment bytes the layout's, the flash
+                launches a step a rank on the rank's heads (2 forward and
+                1 backward a self-attention layer, 1 and 1 an encoder
+                layer, none in mamba2), the forward and backward kernels
+                held against their plain versions at each of the rank's
+                distinct calls; ms a step a rank beside the no-mesh run's,
                 the collectives' bytes and host ms a step by kind
                 (forward gather / sum / max, backward reduce_scatter /
                 sum_bwd), peak memory a rank
@@ -4250,10 +4267,12 @@ def _flash_want(n: int, route: str) -> dict:
     return {**NO_LM, "flash_attention": n, f"flash_attention_{route}": n}
 
 
-def _serve_bf16(arch: str, tag: str, seed: int, n_layers=None) -> dict:
+def _serve_bf16(arch: str, tag: str, seed: int, n_layers=None,
+                new_tokens: "int | None" = None) -> dict:
     """One model at full width in bf16 (random weights from seed 0), at
     full depth or cut to ``n_layers`` (the cut in the record): SERVE's
-    requests through the engine, prefill by bucket, decode at batch 4,
+    requests (each of ``new_tokens`` new tokens, SERVE's where None)
+    through the engine, prefill by bucket, decode at batch 4,
     the kernel against the plain version on a 2048-token prefill (where
     the model has attention; ``_hold_kernel_in_prefill``), and a profile
     of that prefill."""
@@ -4275,7 +4294,8 @@ def _serve_bf16(arch: str, tag: str, seed: int, n_layers=None) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
 
-        reqs = _serve_requests(cfg.vocab)
+        reqs = _serve_requests(cfg.vocab, new_tokens)
+        new_tokens = reqs[0].max_new_tokens
         run = _run_engine(model, params, reqs)
         engine = run.pop("engine")
         peak = torch.cuda.max_memory_allocated()
@@ -4291,7 +4311,7 @@ def _serve_bf16(arch: str, tag: str, seed: int, n_layers=None) -> dict:
               f"{tag} {arch}: launches {run['launches']} != {want} (one "
               f"launch of the tensor-core kernel per attention layer per "
               f"prefill)")
-        check(all(len(r.generated) == SERVE["new_tokens"] for r in reqs),
+        check(all(len(r.generated) == new_tokens for r in reqs),
               f"{tag} {arch}: a request stopped short of max_new_tokens")
 
         # decode at batch 4 on the engine's state: no kernel launch
@@ -4546,11 +4566,16 @@ def phase_serve_f32() -> dict:
 # ---------------------------------------------------------------------------
 
 RECURRENT = dict(archs=("mamba2-780m", "recurrentgemma-2b"),
-                 # the float32 twins' depth: mamba2 12 of its 48 layers,
+                 # the float32 twins' depth: mamba2 6 of its 48 layers,
                  # recurrentgemma 8 of its 26 (two griffin super-blocks and
                  # a rec group of 2); their engine runs and isolated
                  # generations step token by token, and time is the cut
-                 f32_layers={"mamba2-780m": 12, "recurrentgemma-2b": 8},
+                 # (mamba2's 12 until phase 14 trained every kind)
+                 f32_layers={"mamba2-780m": 6, "recurrentgemma-2b": 8},
+                 # the bf16 engine's new tokens a request (SERVE's 64 until
+                 # phase 14 trained every kind: mamba2 decodes at ~0.3 s a
+                 # step there)
+                 new_tokens=16,
                  loss_batch=1, loss_seq=2048, seed=0)
 
 
@@ -4650,7 +4675,8 @@ def phase_recurrent(card: str) -> dict:
     record = {"card": card}
     for arch in RECURRENT["archs"]:
         record[arch] = {
-            "serve": _serve_bf16(arch, "recurrent", 17),
+            "serve": _serve_bf16(arch, "recurrent", 17,
+                                 new_tokens=RECURRENT["new_tokens"]),
             "serve_f32": _serve_f32(arch, "recurrent f32",
                                     RECURRENT["f32_layers"][arch]),
             "loss": _recurrent_loss(arch)}
@@ -5371,6 +5397,9 @@ RIGHTSIZED = dict(
     # the engine's cache_len, so each global layer keeps this many slots
     context={"gemma3-1b@rightsized": 32_768, "gemma3-4b@rightsized": 131_072},
     long_prompt=32_768,  # one request beside serve's 8
+    # the engine's new tokens a request (SERVE's 64 until phase 14 trained
+    # every kind)
+    new_tokens=16,
     prefill=(128, 512, 2048, 8192, 32_768),
     # right-sized against uniform on the same weights: a prompt past the
     # 512-token window and decode steps, so the rings wrap in both
@@ -5456,11 +5485,11 @@ def _rs_serve(arch: str, card: str, seed: int) -> dict:
         model.prefill(params, {"inputs": warm}, cache_len=256)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        reqs = _serve_requests(cfg.vocab)
+        reqs = _serve_requests(cfg.vocab, RIGHTSIZED["new_tokens"])
         long = np.random.default_rng(seed).integers(0, cfg.vocab,
                                                      RIGHTSIZED["long_prompt"])
         reqs.append(Request(uid=len(reqs), prompt=[int(t) for t in long],
-                            max_new_tokens=SERVE["new_tokens"]))
+                            max_new_tokens=RIGHTSIZED["new_tokens"]))
         run = _run_engine(model, params, reqs, cache_len=context)
         engine = run.pop("engine")
         peak = torch.cuda.max_memory_allocated()
@@ -5469,7 +5498,8 @@ def _rs_serve(arch: str, card: str, seed: int) -> dict:
         check(run["launches"] == want,
               f"{tag}: launches {run['launches']} != {want} (one sm90 launch "
               f"an attention layer a prefill, each prompt prefilled whole)")
-        check(all(len(r.generated) == SERVE["new_tokens"] for r in reqs),
+        check(all(len(r.generated) == RIGHTSIZED["new_tokens"]
+                  for r in reqs),
               f"{tag}: a request stopped short of max_new_tokens")
         state_bytes = _state_bytes(engine.state)
         uniform = LM(dataclasses.replace(cfg, cache_mode="uniform"))
@@ -7154,18 +7184,34 @@ MESH_TRAIN_DIR = ROOT / "chiprun_out" / "mesh_train"
 # 14: LM training over a mesh in the reference's train_4k layout (the
 # parameters, gradients and AdamW moments each leaf's block under
 # rules.param_spec, the batch's rows over data), 4 gloo ranks on the one
-# card: (a) TinyLlama-1.1B whole in bf16 with remat on (2 data, 2 model),
-# 2 x 2048 tokens (one row a data rank: q (1, 2048, 16, 64) and K, V (1,
-# 2048, 2, 64) a rank), TRAIN's schedule, 3 AdamW steps; (b) its float32
-# twin at 4 layers (tf32x3 forward and backward); (c) arctic-480b at full
-# width (d_model 7168, expert d_ff 4864, top-2, its dense residual MLP), 1
-# layer, 8 of its 128 experts (16 do not fit: four ranks' float32
-# parameters, gradients and moments and the decode branch's gathered
-# experts and their cotangents), float32, one AdamW step on the decode
-# branch ((2, 2) at 2 x 2048) and on the expert branch (model 4). Each
+# card, one part a family: (a) TinyLlama-1.1B whole in bf16 with remat on
+# (2 data, 2 model), 2 x 2048 tokens (one row a data rank: q (1, 2048, 16,
+# 64) and K, V (1, 2048, 2, 64) a rank), TRAIN's schedule, 3 AdamW steps;
+# (b) its float32 twin at 4 layers (tf32x3 forward and backward); (c)
+# arctic-480b at full width (d_model 7168, expert d_ff 4864, top-2, its
+# dense residual MLP), 1 layer, 8 of its 128 experts (16 do not fit: four
+# ranks' float32 parameters, gradients and moments and the decode
+# branch's gathered experts and their cotangents), float32, one AdamW step
+# on the decode branch ((2, 2) at 2 x 2048) and on the expert branch
+# (model 4); (d) mamba2-780m at full width, 4 of its 48 layers, bf16, (2,
+# 2): its 48 SSD heads 24 a rank, no flash; (e) recurrentgemma-2b at full
+# width, one (rec, rec, attn) super-block, bf16, (2, 2): the RG-LRU width
+# 1280 a rank, the local attention (window 2048, 5 of 10 q heads over its
+# one KV head) a rank; (f) gemma3-4b@rightsized at full width, one
+# super-block of 5 local layers (window 1024) and a global one, bf16,
+# model 4 (2 q heads over one KV head a rank); (g) whisper-tiny whole in
+# float32 on (2, 2): its 4 encoder layers over 1500 frames (non-causal,
+# run once a step) and 4 decoder layers over 448 tokens, its published
+# text context (tf32x3 forward and backward); (h) llama-3.2-vision-90b at
+# full width, one super-block (4 self layers and a gated cross layer over
+# 1601 vision tokens; the gates drawn as 11d's), bf16, model 4: 6.39 B
+# parameters, 12.8 GB, and its AdamW moments (51.1 GB in float32) do not
+# fit beside the no-mesh run's parameters and gradients on the one card,
+# so this part takes step 0's loss and gradients alone (steps 0). Each
 # part's no-mesh run from the same weights and batches comes first, in
-# this process; the ranks hold step 0's gradient blocks and every step's
-# CE to it
+# this process; the ranks draw the same weights from the seed one after
+# another, and hold step 0's gradient blocks and every step's CE to the
+# no-mesh run's
 MT_CUTS = {"arctic": dict(n_layers=1, n_experts=8)}
 MESH_TRAIN = dict(
     ranks=4, timeout_s=900, seed=0, batch=2, seq=2048,
@@ -7181,13 +7227,29 @@ MESH_TRAIN = dict(
                                  weights="arctic"),
            "arctic_expert": dict(arch="arctic-480b", cuts=MT_CUTS["arctic"],
                                  dtype="float32", mesh=((4,), ("model",)),
-                                 steps=1, weights="arctic")},
+                                 steps=1, weights="arctic"),
+           "mamba2": dict(arch="mamba2-780m", cuts=dict(n_layers=4),
+                          dtype="bfloat16", mesh=((2, 2), ("data", "model")),
+                          steps=2, yardstick=True),
+           "griffin": dict(arch="recurrentgemma-2b", cuts=dict(n_layers=3),
+                           dtype="bfloat16",
+                           mesh=((2, 2), ("data", "model")), steps=2),
+           "gemma3": dict(arch="gemma3-4b@rightsized", cuts=dict(n_layers=6),
+                          dtype="bfloat16", mesh=((4,), ("model",)), steps=2),
+           "whisper": dict(arch="whisper-tiny", cuts={}, dtype="float32",
+                           mesh=((2, 2), ("data", "model")), steps=2,
+                           seq=448),
+           "vlm": dict(arch="llama-3.2-vision-90b", cuts=dict(n_layers=5),
+                       dtype="bfloat16", mesh=((4,), ("model",)), steps=0)},
     # step 0's gradient blocks against the no-mesh run's: bf16 each leaf's
     # relative norm error (phase 13's); float32 each leaf's largest |error|
     # over its largest |value|, 1e-5 (arctic: 5i's 1e-4, its experts'
     # products summed over data in another order)
-    grad_tol={"tiny": ("rel_norm", TRAIN_TOL[torch.bfloat16]["grad"]),
-              "twin": ("max_abs", 1e-5), "arctic_decode": ("max_abs", 1e-4),
+    grad_tol={**dict.fromkeys(("tiny", "mamba2", "griffin", "gemma3", "vlm"),
+                              ("rel_norm",
+                               TRAIN_TOL[torch.bfloat16]["grad"])),
+              "twin": ("max_abs", 1e-5), "whisper": ("max_abs", 1e-5),
+              "arctic_decode": ("max_abs", 1e-4),
               "arctic_expert": ("max_abs", 1e-4)},
     ce_tol={"bfloat16": TRAIN_TOL[torch.bfloat16]["ce"], "float32": 1e-5})
 
@@ -7203,6 +7265,45 @@ def _mt_model(part: dict):
     return cfg, LM(cfg)
 
 
+def _mt_init(part: dict):
+    """(cfg, model, its weights drawn from the seed on the card): the vlm's
+    zero-initialised gates drawn as 11d's (``_cross_model``), so that the
+    vision memory reaches the loss. The parent and each rank draw the
+    same weights."""
+    from repro_torch.core.base import root_key
+
+    cfg, model = _mt_model(part)
+    params = model.init(root_key(MESH_TRAIN["seed"], device=_card()))
+    if cfg.family == "vlm":
+        gen = root_key(CROSS["seed"], 11, device=_card())
+        for name in ("gate", "gate_mlp"):
+            params["group0"]["cross"][name].uniform_(*CROSS["gates"],
+                                                     generator=gen)
+    return cfg, model, params
+
+
+def _mt_batches(cfg, part: dict) -> list:
+    """A part's batches on the card, one a step (one for a part of 0
+    steps): FastLMStream's tokens of the part's length, with the vlm's
+    vision tokens (B, 1601, 1280) or whisper's frames (B, 1500, 384),
+    standard normal float32, from the seed."""
+    from repro_torch.data import FastLMStream
+
+    dev = _card()
+    b = MESH_TRAIN["batch"]
+    batches = list(FastLMStream(cfg.vocab, part.get("seq", MESH_TRAIN["seq"]),
+                                b, seed=MESH_TRAIN["seed"],
+                                device=dev).batches(max(part["steps"], 1)))
+    gen = torch.Generator(device=dev).manual_seed(MESH_TRAIN["seed"])
+    memory = {"vlm": ("vision", cfg.vision_tokens, cfg.vision_dim),
+              "audio": ("audio_frames", cfg.audio_frames, cfg.d_model)}
+    if cfg.family in memory:
+        key, s, width = memory[cfg.family]
+        for batch in batches:
+            batch[key] = torch.randn((b, s, width), generator=gen, device=dev)
+    return batches
+
+
 def _mt_lr(step: int, steps: int):
     from repro_torch.launch.train import WARMUP_STEPS
     from repro_torch.optim import linear_warmup_cosine
@@ -7215,21 +7316,37 @@ def _mt_steps(model, params, batches, steps: int) -> dict:
     """step 0's (loss, ce, aux, gradients), then ``steps`` AdamW steps
     from ``params`` on ``batches`` (under the active mesh, if any): CE and
     gnorm a step, ms a step, the launches, the collectives' bytes and host
-    seconds a step by kind, and the peak memory of the steps."""
+    seconds a step by kind, and the peak memory of the steps; with 0
+    steps these of step 0's loss and gradients (no AdamW state), its CE
+    the one CE."""
     from repro_torch.kernels import ops
     from repro_torch.launch.train import loss_and_grads, train_step
     from repro_torch.optim import adamw_init
     from repro_torch.sharding import tensor_parallel as tp
 
+    def reset():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        tp.reset_moved_bytes()
+
+    reset()
+    t0 = time.perf_counter()
     loss, met, grads = loss_and_grads(model, params, batches[0])
     step0 = {"loss": float(loss), "ce": float(met["ce"]),
              "aux": float(met["aux"])}
+    if not steps:
+        return {"step0": step0, "grads": grads, "ce": [step0["ce"]],
+                "gnorm": [], "ms": [(time.perf_counter() - t0) * 1e3],
+                "launches": ops.launch_counts(),
+                "moved_bytes_per_step": tp.moved_bytes(),
+                "collective_ms_per_step": {
+                    k: v * 1e3 for k, v in tp.collective_seconds().items()},
+                "peak_bytes": torch.cuda.max_memory_allocated(),
+                "state_bytes": 0, "params": params}
     opt = adamw_init(params)
     state_bytes = _tree_bytes({"m": opt["m"], "v": opt["v"]})
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    tp.reset_moved_bytes()
+    reset()
     ces, gnorms, ms = [], [], []
     for step in range(steps):
         t0 = time.perf_counter()
@@ -7252,26 +7369,20 @@ def _mt_reference(name: str, part: dict, tmp: pathlib.Path,
                   done: dict) -> dict:
     """A part's run without a mesh in this process (once for the parts
     that share ``weights``: the same model, weights, batches and steps):
-    its weights drawn from the seed on the card, its batches, step 0's
-    gradients and CEs saved to ``tmp`` for the ranks under the part's
-    ``weights`` name; returns the run's stats. Frees the card."""
-    from repro_torch.core.base import root_key
-    from repro_torch.data import FastLMStream
+    its weights drawn from the seed on the card (``_mt_init``; the ranks
+    draw them too), its batches, step 0's gradients and CEs saved to
+    ``tmp`` for the ranks under the part's ``weights`` name; returns the
+    run's stats. Frees the card."""
     from repro_torch.launch.input_specs import param_shapes
     from repro_torch.tree import tree_map
 
     key = part.get("weights", name)
     if key in done:
         return done[key]
-    dev = _card()
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 in float32
     torch.backends.cudnn.allow_tf32 = False
-    cfg, model = _mt_model(part)
-    params = model.init(root_key(MESH_TRAIN["seed"], device=dev))
-    batches = list(FastLMStream(cfg.vocab, MESH_TRAIN["seq"],
-                                MESH_TRAIN["batch"], seed=MESH_TRAIN["seed"],
-                                device=dev).batches(part["steps"]))
-    torch.save(tree_map(lambda a: a.cpu(), params), tmp / f"{key}.pt")
+    cfg, model, params = _mt_init(part)
+    batches = _mt_batches(cfg, part)
     torch.save([{k: v.cpu() for k, v in b.items()} for b in batches],
                tmp / f"{key}_batches.pt")
     run = _mt_steps(model, params, batches, part["steps"])
@@ -7304,42 +7415,83 @@ def _mt_reference(name: str, part: dict, tmp: pathlib.Path,
     return run
 
 
-def _mt_flash_parity(cfg, lay) -> dict:
-    """The flash forward and backward at the rank's training call (its
-    rows, q heads and the KV heads they read; the part's dtype) against
-    their plain versions on random inputs; not counted in the runs."""
+def _mt_flash_parity(calls: list, dtype) -> list:
+    """The flash forward and backward at each of a rank's distinct
+    training calls (``_flash_calls``' record: its rows, q heads and the
+    KV heads they read, the call's causality and window) against their
+    plain versions on random inputs in the part's dtype; not counted in
+    the runs."""
     from repro_torch.kernels import flash_attention as kflash
     from repro_torch.kernels import ops, ref
 
     dev = _card()
-    m = lay.size("model")
-    b = MESH_TRAIN["batch"] // lay.size("data")
-    t, d = MESH_TRAIN["seq"], cfg.head_dim
-    h, hkv = _rank_heads(cfg, m)
     gen = torch.Generator(device=dev).manual_seed(5)
-    q, k, v = _flash_inputs(gen, b, t, t, h, hkv, d, cfg.dtype, dev)
-    do = torch.randn(b, t, h, d, generator=gen, device=dev).to(cfg.dtype)
-    fwd = _max_err(ops.flash_attention(q, k, v).float(),
-                   ops.flash_attention(q, k, v, impl="ref").float())
-    out, lse = kflash._forward(q, k, v, causal=True, window=None, q_offset=0,
-                               block_k=1024, with_lse=True)
-    got = kflash.flash_attention_bwd_cuda(q, k, v, out, do, lse, causal=True,
-                                          window=None)
-    want = ref.mha_blocked_grad(q, k, v, do, causal=True, window=None)
-    bwd = {g: _rel_err(x, w) for g, x, w in zip(("dq", "dk", "dv"), got, want)}
+    rows, seen = [], []
+    for q_shape, k_shape, _, kw in calls:
+        if (q_shape, k_shape, kw) in seen:
+            continue
+        seen.append((q_shape, k_shape, kw))
+        (b, t, h, d), hkv = q_shape, k_shape[2]
+        causal, window = kw.get("causal", True), kw.get("window")
+        q, k, v = _flash_inputs(gen, b, t, t, h, hkv, d, dtype, dev)
+        do = torch.randn(b, t, h, d, generator=gen, device=dev).to(dtype)
+        fwd = _max_err(ops.flash_attention(q, k, v, **kw).float(),
+                       ops.flash_attention(q, k, v, impl="ref", **kw).float())
+        out, lse = kflash._forward(q, k, v, causal=causal, window=window,
+                                   q_offset=0, block_k=1024, with_lse=True)
+        got = kflash.flash_attention_bwd_cuda(q, k, v, out, do, lse,
+                                              causal=causal, window=window)
+        want = ref.mha_blocked_grad(q, k, v, do, causal=causal,
+                                    window=window)
+        bwd = {g: _rel_err(x, w)
+               for g, x, w in zip(("dq", "dk", "dv"), got, want)}
+        route, bwd_route = FLASH_ROUTE[dtype], kflash.flash_bwd_route(dtype, d)
+        check(fwd <= FLASH_TOL[dtype],
+              f"mesh train: the {route} forward at q {q_shape} k {k_shape} "
+              f"{kw} differs from its plain version by {fwd:.3e}")
+        check(max(bwd.values()) <= FLASH_BWD_TOL[dtype],
+              f"mesh train: the {bwd_route} backward at q {q_shape} k "
+              f"{k_shape} {kw} differs from its plain version by {bwd}")
+        rows.append({"q": q_shape, "k": k_shape, **kw, "route": route,
+                     "bwd_route": bwd_route,
+                     "splits": _bwd_splits(bwd_route, b, t, h, hkv, d),
+                     "forward_max_abs_err": fwd, "backward_rel_err": bwd})
+        del q, k, v, do, out, lse, got, want
+    return rows
+
+
+def _mt_flash_want(cfg, part: dict) -> dict:
+    """The flash launches a step a rank: each self-attention layer's
+    forward twice with remat (once without) and its backward once on the
+    rank's rows and heads, whisper's encoder layers once each (the
+    encoder is not recomputed), on the part's routes, with the backward's
+    sum pass where the rank's call cuts its q heads into runs; none in
+    mamba2."""
+    from repro_torch.kernels.flash_attention import flash_bwd_route
+    from repro_torch.models.lm import build_groups
+
+    sizes = dict(zip(part["mesh"][1], part["mesh"][0]))
+    per = {"dense": 1, "moe": 1, "griffin": 1, "dec": 1,
+           "dense_sb": (cfg.local_per_global or 0) + 1,
+           "vlm": cfg.cross_attn_every}
+    n_self = sum(g.n * per.get(g.kind, 0) for g in build_groups(cfg))
+    h, hkv = _rank_heads(cfg, sizes.get("model", 1))
+    b = MESH_TRAIN["batch"] // sizes.get("data", 1)
+    # (tokens, forward calls, backward calls) a step
+    calls = [(part.get("seq", MESH_TRAIN["seq"]),
+              n_self * (2 if cfg.remat else 1), n_self),
+             (cfg.audio_frames, cfg.encoder_layers, cfg.encoder_layers)]
     route = FLASH_ROUTE[cfg.dtype]
-    check(fwd <= FLASH_TOL[cfg.dtype],
-          f"mesh train: the {route} forward at q {list(q.shape)} k "
-          f"{list(k.shape)} differs from its plain version by {fwd:.3e}")
-    check(max(bwd.values()) <= FLASH_BWD_TOL[cfg.dtype],
-          f"mesh train: the {kflash.flash_bwd_route(cfg.dtype, d)} backward "
-          f"at q {list(q.shape)} k {list(k.shape)} differs from its plain "
-          f"version by {bwd}")
-    return {"q": list(q.shape), "k": list(k.shape), "route": route,
-            "bwd_route": kflash.flash_bwd_route(cfg.dtype, d),
-            "splits": _bwd_splits(kflash.flash_bwd_route(cfg.dtype, d), b, t,
-                                  h, hkv, d),
-            "forward_max_abs_err": fwd, "backward_rel_err": bwd}
+    bwd = flash_bwd_route(cfg.dtype, cfg.head_dim)
+    fwd = sum(c[1] for c in calls)
+    back = sum(c[2] for c in calls)
+    summed = sum(n for t, _, n in calls
+                 if n and _bwd_splits(bwd, b, t, h, hkv, cfg.head_dim) > 1)
+    return {**NO_LM, "flash_attention": fwd, f"flash_attention_{route}": fwd,
+            "flash_attention_bwd": back, f"flash_attention_bwd_{bwd}": back,
+            f"flash_attention_bwd_{bwd}_sum": summed,
+            **{f"flash_attention_bwd_{k}": back
+               for k in BWD_ROUTE_KERNELS[bwd]}}
 
 
 def _mt_err(g: torch.Tensor, w: torch.Tensor, kind: str) -> float:
@@ -7377,18 +7529,20 @@ def _mt_grad_errs(got, want, kind: str, yard=None) -> dict:
 
 
 def mesh_train_child(job_path: str, rank: int) -> int:
-    """One rank of phase 14: each part's weights (the parent's, from
-    ``tmp``) cut to the rank's training shard, step 0's gradient blocks
-    against the no-mesh run's, then the part's AdamW steps under its mesh,
-    gloo over CUDA tensors; writes its stats. Loads the flash kernels the
-    parent built."""
+    """One rank of phase 14: each part's weights (drawn from the seed as
+    the parent drew them, one rank after another) cut to the rank's
+    training shard, step 0's gradient blocks against the no-mesh run's
+    (from ``tmp``), then the part's AdamW steps under its mesh, gloo over
+    CUDA tensors, its flash calls recorded (rank 0 holds the kernels
+    against their plain versions at each); writes its stats. Loads the
+    flash kernels the parent built."""
     from repro_torch.kernels import _build
     from repro_torch.launch.input_specs import param_shapes
     from repro_torch.launch.mesh import make_mesh, process_group
     from repro_torch.sharding import rules
     from repro_torch.sharding import tensor_parallel as tp
     from repro_torch.sharding.ctx import use_mesh
-    from repro_torch.tree import leaves, tree_map
+    from repro_torch.tree import leaves
 
     job = json.loads(pathlib.Path(job_path).read_text())
     for stem in ("flash_attention_sm90", "flash_attention",
@@ -7420,25 +7574,27 @@ def mesh_train_child(job_path: str, rank: int) -> int:
             key = part.get("weights", name)
             torch.cuda.empty_cache()
             t0 = time.perf_counter()
-            whole = torch.load(tmp / f"{key}.pt", mmap=True)
-            local = tree_map(lambda a: a.to(dev),
-                             rules.training_shard(mesh, whole))
+            for r in range(job["ranks"]):
+                if r == rank:
+                    local = rules.training_shard(mesh, _mt_init(part)[2])
+                    torch.cuda.empty_cache()
+                torch.distributed.barrier()
             want = rules.training_shard(mesh, torch.load(
                 tmp / f"{key}_grads.pt", mmap=True))
-            del whole
             batches = [{k: v.to(dev) for k, v in b.items()}
                        for b in torch.load(tmp / f"{key}_batches.pt")]
             layout = rules.shard_tree(mesh, param_shapes(cfg),
                                       rules.param_spec)
             rec = {"param_bytes": _tree_bytes(local),
                    "layout_param_bytes": _tree_bytes(layout),
-                   # m and v in float32
+                   # m and v in float32, none without AdamW steps
                    "layout_state_bytes": 2 * 4 * sum(
-                       a.numel() for a in leaves(layout)),
+                       a.numel() for a in leaves(layout))
+                   * (part["steps"] > 0),
                    "load_s": time.perf_counter() - t0}
             note(f"{name}: loaded in {rec['load_s']:.1f} s")
             torch.distributed.barrier()
-            with use_mesh(mesh):
+            with use_mesh(mesh), _flash_calls() as calls:
                 run = _mt_steps(model, local, batches, part["steps"])
             note(f"{name}: steps " + " / ".join(f"{x:.0f}" for x in run["ms"])
                  + " ms")
@@ -7456,7 +7612,7 @@ def mesh_train_child(job_path: str, rank: int) -> int:
             rec["plain_ce"] = plain["ce"]
             rec["plain_step0"] = plain["step0"]
             if rank == 0:
-                rec["flash_parity"] = _mt_flash_parity(cfg, lay)
+                rec["flash_parity"] = _mt_flash_parity(calls, cfg.dtype)
             out[name] = rec
             torch.cuda.empty_cache()
             torch.distributed.barrier()
@@ -7466,7 +7622,7 @@ def mesh_train_child(job_path: str, rank: int) -> int:
 
 
 def phase_mesh_train(card: str) -> dict:
-    """14: the dense and moe kinds trained over a mesh (``LM.loss``,
+    """14: every group kind trained over a mesh (``LM.loss``,
     ``launch/train.py``'s ``train_step`` and ``adamw_update`` under
     ``sharding.ctx.use_mesh``), ``MESH_TRAIN``'s parts on 4 gloo ranks of
     the one card against the same weights and batches without a mesh in
@@ -7485,6 +7641,10 @@ def phase_mesh_train(card: str) -> dict:
         done: dict = {}
         plain = {name: _mt_reference(name, part, tmp, done)
                  for name, part in MESH_TRAIN["parts"].items()}
+        log(f"[mesh train] the no-mesh runs' gradients and batches: "
+            f"{sum(f.stat().st_size for f in tmp.iterdir()) / 1e9:.1f} GB "
+            f"in {tmp}, {shutil.disk_usage(tmp).free / 1e9:.1f} GB free "
+            f"there")
         ranks = MESH_TRAIN["ranks"]
         job = {"ranks": ranks, "store": str(out_dir / "store"),
                "out": str(out_dir), "tmp": str(tmp),
@@ -7515,14 +7675,15 @@ def _mt_check_part(name: str, part: dict, plain: dict, ranks: list,
     """Check one part's ranks: parameter and moment bytes as the layout's,
     every step's CE equal across ranks and within tolerance of the no-mesh
     run's, step 0's gradient blocks within tolerance, the flash launches a
-    step a rank on the part's routes (forward twice a layer with remat,
-    the backward once), the flash kernels held against their plain
-    versions at the rank's call; log times, bytes and memory."""
+    step a rank on the part's routes (``_mt_flash_want``), the flash
+    kernels held against their plain versions at each of the rank's
+    distinct calls; log times, bytes and memory."""
     cfg, _ = _mt_model(part)
     layers = cfg.n_layers
     sizes = dict(zip(part["mesh"][1], part["mesh"][0]))
     label = f"mesh train ({name})"
     steps = part["steps"]
+    counted = max(steps, 1)  # the AdamW steps, or step 0's loss_and_grads
     for r, rec in enumerate(ranks):
         check(rec["param_bytes"] == rec["layout_param_bytes"],
               f"{label}: rank {r} holds {rec['param_bytes']} parameter bytes, "
@@ -7550,22 +7711,17 @@ def _mt_check_part(name: str, part: dict, plain: dict, ranks: list,
           f"{label}: step 0's gradient blocks differ from the no-mesh "
           f"run's by {grad_err:.3e} > {tol} ({kind}, worst leaf)")
     flash = ranks[0]["flash_parity"]
-    route, bwd = flash["route"], flash["bwd_route"]
-    attn_layers = layers
-    want = {**NO_LM, "flash_attention": 2 * attn_layers * steps,
-            f"flash_attention_{route}": 2 * attn_layers * steps,
-            "flash_attention_bwd": attn_layers * steps,
-            f"flash_attention_bwd_{bwd}": attn_layers * steps,
-            f"flash_attention_bwd_{bwd}_sum":
-                attn_layers * steps * (flash["splits"] > 1),
-            **{f"flash_attention_bwd_{k}": attn_layers * steps
-               for k in BWD_ROUTE_KERNELS[bwd]}}
+    want = {k: v * counted for k, v in _mt_flash_want(cfg, part).items()}
+    check(bool(flash) == bool(want["flash_attention"]),
+          f"{label}: {len(flash)} distinct flash calls held against their "
+          f"plain versions, {want['flash_attention']} launches expected")
     for r, rec in enumerate(ranks):
         got = {k: rec["launches"][k] for k in NO_LM}
         check(got == want, f"{label}: rank {r} launches {got} != {want} (with "
-              f"remat the forward twice a layer a step, the {bwd} backward "
-              f"once, on the rank's heads)")
-    launches = {k: v // steps for k, v in want.items() if v}
+              f"remat the forward twice a self-attention layer a step, "
+              f"whisper's encoder once, the backward once, on the rank's "
+              f"heads)")
+    launches = {k: v // counted for k, v in want.items() if v}
     ms = [rec["ms"] for rec in ranks]
     moved = ranks[0]["moved_bytes_per_step"]
     coll = [rec["collective_ms_per_step"] for rec in ranks]
@@ -7588,7 +7744,8 @@ def _mt_check_part(name: str, part: dict, plain: dict, ranks: list,
            "flash_parity": flash}
     log(f"[mesh train] ({name}) {part['arch']} {layers} layers {part['dtype']}"
         f" {part['cuts'] or ''} on {sizes}, {MESH_TRAIN['batch']} x "
-        f"{MESH_TRAIN['seq']} tokens: CE " + " ".join(
+        f"{part.get('seq', MESH_TRAIN['seq'])} tokens, "
+        f"{steps or 'no AdamW (step 0 alone)'} steps: CE " + " ".join(
             f"{c:.5f}" for c in ces[0]) + " on every rank (no mesh "
         + " ".join(f"{c:.5f}" for c in plain["ce"]) + f"; worst relative "
         f"{ce_err:.2e}, tol {ce_tol}); step 0's gradient blocks {kind} "
@@ -7610,11 +7767,14 @@ def _mt_check_part(name: str, part: dict, plain: dict, ranks: list,
         + f" GB (the layout's; whole {plain['param_bytes'] / 1e9:.3f} GB); "
         f"peak " + " / ".join(f"{r['peak_bytes'] / 2**30:.2f}" for r in ranks)
         + f" GiB a rank (no mesh {plain['peak_bytes'] / 2**30:.2f}); flash a "
-        f"step a rank {launches}; {route} forward at q {flash['q']} k "
-        f"{flash['k']} within {flash['forward_max_abs_err']:.2e} of its plain "
-        f"version, the {bwd} backward {max(flash['backward_rel_err'].values()):.2e}"
-        f"; 4 ranks share one card and gloo stages through the host, so these "
-        f"times say nothing of 4 cards; on {card}")
+        f"step a rank {launches}; " + "; ".join(
+            f"{row['route']} forward at q {row['q']} k {row['k']} causal "
+            f"{row.get('causal', True)} window {row.get('window')} within "
+            f"{row['forward_max_abs_err']:.2e} of its plain version, the "
+            f"{row['bwd_route']} backward "
+            f"{max(row['backward_rel_err'].values()):.2e}" for row in flash)
+        + f"; 4 ranks share one card and gloo stages through the host, so "
+        f"these times say nothing of 4 cards; on {card}")
     return out
 
 

@@ -33,7 +33,10 @@ each slot's global position; cross attention runs the rank's q heads
 over the memory's K and V, which every rank holds whole. In training
 (``attn_full``) the rank's heads run through the flash kernels' forward
 and backward, the input's cotangent summed over ``model`` and ``wo``'s
-partial outputs summed forward; no K and V are gathered.
+partial outputs summed forward; no K and V are gathered, a cross
+layer's neither (its q heads read the KV heads of the rank's block
+alone), and its backward sums the cotangents of its queries' input and
+of the memory over ``model``.
 """
 from __future__ import annotations
 
@@ -338,15 +341,21 @@ def attn_decode(params: dict, x: torch.Tensor, layer_cache: dict,
 # cross attention (vlm, whisper's decoder)
 # ---------------------------------------------------------------------------
 
-def cross_kv(params: dict, memory: torch.Tensor, cfg: ModelConfig) -> dict:
+def cross_kv(params: dict, memory: torch.Tensor, cfg: ModelConfig, *,
+             whole: bool = True) -> dict:
     """K and V of a memory (B, S, Dm), {"k", "v": (B, S, Hkv, Dh)} in the
     memory's dtype, with the bias and ``k_norm`` where the layer has them
     (no rope). Computed once a prefill; decode reads them from its state.
     On a mesh ``wk`` and ``wv`` may hold the rank's block of the KV
-    heads: K and V of those heads, all-gathered over ``model`` (the state
-    keeps them whole there)."""
+    heads: K and V of those heads, all-gathered over ``model`` with
+    ``whole`` (the serving state keeps them whole there), else left as
+    the rank's block (training: the rank's q heads read those heads
+    alone); the memory's cotangent is summed over ``model`` (each rank's
+    heads read a part of it)."""
     heads = _heads(params, cfg)
     kv = slice(heads.k0, heads.k0 + heads.hk)
+    if heads.lay is not None:
+        memory = tp.replicated_input(memory, heads.lay.model)
     k = _proj(memory, params["wk"])
     v = _proj(memory, params["wv"])
     if "bk" in params:
@@ -354,7 +363,7 @@ def cross_kv(params: dict, memory: torch.Tensor, cfg: ModelConfig) -> dict:
         v = v + params["bv"][kv].to(memory.dtype)
     if "k_norm" in params:
         k = rmsnorm(params["k_norm"], k)
-    if heads.lay is not None and heads.hk < cfg.n_kv_heads:
+    if whole and heads.lay is not None and heads.hk < cfg.n_kv_heads:
         k, v = tp.gather_fused([k, v], heads.lay.model, [2, 2])
     return {"k": k, "v": v}
 
@@ -368,18 +377,23 @@ def attn_cross(params: dict, x: torch.Tensor, memory_kv: dict,
     output is cast back to x's dtype. Each query group's T rows are one
     matrix (B, Hkv, G T, Dh), so neither product broadcasts K or V over
     the group. On a mesh the rank's q heads attend over the KV heads they
-    read (of every one in ``memory_kv``) and ``wo``'s partial outputs are
-    summed over ``model``."""
+    read (of ``memory_kv``'s: every KV head, or the rank's block of them)
+    and ``wo``'s partial outputs are summed over ``model``, x's cotangent
+    too in the backward."""
     b, t, _ = x.shape
     dh = cfg.head_dim
     heads = _heads(params, cfg)
+    if heads.lay is not None:
+        x = tp.replicated_input(x, heads.lay.model)
     q = _proj(x, params["wq"])
     if "q_norm" in params:
         q = rmsnorm(params["q_norm"], q)
     k, v = memory_kv["k"], memory_kv["v"]
     if heads.lay is not None:
-        every = heads._replace(k0=0, hk=cfg.n_kv_heads)
-        k, v = _kv_of_q_heads(k, every, cfg), _kv_of_q_heads(v, every, cfg)
+        # K and V of every KV head, or of the rank's block (cross_kv's)
+        held = (heads._replace(k0=0, hk=cfg.n_kv_heads)
+                if k.shape[2] == cfg.n_kv_heads else heads)
+        k, v = _kv_of_q_heads(k, held, cfg), _kv_of_q_heads(v, held, cfg)
     hkv = k.shape[2]
     group = heads.hq // hkv
     qs = (q * dh**-0.5).float().reshape(b, t, hkv, group, dh)

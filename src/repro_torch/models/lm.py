@@ -54,15 +54,18 @@ cut by its own length (``_seqs``): a right-sized ring's
 the global caches' ``cache_len``; the cross K and V are whole over
 ``model``.
 
-The dense and moe kinds train over a mesh too (``loss``, in the
-reference's ``train_4k`` layout): each rank holds its shard of the
-parameters under ``rules.param_spec`` (``rules.training_shard``; the
-gradients and AdamW's moments in the same layout), runs its rows of the
-global batch, gathers each unit's FSDP weights inside the unit's call
-(under remat, again in its recomputation), and a backward through the
-collectives' transposes (``sharding.tensor_parallel``) gives each leaf
-its block of the global loss's gradient. The other kinds raise under a
-training mesh, and every kind under a mesh with a ``pod`` axis.
+Every kind trains over a mesh too (``loss``, in the reference's
+``train_4k`` layout): each rank holds its shard of the parameters under
+``rules.param_spec`` (``rules.training_shard``; the gradients and
+AdamW's moments in the same layout), runs its rows of the global batch
+(and of the memory: the projected vision tokens, whisper's encoder run
+once a step on the rank's heads), gathers each unit's FSDP weights
+inside the unit's call (under remat, again in its recomputation), and a
+backward through the collectives' transposes
+(``sharding.tensor_parallel``; the recurrent blocks and the cross layers
+sum what each rank reads in part) gives each leaf its block of the
+global loss's gradient. Every kind raises under a mesh with a ``pod``
+axis.
 """
 from __future__ import annotations
 
@@ -203,10 +206,11 @@ def _dense_unit_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
 
 
 def _dense_unit_train(p: dict, x: torch.Tensor, cfg: ModelConfig, window: int,
-                      theta: float) -> torch.Tensor:
-    """One unit over a full sequence, its output alone (training)."""
-    h = attn.attn_full(p["attn"], rmsnorm(p["ln1"], x), cfg, window=window,
-                       theta=theta)
+                      theta: float, causal: bool = True) -> torch.Tensor:
+    """One unit over a full sequence, its output alone (training, and
+    whisper's encoder, which caches no K and V)."""
+    h = attn.attn_full(p["attn"], rmsnorm(p["ln1"], x), cfg, causal=causal,
+                       window=window, theta=theta)
     return _mlp_half(p, x, h, cfg)
 
 
@@ -521,7 +525,7 @@ def _vlm_unit_train(p: dict, x: torch.Tensor, memory: torch.Tensor,
     K and V."""
     for ps in _units(p["self"], cfg.cross_attn_every):
         x = _dense_unit_train(ps, x, cfg, None, cfg.rope_theta)
-    mkv = attn.cross_kv(p["cross"]["attn"], memory, cfg)
+    mkv = attn.cross_kv(p["cross"]["attn"], memory, cfg, whole=False)
     return _cross_apply(p["cross"], x, mkv, cfg)
 
 
@@ -544,8 +548,10 @@ def _dec_unit_train(p: dict, x: torch.Tensor, memory: torch.Tensor,
                     cfg: ModelConfig) -> torch.Tensor:
     """One decoder unit over a full sequence (training), its cross K and
     V from ``memory``."""
-    mkv = attn.cross_kv(p["cross_attn"], memory, cfg)
-    return _dec_unit_apply(p, x, mkv, cfg)[0]
+    mkv = attn.cross_kv(p["cross_attn"], memory, cfg, whole=False)
+    h = attn.attn_full(p["self_attn"], rmsnorm(p["ln1"], x), cfg,
+                       theta=cfg.rope_theta)
+    return _dec_tail(p, x + h, mkv, cfg)
 
 
 def _cross_state(cfg: ModelConfig, n: int, batch: int, s: int,
@@ -639,9 +645,6 @@ _MODEL_BLOCK_LEAVES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
                        "w_in", "w_x", "w_a", "w_i", "w_out", "table",
                        "lm_head")
 _NOT_ON_MESH = "ROADMAP.md queue 1, 'the pod axis over a mesh'"
-_NOT_TRAINED_ON_MESH = ("ROADMAP.md queue 1, 'training over a mesh of the "
-                        "other kinds'")
-TRAINED_ON_MESH = ("dense", "moe")  # the kinds LM.loss takes under a mesh
 _EXPERTS = ("w_gate", "w_up", "w_down")
 
 
@@ -754,7 +757,10 @@ class _OnMesh:
         not divide, the biases, the q and k norms: each rank uses the
         part its heads read) is summed over ``model``. The MoE's leaves
         are left to ``moe_apply``, which sums its router, experts and
-        shared expert over the axes that read them alike."""
+        shared expert over the axes that read them alike, and the
+        recurrent blocks' whole leaves to ``ssd_block_apply`` and
+        ``rglru_block_apply``, which sum them over ``model`` where each
+        rank reads them on its SSD heads or its block of the width."""
         items, paths, sums = [], [], {}
         rows_split = self.row_group is not None
 
@@ -893,19 +899,12 @@ class LM:
     # -- a model over a mesh -------------------------------------------------
     def _check_mesh(self, mesh, train: bool = False) -> tp.Layout:
         """This rank's layout on ``mesh``; raise where the model cannot run
-        over it (a ``pod`` axis; in training, a kind other than
-        ``TRAINED_ON_MESH``)."""
-        what = "training" if train else "serving"
+        over it (a ``pod`` axis)."""
         if "pod" in axis_sizes(mesh):
             raise NotImplementedError(
-                f"{what} over a mesh with a 'pod' axis is not ported "
+                f"{self.cfg.arch_id}: {'training' if train else 'serving'} "
+                f"over a mesh with a 'pod' axis is not ported "
                 f"({_NOT_ON_MESH})")
-        kinds = sorted({g.kind for g in self.groups} - set(TRAINED_ON_MESH))
-        if train and kinds:
-            raise NotImplementedError(
-                f"{self.cfg.arch_id}: training the {', '.join(kinds)} "
-                f"kind{'s' if len(kinds) > 1 else ''} over a mesh is not "
-                f"ported ({_NOT_TRAINED_ON_MESH})")
         return tp.layout(mesh)
 
     def _specs(self, mesh, train: bool):
@@ -992,20 +991,20 @@ class LM:
         it: ROADMAP section 3, record 5), then the final norm. No unit is
         recomputed in the backward, as in the reference. On a mesh the
         frames are the rank's rows and each unit's weights the rank's
-        (``on.unit``): its heads and MLP width, summed over ``model``."""
+        (``on.unit_of``: gathered over ``data`` as the unit runs): its
+        heads and MLP width, summed over ``model``."""
         cfg = self.cfg
         x = frames + sinusoidal_positions(frames.shape[1], cfg.d_model,
                                           frames.dtype, frames.device)
+        units = _units(params["encoder"], cfg.encoder_layers)
         if on is None:
-            units = _units(params["encoder"], cfg.encoder_layers)
             norm = params["enc_final_norm"]
         else:
-            unit = on.unit(params, "encoder")
-            units = (unit(i) for i in range(cfg.encoder_layers))
+            weights = on.unit_of("encoder")
+            units = (weights(p) for p in units)
             norm = on.leaf(params, "enc_final_norm")
         for p in units:
-            x = _dense_unit_apply(p, x, cfg, window=None, theta=None,
-                                  causal=False)[0]
+            x = _dense_unit_train(p, x, cfg, None, None, causal=False)
         return rmsnorm(norm, x)
 
     def _inject_memory(self, params: dict, batch: dict,
@@ -1186,15 +1185,13 @@ class LM:
         the auxiliary loss, the float32 sum of the moe layers' Switch
         losses (0 without a moe group); total = ce + 0.01 aux.
 
-        Under a mesh (the dense and moe kinds; ``_loss_mesh``): ``batch``
-        is the global batch and ``params`` the rank's training shard
-        (``rules.training_shard``: each leaf's block under
-        ``rules.param_spec``); total, ce and aux are the global batch's on
-        every rank, and a backward gives each leaf of the shard its block
-        of the global loss's gradient. A ``pod`` axis raises
-        ``NotImplementedError`` naming ROADMAP queue 1's "the pod axis
-        over a mesh", the other kinds naming its "training over a mesh of
-        the other kinds"."""
+        Under a mesh (``_loss_mesh``): ``batch`` is the global batch and
+        ``params`` the rank's training shard (``rules.training_shard``:
+        each leaf's block under ``rules.param_spec``); total, ce and aux
+        are the global batch's on every rank, and a backward gives each
+        leaf of the shard its block of the global loss's gradient. A
+        ``pod`` axis raises ``NotImplementedError`` naming ROADMAP queue
+        1's "the pod axis over a mesh"."""
         cfg = self.cfg
         on = self._on_mesh(params, batch["inputs"].shape[0], train=True)
         if on is not None:
@@ -1214,21 +1211,23 @@ class LM:
 
     def _loss_mesh(self, params: dict, batch: dict, on: _OnMesh):
         """``loss`` in the reference's ``train_4k`` layout: the rank's rows
-        of the batch (over ``data``) through its units, each gathering its
-        FSDP weights over ``data`` on use and splitting its heads, MLP
-        width (and on the moe units its experts, on ``moe_apply``'s
-        branch of the global batch) over ``model``; the vocab-parallel CE
+        of the batch (over ``data``), and of the memory, through its
+        units, each gathering its FSDP weights over ``data`` on use and
+        splitting its heads, MLP width, SSD heads or RG-LRU width (and on
+        the moe units its experts, on ``moe_apply``'s branch of the
+        global batch) over ``model``; the vocab-parallel CE
         (``mesh_cross_entropy``) summed over the batch's rows on every
         rank."""
         cfg = self.cfg
         t = batch["inputs"].shape[1]
+        memory = self._inject_memory(params, batch, on)
         emb, norm, table = on.top(params)
         x = embed(emb, on.take_rows(batch["inputs"]), cfg)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for gi, g in enumerate(self.groups):
             branch = on.moe_branch(t) if g.kind == "moe" else None
             x, aux = self._run_group_train(
-                g, params[f"group{gi}"], x, aux,
+                g, params[f"group{gi}"], x, aux, memory,
                 weights=on.unit_of(f"group{gi}", branch))
         feats = rmsnorm(norm, x)
         mask = batch.get("mask")

@@ -23,6 +23,13 @@ over ``model`` and the conv runs over every channel. The recurrence is
 diagonal, so each rank runs it on its block alone, and its block of
 ``h`` is all-gathered so that the stored state is whole; the gated
 output's product with ``w_out`` is summed over ``model``.
+
+In training each rank reads the gathered ``w_x`` product, the conv's
+output and the whole leaves ``conv_w``, ``conv_b``, ``b_a``, ``b_i`` and
+``lam`` on its block of the width alone: the gather's transpose is a
+reduce-scatter (``"sum"``) and those leaves' cotangents are summed over
+``model``, as is that of ``u``, which enters the products split over
+``model``. The final state's gather stays out of a loss.
 """
 from __future__ import annotations
 
@@ -140,13 +147,28 @@ def _width(cfg: ModelConfig) -> "tuple[tp.Layout | None, slice]":
     return lay, slice(lo, lo + n)
 
 
+# the leaves every rank holds whole and reads on its block of the width
+_WHOLE = ("conv_w", "conv_b", "b_a", "b_i", "lam")
+
+
+def _split_inputs(params: dict, u: torch.Tensor, lay):
+    """(``params``, ``u``) with the cotangents of ``_WHOLE``'s leaves and
+    of ``u`` summed over ``lay.model`` (each rank reads them on its block
+    of the width); unchanged off a mesh (``lay`` None)."""
+    if lay is None:
+        return params, u
+    *got, u = tp.replicated_inputs([params[k] for k in _WHOLE] + [u],
+                                   lay.model)
+    return {**params, **dict(zip(_WHOLE, got))}, u
+
+
 def _conv_whole(params: dict, u: torch.Tensor, lay, conv_state):
     """The conv of ``u @ w_x`` over every channel (the product of the
-    rank's columns all-gathered over ``model`` on a mesh): (out, the new
-    conv state)."""
+    rank's columns all-gathered over ``model`` on a mesh, each rank
+    reading it on its block of the width): (out, the new conv state)."""
     x = u @ params["w_x"]
     if lay is not None:
-        x = tp.gather(x, lay.model, -1)
+        x = tp.gather(x, lay.model, -1, "sum")
     return _causal_conv(x, params["conv_w"].to(u.dtype),
                         params["conv_b"].to(u.dtype), conv_state)
 
@@ -157,17 +179,19 @@ def rglru_block_apply(params: dict, u: torch.Tensor, cfg: ModelConfig, *,
     """Full Griffin recurrent block. u (B, T, D); the states in and out
     are whole (on a mesh too)."""
     lay, cols = _width(cfg)
+    params, u = _split_inputs(params, u, lay)
     gate = _gelu(u @ params["w_gate"])
     x, new_conv = _conv_whole(params, u, lay, conv_state)
     y, h_last = rglru_scan(params, x, None if state is None else
                            state[:, cols], cols)
     out = (gate * y) @ params["w_out"]
     if lay is not None:
-        h_last = tp.gather(h_last, lay.model, -1)
         out = tp.sum_over(out, lay.model)
-    if return_state:
-        return out, h_last, new_conv
-    return out
+    if not return_state:
+        return out
+    if lay is not None:
+        h_last = tp.gather(h_last, lay.model, -1)
+    return out, h_last, new_conv
 
 
 def rglru_decode_step(params: dict, u: torch.Tensor, cfg: ModelConfig, *,

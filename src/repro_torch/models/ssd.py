@@ -28,6 +28,15 @@ runs the depthwise conv over every channel (the conv state is whole over
 x and dt. The gated RMSNorm spans all of d_inner: each rank's float32
 sum of squares is summed over ``model`` and scales the rank's block,
 whose product with ``w_out``'s rows is summed over ``model``.
+
+In training (a backward through those collectives) each rank reads the
+gathered product, the conv's output, the norm's summed squares and the
+whole leaves ``conv_w``, ``conv_b``, ``a_log``, ``d_skip``, ``dt_bias``
+and the norm's scale on its heads alone: each of their cotangents is a
+part of the whole, so the gather's transpose is a reduce-scatter
+(``"sum"``), and the summed squares' and the whole leaves' cotangents
+are summed over ``model`` (``tensor_parallel.replicated_input``), as is
+that of ``u``, which enters the product split over ``model``.
 """
 from __future__ import annotations
 
@@ -71,15 +80,38 @@ def ssd_init(gen: torch.Generator, cfg: ModelConfig, lead=()) -> dict:
     }
 
 
-def _split_proj(params: dict, u: torch.Tensor, cfg: ModelConfig):
+# the leaves every rank holds whole and reads on its heads alone
+_WHOLE = ("conv_w", "conv_b", "a_log", "d_skip", "dt_bias")
+
+
+def _read_on_heads(params: dict, heads) -> dict:
+    """``params`` with the whole leaves a rank reads on its heads alone
+    (``_WHOLE``, the norm's scale) summed over ``heads.model`` in the
+    backward; ``params`` itself where the heads do not split (``heads``
+    None)."""
+    if heads is None:
+        return params
+    got = tp.replicated_inputs([params[k] for k in _WHOLE]
+                               + [params["norm"]["scale"]], heads.model)
+    return {**params, **dict(zip(_WHOLE, got)), "norm": {"scale": got[-1]}}
+
+
+def _split_proj(params: dict, u: torch.Tensor, cfg: ModelConfig, heads):
     """z, [x, B, C] and the raw dt of every channel; on a mesh the
     product with the rank's block of ``w_in``'s columns is all-gathered
-    over ``model``."""
+    over ``model``. ``heads`` is the layout where the rank reads them on
+    its block of the heads (None where every rank reads all): their
+    cotangent is then a part of the whole, summed over ``model``."""
     din, n = cfg.ssm_d_inner, cfg.ssm_state
-    zxbcdt = u @ params["w_in"]
     lay = tp.model_block(2 * din + 2 * n + cfg.ssm_heads)[0]
     if lay is not None:
-        zxbcdt = tp.gather(zxbcdt, lay.model, -1)
+        u = tp.replicated_input(u, lay.model)
+    zxbcdt = u @ params["w_in"]
+    if lay is not None:
+        zxbcdt = tp.gather(zxbcdt, lay.model, -1,
+                           "slice" if heads is None else "sum")
+    elif heads is not None:
+        zxbcdt = tp.replicated_input(zxbcdt, heads.model)
     z = zxbcdt[..., :din]
     xbc = zxbcdt[..., din:2 * din + 2 * n]
     dt_raw = zxbcdt[..., 2 * din + 2 * n:]
@@ -98,7 +130,8 @@ def _gated_out(params: dict, y: torch.Tensor, z: torch.Tensor,
     if lay is None:
         g = rmsnorm(params["norm"], g)
     else:
-        ss = tp.sum_of_squares(g, lay.model)
+        # the whole width's sum, read on the rank's block alone
+        ss = tp.replicated_input(tp.sum_of_squares(g, lay.model), lay.model)
         scale = params["norm"]["scale"][lo:lo + width].float()
         g = (g.float() * torch.rsqrt(ss / din + 1e-6)
              * (1.0 + scale)).to(y.dtype)
@@ -106,6 +139,8 @@ def _gated_out(params: dict, y: torch.Tensor, z: torch.Tensor,
     if w.shape[-2] == din:
         return g @ w
     wlay, w0, wn = tp.model_block(din)
+    if lay is None:  # every channel here, w_out's rows split
+        g = tp.replicated_input(g, wlay.model)
     return tp.sum_over(g[..., w0 - lo:w0 - lo + wn] @ w, wlay.model)
 
 
@@ -201,14 +236,15 @@ def ssd_block_apply(params: dict, u: torch.Tensor, cfg: ModelConfig, *,
     """Full mamba2 block over a sequence. u (B, T, D); on a mesh the ssm
     state in and out holds the rank's heads."""
     h, p = cfg.ssm_heads, cfg.ssm_head_dim
-    z, xbc_raw, dt_raw = _split_proj(params, u, cfg)
+    lay, h0, hn = tp.model_block(h)  # the rank's heads
+    heads = slice(h0, h0 + hn)
+    params = _read_on_heads(params, lay)
+    z, xbc_raw, dt_raw = _split_proj(params, u, cfg, lay)
     xbc, new_conv_state = _causal_conv(
         xbc_raw, params["conv_w"].to(u.dtype), params["conv_b"].to(u.dtype),
         conv_state)
     x, b_, c_ = _post_conv(xbc, cfg)
     bsz, t, _ = u.shape
-    lay, h0, hn = tp.model_block(h)  # the rank's heads
-    heads = slice(h0, h0 + hn)
     dt = F.softplus(dt_raw[..., heads].float() + params["dt_bias"][heads])
     a_neg = -torch.exp(params["a_log"][heads])
     y, final_state = ssd_scan(
@@ -228,14 +264,14 @@ def ssd_decode_step(params: dict, u: torch.Tensor, cfg: ModelConfig, *,
     prefill (on a mesh the ssm state holds the rank's heads). Returns
     (out (B, 1, D), new ssm state, new conv state)."""
     h, p = cfg.ssm_heads, cfg.ssm_head_dim
-    z, xbc_raw, dt_raw = _split_proj(params, u, cfg)
+    lay, h0, hn = tp.model_block(h)  # the rank's heads, the state's
+    heads = slice(h0, h0 + hn)
+    z, xbc_raw, dt_raw = _split_proj(params, u, cfg, lay)
     xbc, new_conv_state = _causal_conv(
         xbc_raw, params["conv_w"].to(u.dtype), params["conv_b"].to(u.dtype),
         conv_state)
     x, b_, c_ = _post_conv(xbc, cfg)
     bsz = u.shape[0]
-    lay, h0, hn = tp.model_block(h)  # the rank's heads, the state's
-    heads = slice(h0, h0 + hn)
     xh = x.reshape(bsz, h, p)[:, heads].float()
     dt = F.softplus(dt_raw[:, 0, heads].float()
                     + params["dt_bias"][heads])  # (B, H)

@@ -539,12 +539,13 @@ def lm_mesh_recurrent_job(job: dict, rank: int) -> dict:
 def lm_mesh_train_job(job: dict, rank: int) -> dict:
     """Each case of the job under its mesh: this rank's training shard of
     the model's parameters (``interop.lm_train_shard_from_numpy``), the
-    loss, ce, aux and gradient blocks of the global batch
-    (``loss_and_grads``), then one ``train_step`` from the case's AdamW
-    state (``interop.adamw_shard_from_numpy``): its loss, ce and gnorm
-    and the blocks of the new parameters and moments. Then each CE case: ``mesh_cross_entropy`` of
-    the rank's rows and vocab block, and its gradients of the rank's
-    features and table block."""
+    loss, ce, aux and gradient blocks of the global batch (with its
+    memory inputs where the data has them; ``loss_and_grads``), then one
+    ``train_step`` from the case's AdamW state
+    (``interop.adamw_shard_from_numpy``): its loss, ce and gnorm and the
+    blocks of the new parameters and moments. Then each CE case:
+    ``mesh_cross_entropy`` of the rank's rows and vocab block, and its
+    gradients of the rank's features and table block."""
     from repro_torch.interop import (adamw_shard_from_numpy,
                                      lm_train_shard_from_numpy)
     from repro_torch.launch.mesh import make_mesh
@@ -576,7 +577,7 @@ def lm_mesh_train_job(job: dict, rank: int) -> dict:
         params = lm_train_shard_from_numpy(tree_of(model_name + KEY_SEP), cfg,
                                            mesh, device="cpu")
         batch = {key: torch.from_numpy(d[f"{key}/{name}"])
-                 for key in ("inputs", "labels", "mask")
+                 for key in ("inputs", "labels", "mask", *MEMORY_KEYS)
                  if f"{key}/{name}" in d.files}
         state = adamw_shard_from_numpy(
             {"m": tree_of(f"m/{model_name}/"), "v": tree_of(f"v/{model_name}/"),

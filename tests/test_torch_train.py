@@ -175,6 +175,43 @@ def test_loss_and_gradients_match_reference(overrides, masked):
         _leaf_close(g.numpy(), w, what=f"grad leaf {i}")
 
 
+@pytest.mark.parametrize("distinct", [8, 64, 512])
+def test_bf16_embedding_gradient_is_no_farther_from_float32(distinct):
+    """The table's gradient through a bfloat16 ``embed`` (its backward a
+    bfloat16 scatter-add of the rows' cotangents) against ``jax.vjp`` of
+    the reference's (``jnp.take``), 2048 tokens drawn from ``distinct``
+    ids (a row summed 4 to 256 times): each against the float64 sum of
+    the same bfloat16 cotangents times the bfloat16 scale; the port's
+    error is at most the reference's (ROADMAP queue 2, item 30)."""
+    cfg = get_config(ARCH).reduced(dtype=torch.bfloat16,
+                                   param_dtype=torch.bfloat16)
+    jcfg = jget_config(ARCH).reduced(dtype=jnp.bfloat16,
+                                     param_dtype=jnp.bfloat16)
+    rng = np.random.default_rng(distinct)
+    v, d = cfg.vocab, cfg.d_model
+    table = torch.tensor((rng.standard_normal((v, d)) * d**-0.5)
+                         .astype(np.float32)).bfloat16()
+    tokens = rng.integers(0, distinct, (8, 256))
+    g = torch.tensor(rng.standard_normal((8, 256, d)).astype(
+        np.float32)).bfloat16()
+    t = table.clone().requires_grad_()
+    tcommon.embed({"table": t}, torch.from_numpy(tokens), cfg).backward(g)
+    _, vjp = jax.vjp(lambda tab: jcommon.embed({"table": tab},
+                                               jnp.asarray(tokens), jcfg),
+                     jnp.asarray(table.float().numpy(), jnp.bfloat16))
+    ref = np.asarray(vjp(jnp.asarray(g.float().numpy(), jnp.bfloat16))[0]
+                     .astype(jnp.float32), np.float64)
+    scale = float(torch.tensor(d**0.5, dtype=torch.bfloat16))
+    want = np.zeros((v, d))
+    np.add.at(want, tokens.reshape(-1),
+              g.double().numpy().reshape(-1, d) * scale)
+
+    def err(got):
+        return np.linalg.norm(got - want) / np.linalg.norm(want)
+    assert err(t.grad.double().numpy()) <= err(ref), (
+        err(t.grad.double().numpy()), err(ref))
+
+
 def test_remat_gives_the_same_gradients():
     """Per-unit recomputation (``cfg.remat``) changes no value."""
     _, cfg, params = _model()
